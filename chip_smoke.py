@@ -13,7 +13,13 @@ without printing its last line:
 3. kernels: K1 (forward and as dx), K2, K3 and K4 against their plain
    PyTorch versions at the flagship shapes (B=128), in fp32 and bf16, with
    TF32 off, and the autograd Functions' gradients against autograd of the
-   plain versions; prints each error beside its tolerance and the median
+   plain versions; then K5-K7 (correlation forward and its two gradients)
+   at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
+   and the FlyingChairs feature shape (8, 48, 64, 256), and K8
+   (channelnorm) at FlowNet2's (8, 64, 64, 3) and (8, 64, 64, 2), in fp32
+   and bf16 (bf16 K6-K8 bit-equal to their plain versions, K5 to 1e-4
+   relative L2), with CorrelationFn's and ChannelNormFn's gradients
+   against fp64; prints each error beside its tolerance and the median
    time of each kernel and its plain version (CUDA events);
 4. slice: ten fused training steps of the flagship configuration (bf16,
    B=128, 10 -> 10 frames, dopri5 'fast') from the port's own init, seed 0;
@@ -22,10 +28,20 @@ without printing its last line:
 5. reference: one fp32 step at B=8 through the kernels against the same
    step on the plain versions (same weights, same batch): equal NFE and
    accepted/rejected counts, loss to 1e-5 relative, every gradient leaf to
-   1e-3 relative L2.
+   1e-3 relative L2;
+6. FlowNetC: ten fused training steps of FlowNetCBenchConfig (bf16,
+   B=256, synthetic chairs made on the card, multiscale L1), seed 0; every
+   loss, EPE and grad_norm finite, and K5-K7 launched in these steps;
+7. FlowNet2: three single-scale L1 steps of the stacked FlowNet2
+   (FlowNet2Config, fp32, B=8); finite, and K5-K8 launched in these steps;
+8. FlowNet reference: one fp32 FlowNetC step at B=8 through the kernels
+   against the same step on the plain versions: loss to 1e-5 relative,
+   every gradient leaf to 1e-3 relative L2.
 
-Then one JSON line with each kernel's launches, error and times, and as
-the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
+7 and 8) run their convs in strict fp32. Then one JSON line with each
+kernel's launches, error and times, and as the last line {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,14 +55,25 @@ import time
 
 import torch
 
-from ode_rl_torch.config import FlagshipConfig
+from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
+                                 FlowNetCBenchConfig)
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
+from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
+from ode_rl_torch.flow.train import (flow_loss_and_grads,
+                                     make_fused_flow_train_step,
+                                     synthetic_flow_batch)
 from ode_rl_torch.ops import _build, common
+from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
+                                          channelnorm_plain)
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       flip_transpose)
+from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
+                                          correlation_bwd_f2,
+                                          correlation_fwd,
+                                          correlation_fwd_plain)
 from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         fused_gru_blend, fused_gru_gates)
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
@@ -61,7 +88,18 @@ KERNELS = {
                   "ode_rl_tpu/ops/gru_gates.py:103"),
     "gru_blend": ("ode_rl_torch/csrc/gru_gates.cu",
                   "ode_rl_tpu/ops/gru_gates.py:184"),
+    "correlation_fwd": ("ode_rl_torch/csrc/correlation.cu",
+                        "ode_rl_tpu/ops/correlation.py:64"),
+    "correlation_bwd_f1": ("ode_rl_torch/csrc/correlation.cu",
+                           "ode_rl_tpu/ops/correlation.py:116"),
+    "correlation_bwd_f2": ("ode_rl_torch/csrc/correlation.cu",
+                           "ode_rl_tpu/ops/correlation.py:136"),
+    "channelnorm": ("ode_rl_torch/csrc/channelnorm.cu",
+                    "ode_rl_tpu/ops/channelnorm.py:30"),
 }
+FLAGSHIP_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "gru_gates", "gru_blend")
+FLOWNETC_KERNELS = ("correlation_fwd", "correlation_bwd_f1",
+                    "correlation_bwd_f2")
 # Flagship shapes: the field state (B, 16, 16, 64); gates 2C = 128 in 4
 # groups, candidate C = 64 in 2 groups.
 B, HW, C = 128, 16, 64
@@ -175,8 +213,6 @@ def _metric(name: str, dtype) -> str:
 
 
 def phase_kernels() -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print("[3] kernels vs plain versions at B=128 (TF32 off for matmul and "
           "cuDNN)")
     gen = torch.Generator().manual_seed(0)
@@ -206,7 +242,126 @@ def phase_kernels() -> dict:
     for name, r in results.items():
         print(f"    {name:<14} {r['ms']:.4f} / {r['plain_ms']:.4f}")
     _check_gradients(gen)
+    results.update(_check_flow_kernels(gen))
     return results
+
+
+# FlowNetC bench features, FlyingChairs features, correlation geometry.
+CORR_SHAPES = {"bench": (256, 8, 8, 256), "chairs": (8, 48, 64, 256)}
+CORR_D, CORR_STRIDE = 20, 2
+NORM_SHAPES = ((8, 64, 64, 3), (8, 64, 64, 2))
+
+
+def _flow_tol(name: str, dtype) -> tuple:
+    """(tolerance, metric) of K5-K8 against their plain versions.
+
+    fp32: the kernel and the plain version sum the same fp32 products in
+    another order. bf16: a product of two bf16 values is exact in fp32.
+    K6, K7 and K8 (C <= 3) add those products in the same order as their
+    plain versions, divide and take the square root as IEEE does, and round
+    once to nearest, so they are bit-equal. K5 sums its C products in
+    another order than the plain mean, so the two round differently where
+    their fp32 sums straddle a bf16 rounding boundary: 1e-4 relative L2. A
+    kernel that truncated, or rounded its accumulator partway, would read
+    about 2e-3."""
+    if dtype == torch.float32:
+        return 1e-5, "max_abs"
+    if name == "correlation_fwd":
+        return 1e-4, "rel_l2"
+    return 0.0, "max_abs"
+
+
+def _flow_ops(shape, dtype, gen):
+    def rnd(*s):
+        return torch.randn(*s, generator=gen).to("cuda", dtype)
+    b, h, w, c = shape
+    f1, f2, g = rnd(b, h, w, c), rnd(b, h, w, c), rnd(b, h, w, 441)
+    return {
+        "correlation_fwd": lambda: correlation_fwd(f1, f2, CORR_D,
+                                                   CORR_STRIDE),
+        "correlation_bwd_f1": lambda: correlation_bwd_f1(g, f2, CORR_D,
+                                                         CORR_STRIDE),
+        "correlation_bwd_f2": lambda: correlation_bwd_f2(g, f1, CORR_D,
+                                                         CORR_STRIDE),
+    }
+
+
+def _check_flow_kernels(gen) -> dict:
+    """K5-K8 against their plain versions; returns the bf16 bench-shape
+    (K5-K7) and fp32 FlowNet2-shape (K8) errors and median times."""
+    print("  FlowNet kernels vs plain versions (d=20, stride 2):")
+    results = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for label, shape in CORR_SHAPES.items():
+                for name, fn in _flow_ops(shape, dtype, gen).items():
+                    out = fn()
+                    with common.force_plain():
+                        ref = fn()
+                    tol, kind = _flow_tol(name, dtype)
+                    metric = max_abs if kind == "max_abs" else rel_l2
+                    check(f"{name} {label} {str(dtype)[6:]}",
+                          metric(out, ref), tol, kind)
+                    if dtype == torch.bfloat16:
+                        ms = median_ms(fn)
+                        with common.force_plain():
+                            plain_ms = median_ms(fn)
+                        print(f"    {name} {label} bf16 median ms: kernel "
+                              f"{ms:.4f} plain {plain_ms:.4f}")
+                        if label == "bench":
+                            results[name] = {"max_abs_err": max_abs(out, ref),
+                                             "ms": ms, "plain_ms": plain_ms}
+            for shape in NORM_SHAPES:
+                x = torch.randn(*shape, generator=gen).to("cuda", dtype)
+                x[0, :4] = 0.0
+                out = channelnorm_fwd(x)
+                ref = channelnorm_plain(x)
+                tol, kind = _flow_tol("channelnorm", dtype)
+                metric = max_abs if kind == "max_abs" else rel_l2
+                check(f"channelnorm {shape[-1]}ch {str(dtype)[6:]}",
+                      metric(out, ref), tol, kind)
+                if dtype == torch.float32 and shape[-1] == 3:
+                    ms = median_ms(lambda: channelnorm_fwd(x))
+                    plain_ms = median_ms(lambda: channelnorm_plain(x))
+                    print(f"    channelnorm (8, 64, 64, 3) fp32 median ms: "
+                          f"kernel {ms:.4f} plain {plain_ms:.4f}")
+                    results["channelnorm"] = {
+                        "max_abs_err": max_abs(out, ref), "ms": ms,
+                        "plain_ms": plain_ms}
+    _check_flow_gradients(gen)
+    return results
+
+
+def _check_flow_gradients(gen) -> None:
+    print("  CorrelationFn and ChannelNormFn gradients (fp32) vs autograd "
+          "of the fp64 plain versions:")
+    for label, shape in CORR_SHAPES.items():
+        f1, f2, g = (torch.randn(*s, generator=gen).cuda()
+                     for s in (shape, shape, (*shape[:3], 441)))
+
+        def grads(fn, dtype):
+            leaves = [t.to(dtype).requires_grad_(True) for t in (f1, f2)]
+            return torch.autograd.grad(fn(*leaves, CORR_D, CORR_STRIDE),
+                                       leaves, g.to(dtype))
+
+        k = grads(CorrelationFn.apply, torch.float32)
+        p = grads(correlation_fwd_plain, torch.float64)
+        check(f"CorrelationFn df1 {label}", max_abs(k[0], p[0]), 1e-5,
+              "max_abs")
+        check(f"CorrelationFn df2 {label}", max_abs(k[1], p[1]), 1e-5,
+              "max_abs")
+    x = torch.randn(*NORM_SHAPES[0], generator=gen).cuda()
+    x[0, :4] = 0.0
+    g = torch.randn(*NORM_SHAPES[0][:3], 1, generator=gen).cuda()
+    leaf = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(ChannelNormFn.apply(leaf), leaf, g)
+    x64 = x.double()
+    norm = x64.norm(dim=-1, keepdim=True)
+    expect = torch.where(norm > 0, x64 * g.double() / norm.clamp_min(1e-12),
+                         torch.zeros_like(x64))
+    check("ChannelNormFn dx vs fp64", max_abs(gx, expect), 1e-6, "max_abs")
+    if not torch.equal(gx[0, :4], torch.zeros_like(gx[0, :4])):
+        raise AssertionError("ChannelNormFn: gradient at zero norm is not 0")
 
 
 def _check_gradients(gen) -> None:
@@ -271,7 +426,7 @@ def phase_slice(bank: torch.Tensor) -> dict:
             raise AssertionError(f"step {i}: loss or grad_norm not finite")
     counts = dict(common.launches)
     print(f"  launches over the 10 steps: {counts}")
-    missing = [k for k in KERNELS if counts[k] == 0]
+    missing = [k for k in FLAGSHIP_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -317,14 +472,102 @@ def phase_reference(bank: torch.Tensor) -> None:
           "rel_l2")
 
 
+def _run_flow_steps(label: str, model, cfg, bank, n_steps: int,
+                    expected: tuple) -> tuple:
+    """n fused training steps from seed 1 with the launch counts reset
+    just before; returns (counts, median step_ms over steps 1..n-1)."""
+    init_fn, step_fn = make_fused_flow_train_step(
+        model, bank, batch=cfg.batch, lr=cfg.lr, loss_norm=cfg.loss_norm,
+        single_scale=cfg.single_scale)
+    state = init_fn()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step_ms = []
+    torch.cuda.synchronize()
+    common.reset_launches()
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        m = step_fn(state, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  step {i}: loss {float(m['loss']):.6f} epe "
+              f"{float(m['epe']):.6f} grad_norm {float(m['grad_norm']):.6f} "
+              f"step_ms {step_ms[-1]:.2f}")
+        if not all(torch.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} step {i}: a metric is not finite")
+    counts = dict(common.launches)
+    print(f"  launches over the {n_steps} steps: {counts}")
+    missing = [k for k in expected if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {label} path: "
+                             f"{missing}")
+    median = statistics.median(step_ms[1:])
+    print(f"  median step_ms over steps 1-{n_steps - 1}: {median:.2f}")
+    return counts, median
+
+
+def phase_flownetc(bank: torch.Tensor) -> dict:
+    cfg = FlowNetCBenchConfig()
+    print(f"[6] FlowNetC: 10 fused training steps, B={cfg.batch}, "
+          f"{cfg.dtype}, 64x64, d={cfg.max_displacement}, "
+          f"stride {cfg.corr_stride}, seed {cfg.seed}")
+    model = FlowNetC(cfg.max_displacement, cfg.corr_stride,
+                     dtype=getattr(torch, cfg.dtype),
+                     generator=torch.Generator().manual_seed(cfg.seed))
+    counts, _ = _run_flow_steps("FlowNetC", model.cuda(), cfg, bank, 10,
+                                FLOWNETC_KERNELS)
+    return counts
+
+
+def phase_flownet2(bank: torch.Tensor) -> dict:
+    cfg = FlowNet2Config()
+    model = FlowNet2(cfg.rgb_max, dtype=getattr(torch, cfg.dtype),
+                     generator=torch.Generator().manual_seed(cfg.seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[7] FlowNet2: 3 single-scale {cfg.loss_norm} steps, "
+          f"B={cfg.batch}, {cfg.dtype}, {n_params:,} parameters")
+    counts, _ = _run_flow_steps("FlowNet2", model.cuda(), cfg, bank, 3,
+                                (*FLOWNETC_KERNELS, "channelnorm"))
+    return counts
+
+
+def phase_flow_reference(bank: torch.Tensor) -> None:
+    print("[8] FlowNetC fp32 step at B=8: kernels vs plain versions, same "
+          "weights and batch")
+    model = FlowNetC(generator=torch.Generator().manual_seed(0)).cuda()
+    img1, img2, flow = synthetic_flow_batch(
+        torch.Generator(device="cuda").manual_seed(2), bank, batch=8)
+
+    def run():
+        metrics = flow_loss_and_grads(model, (img1, img2), flow)
+        return metrics, {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+
+    m_k, g_k = run()
+    with common.force_plain():
+        m_p, g_p = run()
+    for key in ("loss", "epe"):
+        check(f"{key} (relative)", abs(float(m_k[key]) / float(m_p[key])
+                                       - 1.0), 1e-5, "rel")
+    worst = max(g_k, key=lambda n: rel_l2(g_k[n], g_p[n]))
+    check(f"worst grad leaf ({worst})", rel_l2(g_k[worst], g_p[worst]), 1e-3,
+          "rel_l2")
+
+
 def main() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     kind = phase_device()
     build_s = phase_build()
     timings = phase_kernels()
     bank = torch.from_numpy(
         get_sprite_bank(FlagshipConfig().data_dir)).float().cuda()
-    counts = phase_slice(bank)
+    counts = {k: v for k, v in phase_slice(bank).items()
+              if k in FLAGSHIP_KERNELS}
     phase_reference(bank)
+    counts.update({k: v for k, v in phase_flownetc(bank).items()
+                   if k in FLOWNETC_KERNELS})
+    counts["channelnorm"] = phase_flownet2(bank)["channelnorm"]
+    phase_flow_reference(bank)
     print(f"build_s {build_s:.2f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": tpu,

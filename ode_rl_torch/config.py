@@ -1,10 +1,12 @@
-"""The flagship configuration as a frozen dataclass.
+"""The port's configurations as frozen dataclasses.
 
 The JAX package reads ``configs.yaml``; the port does not, so that it
 needs no YAML parser. ``FlagshipConfig`` holds the merged blocks
 ``defaults`` + ``tpu_bench_odecgru`` for every key the flagship training
 step reads, under the YAML's own names (a CPU test holds each field to the
-YAML). Derive a variant with ``dataclasses.replace``.
+YAML). The two FlowNet configurations keep the names of their sources,
+``bench.py`` and ``scripts/train_flownetc.py`` (CPU tests hold them to the
+JAX package's defaults). Derive a variant with ``dataclasses.replace``.
 """
 
 from __future__ import annotations
@@ -34,4 +36,31 @@ class FlagshipConfig:
     ode_solver: str = "fast"
     lr: float = 1e-4
     clip: float = -1
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowNetCBenchConfig:
+    """``bench.py::bench_flownetc``: FlowNetC in bf16 on the fused
+    synthetic-chairs step, multiscale L1."""
+    batch: int = 256
+    dtype: str = "bfloat16"
+    max_displacement: int = 20
+    corr_stride: int = 2
+    lr: float = 1e-4
+    loss_norm: str = "l1"
+    single_scale: bool = False
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowNet2Config:
+    """``scripts/train_flownetc.py --net 2``: the stacked FlowNet2 in fp32,
+    single-scale L1 on the fusion output."""
+    batch: int = 8
+    lr: float = 1e-4
+    dtype: str = "float32"
+    rgb_max: float = 1.0
+    loss_norm: str = "l1"
+    single_scale: bool = True
     seed: int = 0

@@ -7,8 +7,8 @@ of leaf:
 * the 3x3 convs of the ODE fields (``ConvNet`` layers ``in``, ``mid_i``,
   ``out``) keep flax's HWIO ``kernel``, because its reshape to
   (9*Cin, Cout) is the layout kernels K1/K2 take;
-* ``ConvTranspose`` kernels (the decoder's ``up_i``) are flipped
-  spatially and laid out (in, out, kh, kw) for
+* ``ConvTranspose`` kernels (the decoder's ``up_i``, FlowNet's ``deconv``
+  and ``upflow``) are flipped spatially and laid out (in, out, kh, kw) for
   ``conv_transpose2d(stride=2, padding=1)``: flax's 'SAME' transposed conv
   is torch's with the kernel flipped;
 * biases and the GroupNorm scales and biases copy by name.
@@ -28,6 +28,10 @@ def _is_field_conv(layer: str) -> bool:
     return layer in ("in", "out") or layer.startswith("mid_")
 
 
+def _is_transposed_conv(layer: str) -> bool:
+    return layer in ("deconv", "upflow") or layer.startswith("up_")
+
+
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     for key, value in tree.items():
@@ -41,7 +45,7 @@ def _convert(path: Tuple[str, ...], leaf: np.ndarray
              ) -> Tuple[Tuple[str, ...], np.ndarray]:
     if path[-1] != "kernel":
         return path, leaf
-    if path[-2].startswith("up_"):
+    if _is_transposed_conv(path[-2]):
         return path[:-1] + ("weight",), np.flip(leaf, (0, 1)).transpose(
             2, 3, 0, 1)
     if _is_field_conv(path[-2]):

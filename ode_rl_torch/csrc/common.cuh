@@ -25,6 +25,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// Sum of v over the warp, in every lane. The xor butterfly adds in a fixed
+// order, so the result is deterministic.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// Calls launch(T{}) with T = float or __nv_bfloat16 as dtype says, and
+// returns cudaGetLastError() (cudaErrorInvalidValue for another dtype).
+template <typename Launch>
+int launch_for_dtype(int dtype, Launch&& launch) {
+  if (dtype == kF32) {
+    launch(float{});
+  } else if (dtype == kBF16) {
+    launch(__nv_bfloat16{});
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // Sum (a, b) over the block; every thread gets both totals. Warps reduce
 // by shuffles, then every thread adds the per-warp partials in the same
 // fixed order, so the result is deterministic. blockDim.x must be a

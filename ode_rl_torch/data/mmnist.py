@@ -52,25 +52,32 @@ def _place_all(sprites: torch.Tensor, tops: torch.Tensor,
     return canvas
 
 
-def render_moving_mnist(sprite_bank: torch.Tensor, idx: torch.Tensor,
-                        pos: torch.Tensor) -> torch.Tensor:
-    """Video (B, T, 64, 64, 1) in [-0.5, 0.5] from sprite indices (B, D)
-    and positions (B, D, T, 2)."""
+def render_per_digit(sprite_bank: torch.Tensor, idx: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Per-digit canvases (B, D, T, 64, 64) in [0, 255], before the
+    max-composite, from sprite indices (B, D) and positions (B, D, T, 2)."""
     b, d, t, _ = pos.shape
     sprites = sprite_bank.float()[idx.reshape(-1).long()]      # (B·D, 28, 28)
     sprites = sprites[:, None].expand(b * d, t, DIGIT_SIZE, DIGIT_SIZE)
     flat_pos = pos.reshape(b * d * t, 2)
     placed = _place_all(sprites.reshape(-1, DIGIT_SIZE, DIGIT_SIZE),
                         flat_pos[:, 0], flat_pos[:, 1])
-    video = placed.reshape(b, d, t, IMAGE_SIZE, IMAGE_SIZE).amax(dim=1)
+    return placed.reshape(b, d, t, IMAGE_SIZE, IMAGE_SIZE)
+
+
+def render_moving_mnist(sprite_bank: torch.Tensor, idx: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """Video (B, T, 64, 64, 1) in [-0.5, 0.5] from sprite indices (B, D)
+    and positions (B, D, T, 2)."""
+    video = render_per_digit(sprite_bank, idx, pos).amax(dim=1)
     return torch.clamp(video[..., None] / 255.0 - 0.5, -0.5, 0.5)
 
 
-def generate_moving_mnist(generator: torch.Generator,
-                          sprite_bank: torch.Tensor, batch: int,
-                          n_frames: int, num_digits: int = 2) -> torch.Tensor:
-    """(batch, n_frames, 64, 64, 1) float32 video in [-0.5, 0.5], made on
-    the generator's device."""
+def draw_digits(generator: torch.Generator, sprite_bank: torch.Tensor,
+                batch: int, n_frames: int, num_digits: int):
+    """The random draws of one batch, made on the sprite bank's device:
+    sprite indices (batch, num_digits) and positions (batch, num_digits,
+    n_frames, 2) int32 (top, left)."""
     device = sprite_bank.device
     bd = batch * num_digits
     draw = lambda: torch.rand(bd, generator=generator, device=device)
@@ -79,5 +86,26 @@ def generate_moving_mnist(generator: torch.Generator,
     idx = torch.randint(0, sprite_bank.shape[0], (bd,), generator=generator,
                         device=device)
     pos = _trajectories(x0, y0, theta, n_frames)
-    return render_moving_mnist(sprite_bank, idx.reshape(batch, num_digits),
-                               pos.reshape(batch, num_digits, n_frames, 2))
+    return (idx.reshape(batch, num_digits),
+            pos.reshape(batch, num_digits, n_frames, 2))
+
+
+def generate_moving_mnist(generator: torch.Generator,
+                          sprite_bank: torch.Tensor, batch: int,
+                          n_frames: int, num_digits: int = 2) -> torch.Tensor:
+    """(batch, n_frames, 64, 64, 1) float32 video in [-0.5, 0.5], made on
+    the generator's device."""
+    idx, pos = draw_digits(generator, sprite_bank, batch, n_frames,
+                           num_digits)
+    return render_moving_mnist(sprite_bank, idx, pos)
+
+
+def generate_moving_mnist_per_digit(generator: torch.Generator,
+                                    sprite_bank: torch.Tensor, batch: int,
+                                    n_frames: int, num_digits: int = 3):
+    """Per-digit canvases before the max-composite: (per_digit (B, D, T,
+    64, 64) float32 in [0, 255], sprite_idx (B, D), positions (B, D, T, 2)
+    int32). The flow generator needs each pixel's front digit."""
+    idx, pos = draw_digits(generator, sprite_bank, batch, n_frames,
+                           num_digits)
+    return render_per_digit(sprite_bank, idx, pos), idx, pos

@@ -24,8 +24,15 @@ from ode_rl_torch.ops.conv3x3 import conv3x3_same
 _TRUNC_STD = 0.87962566103423978
 
 
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: its gradient at exactly 0 is 1, where
+    ``F.leaky_relu``'s is the slope. Exact zeros are common here: a zero
+    bias on the zero background of a Moving MNIST frame."""
+    return torch.where(x >= 0, x, x * slope)
+
+
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.2)
+    return leaky_relu(x, 0.2)
 
 
 def lecun_normal(shape: tuple, fan_in: int,
@@ -71,19 +78,20 @@ class ConvTranspose(nn.Module):
     The weight is torch's (in, out, 4, 4) for ``conv_transpose2d(stride=2,
     padding=1)``; a flax kernel converts by a spatial flip (convert.py)."""
 
-    def __init__(self, cin: int, cout: int, *,
+    def __init__(self, cin: int, cout: int, *, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
         self.dtype = dtype
         self.weight = lecun_normal((cin, cout, 4, 4), 16 * cin, generator)
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
                                self.weight.to(self.dtype), stride=2,
                                padding=1)
-        return y.permute(0, 2, 3, 1).contiguous() + self.bias.to(self.dtype)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class ConvEncoder(nn.Module):

@@ -34,6 +34,14 @@ SIGNATURES = {
     "odek_gru_gates": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # cand, z, h, scale, bias, out, B, HW, C, G, eps, dtype, stream
     "odek_gru_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream
+    "odek_correlation_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, f2, gf1, B, H, W, C, max_displacement, stride, dtype, stream
+    "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, f1, gf2, B, H, W, C, max_displacement, stride, dtype, stream
+    "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, pixels, C, dtype, stream
+    "odek_channelnorm": [_P, _P, _L, _I, _I, _P],
 }
 
 

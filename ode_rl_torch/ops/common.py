@@ -26,7 +26,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel and nowhere else, so a run can show that the main path went
 # through every kernel.
 launches = {"conv3x3_fwd": 0, "conv3x3_wgrad": 0, "gru_gates": 0,
-            "gru_blend": 0}
+            "gru_blend": 0, "correlation_fwd": 0, "correlation_bwd_f1": 0,
+            "correlation_bwd_f2": 0, "channelnorm": 0}
 
 # Process-wide on purpose: autograd runs CUDA backward passes on its own
 # threads, which must see the same choice as the forward.

@@ -1,6 +1,8 @@
-"""Kernels K1-K4 on the card, at shapes other than the flagship's: ragged
+"""Kernels K1-K8 on the card, at shapes other than the main paths': ragged
 tiles, channel counts that are not multiples of 64, GroupNorm groups that
-straddle the z/r split, and the checks that make a wrapper raise.
+straddle the z/r split, correlation windows at stride 1, H != W, C not a
+multiple of 32 and d > H, channelnorm at C = 1, 2, 3 and 64, and the
+checks that make a wrapper raise.
 
 These need an sm_90 GPU and skip elsewhere. The conftest of this folder
 imports JAX, which the machine with the card lacks, so run them there as
@@ -10,15 +12,30 @@ imports JAX, which the machine with the card lacks, so run them there as
 
 Tolerances as in chip_smoke.py: fp32 max abs 1e-4 (K1) and 1e-5 (K3/K4),
 K2 relative L2 1e-5 against fp64; bf16 relative L2 1e-2 (K1/K2) and max
-abs 1/128 (K3/K4, |h| < 1).
+abs 1/128 (K3/K4, |h| < 1). K5-K8 in fp32 to 1e-5 max abs against fp64
+plain versions (sums of at most a few thousand products of unit normals).
+In bf16 against the plain version on the same bf16 inputs: a product of
+two bf16 values is exact in fp32, K6, K7 and K8 add those products in the
+plain version's order and round once, so they are bit-equal; K5 sums in
+another order than the plain mean, so it may round differently where the
+two fp32 sums straddle a bf16 rounding boundary: 1e-4 relative L2.
 """
 
 import pytest
 import torch
 
 from ode_rl_torch.ops import common
+from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
+                                          channelnorm_plain)
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad)
+from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
+                                          correlation_bwd_f1_plain,
+                                          correlation_bwd_f2,
+                                          correlation_bwd_f2_plain,
+                                          correlation_fwd,
+                                          correlation_fwd_plain,
+                                          n_displacements)
 from ode_rl_torch.ops.gru_gates import fused_gru_blend, fused_gru_gates
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +133,97 @@ def test_gru_gates_and_blend_match_plain(cuda, c, groups, dtype):
         assert _max_abs(a, r) <= tol
 
 
+# (B, H, W, C, max_displacement, stride): ragged C, H != W, stride 1,
+# d > H, every window overlapping (d <= H/2, stride 1), the FlowNetC bench
+# geometry, and the FlyingChairs feature shape.
+CORR_SHAPES = [(2, 5, 7, 19, 2, 1), (3, 6, 4, 40, 3, 2), (2, 3, 5, 33, 4, 1),
+               (1, 8, 8, 16, 4, 1), (2, 8, 8, 256, 20, 2),
+               (2, 48, 64, 256, 20, 2)]
+
+
+def _corr_inputs(gen, shape, dtype):
+    b, h, w, c, d, stride = shape
+    n = n_displacements(d, stride)
+    return (_rnd(gen, b, h, w, c, dtype=dtype),
+            _rnd(gen, b, h, w, c, dtype=dtype),
+            _rnd(gen, b, h, w, n * n, dtype=dtype), d, stride)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CORR_SHAPES)
+def test_correlation_kernels_match_plain(cuda, shape, dtype):
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    outs = (correlation_fwd(f1, f2, d, stride),
+            correlation_bwd_f1(g, f2, d, stride),
+            correlation_bwd_f2(g, f1, d, stride))
+    torch.cuda.synchronize()
+    ref_dtype = torch.float64 if dtype == torch.float32 else dtype
+    a, b, gg = (t.to(ref_dtype) for t in (f1, f2, g))
+    refs = (correlation_fwd_plain(a, b, d, stride),
+            correlation_bwd_f1_plain(gg, b, d, stride),
+            correlation_bwd_f2_plain(gg, a, d, stride))
+    for out, ref in zip(outs, refs):
+        assert out.dtype == dtype and out.shape == ref.shape
+        if dtype == torch.float32:
+            assert _max_abs(out, ref) <= 1e-5
+    if dtype == torch.bfloat16:
+        assert _rel_l2(outs[0], refs[0]) <= 1e-4
+        assert torch.equal(outs[1], refs[1])
+        assert torch.equal(outs[2], refs[2])
+
+
+@pytest.mark.parametrize("shape", CORR_SHAPES[:4])
+def test_correlationfn_gradients_match_fp64_autograd(cuda, shape):
+    """K6/K7 against autograd of the fp64 plain forward, so the plain
+    backward formulas are not their own reference."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, torch.float32)
+
+    def grads(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (f1, f2)]
+        return torch.autograd.grad(fn(*leaves, d, stride), leaves,
+                                   g.to(dtype))
+
+    k = grads(CorrelationFn.apply, torch.float32)
+    p = grads(correlation_fwd_plain, torch.float64)
+    for a, r in zip(k, p):
+        assert _max_abs(a, r) <= 1e-5
+
+
+def test_correlation_backward_is_bit_reproducible(cuda):
+    f1, f2, g, d, stride = _corr_inputs(cuda, CORR_SHAPES[-1],
+                                        torch.bfloat16)
+    first = correlation_bwd_f2(g, f1, d, stride)
+    assert torch.equal(first, correlation_bwd_f2(g, f1, d, stride))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [1, 2, 3, 64])
+def test_channelnorm_kernel_matches_plain(cuda, c, dtype):
+    x = _rnd(cuda, 3, 5, 7, c, dtype=dtype)
+    x[0, 0, 0] = 0
+    out = channelnorm_fwd(x)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (3, 5, 7, 1)
+    if dtype == torch.float32:
+        assert _max_abs(out, channelnorm_plain(x.double())) <= 1e-5
+    else:
+        with common.force_plain():
+            assert torch.equal(out, channelnorm_fwd(x))
+    assert out[0, 0, 0].item() == 0
+
+
+def test_channelnormfn_gradient_is_zero_at_zero_norm(cuda):
+    x = _rnd(cuda, 2, 4, 4, 3)
+    x[0, 1, 2] = 0
+    x.requires_grad_(True)
+    (gx,) = torch.autograd.grad(ChannelNormFn.apply(x).sum(), x)
+    norm = x.detach().double().norm(dim=-1, keepdim=True)
+    expect = torch.where(norm > 0, x.detach().double() / norm.clamp_min(
+        1e-12), torch.zeros_like(norm))
+    assert torch.isfinite(gx).all()
+    assert _max_abs(gx, expect) <= 1e-6
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     x = _rnd(cuda, 2, 4, 4, 8)
     common.reset_launches()
@@ -124,8 +232,15 @@ def test_each_wrapper_counts_its_launches(cuda):
     fused_gru_gates(_rnd(cuda, 2, 4, 4, 16), x, _rnd(cuda, 16),
                     _rnd(cuda, 16), 2)
     fused_gru_blend(x, x, x, _rnd(cuda, 8), _rnd(cuda, 8), 1)
+    g = _rnd(cuda, 2, 4, 4, 9)
+    correlation_fwd(x, x, 1, 1)
+    correlation_bwd_f1(g, x, 1, 1)
+    correlation_bwd_f2(g, x, 1, 1)
+    channelnorm_fwd(x)
     assert common.launches == {"conv3x3_fwd": 1, "conv3x3_wgrad": 1,
-                               "gru_gates": 1, "gru_blend": 1}
+                               "gru_gates": 1, "gru_blend": 1,
+                               "correlation_fwd": 1, "correlation_bwd_f1": 1,
+                               "correlation_bwd_f2": 1, "channelnorm": 1}
     with common.force_plain():
         conv3x3_fwd(x, _rnd(cuda, 72, 8))
     assert common.launches["conv3x3_fwd"] == 1
@@ -151,6 +266,31 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda, case):
         "mixed_dtype": lambda: conv3x3_fwd(x.bfloat16(), w2d),
         "half": lambda: conv3x3_fwd(x.half(), w2d.half()),
         "cpu_weights": lambda: conv3x3_fwd(x, w2d.cpu()),
+    }
+    with pytest.raises((TypeError, ValueError)):
+        calls[case]()
+
+
+@pytest.mark.parametrize("case", ["corr_dtype", "corr_non_contiguous",
+                                  "corr_shapes", "corr_mixed_dtype",
+                                  "corr_cotangent", "bwd_f1_dtype",
+                                  "bwd_f2_non_contiguous", "norm_dtype",
+                                  "norm_non_contiguous"])
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda, case):
+    x = _rnd(cuda, 2, 4, 4, 8)
+    g = _rnd(cuda, 2, 4, 4, 9)
+    nc = _rnd(cuda, 2, 4, 8, 4).transpose(2, 3)
+    calls = {
+        "corr_dtype": lambda: correlation_fwd(x.half(), x.half(), 1, 1),
+        "corr_non_contiguous": lambda: correlation_fwd(nc, x, 1, 1),
+        "corr_shapes": lambda: correlation_fwd(x, _rnd(cuda, 2, 4, 5, 8),
+                                               1, 1),
+        "corr_mixed_dtype": lambda: correlation_fwd(x, x.bfloat16(), 1, 1),
+        "corr_cotangent": lambda: correlation_bwd_f1(g, x, 2, 1),
+        "bwd_f1_dtype": lambda: correlation_bwd_f1(g.bfloat16(), x, 1, 1),
+        "bwd_f2_non_contiguous": lambda: correlation_bwd_f2(g, nc, 1, 1),
+        "norm_dtype": lambda: channelnorm_fwd(x.double()),
+        "norm_non_contiguous": lambda: channelnorm_fwd(nc),
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()

@@ -4,6 +4,7 @@ numpy inputs go through the JAX package and the PyTorch port."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -57,3 +58,31 @@ def assert_grads_close(module: torch.nn.Module, flax_grads, tol: float,
     for name in ref:
         err = metric(ours[name], ref[name])
         assert err <= tol, f"{name}: {err:.3g} > {tol}"
+
+
+def net_parity(flax_module, port_module, inputs, out_metric=rel_l2,
+               out_tol=1e-5, grad_tol=1e-4):
+    """Outputs and every parameter gradient of sum(outputs * w) for random
+    w, flax vs port, from the same weights (flax's init, converted)."""
+    j_inputs = [jnp.asarray(a) for a in inputs]
+    variables = flax_module.init(jax.random.key(0), *j_inputs)
+    load_flax(port_module, variables["params"])
+
+    def as_list(outs):
+        return list(outs) if isinstance(outs, (list, tuple)) else [outs]
+
+    j_outs = as_list(flax_module.apply(variables, *j_inputs))
+    rng = np.random.RandomState(7)
+    weights = [rng.randn(*o.shape).astype(np.float32) for o in j_outs]
+
+    def loss(params):
+        outs = as_list(flax_module.apply({"params": params}, *j_inputs))
+        return sum(jnp.sum(o * w) for o, w in zip(outs, weights))
+
+    j_grads = jax.jit(jax.grad(loss))(variables["params"])
+    t_outs = as_list(port_module(*[t32(a) for a in inputs]))
+    sum(torch.sum(o * t32(w)) for o, w in zip(t_outs, weights)).backward()
+    assert [tuple(o.shape) for o in t_outs] == [o.shape for o in j_outs]
+    for a, b in zip(t_outs, j_outs):
+        assert out_metric(a, b) <= out_tol
+    assert_grads_close(port_module, j_grads, grad_tol)
