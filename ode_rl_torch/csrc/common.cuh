@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace odek {
 
 // dtype codes shared with ode_rl_torch/ops/common.py::DTYPE_CODES.
@@ -35,18 +37,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename Launch, typename T>
+int call_launch(Launch& launch, T tag) {
+  if constexpr (std::is_void_v<decltype(launch(tag))>) {
+    launch(tag);
+    return 0;
+  } else {
+    return launch(tag);
+  }
+}
+
 // Calls launch(T{}) with T = float or __nv_bfloat16 as dtype says, and
-// returns cudaGetLastError() (cudaErrorInvalidValue for another dtype).
+// returns cudaGetLastError() (cudaErrorInvalidValue for another dtype). A
+// launch that returns an int refuses its arguments with a nonzero code,
+// which is returned instead.
 template <typename Launch>
 int launch_for_dtype(int dtype, Launch&& launch) {
+  int err;
   if (dtype == kF32) {
-    launch(float{});
+    err = call_launch(launch, float{});
   } else if (dtype == kBF16) {
-    launch(__nv_bfloat16{});
+    err = call_launch(launch, __nv_bfloat16{});
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // Sum (a, b) over the block; every thread gets both totals. Warps reduce

@@ -8,26 +8,34 @@
 //
 // What bounds it on the H100. At the flagship shape (x (128,16,16,64),
 // w (576,64)) one call is M = B*H*W = 32,768 rows, K = 9*Cin = 576,
-// N = Cout = 64: 2.4 GFLOP against about 8 MB of activations in and out.
-// On the tensor cores both bounds are a few microseconds, so a fast
-// version is a tensor-core GEMM fed by TMA. These first kernels are
-// simple and right instead: fp32 FMA from shared memory, so they are
-// bound by the FMA issue rate and shared-memory bandwidth of the SMs,
-// far from either roofline. wgmma and TMA are later work.
+// N = Cout = 64: 2.4 GFLOP against about 8.5 MB of activations in and out,
+// a few microseconds on either bound.
 //
-// Design. A block owns a 64 x 64 output tile; 256 threads each hold a
-// 4 x 4 fp32 accumulator. The A tile (patches) is gathered straight from
-// the NHWC input with the SAME bounds computed in the kernel (zeros
-// outside), so no padded copy is made; the B tile comes from the weights
-// laid out as (9*Cin, Cout) in HWIO order, which is kernel.reshape(9*Cin,
-// Cout), the JAX layout. Neighbouring threads load neighbouring input
-// channels, so the gathers coalesce.
+// K1 has two kernels; ops/conv3x3.py::uses_tensor_cores picks one.
+//
+// * conv3x3_fwd_tc_kernel (bf16, Cin % 16 == 0, Cout % 16 == 0, Cout <= 256,
+//   the weights, two halo stages and the output staging within the 227 KB
+//   of shared memory): the tensor-core K1 (section "Tensor-core K1" below),
+//   about 7 us a launch at the flagship shape against cuDNN's 11.
+// * conv3x3_fwd_kernel (everything else, fp32 included): fp32 FMA from
+//   shared memory, so bound by the FMA issue rate and shared-memory
+//   bandwidth of the SMs, far from either roofline. A block owns a 64 x 64
+//   output tile; 256 threads each hold a 4 x 4 fp32 accumulator. The A
+//   tile (patches) is gathered straight from the NHWC input with the SAME
+//   bounds computed in the kernel (zeros outside), so no padded copy is
+//   made; the B tile comes from the weights laid out as (9*Cin, Cout) in
+//   HWIO order, which is kernel.reshape(9*Cin, Cout), the JAX layout.
 //
 // K2 cannot carry the TPU kernel's accumulation across an in-order grid:
 // Hopper blocks run in parallel and in no order. It is split-K instead:
 // block s sums its own range of rows into scratch (S, 9*Cin, Cout) fp32,
 // and a second kernel sums the S partials in a fixed order. No atomics;
 // the result is deterministic.
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
+
+#include <atomic>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -61,7 +69,7 @@ __device__ __forceinline__ float patch_at(const T* __restrict__ x,
   return to_f32(x[((b * H + y) * W + xx) * Cin + ci]);
 }
 
-// K1: out (M, Cout) = patches (M, 9*Cin) . w (9*Cin, Cout).
+// K1 (SIMT): out (M, Cout) = patches (M, 9*Cin) . w (9*Cin, Cout).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -205,70 +213,622 @@ __global__ void splitk_sum_kernel(const float* __restrict__ scratch,
   dw[idx] = sum;
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core K1 (bf16).
+//
+// Design. Persistent blocks, one per SM, walk over output tiles of one
+// image, 8 rows by TW = 8, 16 or 32 pixels (8 x 16 at the flagship's
+// 16 x 16 maps), cut into 8 x 8 blocks of 64 output pixels.
+//
+// * The weights stay resident in shared memory: each block loads the whole
+//   (9*Cin, Cout) matrix once by TMA (72 KB at the flagship), as column
+//   blocks of NT = 64 channels (128-byte swizzle) or NT = 16 (32-byte
+//   swizzle), each a region of 9*Cin rows.
+// * The input halo of a tile, 10 x (TW+2) x Cin, is one set of 4-D TMA
+//   boxes at (y0-1, x0-1): the boxes' out-of-bounds elements are zeros, so
+//   SAME padding and ragged H and W need no branch. Channels go in chunks
+//   of CW = 64, 32 or 16 (swizzle 128, 64 or 32 bytes: one pixel of a chunk
+//   is one swizzle row). Two halo stages, one mbarrier each: the load of
+//   the next tile runs under the products of this one.
+// * Implicit im2col in the operand descriptor. The 64 pixels of a block
+//   are the M rows of a wgmma, 8 image rows of 8. For tap (dy, dx) the 8
+//   pixels of one image row are 8 consecutive halo pixels, that is 8
+//   consecutive swizzle rows, and the next image row lies one halo row
+//   ((TW+2) * CW * 2 bytes) on: a K-major operand with that stride between
+//   its 8-row groups. So A is read straight from the halo by a descriptor
+//   whose start address moves with the tap and the channels: no im2col
+//   copy, no registers, no ldmatrix. The start is not 1 KB aligned in
+//   general; the hardware swizzles the absolute address, as TMA wrote it,
+//   so the descriptor's base offset stays 0.
+// * B, the tap's 16 x NT slice of the weights: an MN-major descriptor (Cout
+//   is the contiguous axis of w2d).
+// * The 9 * Cin/16 wgmma.m64nNTk16 of a block go out back to back in one
+//   commit group, fp32 sums in registers. The loop is unrolled at compile
+//   time for Cin = 16, 32 and 64 (KS = Cin/16 = 1, 2, 4): in a runtime
+//   loop ptxas waits for each wgmma before issuing the next. Other widths
+//   take that slower runtime loop (KS = 0).
+// * Two warpgroups: warpgroup w owns blocks w, w + 2, ... of the tile.
+// * Epilogue: round once to bf16, write the 8 x 8 x NT block into a
+//   staging buffer in shared memory with the output tensor map's swizzle,
+//   and store it with one TMA store, which clips what lies outside the
+//   image. Storing the fragments directly, 4 bytes a lane, took a third
+//   of the tile's time.
+// * Deterministic: every output is summed by one warpgroup in a fixed
+//   order (taps, then channels). No split-K, no atomics.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;        // two warpgroups
+constexpr int kTcTileRows = 8;         // a tile is 8 rows by TW = 8, 16, 32
+// Dynamic shared memory a block may ask for: the H100's 232,448 bytes
+// less 64 for the kernel's static barriers.
+constexpr int kTcMaxSmem = 232448 - 64;
+constexpr int kTcWeightBoxRows = 144;  // 9 * 16 divides 9 * Cin
+
+__host__ __device__ constexpr int round1k(int bytes) {
+  return (bytes + 1023) / 1024 * 1024;
+}
+
+// Shared-memory plan of one launch; mirrors ops/conv3x3.py::_tc_smem_bytes.
+struct TcPlan {
+  int tw, halo_w, halo_h;
+  int cw;              // channels per halo chunk (64, 32 or 16)
+  int n_chunks;        // Cin / cw
+  int chunk_bytes;     // one chunk of one stage, 1 KB aligned
+  int stage_bytes;     // n_chunks * chunk_bytes
+  int nt;              // output channels per wgmma (64 or 16)
+  int w_region_bytes;  // 9*Cin rows of nt channels, 1 KB aligned
+  int w_bytes;         // Cout / nt regions
+  int out_bytes;       // one warpgroup's 8 x 8 x nt staging buffer
+  int smem_bytes;      // weights + 2 stages + 2 staging + 1 KB to align
+};
+
+TcPlan tc_plan(int Cin, int Cout, int tw) {
+  TcPlan p;
+  p.tw = tw;
+  p.halo_w = tw + 2;
+  p.halo_h = kTcTileRows + 2;
+  p.cw = Cin % 64 == 0 ? 64 : (Cin % 32 == 0 ? 32 : 16);
+  p.n_chunks = Cin / p.cw;
+  p.chunk_bytes = round1k(p.halo_h * p.halo_w * p.cw * 2);
+  p.stage_bytes = p.n_chunks * p.chunk_bytes;
+  p.nt = Cout % 64 == 0 ? 64 : 16;
+  p.w_region_bytes = round1k(9 * Cin * p.nt * 2);
+  p.w_bytes = (Cout / p.nt) * p.w_region_bytes;
+  p.out_bytes = round1k(64 * p.nt * 2);
+  p.smem_bytes = p.w_bytes + 2 * p.stage_bytes + 2 * p.out_bytes + 1024;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// The TMA stores this thread issued have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// TMA's swizzle of rows of `row_bytes` (32, 64 or 128) in a 1 KB aligned
+// region: the 16-byte unit at bits 4.. of an offset is XORed with bits 7..
+__device__ __forceinline__ uint32_t swizzle(uint32_t off, int row_bytes) {
+  return off ^ (((off >> 7) & (row_bytes / 16 - 1)) << 4);
+}
+
+// wgmma shared-memory descriptor of an MN-major operand NT columns wide
+// (one swizzle atom): start address, leading byte offset (between atoms
+// along N: one atom, so unused), stride byte offset (between groups of 8
+// K rows) and the swizzle (1: 128 B, 3: 32 B).
+__device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, int nt) {
+  const uint64_t row_bytes = nt * 2;
+  const uint64_t layout = nt == 64 ? 1 : 3;
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         (((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
+// wgmma shared-memory descriptor of a K-major operand whose 8-row groups
+// are 8 consecutive swizzle rows, `sbo` bytes apart, with the swizzle of
+// the halo chunk (1: 128 B, 2: 64 B, 3: 32 B); base offset 0.
+__device__ __forceinline__ uint64_t k_major_desc(uint32_t addr, uint32_t sbo,
+                                                 uint64_t layout) {
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+template <int NT>
+struct Wgmma;
+
+// D (64 x 64, fp32) += A (64 x 16, K-major) . B (16 x 64, MN-major), both
+// bf16 in shared memory.
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, 1, 1, 1, 0, 1;"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b));
+  }
+};
+
+// D (64 x 16) += A (64 x 16) . B (16 x 16).
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, 1, 1, 1, 0, 1;"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b));
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The products of one 8 x 8 block and one column block: a_blk addresses
+// the block's tap (0, 0) in the halo stage, b the column block's weights;
+// descriptors step by adding to their start address (16-byte units): a
+// halo row (row_step) or pixel (col_step) for the tap, 32 bytes (16
+// channels) within a chunk, a chunk; 16 weight rows a step.
+template <int NT, int KS>
+__device__ __forceinline__ void block_products(float (&acc)[NT / 2],
+                                               uint64_t a_blk, uint64_t b,
+                                               uint32_t row_step,
+                                               uint32_t col_step,
+                                               const TcPlan& p) {
+  constexpr uint64_t b_step = (16 * NT * 2) >> 4;
+  if constexpr (KS > 0) {  // Cin = 16 * KS: one chunk, 2 units a step
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t a_tap = a_blk + (tap / 3) * row_step + (tap % 3) * col_step;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        Wgmma<NT>::mma(acc, a_tap + 2 * j, b + (tap * KS + j) * b_step);
+      }
+    }
+  } else {
+    const int steps_per_chunk = p.cw / 16;
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t a_tap = a_blk + (tap / 3) * row_step + (tap % 3) * col_step;
+      for (int c = 0; c < p.n_chunks; ++c) {
+        for (int j = 0; j < steps_per_chunk; ++j) {
+          Wgmma<NT>::mma(acc, a_tap + c * (p.chunk_bytes >> 4) + 2 * j, b);
+          b += b_step;
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int KS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    conv3x3_fwd_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap w_map,
+                          const __grid_constant__ CUtensorMap out_map, int B,
+                          int H, int W, int Cin, int Cout, TcPlan p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];  // weights, halo stage 0, 1
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t w_base = base;
+  const uint32_t halo_base = w_base + p.w_bytes;
+  const uint32_t out_base = halo_base + 2 * p.stage_bytes;
+  const uint32_t bar_w = smem_u32(&bars[0]);
+  const int tid = threadIdx.x;
+
+  const int tiles_x = (W + p.tw - 1) / p.tw;
+  const int tiles_y = (H + kTcTileRows - 1) / kTcTileRows;
+  const int tiles_img = tiles_x * tiles_y;
+  const int n_tiles = B * tiles_img;
+  const int cwb = p.cw * 2;  // bytes of one pixel of a halo chunk
+  const uint32_t halo_tx = p.n_chunks * p.halo_h * p.halo_w * cwb;
+
+  auto tile_origin = [&](int tile, int& b, int& y0, int& x0) {
+    b = tile / tiles_img;
+    const int r = tile - b * tiles_img;
+    y0 = (r / tiles_x) * kTcTileRows;
+    x0 = (r % tiles_x) * p.tw;
+  };
+  auto load_halo = [&](int tile, int stage) {
+    int b, y0, x0;
+    tile_origin(tile, b, y0, x0);
+    const uint32_t bar = smem_u32(&bars[1 + stage]);
+    const uint32_t dst = halo_base + stage * p.stage_bytes;
+    mbar_expect_tx(bar, halo_tx);
+    for (int c = 0; c < p.n_chunks; ++c) {
+      tma_load_4d(dst + c * p.chunk_bytes, &x_map, bar, c * p.cw, x0 - 1,
+                  y0 - 1, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_w, 9 * Cin * Cout * 2);
+    for (int nb = 0; nb < Cout / NT; ++nb) {
+      for (int k0 = 0; k0 < 9 * Cin; k0 += kTcWeightBoxRows) {
+        tma_load_2d(w_base + nb * p.w_region_bytes + k0 * NT * 2, &w_map,
+                    bar_w, nb * NT, k0);
+      }
+    }
+    for (int s = 0; s < 2; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < n_tiles) load_halo(tile, s);
+    }
+  }
+
+  const int wg = tid / 128;
+  const bool leader = tid % 128 == 0;  // issues the warpgroup's TMA stores
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  // Accumulator fragment: rows g and g + 8 of this warp's 16, that is
+  // pixels (2 * warp, g) and (2 * warp + 1, g) of the 8 x 8 block; columns
+  // 8j + 2t and 8j + 2t + 1 of the column block.
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const uint32_t out_stage = out_base + wg * p.out_bytes;
+  const uint32_t row_step = (p.halo_w * cwb) >> 4;
+  const uint32_t col_step = cwb >> 4;
+  const uint64_t a_layout = p.cw == 64 ? 1 : (p.cw == 32 ? 2 : 3);
+
+  mbar_wait(bar_w, 0);
+  int iter = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++iter) {
+    const int stage = iter & 1;
+    mbar_wait(smem_u32(&bars[1 + stage]), (iter >> 1) & 1);
+    const uint32_t stage_base = halo_base + stage * p.stage_bytes;
+    int b, y0, x0;
+    tile_origin(tile, b, y0, x0);
+
+    for (int blk = wg; blk < p.tw / 8; blk += 2) {
+      const uint64_t a_blk =
+          k_major_desc(stage_base + blk * 8 * cwb, row_step << 4, a_layout);
+      for (int nb = 0; nb < Cout / NT; ++nb) {
+        float acc[NT / 2];
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+        fence_operands(acc);
+        wgmma_fence();
+        block_products<NT, KS>(
+            acc, a_blk, mn_major_desc(w_base + nb * p.w_region_bytes, NT),
+            row_step, col_step, p);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(acc);
+
+        // The staging buffer is free once the last store has read it.
+        if (leader) tma_store_wait_read();
+        warpgroup_sync(wg);
+#pragma unroll
+        for (int half_row = 0; half_row < 2; ++half_row) {
+          const int pixel = (2 * warp + half_row) * 8 + g;
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            __nv_bfloat162 v = __floats2bfloat162_rn(
+                acc[4 * j + 2 * half_row], acc[4 * j + 2 * half_row + 1]);
+            const uint32_t off = swizzle(
+                (pixel * NT + 8 * j + 2 * t4) * 2, NT * 2);
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(out_stage + off),
+                         "r"(*reinterpret_cast<uint32_t*>(&v))
+                         : "memory");
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        warpgroup_sync(wg);
+        if (leader) {
+          tma_store_4d(&out_map, out_stage, nb * NT, x0 + blk * 8, y0, b);
+        }
+      }
+    }
+
+    // Every warp is done with this stage: refill it with the tile two on.
+    __syncthreads();
+    if (tid == 0) {
+      const int next = tile + 2 * gridDim.x;
+      if (next < n_tiles) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        load_halo(next, stage);
+      }
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that
+// this library links no libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) {
+      ptr = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+CUtensorMapSwizzle swizzle_mode(int row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// Codes returned on top of cudaError_t: a tensor map was refused
+// (kTcMapError + its CUresult), or cuTensorMapEncodeTiled is missing.
+constexpr int kTcMapError = 10000;
+
+// A bf16 NHWC tensor (B, H, W, C) as a TMA map with box (box_c, box_w,
+// box_h, 1), swizzled by box_c * 2 bytes.
+CUresult encode_nhwc(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                     int B, int H, int W, int C, int box_c, int box_w,
+                     int box_h) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(box_c * 2),
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+using TcKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, int, int,
+                          int, int, int, TcPlan);
+
+template <int NT>
+TcKernel tc_kernel(int Cin) {
+  switch (Cin) {
+    case 16: return conv3x3_fwd_tc_kernel<NT, 1>;
+    case 32: return conv3x3_fwd_tc_kernel<NT, 2>;
+    case 64: return conv3x3_fwd_tc_kernel<NT, 4>;
+    default: return conv3x3_fwd_tc_kernel<NT, 0>;
+  }
+}
+
+// The host's share of a launch counts: the flagship step is host-bound and
+// launches K1 hundreds of times. So these two queries run once per process
+// (one kind of card per process).
+int sm_count() {
+  static const int count = [] {
+    int device, n;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n;
+  }();
+  return count;
+}
+
+// Lets `kernel` ask for kTcMaxSmem of dynamic shared memory, once per
+// kernel; setting it twice from two threads is harmless.
+cudaError_t allow_max_smem(TcKernel kernel) {
+  static std::atomic<TcKernel> done[8] = {};
+  for (auto& slot : done) {
+    const TcKernel seen = slot.load(std::memory_order_relaxed);
+    if (seen == kernel) return cudaSuccess;
+    if (seen == nullptr) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
+      if (err == cudaSuccess) slot.store(kernel, std::memory_order_relaxed);
+      return err;
+    }
+  }
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
+}
+
+int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
+                  int W, int Cin, int Cout, int tw, cudaStream_t stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (!aligned || Cin % 16 || Cout % 16 || Cout > 256 ||
+      (tw != 8 && tw != 16 && tw != 32)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const TcPlan p = tc_plan(Cin, Cout, tw);
+  if (p.smem_bytes > kTcMaxSmem) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kTcMapError;
+
+  CUtensorMap x_map, w_map, out_map;
+  CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, p.cw,
+                             p.halo_w, p.halo_h);
+  if (res == CUDA_SUCCESS) {
+    res = encode_nhwc(encode, &out_map, out, B, H, W, Cout, p.nt, 8, 8);
+  }
+  if (res == CUDA_SUCCESS) {  // (9*Cin, Cout) as a 2-D map, box (nt, 144)
+    const cuuint64_t dims[2] = {(cuuint64_t)Cout, (cuuint64_t)9 * Cin};
+    const cuuint64_t strides[1] = {(cuuint64_t)Cout * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)p.nt, kTcWeightBoxRows};
+    const cuuint32_t ones[2] = {1, 1};
+    res = encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                 const_cast<void*>(w), dims, strides, box, ones,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(p.nt * 2),
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (res != CUDA_SUCCESS) return kTcMapError + (int)res;
+
+  const int tiles = B * ((H + kTcTileRows - 1) / kTcTileRows) *
+                    ((W + p.tw - 1) / p.tw);
+  const int sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;
+  const TcKernel kernel = p.nt == 64 ? tc_kernel<64>(Cin) : tc_kernel<16>(Cin);
+  const cudaError_t attr = allow_max_smem(kernel);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<grid, kTcThreads, p.smem_bytes, stream>>>(
+      x_map, w_map, out_map, B, H, W, Cin, Cout, p);
+  return 0;
+}
+
 unsigned int ceil_div(long long a, long long b) {
   return (unsigned int)((a + b - 1) / b);
 }
 
-template <typename T>
-void launch_fwd(const void* x, const void* w, void* out, int B, int H, int W,
-                int Cin, int Cout, cudaStream_t stream) {
-  const long long M = (long long)B * H * W;
-  const dim3 grid(ceil_div(M, kTile), ceil_div(Cout, kTile));
-  conv3x3_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      B, H, W, Cin, Cout);
-}
-
-template <typename T>
-void launch_wgrad(const void* x, const void* g, float* scratch, float* dw,
-                  int B, int H, int W, int Cin, int Cout, int splits,
-                  long long rows_per_split, cudaStream_t stream) {
-  const int K = 9 * Cin;
-  const dim3 grid(ceil_div(K, kTile), ceil_div(Cout, kTile), splits);
-  conv3x3_wgrad_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), scratch, B, H, W,
-      Cin, Cout, rows_per_split);
-  const long long size = (long long)K * Cout;
-  splitk_sum_kernel<<<ceil_div(size, 256), 256, 0, stream>>>(scratch, dw,
-                                                              splits, size);
-}
-
 }  // namespace
 
-// x (B,H,W,Cin), w (9*Cin, Cout), out (B,H,W,Cout); all of one dtype.
+// K1, SIMT: x (B,H,W,Cin), w (9*Cin, Cout), out (B,H,W,Cout); one dtype.
 extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
                                 int B, int H, int W, int Cin, int Cout,
                                 int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == odek::kF32) {
-    launch_fwd<float>(x, w, out, B, H, W, Cin, Cout, s);
-  } else if (dtype == odek::kBF16) {
-    launch_fwd<__nv_bfloat16>(x, w, out, B, H, W, Cin, Cout, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const long long M = (long long)B * H * W;
+  const dim3 grid(ceil_div(M, kTile), ceil_div(Cout, kTile));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    conv3x3_fwd_kernel<T><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<T*>(out), B, H, W, Cin, Cout);
+  });
 }
 
-// x (B,H,W,Cin), g (B,H,W,Cout) of one dtype; scratch (splits, 9*Cin, Cout)
-// and dw (9*Cin, Cout) fp32. Rows [s*rows_per_split, (s+1)*rows_per_split)
-// of the B*H*W rows go to split s.
+// K1, tensor cores: as odek_conv3x3_fwd for bf16 with Cin % 16 == 0,
+// Cout % 16 == 0, Cout <= 256, 16-byte aligned pointers and output tiles
+// 8 rows high and tile_w (8, 16 or 32) wide. Returns
+// cudaErrorInvalidValue for arguments outside that, 10000 + the CUresult
+// if a tensor map is refused, else cudaGetLastError().
+extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* w, void* out,
+                                   int B, int H, int W, int Cin, int Cout,
+                                   int tile_w, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
+      return launch_fwd_tc(x, w, out, B, H, W, Cin, Cout, tile_w, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  });
+}
+
+// K2: x (B,H,W,Cin), g (B,H,W,Cout) of one dtype; scratch (splits, 9*Cin,
+// Cout) and dw (9*Cin, Cout) fp32. Rows [s*rows_per_split,
+// (s+1)*rows_per_split) of the B*H*W rows go to split s.
 extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
                                   void* dw, int B, int H, int W, int Cin,
                                   int Cout, int splits,
                                   long long rows_per_split, int dtype,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K = 9 * Cin;
+  const dim3 grid(ceil_div(K, kTile), ceil_div(Cout, kTile), splits);
+  const long long size = (long long)K * Cout;
   float* scr = static_cast<float*>(scratch);
-  float* out = static_cast<float*>(dw);
-  if (dtype == odek::kF32) {
-    launch_wgrad<float>(x, g, scr, out, B, H, W, Cin, Cout, splits,
-                        rows_per_split, s);
-  } else if (dtype == odek::kBF16) {
-    launch_wgrad<__nv_bfloat16>(x, g, scr, out, B, H, W, Cin, Cout, splits,
-                                rows_per_split, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    conv3x3_wgrad_partial_kernel<T><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), scr, B, H, W,
+        Cin, Cout, rows_per_split);
+    splitk_sum_kernel<<<ceil_div(size, 256), 256, 0, st>>>(
+        scr, static_cast<float*>(dw), splits, size);
+  });
 }

@@ -26,6 +26,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # x, w, out, B, H, W, Cin, Cout, dtype, stream
     "odek_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, out, B, H, W, Cin, Cout, tile_w, dtype, stream
+    "odek_conv3x3_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, g, scratch, dw, B, H, W, Cin, Cout, splits, rows_per_split, dtype,
     # stream
     "odek_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I,

@@ -15,6 +15,7 @@ comparison phase use it to run the plain versions on the card.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Iterator
 
 import torch
@@ -24,9 +25,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel wrapper. A wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that the main path went
-# through every kernel.
-launches = {"conv3x3_fwd": 0, "conv3x3_wgrad": 0, "gru_gates": 0,
-            "gru_blend": 0, "correlation_fwd": 0, "correlation_bwd_f1": 0,
+# through every kernel. "conv3x3_fwd" counts every K1 launch,
+# "conv3x3_fwd_tc" those of its tensor-core kernel.
+launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_wgrad": 0,
+            "gru_gates": 0, "gru_blend": 0, "correlation_fwd": 0, "correlation_bwd_f1": 0,
             "correlation_bwd_f2": 0, "channelnorm": 0}
 
 # Process-wide on purpose: autograd runs CUDA backward passes on its own
@@ -61,11 +63,17 @@ def use_kernel(x: torch.Tensor) -> bool:
     return not _plain_forced
 
 
+@functools.cache
+def _capability(device: torch.device) -> tuple[int, int]:
+    # Cached: the query costs microseconds of host time on every launch.
+    return torch.cuda.get_device_capability(device)
+
+
 def check_inputs(name: str, tensors: dict, dtype: torch.dtype) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
     on one sm_90 device."""
     device = next(iter(tensors.values())).device
-    major, minor = torch.cuda.get_device_capability(device)
+    major, minor = _capability(device)
     if (major, minor) != (9, 0):
         raise RuntimeError(
             f"{name}: the kernels are built for sm_90a (H100); "
@@ -92,6 +100,25 @@ def launch(name: str, fn: Callable[..., int], *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     launches[name] += 1
+
+
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """How far a bf16 result lies from an fp64 reference rounded to bf16:
+    (largest distance in bf16 ulps, share of outputs that differ).
+
+    The ulp is that of the rounded reference, taken at no less than
+    rms(ref) / 256 in magnitude. Where a sum of
+    hundreds of products cancels to below that magnitude, a bf16 ulp is
+    finer than the fp32 rounding error of the sum itself, so a correct
+    kernel can lie many such ulps off; elsewhere one ulp is the bound."""
+    ref = ref.double()
+    rounded = ref.to(torch.bfloat16).double()
+    floor = ref.pow(2).mean().sqrt() / 256
+    mag = torch.maximum(rounded.abs(), floor).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = out.double() - rounded
+    return ((diff.abs() / ulp).max().item(),
+            (diff != 0).double().mean().item())
 
 
 def stream_handle(x: torch.Tensor) -> int:

@@ -5,7 +5,10 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
 
 * K1 ``conv3x3_fwd`` (``csrc/conv3x3.cu``): the implicit-im2col GEMM,
   fp32 accumulation, output in the input dtype. Its plain version is
-  ``F.conv2d``.
+  ``F.conv2d``. On the card it takes one of two kernels by
+  ``uses_tensor_cores``: the tensor-core kernel (bf16; TMA halo tiles,
+  weights resident in shared memory, wgmma) or the SIMT kernel (fp32 FMA;
+  everything else, fp32 included, so fp32 stays strict fp32).
 * K2 ``conv3x3_wgrad``: dW (9*Cin, Cout) = patches^T . g in fp32, split-K
   with a fixed-order reduction. Its plain version builds the 9 shifted
   patches, as the Pallas kernel does, and multiplies.
@@ -45,20 +48,113 @@ def conv3x3_fwd_plain(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def conv3x3_fwd(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
-    """K1: (B, H, W, Cin) . (9*Cin, Cout) -> (B, H, W, Cout), x's dtype."""
+# The tensor-core K1: output tiles 8 rows high of one image, and the
+# shared memory a block may have on the H100 less 64 bytes for the kernel's
+# static barriers. Mirrors csrc/conv3x3.cu::tc_plan.
+_TC_TILE_ROWS = 8
+_TC_SMEM_LIMIT = 232_448 - 64
+
+
+def _round_1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _tc_tile_width(w: int) -> int:
+    """Width of an output tile: the image's width rounded up to 8, 16 or
+    32 (a 16-wide map is tiled 8 x 16)."""
+    return 8 if w <= 8 else 16 if w <= 16 else 32
+
+
+def _tc_smem_bytes(cin: int, cout: int, w: int) -> int:
+    """Shared memory of one tensor-core K1 block: the weights in column
+    blocks of 64 (or 16) channels, two halo stages in channel chunks of 64,
+    32 or 16, two 8 x 8 output staging buffers, each region 1 KB aligned,
+    and 1 KB to align the base."""
+    tw = _tc_tile_width(w)
+    nt = 64 if cout % 64 == 0 else 16
+    cw = 64 if cin % 64 == 0 else 32 if cin % 32 == 0 else 16
+    weights = (cout // nt) * _round_1k(9 * cin * nt * 2)
+    stage = (cin // cw) * _round_1k((_TC_TILE_ROWS + 2) * (tw + 2) * cw * 2)
+    staging = _round_1k(64 * nt * 2)
+    return weights + 2 * stage + 2 * staging + 1024
+
+
+def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
+                      w: int) -> bool:
+    """The rule that sends a K1 call on the card to the tensor-core kernel:
+    bf16, Cin % 16 == 0 (a k16 step, and TMA's 16-byte strides), Cout % 16
+    == 0 and Cout <= 256 (wgmma's N), and the resident weights, two halo
+    stages and the output staging within a block's shared memory (so the
+    rule depends on W through the tile width). Every other call takes the
+    SIMT kernel. fp32 stays on SIMT: the tensor cores would round it to
+    TF32."""
+    return (dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0
+            and cout <= 256
+            and _tc_smem_bytes(cin, cout, w) <= _TC_SMEM_LIMIT)
+
+
+def _check_k1(x: torch.Tensor, w2d: torch.Tensor) -> tuple:
     b, h, w, cin = _shape_nhwc("conv3x3_fwd", x)
     if w2d.ndim != 2 or w2d.shape[0] != 9 * cin:
         raise ValueError(f"conv3x3_fwd: weights {tuple(w2d.shape)} do not "
                          f"match (9*{cin}, Cout)")
+    return b, h, w, cin, w2d.shape[1]
+
+
+def conv3x3_fwd(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """K1: (B, H, W, Cin) . (9*Cin, Cout) -> (B, H, W, Cout), x's dtype."""
+    _, _, w, cin, cout = _check_k1(x, w2d)
     if not common.use_kernel(x):
         return conv3x3_fwd_plain(x, w2d)
     common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
+    if uses_tensor_cores(x.dtype, cin, cout, w):
+        return _launch_tc(x, w2d)
+    return _launch_simt(x, w2d)
+
+
+def _conv3x3_fwd_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """K1's SIMT kernel on CUDA tensors, whatever the rule says (the card
+    tests and chip_smoke.py hold the two K1 kernels against each other)."""
+    _check_k1(x, w2d)
+    common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
+    return _launch_simt(x, w2d)
+
+
+def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """K1's tensor-core kernel on CUDA tensors; raises outside its rule."""
+    _, _, w, cin, cout = _check_k1(x, w2d)
+    common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
+    if not uses_tensor_cores(x.dtype, cin, cout, w):
+        raise ValueError(f"conv3x3_fwd: {x.dtype}, Cin {cin}, Cout {cout}, "
+                         f"W {w} is outside the tensor-core kernel's rule")
+    return _launch_tc(x, w2d)
+
+
+def _launch_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    b, h, w, cin = x.shape
     cout = w2d.shape[1]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     common.launch("conv3x3_fwd", library().odek_conv3x3_fwd,
                   x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
                   cout, common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    return out
+
+
+def _launch_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """Raises on a pointer that is not 16-byte aligned (TMA's rule): a
+    view into a larger tensor, for example, rather than rerouting it."""
+    for arg, t in (("x", x), ("w", w2d)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"conv3x3_fwd: {arg} is not 16-byte aligned "
+                             f"(TMA needs it); pass a fresh tensor")
+    b, h, w, cin = x.shape
+    cout = w2d.shape[1]
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    common.launch("conv3x3_fwd_tc", library().odek_conv3x3_fwd_tc,
+                  x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
+                  cout, _tc_tile_width(w), common.DTYPE_CODES[x.dtype],
+                  common.stream_handle(x))
+    common.launches["conv3x3_fwd"] += 1
     return out
 
 

@@ -1,15 +1,18 @@
-"""Where a fused FlowNet training step spends its time on one card.
+"""Where a fused training step spends its time on one card.
 
-    python -m ode_rl_torch.flow.profile_step --net C   # FlowNetCBenchConfig
-    python -m ode_rl_torch.flow.profile_step --net 2   # FlowNet2Config
+    python -m ode_rl_torch.profile_step --net flagship  # FlagshipConfig
+    python -m ode_rl_torch.profile_step --net C   # FlowNetCBenchConfig
+    python -m ode_rl_torch.profile_step --net 2   # FlowNet2Config
 
 From the configuration's seed: 3 warm-up steps, 10 unprofiled steps timed
 on the host clock (each closed by ``torch.cuda.synchronize()``), then
 ``torch.profiler`` over 3 more. Prints nvidia-smi's name and power limit,
-the unprofiled step times and their median, the peak memory, the device
-kernel time per step, over the profiled steps' own wall time (a floor of
-the busy share: the profiler slows the host) and over the unprofiled
-median, device time by group and the largest kernels. TF32 is off for
+the unprofiled step times and their median (with the mean NFE of those
+steps for the flagship), the peak memory, the device kernel time per step,
+over the profiled steps' own wall time (a floor of the busy share: the
+profiler slows the host) and over the unprofiled median, device time by
+group, the device time a launch of each K1 kernel, and the largest
+kernels. TF32 is off for
 matmul and cuDNN, as in ``chip_smoke.py``, so an fp32 configuration runs
 its convs in strict fp32.
 """
@@ -18,22 +21,29 @@ from __future__ import annotations
 
 import argparse
 import collections
+import re
 import statistics
 import subprocess
 import time
 
 import torch
 
-from ode_rl_torch.config import FlowNet2Config, FlowNetCBenchConfig
+from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
+                                 FlowNetCBenchConfig)
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
 from ode_rl_torch.flow.train import make_fused_flow_train_step
 from ode_rl_torch.ops import common
+from ode_rl_torch.train.step import create_train_state, make_fused_train_step
 
 WARMUP, TIMED, PROFILED = 3, 10, 3
 
 # Device kernels by substring of their names, first match wins.
 _GROUPS = (
+    ("K1 conv3x3_fwd, tensor cores", ("conv3x3_fwd_tc",)),
+    ("K1 conv3x3_fwd, SIMT", ("conv3x3_fwd_kernel",)),
+    ("K2 conv3x3_wgrad", ("conv3x3_wgrad", "splitk_sum")),
+    ("K3/K4 GRU gates and blend", ("gru_gates", "gru_blend")),
     ("K5-K7 correlation", ("corr_",)),
     ("K8 channelnorm", ("channelnorm",)),
     ("cuDNN conv (fprop, dgrad, wgrad)",
@@ -53,7 +63,17 @@ def _group(kernel: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def _model(net: str):
+def _step(net: str):
+    """(configuration, a function running one step and returning its
+    metrics) from the configuration's seed."""
+    if net == "flagship":
+        cfg = FlagshipConfig()
+        bank = torch.from_numpy(get_sprite_bank(cfg.data_dir)).float().cuda()
+        state = create_train_state(cfg, torch.device("cuda"))
+        step = make_fused_train_step(cfg, bank)
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+        return cfg, lambda: step(state, gen)
+    bank = torch.from_numpy(get_sprite_bank()).float().cuda()
     if net == "C":
         cfg = FlowNetCBenchConfig()
         model = FlowNetC(cfg.max_displacement, cfg.corr_stride,
@@ -63,7 +83,12 @@ def _model(net: str):
         cfg = FlowNet2Config()
         model = FlowNet2(cfg.rgb_max, dtype=getattr(torch, cfg.dtype),
                          generator=torch.Generator().manual_seed(cfg.seed))
-    return cfg, model.cuda()
+    init_fn, step_fn = make_fused_flow_train_step(
+        model.cuda(), bank, batch=cfg.batch, lr=cfg.lr,
+        loss_norm=cfg.loss_norm, single_scale=cfg.single_scale)
+    state = init_fn()
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    return cfg, lambda: step_fn(state, gen)
 
 
 def profile_step(net: str) -> None:
@@ -72,25 +97,23 @@ def profile_step(net: str) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    cfg, model = _model(net)
-    print(f"{type(model).__name__}: {cfg}")
-    bank = torch.from_numpy(get_sprite_bank()).float().cuda()
-    init_fn, step_fn = make_fused_flow_train_step(
-        model, bank, batch=cfg.batch, lr=cfg.lr, loss_norm=cfg.loss_norm,
-        single_scale=cfg.single_scale)
-    state = init_fn()
-    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    cfg, step = _step(net)
+    print(cfg)
     for _ in range(WARMUP):
-        step_fn(state, gen)
+        step()
     torch.cuda.synchronize()
-    times = []
+    times, nfes = [], []
     for _ in range(TIMED):
         t0 = time.perf_counter()
-        step_fn(state, gen)
+        metrics = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if "nfe" in metrics:
+            nfes.append(int(metrics["nfe"]))
     median = statistics.median(times)
     print(f"unprofiled step_ms over {TIMED} steps: {times}; median {median}")
+    if nfes:
+        print(f"nfe over those steps: {nfes}; mean {statistics.mean(nfes)}")
 
     torch.cuda.reset_peak_memory_stats()
     common.reset_launches()
@@ -99,7 +122,7 @@ def profile_step(net: str) -> None:
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
-            step_fn(state, gen)
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     print(f"peak memory GiB {torch.cuda.max_memory_allocated() / 2**30}")
@@ -117,6 +140,11 @@ def profile_step(net: str) -> None:
         groups[_group(e.key)] += e.self_device_time_total / 1e3
     for group, ms in groups.most_common():
         print(f"  {group:<34} {ms:10.3f} ms {100 * ms / total:5.1f}%")
+    for e in events:
+        k1 = re.search(r"conv3x3_fwd\w*<[^>]*>", e.key)
+        if k1:
+            print(f"  K1 {k1.group(0)}: {e.count} launches, "
+                  f"{e.self_device_time_total / e.count} us a launch")
     print(f"largest kernels over the {PROFILED} profiled steps:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
@@ -126,7 +154,8 @@ def profile_step(net: str) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--net", choices=["C", "2"], default="C")
+    parser.add_argument("--net", choices=["flagship", "C", "2"],
+                        default="flagship")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")

@@ -11,8 +11,11 @@ imports JAX, which the machine with the card lacks, so run them there as
         tests/test_torch_port_cuda.py
 
 Tolerances as in chip_smoke.py: fp32 max abs 1e-4 (K1) and 1e-5 (K3/K4),
-K2 relative L2 1e-5 against fp64; bf16 relative L2 1e-2 (K1/K2) and max
-abs 1/128 (K3/K4, |h| < 1). K5-K8 in fp32 to 1e-5 max abs against fp64
+K2 relative L2 1e-5 against fp64; bf16 K1 (both kernels: tensor cores and
+SIMT) within one bf16 ulp of the fp64 conv of the same inputs rounded to
+bf16, with at most 2e-3 of the outputs one ulp off (``common.bf16_ulps``;
+readings in chip_smoke.py); bf16 K2 relative L2 1e-2 and K3/K4 max abs
+1/128 (|h| < 1). K5-K8 in fp32 to 1e-5 max abs against fp64
 plain versions (sums of at most a few thousand products of unit normals).
 In bf16 against the plain version on the same bf16 inputs: a product of
 two bf16 values is exact in fp32, K6, K7 and K8 add those products in the
@@ -27,8 +30,10 @@ import torch
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
                                           channelnorm_plain)
-from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd,
-                                      conv3x3_fwd_plain, conv3x3_wgrad)
+from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
+                                      _conv3x3_fwd_tc, conv3x3_fwd,
+                                      conv3x3_fwd_plain, conv3x3_wgrad,
+                                      flip_transpose)
 from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
                                           correlation_bwd_f1_plain,
                                           correlation_bwd_f2,
@@ -43,6 +48,14 @@ pytestmark = pytest.mark.cuda
 CONV_SHAPES = [(3, 5, 7, 16, 24), (2, 3, 3, 8, 72), (5, 9, 11, 3, 5),
                (1, 16, 16, 64, 64)]
 DTYPES = [torch.float32, torch.bfloat16]
+# Shapes the tensor-core K1 takes, forward and as dx: the flagship, B=1,
+# ragged H and W, halo chunks of 16, 32 and 64 channels (two of 64 as dx
+# of the last), column blocks of 16 and 64 channels (two of 64 forward of
+# the last), tiles 8, 16 and 32 wide, and the unrolled (Cin 16, 32, 64)
+# and runtime (Cin 48, 128) loops.
+TC_SHAPES = [(128, 16, 16, 64, 64), (1, 16, 16, 64, 64), (3, 5, 7, 16, 32),
+             (2, 9, 11, 32, 48), (2, 20, 33, 32, 64), (2, 12, 7, 64, 128)]
+K1_BF16_ULPS, K1_BF16_SHARE = 1.0, 2e-3
 
 
 @pytest.fixture
@@ -87,9 +100,64 @@ def test_conv3x3_fwd_and_wgrad_match_plain(cuda, shape, dtype):
         assert _max_abs(out, ref) <= 1e-4
         assert _rel_l2(dw, dw_ref) <= 1e-5
     else:
+        ulps, share = common.bf16_ulps(
+            out, conv3x3_fwd_plain(x.double(), w2d.double()))
+        assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
         with common.force_plain():
-            assert _rel_l2(out, conv3x3_fwd(x, w2d)) <= 1e-2
             assert _rel_l2(dw, conv3x3_wgrad(x, g)) <= 1e-2
+
+
+def _tc_case(gen, shape, dx):
+    """bf16 inputs of K1 at `shape`, forward or as dx (the cotangent with
+    flip_transpose'd weights)."""
+    b, h, w, cin, cout = shape
+    w2d = _rnd(gen, 9 * cin, cout, dtype=torch.bfloat16,
+               scale=(9 * cin) ** -0.5)
+    if dx:
+        return (_rnd(gen, b, h, w, cout, dtype=torch.bfloat16),
+                flip_transpose(w2d, cin, cout))
+    return _rnd(gen, b, h, w, cin, dtype=torch.bfloat16), w2d
+
+
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_k1_matches_simt_and_plain(cuda, shape, dx):
+    """The tensor-core K1, the SIMT K1 and the plain version, each within
+    one bf16 ulp of the fp64 conv; the dispatcher picks the tensor cores."""
+    x, w2d = _tc_case(cuda, shape, dx)
+    ref = conv3x3_fwd_plain(x.double(), w2d.double())
+    common.reset_launches()
+    out = conv3x3_fwd(x, w2d)
+    assert common.launches["conv3x3_fwd_tc"] == 1
+    assert torch.equal(out, _conv3x3_fwd_tc(x, w2d))
+    for got in (out, _conv3x3_fwd_simt(x, w2d), conv3x3_fwd_plain(x, w2d)):
+        ulps, share = common.bf16_ulps(got, ref)
+        assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
+
+
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+def test_tensor_core_k1_is_bit_reproducible(cuda, dx):
+    x, w2d = _tc_case(cuda, TC_SHAPES[0], dx)
+    first = _conv3x3_fwd_tc(x, w2d)
+    for _ in range(20):
+        assert torch.equal(first, _conv3x3_fwd_tc(x, w2d))
+
+
+@pytest.mark.parametrize("arg", ["x", "w"])
+def test_tensor_core_k1_raises_on_a_misaligned_pointer(cuda, arg):
+    """A contiguous view one element into its storage: TMA needs 16-byte
+    aligned addresses, and the wrapper raises rather than reroutes."""
+    x, w2d = _tc_case(cuda, (1, 16, 16, 64, 64), False)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    args = {"x": (shifted(x), w2d), "w": (x, shifted(w2d))}[arg]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv3x3_fwd(*args)
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES[:2])
@@ -237,13 +305,17 @@ def test_each_wrapper_counts_its_launches(cuda):
     correlation_bwd_f1(g, x, 1, 1)
     correlation_bwd_f2(g, x, 1, 1)
     channelnorm_fwd(x)
-    assert common.launches == {"conv3x3_fwd": 1, "conv3x3_wgrad": 1,
+    assert common.launches == {"conv3x3_fwd": 1, "conv3x3_fwd_tc": 0,
+                               "conv3x3_wgrad": 1,
                                "gru_gates": 1, "gru_blend": 1,
                                "correlation_fwd": 1, "correlation_bwd_f1": 1,
                                "correlation_bwd_f2": 1, "channelnorm": 1}
     with common.force_plain():
         conv3x3_fwd(x, _rnd(cuda, 72, 8))
     assert common.launches["conv3x3_fwd"] == 1
+    conv3x3_fwd(*_tc_case(cuda, (1, 4, 4, 16, 16), False))
+    assert common.launches["conv3x3_fwd"] == 2
+    assert common.launches["conv3x3_fwd_tc"] == 1
 
 
 def test_force_plain_reaches_the_backward_thread(cuda):
