@@ -18,7 +18,11 @@ without printing its last line:
    inputs rounded to bf16: every output within one bf16 ulp, and the share
    one ulp off within its limit; the tensor-core K1 bit-equal over 20 calls;
    the two K1 kernels and cuDNN timed in one run (CUDA events and device
-   time under torch.profiler). Then K5-K7 (correlation forward and its two gradients)
+   time under torch.profiler). Likewise K2 in bf16: both K2 kernels and
+   cuDNN's weight gradient against the fp64 patches^T . g of the same
+   inputs (relative L2), the tensor-core K2 bit-equal over 20 calls, the
+   three timed in one run. The host time a call of the K1 and K2 wrappers,
+   tensor-core and SIMT, at B=1. Then K5-K7 (correlation forward and its two gradients)
    at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
    and the FlyingChairs feature shape (8, 48, 64, 256), and K8
    (channelnorm) at FlowNet2's (8, 64, 64, 3) and (8, 64, 64, 2), in fp32
@@ -29,8 +33,9 @@ without printing its last line:
 4. slice: ten fused training steps of the flagship configuration (bf16,
    B=128, 10 -> 10 frames, dopri5 'fast') from the port's own init, seed 0;
    every loss and grad_norm finite, every kernel's launch count above
-   zero over these steps, and every K1 launch a tensor-core one;
-5. reference: one fp32 step at B=8 through the kernels against the same
+   zero over these steps, and every K1 and K2 launch a tensor-core one;
+5. reference: one fp32 step at B=8 through the kernels (K1 and K2 on
+   their SIMT kernels, as fp32 is) against the same
    step on the plain versions (same weights, same batch): equal NFE and
    accepted/rejected counts, loss to 1e-5 relative, every gradient leaf to
    1e-3 relative L2;
@@ -45,8 +50,12 @@ without printing its last line:
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
 7 and 8) run their convs in strict fp32. Then one JSON line with each
-kernel's launches, error and times, and as the last line {"ok": true,
-"device": {...}}. Imports nothing of JAX.
+kernel's launches, error, times, bound (the larger of its operations over
+the peak rate of their type and its bytes over the memory rate, at the
+shape timed) and the time of the one PyTorch call that computes the same
+function where there is one (cuDNN's conv for K1, cuDNN's weight gradient
+for K2, torch.linalg.vector_norm for K8; the port never calls them), and
+as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
                                  FlowNetCBenchConfig)
@@ -73,13 +83,15 @@ from ode_rl_torch.ops import _build, common
 from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
                                           channelnorm_plain)
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
-                                      _conv3x3_fwd_tc, conv3x3_fwd,
+                                      _conv3x3_fwd_tc, _conv3x3_wgrad_simt,
+                                      _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
-                                      flip_transpose)
+                                      conv3x3_wgrad_plain, flip_transpose)
 from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
                                           correlation_bwd_f2,
                                           correlation_fwd,
-                                          correlation_fwd_plain)
+                                          correlation_fwd_plain,
+                                          n_displacements)
 from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         fused_gru_blend, fused_gru_gates)
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
@@ -130,6 +142,7 @@ def check(label: str, err: float, tol: float, kind: str) -> float:
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median CUDA-event time of one call, in ms."""
     for _ in range(warmup):
         fn()
     times = []
@@ -142,6 +155,66 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(fns: dict, reps: int = 20) -> dict:
+    """Device time of one call of each fn, in µs: every device kernel and
+    copy in a torch.profiler window of `reps` calls, over `reps`."""
+    out = {}
+    for label, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        out[label] = total / reps
+    return out
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one call, in µs: `reps` calls enqueued back to back and
+    timed on the host's clock, the synchronize outside it. 200 calls of at
+    most two launches each stay well inside the launch queue, so no call
+    waits for the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+# The library yardsticks: one PyTorch call that computes a kernel's
+# function, timed here and never called by the port.
+def oihw(w2d: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    return w2d.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def conv_library(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
+    """K1's function as one cuDNN call on NHWC memory (NCHW views)."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1)
+
+
+def wgrad_library(x: torch.Tensor, g: torch.Tensor,
+                  w_oihw: torch.Tensor) -> torch.Tensor:
+    """K2's function as one cuDNN weight-gradient call, (Cout, Cin, 3, 3)
+    in the inputs' dtype (bf16 in, bf16 out: its own rounding)."""
+    return torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, None, [1, 1],
+        [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+
+def wgrad_library_2d(dw_oihw: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (9*Cin, Cout), K2's layout."""
+    cout, cin = dw_oihw.shape[:2]
+    return dw_oihw.permute(2, 3, 1, 0).reshape(9 * cin, cout)
 
 
 def phase_device() -> str:
@@ -203,10 +276,12 @@ def _ops(t):
 
 
 # (fp32 tolerance, bf16 tolerance, metric): see README's port section. K1
-# in bf16 is held to fp64 instead (_check_k1_bf16).
+# in bf16 is held to fp64 instead (_check_k1_bf16). bf16 K2 against its
+# plain version (both sum exact bf16 products in fp32, in other orders):
+# readings 6.8e-7 (tensor cores, flagship shape) to 2.6e-7 (SIMT).
 _TOL = {
     "conv3x3_fwd": (1e-4, None), "conv3x3_fwd as dx": (1e-4, None),
-    "conv3x3_wgrad": (1e-5, 1e-2), "gru_gates": (1e-5, 1 / 128),
+    "conv3x3_wgrad": (1e-5, 5e-6), "gru_gates": (1e-5, 1 / 128),
     "gru_blend": (1e-5, 1 / 128),
 }
 # bf16 K1 against the fp64 conv rounded to bf16 (common.bf16_ulps): every
@@ -216,6 +291,13 @@ _TOL = {
 # 96 channels. A kernel that truncated instead of rounding would read
 # about 0.5.
 K1_BF16_ULPS, K1_BF16_SHARE = 1.0, 2e-3
+# bf16 K2 against the fp64 patches^T . g of the same bf16 inputs, relative
+# L2. A bf16 product is exact in fp32, so the two K2 kernels differ from
+# fp64 by fp32 rounding of 32,768-deep sums: readings (H100 80GB HBM3, 700 W)
+# 5e-8 to 6.8e-7 at the flagship and card-test shapes (tensor cores),
+# 5.9e-8 to 2.6e-7 (SIMT). cuDNN's weight gradient returns bf16, whose
+# rounding alone reads 1.65e-3 to 1.67e-3.
+K2_BF16_REL_L2, K2_CUDNN_REL_L2 = 5e-6, 3e-3
 
 
 def _metric(name: str, dtype) -> str:
@@ -226,29 +308,21 @@ def _metric(name: str, dtype) -> str:
     return "max_abs"
 
 
-def device_us(fns: dict, reps: int = 20) -> dict:
-    """Device time a launch, in µs, of the one kernel each fn launches
-    (torch.profiler, the heaviest device kernel of each fn's window)."""
-    out = {}
-    for label, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and e.count >= reps]
-        top = max(events, key=lambda e: e.self_device_time_total)
-        out[label] = top.self_device_time_total / top.count
-    return out
+def _time_turns(fns: dict) -> dict:
+    """CUDA-event median ms of each fn, the least of two runs in the turns
+    a, b, ..., ..., b, a; then device µs a call of each."""
+    runs = {}
+    for label in [*fns, *reversed(fns)]:
+        runs.setdefault(label, []).append(median_ms(fns[label]))
+    us = device_us(fns)
+    return {label: (min(runs[label]), us[label]) for label in fns}
 
 
 def _check_k1_bf16(t) -> dict:
     """Both K1 kernels and the plain version in bf16, forward and as dx,
     against the fp64 conv of the same bf16 inputs; the tensor-core kernel
-    bit-equal over 20 calls; times of all three from this run."""
+    bit-equal over 20 calls; times of the two kernels, the plain version
+    and cuDNN's conv from this run."""
     w_t = flip_transpose(t["w2d"], C, C)
     cases = {"forward": (t["x"], t["w2d"]), "as dx": (t["g"], w_t)}
     variants = {"tensor cores": _conv3x3_fwd_tc, "SIMT": _conv3x3_fwd_simt,
@@ -271,23 +345,88 @@ def _check_k1_bf16(t) -> dict:
     x, w = cases["forward"]
     with common.force_plain():
         plain = conv3x3_fwd(x, w)
+    w_oihw = oihw(w, C, C)
+    times = _time_turns({"tc": lambda: _conv3x3_fwd_tc(x, w),
+                         "simt": lambda: _conv3x3_fwd_simt(x, w),
+                         "plain": lambda: conv3x3_fwd_plain(x, w),
+                         "library": lambda: conv_library(x, w_oihw)})
     result = {"max_abs_err": max_abs(worst["forward"], plain)}
-    fns = {"tc": lambda: _conv3x3_fwd_tc(x, w),
-           "simt": lambda: _conv3x3_fwd_simt(x, w),
-           "plain": lambda: conv3x3_fwd_plain(x, w)}
-    for turn in ("tc", "simt", "plain", "plain", "simt", "tc"):
-        result.setdefault(f"{turn}_ms_runs", []).append(median_ms(fns[turn]))
-    result["ms"] = min(result.pop("tc_ms_runs"))
-    result["simt_ms"] = min(result.pop("simt_ms_runs"))
-    result["plain_ms"] = min(result.pop("plain_ms_runs"))
-    us = device_us(fns)
-    result.update({"tc_device_us": us["tc"], "simt_device_us": us["simt"],
-                   "plain_device_us": us["plain"]})
+    for label, (ms, us) in times.items():
+        result["ms" if label == "tc" else f"{label}_ms"] = ms
+        result[f"{label}_device_us"] = us
     print("  K1 bf16 forward at (128, 16, 16, 64) -> 64, one run: CUDA-event "
           f"median ms tc {result['ms']:.4f} simt {result['simt_ms']:.4f} "
-          f"cuDNN {result['plain_ms']:.4f}; device us a launch tc "
-          f"{us['tc']:.2f} simt {us['simt']:.2f} cuDNN {us['plain']:.2f}")
+          f"plain {result['plain_ms']:.4f} cuDNN {result['library_ms']:.4f}; "
+          "device us a call tc "
+          f"{result['tc_device_us']:.2f} simt {result['simt_device_us']:.2f} "
+          f"cuDNN {result['library_device_us']:.2f}")
     return result
+
+
+def _check_k2_bf16(t) -> dict:
+    """Both K2 kernels and cuDNN's weight gradient in bf16 against the fp64
+    patches^T . g of the same bf16 inputs; the tensor-core kernel bit-equal
+    over 20 calls; times of the two kernels, the plain version and cuDNN
+    from this run."""
+    x, g = t["x"], t["g"]
+    w_oihw = oihw(t["w2d"], C, C)
+    ref = conv3x3_wgrad_plain(x.double(), g.double())
+    tc = _conv3x3_wgrad_tc(x, g)
+    for label, out, tol in (
+            ("tensor cores", tc, K2_BF16_REL_L2),
+            ("SIMT", _conv3x3_wgrad_simt(x, g), K2_BF16_REL_L2),
+            ("cuDNN (bf16 out)",
+             wgrad_library_2d(wgrad_library(x, g, w_oihw)), K2_CUDNN_REL_L2)):
+        check(f"K2 bf16 vs fp64, {label}", rel_l2(out, ref), tol, "rel_l2")
+    if not all(torch.equal(tc, _conv3x3_wgrad_tc(x, g)) for _ in range(20)):
+        raise AssertionError("tensor-core K2: 20 calls are not bit-equal")
+    with common.force_plain():
+        plain = conv3x3_wgrad(x, g)
+    times = _time_turns({"tc": lambda: _conv3x3_wgrad_tc(x, g),
+                         "simt": lambda: _conv3x3_wgrad_simt(x, g),
+                         "plain": lambda: conv3x3_wgrad_plain(x, g),
+                         "library": lambda: wgrad_library(x, g, w_oihw)})
+    result = {"max_abs_err": max_abs(tc, plain)}
+    for label, (ms, us) in times.items():
+        result["ms" if label == "tc" else f"{label}_ms"] = ms
+        result[f"{label}_device_us"] = us
+    print("  K2 bf16 at (128, 16, 16, 64) x (128, 16, 16, 64), one run: "
+          f"CUDA-event median ms tc {result['ms']:.4f} simt "
+          f"{result['simt_ms']:.4f} plain {result['plain_ms']:.4f} cuDNN "
+          f"{result['library_ms']:.4f}; device us a call tc "
+          f"{result['tc_device_us']:.2f} simt {result['simt_device_us']:.2f} "
+          f"cuDNN {result['library_device_us']:.2f}")
+    return result
+
+
+def _host_times(gen) -> dict:
+    """Host µs a call of the K1 and K2 wrappers at B=1 (16 x 16 x 64,
+    bf16): the public wrapper, which takes the tensor cores, beside the
+    SIMT one (which every K2 call took before the tensor-core K2). Ten
+    runs of each, five rounds of the turns a, b, c, d, d, c, b, a: the
+    host's clock is noisy (other work shares its cores), so the least run
+    stands for the wrapper's own cost, with the median beside it."""
+    x, g = (torch.randn(1, HW, HW, C, generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    w2d = (torch.randn(9 * C, C, generator=gen) / 24.0).to("cuda",
+                                                           torch.bfloat16)
+    fns = {("conv3x3_fwd", "host_us"): lambda: conv3x3_fwd(x, w2d),
+           ("conv3x3_fwd", "simt_host_us"): lambda: _conv3x3_fwd_simt(x, w2d),
+           ("conv3x3_wgrad", "host_us"): lambda: conv3x3_wgrad(x, g),
+           ("conv3x3_wgrad", "simt_host_us"):
+               lambda: _conv3x3_wgrad_simt(x, g)}
+    runs = {key: [] for key in fns}
+    for _ in range(5):
+        for key in [*fns, *reversed(fns)]:
+            runs[key].append(host_us(fns[key]))
+    out = {}
+    for (name, label), times in runs.items():
+        out.setdefault(name, {})[label] = min(times)
+        kind = "SIMT" if label.startswith("simt") else "tensor cores"
+        print(f"  {name} B=1 bf16, {kind}: host us a call, least "
+              f"{min(times):.2f}, median {statistics.median(times):.2f} "
+              f"of {len(times)} runs")
+    return out
 
 
 def phase_kernels() -> dict:
@@ -320,12 +459,66 @@ def phase_kernels() -> dict:
                         results[name]["plain_ms"] = median_ms(fn)
             if dtype == torch.bfloat16:
                 results["conv3x3_fwd"] = _check_k1_bf16(t)
+                results["conv3x3_wgrad"] = _check_k2_bf16(t)
+        for name, host in _host_times(gen).items():
+            results[name].update(host)
     print("  median ms over 30 reps, bf16, B=128 (kernel / plain):")
     for name, r in results.items():
         print(f"    {name:<14} {r['ms']:.4f} / {r['plain_ms']:.4f}")
     _check_gradients(gen)
     results.update(_check_flow_kernels(gen))
+    for name, bound in _bounds().items():
+        results[name].update(bound)
+        results[name].setdefault("library_ms", None)
     return results
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
+# on the tensor cores, fp32 off them, HBM3 bytes.
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def _bound(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their peak rate and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def _bounds() -> dict:
+    """Each kernel's bound at the shape phase 3 times it: K1-K4 at the
+    flagship shapes in bf16, K5-K7 at the FlowNetC bench shape in bf16, K8
+    at (8, 64, 64, 3) in fp32. Products that a matrix unit could do (K1,
+    K2, the correlation dot products) count against the bf16 tensor-core
+    rate; elementwise work (about 10 operations an element for the
+    GroupNorm tails, 2 a channel for the norm) against fp32."""
+    px = B * HW * HW
+    conv_flops = 2 * px * 9 * C * C
+    b, h, w, c = CORR_SHAPES["bench"]
+    n = n_displacements(CORR_D, CORR_STRIDE) ** 2
+    corr_flops = 2 * b * h * w * n * c
+    corr_bytes = b * h * w * (2 * c + n) * 2  # two of (C, C, n) in, one out
+    nb, nh, nw, nc = NORM_SHAPES[0]
+    return {
+        # x and w in, out; x and g in, dW (fp32) out.
+        "conv3x3_fwd": _bound(conv_flops, 2 * px * C * 2 + 9 * C * C * 2,
+                              PEAK_BF16),
+        "conv3x3_wgrad": _bound(conv_flops, 2 * px * C * 2 + 9 * C * C * 4,
+                                PEAK_BF16),
+        # gates (2C) and h in, z and r*h out; cand, z, h in, out; bf16,
+        # with fp32 scale and bias.
+        "gru_gates": _bound(10 * px * 2 * C, px * 5 * C * 2 + 4 * C * 4,
+                            PEAK_FP32),
+        "gru_blend": _bound(10 * px * C, px * 4 * C * 2 + 2 * C * 4,
+                            PEAK_FP32),
+        "correlation_fwd": _bound(corr_flops, corr_bytes, PEAK_BF16),
+        "correlation_bwd_f1": _bound(corr_flops, corr_bytes, PEAK_BF16),
+        "correlation_bwd_f2": _bound(corr_flops, corr_bytes, PEAK_BF16),
+        "channelnorm": _bound(2 * nb * nh * nw * nc,
+                              nb * nh * nw * (nc + 1) * 4, PEAK_FP32),
+    }
 
 
 # FlowNetC bench features, FlyingChairs features, correlation geometry.
@@ -403,13 +596,22 @@ def _check_flow_kernels(gen) -> dict:
                 check(f"channelnorm {shape[-1]}ch {str(dtype)[6:]}",
                       metric(out, ref), tol, kind)
                 if dtype == torch.float32 and shape[-1] == 3:
-                    ms = median_ms(lambda: channelnorm_fwd(x))
-                    plain_ms = median_ms(lambda: channelnorm_plain(x))
-                    print(f"    channelnorm (8, 64, 64, 3) fp32 median ms: "
-                          f"kernel {ms:.4f} plain {plain_ms:.4f}")
+                    times = _time_turns({
+                        "kernel": lambda: channelnorm_fwd(x),
+                        "plain": lambda: channelnorm_plain(x),
+                        "library": lambda: torch.linalg.vector_norm(
+                            x, dim=-1, keepdim=True)})
+                    print("    channelnorm (8, 64, 64, 3) fp32, CUDA-event "
+                          "median ms / device us a call: " + ", ".join(
+                              f"{k} {ms:.4f} / {us:.2f}"
+                              for k, (ms, us) in times.items()))
                     results["channelnorm"] = {
-                        "max_abs_err": max_abs(out, ref), "ms": ms,
-                        "plain_ms": plain_ms}
+                        "max_abs_err": max_abs(out, ref),
+                        "ms": times["kernel"][0],
+                        "plain_ms": times["plain"][0],
+                        "library_ms": times["library"][0],
+                        "device_us": times["kernel"][1],
+                        "library_device_us": times["library"][1]}
     _check_flow_gradients(gen)
     return results
 
@@ -512,10 +714,11 @@ def phase_slice(bank: torch.Tensor) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    if counts["conv3x3_fwd_tc"] != counts["conv3x3_fwd"]:
-        raise AssertionError(
-            f"{counts['conv3x3_fwd'] - counts['conv3x3_fwd_tc']} of "
-            f"{counts['conv3x3_fwd']} K1 launches missed the tensor cores")
+    for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+        if counts[f"{name}_tc"] != counts[name]:
+            raise AssertionError(
+                f"{counts[name] - counts[f'{name}_tc']} of {counts[name]} "
+                f"{name} launches missed the tensor cores")
     print(f"  median step_ms over steps 1-9: "
           f"{statistics.median(step_ms[1:]):.2f}; mean nfe "
           f"{statistics.mean(nfes):.1f}")
@@ -539,7 +742,13 @@ def phase_reference(bank: torch.Tensor) -> None:
         return metrics, pred, {n: p.grad.clone()
                                for n, p in model.named_parameters()}
 
+    common.reset_launches()
     m_k, pred_k, g_k = run()
+    counts = dict(common.launches)
+    if (counts["conv3x3_wgrad"] == 0 or counts["conv3x3_fwd"] == 0
+            or counts["conv3x3_wgrad_tc"] or counts["conv3x3_fwd_tc"]):
+        raise AssertionError(f"the fp32 step did not run K1 and K2 on "
+                             f"their SIMT kernels: {counts}")
     with common.force_plain():
         m_p, pred_p, g_p = run()
     shape = (cfg.batch_size, cfg.train_out_seq, 64, 64, 1)
@@ -648,14 +857,16 @@ def main() -> int:
     bank = torch.from_numpy(
         get_sprite_bank(FlagshipConfig().data_dir)).float().cuda()
     counts = {k: v for k, v in phase_slice(bank).items()
-              if k in (*FLAGSHIP_KERNELS, "conv3x3_fwd_tc")}
+              if k in (*FLAGSHIP_KERNELS, "conv3x3_fwd_tc",
+                       "conv3x3_wgrad_tc")}
     phase_reference(bank)
     counts.update({k: v for k, v in phase_flownetc(bank).items()
                    if k in FLOWNETC_KERNELS})
     counts["channelnorm"] = phase_flownet2(bank)["channelnorm"]
     phase_flow_reference(bank)
     print(f"build_s {build_s:.2f}")
-    timings["conv3x3_fwd"]["tc_launches"] = counts["conv3x3_fwd_tc"]
+    for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+        timings[name]["tc_launches"] = counts[f"{name}_tc"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": tpu,
          "launches": counts[name], **timings[name]}

@@ -6,8 +6,8 @@
 //       used for dx with the spatially flipped, channel-transposed weights;
 //   K2  ode_rl_tpu/ops/conv3x3.py::_wgrad_kernel (via _pallas_wgrad).
 //
-// What bounds it on the H100. At the flagship shape (x (128,16,16,64),
-// w (576,64)) one call is M = B*H*W = 32,768 rows, K = 9*Cin = 576,
+// What bounds them on the H100. At the flagship shape (x (128,16,16,64),
+// w (576,64)) one K1 call is M = B*H*W = 32,768 rows, K = 9*Cin = 576,
 // N = Cout = 64: 2.4 GFLOP against about 8.5 MB of activations in and out,
 // a few microseconds on either bound.
 //
@@ -26,14 +26,32 @@
 //   made; the B tile comes from the weights laid out as (9*Cin, Cout) in
 //   HWIO order, which is kernel.reshape(9*Cin, Cout), the JAX layout.
 //
-// K2 cannot carry the TPU kernel's accumulation across an in-order grid:
-// Hopper blocks run in parallel and in no order. It is split-K instead:
-// block s sums its own range of rows into scratch (S, 9*Cin, Cout) fp32,
-// and a second kernel sums the S partials in a fixed order. No atomics;
-// the result is deterministic.
+// K2 (dW = patches^T . g) is the same 2.4 GFLOP at the flagship shape,
+// against 8.5 MB (x and g in bf16, dW in fp32): 2.45 us at 989 TFLOP/s,
+// 2.55 us at 3.35 TB/s, so bound by the bytes, barely. It cannot carry the
+// TPU kernel's accumulation across an in-order grid: Hopper blocks run in
+// parallel and in no order. Every block sums its own pixels into a
+// partial, and the partials are summed in a fixed order; no atomics on the
+// data, so the result is deterministic. ops/conv3x3.py::
+// wgrad_uses_tensor_cores picks one of two kernels.
+//
+// * conv3x3_wgrad_tc_kernel (bf16, Cin % 64 == 0, Cout % 64 == 0): the
+//   tensor-core K2 (section "Tensor-core K2" below): TMA halo and
+//   cotangent tiles, wgmma with pixels as the reduction axis, the partials
+//   summed after a grid sync in the same cooperative launch. About 13
+//   us a launch at the flagship shape against cuDNN's weight gradient's
+//   19.5; the partials' round trip through L2 and the grid sync are most
+//   of the gap to the bound.
+// * conv3x3_wgrad_partial_kernel + splitk_sum_kernel (everything else,
+//   fp32 included): fp32 FMA, block s sums its own range of rows into
+//   scratch (S, 9*Cin, Cout) fp32, and a second kernel sums the S partials
+//   in a fixed order. Bound by the FMA issue rate and the per-element
+//   gather (about 310 us at the flagship shape).
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 
@@ -41,6 +59,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using odek::from_f32;
 using odek::to_f32;
 
@@ -379,6 +398,9 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // TMA's swizzle of rows of `row_bytes` (32, 64 or 128) in a 1 KB aligned
 // region: the 16-byte unit at bits 4.. of an offset is XORed with bits 7..
@@ -682,6 +704,305 @@ CUresult encode_nhwc(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core K2 (bf16): dW (9*Cin, Cout) = patches^T . g, fp32 sums.
+//
+// Orientation. One wgmma.m64n64k16 per (tap, 16 pixels): M = 64 input
+// channels (A: the halo, shifted by the tap), N = 64 output channels (B:
+// the cotangent tile), K = 16 pixels. Both operands are read straight from
+// the TMA tiles by descriptor, MN-major (channels are the contiguous axis,
+// one pixel is one 128-byte swizzle row; the instruction's transpose flags
+// say so). Rule: Cin and Cout multiples of 64, so that both M and N are
+// whole 64-channel blocks; a wider conv has (Cin/64) * (Cout/64) channel
+// pairs, each its own blocks.
+//
+// * Tiles are 8 image rows by TW = 8, 16 or 32 pixels, as for K1. A K-step
+//   is two groups of 8 pixels, each 8 consecutive pixels of one image row:
+//   8 consecutive swizzle rows of the g tile and, for tap (dy, dx), of the
+//   halo, starting dy halo rows and dx pixels on. The descriptor's stride
+//   byte offset is the distance between the two groups: 1 KB (the next 8
+//   pixels of the same row, TW >= 16) or one halo row (the next image row,
+//   TW = 8, for the halo; 1 KB for g). As for K1, the start address is not
+//   1 KB aligned and the base offset stays 0.
+// * A block owns one tap row dy of one channel pair over a run of tiles;
+//   its three warpgroups own dx = 0, 1, 2, one 64 x 64 fp32 accumulator
+//   (32 registers) each. So a block's partial is 48 KB, not the 147 KB of
+//   all 9 taps: writing the partials to L2 and reading them back cost
+//   more than the products when a block held all 9 taps (PERF.md §6).
+// * The halo (10 x (TW+2) x 64) and the g tile (8 x TW x 64) come by 4-D TMA
+//   into 2-4 stages; the box elements outside the image are zeros, so SAME
+//   padding and ragged tiles (g = 0 there) need no branch. A tile's TW/2
+//   wgmmas go out back to back in one commit group (unrolled by TW), and
+//   the next tile's group goes out before this one is waited for.
+// * Reduction across blocks, in the same launch, deterministic. The launch
+//   is cooperative (every block resident at once): block (pair, dy, s)
+//   writes its partial (staged in shared memory, 16-byte stores) to
+//   scratch[s]; cooperative groups' grid sync; then every block sums a
+//   fixed slice of dW over s in a fixed tree (q threads a unit, each a
+//   fixed range of s in order, then the q sums in order). No atomics on
+//   the data, and the plan (T, S, q) is a function of the shape alone, so
+//   two calls are bit-equal.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // three warpgroups, one per tap column dx
+constexpr int kWgMaxStages = 4;
+// One block's partial: the 3 taps of its row, 64 x 64 fp32 each, in
+// 16-byte units; a channel pair's partial is 3 of them (9 taps).
+constexpr int kWgRowUnits = 3 * 64 * 64 / 4;
+constexpr int kWgPairUnits = 3 * kWgRowUnits;
+
+// Shared-memory plan of the tensor-core K2: at most 231,424 bytes (three
+// stages of 8 x 32 tiles), so it fits at every width.
+struct WgPlan {
+  int tw, halo_w, halo_h;
+  int halo_bytes;   // one 64-channel halo, 1 KB aligned
+  int stage_bytes;  // halo + the 64-channel g tile, each 1 KB aligned
+  int stages;       // as many as fit, 2 to kWgMaxStages
+  int smem_bytes;   // the stages or the staged partial, + 1 KB to align
+};
+
+WgPlan wg_plan(int tw) {
+  WgPlan p;
+  p.tw = tw;
+  p.halo_w = tw + 2;
+  p.halo_h = kTcTileRows + 2;
+  p.halo_bytes = round1k(p.halo_h * p.halo_w * 128);
+  p.stage_bytes = p.halo_bytes + round1k(kTcTileRows * tw * 128);
+  p.stages = std::max(2, std::min(kWgMaxStages,
+                                  (kTcMaxSmem - 1024) / p.stage_bytes));
+  p.smem_bytes =
+      std::max(p.stages * p.stage_bytes, kWgRowUnits * 16) + 1024;
+  return p;
+}
+
+// D (64 x 64, fp32) += A (64 x 16) . B (16 x 64), both bf16 MN-major in
+// shared memory (transpose flags 1, 1).
+__device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 1, 1;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b));
+}
+
+// The products of one tile for one tap: halo_tap addresses halo pixel
+// (dy, dx) of the stage, g_tile the cotangent tile. The descriptor encoding
+// is the one of k_major_desc (128-byte swizzle); descriptors step by
+// adding to their start address in 16-byte units (8 a pixel).
+template <int TW>
+__device__ __forceinline__ void wgrad_tile_products(float (&acc)[32],
+                                                    uint32_t halo_tap,
+                                                    uint32_t g_tile) {
+  constexpr int halo_w = TW + 2;
+  // Second group of 8 pixels: the next 8 of the row, or the next row.
+  constexpr uint32_t a_sbo = TW == 8 ? halo_w * 128 : 1024;
+  const uint64_t a0 = k_major_desc(halo_tap, a_sbo, 1);
+  const uint64_t b0 = k_major_desc(g_tile, 1024, 1);
+#pragma unroll
+  for (int k = 0; k < TW / 2; ++k) {  // 8 * TW pixels, 16 a step
+    int py, px;
+    if constexpr (TW == 8) {
+      py = 2 * k;
+      px = 0;
+    } else {
+      py = k / (TW / 16);
+      px = (k % (TW / 16)) * 16;
+    }
+    wgmma_tt(acc, a0 + (py * halo_w + px) * 8, b0 + (py * TW + px) * 8);
+  }
+}
+
+// Sum of unit `col` of the float4 partials s0 .. s1-1, in that order.
+__device__ __forceinline__ float4 sum_splits(const float4* __restrict__ src,
+                                             long long n4, long long col,
+                                             int s0, int s1) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int s = s0; s < s1; ++s) {
+    const float4 v = __ldcg(src + s * n4 + col);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  return acc;
+}
+
+template <int TW>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    conv3x3_wgrad_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                            const __grid_constant__ CUtensorMap g_map,
+                            float* __restrict__ scratch,
+                            float* __restrict__ dw, int B, int H, int W,
+                            int Cin, int Cout, int splits,
+                            int tiles_per_split, WgPlan p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kWgMaxStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int tid = threadIdx.x;
+  // Block (pair, dy, split): tap row dy of channel pair (mb, nb) over the
+  // tiles of run `split`.
+  const int split = blockIdx.x % splits;
+  const int dy = (blockIdx.x / splits) % 3;
+  const int pair = blockIdx.x / splits / 3;
+  const int mb = pair / (Cout / 64);  // input-channel block
+  const int nb = pair % (Cout / 64);  // output-channel block
+
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_img = tiles_x * ((H + kTcTileRows - 1) / kTcTileRows);
+  const int n_tiles = B * tiles_img;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n = max(t_end - t_begin, 0);
+  const uint32_t stage_tx = (p.halo_h * p.halo_w + kTcTileRows * TW) * 128;
+
+  auto load_tile = [&](int i, int stage) {
+    const int tile = t_begin + i;
+    const int b = tile / tiles_img;
+    const int r = tile - b * tiles_img;
+    const int y0 = (r / tiles_x) * kTcTileRows;
+    const int x0 = (r % tiles_x) * TW;
+    const uint32_t bar = smem_u32(&bars[stage]);
+    const uint32_t dst = base + stage * p.stage_bytes;
+    mbar_expect_tx(bar, stage_tx);
+    tma_load_4d(dst, &x_map, bar, mb * 64, x0 - 1, y0 - 1, b);
+    tma_load_4d(dst + p.halo_bytes, &g_map, bar, nb * 64, x0, y0, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < p.stages && i < n; ++i) load_tile(i, i);
+  }
+
+  const int dx = tid / 128;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  // One commit group a tile, and the next tile's group goes out before
+  // this one is waited for: the tensor cores do not drain between tiles.
+  fence_operands(acc);
+  wgmma_fence();
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % p.stages;
+    mbar_wait(smem_u32(&bars[stage]), (i / p.stages) & 1);
+    const uint32_t halo = base + stage * p.stage_bytes;
+    wgrad_tile_products<TW>(acc, halo + (dy * p.halo_w + dx) * 128,
+                            halo + p.halo_bytes);
+    wgmma_commit();
+    if (i == 0) continue;
+    wgmma_wait_one();
+    // Every warpgroup is done with tile i - 1: refill its stage.
+    __syncthreads();
+    const int prev = i - 1;
+    if (tid == 0 && prev + p.stages < n) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(prev + p.stages, prev % p.stages);
+    }
+  }
+  wgmma_wait_all();
+  fence_operands(acc);
+  __syncthreads();
+
+  // This block's partial, staged in shared memory (the stages are free:
+  // the loop ends on a __syncthreads) as [dx][ci][16-byte unit u ^ (ci %
+  // 16)] of 64 x 64 fp32, then copied out whole with 16-byte stores to
+  // taps dy*3 .. dy*3+2 of its pair's region of scratch[split]. Fragment
+  // of a thread: rows ci = 16 * warp + g and + 8, output channels 8j + 2t
+  // and 8j + 2t + 1. The XOR puts the 8 rows of a store in 8 distinct
+  // bank groups.
+  float4* staged = reinterpret_cast<float4*>(smem_raw +
+                                             (base - smem_u32(smem_raw)));
+  {
+    const int warp = (tid % 128) / 32;
+    const int g = (tid % 32) / 4;
+    const int t4 = tid % 4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ci = warp * 16 + g + 8 * half;
+      float* row = reinterpret_cast<float*>(staged + dx * 1024 + ci * 16);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int unit = (2 * j + t4 / 2) ^ (ci % 16);
+        *reinterpret_cast<float2*>(row + 4 * unit + 2 * (t4 % 2)) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  const int pairs = (Cin / 64) * (Cout / 64);
+  {
+    float4* part = reinterpret_cast<float4*>(scratch) +
+                   (long long)(split * pairs + pair) * kWgPairUnits +
+                   dy * kWgRowUnits;
+    for (int i = tid; i < kWgRowUnits; i += kWgThreads) part[i] = staged[i];
+  }
+
+  // Every partial is written before any block sums.
+  cg::this_grid().sync();
+
+  // This block's slice of the partials' units [c0, c0 + cols), summed over
+  // the splits: q threads a unit, thread r over splits [r*S/q, (r+1)*S/q),
+  // then the q sums in order of r; each sum goes to its place in dW.
+  const long long n4 = (long long)pairs * kWgPairUnits;
+  const long long per = (n4 + gridDim.x - 1) / gridDim.x;
+  const long long c0 = blockIdx.x * per;
+  const int cols = (int)max(min(c0 + per, n4) - c0, 0LL);
+  const float4* src = reinterpret_cast<const float4*>(scratch);
+  float4* out = reinterpret_cast<float4*>(dw);
+  // dW's unit of partial unit e: pair, tap, row ci, swizzled unit.
+  auto dw_unit = [&](long long e) {
+    const int pr = (int)(e / kWgPairUnits);
+    const int rem = (int)(e - (long long)pr * kWgPairUnits);
+    const int tap = rem / 1024;
+    const int ci = (rem % 1024) / 16;
+    const int unit = (rem % 16) ^ (ci % 16);
+    const int row = tap * Cin + (pr / (Cout / 64)) * 64 + ci;
+    return ((long long)row * Cout + (pr % (Cout / 64)) * 64) / 4 + unit;
+  };
+  if (cols > kWgThreads / 2) {
+    for (int c = tid; c < cols; c += kWgThreads) {
+      out[dw_unit(c0 + c)] = sum_splits(src, n4, c0 + c, 0, splits);
+    }
+  } else if (cols > 0) {
+    const int q = min(kWgThreads / cols, splits);
+    float4* red = staged;
+    if (tid < q * cols) {
+      const int c = tid % cols;
+      const int r = tid / cols;
+      red[r * cols + c] = sum_splits(src, n4, c0 + c, r * splits / q,
+                                     (r + 1) * splits / q);
+    }
+    __syncthreads();
+    if (tid < cols) {
+      float4 s = red[tid];
+      for (int r = 1; r < q; ++r) {
+        const float4 v = red[r * cols + tid];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      out[dw_unit(c0 + tid)] = s;
+    }
+  }
+}
+
 using TcKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, int, int,
                           int, int, int, TcPlan);
 
@@ -710,10 +1031,10 @@ int sm_count() {
 
 // Lets `kernel` ask for kTcMaxSmem of dynamic shared memory, once per
 // kernel; setting it twice from two threads is harmless.
-cudaError_t allow_max_smem(TcKernel kernel) {
-  static std::atomic<TcKernel> done[8] = {};
+cudaError_t allow_max_smem(const void* kernel) {
+  static std::atomic<const void*> done[16] = {};
   for (auto& slot : done) {
-    const TcKernel seen = slot.load(std::memory_order_relaxed);
+    const void* seen = slot.load(std::memory_order_relaxed);
     if (seen == kernel) return cudaSuccess;
     if (seen == nullptr) {
       const cudaError_t err = cudaFuncSetAttribute(
@@ -764,11 +1085,56 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
   const int sms = sm_count();
   const int grid = tiles < sms ? tiles : sms;
   const TcKernel kernel = p.nt == 64 ? tc_kernel<64>(Cin) : tc_kernel<16>(Cin);
-  const cudaError_t attr = allow_max_smem(kernel);
+  const cudaError_t attr =
+      allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<grid, kTcThreads, p.smem_bytes, stream>>>(
       x_map, w_map, out_map, B, H, W, Cin, Cout, p);
   return 0;
+}
+
+using WgKernel = void (*)(CUtensorMap, CUtensorMap, float*, float*, int, int,
+                          int, int, int, int, int, WgPlan);
+
+int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
+                    int B, int H, int W, int Cin, int Cout, int tw,
+                    int splits, int tiles_per_split, cudaStream_t stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(scratch) |
+                         reinterpret_cast<uintptr_t>(dw)) & 15) == 0;
+  const int tiles = B * ((H + kTcTileRows - 1) / kTcTileRows) *
+                    ((W + tw - 1) / tw);
+  const int grid = (Cin / 64) * (Cout / 64) * 3 * splits;
+  if (!aligned || Cin % 64 || Cout % 64 || (tw != 8 && tw != 16 && tw != 32) ||
+      splits < 1 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < tiles || grid > sm_count()) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const WgPlan p = wg_plan(tw);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kTcMapError;
+  CUtensorMap x_map, g_map;
+  CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, 64, p.halo_w,
+                             p.halo_h);
+  if (res == CUDA_SUCCESS) {
+    res = encode_nhwc(encode, &g_map, g, B, H, W, Cout, 64, tw, kTcTileRows);
+  }
+  if (res != CUDA_SUCCESS) return kTcMapError + (int)res;
+
+  const WgKernel kernel = tw == 8    ? conv3x3_wgrad_tc_kernel<8>
+                          : tw == 16 ? conv3x3_wgrad_tc_kernel<16>
+                                     : conv3x3_wgrad_tc_kernel<32>;
+  const cudaError_t attr =
+      allow_max_smem(reinterpret_cast<const void*>(kernel));
+  if (attr != cudaSuccess) return (int)attr;
+  // Cooperative: the launch fails rather than run blocks that could not
+  // all be resident, which the grid sync needs.
+  void* args[] = {&x_map, &g_map, &scratch, &dw, &B, &H, &W, &Cin, &Cout,
+                  &splits, &tiles_per_split, const_cast<WgPlan*>(&p)};
+  return (int)cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kWgThreads),
+      args, p.smem_bytes, stream);
 }
 
 unsigned int ceil_div(long long a, long long b) {
@@ -830,5 +1196,29 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
         Cin, Cout, rows_per_split);
     splitk_sum_kernel<<<ceil_div(size, 256), 256, 0, st>>>(
         scr, static_cast<float*>(dw), splits, size);
+  });
+}
+
+// K2, tensor cores: as odek_conv3x3_wgrad for bf16 with Cin % 64 == 0,
+// Cout % 64 == 0, 16-byte aligned pointers, tiles 8 rows high and tile_w
+// (8, 16 or 32) wide, `splits` partials of `tiles_per_split` tiles each
+// (covering every tile), and (Cin/64) * (Cout/64) * splits blocks at most
+// one per SM. One cooperative launch. Returns cudaErrorInvalidValue for
+// arguments outside that, 10000 + the CUresult if a tensor map is refused,
+// else the launch's error.
+extern "C" int odek_conv3x3_wgrad_tc(const void* x, const void* g,
+                                     void* scratch, void* dw, int B, int H,
+                                     int W, int Cin, int Cout, int tile_w,
+                                     int splits, int tiles_per_split,
+                                     int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
+      return launch_wgrad_tc(x, g, static_cast<float*>(scratch),
+                             static_cast<float*>(dw), B, H, W, Cin, Cout,
+                             tile_w, splits, tiles_per_split, st);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   });
 }

@@ -1,7 +1,8 @@
 """Builds ``ode_rl_torch/csrc`` into one shared library and loads it.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into a library with a
-plain C interface, bound with ``ctypes``. The library lands in
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, in parallel) and links them into a library with a plain C
+interface, bound with ``ctypes``. The library lands in
 ``build/ode_rl_torch/`` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source rebuilds. A failed build
 raises with nvcc's messages; nothing else is built or fetched.
@@ -20,7 +21,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "ode_rl_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
@@ -32,6 +34,10 @@ SIGNATURES = {
     # stream
     "odek_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I,
                            _P],
+    # x, g, scratch, dw, B, H, W, Cin, Cout, tile_w, splits,
+    # tiles_per_split, dtype, stream
+    "odek_conv3x3_wgrad_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     # gates, h, scale, bias, z, rh, B, HW, C, G, eps, dtype, stream
     "odek_gru_gates": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # cand, z, h, scale, bias, out, B, HW, C, G, eps, dtype, stream
@@ -52,7 +58,7 @@ def sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for path in sources():
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -71,23 +77,41 @@ def _nvcc() -> str:
                        "ode_rl_torch kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; return their stderr, or raise with the
+    messages of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for proc, (_, err) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code "
+                               f"{proc.returncode}:\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build() -> str:
-    """Compile the library if it is not there yet; return nvcc's messages
-    (ptxas register and shared-memory use), or "" if it was built."""
+    """Compile the library if it is not there yet: one nvcc per source, all
+    started together, then one link. Return nvcc's messages (ptxas register
+    and shared-memory use), or "" if it was built."""
     target = library_path()
     if target.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, target)
-    return proc.stderr
+    stem = target.with_name(f"{target.stem}.{os.getpid()}")
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [f"{stem}.{p.stem}.o" for p in cus]
+    tmp = f"{stem}.tmp"
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(cus, objs)])
+        _run_all([[_nvcc(), *NVCC_LINK_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, target)
+    finally:
+        for path in (*objs, tmp):
+            pathlib.Path(path).unlink(missing_ok=True)
+    return log
 
 
 @functools.cache

@@ -9,9 +9,14 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   ``uses_tensor_cores``: the tensor-core kernel (bf16; TMA halo tiles,
   weights resident in shared memory, wgmma) or the SIMT kernel (fp32 FMA;
   everything else, fp32 included, so fp32 stays strict fp32).
-* K2 ``conv3x3_wgrad``: dW (9*Cin, Cout) = patches^T . g in fp32, split-K
-  with a fixed-order reduction. Its plain version builds the 9 shifted
-  patches, as the Pallas kernel does, and multiplies.
+* K2 ``conv3x3_wgrad``: dW (9*Cin, Cout) = patches^T . g in fp32, split
+  over pixels with a fixed-order reduction. Its plain version builds the 9
+  shifted patches, as the Pallas kernel does, and multiplies. On the card
+  it takes one of two kernels by ``wgrad_uses_tensor_cores``: the
+  tensor-core kernel (bf16, channels in multiples of 64; TMA halo and
+  cotangent tiles, wgmma over pixels, one cooperative launch that sums its
+  partials after a grid sync) or the SIMT kernel (everything else,
+  fp32 included; a partial pass and a sum pass).
 
 ``Conv3x3Fn`` has the backward of ``_conv3x3_bwd``: dx is K1 on the
 cotangent with spatially flipped, channel-transposed weights, dw is K2
@@ -20,6 +25,7 @@ cast to the weight dtype. The bias is added outside, in the input dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -159,26 +165,119 @@ def _launch_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """patches^T . g in fp32 (fp64 for fp64 inputs, a reference)."""
     b, h, w, cin = x.shape
     cout = g.shape[3]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    g2 = g.reshape(b * h * w, cout).float()
-    cols = [xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin).float()
+    g2 = g.reshape(b * h * w, cout).to(acc)
+    cols = [xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin).to(acc)
             for dy in range(3) for dx in range(3)]
     return torch.cat([c.T @ g2 for c in cols], dim=0)
 
 
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K2: input (B, H, W, Cin), cotangent (B, H, W, Cout) -> dW
-    (9*Cin, Cout) in fp32."""
+# The tensor-core K2 (csrc/conv3x3.cu::conv3x3_wgrad_tc_kernel): a block
+# owns one tap row of one 64 x 64 channel pair of dW and a run of tiles; at
+# most this many pairs, so that every (pair, row) gets a block on any
+# Hopper card (the H100 PCIe has 114 SMs).
+_WGRAD_TC_MAX_PAIRS = 32
+
+
+def wgrad_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
+                            w: int) -> bool:
+    """The rule that sends a K2 call on the card to the tensor-core kernel:
+    bf16, Cin % 64 == 0 and Cout % 64 == 0 (a block's wgmma is 64 input by
+    64 output channels, each a 128-byte swizzle row of its tile), and at
+    most _WGRAD_TC_MAX_PAIRS such channel pairs (each needs three resident
+    blocks). Its shared memory fits at every width (the stages of 8 x 32
+    tiles take the most, 231,424 bytes), so W does not enter. Every other
+    call takes the SIMT kernel; fp32 stays on SIMT, so it stays strict
+    fp32."""
+    del w  # the tile width changes the plan, not the rule
+    return (dtype == torch.bfloat16 and cin % 64 == 0 and cout % 64 == 0
+            and (cin // 64) * (cout // 64) <= _WGRAD_TC_MAX_PAIRS)
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int,
+                  sms: int) -> tuple[int, int, int]:
+    """(tile width, splits S, tiles per split T) of a tensor-core K2 call:
+    the tiles (8 rows by TW pixels of one image, in order of image, tile
+    row, tile column) go to S splits in runs of T, run s = [s*T, (s+1)*T),
+    with no split empty; 3 * channel pairs * S blocks, at most ``sms``."""
+    tw = _tc_tile_width(w)
+    tiles = b * -(-h // _TC_TILE_ROWS) * -(-w // tw)
+    cap = max(1, sms // (3 * (cin // 64) * (cout // 64)))
+    per = -(-tiles // min(tiles, cap))
+    return tw, -(-tiles // per), per
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_k2(x: torch.Tensor, g: torch.Tensor) -> tuple:
     b, h, w, cin = _shape_nhwc("conv3x3_wgrad", x)
     gb, gh, gw, cout = _shape_nhwc("conv3x3_wgrad", g)
     if (gb, gh, gw) != (b, h, w):
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in (B, H, W)")
+    return b, h, w, cin, cout
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2: input (B, H, W, Cin), cotangent (B, H, W, Cout) -> dW
+    (9*Cin, Cout) in fp32."""
+    _, _, w, cin, cout = _check_k2(x, g)
     if not common.use_kernel(x):
         return conv3x3_wgrad_plain(x, g)
     common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
+    if wgrad_uses_tensor_cores(x.dtype, cin, cout, w):
+        return _launch_wgrad_tc(x, g)
+    return _launch_wgrad_simt(x, g)
+
+
+def _conv3x3_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2's SIMT kernel on CUDA tensors, whatever the rule says."""
+    _check_k2(x, g)
+    common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
+    return _launch_wgrad_simt(x, g)
+
+
+def _conv3x3_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2's tensor-core kernel on CUDA tensors; raises outside its rule."""
+    _, _, w, cin, cout = _check_k2(x, g)
+    common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
+    if not wgrad_uses_tensor_cores(x.dtype, cin, cout, w):
+        raise ValueError(f"conv3x3_wgrad: {x.dtype}, Cin {cin}, Cout {cout}, "
+                         f"W {w} is outside the tensor-core kernel's rule")
+    return _launch_wgrad_tc(x, g)
+
+
+def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Raises on a pointer that is not 16-byte aligned (TMA's rule)."""
+    for arg, t in (("x", x), ("g", g)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"conv3x3_wgrad: {arg} is not 16-byte aligned "
+                             f"(TMA needs it); pass a fresh tensor")
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
+    tw, splits, per = wgrad_tc_plan(b, h, w, cin, cout, _sm_count(x.device))
+    scratch = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((9 * cin, cout), dtype=torch.float32, device=x.device)
+    common.launch("conv3x3_wgrad_tc", library().odek_conv3x3_wgrad_tc,
+                  x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                  dw.data_ptr(), b, h, w, cin, cout, tw, splits, per,
+                  common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    common.launches["conv3x3_wgrad"] += 1
+    return dw
+
+
+def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
     rows = b * h * w
     splits = min(_MAX_SPLITS, -(-rows // _ROWS_PER_SPLIT))
     rows_per_split = -(-rows // splits)

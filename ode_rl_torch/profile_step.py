@@ -11,7 +11,7 @@ the unprofiled step times and their median (with the mean NFE of those
 steps for the flagship), the peak memory, the device kernel time per step,
 over the profiled steps' own wall time (a floor of the busy share: the
 profiler slows the host) and over the unprofiled median, device time by
-group, the device time a launch of each K1 kernel, and the largest
+group, the device time a launch of each K1 and K2 kernel, and the largest
 kernels. TF32 is off for
 matmul and cuDNN, as in ``chip_smoke.py``, so an fp32 configuration runs
 its convs in strict fp32.
@@ -141,9 +141,10 @@ def profile_step(net: str) -> None:
     for group, ms in groups.most_common():
         print(f"  {group:<34} {ms:10.3f} ms {100 * ms / total:5.1f}%")
     for e in events:
-        k1 = re.search(r"conv3x3_fwd\w*<[^>]*>", e.key)
-        if k1:
-            print(f"  K1 {k1.group(0)}: {e.count} launches, "
+        conv = re.search(r"(conv3x3_\w*|splitk_sum)_kernel(<[^>]*>)?", e.key)
+        if conv:
+            kid = "K1" if "fwd" in conv.group(0) else "K2"
+            print(f"  {kid} {conv.group(0)}: {e.count} launches, "
                   f"{e.self_device_time_total / e.count} us a launch")
     print(f"largest kernels over the {PROFILED} profiled steps:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:

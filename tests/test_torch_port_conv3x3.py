@@ -1,5 +1,6 @@
 """K1 and K2 of the PyTorch port against the JAX package's Pallas kernel
-bodies themselves, and K1's dispatch rule.
+bodies themselves, K1's and K2's dispatch rules, and the tensor-core
+K2's plan of splits.
 
 ``conv3x3_same`` in the JAX package takes XLA by default, so these tests
 build ``pl.pallas_call`` around the unchanged ``_fwd_kernel`` and
@@ -23,7 +24,8 @@ from jax.experimental import pallas as pl
 from torch_port_util import max_abs, t32
 from ode_rl_torch.ops.common import bf16_ulps
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd, conv3x3_wgrad,
-                                      flip_transpose, uses_tensor_cores)
+                                      flip_transpose, uses_tensor_cores,
+                                      wgrad_tc_plan, wgrad_uses_tensor_cores)
 from ode_rl_tpu.ops.conv3x3 import _fwd_kernel, _wgrad_kernel
 
 TOL = 2e-5
@@ -141,3 +143,63 @@ def test_bf16_ulps_tells_rounding_from_truncation():
     truncated = (ref.float().view(torch.int32) & ~0xFFFF).view(torch.float32)
     ulps, share = bf16_ulps(truncated.to(torch.bfloat16), ref)
     assert ulps <= 1.0 and 0.4 < share < 0.6
+
+
+# (dtype, Cin, Cout, W, takes the tensor cores): the flagship's 64 -> 64,
+# wider channels and several channel pairs, maps 1 to 33 wide (tiles 8, 16,
+# 32), then what stays on SIMT: a plan that does not fit (36 channel
+# pairs need 108 resident blocks beside their splits), fp32, narrow
+# channels, ragged channels.
+K2_RULE_CASES = [
+    (torch.bfloat16, 64, 64, 16, True),
+    (torch.bfloat16, 64, 128, 16, True),
+    (torch.bfloat16, 128, 64, 7, True),
+    (torch.bfloat16, 64, 64, 33, True),
+    (torch.bfloat16, 64, 64, 1, True),
+    (torch.bfloat16, 256, 256, 16, True),
+    (torch.bfloat16, 384, 384, 16, False),
+    (torch.float32, 64, 64, 16, False),
+    (torch.bfloat16, 32, 64, 16, False),
+    (torch.bfloat16, 16, 16, 16, False),
+    (torch.bfloat16, 64, 96, 16, False),
+    (torch.bfloat16, 3, 64, 16, False),
+    (torch.bfloat16, 64, 5, 16, False),
+]
+
+
+@pytest.mark.parametrize("dtype,cin,cout,w,expected", K2_RULE_CASES)
+def test_k2_dispatch_rule(dtype, cin, cout, w, expected):
+    assert wgrad_uses_tensor_cores(dtype, cin, cout, w) is expected
+
+
+# (B, H, W, Cin, Cout, SMs): the flagship on an H100 SXM and PCIe, the
+# card tests' shapes, one tile in all, and a cap above the tile count.
+K2_PLAN_CASES = [(128, 16, 16, 64, 64, 132), (128, 16, 16, 64, 64, 114),
+                 (1, 16, 16, 64, 64, 132), (3, 5, 7, 64, 64, 132),
+                 (2, 9, 11, 64, 128, 132), (2, 20, 33, 64, 64, 132),
+                 (2, 12, 7, 128, 64, 132), (1, 3, 3, 64, 64, 132),
+                 (64, 40, 40, 256, 256, 132)]
+
+
+def _tile_pixels(tile, b, h, w, tw):
+    """The image pixels of a tensor-core K2 tile (8 rows by TW, clipped)."""
+    tiles_x = -(-w // tw)
+    per_img = tiles_x * -(-h // 8)
+    img, r = divmod(tile, per_img)
+    y0, x0 = (r // tiles_x) * 8, (r % tiles_x) * tw
+    return {(img, y, x) for y in range(y0, min(y0 + 8, h))
+            for x in range(x0, min(x0 + tw, w))}
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,sms", K2_PLAN_CASES)
+def test_k2_plan_covers_every_pixel_once(b, h, w, cin, cout, sms):
+    """The splits' runs of tiles partition the tiles, none is empty, the
+    blocks fit on the card, and the tiles cover every pixel once."""
+    tw, splits, per = wgrad_tc_plan(b, h, w, cin, cout, sms)
+    tiles = b * -(-h // 8) * -(-w // tw)
+    runs = [range(s * per, min((s + 1) * per, tiles)) for s in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [t for r in runs for t in r] == list(range(tiles))
+    assert 3 * (cin // 64) * (cout // 64) * splits <= sms
+    seen = [p for t in range(tiles) for p in _tile_pixels(t, b, h, w, tw)]
+    assert len(seen) == len(set(seen)) == b * h * w
