@@ -21,21 +21,30 @@ without printing its last line:
    time under torch.profiler). Likewise K2 in bf16: both K2 kernels and
    cuDNN's weight gradient against the fp64 patches^T . g of the same
    inputs (relative L2), the tensor-core K2 bit-equal over 20 calls, the
-   three timed in one run. The host time a call of the K1 and K2 wrappers,
-   tensor-core and SIMT, at B=1. Then K5-K7 (correlation forward and its two gradients)
+   three timed in one run. Likewise K3 and K4 in bf16: the one-sample
+   kernels, the two-pass kernels and the plain versions against the Pallas
+   formula in fp64 on the same inputs (one bf16 ulp for the kernels), the
+   one-sample kernels bit-equal over 20 calls, the three timed in one run;
+   and the device time and launches of one K3 and one K4 backward
+   (autograd of the plain formula). The host time a call of the K1-K4
+   wrappers at B=1: tensor-core and SIMT, one-sample and two-pass. Then
+   K5-K7 (correlation forward and its two gradients)
    at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
    and the FlyingChairs feature shape (8, 48, 64, 256), and K8
    (channelnorm) at FlowNet2's (8, 64, 64, 3) and (8, 64, 64, 2), in fp32
    and bf16 (bf16 K6-K8 bit-equal to their plain versions, K5 to 1e-4
    relative L2), with CorrelationFn's and ChannelNormFn's gradients
-   against fp64; prints each error beside its tolerance and the median
-   time of each kernel and its plain version (CUDA events);
+   against fp64; prints each error beside its tolerance, the median
+   time of each kernel and its plain version (CUDA events) and K5-K7's
+   device time a call;
 4. slice: ten fused training steps of the flagship configuration (bf16,
    B=128, 10 -> 10 frames, dopri5 'fast') from the port's own init, seed 0;
    every loss and grad_norm finite, every kernel's launch count above
-   zero over these steps, and every K1 and K2 launch a tensor-core one;
+   zero over these steps, every K1 and K2 launch a tensor-core one, and
+   every K3 and K4 launch a one-sample one;
 5. reference: one fp32 step at B=8 through the kernels (K1 and K2 on
-   their SIMT kernels, as fp32 is) against the same
+   their SIMT kernels, as fp32 is; K3 and K4 on their one-sample kernels)
+   against the same
    step on the plain versions (same weights, same batch): equal NFE and
    accepted/rejected counts, loss to 1e-5 relative, every gradient leaf to
    1e-3 relative L2;
@@ -93,7 +102,10 @@ from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
                                           correlation_fwd_plain,
                                           n_displacements)
 from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
-                                        fused_gru_blend, fused_gru_gates)
+                                        _gru_blend_2pass, _gru_blend_sample,
+                                        _gru_gates_2pass, _gru_gates_sample,
+                                        blend_f64, fused_gru_blend,
+                                        fused_gru_gates, gates_f64)
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
                                      make_fused_train_step)
 
@@ -275,14 +287,15 @@ def _ops(t):
     }
 
 
-# (fp32 tolerance, bf16 tolerance, metric): see README's port section. K1
-# in bf16 is held to fp64 instead (_check_k1_bf16). bf16 K2 against its
-# plain version (both sum exact bf16 products in fp32, in other orders):
-# readings 6.8e-7 (tensor cores, flagship shape) to 2.6e-7 (SIMT).
+# (fp32 tolerance, bf16 tolerance, metric): see README's port section. K1,
+# K3 and K4 in bf16 are held to fp64 instead (_check_k1_bf16,
+# _check_gru_bf16). bf16 K2 against its plain version (both sum exact bf16
+# products in fp32, in other orders): readings 6.8e-7 (tensor cores,
+# flagship shape) to 2.6e-7 (SIMT).
 _TOL = {
     "conv3x3_fwd": (1e-4, None), "conv3x3_fwd as dx": (1e-4, None),
-    "conv3x3_wgrad": (1e-5, 5e-6), "gru_gates": (1e-5, 1 / 128),
-    "gru_blend": (1e-5, 1 / 128),
+    "conv3x3_wgrad": (1e-5, 5e-6), "gru_gates": (1e-5, None),
+    "gru_blend": (1e-5, None),
 }
 # bf16 K1 against the fp64 conv rounded to bf16 (common.bf16_ulps): every
 # output within one ulp, and at most this share of outputs one ulp off.
@@ -298,6 +311,18 @@ K1_BF16_ULPS, K1_BF16_SHARE = 1.0, 2e-3
 # 5.9e-8 to 2.6e-7 (SIMT). cuDNN's weight gradient returns bf16, whose
 # rounding alone reads 1.65e-3 to 1.67e-3.
 K2_BF16_REL_L2, K2_CUDNN_REL_L2 = 5e-6, 3e-3
+# bf16 K3 and K4 (both kernels) against the Pallas formula in fp64 on the
+# same bf16 inputs (gates_f64, blend_f64), rounded to bf16
+# (common.bf16_ulps): every output within one ulp, and at most this share
+# of outputs one ulp off. The kernels round once from fp32, so only
+# outputs whose fp64 value lies within fp32 noise of a rounding boundary
+# can differ. Readings at the flagship shape (H100 80GB HBM3, 700 W):
+# K3 9.5e-6 (one-sample), 7.6e-6 (two-pass); K4 3.4e-5 and 3.1e-5. A
+# kernel that truncated would read about 0.5. The plain versions round r,
+# z and cand to bf16 first, and the blend at every bf16 operation, so near
+# a zero of the blend they lie many of its fine ulps off (readings: K3 1
+# ulp, 0.26 of outputs off; K4 547 ulps, 0.44 off): printed, not held.
+K34_BF16_ULPS, K34_BF16_SHARE = 1.0, 5e-4
 
 
 def _metric(name: str, dtype) -> str:
@@ -399,30 +424,148 @@ def _check_k2_bf16(t) -> dict:
     return result
 
 
+def _check_gru_bf16(t) -> dict:
+    """K3 and K4 in bf16 at the flagship shape: the one-sample kernels, the
+    two-pass kernels and the plain versions against the fp64 Pallas
+    formula on the same bf16 inputs; the one-sample kernels bit-equal over
+    20 calls; the three timed in one run."""
+    cases = {
+        "gru_gates": ((t["gates"], t["h"], t["gs"], t["gb"], 4), gates_f64,
+                      _gru_gates_sample, _gru_gates_2pass, _gates_plain),
+        "gru_blend": ((t["cand"], t["z"], t["h"], t["cs"], t["cb"], 2),
+                      blend_f64, _gru_blend_sample, _gru_blend_2pass,
+                      _blend_plain),
+    }
+    results = {}
+    for name, (args, f64, sample, two_pass, plain) in cases.items():
+        refs = _as_tuple(f64(*args))
+        outs = {}
+        for label, fn in (("one-sample", sample), ("two-pass", two_pass),
+                          ("plain", plain)):
+            outs[label] = _as_tuple(fn(*args))
+            readings = [common.bf16_ulps(o, r)
+                        for o, r in zip(outs[label], refs)]
+            ulps = max(u for u, _ in readings)
+            share = max(s for _, s in readings)
+            if label == "plain":
+                print(f"  {name} bf16, plain (a reading): {ulps:.0f} ulps "
+                      f"at most, share {share:.3e} off")
+                continue
+            check(f"{name} bf16, {label}: ulps", ulps, K34_BF16_ULPS, "max")
+            check(f"{name} bf16, {label}: share 1 ulp off", share,
+                  K34_BF16_SHARE, "share")
+        first = outs["one-sample"]
+        if not all(all(torch.equal(a, b) for a, b in
+                       zip(first, _as_tuple(sample(*args))))
+                   for _ in range(20)):
+            raise AssertionError(f"one-sample {name}: 20 calls are not "
+                                 "bit-equal")
+        times = _time_turns({"sample": lambda: sample(*args),
+                             "2pass": lambda: two_pass(*args),
+                             "plain": lambda: plain(*args)})
+        result = {"max_abs_err": max(max_abs(a, b) for a, b in
+                                     zip(first, outs["plain"]))}
+        for label, (ms, us) in times.items():
+            result["ms" if label == "sample" else f"{label}_ms"] = ms
+            result[f"{label}_device_us"] = us
+        print(f"  {name} bf16 at the flagship shape, one run: CUDA-event "
+              f"median ms one-sample {result['ms']:.4f} two-pass "
+              f"{result['2pass_ms']:.4f} plain {result['plain_ms']:.4f}; "
+              f"device us a call one-sample {result['sample_device_us']:.2f}"
+              f" two-pass {result['2pass_device_us']:.2f} plain "
+              f"{result['plain_device_us']:.2f}")
+        results[name] = result
+    return results
+
+
+def _as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _gru_backward_cost(gen) -> dict:
+    """Device time and device launches of one backward of FusedGRUGatesFn
+    and FusedGRUBlendFn at the flagship shape in bf16: autograd of the
+    plain formula, recomputed from the saved inputs (20 calls under
+    torch.profiler)."""
+    t = _inputs(torch.bfloat16, gen)
+    cases = {"gru_gates": (fused_gru_gates, ("gates", "h", "gs", "gb"), 4),
+             "gru_blend": (fused_gru_blend, ("cand", "z", "h", "cs", "cb"),
+                           2)}
+    out = {}
+    for name, (fn, keys, groups) in cases.items():
+        leaves = [t[k].clone().requires_grad_(True) for k in keys]
+        outs = _as_tuple(fn(*leaves, groups))
+        cots = [torch.randn(o.shape, generator=gen).to("cuda", o.dtype)
+                for o in outs]
+
+        def backward():
+            torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+        backward()
+        torch.cuda.synchronize()
+        reps = 20
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                backward()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        out[name] = {
+            "backward_device_ms":
+                sum(e.self_device_time_total for e in events) / reps / 1e3,
+            "backward_launches": sum(e.count for e in events) / reps}
+        print(f"  {name} backward (autograd of the plain formula), bf16 "
+              f"flagship shape: device ms a call "
+              f"{out[name]['backward_device_ms']:.4f}, device launches a "
+              f"call {out[name]['backward_launches']:.1f}")
+    return out
+
+
 def _host_times(gen) -> dict:
-    """Host µs a call of the K1 and K2 wrappers at B=1 (16 x 16 x 64,
-    bf16): the public wrapper, which takes the tensor cores, beside the
-    SIMT one (which every K2 call took before the tensor-core K2). Ten
-    runs of each, five rounds of the turns a, b, c, d, d, c, b, a: the
-    host's clock is noisy (other work shares its cores), so the least run
-    stands for the wrapper's own cost, with the median beside it."""
-    x, g = (torch.randn(1, HW, HW, C, generator=gen).to("cuda", torch.bfloat16)
-            for _ in range(2))
+    """Host µs a call of the K1-K4 wrappers at B=1 (16 x 16 x 64, bf16):
+    K1's and K2's public wrapper, which takes the tensor cores, beside the
+    SIMT one (which every K2 call took before the tensor-core K2); K3's and
+    K4's one-sample kernel (the rule's choice) beside the two-pass one
+    (which every call took before), both called as the autograd Function
+    calls them. Ten runs of each, five rounds of the turns a, b, ..., ...,
+    b, a: the host's clock is noisy (other work shares its cores), so the
+    least run stands for the wrapper's own cost, with the median beside
+    it."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+    x, g, h, cand, z = (rnd(1, HW, HW, C) for _ in range(5))
+    gates = rnd(1, HW, HW, 2 * C)
     w2d = (torch.randn(9 * C, C, generator=gen) / 24.0).to("cuda",
                                                            torch.bfloat16)
-    fns = {("conv3x3_fwd", "host_us"): lambda: conv3x3_fwd(x, w2d),
-           ("conv3x3_fwd", "simt_host_us"): lambda: _conv3x3_fwd_simt(x, w2d),
-           ("conv3x3_wgrad", "host_us"): lambda: conv3x3_wgrad(x, g),
-           ("conv3x3_wgrad", "simt_host_us"):
-               lambda: _conv3x3_wgrad_simt(x, g)}
+    gs, gb, cs, cb = (torch.ones(n, device="cuda") for n in (2 * C, 2 * C,
+                                                              C, C))
+    fns = {
+        ("conv3x3_fwd", "host_us", "tensor cores"):
+            lambda: conv3x3_fwd(x, w2d),
+        ("conv3x3_fwd", "simt_host_us", "SIMT"):
+            lambda: _conv3x3_fwd_simt(x, w2d),
+        ("conv3x3_wgrad", "host_us", "tensor cores"):
+            lambda: conv3x3_wgrad(x, g),
+        ("conv3x3_wgrad", "simt_host_us", "SIMT"):
+            lambda: _conv3x3_wgrad_simt(x, g),
+        ("gru_gates", "host_us", "one-sample"):
+            lambda: _gru_gates_sample(gates, h, gs, gb, 4),
+        ("gru_gates", "2pass_host_us", "two-pass"):
+            lambda: _gru_gates_2pass(gates, h, gs, gb, 4),
+        ("gru_blend", "host_us", "one-sample"):
+            lambda: _gru_blend_sample(cand, z, h, cs, cb, 2),
+        ("gru_blend", "2pass_host_us", "two-pass"):
+            lambda: _gru_blend_2pass(cand, z, h, cs, cb, 2),
+    }
     runs = {key: [] for key in fns}
     for _ in range(5):
         for key in [*fns, *reversed(fns)]:
             runs[key].append(host_us(fns[key]))
     out = {}
-    for (name, label), times in runs.items():
+    for (name, label, kind), times in runs.items():
         out.setdefault(name, {})[label] = min(times)
-        kind = "SIMT" if label.startswith("simt") else "tensor cores"
         print(f"  {name} B=1 bf16, {kind}: host us a call, least "
               f"{min(times):.2f}, median {statistics.median(times):.2f} "
               f"of {len(times)} runs")
@@ -439,7 +582,8 @@ def phase_kernels() -> dict:
             print(f"  -- {dtype}")
             t = _inputs(dtype, gen)
             for name, fn in _ops(t).items():
-                if name.startswith("conv3x3_fwd") and dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and name.startswith(
+                        ("conv3x3_fwd", "gru")):
                     continue
                 out = fn()
                 with common.force_plain():
@@ -460,12 +604,15 @@ def phase_kernels() -> dict:
             if dtype == torch.bfloat16:
                 results["conv3x3_fwd"] = _check_k1_bf16(t)
                 results["conv3x3_wgrad"] = _check_k2_bf16(t)
+                results.update(_check_gru_bf16(t))
         for name, host in _host_times(gen).items():
             results[name].update(host)
     print("  median ms over 30 reps, bf16, B=128 (kernel / plain):")
     for name, r in results.items():
         print(f"    {name:<14} {r['ms']:.4f} / {r['plain_ms']:.4f}")
     _check_gradients(gen)
+    for name, cost in _gru_backward_cost(gen).items():
+        results[name].update(cost)
     results.update(_check_flow_kernels(gen))
     for name, bound in _bounds().items():
         results[name].update(bound)
@@ -581,11 +728,14 @@ def _check_flow_kernels(gen) -> dict:
                         ms = median_ms(fn)
                         with common.force_plain():
                             plain_ms = median_ms(fn)
+                        us = device_us({name: fn})[name]
                         print(f"    {name} {label} bf16 median ms: kernel "
-                              f"{ms:.4f} plain {plain_ms:.4f}")
+                              f"{ms:.4f} plain {plain_ms:.4f}; kernel device "
+                              f"us a call {us:.2f}")
                         if label == "bench":
                             results[name] = {"max_abs_err": max_abs(out, ref),
-                                             "ms": ms, "plain_ms": plain_ms}
+                                             "ms": ms, "plain_ms": plain_ms,
+                                             "device_us": us}
             for shape in NORM_SHAPES:
                 x = torch.randn(*shape, generator=gen).to("cuda", dtype)
                 x[0, :4] = 0.0
@@ -719,10 +869,20 @@ def phase_slice(bank: torch.Tensor) -> dict:
             raise AssertionError(
                 f"{counts[name] - counts[f'{name}_tc']} of {counts[name]} "
                 f"{name} launches missed the tensor cores")
+    _check_gru_sample(counts)
     print(f"  median step_ms over steps 1-9: "
           f"{statistics.median(step_ms[1:]):.2f}; mean nfe "
           f"{statistics.mean(nfes):.1f}")
     return counts
+
+
+def _check_gru_sample(counts: dict) -> None:
+    """Every K3 and K4 launch took its one-sample kernel."""
+    for name in ("gru_gates", "gru_blend"):
+        if counts[f"{name}_sample"] != counts[name]:
+            raise AssertionError(
+                f"{counts[name] - counts[f'{name}_sample']} of {counts[name]} "
+                f"{name} launches missed the one-sample kernel")
 
 
 def phase_reference(bank: torch.Tensor) -> None:
@@ -749,6 +909,7 @@ def phase_reference(bank: torch.Tensor) -> None:
             or counts["conv3x3_wgrad_tc"] or counts["conv3x3_fwd_tc"]):
         raise AssertionError(f"the fp32 step did not run K1 and K2 on "
                              f"their SIMT kernels: {counts}")
+    _check_gru_sample(counts)
     with common.force_plain():
         m_p, pred_p, g_p = run()
     shape = (cfg.batch_size, cfg.train_out_seq, 64, 64, 1)
@@ -858,7 +1019,8 @@ def main() -> int:
         get_sprite_bank(FlagshipConfig().data_dir)).float().cuda()
     counts = {k: v for k, v in phase_slice(bank).items()
               if k in (*FLAGSHIP_KERNELS, "conv3x3_fwd_tc",
-                       "conv3x3_wgrad_tc")}
+                       "conv3x3_wgrad_tc", "gru_gates_sample",
+                       "gru_blend_sample")}
     phase_reference(bank)
     counts.update({k: v for k, v in phase_flownetc(bank).items()
                    if k in FLOWNETC_KERNELS})
@@ -867,6 +1029,8 @@ def main() -> int:
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
+    for name in ("gru_gates", "gru_blend"):
+        timings[name]["sample_launches"] = counts[f"{name}_sample"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": tpu,
          "launches": counts[name], **timings[name]}

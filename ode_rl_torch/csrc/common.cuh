@@ -1,11 +1,14 @@
-// Shared helpers of the ode_rl_torch kernels: dtype conversion and a
-// deterministic block reduction. Every kernel is templated on float and
-// __nv_bfloat16 inputs and accumulates in fp32.
+// Shared helpers of the ode_rl_torch kernels: dtype conversion, a
+// deterministic block reduction, mbarriers and the dynamic shared-memory
+// opt-in. Every kernel is templated on float and __nv_bfloat16 inputs and
+// accumulates in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
 #include <type_traits>
 
 namespace odek {
@@ -89,6 +92,57 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
     a += part_a[i];
     b += part_b[i];
   }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Lets `kernel` ask for `bytes` of dynamic shared memory, once per kernel
+// (each caller passes one size per kernel); setting it twice from two
+// threads is harmless.
+inline cudaError_t allow_max_smem(const void* kernel, int bytes) {
+  static std::atomic<const void*> done[32] = {};
+  for (auto& slot : done) {
+    const void* seen = slot.load(std::memory_order_relaxed);
+    if (seen == kernel) return cudaSuccess;
+    if (seen == nullptr) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err == cudaSuccess) slot.store(kernel, std::memory_order_relaxed);
+      return err;
+    }
+  }
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace odek

@@ -52,7 +52,6 @@
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 
 #include <algorithm>
-#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -60,7 +59,12 @@
 namespace {
 
 namespace cg = cooperative_groups;
+using odek::allow_max_smem;
 using odek::from_f32;
+using odek::mbar_expect_tx;
+using odek::mbar_init;
+using odek::mbar_wait;
+using odek::smem_u32;
 using odek::to_f32;
 
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 sub-tile
@@ -316,38 +320,6 @@ TcPlan tc_plan(int Cin, int Cout, int tw) {
   p.out_bytes = round1k(64 * p.nt * 2);
   p.smem_bytes = p.w_bytes + 2 * p.stage_bytes + 2 * p.out_bytes + 1024;
   return p;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
@@ -1029,24 +1001,6 @@ int sm_count() {
   return count;
 }
 
-// Lets `kernel` ask for kTcMaxSmem of dynamic shared memory, once per
-// kernel; setting it twice from two threads is harmless.
-cudaError_t allow_max_smem(const void* kernel) {
-  static std::atomic<const void*> done[16] = {};
-  for (auto& slot : done) {
-    const void* seen = slot.load(std::memory_order_relaxed);
-    if (seen == kernel) return cudaSuccess;
-    if (seen == nullptr) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
-      if (err == cudaSuccess) slot.store(kernel, std::memory_order_relaxed);
-      return err;
-    }
-  }
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
-}
-
 int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
                   int W, int Cin, int Cout, int tw, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
@@ -1086,7 +1040,7 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
   const int grid = tiles < sms ? tiles : sms;
   const TcKernel kernel = p.nt == 64 ? tc_kernel<64>(Cin) : tc_kernel<16>(Cin);
   const cudaError_t attr =
-      allow_max_smem(reinterpret_cast<const void*>(kernel));
+      allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<grid, kTcThreads, p.smem_bytes, stream>>>(
       x_map, w_map, out_map, B, H, W, Cin, Cout, p);
@@ -1126,7 +1080,7 @@ int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
                           : tw == 16 ? conv3x3_wgrad_tc_kernel<16>
                                      : conv3x3_wgrad_tc_kernel<32>;
   const cudaError_t attr =
-      allow_max_smem(reinterpret_cast<const void*>(kernel));
+      allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   // Cooperative: the launch fails rather than run blocks that could not
   // all be resident, which the grid sync needs.

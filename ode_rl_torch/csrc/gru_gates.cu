@@ -12,31 +12,72 @@
 // with one-pass moments E[x^2] - E[x]^2 clamped at 0 and eps 1e-5, as
 // _groupnorm_f32 computes them. Channels group contiguously on the last
 // axis, as JAX's reshape(..., G, C/G) does. K3's first C channels are z
-// and its last C are r, so at G = 4 groups 0-1 feed z and groups 2-3 r*h.
-// r*h and the blend are formed in fp32 and rounded once to the output
-// dtype, as the Pallas kernels do.
+// and its last C are r, so at G = 4 groups 0-1 feed z and groups 2-3 r*h;
+// a group may straddle the split (2C = 96, G = 3). r*h and the blend are
+// formed in fp32 and rounded once to the output dtype, as the Pallas
+// kernels do.
 //
-// What bounds it on the H100: device-memory bandwidth. Each element is a
-// handful of flops, so the cost is the bytes moved: K3 at the flagship
-// shape (gates (128,16,16,128), h (128,16,16,64), bf16) reads 12 MB and
-// writes 8 MB, K4 reads 12 MB and writes 4 MB.
+// What bounds them on the H100: device-memory bandwidth. Each element is
+// a handful of flops, so the cost is the bytes moved: K3 at the flagship
+// shape (gates (128,16,16,128), h (128,16,16,64), bf16) reads 12.6 MB and
+// writes 8.4 MB (6.3 us at 3.35 TB/s), K4 reads 12.6 MB and writes 4.2 MB
+// (5.0 us).
 //
-// Design. One block per (sample, group): 128 x 4 blocks for K3 and
-// 128 x 2 for K4 at the flagship shape. Pass 1 takes the fp32 sum and sum
-// of squares over the group with a deterministic block reduction; pass 2
-// reads the group again (from L2: a group is 16-32 KB) to normalise,
-// apply scale/bias and the activation, and write. Neighbouring threads
-// touch neighbouring channels of one pixel, so loads coalesce within a
-// group's channel slice. Fusing both tails and the moments into one pass
-// over registers is later work.
+// Each has two kernels; ops/gru_gates.py::sample_plan picks one.
+//
+// * gru_{gates,blend}_sample_kernel (the rule: channels and groups in
+//   whole 16-byte vectors, 16-byte aligned inputs, a sample in at most 8
+//   blocks' shared memory). One block owns one sample, so every group's
+//   moments are taken on chip and each input is read from device memory
+//   once: at the flagship, 128 blocks of 96 KB (bf16; 192 KB in fp32 at
+//   B = 8), one wave on 132 SMs. One thread issues 1-D bulk copies
+//   (cp.async.bulk, no tensor map to encode on the host) of the sample
+//   into shared memory at the start: the normalised input in four chunks
+//   of pixels, each completing on its own mbarrier so the moments of the
+//   first chunk are taken while the rest arrives, and the other inputs (h;
+//   z and h) on a fifth, waited for only by the epilogue. A thread owns
+//   one 16-byte vector slot of a pixel (8 bf16 or 4 fp32 channels, all in
+//   one group) over every P-th pixel, so its group and its channels'
+//   scale and bias are fixed: fp32 s1 and s2 in registers, then each
+//   group's sum over its threads by one warp in a fixed order (and across
+//   the cluster's blocks in rank order), so two calls are bit-equal. The
+//   epilogue takes a_c = scale_c * rstd_g and b_c = bias_c - mean_g * a_c
+//   once, then costs one FMA, the activation and for r*h or the blend a
+//   product in fp32 an element, and stores 16-byte vectors. Where a sample
+//   does not fit one block's 227 KB, its pixels are split over a cluster
+//   of up to 8 blocks, and the groups' partial sums are added through
+//   distributed shared memory.
+//
+//   With one block an SM, the epilogue's instructions are what the bytes
+//   leave: K3 applies its sigmoid to 32K elements a block, and with
+//   accurate expf and an IEEE division it took 10.8-11.0 us a call. Its
+//   sigmoid is __fdividef(1, 1 + __expf(-y)) (relative error a few fp32
+//   ulps for |y| < 10): 7.6 us, the same 1.8e-7 fp32 max abs against the
+//   plain version, and 9.5e-6 of bf16 outputs one ulp off the fp64
+//   formula against 8.6e-6. K4 keeps the accurate tanhf (6.1 us). Alone
+//   at the flagship shape, K3 7.6 us and K4 6.1 us against bounds of 6.26
+//   and 5.01 (H100 80GB HBM3, 700 W; PERF.md).
+// * gru_{gates,blend}_kernel (everything else): one block per (sample,
+//   group); pass 1 takes the moments with a deterministic block reduction,
+//   pass 2 reads the group again (from L2) to normalise and write, one
+//   element a thread at a time.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+using odek::allow_max_smem;
 using odek::block_sum2;
 using odek::from_f32;
+using odek::mbar_expect_tx;
+using odek::mbar_init;
+using odek::mbar_wait;
+using odek::smem_u32;
 using odek::to_f32;
+using odek::warp_sum;
 
 constexpr int kThreads = 256;
 
@@ -120,6 +161,327 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// One-sample K3 and K4.
+// ---------------------------------------------------------------------------
+
+constexpr int kSampleMaxThreads = 512;
+constexpr int kSampleChunks = 4;   // mbarriers of the normalised input
+constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
+constexpr int kMaxRanks = 8;        // a portable cluster
+
+// Shared memory of one block; mirrors ops/gru_gates.py::sample_plan. `px`
+// pixels of the normalised input (2C channels for K3, C for K4) and of the
+// other inputs (C for K3's h, 2C for K4's z and h): 3C channels a pixel
+// either way. Then the threads' partial moments (float2 each), the
+// groups' sums and statistics (float2 each), and the mbarriers.
+__host__ __device__ constexpr int sample_smem_bytes(int px, int C, int elem,
+                                                    int threads, int G) {
+  return px * 3 * C * elem + threads * 8 + G * 16 + (kSampleChunks + 1) * 8;
+}
+
+// 16 bytes of T as fp32, and back (rounded to nearest even).
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&v)[N]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[N]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h2[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[N]) {
+    uint4 q;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    }
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this block's shared memory, completing
+// on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+struct SampleArgs {
+  const void* x;   // normalised input: gates (B, HW, 2C) or cand (B, HW, C)
+  const void* e1;  // K3's h or K4's z, (B, HW, C)
+  const void* e2;  // K4's h
+  const float* scale;
+  const float* bias;
+  void* out1;  // K3's z or K4's blend
+  void* out2;  // K3's r*h
+  int HW, C, G;
+  int ranks;        // blocks a sample (a cluster where more than 1)
+  int px_per_rank;  // block r owns pixels [r*px_per_rank, ...) of its sample
+  float eps;
+};
+
+// Grid: B * ranks blocks, block b * ranks + r owning rank r's pixels of
+// sample b; blockDim.x a multiple of 32 and of the vectors a pixel.
+template <typename T, bool kBlend>
+__device__ __forceinline__ void gru_tail_sample(const SampleArgs& a) {
+  using V16 = Vec16<T>;
+  constexpr int kVec = V16::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C;
+  const int Ct = kBlend ? C : 2 * C;  // channels of the normalised input
+  const int V = Ct / kVec;            // its vectors a pixel
+  const int P = blockDim.x / V;       // pixels in flight
+  const int cs = Ct / a.G;
+  const int rank = blockIdx.x % a.ranks;
+  const int b = blockIdx.x / a.ranks;
+  const int p0 = rank * a.px_per_rank;
+  const int np = min(a.px_per_rank, a.HW - p0);
+  const long long pix0 = (long long)b * a.HW + p0;
+
+  T* xs = reinterpret_cast<T*>(smem);
+  T* e1s = xs + (long long)a.px_per_rank * Ct;
+  T* e2s = e1s + (long long)a.px_per_rank * C;
+  float2* part =
+      reinterpret_cast<float2*>(e1s + (long long)(kBlend ? 2 : 1) *
+                                          a.px_per_rank * C);
+  float2* sums = part + blockDim.x;
+  float2* stats = sums + a.G;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + a.G);
+
+  // Chunks of the normalised input: whole multiples of P pixels, so each
+  // thread's pixels cross into a chunk at the same step.
+  int chunk = (np + kSampleChunks - 1) / kSampleChunks;
+  chunk = (chunk + P - 1) / P * P;
+  const int n_chunks = (np + chunk - 1) / chunk;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kSampleChunks; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const T* x = static_cast<const T*>(a.x) + pix0 * Ct;
+    for (int k = 0; k < n_chunks; ++k) {
+      const uint32_t bar = smem_u32(&bars[k]);
+      const uint32_t bytes = min(chunk, np - k * chunk) * Ct * sizeof(T);
+      mbar_expect_tx(bar, bytes);
+      bulk_load(smem_u32(xs + (long long)k * chunk * Ct),
+                x + (long long)k * chunk * Ct, bytes, bar);
+    }
+    const uint32_t bar = smem_u32(&bars[kSampleChunks]);
+    const uint32_t bytes = np * C * sizeof(T);
+    mbar_expect_tx(bar, (kBlend ? 2 : 1) * bytes);
+    bulk_load(smem_u32(e1s), static_cast<const T*>(a.e1) + pix0 * C, bytes,
+              bar);
+    if (kBlend) {
+      bulk_load(smem_u32(e2s), static_cast<const T*>(a.e2) + pix0 * C, bytes,
+                bar);
+    }
+  }
+
+  // This thread's vector slot and its first pixel; its group, scale and
+  // bias are fixed.
+  const int slot = threadIdx.x % V;
+  const int row = threadIdx.x / V;
+  const int c0 = slot * kVec;
+  const int g = c0 / cs;
+  float sc[kVec], bi[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    sc[e] = __ldg(a.scale + c0 + e);
+    bi[e] = __ldg(a.bias + c0 + e);
+  }
+
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = 0; k < n_chunks; ++k) {
+    mbar_wait(smem_u32(&bars[k]), 0);
+    const int end = min(np, (k + 1) * chunk);
+    for (int p = k * chunk + row; p < end; p += P) {
+      float v[kVec];
+      V16::load(xs + (long long)p * Ct + c0, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        s1 += v[e];
+        s2 = fmaf(v[e], v[e], s2);
+      }
+    }
+  }
+  part[threadIdx.x] = make_float2(s1, s2);
+  __syncthreads();
+
+  // Group gg's threads are slots [gg*nj, (gg+1)*nj) of every row: one warp
+  // adds them in a fixed order.
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nj = cs / kVec;
+  for (int gg = warp; gg < a.G; gg += blockDim.x / 32) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = lane; i < nj * P; i += 32) {
+      const float2 q = part[gg * nj + i % nj + V * (i / nj)];
+      t1 += q.x;
+      t2 += q.y;
+    }
+    t1 = warp_sum(t1);
+    t2 = warp_sum(t2);
+    if (lane == 0) sums[gg] = make_float2(t1, t2);
+  }
+
+  // The sample's sums: this block's, or every rank's in rank order (read
+  // through distributed shared memory); then mean and rstd.
+  cg::cluster_group cluster = cg::this_cluster();
+  if (a.ranks > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  if (threadIdx.x < a.G) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int r = 0; r < a.ranks; ++r) {
+      const float2 q = a.ranks > 1
+                           ? *cluster.map_shared_rank(&sums[threadIdx.x], r)
+                           : sums[threadIdx.x];
+      t1 += q.x;
+      t2 += q.y;
+    }
+    const float n = (float)a.HW * cs;
+    const float mean = t1 / n;
+    const float var = fmaxf(t2 / n - mean * mean, 0.f);
+    stats[threadIdx.x] = make_float2(mean, rsqrtf(var + a.eps));
+  }
+  // Also keeps every block alive until the others have read its sums.
+  if (a.ranks > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  const float2 st = stats[g];
+  float ca[kVec], cb[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    ca[e] = sc[e] * st.y;
+    cb[e] = fmaf(-st.x, ca[e], bi[e]);
+  }
+  mbar_wait(smem_u32(&bars[kSampleChunks]), 0);
+  T* out1 = static_cast<T*>(a.out1) + pix0 * C;
+  T* out2 = kBlend ? nullptr : static_cast<T*>(a.out2) + pix0 * C;
+  for (int p = row; p < np; p += P) {
+    float v[kVec];
+    V16::load(xs + (long long)p * Ct + c0, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = fmaf(v[e], ca[e], cb[e]);
+    const long long o = (long long)p * C;
+    if constexpr (kBlend) {
+      float zv[kVec], hv[kVec];
+      V16::load(e1s + o + c0, zv);
+      V16::load(e2s + o + c0, hv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        v[e] = (1.f - zv[e]) * hv[e] + zv[e] * tanhf(v[e]);
+      }
+      V16::store(out1 + o + c0, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        v[e] = __fdividef(1.f, 1.f + __expf(-v[e]));
+      }
+      if (c0 < C) {
+        V16::store(out1 + o + c0, v);
+      } else {
+        float hv[kVec];
+        V16::load(e1s + o + c0 - C, hv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[e] *= hv[e];
+        V16::store(out2 + o + c0 - C, v);
+      }
+    }
+  }
+}
+
+// Two entry points, so a profile tells K3 from K4 by name.
+template <typename T>
+__global__ void __launch_bounds__(kSampleMaxThreads)
+    gru_gates_sample_kernel(SampleArgs a) {
+  gru_tail_sample<T, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSampleMaxThreads)
+    gru_blend_sample_kernel(SampleArgs a) {
+  gru_tail_sample<T, true>(a);
+}
+
+template <typename T, bool kBlend>
+int launch_sample(const SampleArgs& a, int B, int threads,
+                  cudaStream_t stream) {
+  constexpr int kVec = Vec16<T>::N;
+  const int Ct = kBlend ? a.C : 2 * a.C;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.e1) |
+        reinterpret_cast<uintptr_t>(a.e2) |
+        reinterpret_cast<uintptr_t>(a.out1) |
+        reinterpret_cast<uintptr_t>(a.out2)) & 15) == 0;
+  if (!aligned || B < 1 || a.C < 1 || a.C % kVec || a.G < 1 || Ct % a.G ||
+      (Ct / a.G) % kVec || threads < 32 || threads % 32 ||
+      threads > kSampleMaxThreads || threads % (Ct / kVec) || a.ranks < 1 ||
+      a.ranks > kMaxRanks || a.px_per_rank < 1 ||
+      (long long)a.ranks * a.px_per_rank < a.HW ||
+      (long long)(a.ranks - 1) * a.px_per_rank >= a.HW ||
+      (long long)B * a.ranks > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem =
+      sample_smem_bytes(a.px_per_rank, a.C, sizeof(T), threads, a.G);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  void (*kernel)(SampleArgs) =
+      kBlend ? gru_blend_sample_kernel<T> : gru_gates_sample_kernel<T>;
+  const cudaError_t attr =
+      allow_max_smem(reinterpret_cast<const void*>(kernel), kSmemLimit);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.ranks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = a.ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = a.ranks > 1 ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
 }  // namespace
 
 extern "C" int odek_gru_gates(const void* gates, const void* h,
@@ -168,4 +530,41 @@ extern "C" int odek_gru_blend(const void* cand, const void* z, const void* h,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// One-sample K3: as odek_gru_gates, with `threads` a block (a multiple of
+// 32 and of the 16-byte vectors of a pixel of gates, at most 512), each
+// sample split over `ranks` blocks (a cluster where more than 1, at most
+// 8) of `px_per_rank` pixels each, the last one non-empty. Returns
+// cudaErrorInvalidValue for arguments outside ops/gru_gates.py::
+// sample_plan, else the launch's error.
+extern "C" int odek_gru_gates_sample(const void* gates, const void* h,
+                                     const void* scale, const void* bias,
+                                     void* z, void* rh, int B, int HW, int C,
+                                     int G, float eps, int threads, int ranks,
+                                     int px_per_rank, int dtype,
+                                     void* stream) {
+  const SampleArgs a{gates, h, nullptr, static_cast<const float*>(scale),
+                     static_cast<const float*>(bias), z, rh, HW, C, G, ranks,
+                     px_per_rank, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    return launch_sample<decltype(tag), false>(a, B, threads, st);
+  });
+}
+
+// One-sample K4: as odek_gru_blend, with the plan of odek_gru_gates_sample.
+extern "C" int odek_gru_blend_sample(const void* cand, const void* z,
+                                     const void* h, const void* scale,
+                                     const void* bias, void* out, int B,
+                                     int HW, int C, int G, float eps,
+                                     int threads, int ranks, int px_per_rank,
+                                     int dtype, void* stream) {
+  const SampleArgs a{cand, z, h, static_cast<const float*>(scale),
+                     static_cast<const float*>(bias), out, nullptr, HW, C, G,
+                     ranks, px_per_rank, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    return launch_sample<decltype(tag), true>(a, B, threads, st);
+  });
 }

@@ -42,6 +42,14 @@ SIGNATURES = {
     "odek_gru_gates": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # cand, z, h, scale, bias, out, B, HW, C, G, eps, dtype, stream
     "odek_gru_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # gates, h, scale, bias, z, rh, B, HW, C, G, eps, threads, ranks,
+    # px_per_rank, dtype, stream
+    "odek_gru_gates_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _I, _I, _I, _P],
+    # cand, z, h, scale, bias, out, B, HW, C, G, eps, threads, ranks,
+    # px_per_rank, dtype, stream
+    "odek_gru_blend_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _I, _I, _I, _P],
     # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream
     "odek_correlation_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, f2, gf1, B, H, W, C, max_displacement, stride, dtype, stream

@@ -10,14 +10,31 @@ Counterpart of ``ode_rl_tpu/ops/gru_gates.py``. The step is
   output -> (z, r*h).
 * K4 ``fused_gru_blend``: raw candidate conv output, z, h -> h'.
 
+On the card each takes one of two kernels by ``sample_plan``. The
+one-sample kernels (the flagship's shapes in bf16 and fp32) give a whole
+sample to one block, or to a cluster of up to 8 where it does not fit one
+block's shared memory: the sample comes into shared memory by bulk copies,
+the moments are taken there, and each input is read from device memory
+once and each output written once. Bound by those bytes (K3 6.26 µs, K4
+5.01 µs at the flagship shape on an H100 at 3.35 TB/s); alone there they
+take about 7.7 and 6.1 µs a call, against about 34 and 18-23 for the
+two-pass kernels (H100 80GB HBM3, 700 W; PERF.md). Every other call takes
+the two-pass kernels (a block per sample and group, the group read twice).
+Both form r*h and the blend in fp32 and round once, where the plain
+formula rounds r, z and cand to h's dtype first.
+
 The plain versions ``_gates_plain``/``_blend_plain`` are written out as
-``_gates_xla``/``_blend_xla``. The kernels form r*h and the blend in fp32
-and round once, where the plain formula rounds r, z and cand to h's dtype
-first. The backward of both Functions is autograd of the plain formula,
-recomputed from the saved inputs, as in the JAX package.
+``_gates_xla``/``_blend_xla``. ``gates_f64``/``blend_f64`` evaluate the
+Pallas kernels' formula in fp64, a reference for the bf16 kernels. The
+backward of both Functions is autograd of the plain formula, recomputed
+from the saved inputs, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,20 +44,21 @@ from ode_rl_torch.ops._build import library
 _EPS = 1e-5
 
 
-def _groupnorm_reshape_f32(x, scale, bias, groups, eps=_EPS):
-    """(B,H,W,C) GroupNorm in fp32, channels grouped contiguously on the
-    last axis, one-pass moments E[x^2] - E[x]^2 clamped at 0."""
+def _groupnorm_reshape(x, scale, bias, groups, eps=_EPS,
+                       acc=torch.float32):
+    """(B,H,W,C) GroupNorm in ``acc`` (fp32), channels grouped contiguously
+    on the last axis, one-pass moments E[x^2] - E[x]^2 clamped at 0."""
     b, h, w, c = x.shape
-    xf = x.float().reshape(b, h, w, groups, c // groups)
+    xf = x.to(acc).reshape(b, h, w, groups, c // groups)
     mean = xf.mean(dim=(1, 2, 4), keepdim=True)
     mean2 = (xf * xf).mean(dim=(1, 2, 4), keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     norm = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-    return norm * scale.float() + bias.float()
+    return norm * scale.to(acc) + bias.to(acc)
 
 
 def _gates_plain(gates_raw, h, scale, bias, groups):
-    gn = _groupnorm_reshape_f32(gates_raw, scale, bias, groups)
+    gn = _groupnorm_reshape(gates_raw, scale, bias, groups)
     z, r = torch.sigmoid(gn).chunk(2, dim=-1)
     z = z.to(h.dtype)
     r = r.to(h.dtype)
@@ -48,10 +66,27 @@ def _gates_plain(gates_raw, h, scale, bias, groups):
 
 
 def _blend_plain(cand_raw, z, h, scale, bias, groups):
-    gn = _groupnorm_reshape_f32(cand_raw, scale, bias, groups)
+    gn = _groupnorm_reshape(cand_raw, scale, bias, groups)
     cand = torch.tanh(gn).to(h.dtype)
     zc = z.to(h.dtype)
     return (1.0 - zc) * h + zc * cand
+
+
+def gates_f64(gates_raw, h, scale, bias, groups):
+    """The Pallas ``_gates_kernel``'s formula in fp64, unrounded: z and
+    r*h with nothing rounded between the GroupNorm and the product."""
+    gn = _groupnorm_reshape(gates_raw, scale, bias, groups,
+                            acc=torch.float64)
+    z, r = torch.sigmoid(gn).chunk(2, dim=-1)
+    return z, r * h.double()
+
+
+def blend_f64(cand_raw, z, h, scale, bias, groups):
+    """The Pallas ``_blend_kernel``'s formula in fp64, unrounded."""
+    cand = torch.tanh(_groupnorm_reshape(cand_raw, scale, bias, groups,
+                                         acc=torch.float64))
+    z, h = z.double(), h.double()
+    return (1.0 - z) * h + z * cand
 
 
 def _check_groups(name: str, channels: int, groups: int) -> None:
@@ -60,38 +95,127 @@ def _check_groups(name: str, channels: int, groups: int) -> None:
                          f"{groups} groups")
 
 
-def _gates_kernel(gates_raw, h, scale, bias, groups):
-    b, hh, ww, c = h.shape
-    common.check_inputs("gru_gates", {"gates_raw": gates_raw, "h": h},
-                        h.dtype)
+# The one-sample kernels (csrc/gru_gates.cu::gru_tail_sample): a block's
+# shared memory on the H100, at most 512 threads, 8 blocks in a cluster
+# (the portable limit), 4 + 1 mbarriers.
+_SMEM_LIMIT = 232_448
+_MAX_THREADS = 512
+_MAX_RANKS = 8
+_CHUNKS = 4
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+class SamplePlan(NamedTuple):
+    threads: int      # a block
+    ranks: int        # blocks a sample, a cluster where more than 1
+    px_per_rank: int  # block r owns pixels [r * px_per_rank, ...)
+
+
+@functools.lru_cache(maxsize=256)
+def sample_plan(b: int, hw: int, c: int, groups: int, dtype: torch.dtype,
+                align: int, blend: bool = False) -> Optional[SamplePlan]:
+    """The rule that sends a K3 (or, with ``blend``, K4) call on the card
+    to the one-sample kernel, and its plan; None sends it to the two-pass
+    kernel. ``c`` is h's channels, ``align`` the alignment in bytes common
+    to the inputs' base addresses. The kernel takes fp32 or bf16 with h's
+    channels, and each group's, whole 16-byte vectors (so no vector
+    straddles a group or the z/r split), bases 16-byte aligned (bulk
+    copies), and a block size that is a multiple of both 32 and the vectors
+    a pixel within 512 threads. A sample's pixels (3C channels each: gates
+    and h, or cand, z and h) go to as few blocks as fit the shared memory,
+    at most 8, in equal runs with the last one non-empty. Mirrors
+    csrc/gru_gates.cu::launch_sample."""
+    elem = _ELEM_BYTES.get(dtype)
+    ct = c if blend else 2 * c  # channels of the normalised input
+    if (elem is None or align % 16 or c * elem % 16 or groups < 1
+            or ct % groups or ct // groups * elem % 16):
+        return None
+    step = math.lcm(ct * elem // 16, 32)
+    if step > _MAX_THREADS:
+        return None
+    threads = _MAX_THREADS // step * step
+    room = _SMEM_LIMIT - threads * 8 - groups * 16 - (_CHUNKS + 1) * 8
+    most = room // (3 * c * elem)
+    if most < 1:
+        return None
+    ranks = -(-hw // most)
+    if ranks > _MAX_RANKS or b * ranks > 2**31 - 1:
+        return None
+    per = -(-hw // ranks)
+    return SamplePlan(threads, -(-hw // per), per)
+
+
+def _alignment(*ptrs: int) -> int:
+    """The largest power of two dividing every address in ``ptrs``."""
+    g = math.gcd(*ptrs)
+    return g & -g
+
+
+def _checked_affine(name: str, inputs: dict, dtype, scale, bias):
+    common.check_inputs(name, inputs, dtype)
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
-    common.check_inputs("gru_gates", {"scale": scale, "bias": bias},
-                        torch.float32)
+    common.check_inputs(name, {"scale": scale, "bias": bias}, torch.float32)
+    return scale, bias
+
+
+def _gates_cuda(gates_raw, h, scale, bias, groups, kernel="rule"):
+    """K3 on CUDA tensors: ``kernel`` "rule" takes the kernel the rule
+    names, "sample" the one-sample kernel (raises outside its rule),
+    "2pass" the two-pass kernel."""
+    b, hh, ww, c = h.shape
+    scale, bias = _checked_affine("gru_gates", {"gates_raw": gates_raw,
+                                                "h": h}, h.dtype, scale, bias)
+    ptrs = (gates_raw.data_ptr(), h.data_ptr())
+    plan = None
+    if kernel != "2pass":
+        plan = sample_plan(b, hh * ww, c, groups, h.dtype,
+                           _alignment(*ptrs))
+        if plan is None and kernel == "sample":
+            raise ValueError(f"gru_gates: {tuple(h.shape)} {h.dtype}, "
+                             f"{groups} groups is outside the one-sample "
+                             f"kernel's rule")
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
-    common.launch("gru_gates", library().odek_gru_gates,
-                  gates_raw.data_ptr(), h.data_ptr(), scale.data_ptr(),
-                  bias.data_ptr(), z.data_ptr(), rh.data_ptr(), b, hh * ww, c,
-                  groups, _EPS, common.DTYPE_CODES[h.dtype],
-                  common.stream_handle(h))
+    args = (*ptrs, scale.data_ptr(), bias.data_ptr(), z.data_ptr(),
+            rh.data_ptr(), b, hh * ww, c, groups, _EPS)
+    tail = (common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    if plan is None:
+        common.launch("gru_gates_2pass", library().odek_gru_gates, *args,
+                      *tail)
+    else:
+        common.launch("gru_gates_sample", library().odek_gru_gates_sample,
+                      *args, *plan, *tail)
+    common.launches["gru_gates"] += 1
     return z, rh
 
 
-def _blend_kernel(cand_raw, z, h, scale, bias, groups):
+def _blend_cuda(cand_raw, z, h, scale, bias, groups, kernel="rule"):
+    """K4 on CUDA tensors; ``kernel`` as for ``_gates_cuda``."""
     b, hh, ww, c = h.shape
-    common.check_inputs("gru_blend", {"cand_raw": cand_raw, "z": z, "h": h},
-                        h.dtype)
-    scale = scale.float().contiguous()
-    bias = bias.float().contiguous()
-    common.check_inputs("gru_blend", {"scale": scale, "bias": bias},
-                        torch.float32)
+    scale, bias = _checked_affine("gru_blend", {"cand_raw": cand_raw,
+                                                "z": z, "h": h}, h.dtype,
+                                  scale, bias)
+    ptrs = (cand_raw.data_ptr(), z.data_ptr(), h.data_ptr())
+    plan = None
+    if kernel != "2pass":
+        plan = sample_plan(b, hh * ww, c, groups, h.dtype,
+                           _alignment(*ptrs), blend=True)
+        if plan is None and kernel == "sample":
+            raise ValueError(f"gru_blend: {tuple(h.shape)} {h.dtype}, "
+                             f"{groups} groups is outside the one-sample "
+                             f"kernel's rule")
     out = torch.empty_like(h)
-    common.launch("gru_blend", library().odek_gru_blend,
-                  cand_raw.data_ptr(), z.data_ptr(), h.data_ptr(),
-                  scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-                  hh * ww, c, groups, _EPS, common.DTYPE_CODES[h.dtype],
-                  common.stream_handle(h))
+    args = (*ptrs, scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+            hh * ww, c, groups, _EPS)
+    tail = (common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    if plan is None:
+        common.launch("gru_blend_2pass", library().odek_gru_blend, *args,
+                      *tail)
+    else:
+        common.launch("gru_blend_sample", library().odek_gru_blend_sample,
+                      *args, *plan, *tail)
+    common.launches["gru_blend"] += 1
     return out
 
 
@@ -113,7 +237,7 @@ class FusedGRUGatesFn(torch.autograd.Function):
         ctx.groups = groups
         ctx.save_for_backward(gates_raw, h, scale, bias)
         if common.use_kernel(gates_raw):
-            return _gates_kernel(gates_raw, h, scale, bias, groups)
+            return _gates_cuda(gates_raw, h, scale, bias, groups)
         z, rh = _gates_plain(gates_raw, h, scale, bias, groups)
         return z.contiguous(), rh
 
@@ -130,7 +254,7 @@ class FusedGRUBlendFn(torch.autograd.Function):
         ctx.groups = groups
         ctx.save_for_backward(cand_raw, z, h, scale, bias)
         if common.use_kernel(cand_raw):
-            return _blend_kernel(cand_raw, z, h, scale, bias, groups)
+            return _blend_cuda(cand_raw, z, h, scale, bias, groups)
         return _blend_plain(cand_raw, z, h, scale, bias, groups)
 
     @staticmethod
@@ -140,16 +264,27 @@ class FusedGRUBlendFn(torch.autograd.Function):
         return (*grads, None)
 
 
-def fused_gru_gates(gates_raw: torch.Tensor, h: torch.Tensor,
-                    scale: torch.Tensor, bias: torch.Tensor,
-                    groups: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B,H,W,2C) raw gate conv output -> (z, r*h), each (B,H,W,C)."""
+def _check_gates(gates_raw, h, groups):
     if gates_raw.ndim != 4 or h.ndim != 4 or (
             gates_raw.shape[:3] != h.shape[:3]
             or gates_raw.shape[3] != 2 * h.shape[3]):
         raise ValueError(f"fused_gru_gates: gates {tuple(gates_raw.shape)} "
                          f"and h {tuple(h.shape)} do not match")
     _check_groups("fused_gru_gates", gates_raw.shape[3], groups)
+
+
+def _check_blend(cand_raw, z, h, groups):
+    if h.ndim != 4 or cand_raw.shape != h.shape or z.shape != h.shape:
+        raise ValueError(f"fused_gru_blend: cand {tuple(cand_raw.shape)}, "
+                         f"z {tuple(z.shape)} and h {tuple(h.shape)} differ")
+    _check_groups("fused_gru_blend", h.shape[3], groups)
+
+
+def fused_gru_gates(gates_raw: torch.Tensor, h: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor,
+                    groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,H,W,2C) raw gate conv output -> (z, r*h), each (B,H,W,C)."""
+    _check_gates(gates_raw, h, groups)
     return FusedGRUGatesFn.apply(gates_raw, h, scale, bias, groups)
 
 
@@ -157,8 +292,31 @@ def fused_gru_blend(cand_raw: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor,
                     groups: int) -> torch.Tensor:
     """(B,H,W,C) raw candidate conv output + gate z + state h -> h_next."""
-    if h.ndim != 4 or cand_raw.shape != h.shape or z.shape != h.shape:
-        raise ValueError(f"fused_gru_blend: cand {tuple(cand_raw.shape)}, "
-                         f"z {tuple(z.shape)} and h {tuple(h.shape)} differ")
-    _check_groups("fused_gru_blend", h.shape[3], groups)
+    _check_blend(cand_raw, z, h, groups)
     return FusedGRUBlendFn.apply(cand_raw, z, h, scale, bias, groups)
+
+
+def _gru_gates_sample(gates_raw, h, scale, bias, groups):
+    """K3's one-sample kernel on CUDA tensors, no autograd; raises outside
+    its rule (the card tests and chip_smoke.py hold the two K3 kernels
+    against each other)."""
+    _check_gates(gates_raw, h, groups)
+    return _gates_cuda(gates_raw, h, scale, bias, groups, "sample")
+
+
+def _gru_gates_2pass(gates_raw, h, scale, bias, groups):
+    """K3's two-pass kernel on CUDA tensors, whatever the rule says."""
+    _check_gates(gates_raw, h, groups)
+    return _gates_cuda(gates_raw, h, scale, bias, groups, "2pass")
+
+
+def _gru_blend_sample(cand_raw, z, h, scale, bias, groups):
+    """K4's one-sample kernel on CUDA tensors; raises outside its rule."""
+    _check_blend(cand_raw, z, h, groups)
+    return _blend_cuda(cand_raw, z, h, scale, bias, groups, "sample")
+
+
+def _gru_blend_2pass(cand_raw, z, h, scale, bias, groups):
+    """K4's two-pass kernel on CUDA tensors, whatever the rule says."""
+    _check_blend(cand_raw, z, h, groups)
+    return _blend_cuda(cand_raw, z, h, scale, bias, groups, "2pass")

@@ -11,8 +11,8 @@ the unprofiled step times and their median (with the mean NFE of those
 steps for the flagship), the peak memory, the device kernel time per step,
 over the profiled steps' own wall time (a floor of the busy share: the
 profiler slows the host) and over the unprofiled median, device time by
-group, the device time a launch of each K1 and K2 kernel, and the largest
-kernels. TF32 is off for
+group, the launches and device time a launch of each K1-K8 kernel found
+(each of a kernel's variants by name), and the largest kernels. TF32 is off for
 matmul and cuDNN, as in ``chip_smoke.py``, so an fp32 configuration runs
 its convs in strict fp32.
 """
@@ -38,12 +38,27 @@ from ode_rl_torch.train.step import create_train_state, make_fused_train_step
 
 WARMUP, TIMED, PROFILED = 3, 10, 3
 
+# The hand-written kernels by name, and the id of the TPU kernel each
+# replaces (PERF.md §6).
+_KERNEL_IDS = {
+    "conv3x3_fwd_tc": "K1", "conv3x3_fwd": "K1",
+    "conv3x3_wgrad_tc": "K2", "conv3x3_wgrad_partial": "K2",
+    "splitk_sum": "K2",
+    "gru_gates_sample": "K3", "gru_gates": "K3",
+    "gru_blend_sample": "K4", "gru_blend": "K4",
+    "corr_fwd": "K5", "corr_bwd_f1": "K6", "corr_bwd_f2": "K7",
+    "channelnorm": "K8",
+}
+_KERNEL_NAME = re.compile(r"\b(" + "|".join(_KERNEL_IDS)
+                          + r")_kernel(<[^>]*>)?")
+
 # Device kernels by substring of their names, first match wins.
 _GROUPS = (
     ("K1 conv3x3_fwd, tensor cores", ("conv3x3_fwd_tc",)),
     ("K1 conv3x3_fwd, SIMT", ("conv3x3_fwd_kernel",)),
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad", "splitk_sum")),
-    ("K3/K4 GRU gates and blend", ("gru_gates", "gru_blend")),
+    ("K3 gru_gates", ("gru_gates",)),
+    ("K4 gru_blend", ("gru_blend",)),
     ("K5-K7 correlation", ("corr_",)),
     ("K8 channelnorm", ("channelnorm",)),
     ("cuDNN conv (fprop, dgrad, wgrad)",
@@ -140,12 +155,12 @@ def profile_step(net: str) -> None:
         groups[_group(e.key)] += e.self_device_time_total / 1e3
     for group, ms in groups.most_common():
         print(f"  {group:<34} {ms:10.3f} ms {100 * ms / total:5.1f}%")
-    for e in events:
-        conv = re.search(r"(conv3x3_\w*|splitk_sum)_kernel(<[^>]*>)?", e.key)
-        if conv:
-            kid = "K1" if "fwd" in conv.group(0) else "K2"
-            print(f"  {kid} {conv.group(0)}: {e.count} launches, "
-                  f"{e.self_device_time_total / e.count} us a launch")
+    for e in sorted(events, key=lambda e: e.key):
+        found = _KERNEL_NAME.search(e.key)
+        if found:
+            print(f"  {_KERNEL_IDS[found.group(1)]} {found.group(0)}: "
+                  f"{e.count} launches, {e.self_device_time_total / e.count}"
+                  f" us a launch")
     print(f"largest kernels over the {PROFILED} profiled steps:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "

@@ -1,7 +1,10 @@
 """Kernels K1-K8 on the card, at shapes other than the main paths': ragged
 tiles, the tensor-core K1 and K2 against their SIMT twins and cuDNN,
-channel counts that are not multiples of 64, GroupNorm groups that
-straddle the z/r split, correlation windows at stride 1, H != W, C not a
+channel counts that are not multiples of 64, the one-sample K3/K4 against
+the two-pass ones and the plain versions (GroupNorm groups that straddle
+the z/r split, a cluster of blocks a sample, the flagship) and the shapes
+the rule sends to the two-pass kernels, correlation windows at stride 1,
+H != W, C not a
 multiple of 32 and d > H, channelnorm at C = 1, 2, 3 and 64, and the
 checks that make a wrapper raise.
 
@@ -17,7 +20,10 @@ SIMT) within one bf16 ulp of the fp64 conv of the same inputs rounded to
 bf16, with at most 2e-3 of the outputs one ulp off (``common.bf16_ulps``;
 readings in chip_smoke.py); bf16 K2 (both kernels) relative L2 5e-6
 against fp64 and against its plain version (cuDNN's bf16 weight gradient
-3e-3: its own rounding to bf16), and K3/K4 max abs 1/128 (|h| < 1). K5-K8 in fp32 to 1e-5 max abs against fp64
+3e-3: its own rounding to bf16), and K3/K4 max abs 1/128 (|h| < 1)
+against the plain version, and both K3/K4 kernels (one-sample and
+two-pass) within one bf16 ulp of the Pallas formula in fp64, with at most
+2e-3 of the outputs one ulp off. K5-K8 in fp32 to 1e-5 max abs against fp64
 plain versions (sums of at most a few thousand products of unit normals).
 In bf16 against the plain version on the same bf16 inputs: a product of
 two bf16 values is exact in fp32, K6, K7 and K8 add those products in the
@@ -44,7 +50,12 @@ from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
                                           correlation_fwd,
                                           correlation_fwd_plain,
                                           n_displacements)
-from ode_rl_torch.ops.gru_gates import fused_gru_blend, fused_gru_gates
+from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
+                                        _gates_plain, _gru_blend_2pass,
+                                        _gru_blend_sample, _gru_gates_2pass,
+                                        _gru_gates_sample, blend_f64,
+                                        fused_gru_blend, fused_gru_gates,
+                                        gates_f64, sample_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -260,6 +271,140 @@ def test_gru_gates_and_blend_match_plain(cuda, c, groups, dtype):
         assert _max_abs(a, r) <= tol
 
 
+# K3/K4 cases (B, H, W, C, groups of gates, dtype): the earlier (C,
+# groups) cases at a ragged 5 x 7 map, a group straddling the z/r split
+# (2C = 96 in 3 groups), an fp32 map of 1,024 pixels that the plan splits
+# over a cluster of 4 blocks, and the flagship in bf16 (B=128) and fp32
+# (B=8). The blend takes max(groups // 2, 1) groups, as ConvGRUCell does.
+GRU_CASES = [(3, 5, 7, c, g, dtype) for c, g in ((16, 1), (16, 2), (40, 4),
+                                                (64, 4), (48, 3))
+             for dtype in DTYPES]
+GRU_CASES += [(2, 32, 32, 64, 4, torch.float32),
+              (128, 16, 16, 64, 4, torch.bfloat16),
+              (8, 16, 16, 64, 4, torch.float32)]
+# bf16 K3/K4 against the fp64 Pallas formula: one ulp, as chip_smoke.py;
+# the share one ulp off at 2e-3, not chip_smoke.py's 5e-4, since a 5 x 7
+# map has only 1,680 outputs a tensor (readings at the flagship shape,
+# 2.1M outputs: 8.6e-6 to 3.4e-5).
+K34_BF16_ULPS, K34_BF16_SHARE = 1.0, 2e-3
+
+
+def _gru_case(gen, b, h, w, c, groups, dtype):
+    """K3's and K4's inputs: (gates, h, scale, bias, groups) and (cand, z,
+    h, scale, bias, groups of the blend)."""
+    hs = torch.tanh(_rnd(gen, b, h, w, c, dtype=dtype))
+    gates = (_rnd(gen, b, h, w, 2 * c, dtype=dtype), hs,
+             1 + 0.1 * _rnd(gen, 2 * c), 0.1 * _rnd(gen, 2 * c), groups)
+    blend = (_rnd(gen, b, h, w, c, dtype=dtype),
+             torch.sigmoid(_rnd(gen, b, h, w, c, dtype=dtype)), hs,
+             1 + 0.1 * _rnd(gen, c), 0.1 * _rnd(gen, c), max(groups // 2, 1))
+    return gates, blend
+
+
+_K34 = {"gates": (_gru_gates_sample, _gru_gates_2pass, _gates_plain,
+                  gates_f64),
+        "blend": (_gru_blend_sample, _gru_blend_2pass, _blend_plain,
+                  blend_f64)}
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("case", GRU_CASES)
+def test_gru_sample_kernels_match_two_pass_and_plain(cuda, case):
+    """The rule's kernel is the one-sample kernel wherever sample_plan has
+    a plan (raising outside it); the one-sample and two-pass kernels
+    against each other and the plain versions: fp32 to 1e-5 max abs, bf16
+    within one ulp of the fp64 Pallas formula."""
+    b, h, w, c, groups, dtype = case
+    for kind, args in zip(("gates", "blend"),
+                          _gru_case(cuda, b, h, w, c, groups, dtype)):
+        sample, two_pass, plain, f64 = _K34[kind]
+        blend = kind == "blend"
+        planned = sample_plan(b, h * w, c, args[-1], dtype,
+                              _alignment(*(t.data_ptr() for t in args[:-3])),
+                              blend)
+        name = f"gru_{kind}"
+        common.reset_launches()
+        public = _tuple(fused_gru_blend(*args) if blend
+                        else fused_gru_gates(*args))
+        assert common.launches[f"{name}_sample"] == int(planned is not None)
+        assert common.launches[f"{name}_2pass"] == int(planned is None)
+        outs = [_tuple(two_pass(*args))]
+        if planned is None:
+            with pytest.raises(ValueError, match="one-sample"):
+                sample(*args)
+        else:
+            outs.append(_tuple(sample(*args)))
+            assert all(torch.equal(a, r) for a, r in zip(public, outs[-1]))
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            refs = _tuple(plain(*args))
+            for out in outs:
+                for a, r in zip(out, refs):
+                    assert a.dtype == dtype and _max_abs(a, r) <= 1e-5
+        else:
+            refs = _tuple(f64(*args))
+            for out in outs:
+                for a, r in zip(out, refs):
+                    ulps, share = common.bf16_ulps(a, r)
+                    assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+
+
+@pytest.mark.parametrize("case", [GRU_CASES[-2], GRU_CASES[-3]])
+def test_gru_sample_kernels_are_bit_reproducible(cuda, case):
+    """20 calls at the flagship (bf16) and across a cluster (fp32)."""
+    for kind, args in zip(("gates", "blend"), _gru_case(cuda, *case)):
+        sample = _K34[kind][0]
+        first = _tuple(sample(*args))
+        for _ in range(20):
+            assert all(torch.equal(a, r)
+                       for a, r in zip(first, _tuple(sample(*args))))
+
+
+@pytest.mark.parametrize("refused", ["group_vectors", "misaligned",
+                                     "beyond_8_blocks"])
+def test_refused_gru_shapes_take_the_two_pass_kernel(cuda, refused):
+    """bf16 groups of 20 channels (40 bytes), a view one element into its
+    storage, and an fp32 sample of 4,096 pixels (14 blocks' worth of
+    shared memory): the rule names the two-pass kernel, which runs and
+    matches the plain version (fp32) or the fp64 formula (bf16); nothing
+    is raised or caught."""
+    shape = {"group_vectors": (2, 5, 7, 40, 4, torch.bfloat16),
+             "misaligned": (2, 16, 16, 64, 4, torch.bfloat16),
+             "beyond_8_blocks": (1, 64, 64, 64, 4, torch.float32)}[refused]
+    gates, blend = _gru_case(cuda, *shape)
+    if refused == "misaligned":
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            view = flat[1:].view(t.shape)
+            view.copy_(t)
+            return view
+        gates = (shifted(gates[0]), *gates[1:])
+        blend = (shifted(blend[0]), *blend[1:])
+    b, h, w, c, _, dtype = shape
+    assert sample_plan(b, h * w, c, gates[-1], dtype, _alignment(
+        *(t.data_ptr() for t in gates[:2]))) is None
+    assert sample_plan(b, h * w, c, blend[-1], dtype, _alignment(
+        *(t.data_ptr() for t in blend[:3])), True) is None
+    common.reset_launches()
+    k = (*fused_gru_gates(*gates), fused_gru_blend(*blend))
+    assert common.launches["gru_gates_2pass"] == 1
+    assert common.launches["gru_blend_2pass"] == 1
+    assert common.launches["gru_gates_sample"] == 0
+    assert common.launches["gru_blend_sample"] == 0
+    if dtype == torch.float32:
+        with common.force_plain():
+            refs = (*fused_gru_gates(*gates), fused_gru_blend(*blend))
+        for a, r in zip(k, refs):
+            assert _max_abs(a, r) <= 1e-5
+    else:
+        for a, r in zip(k, (*gates_f64(*gates), blend_f64(*blend))):
+            ulps, share = common.bf16_ulps(a, r)
+            assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+
+
 # (B, H, W, C, max_displacement, stride): ragged C, H != W, stride 1,
 # d > H, every window overlapping (d <= H/2, stride 1), the FlowNetC bench
 # geometry, and the FlyingChairs feature shape.
@@ -366,7 +511,9 @@ def test_each_wrapper_counts_its_launches(cuda):
     channelnorm_fwd(x)
     assert common.launches == {"conv3x3_fwd": 1, "conv3x3_fwd_tc": 0,
                                "conv3x3_wgrad": 1, "conv3x3_wgrad_tc": 0,
-                               "gru_gates": 1, "gru_blend": 1,
+                               "gru_gates": 1, "gru_gates_sample": 1,
+                               "gru_gates_2pass": 0, "gru_blend": 1,
+                               "gru_blend_sample": 1, "gru_blend_2pass": 0,
                                "correlation_fwd": 1, "correlation_bwd_f1": 1,
                                "correlation_bwd_f2": 1, "channelnorm": 1}
     with common.force_plain():
