@@ -32,11 +32,18 @@ without printing its last line:
    at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
    and the FlyingChairs feature shape (8, 48, 64, 256), and K8
    (channelnorm) at FlowNet2's (8, 64, 64, 3) and (8, 64, 64, 2), in fp32
-   and bf16 (bf16 K6-K8 bit-equal to their plain versions, K5 to 1e-4
-   relative L2), with CorrelationFn's and ChannelNormFn's gradients
-   against fp64; prints each error beside its tolerance, the median
-   time of each kernel and its plain version (CUDA events) and K5-K7's
-   device time a call;
+   and bf16 (bf16 K6, K8 and the SIMT K7 bit-equal to their plain
+   versions, K5 and the tensor-core K7 to 1e-4 relative L2); each shape
+   and dtype routed as tc_plan says (the bench shape in bf16 to the
+   tensor-core K5 and K7, the rest to SIMT). At the bench shape in bf16
+   the tensor-core K5 and K7, the SIMT ones and the plain versions
+   against fp64 of the same inputs (one bf16 ulp), the tensor-core
+   kernels bit-equal over 20 calls, the three timed in one run, and the
+   host time a call at B=1. CorrelationFn's gradients against fp64
+   autograd in fp32 and, at the bench shape, in bf16 (the tensor-core
+   K7 through autograd), and ChannelNormFn's; prints each error beside
+   its tolerance, the median time of each kernel and its plain version
+   (CUDA events) and K5-K7's device time a call;
 4. slice: ten fused training steps of the flagship configuration (bf16,
    B=128, 10 -> 10 frames, dopri5 'fast') from the port's own init, seed 0;
    every loss and grad_norm finite, every kernel's launch count above
@@ -50,9 +57,11 @@ without printing its last line:
    1e-3 relative L2;
 6. FlowNetC: ten fused training steps of FlowNetCBenchConfig (bf16,
    B=256, synthetic chairs made on the card, multiscale L1), seed 0; every
-   loss, EPE and grad_norm finite, and K5-K7 launched in these steps;
+   loss, EPE and grad_norm finite, K5-K7 launched in these steps, and
+   every K5 and K7 launch a tensor-core one;
 7. FlowNet2: three single-scale L1 steps of the stacked FlowNet2
-   (FlowNet2Config, fp32, B=8); finite, and K5-K8 launched in these steps;
+   (FlowNet2Config, fp32, B=8); finite, K5-K8 launched in these steps,
+   and no launch of the tensor-core K5 or K7 (fp32 stays on SIMT);
 8. FlowNet reference: one fp32 FlowNetC step at B=8 through the kernels
    against the same step on the plain versions: loss to 1e-5 relative,
    every gradient leaf to 1e-3 relative L2.
@@ -96,11 +105,18 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       conv3x3_wgrad_plain, flip_transpose)
-from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
+from ode_rl_torch.ops.correlation import (CorrelationFn,
+                                          _correlation_bwd_f2_simt,
+                                          _correlation_bwd_f2_tc,
+                                          _correlation_fwd_simt,
+                                          _correlation_fwd_tc,
+                                          correlation_bwd_f1,
                                           correlation_bwd_f2,
+                                          correlation_bwd_f2_plain,
                                           correlation_fwd,
                                           correlation_fwd_plain,
-                                          n_displacements)
+                                          n_displacements,
+                                          pair_displacements)
 from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         _gru_blend_2pass, _gru_blend_sample,
                                         _gru_gates_2pass, _gru_gates_sample,
@@ -541,7 +557,7 @@ def _host_times(gen) -> dict:
                                                            torch.bfloat16)
     gs, gb, cs, cb = (torch.ones(n, device="cuda") for n in (2 * C, 2 * C,
                                                               C, C))
-    fns = {
+    return _host_turns({
         ("conv3x3_fwd", "host_us", "tensor cores"):
             lambda: conv3x3_fwd(x, w2d),
         ("conv3x3_fwd", "simt_host_us", "SIMT"):
@@ -558,7 +574,13 @@ def _host_times(gen) -> dict:
             lambda: _gru_blend_sample(cand, z, h, cs, cb, 2),
         ("gru_blend", "2pass_host_us", "two-pass"):
             lambda: _gru_blend_2pass(cand, z, h, cs, cb, 2),
-    }
+    })
+
+
+def _host_turns(fns: dict) -> dict:
+    """Host µs a call of each fn keyed (kernel name, result key, label):
+    ten runs each, five rounds of the turns a, b, ..., ..., b, a; the least
+    run is kept, the median printed beside it."""
     runs = {key: [] for key in fns}
     for _ in range(5):
         for key in [*fns, *reversed(fns)]:
@@ -640,13 +662,25 @@ def _bounds() -> dict:
     at (8, 64, 64, 3) in fp32. Products that a matrix unit could do (K1,
     K2, the correlation dot products) count against the bf16 tensor-core
     rate; elementwise work (about 10 operations an element for the
-    GroupNorm tails, 2 a channel for the norm) against fp32."""
+    GroupNorm tails, 2 a channel for the norm) against fp32.
+
+    K5-K7 count only the (pixel, displacement) pairs whose window lies in
+    the map (1,024 of a sample's 28,224 at the bench shape): the other
+    outputs are zeros, and the cotangent there enters no gradient. K5
+    still writes its whole (B, H, W, n*n) output; K6 and K7 need only the
+    cotangent's in-map entries."""
     px = B * HW * HW
     conv_flops = 2 * px * 9 * C * C
     b, h, w, c = CORR_SHAPES["bench"]
     n = n_displacements(CORR_D, CORR_STRIDE) ** 2
-    corr_flops = 2 * b * h * w * n * c
-    corr_bytes = b * h * w * (2 * c + n) * 2  # two of (C, C, n) in, one out
+    pairs = b * int((pair_displacements(h, w, CORR_D, CORR_STRIDE)
+                     >= 0).sum())
+    corr_flops = 2 * pairs * c
+    feature_bytes = b * h * w * c * 2
+    # f1, f2 in, the cost volume out; a feature map and the in-map
+    # cotangent in, a gradient out.
+    fwd_bytes = 2 * feature_bytes + b * h * w * n * 2
+    bwd_bytes = 2 * feature_bytes + pairs * 2
     nb, nh, nw, nc = NORM_SHAPES[0]
     return {
         # x and w in, out; x and g in, dW (fp32) out.
@@ -660,9 +694,9 @@ def _bounds() -> dict:
                             PEAK_FP32),
         "gru_blend": _bound(10 * px * C, px * 4 * C * 2 + 2 * C * 4,
                             PEAK_FP32),
-        "correlation_fwd": _bound(corr_flops, corr_bytes, PEAK_BF16),
-        "correlation_bwd_f1": _bound(corr_flops, corr_bytes, PEAK_BF16),
-        "correlation_bwd_f2": _bound(corr_flops, corr_bytes, PEAK_BF16),
+        "correlation_fwd": _bound(corr_flops, fwd_bytes, PEAK_BF16),
+        "correlation_bwd_f1": _bound(corr_flops, bwd_bytes, PEAK_BF16),
+        "correlation_bwd_f2": _bound(corr_flops, bwd_bytes, PEAK_BF16),
         "channelnorm": _bound(2 * nb * nh * nw * nc,
                               nb * nh * nw * (nc + 1) * 4, PEAK_FP32),
     }
@@ -674,23 +708,51 @@ CORR_D, CORR_STRIDE = 20, 2
 NORM_SHAPES = ((8, 64, 64, 3), (8, 64, 64, 2))
 
 
-def _flow_tol(name: str, dtype) -> tuple:
-    """(tolerance, metric) of K5-K8 against their plain versions.
+def _flow_tol(name: str, dtype, tc: bool = False) -> tuple:
+    """(tolerance, metric) of K5-K8 against their plain versions; ``tc``
+    where the call took a tensor-core kernel.
 
     fp32: the kernel and the plain version sum the same fp32 products in
     another order. bf16: a product of two bf16 values is exact in fp32.
-    K6, K7 and K8 (C <= 3) add those products in the same order as their
-    plain versions, divide and take the square root as IEEE does, and round
-    once to nearest, so they are bit-equal. K5 sums its C products in
-    another order than the plain mean, so the two round differently where
-    their fp32 sums straddle a bf16 rounding boundary: 1e-4 relative L2. A
-    kernel that truncated, or rounded its accumulator partway, would read
-    about 2e-3."""
+    K6, the SIMT K7 and K8 (C <= 3) add those products in the same order as
+    their plain versions, divide and take the square root as IEEE does, and
+    round once to nearest, so they are bit-equal. K5, and the tensor-core
+    K7, sum their products in another order than the plain version, so the
+    two round differently where their fp32 sums straddle a bf16 rounding
+    boundary: 1e-4 relative L2. A kernel that truncated, or rounded its
+    accumulator partway, would read about 2e-3."""
     if dtype == torch.float32:
         return 1e-5, "max_abs"
-    if name == "correlation_fwd":
+    if name == "correlation_fwd" or (tc and name == "correlation_bwd_f2"):
         return 1e-4, "rel_l2"
     return 0.0, "max_abs"
+
+
+# bf16 K5 and K7 at the bench shape (tensor-core, SIMT and plain) against
+# fp64 of the same bf16 inputs rounded to bf16 (common.bf16_ulps): every
+# output within one ulp, and at most this share of outputs one ulp off.
+# Each rounds an fp32 sum once, so only outputs whose fp64 value lies
+# within fp32 noise of a rounding boundary can differ; a kernel that
+# truncated would read about 0.5 of the nonzero outputs.
+CORR_BF16_ULPS, CORR_BF16_SHARE = 1.0, 1e-3
+CORR_TC = ("correlation_fwd", "correlation_bwd_f2")
+
+
+def _check_corr_route(label: str, dtype, tc: bool) -> None:
+    """Since the last reset, every K5 and K7 launch took the tensor-core
+    kernel (``tc``) or none did."""
+    counts = common.launches
+    for name in CORR_TC:
+        want = counts[name] if tc else 0
+        if counts[name] == 0 or counts[f"{name}_tc"] != want:
+            raise AssertionError(
+                f"{name} {label} {dtype}: {counts[f'{name}_tc']} of "
+                f"{counts[name]} launches on the tensor cores, expected "
+                f"{want}")
+    print(f"    {label} {str(dtype)[6:]}: K5 and K7 routed to "
+          f"{'the tensor cores' if tc else 'SIMT'} (" + ", ".join(
+              f"{k} {counts[k]}" for k in counts
+              if k.startswith(CORR_TC)) + ")")
 
 
 def _flow_ops(shape, dtype, gen):
@@ -716,15 +778,20 @@ def _check_flow_kernels(gen) -> dict:
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for label, shape in CORR_SHAPES.items():
+                tc = dtype == torch.bfloat16 and label == "bench"
+                common.reset_launches()
                 for name, fn in _flow_ops(shape, dtype, gen).items():
                     out = fn()
                     with common.force_plain():
                         ref = fn()
-                    tol, kind = _flow_tol(name, dtype)
+                    tol, kind = _flow_tol(name, dtype, tc)
                     metric = max_abs if kind == "max_abs" else rel_l2
                     check(f"{name} {label} {str(dtype)[6:]}",
                           metric(out, ref), tol, kind)
-                    if dtype == torch.bfloat16:
+                    # The tensor-core K5 and K7 are timed beside the SIMT
+                    # ones in _check_corr_tc.
+                    if dtype == torch.bfloat16 and not (tc and
+                                                        name in CORR_TC):
                         ms = median_ms(fn)
                         with common.force_plain():
                             plain_ms = median_ms(fn)
@@ -736,6 +803,7 @@ def _check_flow_kernels(gen) -> dict:
                             results[name] = {"max_abs_err": max_abs(out, ref),
                                              "ms": ms, "plain_ms": plain_ms,
                                              "device_us": us}
+                _check_corr_route(label, dtype, tc)
             for shape in NORM_SHAPES:
                 x = torch.randn(*shape, generator=gen).to("cuda", dtype)
                 x[0, :4] = 0.0
@@ -762,7 +830,84 @@ def _check_flow_kernels(gen) -> dict:
                         "library_ms": times["library"][0],
                         "device_us": times["kernel"][1],
                         "library_device_us": times["library"][1]}
+        for name, result in _check_corr_tc(gen).items():
+            results.setdefault(name, {}).update(result)
     _check_flow_gradients(gen)
+    return results
+
+
+def _check_corr_tc(gen) -> dict:
+    """The tensor-core K5 and K7 at the FlowNetC bench shape in bf16: they,
+    the SIMT kernels and the plain versions against fp64 of the same bf16
+    inputs (common.bf16_ulps), the tensor-core K5 also against the bf16
+    plain version (relative L2); the tensor-core kernels bit-equal over 20
+    calls; the three timed in one run; then the host time a call at B=1 of
+    the public K5 and K7 wrappers (which take the tensor cores), of their
+    SIMT ones, and of K6's."""
+    def rnd(*s):
+        return torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
+
+    geometry = (CORR_D, CORR_STRIDE)
+    b, h, w, c = CORR_SHAPES["bench"]
+    n2 = n_displacements(*geometry) ** 2
+    f1, f2, g = rnd(b, h, w, c), rnd(b, h, w, c), rnd(b, h, w, n2)
+    cases = {
+        "correlation_fwd": ((f1, f2), _correlation_fwd_tc,
+                            _correlation_fwd_simt, correlation_fwd_plain),
+        "correlation_bwd_f2": ((g, f1), _correlation_bwd_f2_tc,
+                               _correlation_bwd_f2_simt,
+                               correlation_bwd_f2_plain),
+    }
+    results = {}
+    for name, (args, tc, simt, plain) in cases.items():
+        ref = plain(*(a.double() for a in args), *geometry)
+        outs = {}
+        for label, fn in (("tensor cores", tc), ("SIMT", simt),
+                          ("plain", plain)):
+            outs[label] = fn(*args, *geometry)
+            ulps, share = common.bf16_ulps(outs[label], ref)
+            check(f"{name} bench bf16, {label}: ulps", ulps, CORR_BF16_ULPS,
+                  "max")
+            check(f"{name} bench bf16, {label}: share 1 ulp off", share,
+                  CORR_BF16_SHARE, "share")
+        first = outs["tensor cores"]
+        if name == "correlation_fwd":
+            check(f"{name} bench bf16, tensor cores vs plain",
+                  rel_l2(first, outs["plain"]), 1e-4, "rel_l2")
+        if not all(torch.equal(first, tc(*args, *geometry))
+                   for _ in range(20)):
+            raise AssertionError(f"tensor-core {name}: 20 calls are not "
+                                 "bit-equal")
+        times = _time_turns({"tc": lambda: tc(*args, *geometry),
+                             "simt": lambda: simt(*args, *geometry),
+                             "plain": lambda: plain(*args, *geometry)})
+        result = {"max_abs_err": max_abs(first, outs["plain"])}
+        for label, (ms, us) in times.items():
+            result["ms" if label == "tc" else f"{label}_ms"] = ms
+            result[f"{label}_device_us"] = us
+        print(f"  {name} bf16 at (256, 8, 8, 256), one run: CUDA-event "
+              f"median ms tc {result['ms']:.4f} simt {result['simt_ms']:.4f} "
+              f"plain {result['plain_ms']:.4f}; device us a call tc "
+              f"{result['tc_device_us']:.2f} simt "
+              f"{result['simt_device_us']:.2f} plain "
+              f"{result['plain_device_us']:.2f}")
+        results[name] = result
+    x, y = rnd(1, h, w, c), rnd(1, h, w, c)
+    g1 = rnd(1, h, w, n2)
+    host = _host_turns({
+        ("correlation_fwd", "host_us", "tensor cores"):
+            lambda: correlation_fwd(x, y, *geometry),
+        ("correlation_fwd", "simt_host_us", "SIMT"):
+            lambda: _correlation_fwd_simt(x, y, *geometry),
+        ("correlation_bwd_f2", "host_us", "tensor cores"):
+            lambda: correlation_bwd_f2(g1, x, *geometry),
+        ("correlation_bwd_f2", "simt_host_us", "SIMT"):
+            lambda: _correlation_bwd_f2_simt(g1, x, *geometry),
+        ("correlation_bwd_f1", "host_us", "SIMT"):
+            lambda: correlation_bwd_f1(g1, y, *geometry),
+    })
+    for name, times in host.items():
+        results.setdefault(name, {}).update(times)
     return results
 
 
@@ -784,6 +929,7 @@ def _check_flow_gradients(gen) -> None:
               "max_abs")
         check(f"CorrelationFn df2 {label}", max_abs(k[1], p[1]), 1e-5,
               "max_abs")
+    _check_corr_grad_bf16(gen)
     x = torch.randn(*NORM_SHAPES[0], generator=gen).cuda()
     x[0, :4] = 0.0
     g = torch.randn(*NORM_SHAPES[0][:3], 1, generator=gen).cuda()
@@ -796,6 +942,34 @@ def _check_flow_gradients(gen) -> None:
     check("ChannelNormFn dx vs fp64", max_abs(gx, expect), 1e-6, "max_abs")
     if not torch.equal(gx[0, :4], torch.zeros_like(gx[0, :4])):
         raise AssertionError("ChannelNormFn: gradient at zero norm is not 0")
+
+
+def _check_corr_grad_bf16(gen) -> None:
+    """CorrelationFn's gradients in bf16 at the bench shape (the tensor-core
+    K5 forward, the SIMT K6 and the tensor-core K7 backward) against
+    autograd of the fp64 plain forward on the same bf16 values: one bf16
+    ulp, as _check_corr_tc."""
+    shape = CORR_SHAPES["bench"]
+    f1, f2, g = (torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
+                 for s in (shape, shape, (*shape[:3], 441)))
+
+    def grads(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (f1, f2)]
+        return torch.autograd.grad(fn(*leaves, CORR_D, CORR_STRIDE), leaves,
+                                   g.to(dtype))
+
+    common.reset_launches()
+    k = grads(CorrelationFn.apply, torch.bfloat16)
+    if common.launches["correlation_bwd_f2_tc"] != 1:
+        raise AssertionError(f"bf16 CorrelationFn did not run the "
+                             f"tensor-core K7: {common.launches}")
+    p = grads(correlation_fwd_plain, torch.float64)
+    for which, a, r in (("df1", k[0], p[0]), ("df2", k[1], p[1])):
+        ulps, share = common.bf16_ulps(a, r)
+        check(f"CorrelationFn bf16 {which} bench vs fp64: ulps", ulps,
+              CORR_BF16_ULPS, "max")
+        check(f"CorrelationFn bf16 {which} bench: share 1 ulp off", share,
+              CORR_BF16_SHARE, "share")
 
 
 def _check_gradients(gen) -> None:
@@ -971,6 +1145,11 @@ def phase_flownetc(bank: torch.Tensor) -> dict:
                      generator=torch.Generator().manual_seed(cfg.seed))
     counts, _ = _run_flow_steps("FlowNetC", model.cuda(), cfg, bank, 10,
                                 FLOWNETC_KERNELS)
+    for name in CORR_TC:
+        if counts[f"{name}_tc"] != counts[name]:
+            raise AssertionError(
+                f"{counts[name] - counts[f'{name}_tc']} of {counts[name]} "
+                f"{name} launches missed the tensor cores")
     return counts
 
 
@@ -983,6 +1162,9 @@ def phase_flownet2(bank: torch.Tensor) -> dict:
           f"B={cfg.batch}, {cfg.dtype}, {n_params:,} parameters")
     counts, _ = _run_flow_steps("FlowNet2", model.cuda(), cfg, bank, 3,
                                 (*FLOWNETC_KERNELS, "channelnorm"))
+    if any(counts[f"{name}_tc"] for name in CORR_TC):
+        raise AssertionError(f"fp32 FlowNet2 launched a tensor-core K5 or "
+                             f"K7: {counts}")
     return counts
 
 
@@ -1023,7 +1205,8 @@ def main() -> int:
                        "gru_blend_sample")}
     phase_reference(bank)
     counts.update({k: v for k, v in phase_flownetc(bank).items()
-                   if k in FLOWNETC_KERNELS})
+                   if k in (*FLOWNETC_KERNELS, "correlation_fwd_tc",
+                            "correlation_bwd_f2_tc")})
     counts["channelnorm"] = phase_flownet2(bank)["channelnorm"]
     phase_flow_reference(bank)
     print(f"build_s {build_s:.2f}")
@@ -1031,6 +1214,8 @@ def main() -> int:
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
     for name in ("gru_gates", "gru_blend"):
         timings[name]["sample_launches"] = counts[f"{name}_sample"]
+    for name in CORR_TC:
+        timings[name]["tc_launches"] = counts[f"{name}_tc"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": tpu,
          "launches": counts[name], **timings[name]}

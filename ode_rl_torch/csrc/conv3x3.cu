@@ -60,12 +60,22 @@ namespace {
 
 namespace cg = cooperative_groups;
 using odek::allow_max_smem;
+using odek::fence_operands;
 using odek::from_f32;
+using odek::k_major_desc;
 using odek::mbar_expect_tx;
 using odek::mbar_init;
 using odek::mbar_wait;
+using odek::mn_major_desc;
 using odek::smem_u32;
+using odek::swizzle;
 using odek::to_f32;
+using odek::warpgroup_sync;
+using odek::wgmma_commit;
+using odek::wgmma_fence;
+using odek::wgmma_m64n64k16;
+using odek::wgmma_wait_all;
+using odek::wgmma_wait_one;
 
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 sub-tile
 constexpr int kTile = 64;      // output tile edge (pixels or channels)
@@ -357,49 +367,6 @@ __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
-// TMA's swizzle of rows of `row_bytes` (32, 64 or 128) in a 1 KB aligned
-// region: the 16-byte unit at bits 4.. of an offset is XORed with bits 7..
-__device__ __forceinline__ uint32_t swizzle(uint32_t off, int row_bytes) {
-  return off ^ (((off >> 7) & (row_bytes / 16 - 1)) << 4);
-}
-
-// wgmma shared-memory descriptor of an MN-major operand NT columns wide
-// (one swizzle atom): start address, leading byte offset (between atoms
-// along N: one atom, so unused), stride byte offset (between groups of 8
-// K rows) and the swizzle (1: 128 B, 3: 32 B).
-__device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, int nt) {
-  const uint64_t row_bytes = nt * 2;
-  const uint64_t layout = nt == 64 ? 1 : 3;
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         (((8 * row_bytes) >> 4) << 32) | (layout << 62);
-}
-
-// wgmma shared-memory descriptor of a K-major operand whose 8-row groups
-// are 8 consecutive swizzle rows, `sbo` bytes apart, with the swizzle of
-// the halo chunk (1: 128 B, 2: 64 B, 3: 32 B); base offset 0.
-__device__ __forceinline__ uint64_t k_major_desc(uint32_t addr, uint32_t sbo,
-                                                 uint64_t layout) {
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
 template <int NT>
 struct Wgmma;
 
@@ -409,21 +376,7 @@ template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
                                              uint64_t b) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        " %8, %9, %10, %11, %12, %13, %14, %15, "
-        " %16, %17, %18, %19, %20, %21, %22, %23, "
-        " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, 1, 1, 1, 0, 1;"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b));
+    wgmma_m64n64k16<0, 1>(d, a, b);
   }
 };
 
@@ -441,12 +394,6 @@ struct Wgmma<16> {
         : "l"(a), "l"(b));
   }
 };
-
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // The products of one 8 x 8 block and one column block: a_blk addresses
 // the block's tap (0, 0) in the halo stage, b the column block's weights;
@@ -747,31 +694,11 @@ WgPlan wg_plan(int tw) {
   return p;
 }
 
-// D (64 x 64, fp32) += A (64 x 16) . B (16 x 64), both bf16 MN-major in
-// shared memory (transpose flags 1, 1).
-__device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, 1, 1, 1, 1, 1;"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b));
-}
-
 // The products of one tile for one tap: halo_tap addresses halo pixel
-// (dy, dx) of the stage, g_tile the cotangent tile. The descriptor encoding
-// is the one of k_major_desc (128-byte swizzle); descriptors step by
-// adding to their start address in 16-byte units (8 a pixel).
+// (dy, dx) of the stage, g_tile the cotangent tile, both MN-major
+// (transpose flags 1, 1). The descriptor encoding is the one of
+// k_major_desc (128-byte swizzle); descriptors step by adding to their
+// start address in 16-byte units (8 a pixel).
 template <int TW>
 __device__ __forceinline__ void wgrad_tile_products(float (&acc)[32],
                                                     uint32_t halo_tap,
@@ -791,7 +718,8 @@ __device__ __forceinline__ void wgrad_tile_products(float (&acc)[32],
       py = k / (TW / 16);
       px = (k % (TW / 16)) * 16;
     }
-    wgmma_tt(acc, a0 + (py * halo_w + px) * 8, b0 + (py * TW + px) * 8);
+    wgmma_m64n64k16<1, 1>(acc, a0 + (py * halo_w + px) * 8,
+                          b0 + (py * TW + px) * 8);
   }
 }
 

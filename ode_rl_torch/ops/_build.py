@@ -56,6 +56,10 @@ SIGNATURES = {
     "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, f1, gf2, B, H, W, C, max_displacement, stride, dtype, stream
     "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # as odek_correlation_fwd and odek_correlation_bwd_f2
+    "odek_correlation_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "odek_correlation_bwd_f2_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P],
     # x, out, pixels, C, dtype, stream
     "odek_channelnorm": [_P, _P, _L, _I, _I, _P],
 }

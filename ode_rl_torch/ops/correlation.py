@@ -14,6 +14,18 @@ the window leaves the image. Output (B, H, W, n*n), displacement-major
   gather formula, not autograd of the forward, so the plain backward the
   kernels are held to is tested on its own.
 
+On the card K5 and K7 each take one of two kernels by ``tc_plan``. The
+tensor-core kernels (bf16, maps of at most 64 pixels, C = 64, 128 or 256:
+the FlowNetC bench shape) give a sample to one block and turn the
+correlation into products over pixel pairs (``pair_displacements``):
+K5 is S = f1 . f2^T gathered at the pairs, K7 is M . f1 with M the
+cotangent scattered to the pairs. At the bench shape they take about 13.4
+and 10.6 µs a call alone, against 97 and 106 for the SIMT kernels; their
+bytes bounds are 9.3 and 5.2 (H100 80GB HBM3, 700 W; PERF.md). Every
+other call takes the SIMT kernels (fp32, so it stays strict fp32; the
+FlyingChairs feature maps; misaligned views). K6 runs its SIMT kernel at
+every shape.
+
 ``CorrelationFn`` is the ``custom_vjp`` of ``_corr_with_vjp``: K5 forward,
 K6 and K7 backward. The JAX package falls back to autograd of the XLA
 formula where its backward kernels would overflow the TPU's VMEM; a GPU
@@ -25,6 +37,9 @@ and round once to the input dtype, as the kernels do.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +50,18 @@ from ode_rl_torch.ops._build import library
 # memory: 48 KB without opting in to more.
 _MAX_SHARED_FLOATS = 12288
 
+# The tensor-core K5 and K7 (csrc/correlation.cu::corr_fwd_tc_kernel,
+# corr_bwd_f2_tc_kernel): a sample's map is one tile of at most 64 pixels,
+# and the channel products are unrolled for these widths (one, two or four
+# 64-channel rows of the 128-byte swizzle).
+_TC_PIXELS = 64
+_TC_CHANNELS = (64, 128, 256)
+# K5 stages a sample's (64, n*n) bf16 output in shared memory: 16 bytes of
+# lead and 1 KB of alignment within the H100's 232,448 bytes a block, less
+# 1 KB for the static pixel table. The feature tiles (at most 64 KB) are
+# smaller.
+_TC_MAX_DISPLACEMENTS = (232_448 - 2 * 1024 - 16) // (_TC_PIXELS * 2)
+
 
 def n_displacements(max_displacement: int, stride: int) -> int:
     """n per axis; the cost volume has n*n channels."""
@@ -42,6 +69,50 @@ def n_displacements(max_displacement: int, stride: int) -> int:
         raise ValueError(f"correlation: max_displacement {max_displacement} "
                          f"and stride {stride} must be >= 0 and >= 1")
     return 2 * max_displacement // stride + 1
+
+
+def pair_displacements(h: int, w: int, max_displacement: int,
+                       stride: int) -> torch.Tensor:
+    """(H*W, H*W) int64: entry (p, q) is the displacement i that takes
+    pixel p to pixel q (q = p + (iy*stride - d, ix*stride - d), i = iy*n +
+    ix), or -1 where none does. Each (p, i) whose window lies in the map is
+    exactly one entry. The tensor-core kernels' index map, computed as
+    ``csrc/correlation.cu::build_pair_table`` does: from the offset
+    q - p."""
+    d, n = max_displacement, n_displacements(max_displacement, stride)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    ys, xs = ys.reshape(-1), xs.reshape(-1)
+    ty = ys[None, :] - ys[:, None] + d  # (p, q): offset + d
+    tx = xs[None, :] - xs[:, None] + d
+    iy, ix = ty.div(stride, rounding_mode="floor"), tx.div(
+        stride, rounding_mode="floor")
+    ok = ((ty >= 0) & (tx >= 0) & (ty % stride == 0) & (tx % stride == 0)
+          & (iy < n) & (ix < n))
+    return torch.where(ok, iy * n + ix, torch.full_like(iy, -1))
+
+
+def tc_plan(h: int, w: int, c: int, max_displacement: int, stride: int,
+            dtype: torch.dtype, ptrs: tuple) -> bool:
+    """The rule that sends a K5 or K7 call on the card to its tensor-core
+    kernel (True) or to its SIMT kernel (False). The tensor-core kernels
+    take bf16 (fp32 stays on SIMT, so it stays strict fp32), a map of at
+    most 64 pixels (one wgmma tile), C = 64, 128 or 256 (FlowNetC's
+    correlation is 256 wide), feature pointers ``ptrs`` 16-byte aligned
+    (16-byte copies) and an output row K5 can stage in shared memory. The
+    library refuses only what its kernels cannot index
+    (csrc/correlation.cu::tc_args_ok)."""
+    return (math.gcd(*ptrs) % 16 == 0
+            and _tc_shape(h, w, c, max_displacement, stride, dtype))
+
+
+@functools.lru_cache(maxsize=256)
+def _tc_shape(h, w, c, max_displacement, stride, dtype) -> bool:
+    """tc_plan's part that the shape decides; cached, since it runs on
+    every launch."""
+    return (dtype == torch.bfloat16 and 1 <= h * w <= _TC_PIXELS
+            and c in _TC_CHANNELS
+            and n_displacements(max_displacement, stride) ** 2
+            <= _TC_MAX_DISPLACEMENTS)
 
 
 def _padded_offsets(max_displacement: int, stride: int):
@@ -116,23 +187,51 @@ def _launch(name, fn, a, b, out, features, max_displacement, stride):
                   common.stream_handle(features))
 
 
-def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
-                    max_displacement: int, stride: int) -> torch.Tensor:
-    """K5: f1, f2 (B, H, W, C) -> (B, H, W, n*n), f1's dtype."""
-    _check_nhwc_pair("correlation_fwd", f1, f2)
-    n = n_displacements(max_displacement, stride)
-    if not common.use_kernel(f1):
-        return correlation_fwd_plain(f1, f2, max_displacement, stride)
+def _use_tc(name, kernel, features, ptrs, max_displacement,
+            stride) -> bool:
+    """Whether a K5 or K7 call on the card takes its tensor-core kernel:
+    ``kernel`` "rule" as tc_plan says for the feature shape and the
+    pointers ``ptrs``, "tc" the same but raising outside the rule, "simt"
+    never."""
+    if kernel == "simt":
+        return False
+    _, h, w, c = features.shape
+    tc = tc_plan(h, w, c, max_displacement, stride, features.dtype, ptrs)
+    if kernel == "tc" and not tc:
+        raise ValueError(f"{name}: {tuple(features.shape)} {features.dtype}, "
+                         f"d {max_displacement}, stride {stride} is outside "
+                         f"the tensor-core kernel's rule")
+    return tc
+
+
+def _fwd_cuda(f1, f2, max_displacement, stride, kernel="rule"):
+    """K5 on CUDA tensors; ``kernel`` as for ``_use_tc``."""
     common.check_inputs("correlation_fwd", {"f1": f1, "f2": f2}, f1.dtype)
+    n = n_displacements(max_displacement, stride)
+    out = torch.empty((*f1.shape[:3], n * n), dtype=f1.dtype,
+                      device=f1.device)
+    if _use_tc("correlation_fwd", kernel, f1,
+               (f1.data_ptr(), f2.data_ptr()), max_displacement, stride):
+        _launch("correlation_fwd_tc", library().odek_correlation_fwd_tc, f1,
+                f2, out, f1, max_displacement, stride)
+        common.launches["correlation_fwd"] += 1
+        return out
     if f1.shape[3] + n * n > _MAX_SHARED_FLOATS:
         raise ValueError(f"correlation_fwd: {f1.shape[3]} channels and "
                          f"{n * n} displacements exceed {_MAX_SHARED_FLOATS} "
                          f"floats of shared memory")
-    out = torch.empty((*f1.shape[:3], n * n), dtype=f1.dtype,
-                      device=f1.device)
     _launch("correlation_fwd", library().odek_correlation_fwd, f1, f2, out,
             f1, max_displacement, stride)
     return out
+
+
+def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
+                    max_displacement: int, stride: int) -> torch.Tensor:
+    """K5: f1, f2 (B, H, W, C) -> (B, H, W, n*n), f1's dtype."""
+    _check_nhwc_pair("correlation_fwd", f1, f2)
+    if not common.use_kernel(f1):
+        return correlation_fwd_plain(f1, f2, max_displacement, stride)
+    return _fwd_cuda(f1, f2, max_displacement, stride)
 
 
 def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
@@ -149,6 +248,22 @@ def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
     return gf1
 
 
+def _bwd_f2_cuda(g, f1, max_displacement, stride, kernel="rule"):
+    """K7 on CUDA tensors; ``kernel`` as for ``_use_tc``. The tensor-core
+    kernel reads g by element, so only f1's pointer enters the rule."""
+    common.check_inputs("correlation_bwd_f2", {"g": g, "f1": f1}, f1.dtype)
+    gf2 = torch.empty_like(f1)
+    if _use_tc("correlation_bwd_f2", kernel, f1, (f1.data_ptr(),),
+               max_displacement, stride):
+        _launch("correlation_bwd_f2_tc", library().odek_correlation_bwd_f2_tc,
+                g, f1, gf2, f1, max_displacement, stride)
+        common.launches["correlation_bwd_f2"] += 1
+    else:
+        _launch("correlation_bwd_f2", library().odek_correlation_bwd_f2, g,
+                f1, gf2, f1, max_displacement, stride)
+    return gf2
+
+
 def correlation_bwd_f2(g: torch.Tensor, f1: torch.Tensor,
                        max_displacement: int, stride: int) -> torch.Tensor:
     """K7: cotangent (B, H, W, n*n) and f1 (B, H, W, C) -> grad f2."""
@@ -156,11 +271,7 @@ def correlation_bwd_f2(g: torch.Tensor, f1: torch.Tensor,
     _check_cotangent("correlation_bwd_f2", g, f1, n)
     if not common.use_kernel(g):
         return correlation_bwd_f2_plain(g, f1, max_displacement, stride)
-    common.check_inputs("correlation_bwd_f2", {"g": g, "f1": f1}, f1.dtype)
-    gf2 = torch.empty_like(f1)
-    _launch("correlation_bwd_f2", library().odek_correlation_bwd_f2, g, f1,
-            gf2, f1, max_displacement, stride)
-    return gf2
+    return _bwd_f2_cuda(g, f1, max_displacement, stride)
 
 
 class CorrelationFn(torch.autograd.Function):
@@ -190,3 +301,29 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     _check_nhwc_pair("correlation", f1, f2)
     return CorrelationFn.apply(f1.contiguous(), f2.contiguous(),
                                max_displacement, stride)
+
+
+# One K5 or K7 kernel on CUDA tensors whatever the rule says, no autograd
+# (the card tests and chip_smoke.py hold the kernels against each other);
+# the tensor-core ones raise outside their rule.
+
+def _correlation_fwd_tc(f1, f2, max_displacement, stride):
+    _check_nhwc_pair("correlation_fwd", f1, f2)
+    return _fwd_cuda(f1, f2, max_displacement, stride, "tc")
+
+
+def _correlation_fwd_simt(f1, f2, max_displacement, stride):
+    _check_nhwc_pair("correlation_fwd", f1, f2)
+    return _fwd_cuda(f1, f2, max_displacement, stride, "simt")
+
+
+def _correlation_bwd_f2_tc(g, f1, max_displacement, stride):
+    _check_cotangent("correlation_bwd_f2", g, f1,
+                     n_displacements(max_displacement, stride))
+    return _bwd_f2_cuda(g, f1, max_displacement, stride, "tc")
+
+
+def _correlation_bwd_f2_simt(g, f1, max_displacement, stride):
+    _check_cotangent("correlation_bwd_f2", g, f1,
+                     n_displacements(max_displacement, stride))
+    return _bwd_f2_cuda(g, f1, max_displacement, stride, "simt")

@@ -5,8 +5,10 @@ the two-pass ones and the plain versions (GroupNorm groups that straddle
 the z/r split, a cluster of blocks a sample, the flagship) and the shapes
 the rule sends to the two-pass kernels, correlation windows at stride 1,
 H != W, C not a
-multiple of 32 and d > H, channelnorm at C = 1, 2, 3 and 64, and the
-checks that make a wrapper raise.
+multiple of 32 and d > H, the tensor-core K5 and K7 against the SIMT ones
+and fp64 at maps of at most 64 pixels and the shapes the rule sends to
+SIMT, channelnorm at C = 1, 2, 3 and 64, and the checks that make a
+wrapper raise.
 
 These need an sm_90 GPU and skip elsewhere. The conftest of this folder
 imports JAX, which the machine with the card lacks, so run them there as
@@ -26,10 +28,13 @@ two-pass) within one bf16 ulp of the Pallas formula in fp64, with at most
 2e-3 of the outputs one ulp off. K5-K8 in fp32 to 1e-5 max abs against fp64
 plain versions (sums of at most a few thousand products of unit normals).
 In bf16 against the plain version on the same bf16 inputs: a product of
-two bf16 values is exact in fp32, K6, K7 and K8 add those products in the
-plain version's order and round once, so they are bit-equal; K5 sums in
-another order than the plain mean, so it may round differently where the
-two fp32 sums straddle a bf16 rounding boundary: 1e-4 relative L2.
+two bf16 values is exact in fp32, K6, the SIMT K7 and K8 add those
+products in the plain version's order and round once, so they are
+bit-equal; K5 and the tensor-core K7 sum in another order than the plain
+version, so they may round differently where the two fp32 sums straddle a
+bf16 rounding boundary: 1e-4 relative L2. The tensor-core K5 and K7, and
+the SIMT ones, within one bf16 ulp of the fp64 plain versions, with at
+most 1e-3 of the outputs one ulp off.
 """
 
 import pytest
@@ -43,13 +48,18 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       conv3x3_wgrad_plain, flip_transpose)
-from ode_rl_torch.ops.correlation import (CorrelationFn, correlation_bwd_f1,
+from ode_rl_torch.ops.correlation import (CorrelationFn,
+                                          _correlation_bwd_f2_simt,
+                                          _correlation_bwd_f2_tc,
+                                          _correlation_fwd_simt,
+                                          _correlation_fwd_tc,
+                                          correlation_bwd_f1,
                                           correlation_bwd_f1_plain,
                                           correlation_bwd_f2,
                                           correlation_bwd_f2_plain,
                                           correlation_fwd,
                                           correlation_fwd_plain,
-                                          n_displacements)
+                                          n_displacements, tc_plan)
 from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
                                         _gates_plain, _gru_blend_2pass,
                                         _gru_blend_sample, _gru_gates_2pass,
@@ -441,7 +451,115 @@ def test_correlation_kernels_match_plain(cuda, shape, dtype):
     if dtype == torch.bfloat16:
         assert _rel_l2(outs[0], refs[0]) <= 1e-4
         assert torch.equal(outs[1], refs[1])
-        assert torch.equal(outs[2], refs[2])
+        if _takes_tc(f1, f2, d, stride):  # tensor-core K7: another order
+            assert _rel_l2(outs[2], refs[2]) <= 1e-4
+        else:
+            assert torch.equal(outs[2], refs[2])
+
+
+def _takes_tc(f1, f2, d, stride) -> bool:
+    _, h, w, c = f1.shape
+    return tc_plan(h, w, c, d, stride, f1.dtype,
+                   (f1.data_ptr(), f2.data_ptr()))
+
+
+# Maps the tensor-core K5 and K7 take (B, H, W, C, d, stride): the bench
+# geometry (8x8x256, d = 20, stride 2), 8x8 at C = 64, H != W (4x16), an
+# odd 7x7 map (samples' outputs straddle 16-byte units), stride 1 with
+# d = 3, and stride 1 with d = 20 (1,681 displacements: K5's staged output
+# near the most a block's shared memory holds).
+CORR_TC_SHAPES = [(4, 8, 8, 256, 20, 2), (3, 8, 8, 64, 20, 2),
+                  (3, 4, 16, 64, 20, 2), (3, 7, 7, 128, 20, 2),
+                  (3, 8, 8, 64, 3, 1), (2, 8, 8, 64, 20, 1)]
+# bf16 K5 and K7 against fp64 of the same inputs: one ulp, at most this
+# share one ulp off, as chip_smoke.py.
+CORR_BF16_ULPS, CORR_BF16_SHARE = 1.0, 1e-3
+
+
+@pytest.mark.parametrize("shape", CORR_TC_SHAPES)
+def test_tensor_core_correlation_matches_simt_and_fp64(cuda, shape):
+    """The rule sends bf16 K5 and K7 at these maps to the tensor cores; the
+    tensor-core kernels and the SIMT ones within one bf16 ulp of the fp64
+    plain versions on the same inputs, the tensor-core K5 within 1e-4
+    relative L2 of the bf16 plain version."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, torch.bfloat16)
+    assert _takes_tc(f1, f2, d, stride)
+    common.reset_launches()
+    fwd, gf2 = correlation_fwd(f1, f2, d, stride), correlation_bwd_f2(
+        g, f1, d, stride)
+    assert common.launches["correlation_fwd_tc"] == 1
+    assert common.launches["correlation_bwd_f2_tc"] == 1
+    assert common.launches["correlation_fwd"] == 1
+    assert common.launches["correlation_bwd_f2"] == 1
+    assert torch.equal(fwd, _correlation_fwd_tc(f1, f2, d, stride))
+    assert torch.equal(gf2, _correlation_bwd_f2_tc(g, f1, d, stride))
+    cases = ((fwd, _correlation_fwd_simt(f1, f2, d, stride),
+              correlation_fwd_plain(f1.double(), f2.double(), d, stride)),
+             (gf2, _correlation_bwd_f2_simt(g, f1, d, stride),
+              correlation_bwd_f2_plain(g.double(), f1.double(), d, stride)))
+    torch.cuda.synchronize()
+    for tc, simt, ref in cases:
+        assert tc.dtype == torch.bfloat16 and tc.shape == ref.shape
+        for got in (tc, simt):
+            ulps, share = common.bf16_ulps(got, ref)
+            assert ulps <= CORR_BF16_ULPS and share <= CORR_BF16_SHARE
+    assert _rel_l2(fwd, correlation_fwd_plain(f1, f2, d, stride)) <= 1e-4
+
+
+def test_tensor_core_correlation_is_bit_reproducible(cuda):
+    f1, f2, g, d, stride = _corr_inputs(cuda, (16, 8, 8, 256, 20, 2),
+                                        torch.bfloat16)
+    fwd = _correlation_fwd_tc(f1, f2, d, stride)
+    gf2 = _correlation_bwd_f2_tc(g, f1, d, stride)
+    for _ in range(20):
+        assert torch.equal(fwd, _correlation_fwd_tc(f1, f2, d, stride))
+        assert torch.equal(gf2, _correlation_bwd_f2_tc(g, f1, d, stride))
+
+
+@pytest.mark.parametrize("refused", ["fp32", "chairs", "c48", "c192",
+                                     "misaligned"])
+def test_refused_correlation_shapes_take_the_simt_kernels(cuda, refused):
+    """fp32 at the bench geometry, the FlyingChairs feature map, C = 48,
+    C = 192 (no unrolled tensor-core kernel) and an f1 view one element
+    into its storage: the rule names the SIMT K5 and K7, which run and
+    match the plain versions (fp32 1e-5 against fp64; bf16 K5 1e-4
+    relative L2, K7 bit-equal); the tensor-core wrappers raise; nothing is
+    raised or caught on the way."""
+    shape, dtype = {"fp32": ((2, 8, 8, 256, 20, 2), torch.float32),
+                    "chairs": ((2, 48, 64, 256, 20, 2), torch.bfloat16),
+                    "c48": ((2, 8, 8, 48, 20, 2), torch.bfloat16),
+                    "c192": ((2, 8, 8, 192, 20, 2), torch.bfloat16),
+                    "misaligned": ((2, 8, 8, 256, 20, 2),
+                                   torch.bfloat16)}[refused]
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    if refused == "misaligned":
+        flat = torch.empty(f1.numel() + 1, dtype=dtype, device="cuda")
+        view = flat[1:].view(f1.shape)
+        view.copy_(f1)
+        f1 = view
+    assert not _takes_tc(f1, f2, d, stride)
+    common.reset_launches()
+    outs = (correlation_fwd(f1, f2, d, stride),
+            correlation_bwd_f2(g, f1, d, stride))
+    assert common.launches["correlation_fwd"] == 1
+    assert common.launches["correlation_bwd_f2"] == 1
+    assert common.launches["correlation_fwd_tc"] == 0
+    assert common.launches["correlation_bwd_f2_tc"] == 0
+    with pytest.raises(ValueError, match="tensor-core kernel's rule"):
+        _correlation_fwd_tc(f1, f2, d, stride)
+    with pytest.raises(ValueError, match="tensor-core kernel's rule"):
+        _correlation_bwd_f2_tc(g, f1, d, stride)
+    ref_dtype = torch.float64 if dtype == torch.float32 else dtype
+    a, b, gg = (t.to(ref_dtype) for t in (f1, f2, g))
+    refs = (correlation_fwd_plain(a, b, d, stride),
+            correlation_bwd_f2_plain(gg, a, d, stride))
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        for out, ref in zip(outs, refs):
+            assert _max_abs(out, ref) <= 1e-5
+    else:
+        assert _rel_l2(outs[0], refs[0]) <= 1e-4
+        assert torch.equal(outs[1], refs[1])
 
 
 @pytest.mark.parametrize("shape", CORR_SHAPES[:4])
@@ -514,8 +632,10 @@ def test_each_wrapper_counts_its_launches(cuda):
                                "gru_gates": 1, "gru_gates_sample": 1,
                                "gru_gates_2pass": 0, "gru_blend": 1,
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
-                               "correlation_fwd": 1, "correlation_bwd_f1": 1,
-                               "correlation_bwd_f2": 1, "channelnorm": 1}
+                               "correlation_fwd": 1, "correlation_fwd_tc": 0,
+                               "correlation_bwd_f1": 1,
+                               "correlation_bwd_f2": 1,
+                               "correlation_bwd_f2_tc": 0, "channelnorm": 1}
     with common.force_plain():
         conv3x3_fwd(x, _rnd(cuda, 72, 8))
     assert common.launches["conv3x3_fwd"] == 1
@@ -526,6 +646,12 @@ def test_each_wrapper_counts_its_launches(cuda):
     conv3x3_wgrad(xb, xb)
     assert common.launches["conv3x3_wgrad"] == 2
     assert common.launches["conv3x3_wgrad_tc"] == 1
+    gb = _rnd(cuda, 1, 4, 4, 9, dtype=torch.bfloat16)
+    correlation_fwd(xb, xb, 1, 1)
+    correlation_bwd_f2(gb, xb, 1, 1)
+    for name in ("correlation_fwd", "correlation_bwd_f2"):
+        assert common.launches[name] == 2
+        assert common.launches[f"{name}_tc"] == 1
 
 
 def test_force_plain_reaches_the_backward_thread(cuda):
