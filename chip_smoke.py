@@ -30,20 +30,24 @@ without printing its last line:
    wrappers at B=1: tensor-core and SIMT, one-sample and two-pass. Then
    K5-K7 (correlation forward and its two gradients)
    at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
-   and the FlyingChairs feature shape (8, 48, 64, 256), and K8
+   and the FlyingChairs feature shape (8, 48, 64, 256), in fp32 and bf16
+   (bf16 SIMT K6 and K7 bit-equal to their plain versions, K5 and the
+   tensor-core K6 and K7 to 1e-4 relative L2); each shape and dtype
+   routed as tc_plan says (the bench shape in bf16 to the tensor-core
+   K5-K7, the rest to SIMT). At the bench shape in bf16 the tensor-core
+   K5-K7, the SIMT ones and the plain versions against fp64 of the same
+   inputs (one bf16 ulp), the tensor-core kernels bit-equal over 20 calls,
+   the three timed in one run, and the host time a call at B=1. K8
    (channelnorm) at FlowNet2's (8, 64, 64, 3) and (8, 64, 64, 2), in fp32
-   and bf16 (bf16 K6, K8 and the SIMT K7 bit-equal to their plain
-   versions, K5 and the tensor-core K7 to 1e-4 relative L2); each shape
-   and dtype routed as tc_plan says (the bench shape in bf16 to the
-   tensor-core K5 and K7, the rest to SIMT). At the bench shape in bf16
-   the tensor-core K5 and K7, the SIMT ones and the plain versions
-   against fp64 of the same inputs (one bf16 ulp), the tensor-core
-   kernels bit-equal over 20 calls, the three timed in one run, and the
-   host time a call at B=1. CorrelationFn's gradients against fp64
-   autograd in fp32 and, at the bench shape, in bf16 (the tensor-core
-   K7 through autograd), and ChannelNormFn's; prints each error beside
-   its tolerance, the median time of each kernel and its plain version
-   (CUDA events) and K5-K7's device time a call;
+   and bf16, bit-equal to the plain version, and in fp32 timed in one run
+   at each shape with two controls on its grid (an empty kernel, the
+   launch floor, and one that reads the same bytes and writes one value a
+   pixel), the plain version and torch.linalg.vector_norm; the wrapper's
+   host time a call. CorrelationFn's gradients against
+   fp64 autograd in fp32 and, at the bench shape, in bf16 (the
+   tensor-core K6 and K7 through autograd), and ChannelNormFn's; prints
+   each error beside its tolerance, the median time of each kernel and its
+   plain version (CUDA events) and K5-K8's device time a call;
 4. slice: ten fused training steps of the flagship configuration (bf16,
    B=128, 10 -> 10 frames, dopri5 'fast') from the port's own init, seed 0;
    every loss and grad_norm finite, every kernel's launch count above
@@ -58,10 +62,10 @@ without printing its last line:
 6. FlowNetC: ten fused training steps of FlowNetCBenchConfig (bf16,
    B=256, synthetic chairs made on the card, multiscale L1), seed 0; every
    loss, EPE and grad_norm finite, K5-K7 launched in these steps, and
-   every K5 and K7 launch a tensor-core one;
+   every K5, K6 and K7 launch a tensor-core one;
 7. FlowNet2: three single-scale L1 steps of the stacked FlowNet2
    (FlowNet2Config, fp32, B=8); finite, K5-K8 launched in these steps,
-   and no launch of the tensor-core K5 or K7 (fp32 stays on SIMT);
+   and no launch of a tensor-core K5-K7 (fp32 stays on SIMT);
 8. FlowNet reference: one fp32 FlowNetC step at B=8 through the kernels
    against the same step on the plain versions: loss to 1e-5 relative,
    every gradient leaf to 1e-3 relative L2.
@@ -106,11 +110,14 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       conv3x3_wgrad_plain, flip_transpose)
 from ode_rl_torch.ops.correlation import (CorrelationFn,
+                                          _correlation_bwd_f1_simt,
+                                          _correlation_bwd_f1_tc,
                                           _correlation_bwd_f2_simt,
                                           _correlation_bwd_f2_tc,
                                           _correlation_fwd_simt,
                                           _correlation_fwd_tc,
                                           correlation_bwd_f1,
+                                          correlation_bwd_f1_plain,
                                           correlation_bwd_f2,
                                           correlation_bwd_f2_plain,
                                           correlation_fwd,
@@ -577,10 +584,11 @@ def _host_times(gen) -> dict:
     })
 
 
-def _host_turns(fns: dict) -> dict:
-    """Host µs a call of each fn keyed (kernel name, result key, label):
-    ten runs each, five rounds of the turns a, b, ..., ..., b, a; the least
-    run is kept, the median printed beside it."""
+def _host_turns(fns: dict, where: str = "B=1 bf16") -> dict:
+    """Host µs a call of each fn keyed (kernel name, result key, label) on
+    the inputs ``where`` names: ten runs each, five rounds of the turns a,
+    b, ..., ..., b, a; the least run is kept, the median printed beside
+    it."""
     runs = {key: [] for key in fns}
     for _ in range(5):
         for key in [*fns, *reversed(fns)]:
@@ -588,7 +596,7 @@ def _host_turns(fns: dict) -> dict:
     out = {}
     for (name, label, kind), times in runs.items():
         out.setdefault(name, {})[label] = min(times)
-        print(f"  {name} B=1 bf16, {kind}: host us a call, least "
+        print(f"  {name} {where}, {kind}: host us a call, least "
               f"{min(times):.2f}, median {statistics.median(times):.2f} "
               f"of {len(times)} runs")
     return out
@@ -709,38 +717,38 @@ NORM_SHAPES = ((8, 64, 64, 3), (8, 64, 64, 2))
 
 
 def _flow_tol(name: str, dtype, tc: bool = False) -> tuple:
-    """(tolerance, metric) of K5-K8 against their plain versions; ``tc``
+    """(tolerance, metric) of K5-K7 against their plain versions; ``tc``
     where the call took a tensor-core kernel.
 
     fp32: the kernel and the plain version sum the same fp32 products in
     another order. bf16: a product of two bf16 values is exact in fp32.
-    K6, the SIMT K7 and K8 (C <= 3) add those products in the same order as
-    their plain versions, divide and take the square root as IEEE does, and
-    round once to nearest, so they are bit-equal. K5, and the tensor-core
-    K7, sum their products in another order than the plain version, so the
-    two round differently where their fp32 sums straddle a bf16 rounding
-    boundary: 1e-4 relative L2. A kernel that truncated, or rounded its
-    accumulator partway, would read about 2e-3."""
+    The SIMT K6 and K7 add those products in the same order as their plain
+    versions, divide as IEEE does, and round once to nearest, so they are
+    bit-equal. K5, and the tensor-core K6 and K7, sum their products in
+    another order than the plain version, so the two round differently
+    where their fp32 sums straddle a bf16 rounding boundary: 1e-4 relative
+    L2. A kernel that truncated, or rounded its accumulator partway, would
+    read about 2e-3."""
     if dtype == torch.float32:
         return 1e-5, "max_abs"
-    if name == "correlation_fwd" or (tc and name == "correlation_bwd_f2"):
+    if name == "correlation_fwd" or tc:
         return 1e-4, "rel_l2"
     return 0.0, "max_abs"
 
 
-# bf16 K5 and K7 at the bench shape (tensor-core, SIMT and plain) against
+# bf16 K5-K7 at the bench shape (tensor-core, SIMT and plain) against
 # fp64 of the same bf16 inputs rounded to bf16 (common.bf16_ulps): every
 # output within one ulp, and at most this share of outputs one ulp off.
 # Each rounds an fp32 sum once, so only outputs whose fp64 value lies
 # within fp32 noise of a rounding boundary can differ; a kernel that
 # truncated would read about 0.5 of the nonzero outputs.
 CORR_BF16_ULPS, CORR_BF16_SHARE = 1.0, 1e-3
-CORR_TC = ("correlation_fwd", "correlation_bwd_f2")
+CORR_TC = ("correlation_fwd", "correlation_bwd_f1", "correlation_bwd_f2")
 
 
 def _check_corr_route(label: str, dtype, tc: bool) -> None:
-    """Since the last reset, every K5 and K7 launch took the tensor-core
-    kernel (``tc``) or none did."""
+    """Since the last reset, every K5, K6 and K7 launch took the
+    tensor-core kernel (``tc``) or none did."""
     counts = common.launches
     for name in CORR_TC:
         want = counts[name] if tc else 0
@@ -749,7 +757,7 @@ def _check_corr_route(label: str, dtype, tc: bool) -> None:
                 f"{name} {label} {dtype}: {counts[f'{name}_tc']} of "
                 f"{counts[name]} launches on the tensor cores, expected "
                 f"{want}")
-    print(f"    {label} {str(dtype)[6:]}: K5 and K7 routed to "
+    print(f"    {label} {str(dtype)[6:]}: K5-K7 routed to "
           f"{'the tensor cores' if tc else 'SIMT'} (" + ", ".join(
               f"{k} {counts[k]}" for k in counts
               if k.startswith(CORR_TC)) + ")")
@@ -788,10 +796,9 @@ def _check_flow_kernels(gen) -> dict:
                     metric = max_abs if kind == "max_abs" else rel_l2
                     check(f"{name} {label} {str(dtype)[6:]}",
                           metric(out, ref), tol, kind)
-                    # The tensor-core K5 and K7 are timed beside the SIMT
-                    # ones in _check_corr_tc.
-                    if dtype == torch.bfloat16 and not (tc and
-                                                        name in CORR_TC):
+                    # The tensor-core K5-K7 are timed beside the SIMT ones
+                    # in _check_corr_tc.
+                    if dtype == torch.bfloat16 and not tc:
                         ms = median_ms(fn)
                         with common.force_plain():
                             plain_ms = median_ms(fn)
@@ -799,51 +806,85 @@ def _check_flow_kernels(gen) -> dict:
                         print(f"    {name} {label} bf16 median ms: kernel "
                               f"{ms:.4f} plain {plain_ms:.4f}; kernel device "
                               f"us a call {us:.2f}")
-                        if label == "bench":
-                            results[name] = {"max_abs_err": max_abs(out, ref),
-                                             "ms": ms, "plain_ms": plain_ms,
-                                             "device_us": us}
                 _check_corr_route(label, dtype, tc)
-            for shape in NORM_SHAPES:
-                x = torch.randn(*shape, generator=gen).to("cuda", dtype)
-                x[0, :4] = 0.0
-                out = channelnorm_fwd(x)
-                ref = channelnorm_plain(x)
-                tol, kind = _flow_tol("channelnorm", dtype)
-                metric = max_abs if kind == "max_abs" else rel_l2
-                check(f"channelnorm {shape[-1]}ch {str(dtype)[6:]}",
-                      metric(out, ref), tol, kind)
-                if dtype == torch.float32 and shape[-1] == 3:
-                    times = _time_turns({
-                        "kernel": lambda: channelnorm_fwd(x),
-                        "plain": lambda: channelnorm_plain(x),
-                        "library": lambda: torch.linalg.vector_norm(
-                            x, dim=-1, keepdim=True)})
-                    print("    channelnorm (8, 64, 64, 3) fp32, CUDA-event "
-                          "median ms / device us a call: " + ", ".join(
-                              f"{k} {ms:.4f} / {us:.2f}"
-                              for k, (ms, us) in times.items()))
-                    results["channelnorm"] = {
-                        "max_abs_err": max_abs(out, ref),
-                        "ms": times["kernel"][0],
-                        "plain_ms": times["plain"][0],
-                        "library_ms": times["library"][0],
-                        "device_us": times["kernel"][1],
-                        "library_device_us": times["library"][1]}
+        results["channelnorm"] = _check_channelnorm(gen)
         for name, result in _check_corr_tc(gen).items():
             results.setdefault(name, {}).update(result)
     _check_flow_gradients(gen)
     return results
 
 
+def _k8_control(x: torch.Tensor | None, out: torch.Tensor | None,
+                n_pix: int, c: int) -> None:
+    """A control kernel on K8's grid (a thread a pixel, blocks of 256):
+    with ``x`` None the empty kernel, the floor no launch goes below; else
+    one that reads all of x with whole-warp loads and writes one value a
+    pixel to ``out``, with no squares and no square root."""
+    err = _build.library().odek_channelnorm_control(
+        None if x is None else x.data_ptr(),
+        None if out is None else out.data_ptr(), n_pix, c,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"channelnorm control: launch failed with CUDA "
+                           f"error {err}")
+
+
+def _check_channelnorm(gen) -> dict:
+    """K8 at FlowNet2's shapes, with exact-zero pixels: in fp32 and bf16
+    one launch, bit-equal to the plain version. Then in fp32, in one run
+    at each shape, K8, the empty kernel and the read-then-write control on
+    its grid (``_k8_control``), the plain version and
+    torch.linalg.vector_norm. Returns C = 3's numbers, C = 2's under
+    "c2_", and the wrapper's host µs a call."""
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in NORM_SHAPES:
+            label = f"channelnorm {shape} {str(dtype)[6:]}"
+            x = torch.randn(*shape, generator=gen).to("cuda", dtype)
+            x[0, :4] = 0.0
+            ref = channelnorm_plain(x)
+            common.reset_launches()
+            out = channelnorm_fwd(x)
+            if common.launches["channelnorm"] != 1:
+                raise AssertionError(f"{label}: {common.launches} launches")
+            err = check(label, max_abs(out, ref), 0.0, "max_abs")
+            if dtype == torch.bfloat16:
+                continue
+            n_pix, c = x[..., 0].numel(), shape[-1]
+            sink = torch.empty(n_pix, device="cuda")
+            times = _time_turns({
+                "kernel": lambda: channelnorm_fwd(x),
+                "floor": lambda: _k8_control(None, None, n_pix, c),
+                "control": lambda: _k8_control(x, sink, n_pix, c),
+                "plain": lambda: channelnorm_plain(x),
+                "library": lambda: torch.linalg.vector_norm(
+                    x, dim=-1, keepdim=True)})
+            print(f"    {label}, one run, CUDA-event median ms / device us "
+                  "a call: " + ", ".join(f"{k} {ms:.4f} / {us:.2f}"
+                                         for k, (ms, us) in times.items()))
+            prefix = "" if shape == NORM_SHAPES[0] else "c2_"
+            for k, (ms, us) in times.items():
+                key = "" if k == "kernel" else f"{k}_"
+                result[f"{prefix}{key}ms"] = ms
+                result[f"{prefix}{key}device_us"] = us
+            if shape == NORM_SHAPES[0]:
+                result["max_abs_err"] = err
+    x = torch.randn(*NORM_SHAPES[0], generator=gen).cuda()
+    result.update(_host_turns({
+        ("channelnorm", "host_us", f"at {NORM_SHAPES[0]}"):
+            lambda: channelnorm_fwd(x),
+    }, "fp32")["channelnorm"])
+    return result
+
+
 def _check_corr_tc(gen) -> dict:
-    """The tensor-core K5 and K7 at the FlowNetC bench shape in bf16: they,
-    the SIMT kernels and the plain versions against fp64 of the same bf16
-    inputs (common.bf16_ulps), the tensor-core K5 also against the bf16
-    plain version (relative L2); the tensor-core kernels bit-equal over 20
-    calls; the three timed in one run; then the host time a call at B=1 of
-    the public K5 and K7 wrappers (which take the tensor cores), of their
-    SIMT ones, and of K6's."""
+    """The tensor-core K5-K7 at the FlowNetC bench shape in bf16: they, the
+    SIMT kernels and the plain versions against fp64 of the same bf16
+    inputs (common.bf16_ulps), the tensor-core kernels also against the
+    bf16 plain versions (relative L2) and bit-equal over 20 calls; the
+    three timed in one run; then the host time a call at B=1 of the public
+    K5-K7 wrappers (which take the tensor cores) and of their SIMT
+    ones."""
     def rnd(*s):
         return torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
 
@@ -854,6 +895,9 @@ def _check_corr_tc(gen) -> dict:
     cases = {
         "correlation_fwd": ((f1, f2), _correlation_fwd_tc,
                             _correlation_fwd_simt, correlation_fwd_plain),
+        "correlation_bwd_f1": ((g, f2), _correlation_bwd_f1_tc,
+                               _correlation_bwd_f1_simt,
+                               correlation_bwd_f1_plain),
         "correlation_bwd_f2": ((g, f1), _correlation_bwd_f2_tc,
                                _correlation_bwd_f2_simt,
                                correlation_bwd_f2_plain),
@@ -871,9 +915,8 @@ def _check_corr_tc(gen) -> dict:
             check(f"{name} bench bf16, {label}: share 1 ulp off", share,
                   CORR_BF16_SHARE, "share")
         first = outs["tensor cores"]
-        if name == "correlation_fwd":
-            check(f"{name} bench bf16, tensor cores vs plain",
-                  rel_l2(first, outs["plain"]), 1e-4, "rel_l2")
+        check(f"{name} bench bf16, tensor cores vs plain",
+              rel_l2(first, outs["plain"]), 1e-4, "rel_l2")
         if not all(torch.equal(first, tc(*args, *geometry))
                    for _ in range(20)):
             raise AssertionError(f"tensor-core {name}: 20 calls are not "
@@ -903,8 +946,10 @@ def _check_corr_tc(gen) -> dict:
             lambda: correlation_bwd_f2(g1, x, *geometry),
         ("correlation_bwd_f2", "simt_host_us", "SIMT"):
             lambda: _correlation_bwd_f2_simt(g1, x, *geometry),
-        ("correlation_bwd_f1", "host_us", "SIMT"):
+        ("correlation_bwd_f1", "host_us", "tensor cores"):
             lambda: correlation_bwd_f1(g1, y, *geometry),
+        ("correlation_bwd_f1", "simt_host_us", "SIMT"):
+            lambda: _correlation_bwd_f1_simt(g1, y, *geometry),
     })
     for name, times in host.items():
         results.setdefault(name, {}).update(times)
@@ -946,9 +991,9 @@ def _check_flow_gradients(gen) -> None:
 
 def _check_corr_grad_bf16(gen) -> None:
     """CorrelationFn's gradients in bf16 at the bench shape (the tensor-core
-    K5 forward, the SIMT K6 and the tensor-core K7 backward) against
-    autograd of the fp64 plain forward on the same bf16 values: one bf16
-    ulp, as _check_corr_tc."""
+    K5 forward, the tensor-core K6 and K7 backward) against autograd of the
+    fp64 plain forward on the same bf16 values: one bf16 ulp, as
+    _check_corr_tc."""
     shape = CORR_SHAPES["bench"]
     f1, f2, g = (torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
                  for s in (shape, shape, (*shape[:3], 441)))
@@ -960,9 +1005,10 @@ def _check_corr_grad_bf16(gen) -> None:
 
     common.reset_launches()
     k = grads(CorrelationFn.apply, torch.bfloat16)
-    if common.launches["correlation_bwd_f2_tc"] != 1:
+    if (common.launches["correlation_bwd_f1_tc"] != 1
+            or common.launches["correlation_bwd_f2_tc"] != 1):
         raise AssertionError(f"bf16 CorrelationFn did not run the "
-                             f"tensor-core K7: {common.launches}")
+                             f"tensor-core K6 and K7: {common.launches}")
     p = grads(correlation_fwd_plain, torch.float64)
     for which, a, r in (("df1", k[0], p[0]), ("df2", k[1], p[1])):
         ulps, share = common.bf16_ulps(a, r)
@@ -1163,8 +1209,8 @@ def phase_flownet2(bank: torch.Tensor) -> dict:
     counts, _ = _run_flow_steps("FlowNet2", model.cuda(), cfg, bank, 3,
                                 (*FLOWNETC_KERNELS, "channelnorm"))
     if any(counts[f"{name}_tc"] for name in CORR_TC):
-        raise AssertionError(f"fp32 FlowNet2 launched a tensor-core K5 or "
-                             f"K7: {counts}")
+        raise AssertionError(f"fp32 FlowNet2 launched a tensor-core K5-K7: "
+                             f"{counts}")
     return counts
 
 
@@ -1205,9 +1251,10 @@ def main() -> int:
                        "gru_blend_sample")}
     phase_reference(bank)
     counts.update({k: v for k, v in phase_flownetc(bank).items()
-                   if k in (*FLOWNETC_KERNELS, "correlation_fwd_tc",
-                            "correlation_bwd_f2_tc")})
-    counts["channelnorm"] = phase_flownet2(bank)["channelnorm"]
+                   if k in (*FLOWNETC_KERNELS,
+                            *(f"{name}_tc" for name in CORR_TC))})
+    flownet2 = phase_flownet2(bank)
+    counts["channelnorm"] = flownet2["channelnorm"]
     phase_flow_reference(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):

@@ -26,13 +26,15 @@
 // bandwidth, about 5 GB of window reads. Tiling f2's neighbourhood in
 // shared memory for maps above 64 pixels is later work.
 //
-// K5 and K7 have two kernels each; ops/correlation.py::tc_plan picks one.
+// K5, K6 and K7 have two kernels each; ops/correlation.py::tc_plan picks
+// one.
 //
-// * corr_fwd_tc_kernel and corr_bwd_f2_tc_kernel (bf16, H*W <= 64,
-//   C = 64, 128 or 256, 16-byte aligned features): one sample a block, the
-//   pixel-pair products on the tensor cores (section "Tensor-core K5 and
-//   K7" below). The bench shape takes them: about 13.4 and 10.6 us a call
-//   alone there, against the SIMT kernels' 97 and 106 (H100, PERF.md).
+// * corr_fwd_tc_kernel, corr_bwd_f1_tc_kernel and corr_bwd_f2_tc_kernel
+//   (bf16, H*W <= 64, C = 64, 128 or 256, 16-byte aligned features): one
+//   sample a block, the pixel-pair products on the tensor cores (section
+//   "Tensor-core K5-K7" below). The bench shape takes them: K5, K6 and
+//   K7 about 13.3, 10.5 and 10.4 us a call alone there, against the SIMT
+//   kernels' 96, 89 and 103 (H100, PERF.md).
 // * The SIMT kernels (everything else, fp32 included, so fp32 stays strict
 //   fp32), described next.
 //
@@ -53,9 +55,9 @@
 //       g[b, y'-oy, x'-ox, i] * f1[b, y'-oy, x'-ox, c], / C. No atomics, so
 //       the result is bit-reproducible, and the padded border that the TPU
 //       kernel computes and slices away is never computed.
-// All three accumulate in fp32 in a fixed order and round once to the
-// input dtype. (The Pallas backward kernels round their bf16 accumulator
-// after every dy step, K6, or every (dy, dx) step, K7.)
+// All six kernels accumulate in fp32 in a fixed order and round once to
+// the input dtype. (The Pallas backward kernels round their bf16
+// accumulator after every dy step, K6, or every (dy, dx) step, K7.)
 
 #include <algorithm>
 #include <cstdint>
@@ -230,7 +232,7 @@ unsigned int elementwise_blocks(const CorrShape& s) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core K5 and K7 (bf16, a map of at most 64 pixels).
+// Tensor-core K5-K7 (bf16, a map of at most 64 pixels).
 //
 // The structure. A sample's map fits one 64-row tile, so a pixel pair
 // (p, q) is an entry of a 64 x 64 matrix, and displacement i of pixel p is
@@ -240,7 +242,9 @@ unsigned int elementwise_blocks(const CorrShape& s) {
 //       / C, zero where p + o_i leaves the map.
 //   K7: gf2 = M . f1 / C with M[q, p] = g[p, i] for q = p + o_i, else 0
 //       (64 x 64, K = 64 pixels; N = C channels).
-//   K6's gf1 = M^T . f2 / C can reuse M as it is (build_pair_matrix).
+//   K6: gf1 = M^T . f2 / C on the same M (build_pair_matrix): row q of M
+//       is K, the p along a row are M, so M's bytes are an MN-major A.
+//       No padded f2 and no per-dy accumulation, as the Pallas kernel has.
 //
 // Design.
 // * One block a sample (256 blocks at the bench shape on 132 SMs), so
@@ -254,8 +258,8 @@ unsigned int elementwise_blocks(const CorrShape& s) {
 //   a TMA tensor map costs host time on every call (3-10 us for three,
 //   PERF.md); these copies need neither. Pixels past H*W are zero rows.
 // * The same chunks are K5's A (f1) and B (f2), both K-major (C is the
-//   contiguous axis), and K7's B (f1), MN-major (pixels are its K). M is
-//   one more chunk, K7's K-major A.
+//   contiguous axis), and K6's and K7's B (f2, f1), MN-major (pixels are
+//   their K). M is one more chunk: K7's K-major A, K6's MN-major A.
 // * fp32 sums in registers (wgmma.m64n64k16), divided by C and rounded to
 //   bf16 once.
 // * K5's epilogue: the sample's whole (H*W, n*n) output, zeros included,
@@ -264,12 +268,12 @@ unsigned int elementwise_blocks(const CorrShape& s) {
 //   by 16-byte stores, filled with the pair products, then copied out in
 //   aligned 16-byte units (the ragged unit at each end of a sample by
 //   element). Zeros are written, not computed.
-// * K7's epilogue: each warpgroup stages its 64-channel block of gf2 into
-//   the f1 chunk that block has just consumed, then copies it out in
-//   16-byte units.
+// * K6's and K7's epilogue: each warpgroup stages its 64-channel block of
+//   the gradient into the feature chunk that block has just consumed, then
+//   copies its H*W rows out in 16-byte units.
 // ---------------------------------------------------------------------------
 
-constexpr int kTcPixels = 64;  // the tile: wgmma's M; K5's N, K7's K
+constexpr int kTcPixels = 64;  // the tile: wgmma's M; K5's N, K6/K7's K
 constexpr int kTcChunkBytes = kTcPixels * 128;  // 64 rows of 64 channels
 constexpr int kTcFwdThreads = 128;  // one warpgroup
 constexpr int kTcBwdThreads = 256;  // two warpgroups
@@ -278,7 +282,8 @@ constexpr int kTcBwdThreads = 256;  // two warpgroups
 constexpr int kTcSmemLimit = 232448 - 1024;
 
 // K5's dynamic shared memory: the two operands or the staged output, the
-// larger, and 1 KB to align the base. K7 needs less (C*128 + 8 KB + 1 KB).
+// larger, and 1 KB to align the base. K6 and K7 need less (C*128 + 8 KB +
+// 1 KB).
 int tc_fwd_smem_bytes(int C, int nd) {
   return std::max(2 * C * 128, 16 + kTcPixels * nd * 2) + 1024;
 }
@@ -361,8 +366,8 @@ __device__ void load_rows_sw128(uint32_t dst, const __nv_bfloat16* src,
 // in load_rows_sw128's layout (one chunk): M[q][p] = g[p, i] where
 // q = p + o_i, else 0, rows and columns past H*W included. g is the
 // sample's (H*W, n*n) cotangent. Every entry is written once, by 16-byte
-// units. K7 reads M as a K-major A operand (M . f1); K6's M^T . f2 can
-// read the same bytes as an MN-major one.
+// units. K7 reads M as a K-major A operand (M . f1); K6 reads the same
+// bytes as an MN-major one (M^T . f2).
 __device__ void build_pair_matrix(uint32_t m, const unsigned short* g,
                                   const PairTable& t, const CorrShape& s) {
   const int hw = s.H * s.W;
@@ -489,23 +494,24 @@ __global__ void __launch_bounds__(kTcFwdThreads)
   }
 }
 
-// K7, tensor cores: g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C),
-// bf16; grid B, two warpgroups a block, each owning every other 64-channel
-// block of gf2.
-__global__ void __launch_bounds__(kTcBwdThreads)
-    corr_bwd_f2_tc_kernel(const __nv_bfloat16* __restrict__ g,
-                          const __nv_bfloat16* __restrict__ f1,
-                          __nv_bfloat16* __restrict__ gf2, CorrShape s) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ PairTable table;
+// K6 (kMt true) and K7 (false), tensor cores, one sample: g (H, W, n*n)
+// and the features f (H, W, C) at this block's sample -> the gradient gf
+// (H, W, C): gf1 = M^T . f2 / C, gf2 = M . f1 / C. Two warpgroups, each
+// owning every other 64-channel block of gf; smem_raw is the block's
+// dynamic shared memory, table its static pixel table.
+template <bool kMt>
+__device__ __forceinline__ void corr_bwd_tc(
+    const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f,
+    __nv_bfloat16* __restrict__ gf, const CorrShape& s,
+    unsigned char* smem_raw, PairTable& table) {
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const int hw = s.H * s.W;
   const long long b = blockIdx.x;
   const int n_chunks = s.C / 64;
-  const uint32_t f1s = base;
+  const uint32_t fs = base;
   const uint32_t ms = base + n_chunks * kTcChunkBytes;
-  load_rows_sw128(f1s, f1 + b * hw * s.C, hw, s.C);
+  load_rows_sw128(fs, f + b * hw * s.C, hw, s.C);
   build_pair_table(table, s);
   __syncthreads();  // the table, for build_pair_matrix
   build_pair_matrix(ms,
@@ -519,9 +525,9 @@ __global__ void __launch_bounds__(kTcBwdThreads)
   const int warp = tid / 32;
   const int gr = (tid % 32) / 4;
   const int t4 = tid % 4;
-  __nv_bfloat16* out = gf2 + b * hw * s.C;
+  __nv_bfloat16* out = gf + b * hw * s.C;
   for (int nb = wg; nb < n_chunks; nb += 2) {
-    const uint32_t chunk = f1s + nb * kTcChunkBytes;
+    const uint32_t chunk = fs + nb * kTcChunkBytes;
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -529,42 +535,72 @@ __global__ void __launch_bounds__(kTcBwdThreads)
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // 16 pixels a step
-      wgmma_m64n64k16<0, 1>(acc, k_major_desc(ms + 32 * k, 1024, 1),
-                            mn_major_desc(chunk + 2048 * k, 64));
+      if constexpr (kMt) {
+        // Rows 16k.. of M are K; a row's 64 p (128 bytes) are M, as the
+        // 16 rows of f's chunk are K and a row's 64 channels N.
+        wgmma_m64n64k16<1, 1>(acc, mn_major_desc(ms + 2048 * k, 64),
+                              mn_major_desc(chunk + 2048 * k, 64));
+      } else {
+        wgmma_m64n64k16<0, 1>(acc, k_major_desc(ms + 32 * k, 1024, 1),
+                              mn_major_desc(chunk + 2048 * k, 64));
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_operands(acc);
     // Only this block of channels reads this chunk: once every warp of the
-    // warpgroup is past its products, gf2's block is staged there (row q,
-    // channel c at unit c/8 ^ (q % 8)), then copied out.
+    // warpgroup is past its products, gf's block is staged there (row r,
+    // channel c at unit c/8 ^ (r % 8)), then copied out. Rows r >= H*W
+    // (zeros) are staged, never stored.
     warpgroup_sync(wg);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int q = 16 * warp + 8 * half + gr;
+      const int r = 16 * warp + 8 * half + gr;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         __nv_bfloat162 v = __floats2bfloat162_rn(
             acc[4 * j + 2 * half] / (float)s.C,
             acc[4 * j + 2 * half + 1] / (float)s.C);
         asm volatile("st.shared.b32 [%0], %1;" ::"r"(
-                         chunk + q * 128 + ((j ^ (q % 8)) << 4) + 4 * t4),
+                         chunk + r * 128 + ((j ^ (r % 8)) << 4) + 4 * t4),
                      "r"(*reinterpret_cast<uint32_t*>(&v))
                      : "memory");
       }
     }
     warpgroup_sync(wg);
     for (int k = tid; k < hw * 8; k += 128) {
-      const int q = k / 8;
+      const int r = k / 8;
       const int u = k % 8;
       uint4 v;
       asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
                    : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                   : "r"(chunk + q * 128 + ((u ^ (q % 8)) << 4)));
-      *reinterpret_cast<uint4*>(out + (long long)q * s.C + nb * 64 + u * 8) =
+                   : "r"(chunk + r * 128 + ((u ^ (r % 8)) << 4)));
+      *reinterpret_cast<uint4*>(out + (long long)r * s.C + nb * 64 + u * 8) =
           v;
     }
   }
+}
+
+// K6, tensor cores: g (B, H, W, n*n), f2 (B, H, W, C) -> gf1 (B, H, W, C),
+// bf16; grid B.
+__global__ void __launch_bounds__(kTcBwdThreads)
+    corr_bwd_f1_tc_kernel(const __nv_bfloat16* __restrict__ g,
+                          const __nv_bfloat16* __restrict__ f2,
+                          __nv_bfloat16* __restrict__ gf1, CorrShape s) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ PairTable table;
+  corr_bwd_tc<true>(g, f2, gf1, s, smem_raw, table);
+}
+
+// K7, tensor cores: g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C),
+// bf16; grid B.
+__global__ void __launch_bounds__(kTcBwdThreads)
+    corr_bwd_f2_tc_kernel(const __nv_bfloat16* __restrict__ g,
+                          const __nv_bfloat16* __restrict__ f1,
+                          __nv_bfloat16* __restrict__ gf2, CorrShape s) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ PairTable table;
+  corr_bwd_tc<false>(g, f1, gf2, s, smem_raw, table);
 }
 
 using FwdTcKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
@@ -591,6 +627,32 @@ bool tc_args_ok(const void* a, const void* b, const void* out,
                          reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   return aligned && s.B >= 1 && s.H >= 1 && s.W >= 1 &&
          s.H * s.W <= kTcPixels && fwd_tc_kernel(s.C) != nullptr;
+}
+
+using BwdTcKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                             __nv_bfloat16*, CorrShape);
+
+// K6 or K7 on the tensor cores: bf16 under tc_args_ok (g needs no
+// alignment: it is read by element). Returns cudaErrorInvalidValue for
+// arguments outside that, else the launch's error.
+int launch_bwd_tc(BwdTcKernel kernel, const void* g, const void* f, void* gf,
+                  const CorrShape& s, int dtype, cudaStream_t st) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
+      if (!tc_args_ok(f, f, gf, s)) return (int)cudaErrorInvalidValue;
+      const int smem = s.C * 128 + kTcChunkBytes + 1024;
+      const cudaError_t attr =
+          allow_max_smem(reinterpret_cast<const void*>(kernel), kTcSmemLimit);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<s.B, kTcBwdThreads, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(g),
+          static_cast<const __nv_bfloat16*>(f),
+          static_cast<__nv_bfloat16*>(gf), s);
+      return 0;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace
@@ -666,28 +728,23 @@ extern "C" int odek_correlation_fwd_tc(const void* f1, const void* f2,
   });
 }
 
-// K7, tensor cores: as odek_correlation_bwd_f2 for bf16, under K5's rule
+// K6, tensor cores: as odek_correlation_bwd_f1 for bf16, under K5's rule
 // (g needs no alignment: it is read by element).
+extern "C" int odek_correlation_bwd_f1_tc(const void* g, const void* f2,
+                                          void* gf1, int B, int H, int W,
+                                          int C, int d, int stride, int dtype,
+                                          void* stream) {
+  return launch_bwd_tc(corr_bwd_f1_tc_kernel, g, f2, gf1,
+                       make_shape(B, H, W, C, d, stride), dtype,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K7, tensor cores: as odek_correlation_bwd_f2 for bf16, under K5's rule.
 extern "C" int odek_correlation_bwd_f2_tc(const void* g, const void* f1,
                                           void* gf2, int B, int H, int W,
                                           int C, int d, int stride, int dtype,
                                           void* stream) {
-  const CorrShape s = make_shape(B, H, W, C, d, stride);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
-    if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
-      if (!tc_args_ok(f1, f1, gf2, s)) return (int)cudaErrorInvalidValue;
-      const int smem = C * 128 + kTcChunkBytes + 1024;
-      const cudaError_t attr = allow_max_smem(
-          reinterpret_cast<const void*>(corr_bwd_f2_tc_kernel), kTcSmemLimit);
-      if (attr != cudaSuccess) return (int)attr;
-      corr_bwd_f2_tc_kernel<<<B, kTcBwdThreads, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(g),
-          static_cast<const __nv_bfloat16*>(f1),
-          static_cast<__nv_bfloat16*>(gf2), s);
-      return 0;
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  });
+  return launch_bwd_tc(corr_bwd_f2_tc_kernel, g, f1, gf2,
+                       make_shape(B, H, W, C, d, stride), dtype,
+                       static_cast<cudaStream_t>(stream));
 }

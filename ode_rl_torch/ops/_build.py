@@ -56,12 +56,16 @@ SIGNATURES = {
     "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, f1, gf2, B, H, W, C, max_displacement, stride, dtype, stream
     "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # as odek_correlation_fwd and odek_correlation_bwd_f2
+    # as odek_correlation_fwd, odek_correlation_bwd_f1 and _f2
     "odek_correlation_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "odek_correlation_bwd_f1_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P],
     "odek_correlation_bwd_f2_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _P],
     # x, out, pixels, C, dtype, stream
     "odek_channelnorm": [_P, _P, _L, _I, _I, _P],
+    # x (null for the empty kernel), out, pixels, C, stream
+    "odek_channelnorm_control": [_P, _P, _L, _I, _P],
 }
 
 

@@ -5,14 +5,16 @@ Counterpart of ``ode_rl_tpu/ops/channelnorm.py``. (B, H, W, C) ->
 dtype. FlowNet2's stacking feeds it brightness errors (C = 3) and flows
 (C = 2).
 
-* K8 ``channelnorm_fwd`` (``csrc/channelnorm.cu``). Its plain version is
-  ``_channelnorm_xla``.
+* K8 ``channelnorm_fwd`` (``csrc/channelnorm.cu``), one thread a pixel.
+  Its plain version is ``_channelnorm_xla`` with the channels added in
+  order, as the kernel adds them (without fused multiply-adds), so the two
+  agree bit for bit.
 
 ``ChannelNormFn`` has the hand-written backward of ``_cn_op``,
 ``x * g / max(norm, 1e-12)``, which is 0 where the norm is 0 (autograd of
 the square root gives 0/0 there, and MNIST frames have exactly-zero
 backgrounds). That backward is a jnp formula in JAX, so it stays a torch
-expression here.
+expression here, on the same norm as the forward.
 """
 
 from __future__ import annotations
@@ -24,9 +26,16 @@ from ode_rl_torch.ops._build import library
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """The norm in fp32 (fp64 for fp64 inputs, as a reference)."""
+    """The norm in fp32 (fp64 for fp64 inputs, as a reference), the squares
+    added in channel order as K8 adds them. (``torch.sum`` on the card
+    groups a row's terms by its address, so its fp32 result differs from
+    row to row in the last bit.)"""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    return torch.sqrt(torch.sum(xf * xf, dim=-1, keepdim=True))
+    sq = xf * xf
+    total = sq[..., :1]
+    for c in range(1, x.shape[-1]):
+        total = total + sq[..., c:c + 1]
+    return torch.sqrt(total)
 
 
 def channelnorm_plain(x: torch.Tensor) -> torch.Tensor:

@@ -14,17 +14,17 @@ the window leaves the image. Output (B, H, W, n*n), displacement-major
   gather formula, not autograd of the forward, so the plain backward the
   kernels are held to is tested on its own.
 
-On the card K5 and K7 each take one of two kernels by ``tc_plan``. The
-tensor-core kernels (bf16, maps of at most 64 pixels, C = 64, 128 or 256:
-the FlowNetC bench shape) give a sample to one block and turn the
+On the card K5, K6 and K7 each take one of two kernels by ``tc_plan``.
+The tensor-core kernels (bf16, maps of at most 64 pixels, C = 64, 128 or
+256: the FlowNetC bench shape) give a sample to one block and turn the
 correlation into products over pixel pairs (``pair_displacements``):
 K5 is S = f1 . f2^T gathered at the pairs, K7 is M . f1 with M the
-cotangent scattered to the pairs. At the bench shape they take about 13.4
-and 10.6 µs a call alone, against 97 and 106 for the SIMT kernels; their
-bytes bounds are 9.3 and 5.2 (H100 80GB HBM3, 700 W; PERF.md). Every
-other call takes the SIMT kernels (fp32, so it stays strict fp32; the
-FlyingChairs feature maps; misaligned views). K6 runs its SIMT kernel at
-every shape.
+cotangent scattered to the pairs, K6 is M^T . f2 on the same M. At the
+bench shape K5, K6 and K7 take about 13.3, 10.5 and 10.4 µs a call alone,
+against 96, 89 and 103 for the SIMT kernels; the bytes bounds are 9.3
+(K5) and 5.2 (K6, K7) (H100 80GB HBM3, 700 W; PERF.md).
+Every other call takes the SIMT kernels (fp32, so it stays strict fp32;
+the FlyingChairs feature maps; misaligned views).
 
 ``CorrelationFn`` is the ``custom_vjp`` of ``_corr_with_vjp``: K5 forward,
 K6 and K7 backward. The JAX package falls back to autograd of the XLA
@@ -50,10 +50,10 @@ from ode_rl_torch.ops._build import library
 # memory: 48 KB without opting in to more.
 _MAX_SHARED_FLOATS = 12288
 
-# The tensor-core K5 and K7 (csrc/correlation.cu::corr_fwd_tc_kernel,
-# corr_bwd_f2_tc_kernel): a sample's map is one tile of at most 64 pixels,
-# and the channel products are unrolled for these widths (one, two or four
-# 64-channel rows of the 128-byte swizzle).
+# The tensor-core K5-K7 (csrc/correlation.cu::corr_fwd_tc_kernel,
+# corr_bwd_f1_tc_kernel, corr_bwd_f2_tc_kernel): a sample's map is one tile
+# of at most 64 pixels, and the channel products are unrolled for these
+# widths (one, two or four 64-channel rows of the 128-byte swizzle).
 _TC_PIXELS = 64
 _TC_CHANNELS = (64, 128, 256)
 # K5 stages a sample's (64, n*n) bf16 output in shared memory: 16 bytes of
@@ -93,13 +93,14 @@ def pair_displacements(h: int, w: int, max_displacement: int,
 
 def tc_plan(h: int, w: int, c: int, max_displacement: int, stride: int,
             dtype: torch.dtype, ptrs: tuple) -> bool:
-    """The rule that sends a K5 or K7 call on the card to its tensor-core
-    kernel (True) or to its SIMT kernel (False). The tensor-core kernels
-    take bf16 (fp32 stays on SIMT, so it stays strict fp32), a map of at
-    most 64 pixels (one wgmma tile), C = 64, 128 or 256 (FlowNetC's
-    correlation is 256 wide), feature pointers ``ptrs`` 16-byte aligned
-    (16-byte copies) and an output row K5 can stage in shared memory. The
-    library refuses only what its kernels cannot index
+    """The rule that sends a K5, K6 or K7 call on the card to its
+    tensor-core kernel (True) or to its SIMT kernel (False). The
+    tensor-core kernels take bf16 (fp32 stays on SIMT, so it stays strict
+    fp32), a map of at most 64 pixels (one wgmma tile), C = 64, 128 or 256
+    (FlowNetC's correlation is 256 wide), the pointers ``ptrs`` 16-byte
+    aligned (16-byte copies: f1 and f2 for K5, f2 and gf1 for K6, f1 for
+    K7) and an output row K5 can stage in shared memory. The library
+    refuses only what its kernels cannot index
     (csrc/correlation.cu::tc_args_ok)."""
     return (math.gcd(*ptrs) % 16 == 0
             and _tc_shape(h, w, c, max_displacement, stride, dtype))
@@ -189,7 +190,7 @@ def _launch(name, fn, a, b, out, features, max_displacement, stride):
 
 def _use_tc(name, kernel, features, ptrs, max_displacement,
             stride) -> bool:
-    """Whether a K5 or K7 call on the card takes its tensor-core kernel:
+    """Whether a K5, K6 or K7 call on the card takes its tensor-core kernel:
     ``kernel`` "rule" as tc_plan says for the feature shape and the
     pointers ``ptrs``, "tc" the same but raising outside the rule, "simt"
     never."""
@@ -234,6 +235,23 @@ def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
     return _fwd_cuda(f1, f2, max_displacement, stride)
 
 
+def _bwd_f1_cuda(g, f2, max_displacement, stride, kernel="rule"):
+    """K6 on CUDA tensors; ``kernel`` as for ``_use_tc``. The tensor-core
+    kernel reads g by element, so f2's and gf1's pointers enter the
+    rule."""
+    common.check_inputs("correlation_bwd_f1", {"g": g, "f2": f2}, f2.dtype)
+    gf1 = torch.empty_like(f2)
+    if _use_tc("correlation_bwd_f1", kernel, f2,
+               (f2.data_ptr(), gf1.data_ptr()), max_displacement, stride):
+        _launch("correlation_bwd_f1_tc", library().odek_correlation_bwd_f1_tc,
+                g, f2, gf1, f2, max_displacement, stride)
+        common.launches["correlation_bwd_f1"] += 1
+    else:
+        _launch("correlation_bwd_f1", library().odek_correlation_bwd_f1, g,
+                f2, gf1, f2, max_displacement, stride)
+    return gf1
+
+
 def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
                        max_displacement: int, stride: int) -> torch.Tensor:
     """K6: cotangent (B, H, W, n*n) and f2 (B, H, W, C) -> grad f1."""
@@ -241,11 +259,7 @@ def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
     _check_cotangent("correlation_bwd_f1", g, f2, n)
     if not common.use_kernel(g):
         return correlation_bwd_f1_plain(g, f2, max_displacement, stride)
-    common.check_inputs("correlation_bwd_f1", {"g": g, "f2": f2}, f2.dtype)
-    gf1 = torch.empty_like(f2)
-    _launch("correlation_bwd_f1", library().odek_correlation_bwd_f1, g, f2,
-            gf1, f2, max_displacement, stride)
-    return gf1
+    return _bwd_f1_cuda(g, f2, max_displacement, stride)
 
 
 def _bwd_f2_cuda(g, f1, max_displacement, stride, kernel="rule"):
@@ -303,9 +317,9 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
                                max_displacement, stride)
 
 
-# One K5 or K7 kernel on CUDA tensors whatever the rule says, no autograd
-# (the card tests and chip_smoke.py hold the kernels against each other);
-# the tensor-core ones raise outside their rule.
+# One K5, K6 or K7 kernel on CUDA tensors whatever the rule says, no
+# autograd (the card tests and chip_smoke.py hold the kernels against each
+# other); the tensor-core ones raise outside their rule.
 
 def _correlation_fwd_tc(f1, f2, max_displacement, stride):
     _check_nhwc_pair("correlation_fwd", f1, f2)
@@ -315,6 +329,18 @@ def _correlation_fwd_tc(f1, f2, max_displacement, stride):
 def _correlation_fwd_simt(f1, f2, max_displacement, stride):
     _check_nhwc_pair("correlation_fwd", f1, f2)
     return _fwd_cuda(f1, f2, max_displacement, stride, "simt")
+
+
+def _correlation_bwd_f1_tc(g, f2, max_displacement, stride):
+    _check_cotangent("correlation_bwd_f1", g, f2,
+                     n_displacements(max_displacement, stride))
+    return _bwd_f1_cuda(g, f2, max_displacement, stride, "tc")
+
+
+def _correlation_bwd_f1_simt(g, f2, max_displacement, stride):
+    _check_cotangent("correlation_bwd_f1", g, f2,
+                     n_displacements(max_displacement, stride))
+    return _bwd_f1_cuda(g, f2, max_displacement, stride, "simt")
 
 
 def _correlation_bwd_f2_tc(g, f1, max_displacement, stride):

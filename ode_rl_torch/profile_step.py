@@ -46,7 +46,8 @@ _KERNEL_IDS = {
     "splitk_sum": "K2",
     "gru_gates_sample": "K3", "gru_gates": "K3",
     "gru_blend_sample": "K4", "gru_blend": "K4",
-    "corr_fwd_tc": "K5", "corr_fwd": "K5", "corr_bwd_f1": "K6",
+    "corr_fwd_tc": "K5", "corr_fwd": "K5",
+    "corr_bwd_f1_tc": "K6", "corr_bwd_f1": "K6",
     "corr_bwd_f2_tc": "K7", "corr_bwd_f2": "K7",
     "channelnorm": "K8",
 }
@@ -60,7 +61,8 @@ _GROUPS = (
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad", "splitk_sum")),
     ("K3 gru_gates", ("gru_gates",)),
     ("K4 gru_blend", ("gru_blend",)),
-    ("K5, K7 correlation, tensor cores", ("corr_fwd_tc", "corr_bwd_f2_tc")),
+    ("K5-K7 correlation, tensor cores",
+     ("corr_fwd_tc", "corr_bwd_f1_tc", "corr_bwd_f2_tc")),
     ("K5-K7 correlation, SIMT", ("corr_",)),
     ("K8 channelnorm", ("channelnorm",)),
     ("cuDNN conv (fprop, dgrad, wgrad)",

@@ -1,8 +1,8 @@
-"""The design of the tensor-core K5 and K7, on the CPU.
+"""The design of the tensor-core K5-K7, on the CPU.
 
 The kernels (``csrc/correlation.cu::corr_fwd_tc_kernel``,
-``corr_bwd_f2_tc_kernel``) cannot run here, so what they rest on is
-tested instead:
+``corr_bwd_f1_tc_kernel``, ``corr_bwd_f2_tc_kernel``) cannot run here, so
+what they rest on is tested instead:
 
 * the index map they use, pixel pair (p, q) -> displacement i or none
   (``pair_displacements``, computed from the offset q - p as the kernels'
@@ -12,8 +12,10 @@ tested instead:
   the pairs, K7 as M . f1 with M the cotangent scattered to the pairs, and
   K6's M^T . f2 (the same M), against the JAX Pallas kernels
   (``_correlation_pallas``, ``_correlation_bwd_pallas``) in interpret
-  mode, 1e-5 max abs (sums reassociated);
-* the rule ``tc_plan`` that sends a call on the card to those kernels.
+  mode, 1e-5 max abs (sums reassociated), and the port's CPU K6 (its
+  plain version) against the Pallas K6 at the bench geometry, C = 256;
+* the rule ``tc_plan`` that sends a call on the card to those kernels,
+  with K5's (f1, f2), K6's (f2, gf1) and K7's (f1) pointers.
 """
 
 import itertools
@@ -23,7 +25,8 @@ import pytest
 import torch
 
 from torch_port_util import max_abs, t32
-from ode_rl_torch.ops.correlation import (n_displacements, pair_displacements,
+from ode_rl_torch.ops.correlation import (correlation_bwd_f1,
+                                          n_displacements, pair_displacements,
                                           tc_plan)
 
 TOL = 1e-5
@@ -127,6 +130,24 @@ def test_pair_products_match_the_pallas_kernels(h, w, d, stride):
     assert max_abs(gf2, ref2) <= TOL
 
 
+def test_cpu_k6_matches_the_pallas_kernel_at_the_bench_geometry():
+    """B = 2 of the FlowNetC bench shape (8x8x256, d = 20, stride 2):
+    ``correlation_bwd_f1`` on CPU tensors (the plain version the card's K6
+    kernels are held to) and the pair-matrix algorithm M^T . f2 / C against
+    ``_correlation_bwd_pallas``'s grad f1 in interpret mode."""
+    from ode_rl_tpu.ops.correlation import _correlation_bwd_pallas
+
+    d, stride = 20, 2
+    f1, f2 = _rand(2, 8, 8, 256, seed=4), _rand(2, 8, 8, 256, seed=5)
+    g = _rand(2, 8, 8, n_displacements(d, stride) ** 2, seed=6)
+    ref, _ = _correlation_bwd_pallas(f1, f2, g, d, stride, interpret=True)
+    out = correlation_bwd_f1(t32(g), t32(f2), d, stride)
+    assert out.shape == ref.shape == (2, 8, 8, 256)
+    assert max_abs(out, ref) <= TOL
+    by_pairs, _ = _bwd_by_pairs(t32(g), t32(f1), t32(f2), d, stride)
+    assert max_abs(by_pairs, ref) <= TOL
+
+
 ALIGNED = (0x7F0000000000, 0x7F0000010000)
 
 
@@ -156,6 +177,13 @@ ALIGNED = (0x7F0000000000, 0x7F0000010000)
                  False, id="misaligned-f2"),
     pytest.param(dict(h=8, w=8, c=256, ptrs=(ALIGNED[0] + 8,)), False,
                  id="misaligned-f1"),
+    # K6's pair (f2, gf1): both aligned, or either 8 bytes off.
+    pytest.param(dict(h=8, w=8, c=256, ptrs=(ALIGNED[1], ALIGNED[0])), True,
+                 id="k6-f2-gf1"),
+    pytest.param(dict(h=8, w=8, c=256, ptrs=(ALIGNED[1] + 8, ALIGNED[0])),
+                 False, id="k6-misaligned-f2"),
+    pytest.param(dict(h=8, w=8, c=256, ptrs=(ALIGNED[1], ALIGNED[0] + 8)),
+                 False, id="k6-misaligned-gf1"),
     # K5's staged (64, n*n) output within a block's shared memory (d = 20
     # at stride 1: 1,681 displacements), and beyond it (d = 21: 1,849).
     pytest.param(dict(h=8, w=8, c=64, d=20, stride=1), True,

@@ -5,10 +5,10 @@ the two-pass ones and the plain versions (GroupNorm groups that straddle
 the z/r split, a cluster of blocks a sample, the flagship) and the shapes
 the rule sends to the two-pass kernels, correlation windows at stride 1,
 H != W, C not a
-multiple of 32 and d > H, the tensor-core K5 and K7 against the SIMT ones
+multiple of 32 and d > H, the tensor-core K5-K7 against the SIMT ones
 and fp64 at maps of at most 64 pixels and the shapes the rule sends to
-SIMT, channelnorm at C = 1, 2, 3 and 64, and the checks that make a
-wrapper raise.
+SIMT, channelnorm at C = 1, 2, 3 and 64 and bit-equal to the plain
+version at FlowNet2's maps, and the checks that make a wrapper raise.
 
 These need an sm_90 GPU and skip elsewhere. The conftest of this folder
 imports JAX, which the machine with the card lacks, so run them there as
@@ -28,13 +28,15 @@ two-pass) within one bf16 ulp of the Pallas formula in fp64, with at most
 2e-3 of the outputs one ulp off. K5-K8 in fp32 to 1e-5 max abs against fp64
 plain versions (sums of at most a few thousand products of unit normals).
 In bf16 against the plain version on the same bf16 inputs: a product of
-two bf16 values is exact in fp32, K6, the SIMT K7 and K8 add those
+two bf16 values is exact in fp32, the SIMT K6 and K7 and K8 add those
 products in the plain version's order and round once, so they are
-bit-equal; K5 and the tensor-core K7 sum in another order than the plain
-version, so they may round differently where the two fp32 sums straddle a
-bf16 rounding boundary: 1e-4 relative L2. The tensor-core K5 and K7, and
-the SIMT ones, within one bf16 ulp of the fp64 plain versions, with at
-most 1e-3 of the outputs one ulp off.
+bit-equal; K5 and the tensor-core K6 and K7 sum in another order than the
+plain version, so they may round differently where the two fp32 sums
+straddle a bf16 rounding boundary: 1e-4 relative L2. The tensor-core
+K5-K7, and the SIMT ones, within one bf16 ulp of the fp64 plain versions,
+with at most 1e-3 of the outputs one ulp off. K8 squares and adds in
+channel order without fused multiply-adds, as the plain version does, so
+at C = 2 and 3 it is bit-equal to it in fp32 too.
 """
 
 import pytest
@@ -49,6 +51,8 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       conv3x3_wgrad_plain, flip_transpose)
 from ode_rl_torch.ops.correlation import (CorrelationFn,
+                                          _correlation_bwd_f1_simt,
+                                          _correlation_bwd_f1_tc,
                                           _correlation_bwd_f2_simt,
                                           _correlation_bwd_f2_tc,
                                           _correlation_fwd_simt,
@@ -450,10 +454,11 @@ def test_correlation_kernels_match_plain(cuda, shape, dtype):
             assert _max_abs(out, ref) <= 1e-5
     if dtype == torch.bfloat16:
         assert _rel_l2(outs[0], refs[0]) <= 1e-4
-        assert torch.equal(outs[1], refs[1])
-        if _takes_tc(f1, f2, d, stride):  # tensor-core K7: another order
+        if _takes_tc(f1, f2, d, stride):  # tensor-core K6, K7: another order
+            assert _rel_l2(outs[1], refs[1]) <= 1e-4
             assert _rel_l2(outs[2], refs[2]) <= 1e-4
         else:
+            assert torch.equal(outs[1], refs[1])
             assert torch.equal(outs[2], refs[2])
 
 
@@ -463,7 +468,7 @@ def _takes_tc(f1, f2, d, stride) -> bool:
                    (f1.data_ptr(), f2.data_ptr()))
 
 
-# Maps the tensor-core K5 and K7 take (B, H, W, C, d, stride): the bench
+# Maps the tensor-core K5-K7 take (B, H, W, C, d, stride): the bench
 # geometry (8x8x256, d = 20, stride 2), 8x8 at C = 64, H != W (4x16), an
 # odd 7x7 map (samples' outputs straddle 16-byte units), stride 1 with
 # d = 3, and stride 1 with d = 20 (1,681 displacements: K5's staged output
@@ -471,87 +476,111 @@ def _takes_tc(f1, f2, d, stride) -> bool:
 CORR_TC_SHAPES = [(4, 8, 8, 256, 20, 2), (3, 8, 8, 64, 20, 2),
                   (3, 4, 16, 64, 20, 2), (3, 7, 7, 128, 20, 2),
                   (3, 8, 8, 64, 3, 1), (2, 8, 8, 64, 20, 1)]
-# bf16 K5 and K7 against fp64 of the same inputs: one ulp, at most this
-# share one ulp off, as chip_smoke.py.
+# bf16 K5-K7 against fp64 of the same inputs: one ulp, at most this share
+# one ulp off, as chip_smoke.py.
 CORR_BF16_ULPS, CORR_BF16_SHARE = 1.0, 1e-3
 
 
 @pytest.mark.parametrize("shape", CORR_TC_SHAPES)
 def test_tensor_core_correlation_matches_simt_and_fp64(cuda, shape):
-    """The rule sends bf16 K5 and K7 at these maps to the tensor cores; the
+    """The rule sends bf16 K5-K7 at these maps to the tensor cores; the
     tensor-core kernels and the SIMT ones within one bf16 ulp of the fp64
-    plain versions on the same inputs, the tensor-core K5 within 1e-4
-    relative L2 of the bf16 plain version."""
+    plain versions on the same inputs, the tensor-core kernels within 1e-4
+    relative L2 of the bf16 plain versions. K6 reads the pair matrix M
+    transposed, so a wrong descriptor for it shows at these non-square and
+    ragged maps."""
     f1, f2, g, d, stride = _corr_inputs(cuda, shape, torch.bfloat16)
     assert _takes_tc(f1, f2, d, stride)
     common.reset_launches()
-    fwd, gf2 = correlation_fwd(f1, f2, d, stride), correlation_bwd_f2(
-        g, f1, d, stride)
-    assert common.launches["correlation_fwd_tc"] == 1
-    assert common.launches["correlation_bwd_f2_tc"] == 1
-    assert common.launches["correlation_fwd"] == 1
-    assert common.launches["correlation_bwd_f2"] == 1
+    fwd = correlation_fwd(f1, f2, d, stride)
+    gf1 = correlation_bwd_f1(g, f2, d, stride)
+    gf2 = correlation_bwd_f2(g, f1, d, stride)
+    for name in ("correlation_fwd", "correlation_bwd_f1",
+                 "correlation_bwd_f2"):
+        assert common.launches[f"{name}_tc"] == 1
+        assert common.launches[name] == 1
     assert torch.equal(fwd, _correlation_fwd_tc(f1, f2, d, stride))
+    assert torch.equal(gf1, _correlation_bwd_f1_tc(g, f2, d, stride))
     assert torch.equal(gf2, _correlation_bwd_f2_tc(g, f1, d, stride))
     cases = ((fwd, _correlation_fwd_simt(f1, f2, d, stride),
-              correlation_fwd_plain(f1.double(), f2.double(), d, stride)),
+              correlation_fwd_plain(f1.double(), f2.double(), d, stride),
+              correlation_fwd_plain(f1, f2, d, stride)),
+             (gf1, _correlation_bwd_f1_simt(g, f2, d, stride),
+              correlation_bwd_f1_plain(g.double(), f2.double(), d, stride),
+              correlation_bwd_f1_plain(g, f2, d, stride)),
              (gf2, _correlation_bwd_f2_simt(g, f1, d, stride),
-              correlation_bwd_f2_plain(g.double(), f1.double(), d, stride)))
+              correlation_bwd_f2_plain(g.double(), f1.double(), d, stride),
+              correlation_bwd_f2_plain(g, f1, d, stride)))
     torch.cuda.synchronize()
-    for tc, simt, ref in cases:
+    for tc, simt, ref, plain in cases:
         assert tc.dtype == torch.bfloat16 and tc.shape == ref.shape
         for got in (tc, simt):
             ulps, share = common.bf16_ulps(got, ref)
             assert ulps <= CORR_BF16_ULPS and share <= CORR_BF16_SHARE
-    assert _rel_l2(fwd, correlation_fwd_plain(f1, f2, d, stride)) <= 1e-4
+        assert _rel_l2(tc, plain) <= 1e-4
 
 
 def test_tensor_core_correlation_is_bit_reproducible(cuda):
     f1, f2, g, d, stride = _corr_inputs(cuda, (16, 8, 8, 256, 20, 2),
                                         torch.bfloat16)
     fwd = _correlation_fwd_tc(f1, f2, d, stride)
+    gf1 = _correlation_bwd_f1_tc(g, f2, d, stride)
     gf2 = _correlation_bwd_f2_tc(g, f1, d, stride)
     for _ in range(20):
         assert torch.equal(fwd, _correlation_fwd_tc(f1, f2, d, stride))
+        assert torch.equal(gf1, _correlation_bwd_f1_tc(g, f2, d, stride))
         assert torch.equal(gf2, _correlation_bwd_f2_tc(g, f1, d, stride))
 
 
 @pytest.mark.parametrize("refused", ["fp32", "chairs", "c48", "c192",
-                                     "misaligned"])
+                                     "misaligned", "misaligned_f2"])
 def test_refused_correlation_shapes_take_the_simt_kernels(cuda, refused):
-    """fp32 at the bench geometry, the FlyingChairs feature map, C = 48,
-    C = 192 (no unrolled tensor-core kernel) and an f1 view one element
-    into its storage: the rule names the SIMT K5 and K7, which run and
+    """fp32 at the bench geometry, the FlyingChairs feature map, C = 48 and
+    C = 192 (no unrolled tensor-core kernel): the rule names the SIMT
+    K5-K7. An f1 view one element into its storage sends K5 and K7 (which
+    read f1) to SIMT and K6 (g, f2) still to the tensor cores; an f2 view,
+    K5 and K6 to SIMT and K7 to the tensor cores. The SIMT kernels run and
     match the plain versions (fp32 1e-5 against fp64; bf16 K5 1e-4
-    relative L2, K7 bit-equal); the tensor-core wrappers raise; nothing is
+    relative L2, K6 and K7 bit-equal), the tensor-core ones 1e-4 relative
+    L2; the tensor-core wrappers of the refused calls raise; nothing is
     raised or caught on the way."""
     shape, dtype = {"fp32": ((2, 8, 8, 256, 20, 2), torch.float32),
                     "chairs": ((2, 48, 64, 256, 20, 2), torch.bfloat16),
                     "c48": ((2, 8, 8, 48, 20, 2), torch.bfloat16),
                     "c192": ((2, 8, 8, 192, 20, 2), torch.bfloat16),
-                    "misaligned": ((2, 8, 8, 256, 20, 2),
-                                   torch.bfloat16)}[refused]
+                    "misaligned": ((2, 8, 8, 256, 20, 2), torch.bfloat16),
+                    "misaligned_f2": ((2, 8, 8, 256, 20, 2),
+                                      torch.bfloat16)}[refused]
     f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    names = ("correlation_fwd", "correlation_bwd_f1", "correlation_bwd_f2")
+    simt = names
     if refused == "misaligned":
-        flat = torch.empty(f1.numel() + 1, dtype=dtype, device="cuda")
-        view = flat[1:].view(f1.shape)
-        view.copy_(f1)
-        f1 = view
+        f1 = _misaligned(f1)
+        simt = ("correlation_fwd", "correlation_bwd_f2")
+    elif refused == "misaligned_f2":
+        f2 = _misaligned(f2)
+        simt = ("correlation_fwd", "correlation_bwd_f1")
     assert not _takes_tc(f1, f2, d, stride)
     common.reset_launches()
     outs = (correlation_fwd(f1, f2, d, stride),
+            correlation_bwd_f1(g, f2, d, stride),
             correlation_bwd_f2(g, f1, d, stride))
-    assert common.launches["correlation_fwd"] == 1
-    assert common.launches["correlation_bwd_f2"] == 1
-    assert common.launches["correlation_fwd_tc"] == 0
-    assert common.launches["correlation_bwd_f2_tc"] == 0
-    with pytest.raises(ValueError, match="tensor-core kernel's rule"):
-        _correlation_fwd_tc(f1, f2, d, stride)
-    with pytest.raises(ValueError, match="tensor-core kernel's rule"):
-        _correlation_bwd_f2_tc(g, f1, d, stride)
+    for name in names:
+        assert common.launches[name] == 1
+        assert common.launches[f"{name}_tc"] == int(name not in simt)
+    tc_wrappers = {"correlation_fwd": lambda: _correlation_fwd_tc(
+                       f1, f2, d, stride),
+                   "correlation_bwd_f1": lambda: _correlation_bwd_f1_tc(
+                       g, f2, d, stride),
+                   "correlation_bwd_f2": lambda: _correlation_bwd_f2_tc(
+                       g, f1, d, stride)}
+    for name in simt:
+        with pytest.raises(ValueError, match="tensor-core kernel's rule"):
+            tc_wrappers[name]()
     ref_dtype = torch.float64 if dtype == torch.float32 else dtype
     a, b, gg = (t.to(ref_dtype) for t in (f1, f2, g))
     refs = (correlation_fwd_plain(a, b, d, stride),
+            correlation_bwd_f1_plain(gg, b, d, stride),
             correlation_bwd_f2_plain(gg, a, d, stride))
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -559,7 +588,20 @@ def test_refused_correlation_shapes_take_the_simt_kernels(cuda, refused):
             assert _max_abs(out, ref) <= 1e-5
     else:
         assert _rel_l2(outs[0], refs[0]) <= 1e-4
-        assert torch.equal(outs[1], refs[1])
+        for name, out, ref in zip(names[1:], outs[1:], refs[1:]):
+            if name in simt:
+                assert torch.equal(out, ref)
+            else:
+                assert _rel_l2(out, ref) <= 1e-4
+
+
+def _misaligned(x, offset=1):
+    """A contiguous copy of x that starts ``offset`` elements into its
+    storage."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 @pytest.mark.parametrize("shape", CORR_SHAPES[:4])
@@ -602,6 +644,25 @@ def test_channelnorm_kernel_matches_plain(cuda, c, dtype):
     assert out[0, 0, 0].item() == 0
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("offset", [0, 2], ids=["aligned", "8-bytes-in"])
+def test_channelnorm_is_bit_equal_to_plain_at_flownet2_maps(cuda, offset, c,
+                                                            dtype):
+    """K8 at FlowNet2's (8, 64, 64, C), exact-zero pixels included, and on
+    a view two elements into its storage (the kernel reads by element):
+    one launch, bit-equal to the plain version in fp32 and bf16."""
+    x = _misaligned(_rnd(cuda, 8, 64, 64, c, dtype=dtype), offset)
+    x[0, :3] = 0
+    common.reset_launches()
+    out = channelnorm_fwd(x)
+    assert common.launches["channelnorm"] == 1
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (8, 64, 64, 1)
+    assert torch.equal(out, channelnorm_plain(x))
+    assert (out[0, :3] == 0).all()
+
+
 def test_channelnormfn_gradient_is_zero_at_zero_norm(cuda):
     x = _rnd(cuda, 2, 4, 4, 3)
     x[0, 1, 2] = 0
@@ -634,6 +695,7 @@ def test_each_wrapper_counts_its_launches(cuda):
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
                                "correlation_fwd": 1, "correlation_fwd_tc": 0,
                                "correlation_bwd_f1": 1,
+                               "correlation_bwd_f1_tc": 0,
                                "correlation_bwd_f2": 1,
                                "correlation_bwd_f2_tc": 0, "channelnorm": 1}
     with common.force_plain():
@@ -648,8 +710,10 @@ def test_each_wrapper_counts_its_launches(cuda):
     assert common.launches["conv3x3_wgrad_tc"] == 1
     gb = _rnd(cuda, 1, 4, 4, 9, dtype=torch.bfloat16)
     correlation_fwd(xb, xb, 1, 1)
+    correlation_bwd_f1(gb, xb, 1, 1)
     correlation_bwd_f2(gb, xb, 1, 1)
-    for name in ("correlation_fwd", "correlation_bwd_f2"):
+    for name in ("correlation_fwd", "correlation_bwd_f1",
+                 "correlation_bwd_f2"):
         assert common.launches[name] == 2
         assert common.launches[f"{name}_tc"] == 1
 

@@ -242,7 +242,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 
 
 @pytest.mark.parametrize("call", ["pair_shapes", "not_nhwc", "cotangent",
-                                  "geometry", "channelnorm_rank"])
+                                  "geometry", "channelnorm_rank",
+                                  "channelnorm_5d"])
 def test_flow_op_shape_mismatches_raise(call):
     x = torch.zeros(1, 4, 5, 3)
     calls = {
@@ -252,6 +253,7 @@ def test_flow_op_shape_mismatches_raise(call):
                                                 1, 1),
         "geometry": lambda: correlation(x, x, 2, 0),
         "channelnorm_rank": lambda: channelnorm(x[0]),
+        "channelnorm_5d": lambda: channelnorm(x[None]),
     }
     with pytest.raises(ValueError):
         calls[call]()
