@@ -68,10 +68,26 @@ without printing its last line:
    and no launch of a tensor-core K5-K7 (fp32 stays on SIMT);
 8. FlowNet reference: one fp32 FlowNetC step at B=8 through the kernels
    against the same step on the plain versions: loss to 1e-5 relative,
-   every gradient leaf to 1e-3 relative L2.
+   every gradient leaf to 1e-3 relative L2;
+9. recipe: the port's own entry point, ``ode_rl_torch.main.main``, on
+   ``defaults`` + ``train_mmnist_odecgru_len20_1ch`` at full width (fp32,
+   B=4, 64 channels, 3 ODE layers, dopri5 'scan' with remat), on a frozen
+   corpus of 100-frame videos written from the port's generator into a
+   temporary directory: 20 training steps (checkpoints at 10 and 20),
+   every logged loss and grad_norm finite, K1-K4 launched, no K1/K2 launch
+   on the tensor cores and every K3/K4 launch a one-sample one; then the
+   test block, 10 -> 90 frames from the step-20 checkpoint over 2 batches,
+   90 finite MSE, PSNR and SSIM values in per_horizon.json; then one recipe
+   step on a frozen batch with the trained weights through the kernels
+   (profiled: device time a launch of K1-K4) against the same step on the
+   plain versions (equal NFE and accepted/rejected counts, loss to 1e-5
+   relative, every gradient leaf to 1e-3 relative L2); and K1's and K2's
+   SIMT kernels at the recipe's fp32 shape (4, 16, 16, 64) timed in one run
+   with their plain versions and cuDNN's fp32 conv and weight gradient.
+   Prints step_ms (median over steps 2-20) and the mean NFE.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7 and 8) run their convs in strict fp32. Then one JSON line with each
+7, 8 and 9) run their convs in strict fp32. Then one JSON line with each
 kernel's launches, error, times, bound (the larger of its operations over
 the peak rate of their type and its bytes over the memory rate, at the
 shape timed) and the time of the one PyTorch call that computes the same
@@ -84,16 +100,23 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ode_rl_torch import main as port_main
 from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
                                  FlowNetCBenchConfig)
+from ode_rl_torch.core.checkpoint import CheckpointManager
+from ode_rl_torch.core.config import load_config
+from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
@@ -129,8 +152,10 @@ from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         _gru_gates_2pass, _gru_gates_sample,
                                         blend_f64, fused_gru_blend,
                                         fused_gru_gates, gates_f64)
+from ode_rl_torch.profile_step import _KERNEL_IDS, _KERNEL_NAME
+from ode_rl_torch.train import loop as train_loop
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
-                                     make_fused_train_step)
+                                     make_fused_train_step, make_train_step)
 
 KERNELS = {
     "conv3x3_fwd": ("ode_rl_torch/csrc/conv3x3.cu",
@@ -192,20 +217,30 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_us(fns: dict, reps: int = 20) -> dict:
+def device_us(fns: dict, reps: int = 20, windows: int = 3) -> dict:
     """Device time of one call of each fn, in µs: every device kernel and
-    copy in a torch.profiler window of `reps` calls, over `reps`."""
+    copy in a torch.profiler window of `reps` calls, over `reps`. A window
+    that records no device time at all (the tracer once dropped a whole
+    window after phase 9's profiled step) is taken again, up to
+    `windows` times; then the call raises rather than report 0."""
     out = {}
     for label, fn in fns.items():
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type.name == "CUDA")
+        for _ in range(windows):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(e.self_device_time_total
+                        for e in prof.key_averages()
+                        if e.device_type.name == "CUDA")
+            if total > 0:
+                break
+        else:
+            raise AssertionError(f"{label}: no device time recorded in "
+                                 f"{windows} profiler windows")
         out[label] = total / reps
     return out
 
@@ -1237,6 +1272,251 @@ def phase_flow_reference(bank: torch.Tensor) -> None:
           "rel_l2")
 
 
+# The recipe (configs.yaml): ODEConv, fp32, B=4, dopri5 'scan' with remat,
+# frozen batches; its field state is (4, 16, 16, 64).
+RECIPE = ("defaults", "train_mmnist_odecgru_len20_1ch")
+RECIPE_TEST = ("defaults", "test_mmnist_odecgru_len20_1ch")
+RECIPE_B, RECIPE_STEPS = 4, 20
+
+
+def _write_frozen_corpus(root: pathlib.Path, bank: torch.Tensor) -> None:
+    """uint8 shard_0000.npy under train/ and test/ (16 and 8 videos of 100
+    frames, 3 digits) from the port's generator, and meta.json."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for split, n in (("train", 16), ("test", 8)):
+        video = generate_moving_mnist(gen, bank, batch=n, n_frames=100,
+                                      num_digits=3)
+        frames = torch.round((video[..., 0] + 0.5) * 255.0).to(torch.uint8)
+        (root / split).mkdir(parents=True)
+        np.save(root / split / "shard_0000.npy", frames.cpu().numpy())
+    (root / "meta.json").write_text(json.dumps(
+        {"videos": 24, "frames": 100, "digits": 3, "train_videos": 16}))
+
+
+class _TimedTrainStep:
+    """Stands in for the loop's ``make_train_step``: the same step, with
+    each step's host time (closed by a synchronize) and NFE recorded."""
+
+    def __init__(self):
+        self.ms, self.nfe = [], []
+
+    def __call__(self, nan_guard: bool = False):
+        step = make_train_step(nan_guard)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.nfe.append(int(metrics["nfe"]))
+            return metrics
+
+        return timed
+
+
+def _check_recipe_routes(counts: dict, where: str) -> None:
+    """K1-K4 launched; K1 and K2 on SIMT (fp32), K3 and K4 one-sample."""
+    missing = [k for k in FLAGSHIP_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the {where}: "
+                             f"{missing}")
+    if counts["conv3x3_fwd_tc"] or counts["conv3x3_wgrad_tc"]:
+        raise AssertionError(f"the fp32 {where} launched a tensor-core K1 "
+                             f"or K2: {counts}")
+    _check_gru_sample(counts)
+
+
+def _recipe_train(root: pathlib.Path, logs: pathlib.Path) -> dict:
+    argv = ["--configs", *RECIPE, "--data_dir", str(root), "--logdir",
+            str(logs), "--steps_per_epoch", str(RECIPE_STEPS), "--epochs",
+            "1", "--loss_log_freq", "5", "--ckpt_save_freq", "10"]
+    print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+    timer = _TimedTrainStep()
+    train_loop.make_train_step = timer
+    torch.cuda.synchronize()
+    common.reset_launches()
+    try:
+        out = port_main.main(argv)
+    finally:
+        train_loop.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    counts = dict(common.launches)
+    print(f"  launches over the {RECIPE_STEPS} steps: {counts}")
+    _check_recipe_routes(counts, "recipe's training run")
+    if out["final_step"] != RECIPE_STEPS or len(timer.ms) != RECIPE_STEPS:
+        raise AssertionError(f"the run took {out['final_step']} steps, "
+                             f"{len(timer.ms)} timed")
+    run = logs / "ODEConv" / "ODEConv_mmnist_train_10_10"
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in logged] != [1, 5, 10, 15, 20]:
+        raise AssertionError(f"logged steps {[m['step'] for m in logged]}")
+    for m in logged:
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"step {m['step']}: loss or grad_norm not "
+                                 "finite")
+    steps = CheckpointManager(run / "checkpoints",
+                              tag="train_mmnist_odecgru_len20_1ch").all_steps()
+    if steps != [10, 20]:
+        raise AssertionError(f"checkpoints at steps {steps}, not [10, 20]")
+    median = statistics.median(timer.ms[1:])
+    print(f"  step_ms: {[round(t, 2) for t in timer.ms]}")
+    print(f"  nfe: {timer.nfe}")
+    print(f"  median step_ms over steps 2-{RECIPE_STEPS}: {median:.2f}; "
+          f"mean nfe {statistics.mean(timer.nfe):.2f}")
+    return {"counts": counts, "step_ms": median,
+            "mean_nfe": statistics.mean(timer.nfe), "run": run}
+
+
+def _recipe_test(root: pathlib.Path, logs: pathlib.Path) -> None:
+    argv = ["--configs", *RECIPE_TEST, "--data_dir", str(root), "--logdir",
+            str(logs), "--eval_batches", "2"]
+    print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+    out = port_main.main(argv)
+    per_horizon = json.loads((logs / "ODEConv" / "ODEConv_mmnist_test_10_90"
+                              / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim"):
+        v = per_horizon[k]
+        if len(v) != 90 or not np.all(np.isfinite(v)):
+            raise AssertionError(f"per_horizon {k}: {len(v)} values, "
+                                 "not 90 finite ones")
+    print("  per-horizon at frames 1, 10, 45, 90: " + "; ".join(
+        f"{k} " + " ".join(f"{per_horizon[k][i]:.4f}" for i in (0, 9, 44, 89))
+        for k in ("mse", "psnr", "ssim")))
+    print(f"  final: mse {out['final_mse']:.6f} psnr {out['final_psnr']:.4f} "
+          f"ssim {out['final_ssim']:.4f}")
+
+
+def _launch_us(prof) -> dict:
+    """Launches and device µs a launch of each K1-K4 kernel in a trace
+    (a kernel's template instances together)."""
+    launches, us = {}, {}
+    for e in prof.key_averages():
+        found = _KERNEL_NAME.search(e.key)
+        if e.device_type.name == "CUDA" and found and _KERNEL_IDS[
+                found.group(1)] in ("K1", "K2", "K3", "K4"):
+            name = found.group(1)
+            launches[name] = launches.get(name, 0) + e.count
+            us[name] = us.get(name, 0.0) + e.self_device_time_total
+    return {name: (n, us[name] / n) for name, n in launches.items()}
+
+
+def _recipe_reference(root: pathlib.Path, run: pathlib.Path) -> dict:
+    """One recipe step on a frozen batch with the step-20 weights, through
+    the kernels (profiled) and on the plain versions."""
+    cfg = load_config(RECIPE, overrides={"data_dir": str(root)})
+    state = create_train_state(cfg, torch.device("cuda"))
+    snapshot = {"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()}
+    restored = CheckpointManager(
+        run / "checkpoints", tag=cfg.ckpt_id).restore(snapshot, step=20)
+    model = state.model
+    model.load_state_dict(restored["state"]["model"])
+    video = next(FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
+                                   cfg.train_out_seq, seed=5,
+                                   device=torch.device("cuda")))
+    batch = make_batch_dict(video, cfg.train_in_seq)
+
+    def run_step():
+        metrics, pred = loss_and_grads(model, batch)
+        return metrics, pred, {n: p.grad.clone()
+                               for n, p in model.named_parameters()}
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        m_k, pred_k, g_k = run_step()
+        torch.cuda.synchronize()
+    counts = dict(common.launches)
+    _check_recipe_routes(counts, "recipe's reference step")
+    with common.force_plain():
+        m_p, pred_p, g_p = run_step()
+    shape = (cfg.batch_size, cfg.train_out_seq, 64, 64, 1)
+    if tuple(pred_k.shape) != shape or not torch.isfinite(pred_k).all():
+        raise AssertionError(f"prediction {tuple(pred_k.shape)} is not a "
+                             f"finite {shape}")
+    for stat in ("nfe", "ode_accepted", "ode_rejected"):
+        print(f"  {stat}: kernels {m_k[stat]} plain {m_p[stat]}")
+        if m_k[stat] != m_p[stat]:
+            raise AssertionError(f"{stat} differs")
+    check("loss (relative)", abs(float(m_k["loss"]) / float(m_p["loss"])
+                                 - 1.0), 1e-5, "rel")
+    check("prediction", max_abs(pred_k, pred_p), 1e-4, "max_abs")
+    worst = max(g_k, key=lambda n: rel_l2(g_k[n], g_p[n]))
+    check(f"worst grad leaf ({worst})", rel_l2(g_k[worst], g_p[worst]), 1e-3,
+          "rel_l2")
+    per_launch = _launch_us(prof)
+    print(f"  launches in this step: {counts}")
+    for name, (n, us) in sorted(per_launch.items()):
+        print(f"  {_KERNEL_IDS[name]} {name}: {n} launches, {us:.2f} device "
+              "us a launch")
+    return {"counts": counts, "per_launch": per_launch}
+
+
+def _recipe_fp32_convs() -> dict:
+    """K1's and K2's SIMT kernels at the recipe's fp32 shape, timed in one
+    run with their plain versions and cuDNN's fp32 conv and weight
+    gradient (TF32 off), each with its bound at this shape."""
+    gen = torch.Generator().manual_seed(4)
+    b, hw, c = RECIPE_B, HW, C
+    x = torch.randn(b, hw, hw, c, generator=gen).cuda()
+    g = torch.randn(b, hw, hw, c, generator=gen).cuda()
+    w = (torch.randn(9 * c, c, generator=gen) / 24.0).cuda()
+    w_oihw = oihw(w, c, c)
+    check("K1 SIMT fp32 vs fp64 (recipe shape)",
+          max_abs(_conv3x3_fwd_simt(x, w),
+                  conv3x3_fwd_plain(x.double(), w.double())), 1e-4,
+          "max_abs")
+    check("K2 SIMT fp32 vs fp64 (recipe shape)",
+          rel_l2(_conv3x3_wgrad_simt(x, g),
+                 conv3x3_wgrad_plain(x.double(), g.double())), 1e-5,
+          "rel_l2")
+    px = b * hw * hw
+    flops = 2 * px * 9 * c * c
+    rows = {
+        "conv3x3_fwd": (_time_turns({
+            "simt": lambda: _conv3x3_fwd_simt(x, w),
+            "plain": lambda: conv3x3_fwd_plain(x, w),
+            "library": lambda: conv_library(x, w_oihw)}),
+            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32)),
+        "conv3x3_wgrad": (_time_turns({
+            "simt": lambda: _conv3x3_wgrad_simt(x, g),
+            "plain": lambda: conv3x3_wgrad_plain(x, g),
+            "library": lambda: wgrad_library(x, g, w_oihw)}),
+            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32)),
+    }
+    out = {}
+    for name, (times, bound) in rows.items():
+        out[name] = {"shape": [b, hw, hw, c], **bound}
+        for label, (ms, us) in times.items():
+            out[name][f"{label}_ms"] = ms
+            out[name][f"{label}_device_us"] = us
+        print(f"  {name} fp32 at ({b}, {hw}, {hw}, {c}), one run: CUDA-event "
+              f"median ms SIMT {out[name]['simt_ms']:.4f} plain "
+              f"{out[name]['plain_ms']:.4f} cuDNN "
+              f"{out[name]['library_ms']:.4f}; device us a call SIMT "
+              f"{out[name]['simt_device_us']:.2f} cuDNN "
+              f"{out[name]['library_device_us']:.2f}; bound "
+              f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    return out
+
+
+def phase_recipe(bank: torch.Tensor) -> dict:
+    print(f"[9] recipe: python -m ode_rl_torch.main --configs {' '.join(RECIPE)}"
+          f" (fp32, B={RECIPE_B}, 64 channels, dopri5 scan, remat), "
+          f"{RECIPE_STEPS} steps on a frozen corpus, then the test block")
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
+        _write_frozen_corpus(root, bank)
+        train = _recipe_train(root, logs)
+        _recipe_test(root, logs)
+        ref = _recipe_reference(root, train["run"])
+    convs = _recipe_fp32_convs()
+    return {**train, "reference": ref, "fp32_convs": convs}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1256,6 +1536,7 @@ def main() -> int:
     flownet2 = phase_flownet2(bank)
     counts["channelnorm"] = flownet2["channelnorm"]
     phase_flow_reference(bank)
+    recipe = phase_recipe(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -1263,6 +1544,22 @@ def main() -> int:
         timings[name]["sample_launches"] = counts[f"{name}_sample"]
     for name in CORR_TC:
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
+    # Phase 9 read the counts around its own run.
+    kernel_names = {"conv3x3_fwd": ("conv3x3_fwd",),
+                    "conv3x3_wgrad": ("conv3x3_wgrad_partial", "splitk_sum"),
+                    "gru_gates": ("gru_gates_sample",),
+                    "gru_blend": ("gru_blend_sample",)}
+    for name, kernels in kernel_names.items():
+        timings[name]["recipe_launches"] = recipe["counts"][name]
+        timings[name]["recipe_step_launches"] = recipe["reference"][
+            "counts"][name]
+        timings[name]["recipe_device_us_a_launch"] = {
+            k: recipe["reference"]["per_launch"][k][1] for k in kernels
+            if k in recipe["reference"]["per_launch"]}
+    for name, row in recipe["fp32_convs"].items():
+        timings[name]["recipe_fp32"] = row
+    print(f"recipe: step_ms {recipe['step_ms']:.2f} (median over steps "
+          f"2-{RECIPE_STEPS}), mean nfe {recipe['mean_nfe']:.2f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": tpu,
          "launches": counts[name], **timings[name]}

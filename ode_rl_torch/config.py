@@ -16,6 +16,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
+    model: str = "ODEConv"
     batch_size: int = 128
     train_in_seq: int = 10
     train_out_seq: int = 10

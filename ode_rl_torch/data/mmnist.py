@@ -1,4 +1,4 @@
-"""On-device Moving MNIST generation.
+"""On-device Moving MNIST generation, and the datasets of a run.
 
 Counterpart of ``ode_rl_tpu/data/mmnist.py``: digits bounce in a 64x64
 canvas with step length 0.1, are placed on integer pixels and composited
@@ -6,15 +6,23 @@ with max, and the position is stepped before the first recorded frame.
 Bounces are the closed-form triangle wave. Motion draws (x0, y0, theta,
 sprite index) come from an explicit ``torch.Generator``; placement is an
 index-put of each 28x28 sprite at its integer offset.
+
+``parse_datasets`` builds a run's train and test loaders for
+``dataset: mmnist``: the frozen corpus (data/frozen.py) where ``frozen``
+is on and ``data_dir`` holds ``meta.json`` (or an mp4 corpus, which
+raises), else the generator.
 """
 
 from __future__ import annotations
 
 import math
+import pathlib
+from typing import Iterator
 
 import torch
 
-from ode_rl_torch.data.sprites import DIGIT_SIZE
+from ode_rl_torch.data.frozen import FrozenMovingMNIST
+from ode_rl_torch.data.sprites import DIGIT_SIZE, get_sprite_bank
 
 IMAGE_SIZE = 64
 STEP_LENGTH = 0.1
@@ -109,3 +117,87 @@ def generate_moving_mnist_per_digit(generator: torch.Generator,
     idx, pos = draw_digits(generator, sprite_bank, batch, n_frames,
                            num_digits)
     return render_per_digit(sprite_bank, idx, pos), idx, pos
+
+
+# The test stream's seed offset (ode_rl_tpu/data/mmnist.py, MovingMNIST).
+TEST_SEED_OFFSET = 77_000_003
+
+
+class MovingMNIST:
+    """Infinite iterator over Moving MNIST batches generated on
+    ``device`` from a ``torch.Generator`` seeded with ``seed`` (train) or
+    ``seed + TEST_SEED_OFFSET`` (test)."""
+
+    def __init__(self, batch_size: int, n_frames_input: int,
+                 n_frames_output: int, num_digits: int = 2,
+                 data_dir=None, seed: int = 0, is_train: bool = True,
+                 num_sprites: int = 0,
+                 device: torch.device = torch.device("cpu")):
+        self.batch_size = batch_size
+        self.n_frames_total = n_frames_input + n_frames_output
+        self.num_digits = num_digits
+        bank = get_sprite_bank(data_dir)
+        if num_sprites:
+            bank = bank[:num_sprites]
+        self.sprite_bank = torch.from_numpy(bank).float().to(device)
+        self._gen = torch.Generator(device=device).manual_seed(
+            seed if is_train else seed + TEST_SEED_OFFSET)
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        return generate_moving_mnist(self._gen, self.sprite_bank,
+                                     batch=self.batch_size,
+                                     n_frames=self.n_frames_total,
+                                     num_digits=self.num_digits)
+
+
+# Datasets of the JAX package that are not ported, and their ROADMAP items.
+_VIDEO_CORPORA = ("hurricane", "kth", "mgif", "minerl", "mmnist_video",
+                  "penn", "phyre")
+
+
+def parse_datasets(cfg, device: torch.device) -> dict:
+    """Train and test loaders and batch counts for ``dataset: mmnist``
+    (the contract of the JAX ``parse_datasets``)."""
+    if cfg.dataset == "sprites":
+        raise NotImplementedError("the sprites dataset is not ported: "
+                                  "ROADMAP queue 1, item 12")
+    if cfg.dataset in _VIDEO_CORPORA:
+        raise NotImplementedError(
+            f"the {cfg.dataset} video corpus is not ported: ROADMAP queue "
+            "1, item 8 (data/video_corpus.py)")
+    if cfg.dataset != "mmnist":
+        raise NotImplementedError(f"There is no dataset named {cfg.dataset}")
+    total = int(cfg.get("data_points", 10000))
+    n_train = int(cfg.get("train_test_split", 0.8) * total)
+    counts = {"n_train_batches": max(n_train // cfg.batch_size, 1),
+              "n_test_batches": max((total - n_train) // cfg.batch_size, 1)}
+    seed = cfg.get("seed", 0)
+
+    # An mp4 corpus is chosen as JAX chooses it; FrozenMovingMNIST then
+    # raises, as the port reads only .npy shards.
+    frozen_root = pathlib.Path(str(cfg.get("data_dir", "")))
+    has_mp4 = any(list(d.glob("video_*.mp4"))
+                  for d in (frozen_root, frozen_root / "train") if d.is_dir())
+    if cfg.get("frozen", False) and ((frozen_root / "meta.json").exists()
+                                     or has_mp4):
+        mk = lambda train: FrozenMovingMNIST(
+            frozen_root, batch_size=cfg.batch_size,
+            n_frames_input=cfg.train_in_seq if train else cfg.test_in_seq,
+            n_frames_output=(cfg.train_out_seq if train
+                             else cfg.test_out_seq),
+            is_train=train, seed=seed, device=device)
+        return {"train_dataloader": mk(True), "test_dataloader": mk(False),
+                **counts, "frozen": True}
+
+    mk = lambda train: MovingMNIST(
+        batch_size=cfg.batch_size,
+        n_frames_input=cfg.train_in_seq if train else cfg.test_in_seq,
+        n_frames_output=cfg.train_out_seq if train else cfg.test_out_seq,
+        num_digits=cfg.num_digits, data_dir=cfg.get("data_dir"), seed=seed,
+        is_train=train, num_sprites=int(cfg.get("num_sprites", 0) or 0),
+        device=device)
+    return {"train_dataloader": mk(True), "test_dataloader": mk(False),
+            **counts}

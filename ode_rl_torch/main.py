@@ -1,0 +1,49 @@
+"""Command-line entry point of the port.
+
+    python -m ode_rl_torch.main --configs defaults \\
+        train_mmnist_odecgru_len20_1ch [--key value ...] [--device cpu]
+
+Counterpart of the repo's ``main.py``: the named blocks of ``configs.yaml``
+merge left to right and every resulting key is a typed ``--key value``
+flag. ``--device`` is the port's own argument, not a config key; it
+defaults to ``cuda``, and a host without CUDA raises rather than fall
+back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ode_rl_torch.core.config import Config, add_cli_overrides, load_config
+
+
+def get_cfg(argv: Sequence[str]) -> Tuple[Config, torch.device]:
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--configs", nargs="+", required=True)
+    parser.add_argument("--device", default="cuda")
+    args, remaining = parser.parse_known_args(argv)
+    merged = load_config(args.configs).to_dict()
+    return Config(add_cli_overrides(merged, remaining)), torch.device(
+        args.device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    cfg, device = get_cfg(sys.argv[1:] if argv is None else argv)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this host; pass "
+                           "--device cpu to run on the CPU")
+    from ode_rl_torch.train.loop import test, train
+
+    if cfg.phase == "train":
+        return train(cfg, device)
+    if cfg.phase == "test":
+        return test(cfg, device)
+    raise ValueError(f"unknown phase {cfg.phase!r}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
 """ODE-ConvGRU, the flagship continuous-time video predictor.
 
-Counterpart of ``ode_rl_tpu/models/odeconvgru.py`` on its flagship path
-(``mem=False``, ``z_sample=False``, ``method='dopri5'``,
-``ode_solver='fast'``): conv encoder -> backward ODE-ConvGRU z0 inference
-(z0 = mu) -> adaptive dopri5 decode of the latent trajectory over
-``tp_to_predict`` (ode/fast.py) -> conv decoder and sigmoid; MSE.
+Counterpart of ``ode_rl_tpu/models/odeconvgru.py`` with ``mem=False``
+and ``z_sample=False``: conv encoder -> backward ODE-ConvGRU z0 inference
+(z0 = mu) -> Neural-ODE decode of the latent trajectory over
+``tp_to_predict`` -> conv decoder and sigmoid; MSE. The decode runs the
+O(NFE) dopri5 (ode/fast.py) where ``ode_solver='fast'`` and ``method`` is
+dopri5, and ``odeint_aux`` (ode/solvers.py: backprop through the solver's
+steps, ``ode_remat`` checkpointing each dopri5 attempt) otherwise.
 
 The solver state and its RK arithmetic run in fp32 under bf16 compute;
 the convolutions inside the field still take bf16 operands. A bf16 state
@@ -23,6 +25,7 @@ from torch.func import functional_call
 from ode_rl_torch.nn.conv_stacks import ConvDecoder, ConvEncoder, ConvNet
 from ode_rl_torch.nn.odeconvgru import ODEConvGRUEncoder
 from ode_rl_torch.ode.fast import odeint_fast
+from ode_rl_torch.ode.solvers import odeint_aux
 
 
 class ODEConvGRUModel(nn.Module):
@@ -31,10 +34,15 @@ class ODEConvGRUModel(nn.Module):
                  neural_ode_decoder_out_ch: int = 64,
                  neural_ode_n_units: int = 64, n_ode_layers: int = 3,
                  rtol: float = 1e-4, atol: float = 1e-5,
-                 ode_max_steps: int = 128, *,
+                 ode_max_steps: int = 128, *, method: str = "dopri5",
+                 ode_solver: str = "scan", ode_remat: bool = True,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
+        if ode_solver not in ("scan", "fast"):
+            raise ValueError(f"ode_solver {ode_solver!r}: 'scan' or 'fast'")
+        self.method, self.ode_solver = method, ode_solver
+        self.ode_remat = ode_remat
         if neural_ode_decoder_out_ch != conv_encoder_out_ch:
             raise ValueError("the decode field maps the z0 state to itself: "
                              "neural_ode_decoder_out_ch must equal "
@@ -59,6 +67,17 @@ class ODEConvGRUModel(nn.Module):
         # Autonomous: t is ignored. The state stays fp32.
         return functional_call(self.ode_decoder_func, params, (y,)).float()
 
+    def _decode(self, z0: torch.Tensor, tp_to_predict):
+        if self.ode_solver == "fast" and self.method == "dopri5":
+            return odeint_fast(
+                self._field, z0, tp_to_predict,
+                dict(self.ode_decoder_func.named_parameters()),
+                rtol=self.rtol, atol=self.atol, max_steps=self.ode_max_steps)
+        return odeint_aux(
+            lambda t, y: self.ode_decoder_func(y).float(), z0, tp_to_predict,
+            method=self.method, rtol=self.rtol, atol=self.atol,
+            max_steps=self.ode_max_steps, remat=self.ode_remat)
+
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict]:
         inputs = batch["observed_data"].to(self.dtype) + 0.5   # -> [0, 1]
@@ -74,10 +93,7 @@ class ODEConvGRUModel(nn.Module):
         z0 = mu.float().contiguous()
 
         # 3. Neural-ODE decode of the latent trajectory, fp32 state.
-        ys, stats = odeint_fast(
-            self._field, z0, batch["tp_to_predict"],
-            dict(self.ode_decoder_func.named_parameters()),
-            rtol=self.rtol, atol=self.atol, max_steps=self.ode_max_steps)
+        ys, stats = self._decode(z0, batch["tp_to_predict"])
         sol_y = ys.movedim(0, 1)                 # time-first -> batch-first
         metrics = {"nfe": stats.nfe, "ode_accepted": stats.naccept,
                    "ode_rejected": stats.nreject,

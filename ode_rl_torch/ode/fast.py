@@ -37,12 +37,11 @@ import torch
 
 from ode_rl_torch.ode.interp import interp_eval, interp_fit
 from ode_rl_torch.ode.solvers import (
-    _DFACTOR, _IFACTOR, _ORDER, _SAFETY, ODEStats, _dopri5_step,
+    _DFACTOR, _F32, _IFACTOR, _ORDER, _SAFETY, ODEStats, _dopri5_step,
     _error_ratio, _initial_step)
 
 # Base width of the dense-output fill window (see _fill_width).
 _FILL_W = 4
-_F32 = np.float32
 
 Params = Dict[str, torch.Tensor]
 Func = Callable[[np.float32, torch.Tensor, Params], torch.Tensor]

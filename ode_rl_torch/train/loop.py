@@ -1,0 +1,239 @@
+"""Training and evaluation loop.
+
+Counterpart of ``setup``, ``train`` and ``test`` in
+``ode_rl_tpu/train/loop.py`` for the video-prediction families the port
+builds (models/registry.py): the epoch x batch loop with loss logging at
+``loss_log_freq``, checkpoints every ``ckpt_save_freq`` and at the end,
+auto-resume from the newest checkpoint, the per-epoch line, and the test
+protocol (restore by ``ckpt_id``, ``eval_batches`` batches, per-horizon
+MSE/PSNR/SSIM into ``per_horizon.json``, the last horizon as
+``final_*``).
+
+Without a frozen corpus the train step makes its own batch on the device
+(the fused step); with one, batches come from the loader. Metrics are
+fetched to the host only at log points.
+
+Not ported, and each raises where a config asks for it: the GAN loop,
+the CATER classifier, plateau LR and early stopping, Vid-ODE window
+sampling, the device mesh and LPIPS. ``test`` writes no PNGs
+(``train/visualize.py``, ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
+from ode_rl_torch.core.config import Config, resolve_run_id
+from ode_rl_torch.core.logging import MetricLogger
+from ode_rl_torch.data.mmnist import parse_datasets
+from ode_rl_torch.data.protocol import make_batch_dict
+from ode_rl_torch.data.sprites import get_sprite_bank
+from ode_rl_torch.train.step import (TrainState, create_train_state,
+                                     make_eval_step, make_fused_train_step,
+                                     make_train_step)
+
+# The fused loop's generator seed is the run seed plus this (JAX folds
+# the same constant into its loop key).
+_LOOP_SEED = 0xDA7A
+
+
+def _refuse_unported(cfg) -> None:
+    asks = {
+        "gan": ("the GAN loop (train/gan.py)", "item 8"),
+        "vidode_sampling": ("Vid-ODE window sampling", "item 8"),
+        "use_mesh": ("the device mesh (parallel/)", "item 13"),
+        "debug_nans": ("debug_nans", "item 13 (core/debug.py)"),
+    }
+    for key, (what, item) in asks.items():
+        if cfg.get(key, False):
+            raise NotImplementedError(f"{what} is not ported: ROADMAP "
+                                      f"queue 1, {item}")
+    if cfg.model == "CATERClassifier":
+        raise NotImplementedError("the CATER classifier is not ported: "
+                                  "ROADMAP queue 1, item 11")
+    if (cfg.get("lr_scheduler", "") == "plateau"
+            or int(cfg.get("early_stop_patience", 0)) > 0):
+        raise NotImplementedError("plateau LR and early stopping are not "
+                                  "ported: ROADMAP queue 1, item 10 "
+                                  "(train/schedulers.py)")
+
+
+def setup(cfg, device: torch.device):
+    """Loaders and the initial state. One batch is drawn and dropped, as
+    JAX draws its init sample, so both read the same batches after."""
+    loaders = parse_datasets(cfg, device)
+    loader = (loaders["train_dataloader"] if cfg.phase == "train"
+              else loaders["test_dataloader"])
+    next(loader)
+    return loaders, create_train_state(cfg, device)
+
+
+def _snapshot(state: TrainState) -> Dict:
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}
+
+
+def _load(state: TrainState, snapshot: Dict) -> None:
+    state.model.load_state_dict(snapshot["model"])
+    state.optimizer.load_state_dict(snapshot["optimizer"])
+
+
+def train(cfg, device: torch.device,
+          logdir: Optional[pathlib.Path] = None) -> Dict:
+    _refuse_unported(cfg)
+    run_id = resolve_run_id(cfg)
+    logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
+              / run_id)
+    logger = MetricLogger(logdir, use_wandb=not cfg.get("off_wandb", True),
+                          quiet=cfg.get("quiet", False))
+    ckpt = CheckpointManager(logdir / "checkpoints",
+                             tag=cfg.get("ckpt_id", run_id))
+    loaders, state = setup(cfg, device)
+
+    fused = (cfg.get("fused_datagen", True) and cfg.dataset == "mmnist"
+             and not loaders.get("frozen", False))
+    loader = loaders["train_dataloader"]
+    if fused:
+        bank = get_sprite_bank(cfg.get("data_dir"))
+        if int(cfg.get("num_sprites", 0) or 0):
+            bank = bank[:int(cfg.num_sprites)]
+        fused_step = make_fused_train_step(
+            cfg, torch.from_numpy(bank).float().to(device))
+        loop_gen = torch.Generator(device=device).manual_seed(
+            int(cfg.get("seed", 0)) + _LOOP_SEED)
+    else:
+        train_step = make_train_step(nan_guard=cfg.get("nan_guard", False))
+    n_train_batches = (int(cfg.get("steps_per_epoch", 0))
+                       or loaders["n_train_batches"])
+    total_steps = n_train_batches * cfg.epochs
+    logger.print_exp_details(cfg, n_train_batches)
+
+    start_step = 0
+    if ckpt.latest_step() is not None and cfg.get("auto_resume", True):
+        try:
+            restored = ckpt.restore(_snapshot(state))
+        except ValueError as e:
+            # A snapshot of another architecture: refuse the resume.
+            print(f"auto-resume skipped: {e}")
+        else:
+            _load(state, restored["state"])
+            start_step = state.step = restored["step"]
+            print(f"resumed from step {start_step}")
+
+    step = start_step
+    last_metrics: Dict = {}
+    log_freq = int(cfg.get("loss_log_freq", 50))
+    for epoch in range(cfg.epochs):
+        epoch_losses = []
+        for _ in range(n_train_batches):
+            if step >= total_steps:
+                break
+            if fused:
+                metrics = fused_step(state, loop_gen)
+            else:
+                batch = make_batch_dict(next(loader), n_in=cfg.train_in_seq)
+                metrics = train_step(state, batch)
+            step += 1
+            # Fetch metrics only at log points.
+            if step % log_freq == 0 or step == 1:
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                logger.log(step, last_metrics)
+                epoch_losses.append(last_metrics["loss"])
+            if step % cfg.get("ckpt_save_freq", 5000) == 0:
+                ckpt.save(step, _snapshot(state), config=cfg.to_dict())
+        epoch_loss = (float(np.mean(epoch_losses)) if epoch_losses
+                      else last_metrics.get("loss", float("nan")))
+        logger.log_epoch(epoch, epoch_loss, step, total_steps)
+        if step >= total_steps:
+            break
+    ckpt.save(max(step, 1), _snapshot(state), config=cfg.to_dict())
+    logger.close()
+    return {"final_step": step, **last_metrics}
+
+
+# Keys the test block keeps when it resurrects a saved train config:
+# those that define the evaluation protocol rather than the model.
+_TEST_PROTOCOL_KEYS = frozenset({
+    "id", "phase", "load_model", "ckpt_id", "ckpt_step", "logdir", "rundir",
+    "dataset", "data_dir", "test_seq", "test_in_seq", "test_out_seq",
+    "eval_batches", "batch_size", "quiet", "seed", "off_wandb",
+    "fused_datagen", "use_mesh",
+})
+
+
+def _resurrect_train_config(cfg, saved: Dict) -> Config:
+    """The saved train-time config, with the current block's evaluation
+    protocol keys (and any key the saved one lacks)."""
+    merged = dict(saved)
+    for k, v in cfg.to_dict().items():
+        if k in _TEST_PROTOCOL_KEYS or k not in merged:
+            merged[k] = v
+    return Config(merged)
+
+
+def _lpips_enabled(cfg) -> bool:
+    mode = cfg.get("eval_lpips", "auto")
+    if isinstance(mode, str) and mode.lower() == "auto":
+        return cfg.model in ("VidODE",)
+    return bool(mode)
+
+
+def test(cfg, device: torch.device,
+         logdir: Optional[pathlib.Path] = None) -> Dict:
+    ckpt = None
+    if cfg.get("load_model", False):
+        ckpt_id = cfg.get("ckpt_id")
+        if not ckpt_id:
+            raise ValueError(
+                "phase=test with load_model=True requires an explicit "
+                "ckpt_id (the tag the train run checkpointed under)")
+        ckpt = CheckpointManager(
+            find_checkpoint(cfg.get("logdir", "logs"), cfg.model, ckpt_id),
+            tag=ckpt_id)
+        saved_cfg = ckpt.load_config()
+        if saved_cfg is not None:
+            cfg = _resurrect_train_config(cfg, saved_cfg)
+    _refuse_unported(cfg)
+    if _lpips_enabled(cfg):
+        raise NotImplementedError("LPIPS is not ported: ROADMAP queue 1, "
+                                  "item 8 (eval_models/lpips.py)")
+
+    run_id = resolve_run_id(cfg)
+    logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
+              / run_id)
+    logger = MetricLogger(logdir, quiet=cfg.get("quiet", False))
+    loaders, state = setup(cfg, device)
+    if ckpt is not None:
+        step = cfg.get("ckpt_step") or None
+        restored = ckpt.restore(_snapshot(state),
+                                step=int(step) if step else None)
+        _load(state, restored["state"])
+        print(f"loaded checkpoint {ckpt.tag} step {restored['step']} "
+              f"from {ckpt.directory}")
+
+    eval_step = make_eval_step()
+    loader = loaders["test_dataloader"]
+    batches = int(cfg.get("eval_batches", 0)) or loaders["n_test_batches"]
+    all_metrics = []
+    for _ in range(batches):
+        batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq)
+        metrics, _pred = eval_step(state.model, batch)
+        all_metrics.append({k: v.cpu().numpy() for k, v in metrics.items()
+                            if not k.startswith("aux_")})
+
+    # Mean over batches -> per-horizon curves; the last horizon is the
+    # final metric.
+    stacked = {k: np.mean(np.stack([m[k] for m in all_metrics]), axis=0)
+               for k in all_metrics[0]}
+    final = {f"final_{k}": float(v[-1]) for k, v in stacked.items()}
+    per_horizon = {k: v.tolist() for k, v in stacked.items()}
+    logger.log(0, final)
+    (logdir / "per_horizon.json").write_text(json.dumps(per_horizon))
+    logger.close()
+    return {**final, "per_horizon": per_horizon}

@@ -1,24 +1,25 @@
-"""Train step: generate, batch, loss, backward, Adam update.
+"""Train and eval steps.
 
-Counterpart of ``ode_rl_tpu/train/step.py`` on the flagship path: Adam
-(``torch.optim.Adam`` with optax.adam's betas and eps), the ``grad_norm``
-metric (global L2 norm of the gradients, as ``optax.global_norm``), and
-the fused step that makes its own Moving MNIST batch on the device.
-Gradient clipping and the solvers other than dopri5 'fast' are not ported
-yet; a config asking for them raises.
+Counterpart of ``ode_rl_tpu/train/step.py``: Adam (``torch.optim.Adam``
+with optax.adam's betas and eps), the ``grad_norm`` metric (global L2
+norm of the gradients, as ``optax.global_norm``), the train step on a
+given batch, the fused step that makes its own Moving MNIST batch on the
+device, and the eval step (prediction without autograd, per-horizon MSE,
+PSNR and SSIM, and the model's stats as ``aux_*``). Gradient clipping,
+``nan_guard`` and optimizers other than Adam are not ported yet (ROADMAP
+queue 1, item 3, 9d); a config asking for them raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
-from ode_rl_torch.models.odeconvgru import ODEConvGRUModel
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from ode_rl_torch.models.registry import build_model, cfg_get
+from ode_rl_torch.train.metrics import per_frame_metrics
 
 
 class TrainState:
@@ -32,26 +33,23 @@ class TrainState:
 
 
 def make_optimizer(cfg, params) -> torch.optim.Optimizer:
-    if float(cfg.clip) != -1:
-        raise NotImplementedError("gradient clipping is not ported")
+    if float(cfg_get(cfg, "clip", -1)) != -1:
+        raise NotImplementedError("gradient clipping is not ported: "
+                                  "ROADMAP queue 1, item 3 (9d)")
+    name = cfg_get(cfg, "optimizer", "adam")
+    if name != "adam":
+        raise NotImplementedError(f"optimizer {name!r} is not ported: "
+                                  "ROADMAP queue 1, item 3 (9d)")
     return torch.optim.Adam(params, lr=float(cfg.lr), betas=(0.9, 0.999),
                             eps=1e-8)
 
 
 def create_train_state(cfg, device: torch.device) -> TrainState:
-    """Model initialised from ``cfg.seed`` (on the CPU, so the weights do
-    not depend on the device), moved to ``device``, with its optimizer."""
-    if (cfg.decode_diff_method, cfg.ode_solver) != ("dopri5", "fast"):
-        raise NotImplementedError("only the dopri5 'fast' solver is ported")
-    generator = torch.Generator().manual_seed(cfg.seed)
-    model = ODEConvGRUModel(
-        in_channels=cfg.in_channels, n_downs=cfg.n_downs,
-        conv_encoder_out_ch=cfg.conv_encoder_out_ch,
-        neural_ode_decoder_out_ch=cfg.neural_ode_decoder_out_ch,
-        neural_ode_n_units=cfg.neural_ode_n_units,
-        n_ode_layers=cfg.n_ode_layers, rtol=float(cfg.odeint_rtol),
-        atol=float(cfg.odeint_atol), ode_max_steps=int(cfg.ode_max_steps),
-        dtype=_DTYPES[cfg.compute_dtype], generator=generator).to(device)
+    """The model ``cfg.model`` names, initialised from ``cfg.seed`` (on
+    the CPU, so the weights do not depend on the device), moved to
+    ``device``, with its optimizer."""
+    generator = torch.Generator().manual_seed(int(cfg.seed))
+    model = build_model(cfg, device, generator)
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 
@@ -77,6 +75,32 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
     state.optimizer.step()
     state.step += 1
     return metrics
+
+
+def make_train_step(nan_guard: bool = False
+                    ) -> Callable[[TrainState, Dict], Dict]:
+    """(state, batch) -> metrics: one step on a given batch."""
+    if nan_guard:
+        raise NotImplementedError("nan_guard is not ported: ROADMAP queue "
+                                  "1, item 3 (9d)")
+    return train_step
+
+
+def make_eval_step() -> Callable[[torch.nn.Module, Dict],
+                                 Tuple[Dict, torch.Tensor]]:
+    """(model, batch) -> (metrics, pred): per-horizon ``mse``, ``psnr``
+    and ``ssim`` (each (T,)) and the model's stats as ``aux_<name>``."""
+
+    @torch.no_grad()
+    def eval_step(model: torch.nn.Module, batch: Dict):
+        pred, aux = model.predict(batch)
+        target = batch["data_to_predict"].float() + 0.5
+        metrics = per_frame_metrics(pred, target)
+        metrics.update({f"aux_{k}": v for k, v in aux.items()
+                        if not k.startswith("_")})
+        return metrics, pred
+
+    return eval_step
 
 
 def make_fused_train_step(cfg, sprite_bank: torch.Tensor

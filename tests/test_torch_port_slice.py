@@ -69,7 +69,7 @@ def jax_run():
 @pytest.fixture(scope="module")
 def torch_run(jax_run):
     model = ODEConvGRUModel(generator=torch.Generator().manual_seed(0),
-                            **MODEL_KW)
+                            ode_solver="fast", **MODEL_KW)
     load_flax(model, jax_run["params"])
     batch = {k: t32(v) for k, v in _batch_np(0).items()}
     metrics, pred = loss_and_grads(model, batch)
