@@ -53,8 +53,8 @@ without printing its last line:
    every loss and grad_norm finite, every kernel's launch count above
    zero over these steps, every K1 and K2 launch a tensor-core one, and
    every K3 and K4 launch a one-sample one;
-5. reference: one fp32 step at B=8 through the kernels (K1 and K2 on
-   their SIMT kernels, as fp32 is; K3 and K4 on their one-sample kernels)
+5. reference: one fp32 step at B=8 through the kernels (every K1 and K2
+   launch a SIMT one, as fp32 is; K3 and K4 on their one-sample kernels)
    against the same
    step on the plain versions (same weights, same batch): equal NFE and
    accepted/rejected counts, loss to 1e-5 relative, every gradient leaf to
@@ -74,17 +74,21 @@ without printing its last line:
    B=4, 64 channels, 3 ODE layers, dopri5 'scan' with remat), on a frozen
    corpus of 100-frame videos written from the port's generator into a
    temporary directory: 20 training steps (checkpoints at 10 and 20),
-   every logged loss and grad_norm finite, K1-K4 launched, no K1/K2 launch
-   on the tensor cores and every K3/K4 launch a one-sample one; then the
+   every logged loss and grad_norm finite, K1-K4 launched, every K1/K2
+   launch a SIMT one and every K3/K4 launch a one-sample one; then the
    test block, 10 -> 90 frames from the step-20 checkpoint over 2 batches,
    90 finite MSE, PSNR and SSIM values in per_horizon.json; then one recipe
    step on a frozen batch with the trained weights through the kernels
-   (profiled: device time a launch of K1-K4) against the same step on the
-   plain versions (equal NFE and accepted/rejected counts, loss to 1e-5
-   relative, every gradient leaf to 1e-3 relative L2); and K1's and K2's
-   SIMT kernels at the recipe's fp32 shape (4, 16, 16, 64) timed in one run
-   with their plain versions and cuDNN's fp32 conv and weight gradient.
-   Prints step_ms (median over steps 2-20) and the mean NFE.
+   (profiled: device time a launch of K1-K4, every K1 and K2 launch in the
+   trace one of the SIMT kernels) against the same step on the plain
+   versions (equal NFE and accepted/rejected counts, loss to 1e-5 relative,
+   every gradient leaf to 1e-3 relative L2); and K1's SIMT kernel (forward
+   and as dx) and K2's at the recipe's fp32 shape (4, 16, 16, 64) against
+   fp64 (1e-4 max abs, 1e-5 relative L2), bit-equal over 20 calls, timed in
+   one run with their plain versions and cuDNN's fp32 conv and weight
+   gradient. Prints step_ms (median over steps 2-20) and the mean NFE.
+   (An older checkout's SIMT kernels are timed beside these by
+   ``python -m ode_rl_torch.simt_conv_times`` run from both checkouts.)
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
 7, 8 and 9) run their convs in strict fp32. Then one JSON line with each
@@ -1161,7 +1165,8 @@ def phase_reference(bank: torch.Tensor) -> None:
     m_k, pred_k, g_k = run()
     counts = dict(common.launches)
     if (counts["conv3x3_wgrad"] == 0 or counts["conv3x3_fwd"] == 0
-            or counts["conv3x3_wgrad_tc"] or counts["conv3x3_fwd_tc"]):
+            or counts["conv3x3_wgrad_simt"] != counts["conv3x3_wgrad"]
+            or counts["conv3x3_fwd_simt"] != counts["conv3x3_fwd"]):
         raise AssertionError(f"the fp32 step did not run K1 and K2 on "
                              f"their SIMT kernels: {counts}")
     _check_gru_sample(counts)
@@ -1316,14 +1321,18 @@ class _TimedTrainStep:
 
 
 def _check_recipe_routes(counts: dict, where: str) -> None:
-    """K1-K4 launched; K1 and K2 on SIMT (fp32), K3 and K4 one-sample."""
+    """K1-K4 launched; every K1 and K2 launch a SIMT one (fp32), every K3
+    and K4 launch a one-sample one."""
     missing = [k for k in FLAGSHIP_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the {where}: "
                              f"{missing}")
-    if counts["conv3x3_fwd_tc"] or counts["conv3x3_wgrad_tc"]:
-        raise AssertionError(f"the fp32 {where} launched a tensor-core K1 "
-                             f"or K2: {counts}")
+    for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+        if counts[f"{name}_simt"] != counts[name]:
+            raise AssertionError(
+                f"{counts[name] - counts[f'{name}_simt']} of {counts[name]} "
+                f"{name} launches in the fp32 {where} missed the SIMT "
+                f"kernel: {counts}")
     _check_gru_sample(counts)
 
 
@@ -1449,6 +1458,14 @@ def _recipe_reference(root: pathlib.Path, run: pathlib.Path) -> dict:
           "rel_l2")
     per_launch = _launch_us(prof)
     print(f"  launches in this step: {counts}")
+    # The trace agrees with the wrappers' counts: every K1 and K2 launch
+    # ran the SIMT kernels (the sum only where a call has splits).
+    for name, kernel in (("conv3x3_fwd", "conv3x3_fwd_simt"),
+                         ("conv3x3_wgrad", "conv3x3_wgrad_simt")):
+        traced = per_launch.get(kernel, (0, 0.0))[0]
+        if traced != counts[name]:
+            raise AssertionError(f"the trace holds {traced} {kernel} "
+                                 f"launches, the wrappers {counts[name]}")
     for name, (n, us) in sorted(per_launch.items()):
         print(f"  {_KERNEL_IDS[name]} {name}: {n} launches, {us:.2f} device "
               "us a launch")
@@ -1456,48 +1473,67 @@ def _recipe_reference(root: pathlib.Path, run: pathlib.Path) -> dict:
 
 
 def _recipe_fp32_convs() -> dict:
-    """K1's and K2's SIMT kernels at the recipe's fp32 shape, timed in one
-    run with their plain versions and cuDNN's fp32 conv and weight
-    gradient (TF32 off), each with its bound at this shape."""
+    """K1's SIMT kernel (forward and as dx) and K2's at the recipe's fp32
+    shape against fp64, bit-equal over 20 calls, and timed in one run with
+    their plain versions and cuDNN's fp32 conv and weight gradient (TF32
+    off), each with its bound at this shape."""
     gen = torch.Generator().manual_seed(4)
     b, hw, c = RECIPE_B, HW, C
     x = torch.randn(b, hw, hw, c, generator=gen).cuda()
     g = torch.randn(b, hw, hw, c, generator=gen).cuda()
     w = (torch.randn(9 * c, c, generator=gen) / 24.0).cuda()
+    w_t = flip_transpose(w, c, c)
     w_oihw = oihw(w, c, c)
-    check("K1 SIMT fp32 vs fp64 (recipe shape)",
-          max_abs(_conv3x3_fwd_simt(x, w),
-                  conv3x3_fwd_plain(x.double(), w.double())), 1e-4,
-          "max_abs")
-    check("K2 SIMT fp32 vs fp64 (recipe shape)",
-          rel_l2(_conv3x3_wgrad_simt(x, g),
-                 conv3x3_wgrad_plain(x.double(), g.double())), 1e-5,
-          "rel_l2")
+    calls = {"K1 SIMT fp32": lambda: _conv3x3_fwd_simt(x, w),
+             "K1 SIMT fp32 as dx": lambda: _conv3x3_fwd_simt(g, w_t),
+             "K2 SIMT fp32": lambda: _conv3x3_wgrad_simt(x, g)}
+    refs = {"K1 SIMT fp32": conv3x3_fwd_plain(x.double(), w.double()),
+            "K1 SIMT fp32 as dx": conv3x3_fwd_plain(g.double(),
+                                                    w_t.double()),
+            "K2 SIMT fp32": conv3x3_wgrad_plain(x.double(), g.double())}
+    errs = {}
+    for label, fn in calls.items():
+        first = fn()
+        if label.startswith("K2"):
+            errs[label] = check(f"{label} vs fp64 (recipe shape)",
+                                rel_l2(first, refs[label]), 1e-5, "rel_l2")
+        else:
+            errs[label] = check(f"{label} vs fp64 (recipe shape)",
+                                max_abs(first, refs[label]), 1e-4, "max_abs")
+        for _ in range(20):
+            if not torch.equal(first, fn()):
+                raise AssertionError(f"{label}: two calls differ")
+        print(f"  {label}: bit-equal over 20 calls")
     px = b * hw * hw
     flops = 2 * px * 9 * c * c
     rows = {
         "conv3x3_fwd": (_time_turns({
-            "simt": lambda: _conv3x3_fwd_simt(x, w),
+            "simt": calls["K1 SIMT fp32"],
+            "simt_dx": calls["K1 SIMT fp32 as dx"],
             "plain": lambda: conv3x3_fwd_plain(x, w),
             "library": lambda: conv_library(x, w_oihw)}),
-            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32)),
+            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32),
+            max(errs["K1 SIMT fp32"], errs["K1 SIMT fp32 as dx"])),
         "conv3x3_wgrad": (_time_turns({
-            "simt": lambda: _conv3x3_wgrad_simt(x, g),
+            "simt": calls["K2 SIMT fp32"],
             "plain": lambda: conv3x3_wgrad_plain(x, g),
             "library": lambda: wgrad_library(x, g, w_oihw)}),
-            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32)),
+            _bound(flops, (2 * px * c + 9 * c * c) * 4, PEAK_FP32),
+            errs["K2 SIMT fp32"]),
     }
     out = {}
-    for name, (times, bound) in rows.items():
-        out[name] = {"shape": [b, hw, hw, c], **bound}
+    for name, (times, bound, err) in rows.items():
+        out[name] = {"shape": [b, hw, hw, c], "fp64_err": err, **bound}
         for label, (ms, us) in times.items():
             out[name][f"{label}_ms"] = ms
             out[name][f"{label}_device_us"] = us
+        dx = (f" (as dx {out[name]['simt_dx_device_us']:.2f})"
+              if "simt_dx_ms" in out[name] else "")
         print(f"  {name} fp32 at ({b}, {hw}, {hw}, {c}), one run: CUDA-event "
               f"median ms SIMT {out[name]['simt_ms']:.4f} plain "
               f"{out[name]['plain_ms']:.4f} cuDNN "
               f"{out[name]['library_ms']:.4f}; device us a call SIMT "
-              f"{out[name]['simt_device_us']:.2f} cuDNN "
+              f"{out[name]['simt_device_us']:.2f}{dx} cuDNN "
               f"{out[name]['library_device_us']:.2f}; bound "
               f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
     return out
@@ -1545,8 +1581,9 @@ def main() -> int:
     for name in CORR_TC:
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
     # Phase 9 read the counts around its own run.
-    kernel_names = {"conv3x3_fwd": ("conv3x3_fwd",),
-                    "conv3x3_wgrad": ("conv3x3_wgrad_partial", "splitk_sum"),
+    kernel_names = {"conv3x3_fwd": ("conv3x3_fwd_simt",),
+                    "conv3x3_wgrad": ("conv3x3_wgrad_simt",
+                                      "conv3x3_wgrad_sum"),
                     "gru_gates": ("gru_gates_sample",),
                     "gru_blend": ("gru_blend_sample",)}
     for name, kernels in kernel_names.items():

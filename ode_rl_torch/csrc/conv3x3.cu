@@ -7,9 +7,11 @@
 //   K2  ode_rl_tpu/ops/conv3x3.py::_wgrad_kernel (via _pallas_wgrad).
 //
 // What bounds them on the H100. At the flagship shape (x (128,16,16,64),
-// w (576,64)) one K1 call is M = B*H*W = 32,768 rows, K = 9*Cin = 576,
-// N = Cout = 64: 2.4 GFLOP against about 8.5 MB of activations in and out,
-// a few microseconds on either bound.
+// w (576,64), bf16) one K1 call is M = B*H*W = 32,768 rows, K = 9*Cin =
+// 576, N = Cout = 64: 2.4 GFLOP against about 8.5 MB of activations in and
+// out, a few microseconds on either bound. At the recipe's shape (B = 4,
+// fp32) it is 75.5 MFLOP: 1.13 us of fp32 FMA at 67 TFLOP/s, and the grid
+// has to be cut finely to put work on every SM.
 //
 // K1 has two kernels; ops/conv3x3.py::uses_tensor_cores picks one.
 //
@@ -17,14 +19,14 @@
 //   the weights, two halo stages and the output staging within the 227 KB
 //   of shared memory): the tensor-core K1 (section "Tensor-core K1" below),
 //   about 7 us a launch at the flagship shape against cuDNN's 11.
-// * conv3x3_fwd_kernel (everything else, fp32 included): fp32 FMA from
-//   shared memory, so bound by the FMA issue rate and shared-memory
-//   bandwidth of the SMs, far from either roofline. A block owns a 64 x 64
-//   output tile; 256 threads each hold a 4 x 4 fp32 accumulator. The A
-//   tile (patches) is gathered straight from the NHWC input with the SAME
-//   bounds computed in the kernel (zeros outside), so no padded copy is
-//   made; the B tile comes from the weights laid out as (9*Cin, Cout) in
-//   HWIO order, which is kernel.reshape(9*Cin, Cout), the JAX layout.
+// * conv3x3_fwd_simt_kernel (everything else, fp32 included, so fp32 stays
+//   strict fp32): fp32 FMA from shared memory (section "SIMT K1" below). A
+//   block owns a run of 16-pixel row segments for 16 output channels, with
+//   its weights and the segment's 3-row halo staged in shared memory, zeros
+//   for SAME written at staging; ops/conv3x3.py::simt_plan sizes the runs
+//   so that every SM gets about two blocks. On an H100 80GB HBM3 (700 W)
+//   about 8 us a call at the recipe's fp32 (4, 16, 16, 64) -> 64 against
+//   cuDNN's fp32 24 (ode_rl_torch/simt_conv_times.py).
 //
 // K2 (dW = patches^T . g) is the same 2.4 GFLOP at the flagship shape,
 // against 8.5 MB (x and g in bf16, dW in fp32): 2.45 us at 989 TFLOP/s,
@@ -42,11 +44,13 @@
 //   us a launch at the flagship shape against cuDNN's weight gradient's
 //   19.5; the partials' round trip through L2 and the grid sync are most
 //   of the gap to the bound.
-// * conv3x3_wgrad_partial_kernel + splitk_sum_kernel (everything else,
-//   fp32 included): fp32 FMA, block s sums its own range of rows into
-//   scratch (S, 9*Cin, Cout) fp32, and a second kernel sums the S partials
-//   in a fixed order. Bound by the FMA issue rate and the per-element
-//   gather (about 310 us at the flagship shape).
+// * conv3x3_wgrad_simt_kernel + conv3x3_wgrad_sum_kernel (everything else,
+//   fp32 included): fp32 FMA (section "SIMT K2" below). A block owns a
+//   64 x 64 tile of dW (one tap at Cin = 64) and a run of pixels,
+//   ops/conv3x3.py::wgrad_simt_plan sizes the runs so that every SM gets
+//   about two blocks, and the second launch sums the partials in split
+//   order. On an H100 80GB HBM3 (700 W) about 9.4 us a call (both
+//   launches) at the recipe's fp32 shape against cuDNN's 16.3.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
@@ -77,173 +81,549 @@ using odek::wgmma_m64n64k16;
 using odek::wgmma_wait_all;
 using odek::wgmma_wait_one;
 
-constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 sub-tile
-constexpr int kTile = 64;      // output tile edge (pixels or channels)
-constexpr int kChunk = 16;     // reduction step held in shared memory
-constexpr int kPad = 4;        // row padding of the shared tiles
+// Four consecutive elements as floats; p is aligned to four elements.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
-// Element (m, k) of the implicit im2col matrix: m is an output pixel
-// (b, y, x), k = tap * Cin + ci with tap = dy * 3 + dx.
 template <typename T>
-__device__ __forceinline__ float patch_at(const T* __restrict__ x,
-                                          long long m, int k, long long M,
-                                          int H, int W, int Cin) {
-  if (m >= M || k >= 9 * Cin) return 0.f;
-  const int tap = k / Cin;
+bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// 16 bytes from global to shared memory without a register round trip;
+// zeros where !valid (no bytes are read then).
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// store(i, value(i)) for i = first, first + step, ... < n, with kBatch
+// loads in flight.
+template <typename V, int kBatch, typename Value, typename Store>
+__device__ __forceinline__ void batched_copy(int first, int n, int step,
+                                             Value value, Store store) {
+  for (int i0 = first; i0 < n; i0 += kBatch * step) {
+    V v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * step;
+      if (i < n) v[u] = value(i);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * step;
+      if (i < n) store(i, v[u]);
+    }
+  }
+}
+
+// Four bf16 (8 bytes, raw) as floats.
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// ---------------------------------------------------------------------------
+// SIMT K1: out (M, Cout) = patches (M, 9*Cin) . w (9*Cin, Cout), fp32 FMA.
+//
+// 256 threads in 16 groups of 16; a thread holds 4 pixels x 4 channels.
+// The groups split a block's work two ways: SK groups share the products
+// of one row segment (16 output pixels of one image row), SR = 16 / SK
+// row segments go at once, where SK is the largest power of two at most
+// min(16, quads), quads = ceil(min(Cin, 64) / 4) (SK 16 at Cin = 64: one
+// segment; SK 2 at Cin = 8: eight). A block owns a run of such row groups
+// for one tile of 16 output channels; ops/conv3x3.py::simt_plan sizes the
+// run so that the grid holds about two blocks an SM (at the recipe's
+// (4, 16, 16, 64) -> 64: 64 row groups x 4 channel tiles = 256 blocks of
+// one row group).
+// * It stages, per chunk of at most 64 input channels, the weights of its
+//   channel tile, [tap][cc4][16], and the 3 x 18 halo of each segment,
+//   [segment][dy][col][ci] with a pixel stride of round8(cc) + 4 floats,
+//   the SAME zeros and the channels from cc up to cc4 = round4(cc) written
+//   as zeros at staging: the products test no bounds. With one chunk (Cin
+//   <= 64) the weights are staged once for the whole run. Each halo pixel's
+//   place in the input is worked out once a row group into a table in
+//   shared memory, and a thread copies a fixed channel (or quad) of
+//   successive pixels: no division a copied element. Three ways to copy
+//   (kMode): fp32 with Cin and Cout multiples of 4 and aligned pointers by
+//   16-byte cp.async, every copy in flight at once; bf16 so by 8-byte
+//   loads through registers, widened to fp32; anything else element by
+//   element. Register copies keep 12 loads in flight a thread.
+// * What bounds it is shared memory's 128 bytes a clock to the registers:
+//   with 4 x 4 outputs a thread, a step of 4 input channels is 4 + 4
+//   16-byte loads for 64 FMAs. The chunk's (tap, channel quad) items are
+//   dealt to a segment's SK groups in turn (item j = tap * quads + quad
+//   goes to group j % SK: at Cin = 64 group g owns quad g of every tap),
+//   so an SM holds 24 warps and a thread's FMA chain is 36 long at the
+//   recipe. The inner loop is pointer steps.
+// * Fixed order, so two calls are bit-equal: group k's sum runs over the
+//   chunks, then its items in order, then the 4 channels of an item, one
+//   fmaf chain; an output is (...(s0 + s1) + ...) + s(SK-1), added by one
+//   thread from shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kSimtGroups = 16;   // groups of 16 threads, 4 x 4 pixel x
+constexpr int kSimtThreads = 256; // channel tiles of 4 x 4 outputs
+constexpr int kSimtTileW = 16;    // output pixels of a row segment
+constexpr int kSimtTileN = 16;    // output channels of a block
+constexpr int kSimtHaloW = kSimtTileW + 2;
+constexpr int kSimtHaloPx = 3 * kSimtHaloW;
+constexpr int kSimtChunk = 64;    // input channels staged at once
+constexpr int kSimtBatch = 12;    // loads in flight a thread (register path)
+
+// How a block copies its inputs to shared memory.
+enum SimtMode : int { kElem = 0, kQuad = 1, kAsync = 2 };
+
+// Floats between two halo pixels: 4 mod 8, so the pixels of a 16-byte
+// load spread over the banks.
+__host__ __device__ constexpr int simt_halo_stride(int cc) {
+  return (cc + 7) / 8 * 8 + 4;
+}
+
+// Groups that split one segment's products: the largest power of two at
+// most min(16, quads of the first chunk). Mirrors ops/conv3x3.py.
+__host__ __device__ constexpr int simt_split(int Cin) {
+  const int quads = ((Cin < kSimtChunk ? Cin : kSimtChunk) + 3) / 4;
+  int sk = 1;
+  while (sk * 2 <= quads && sk < kSimtGroups) sk *= 2;
+  return sk;
+}
+
+// Weights [9][cc4][16], halos [SR][3][18][stride] of a chunk of cc
+// channels, the 16 groups' sums [16][16 pixels][16 channels], and the halo
+// pixels' places in the input [SR][54].
+constexpr int simt_smem_bytes(int cc, int sr) {
+  return (9 * ((cc + 3) / 4 * 4) * kSimtTileN +
+          sr * kSimtHaloPx * simt_halo_stride(cc) +
+          kSimtGroups * kSimtTileW * kSimtTileN + sr * kSimtHaloPx) * 4;
+}
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kSimtThreads)
+    conv3x3_fwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            T* __restrict__ out, int B, int H, int W,
+                            int Cin, int Cout, int rows_per_block) {
+  extern __shared__ __align__(16) float simt_smem[];
+  const int sk = simt_split(Cin);
+  const int sr = kSimtGroups / sk;
+  const int segs_w = (W + kSimtTileW - 1) / kSimtTileW;
+  const int segments = B * H * segs_w;
+  const int row_groups = (segments + sr - 1) / sr;
+  const int n_tiles = (Cout + kSimtTileN - 1) / kSimtTileN;
+  const int n0 = (blockIdx.x % n_tiles) * kSimtTileN;
+  const int g_begin = (blockIdx.x / n_tiles) * rows_per_block;
+  const int g_end = min(g_begin + rows_per_block, row_groups);
+  const int n_chunks = (Cin + kSimtChunk - 1) / kSimtChunk;
+  const int cc_max = min(Cin, kSimtChunk);
+  const int halo_px = sr * kSimtHaloPx;  // halo pixels of a row group
+  float* w_s = simt_smem;
+  float* h_s = w_s + 9 * ((cc_max + 3) / 4 * 4) * kSimtTileN;
+  float* red = h_s + halo_px * simt_halo_stride(cc_max);
+  int* px_tab = reinterpret_cast<int*>(
+      red + kSimtGroups * kSimtTileW * kSimtTileN);
+  const int tid = threadIdx.x;
+  const int grp = tid / 16;
+  const int kp = grp % sk;        // this group's share of the products
+  const int sg = grp / sk;        // and its segment of the row group
+  const int pq = (tid % 16) / 4;  // pixels 4pq .. 4pq + 3 of the segment
+  const int nq = tid % 4;         // channels n0 + 4nq .. n0 + 4nq + 3
+
+  // (b * H + y, x0) of segment s.
+  auto seg_origin = [&](int s, int& row, int& x0) {
+    row = s / segs_w;
+    x0 = (s - row * segs_w) * kSimtTileW;
+  };
+
+  for (int rg = g_begin; rg < g_end; ++rg) {
+    // Halo pixel p = r * 54 + dy * 18 + col of segment r of the row group:
+    // its pixel index (b * H + yy) * W + xx in the input, or -1 outside
+    // the image. The first barrier of the chunk loop publishes the table.
+    for (int p = tid; p < halo_px; p += kSimtThreads) {
+      const int r = p / kSimtHaloPx;
+      const int dy = (p - r * kSimtHaloPx) / kSimtHaloW;
+      const int col = p - r * kSimtHaloPx - dy * kSimtHaloW;
+      int row, x0;
+      seg_origin(rg * sr + r, row, x0);
+      const int yy = row % H + dy - 1;
+      const int xx = x0 + col - 1;
+      px_tab[p] = rg * sr + r < segments && yy >= 0 && yy < H && xx >= 0 &&
+                          xx < W
+                      ? (row + dy - 1) * W + xx
+                      : -1;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c0 = 0; c0 < Cin; c0 += kSimtChunk) {
+      const int cc = min(kSimtChunk, Cin - c0);
+      const int quads = (cc + 3) / 4;
+      const int cc4 = 4 * quads;
+      const int hs = simt_halo_stride(cc);
+      __syncthreads();  // the last products have read the shared tiles
+      // Weights rows tap * Cin + c0 + ci, columns n0 .. n0 + 15, in units
+      // of 4 columns (1 for kElem); the rows from cc to cc4 zeros.
+      if (n_chunks > 1 || rg == g_begin) {
+        constexpr int upr = kMode == kElem ? kSimtTileN : kSimtTileN / 4;
+        auto w_at = [&](int i, int& n, bool& ok) {
+          const int r = i / upr;
+          const int tap = r / cc4;
+          const int ci = r - tap * cc4;
+          n = n0 + (i % upr) * (kSimtTileN / upr);
+          ok = ci < cc && n < Cout;
+          return w + (long long)(tap * Cin + c0 + ci) * Cout + n;
+        };
+        if constexpr (kMode == kAsync) {
+          for (int i = tid; i < 9 * cc4 * upr; i += kSimtThreads) {
+            int n;
+            bool ok;
+            const T* src = w_at(i, n, ok);
+            cp_async16(w_s + 4 * i, ok ? src : w, ok);
+          }
+        } else if constexpr (kMode == kQuad) {
+          batched_copy<uint2, kSimtBatch>(
+              tid, 9 * cc4 * upr, kSimtThreads,
+              [&](int i) {
+                int n;
+                bool ok;
+                const T* src = w_at(i, n, ok);
+                return ok ? __ldg(reinterpret_cast<const uint2*>(src))
+                          : make_uint2(0u, 0u);
+              },
+              [&](int i, uint2 v) {
+                *reinterpret_cast<float4*>(w_s + 4 * i) = widen4(v);
+              });
+        } else {
+          batched_copy<float, kSimtBatch>(
+              tid, 9 * cc4 * upr, kSimtThreads,
+              [&](int i) {
+                int n;
+                bool ok;
+                const T* src = w_at(i, n, ok);
+                return ok ? to_f32(*src) : 0.f;
+              },
+              [&](int i, float v) { w_s[i] = v; });
+        }
+      }
+      // The halo: a thread copies unit u (a channel, or a quad) of every
+      // ppass-th pixel; the channels from cc to cc4 zeros.
+      {
+        const int upp = kMode == kElem ? cc4 : quads;
+        const int ppass = kSimtThreads / upp;
+        const int u = tid % upp;
+        const int ci = kMode == kElem ? u : 4 * u;
+        const int first = tid < ppass * upp ? tid / upp : halo_px;
+        auto h_at = [&](int p, bool& ok) {
+          const int pix = px_tab[p];
+          ok = pix >= 0 && ci < cc;
+          return x + (long long)pix * Cin + c0 + ci;
+        };
+        if constexpr (kMode == kAsync) {
+          for (int p = first; p < halo_px; p += ppass) {
+            bool ok;
+            const T* src = h_at(p, ok);
+            cp_async16(h_s + p * hs + ci, ok ? src : x, ok);
+          }
+          cp_async_wait_all();
+        } else if constexpr (kMode == kQuad) {
+          batched_copy<uint2, kSimtBatch>(
+              first, halo_px, ppass,
+              [&](int p) {
+                bool ok;
+                const T* src = h_at(p, ok);
+                return ok ? __ldg(reinterpret_cast<const uint2*>(src))
+                          : make_uint2(0u, 0u);
+              },
+              [&](int p, uint2 v) {
+                *reinterpret_cast<float4*>(h_s + p * hs + ci) = widen4(v);
+              });
+        } else {
+          batched_copy<float, kSimtBatch>(
+              first, halo_px, ppass,
+              [&](int p) {
+                bool ok;
+                const T* src = h_at(p, ok);
+                return ok ? to_f32(*src) : 0.f;
+              },
+              [&](int p, float v) { h_s[p * hs + ci] = v; });
+        }
+      }
+      __syncthreads();
+      // This group's items j = kp, kp + SK, ... of the 9 * quads.
+      const float* h_seg = h_s + sg * kSimtHaloPx * hs;
+      int tap = kp / quads;
+      int q = kp - tap * quads;
+      for (int j = kp; j < 9 * quads; j += sk) {
+        const float* hp =
+            h_seg + ((tap / 3) * kSimtHaloW + 4 * pq + tap % 3) * hs + 4 * q;
+        const float* wp = w_s + (tap * cc4 + 4 * q) * kSimtTileN + 4 * nq;
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(hp + i * hs);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(wp + e * kSimtTileN);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = e == 0 ? a[i].x : e == 1 ? a[i].y
+                           : e == 2 ? a[i].z : a[i].w;
+            acc[i][0] = fmaf(av, v.x, acc[i][0]);
+            acc[i][1] = fmaf(av, v.y, acc[i][1]);
+            acc[i][2] = fmaf(av, v.z, acc[i][2]);
+            acc[i][3] = fmaf(av, v.w, acc[i][3]);
+          }
+        }
+        q += sk;
+        while (q >= quads) {
+          q -= quads;
+          ++tap;
+        }
+      }
+    }
+    // Group sums to shared memory, [group][pixel][channel]; then output o
+    // of segment r (pixel o / 16, channel o % 16) is summed by one thread
+    // over the segment's SK groups in order.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(
+          red + (grp * kSimtTileW + 4 * pq + i) * kSimtTileN + 4 * nq) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+    constexpr int kOuts = kSimtTileW * kSimtTileN;
+    for (int o = tid; o < sr * kOuts; o += kSimtThreads) {
+      const int r = o / kOuts;
+      const int opx = (o % kOuts) / kSimtTileN;
+      const int on = n0 + o % kSimtTileN;
+      int row, x0;
+      seg_origin(rg * sr + r, row, x0);
+      if (rg * sr + r >= segments || x0 + opx >= W || on >= Cout) continue;
+      const float* part = red + r * sk * kOuts + o % kOuts;
+      float sum = part[0];
+      for (int k = 1; k < sk; ++k) sum += part[k * kOuts];
+      out[((long long)row * W + x0 + opx) * Cout + on] = from_f32<T>(sum);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// SIMT K2: dW (9*Cin, Cout) = patches^T . g, fp32 FMA, split over pixels.
+//
+// A block owns one 64 x 64 tile of dW (64 rows k = tap * Cin + ci, so one
+// tap at Cin = 64, and 64 output channels) and a run of pixels, split s
+// of ops/conv3x3.py::wgrad_simt_plan, which sizes the splits so that the
+// grid holds about two blocks an SM (at the recipe's (4, 16, 16, 64): 9
+// tiles x 32 runs of 32 pixels = 288 blocks).
+// * Pixels go in stages of 32: each block loads its 32 shifted input rows
+//   x 64 k and 32 cotangent rows x 64 channels once into registers (16-byte
+//   loads where Cin and Cout are multiples of 4 and the pointers aligned),
+//   with SAME zeros, and stores them to shared memory while the next stage
+//   loads; one barrier a stage. A thread's staging column is fixed, so its
+//   tap and channel are worked out once; a pixel's (b, y, x) once a stage.
+// * 256 threads, each a 4 x 4 register tile of the partial, over the
+//   block's pixels in order.
+// * The partial goes to scratch[s] (S, 9*Cin, Cout) fp32, and
+//   conv3x3_wgrad_sum_kernel adds the S partials in the order s = 0, 1,
+//   ...: no atomics, so two calls are bit-equal. With S = 1 the block
+//   writes dW itself and the sum is not launched.
+// ---------------------------------------------------------------------------
+
+constexpr int kWsThreads = 256;  // 16 x 16 threads, each a 4 x 4 tile
+constexpr int kWsTile = 64;      // rows k and output channels of a tile
+constexpr int kWsPx = 32;        // pixels a stage
+constexpr int kWsLd = kWsTile + 4;
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kWsThreads)
+    conv3x3_wgrad_simt_kernel(const T* __restrict__ x,
+                              const T* __restrict__ g,
+                              float* __restrict__ part, int B, int H, int W,
+                              int Cin, int Cout, long long px_per_split) {
+  __shared__ __align__(16) float a_s[2][kWsPx][kWsLd];  // [pixel][k]
+  __shared__ __align__(16) float g_s[2][kWsPx][kWsLd];  // [pixel][n]
+  constexpr int kV = kVec ? 4 : 1;              // elements a load
+  constexpr int kCols = kWsTile / kV;           // loads a row
+  constexpr int kRowStep = kWsThreads / kCols;  // rows a pass: 16 or 4
+  constexpr int kItems = kWsPx / kRowStep;      // loads a stage: 2 or 8
+  const int K = 9 * Cin;
+  const int k_tiles = (K + kWsTile - 1) / kWsTile;
+  const int k0 = (blockIdx.x % k_tiles) * kWsTile;
+  const int n0 = (blockIdx.x / k_tiles) * kWsTile;
+  // B * H * W fits an int (odek_conv3x3_wgrad checks).
+  const int M = B * H * W;
+  const int m_begin = blockIdx.y * (int)px_per_split;
+  const int m_end = (int)min((long long)m_begin + px_per_split,
+                             (long long)M);
+  const int tid = threadIdx.x;
+  const int HW = H * W;
+
+  // This thread's staging column: row k of dW (its tap and channel), and
+  // output channel n.
+  const int col = (tid % kCols) * kV;
+  const int row0 = tid / kCols;
+  const int k = k0 + col;
+  const bool k_ok = k < K;
+  const int tap = k_ok ? k / Cin : 0;
   const int ci = k - tap * Cin;
-  const int dy = tap / 3;
-  const int dx = tap - dy * 3;
-  const long long hw = (long long)H * W;
-  const long long b = m / hw;
-  const int r = (int)(m - b * hw);
-  const int y = r / W + dy - 1;
-  const int xx = r % W + dx - 1;
-  if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-  return to_f32(x[((b * H + y) * W + xx) * Cin + ci]);
-}
+  const int dy = tap / 3 - 1;
+  const int dx = tap % 3 - 1;
+  const int n = n0 + col;
+  const bool n_ok = n < Cout;
 
-// K1 (SIMT): out (M, Cout) = patches (M, 9*Cin) . w (9*Cin, Cout).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       T* __restrict__ out, int B, int H, int W, int Cin,
-                       int Cout) {
-  __shared__ float a_s[kChunk][kTile + kPad];  // [k][m]
-  __shared__ float b_s[kChunk][kTile + kPad];  // [k][n]
-  const long long M = (long long)B * H * W;
-  const int K = 9 * Cin;
-  const long long m0 = (long long)blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  float ra[kItems][kV], rg[kItems][kV];
+  auto load = [&](int mc) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) ra[j][e] = rg[j][e] = 0.f;
+      const int m = mc + row0 + j * kRowStep;
+      if (m >= m_end) continue;
+      const int bb = m / HW;
+      const int r = m - bb * HW;
+      const int ys = r / W + dy;
+      const int xs = r % W + dx;
+      if (k_ok && ys >= 0 && ys < H && xs >= 0 && xs < W) {
+        const T* src = x + (((long long)bb * H + ys) * W + xs) * Cin + ci;
+        if constexpr (kVec) {
+          const float4 v = load4(src);
+          ra[j][0] = v.x;
+          ra[j][1] = v.y;
+          ra[j][2] = v.z;
+          ra[j][3] = v.w;
+        } else {
+          ra[j][0] = to_f32(*src);
+        }
+      }
+      if (n_ok) {
+        const T* src = g + (long long)m * Cout + n;
+        if constexpr (kVec) {
+          const float4 v = load4(src);
+          rg[j][0] = v.x;
+          rg[j][1] = v.y;
+          rg[j][2] = v.z;
+          rg[j][3] = v.w;
+        } else {
+          rg[j][0] = to_f32(*src);
+        }
+      }
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int p = row0 + j * kRowStep;
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        a_s[buf][p][col + e] = ra[j][e];
+        g_s[buf][p][col + e] = rg[j][e];
+      }
+    }
+  };
 
+  // A warp holds 4 x 8 of the 16 x 16 thread tiles, so a pixel's step
+  // reads 4 distinct 16-byte rows of a_s and 8 of g_s: one shared-memory
+  // wavefront each.
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ty = 4 * (warp / 2) + lane / 8;  // rows k0 + 4ty .. + 3
+  const int tx = 8 * (warp % 2) + lane % 8;  // channels n0 + 4tx .. + 3
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
-      const int kk = i % kChunk;
-      const int mm = i / kChunk;
-      a_s[kk][mm] = patch_at(x, m0 + mm, k0 + kk, M, H, W, Cin);
-    }
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kThreads) {
-      const int kk = i / kTile;
-      const int nn = i % kTile;
-      const int k = k0 + kk;
-      const int n = n0 + nn;
-      b_s[kk][nn] =
-          (k < K && n < Cout) ? to_f32(w[(long long)k * Cout + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a_s[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = b_s[kk][tx * 4 + j];
+  const int stages = (m_end - m_begin + kWsPx - 1) / kWsPx;
+  load(m_begin);
+  store(0);
+  __syncthreads();
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < stages) load(m_begin + (st + 1) * kWsPx);
+#pragma unroll 8
+    for (int p = 0; p < kWsPx; ++p) {
+      const float4 a = *reinterpret_cast<const float4*>(&a_s[buf][p][4 * ty]);
+      const float4 v = *reinterpret_cast<const float4*>(&g_s[buf][p][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float gv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
     }
+    // The other buffer was last read before the previous barrier.
+    if (st + 1 < stages) store(buf ^ 1);
     __syncthreads();
   }
 
+  float* dst = part + (long long)blockIdx.y * K * Cout;
+  const int n_out = n0 + 4 * tx;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+    const int kk = k0 + 4 * ty + i;
+    if (kk >= K || n_out >= Cout) continue;
+    float* row = dst + (long long)kk * Cout + n_out;
+    if (Cout % 4 == 0) {  // 16-byte aligned: the tile is 4 whole columns
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < Cout) out[m * Cout + n] = from_f32<T>(acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        if (n_out + j < Cout) row[j] = acc[i][j];
+      }
     }
   }
 }
 
-// K2, pass 1: scratch[s] (9*Cin, Cout) = patches[rows of s]^T . g[rows of s].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_wgrad_partial_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ g,
-                                 float* __restrict__ scratch, int B, int H,
-                                 int W, int Cin, int Cout,
-                                 long long rows_per_split) {
-  __shared__ float a_s[kChunk][kTile + kPad];  // [m][k]
-  __shared__ float g_s[kChunk][kTile + kPad];  // [m][n]
-  const long long M = (long long)B * H * W;
-  const int K = 9 * Cin;
-  const int k0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const long long m_begin = (long long)blockIdx.z * rows_per_split;
-  const long long m_end =
-      m_begin + rows_per_split < M ? m_begin + rows_per_split : M;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long mb = m_begin; mb < m_end; mb += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kThreads) {
-      const int mm = i / kTile;
-      const int kk = i % kTile;
-      const long long m = mb + mm;
-      a_s[mm][kk] = m < m_end ? patch_at(x, m, k0 + kk, M, H, W, Cin) : 0.f;
+// dw = sum over s of part[s], in the order s = 0, 1, ...; four elements a
+// thread, 16-byte loads where the size is a multiple of 4.
+__global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
+                                         float* __restrict__ dw, int splits,
+                                         long long size) {
+  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i0 >= size) return;
+  if (size % 4 == 0) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < splits; ++s) {
+      const float4 v =
+          __ldcg(reinterpret_cast<const float4*>(part + s * size + i0));
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
     }
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kThreads) {
-      const int mm = i / kTile;
-      const int nn = i % kTile;
-      const long long m = mb + mm;
-      const int n = n0 + nn;
-      g_s[mm][nn] =
-          (m < m_end && n < Cout) ? to_f32(g[m * Cout + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < kChunk; ++mm) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a_s[mm][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = g_s[mm][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    *reinterpret_cast<float4*>(dw + i0) = acc;
+    return;
   }
-
-  float* part = scratch + (long long)blockIdx.z * K * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < Cout) part[(long long)k * Cout + n] = acc[i][j];
-    }
+  for (long long i = i0; i < i0 + 4 && i < size; ++i) {
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) sum += __ldcg(part + s * size + i);
+    dw[i] = sum;
   }
-}
-
-// K2, pass 2: dw = sum over s of scratch[s], in the order s = 0, 1, ...
-__global__ void splitk_sum_kernel(const float* __restrict__ scratch,
-                                  float* __restrict__ dw, int splits,
-                                  long long size) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= size) return;
-  float sum = 0.f;
-  for (int s = 0; s < splits; ++s) sum += scratch[(long long)s * size + idx];
-  dw[idx] = sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -1026,17 +1406,43 @@ unsigned int ceil_div(long long a, long long b) {
 }  // namespace
 
 // K1, SIMT: x (B,H,W,Cin), w (9*Cin, Cout), out (B,H,W,Cout); one dtype.
+// A block takes rows_per_block row segments (16 pixels) of one tile of 16
+// output channels (ops/conv3x3.py::simt_plan). Returns
+// cudaErrorInvalidValue for rows_per_block < 1, else the launch's error.
 extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
                                 int B, int H, int W, int Cin, int Cout,
-                                int dtype, void* stream) {
-  const long long M = (long long)B * H * W;
-  const dim3 grid(ceil_div(M, kTile), ceil_div(Cout, kTile));
+                                int rows_per_block, int dtype, void* stream) {
+  if (rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  const long long segments =
+      (long long)B * H * ((W + kSimtTileW - 1) / kSimtTileW);
+  const long long row_groups =
+      ceil_div(segments, kSimtGroups / simt_split(Cin));
+  const long long blocks = (long long)ceil_div(Cout, kSimtTileN) *
+                           ceil_div(row_groups, rows_per_block);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = simt_smem_bytes(std::min(Cin, kSimtChunk),
+                                  kSimtGroups / simt_split(Cin));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return odek::launch_for_dtype(dtype, [&](auto tag) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    conv3x3_fwd_kernel<T><<<grid, kThreads, 0, st>>>(
+    // 16-byte cp.async (fp32) or 8-byte loads (bf16) of channel quads
+    // where channels come in fours and the pointers are aligned.
+    const bool quads = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
+                       aligned4<T>(w);
+    auto kernel = conv3x3_fwd_simt_kernel<T, kElem>;
+    if constexpr (std::is_same_v<T, float>) {
+      if (quads) kernel = conv3x3_fwd_simt_kernel<T, kAsync>;
+    } else {
+      if (quads) kernel = conv3x3_fwd_simt_kernel<T, kQuad>;
+    }
+    // Any shape's request fits (at most 81 KB, at Cin 57-60).
+    const cudaError_t attr =
+        allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<(unsigned int)blocks, kSimtThreads, smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<T*>(out), B, H, W, Cin, Cout);
+        static_cast<T*>(out), B, H, W, Cin, Cout, rows_per_block);
+    return 0;
   });
 }
 
@@ -1058,26 +1464,45 @@ extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* w, void* out,
   });
 }
 
-// K2: x (B,H,W,Cin), g (B,H,W,Cout) of one dtype; scratch (splits, 9*Cin,
-// Cout) and dw (9*Cin, Cout) fp32. Rows [s*rows_per_split,
-// (s+1)*rows_per_split) of the B*H*W rows go to split s.
+// K2, SIMT: x (B,H,W,Cin), g (B,H,W,Cout) of one dtype; dw (9*Cin, Cout)
+// fp32. Pixels [s*px_per_split, (s+1)*px_per_split) of the B*H*W go to
+// split s (ops/conv3x3.py::wgrad_simt_plan): px_per_split a multiple of
+// 32, every split non-empty, together covering every pixel. With splits >
+// 1 the partials go to scratch (splits, 9*Cin, Cout) fp32 and a second
+// launch sums them in order; with one split scratch is unused. Returns
+// cudaErrorInvalidValue for a plan outside that, else the launches' error.
 extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
                                   void* dw, int B, int H, int W, int Cin,
                                   int Cout, int splits,
-                                  long long rows_per_split, int dtype,
+                                  long long px_per_split, int dtype,
                                   void* stream) {
+  const long long M = (long long)B * H * W;
+  if (M > 0x7fffffffLL || splits < 1 || splits > 65535 ||
+      px_per_split < 1 || px_per_split % kWsPx ||
+      (long long)splits * px_per_split < M ||
+      (long long)(splits - 1) * px_per_split >= M ||
+      (splits > 1 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int K = 9 * Cin;
-  const dim3 grid(ceil_div(K, kTile), ceil_div(Cout, kTile), splits);
+  const dim3 grid(ceil_div(K, kWsTile) * ceil_div(Cout, kWsTile), splits);
   const long long size = (long long)K * Cout;
-  float* scr = static_cast<float*>(scratch);
+  float* part = static_cast<float*>(splits > 1 ? scratch : dw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return odek::launch_for_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    conv3x3_wgrad_partial_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), scr, B, H, W,
-        Cin, Cout, rows_per_split);
-    splitk_sum_kernel<<<ceil_div(size, 256), 256, 0, st>>>(
-        scr, static_cast<float*>(dw), splits, size);
+    const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
+                     aligned4<T>(g);
+    const auto kernel = vec ? conv3x3_wgrad_simt_kernel<T, true>
+                            : conv3x3_wgrad_simt_kernel<T, false>;
+    kernel<<<grid, kWsThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), part, B, H, W,
+        Cin, Cout, px_per_split);
+    if (splits > 1) {
+      conv3x3_wgrad_sum_kernel<<<ceil_div(ceil_div(size, 4), 256), 256, 0,
+                                 st>>>(part, static_cast<float*>(dw), splits,
+                                       size);
+    }
   });
 }
 

@@ -26,14 +26,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launches per kernel wrapper. A wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that the main path went
 # through every kernel. "conv3x3_fwd" counts every K1 launch,
-# "conv3x3_fwd_tc" those of its tensor-core kernel; likewise K2.
+# "conv3x3_fwd_tc" those of its tensor-core kernel and "conv3x3_fwd_simt"
+# those of its SIMT kernel; likewise K2.
 # "gru_gates" counts every K3 launch, "gru_gates_sample" those of its
 # one-sample kernel and "gru_gates_2pass" those of its two-pass kernel;
 # likewise K4. "correlation_fwd" counts every K5 launch,
 # "correlation_fwd_tc" those of its tensor-core kernel; likewise K6 and
 # K7.
-launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_wgrad": 0,
-            "conv3x3_wgrad_tc": 0, "gru_gates": 0, "gru_gates_sample": 0,
+launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
+            "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
+            "conv3x3_wgrad_simt": 0, "gru_gates": 0, "gru_gates_sample": 0,
             "gru_gates_2pass": 0, "gru_blend": 0, "gru_blend_sample": 0,
             "gru_blend_2pass": 0, "correlation_fwd": 0,
             "correlation_fwd_tc": 0, "correlation_bwd_f1": 0,

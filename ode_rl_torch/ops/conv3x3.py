@@ -8,15 +8,30 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   ``F.conv2d``. On the card it takes one of two kernels by
   ``uses_tensor_cores``: the tensor-core kernel (bf16; TMA halo tiles,
   weights resident in shared memory, wgmma) or the SIMT kernel (fp32 FMA;
-  everything else, fp32 included, so fp32 stays strict fp32).
+  everything else, fp32 included, so fp32 stays strict fp32). The SIMT
+  kernel gives a block 16-pixel row segments of 16 output channels with
+  their weights and halos staged once in shared memory, each thread 4
+  pixels x 4 channels, the products of a segment split over up to 16
+  thread groups and added in a fixed order; ``simt_plan`` sizes the grid
+  to about two blocks an SM.
 * K2 ``conv3x3_wgrad``: dW (9*Cin, Cout) = patches^T . g in fp32, split
   over pixels with a fixed-order reduction. Its plain version builds the 9
   shifted patches, as the Pallas kernel does, and multiplies. On the card
   it takes one of two kernels by ``wgrad_uses_tensor_cores``: the
   tensor-core kernel (bf16, channels in multiples of 64; TMA halo and
   cotangent tiles, wgmma over pixels, one cooperative launch that sums its
-  partials after a grid sync) or the SIMT kernel (everything else,
-  fp32 included; a partial pass and a sum pass).
+  partials after a grid sync) or the SIMT kernel (everything else, fp32
+  included): a block a 64 x 64 tile of dW and a run of pixels staged in
+  32-pixel stages, ``wgrad_simt_plan`` sizing the runs to about two
+  blocks an SM, and a second launch adding the partials in split order.
+
+On an H100 80GB HBM3 at 700 W, TF32 off, ``python -m
+ode_rl_torch.simt_conv_times`` (PERF.md §6) reads, in device µs a call:
+at the recipe's fp32 (4, 16, 16, 64) -> 64 the SIMT K1 8.1 forward and as
+dx (cuDNN's fp32 conv 24.0) and the SIMT K2 9.4 (cuDNN's weight gradient
+16.3), against a 1.13 µs FMA bound; at fp32 B = 128 K1 132 and K2 99
+(cuDNN 83 and 112). Both SIMT kernels are on by the rules above for every
+fp32 call: the port keeps fp32 in strict fp32, off the tensor cores.
 
 ``Conv3x3Fn`` has the backward of ``_conv3x3_bwd``: dx is K1 on the
 cotangent with spatially flipped, channel-transposed weights, dw is K2
@@ -33,11 +48,6 @@ import torch.nn.functional as F
 
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops._build import library
-
-# K2 split-K: about this many rows of B*H*W per split, at most _MAX_SPLITS.
-_ROWS_PER_SPLIT = 1024
-_MAX_SPLITS = 128
-
 
 def _shape_nhwc(name: str, x: torch.Tensor) -> tuple[int, int, int, int]:
     if x.ndim != 4:
@@ -99,6 +109,51 @@ def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
             and _tc_smem_bytes(cin, cout, w) <= _TC_SMEM_LIMIT)
 
 
+# The SIMT K1 (csrc/conv3x3.cu::conv3x3_fwd_simt_kernel): 16 groups of
+# threads; SK of them share one row segment's products and 16 / SK
+# segments (a row group) go at once; a segment is this many output pixels
+# of one image row, a block's channel tile this many output channels. A
+# block takes a run of at most _SIMT_MAX_ROWS row groups.
+_SIMT_GROUPS = 16
+_SIMT_TILE_W = 16
+_SIMT_TILE_N = 16
+_SIMT_MAX_ROWS = 8
+
+
+def simt_split(cin: int) -> int:
+    """SK: the largest power of two at most min(16, quads), quads =
+    ceil(min(Cin, 64) / 4) channel quads of the first chunk. Mirrors
+    csrc/conv3x3.cu::simt_split."""
+    quads = -(-min(cin, 64) // 4)
+    sk = 1
+    while sk * 2 <= min(quads, _SIMT_GROUPS):
+        sk *= 2
+    return sk
+
+
+@functools.lru_cache(maxsize=256)
+def simt_plan(b: int, h: int, w: int, cin: int, cout: int,
+              sms: int) -> tuple[int, int]:
+    """(row groups a block R, blocks) of a SIMT K1 call; every shape has
+    one (channels beyond 64 are staged in chunks of 64). The
+    B*H*ceil(W/16) row segments form row groups of 16 / simt_split(Cin)
+    consecutive segments, which go to each channel tile in runs of R;
+    block i takes channel tile i % tiles and run i // tiles. A run shares
+    one staging of the block's weights over its row groups but waits for
+    each group's halo, so R aims at two blocks an SM: the (row group,
+    channel tile) items over 2 * ``sms``, rounded, at least 1 and at most
+    _SIMT_MAX_ROWS. On an H100 80GB HBM3 (700 W) that was the fastest R
+    measured at (4, 16, 16, 64) -> 64, (8, ...) and (128, ...) in fp32
+    and at bf16 Cin 8 -> 64 and 64 -> 8, B = 128 (PERF.md §6). It leaves at
+    least ``sms`` blocks wherever there are that many items. Mirrors
+    csrc/conv3x3.cu::odek_conv3x3_fwd."""
+    segments = b * h * -(-w // _SIMT_TILE_W)
+    groups = -(-segments // (_SIMT_GROUPS // simt_split(cin)))
+    tiles = -(-cout // _SIMT_TILE_N)
+    rows = min(_SIMT_MAX_ROWS, max(1, (groups * tiles + sms) // (2 * sms)))
+    return rows, tiles * -(-groups // rows)
+
+
 def _check_k1(x: torch.Tensor, w2d: torch.Tensor) -> tuple:
     b, h, w, cin = _shape_nhwc("conv3x3_fwd", x)
     if w2d.ndim != 2 or w2d.shape[0] != 9 * cin:
@@ -139,10 +194,13 @@ def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
 def _launch_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
+    rows, _ = simt_plan(b, h, w, cin, cout, _sm_count(x.device))
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    common.launch("conv3x3_fwd", library().odek_conv3x3_fwd,
+    common.launch("conv3x3_fwd_simt", library().odek_conv3x3_fwd,
                   x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
-                  cout, common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+                  cout, rows, common.DTYPE_CODES[x.dtype],
+                  common.stream_handle(x))
+    common.launches["conv3x3_fwd"] += 1
     return out
 
 
@@ -212,6 +270,36 @@ def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int,
     return tw, -(-tiles // per), per
 
 
+# The SIMT K2 (csrc/conv3x3.cu::conv3x3_wgrad_simt_kernel): a block owns
+# a 64 x 64 tile of dW (rows 9*Cin, columns Cout) and a run of pixels in
+# stages of 32; a run holds at most _WGRAD_SIMT_MAX_STAGES stages where
+# that leaves at most _WGRAD_SIMT_MAX_SPLITS splits.
+_WGRAD_SIMT_TILE = 64
+_WGRAD_SIMT_STAGE = 32
+_WGRAD_SIMT_MAX_STAGES = 8
+_WGRAD_SIMT_MAX_SPLITS = 256
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_simt_plan(b: int, h: int, w: int, cin: int, cout: int,
+                    sms: int) -> tuple[int, int]:
+    """(splits S, pixels a split P) of a SIMT K2 call; every shape has one.
+    The B*H*W pixels, in stages of 32, go to S runs of P = 32 * T pixels,
+    run s = [s*P, (s+1)*P), none empty. T aims at two blocks an SM (tiles
+    of dW x S about 2 * ``sms``, where there are that many stages: on an
+    H100 80GB HBM3 (700 W) the fastest of the plans measured in fp32 at
+    (4, 16, 16, 64), (8, ...) and (128, ...), PERF.md §6), at least 1 and
+    at most _WGRAD_SIMT_MAX_STAGES, unless S would exceed
+    _WGRAD_SIMT_MAX_SPLITS (the scratch of partials). Mirrors the checks
+    of csrc/conv3x3.cu::odek_conv3x3_wgrad."""
+    stages = -(-(b * h * w) // _WGRAD_SIMT_STAGE)
+    tiles = -(-(9 * cin) // _WGRAD_SIMT_TILE) * -(-cout // _WGRAD_SIMT_TILE)
+    cap = -(-(2 * sms) // tiles)
+    per = min(_WGRAD_SIMT_MAX_STAGES, max(1, stages // cap))
+    per = max(per, -(-stages // _WGRAD_SIMT_MAX_SPLITS))
+    return -(-stages // per), per * _WGRAD_SIMT_STAGE
+
+
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -278,16 +366,16 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = x.shape
     cout = g.shape[3]
-    rows = b * h * w
-    splits = min(_MAX_SPLITS, -(-rows // _ROWS_PER_SPLIT))
-    rows_per_split = -(-rows // splits)
-    scratch = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
-                          device=x.device)
+    splits, per = wgrad_simt_plan(b, h, w, cin, cout, _sm_count(x.device))
     dw = torch.empty((9 * cin, cout), dtype=torch.float32, device=x.device)
-    common.launch("conv3x3_wgrad", library().odek_conv3x3_wgrad,
-                  x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
-                  dw.data_ptr(), b, h, w, cin, cout, splits, rows_per_split,
+    scratch = (torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    common.launch("conv3x3_wgrad_simt", library().odek_conv3x3_wgrad,
+                  x.data_ptr(), g.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  dw.data_ptr(), b, h, w, cin, cout, splits, per,
                   common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    common.launches["conv3x3_wgrad"] += 1
     return dw
 
 

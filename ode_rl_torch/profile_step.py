@@ -1,8 +1,16 @@
 """Where a fused training step spends its time on one card.
 
     python -m ode_rl_torch.profile_step --net flagship  # FlagshipConfig
+    python -m ode_rl_torch.profile_step --net recipe  # the recipe
     python -m ode_rl_torch.profile_step --net C   # FlowNetCBenchConfig
     python -m ode_rl_torch.profile_step --net 2   # FlowNet2Config
+
+``flagship`` is the B=128 bf16 bench step (``defaults`` +
+``tpu_bench_odecgru``); ``recipe`` is the training recipe users run,
+``defaults`` + ``train_mmnist_odecgru_len20_1ch`` read from
+``configs.yaml`` (fp32, B=4, dopri5 'scan' with remat), on batches made on
+the card as ``python -m ode_rl_torch.main`` makes them when ``data_dir``
+holds no frozen corpus.
 
 From the configuration's seed: 3 warm-up steps, 10 unprofiled steps timed
 on the host clock (each closed by ``torch.cuda.synchronize()``), then
@@ -30,6 +38,7 @@ import torch
 
 from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
                                  FlowNetCBenchConfig)
+from ode_rl_torch.core.config import load_config
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
 from ode_rl_torch.flow.train import make_fused_flow_train_step
@@ -41,9 +50,9 @@ WARMUP, TIMED, PROFILED = 3, 10, 3
 # The hand-written kernels by name, and the id of the TPU kernel each
 # replaces (PERF.md §6).
 _KERNEL_IDS = {
-    "conv3x3_fwd_tc": "K1", "conv3x3_fwd": "K1",
-    "conv3x3_wgrad_tc": "K2", "conv3x3_wgrad_partial": "K2",
-    "splitk_sum": "K2",
+    "conv3x3_fwd_tc": "K1", "conv3x3_fwd_simt": "K1",
+    "conv3x3_wgrad_tc": "K2", "conv3x3_wgrad_simt": "K2",
+    "conv3x3_wgrad_sum": "K2",
     "gru_gates_sample": "K3", "gru_gates": "K3",
     "gru_blend_sample": "K4", "gru_blend": "K4",
     "corr_fwd_tc": "K5", "corr_fwd": "K5",
@@ -57,8 +66,8 @@ _KERNEL_NAME = re.compile(r"\b(" + "|".join(_KERNEL_IDS)
 # Device kernels by substring of their names, first match wins.
 _GROUPS = (
     ("K1 conv3x3_fwd, tensor cores", ("conv3x3_fwd_tc",)),
-    ("K1 conv3x3_fwd, SIMT", ("conv3x3_fwd_kernel",)),
-    ("K2 conv3x3_wgrad", ("conv3x3_wgrad", "splitk_sum")),
+    ("K1 conv3x3_fwd, SIMT", ("conv3x3_fwd",)),
+    ("K2 conv3x3_wgrad", ("conv3x3_wgrad",)),
     ("K3 gru_gates", ("gru_gates",)),
     ("K4 gru_blend", ("gru_blend",)),
     ("K5-K7 correlation, tensor cores",
@@ -85,8 +94,9 @@ def _group(kernel: str) -> str:
 def _step(net: str):
     """(configuration, a function running one step and returning its
     metrics) from the configuration's seed."""
-    if net == "flagship":
-        cfg = FlagshipConfig()
+    if net in ("flagship", "recipe"):
+        cfg = (FlagshipConfig() if net == "flagship" else load_config(
+            ("defaults", "train_mmnist_odecgru_len20_1ch")))
         bank = torch.from_numpy(get_sprite_bank(cfg.data_dir)).float().cuda()
         state = create_train_state(cfg, torch.device("cuda"))
         step = make_fused_train_step(cfg, bank)
@@ -174,7 +184,7 @@ def profile_step(net: str) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--net", choices=["flagship", "C", "2"],
+    parser.add_argument("--net", choices=["flagship", "recipe", "C", "2"],
                         default="flagship")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -1,6 +1,7 @@
 """K1 and K2 of the PyTorch port against the JAX package's Pallas kernel
-bodies themselves, K1's and K2's dispatch rules, and the tensor-core
-K2's plan of splits.
+bodies themselves, K1's and K2's dispatch rules, the tensor-core K2's plan
+of splits, the SIMT K1's and K2's plans, and the SIMT kernels' order of
+summation emulated in plain torch against the Pallas kernel bodies.
 
 ``conv3x3_same`` in the JAX package takes XLA by default, so these tests
 build ``pl.pallas_call`` around the unchanged ``_fwd_kernel`` and
@@ -19,12 +20,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
 from torch_port_util import max_abs, t32
 from ode_rl_torch.ops.common import bf16_ulps
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd, conv3x3_wgrad,
-                                      flip_transpose, uses_tensor_cores,
+                                      flip_transpose, simt_plan, simt_split,
+                                      uses_tensor_cores, wgrad_simt_plan,
                                       wgrad_tc_plan, wgrad_uses_tensor_cores)
 from ode_rl_tpu.ops.conv3x3 import _fwd_kernel, _wgrad_kernel
 
@@ -203,3 +206,178 @@ def test_k2_plan_covers_every_pixel_once(b, h, w, cin, cout, sms):
     assert 3 * (cin // 64) * (cout // 64) * splits <= sms
     seen = [p for t in range(tiles) for p in _tile_pixels(t, b, h, w, tw)]
     assert len(seen) == len(set(seen)) == b * h * w
+
+
+# (dtype, B, H, W, Cin, Cout, K1 kernel, K2 kernel): the recipe's fp32
+# field conv and fp32 at the flagship's and phase 5's batches take both
+# SIMT kernels; the flagship's bf16 takes both tensor-core kernels; bf16
+# at Cin 8 or 3, ragged channels and weights beyond a block's shared
+# memory (Cin 96 -> 128 at W 20) take SIMT for whichever kernel's rule
+# refuses them.
+ROUTE_CASES = [
+    (torch.float32, 4, 16, 16, 64, 64, "simt", "simt"),
+    (torch.float32, 8, 16, 16, 64, 64, "simt", "simt"),
+    (torch.float32, 128, 16, 16, 64, 64, "simt", "simt"),
+    (torch.bfloat16, 128, 16, 16, 64, 64, "tc", "tc"),
+    (torch.bfloat16, 4, 16, 16, 8, 64, "simt", "simt"),
+    (torch.bfloat16, 2, 9, 11, 32, 64, "tc", "simt"),
+    (torch.bfloat16, 2, 5, 7, 3, 16, "simt", "simt"),
+    (torch.bfloat16, 1, 6, 20, 96, 128, "simt", "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,w,cin,cout,k1,k2", ROUTE_CASES)
+def test_simt_route_and_plans(dtype, b, h, w, cin, cout, k1, k2):
+    """Every K1 and K2 call outside the tensor-core rules takes the SIMT
+    kernel, and every shape has a SIMT plan."""
+    assert ("tc" if uses_tensor_cores(dtype, cin, cout, w) else "simt") == k1
+    assert ("tc" if wgrad_uses_tensor_cores(dtype, cin, cout, w)
+            else "simt") == k2
+    rows, blocks = simt_plan(b, h, w, cin, cout, 132)
+    splits, per = wgrad_simt_plan(b, h, w, cin, cout, 132)
+    assert rows >= 1 and blocks >= 1 and splits >= 1 and per >= 32
+
+
+# (B, H, W, Cin, Cout): the recipe, phase 5 and the flagship batch in
+# fp32, bf16 at Cin 8, one split, a ragged 33-wide map with Cout 1, two
+# channel chunks, a single pixel, and a shape whose splits hit their cap.
+SIMT_PLAN_CASES = [(4, 16, 16, 64, 64), (8, 16, 16, 64, 64),
+                   (128, 16, 16, 64, 64), (4, 16, 16, 8, 64),
+                   (1, 3, 5, 3, 16), (2, 17, 33, 16, 1), (1, 6, 20, 96, 128),
+                   (1, 1, 1, 1, 1), (64, 40, 40, 256, 256)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("b,h,w,cin,cout", SIMT_PLAN_CASES)
+def test_simt_k1_plan_covers_every_output_once(b, h, w, cin, cout, sms):
+    """Block i takes channel tile i % tiles and run i // tiles of R row
+    groups, a row group 16 / SK consecutive row segments: the runs
+    partition the row groups, none is empty, the groups' 16-pixel segments
+    (clipped at W) cover every pixel once, and the grid has at least
+    ``sms`` blocks wherever there are enough (row group, tile) items."""
+    rows, blocks = simt_plan(b, h, w, cin, cout, sms)
+    sr = 16 // simt_split(cin)
+    segs_w, tiles = -(-w // 16), -(-cout // 16)
+    segments = b * h * segs_w
+    groups = -(-segments // sr)
+    assert 1 <= rows <= 8 and blocks % tiles == 0
+    runs = [range(r * rows, min((r + 1) * rows, groups))
+            for r in range(blocks // tiles)]
+    assert all(len(r) > 0 for r in runs)
+    assert [g for r in runs for g in r] == list(range(groups))
+    segs = [s for g in range(groups) for s in range(g * sr, (g + 1) * sr)
+            if s < segments]
+    pixels = [(s // segs_w, (s % segs_w) * 16 + i) for s in segs
+              for i in range(16) if (s % segs_w) * 16 + i < w]
+    assert len(pixels) == len(set(pixels)) == b * h * w
+    if groups * tiles >= sms:
+        assert blocks >= sms
+
+
+@pytest.mark.parametrize("cin,sk", [(1, 1), (4, 1), (5, 2), (8, 2), (12, 2),
+                                    (16, 4), (28, 4), (32, 8), (60, 8), (63, 16),
+                                    (64, 16), (96, 16), (1000, 16)])
+def test_simt_k1_split(cin, sk):
+    """SK, the groups sharing a segment's products: the largest power of
+    two at most the first chunk's channel quads, at most 16."""
+    assert simt_split(cin) == sk
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("b,h,w,cin,cout", SIMT_PLAN_CASES)
+def test_simt_k2_plan_covers_every_pixel_once(b, h, w, cin, cout, sms):
+    """Split s takes pixels [s*P, (s+1)*P): whole stages of 32, none
+    empty, every pixel once, at most 256 splits, and at least ``sms``
+    blocks (tiles of dW x splits) wherever there are enough stages."""
+    splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
+    m = b * h * w
+    assert per % 32 == 0 and 1 <= splits <= 256
+    runs = [range(s * per, min((s + 1) * per, m)) for s in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [p for r in runs for p in r] == list(range(m))
+    tiles = -(-(9 * cin) // 64) * -(-cout // 64)
+    if -(-m // 32) >= -(-sms // tiles):
+        assert tiles * splits >= sms
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_simt_plans_fill_the_card_at_the_recipe_shape(sms):
+    """At the recipe's (4, 16, 16, 64) -> 64 both kernels put at least one
+    block on every SM: K1 64 row groups (one segment each) x 4 channel
+    tiles = 256 blocks, K2 9 tiles x 32 runs of 32 pixels = 288."""
+    assert simt_plan(4, 16, 16, 64, 64, sms) == (1, 256)
+    assert wgrad_simt_plan(4, 16, 16, 64, 64, sms) == (32, 32)
+
+
+def _k1_simt_order(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """The SIMT K1's arithmetic in plain torch: per chunk of 64 input
+    channels, item j = tap * quads + q (quad q: channels 4q .. 4q + 3)
+    goes to group j % SK (simt_split); group k's running fp32 sum over the
+    chunks, then its items in order, then the item's channels; the output
+    (...(s0 + s1) + ...) + s(SK-1); the halo zero outside the image."""
+    b, h, w, cin = x.shape
+    sk = simt_split(cin)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    sums = [torch.zeros(b, h, w, w2d.shape[1]) for _ in range(sk)]
+    for c0 in range(0, cin, 64):
+        cc = min(64, cin - c0)
+        quads = -(-cc // 4)
+        for j in range(9 * quads):
+            tap, q = divmod(j, quads)
+            dy, dx = divmod(tap, 3)
+            sl = xp[:, dy:dy + h, dx:dx + w, :]
+            for ci in range(c0 + 4 * q, c0 + min(4 * q + 4, cc)):
+                sums[j % sk] = (sums[j % sk]
+                                + sl[..., ci:ci + 1] * w2d[tap * cin + ci])
+    out = sums[0]
+    for part in sums[1:]:
+        out = out + part
+    return out
+
+
+def _k2_simt_order(x: torch.Tensor, g: torch.Tensor, sms: int):
+    """The SIMT K2's reduction in plain torch: one partial patches^T . g
+    over each split's run of pixels (wgrad_simt_plan), the partials added
+    in the order s = 0, 1, ...; returns dW and the number of splits."""
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
+    splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    patches = torch.cat([xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin)
+                         for dy in range(3) for dx in range(3)], dim=1)
+    g2 = g.reshape(-1, cout)
+    dw = torch.zeros(9 * cin, cout)
+    for s in range(splits):
+        run = slice(s * per, (s + 1) * per)
+        dw = dw + patches[run].T @ g2[run]
+    return dw, splits
+
+
+SIMT_ORDER_SHAPES = [(2, 5, 7, 3, 16), (2, 16, 16, 64, 64), (1, 6, 20, 96, 24)]
+
+
+@pytest.mark.parametrize("shape", SIMT_ORDER_SHAPES)
+def test_simt_k1_order_matches_pallas_fwd_kernel(shape):
+    x, w2d, g = _inputs(shape, 4)
+    b, h, w, cin, cout = shape
+    ref = _pallas_fwd(jnp.asarray(x), jnp.asarray(w2d))
+    assert max_abs(_k1_simt_order(t32(x), t32(w2d)), ref) <= TOL
+    # As dx: the cotangent and the flipped, transposed weights.
+    w_t = jnp.flip(jnp.asarray(w2d).reshape(3, 3, cin, cout), axis=(0, 1))
+    ref = _pallas_fwd(jnp.asarray(g),
+                      w_t.transpose(0, 1, 3, 2).reshape(9 * cout, cin))
+    assert max_abs(_k1_simt_order(t32(g), flip_transpose(t32(w2d), cin,
+                                                         cout)), ref) <= TOL
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", SIMT_ORDER_SHAPES)
+def test_simt_k2_split_sum_matches_pallas_wgrad_kernel(shape, sms):
+    """dW sums up to 512 products of unit normals here (|dW| up to about
+    40), and the split sum adds them in another grouping than the Pallas
+    kernel's dot: 2e-5 max abs for each unit of the largest |dW|."""
+    x, _, g = _inputs(shape, 5)
+    ref = _pallas_wgrad(jnp.asarray(x), jnp.asarray(g))
+    dw, splits = _k2_simt_order(t32(x), t32(g), sms)
+    assert splits > 1
+    assert max_abs(dw, ref) <= TOL * max(1.0, float(np.abs(ref).max()))

@@ -115,6 +115,14 @@ def _max_abs(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
+def _shifted(t):
+    """A contiguous copy of t one element into its storage."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv3x3_fwd_and_wgrad_match_plain(cuda, shape, dtype):
@@ -183,13 +191,7 @@ def test_tensor_core_k1_raises_on_a_misaligned_pointer(cuda, arg):
     aligned addresses, and the wrapper raises rather than reroutes."""
     x, w2d = _tc_case(cuda, (1, 16, 16, 64, 64), False)
 
-    def shifted(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = flat[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    args = {"x": (shifted(x), w2d), "w": (x, shifted(w2d))}[arg]
+    args = {"x": (_shifted(x), w2d), "w": (x, _shifted(w2d))}[arg]
     with pytest.raises(ValueError, match="16-byte aligned"):
         conv3x3_fwd(*args)
 
@@ -233,13 +235,7 @@ def test_tensor_core_k2_raises_on_a_misaligned_pointer(cuda, arg):
     x = _rnd(cuda, 1, 16, 16, 64, dtype=torch.bfloat16)
     g = _rnd(cuda, 1, 16, 16, 64, dtype=torch.bfloat16)
 
-    def shifted(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = flat[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    args = {"x": (shifted(x), g), "g": (x, shifted(g))}[arg]
+    args = {"x": (_shifted(x), g), "g": (x, _shifted(g))}[arg]
     with pytest.raises(ValueError, match="16-byte aligned"):
         conv3x3_wgrad(*args)
 
@@ -259,6 +255,69 @@ def test_conv3x3fn_gradients_match_fp64(cuda, shape):
     p = grads(conv3x3_fwd_plain, torch.float64)
     assert _max_abs(k[0], p[0]) <= 1e-4
     assert _rel_l2(k[1], p[1]) <= 1e-5
+
+
+# The SIMT K1 and K2 (simt_plan, wgrad_simt_plan): Cin 1, 3, 8, 16, 40,
+# 64 and 96 (K1 splitting a segment's products over 1, 2, 4, 8 and 16
+# groups; two channel chunks at 96, a ragged 64-row tile of dW in K2),
+# Cout 1, 16, 20, 24, 64 and 128, H and W that are not multiples of the
+# 16-pixel segment, one split (M <= 32), the recipe's (4, 16, 16, 64) and
+# fp32 at B=128 (128 splits).
+SIMT_SHAPES = [(3, 5, 7, 1, 16), (1, 3, 5, 3, 16), (2, 9, 11, 3, 64),
+               (3, 6, 17, 8, 20), (2, 17, 33, 16, 1), (2, 9, 11, 40, 24),
+               (4, 16, 16, 64, 64), (1, 6, 20, 96, 128), (2, 12, 7, 64, 128)]
+
+
+def _simt_case(gen, shape, dtype):
+    b, h, w, cin, cout = shape
+    return (_rnd(gen, b, h, w, cin, dtype=dtype),
+            _rnd(gen, 9 * cin, cout, dtype=dtype, scale=(9 * cin) ** -0.5),
+            _rnd(gen, b, h, w, cout, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SIMT_SHAPES + [(128, 16, 16, 64, 64)])
+def test_simt_k1_k2_match_fp64(cuda, shape, dtype):
+    """The SIMT K1 (forward and as dx) and K2 against fp64 of the same
+    inputs, each bit-equal on a second call and on views one element into
+    their storage (element loads instead of 16-byte ones: the same products
+    in the same order); an fp32 call of the public wrappers takes them."""
+    b, h, w, cin, cout = shape
+    x, w2d, g = _simt_case(cuda, shape, dtype)
+    w_t = flip_transpose(w2d, cin, cout)
+    out, dx = _conv3x3_fwd_simt(x, w2d), _conv3x3_fwd_simt(g, w_t)
+    dw = _conv3x3_wgrad_simt(x, g)
+    if dtype == torch.float32:
+        common.reset_launches()
+        assert torch.equal(out, conv3x3_fwd(x, w2d))
+        assert torch.equal(dx, conv3x3_fwd(g, w_t))
+        assert torch.equal(dw, conv3x3_wgrad(x, g))
+        assert common.launches["conv3x3_fwd_simt"] == 2
+        assert common.launches["conv3x3_wgrad_simt"] == 1
+    for got, args in ((out, (x, w2d)), (dx, (g, w_t))):
+        assert torch.equal(got, _conv3x3_fwd_simt(*args))
+        assert torch.equal(got, _conv3x3_fwd_simt(*map(_shifted, args)))
+    assert torch.equal(dw, _conv3x3_wgrad_simt(x, g))
+    assert torch.equal(dw, _conv3x3_wgrad_simt(_shifted(x), _shifted(g)))
+    dw_ref = conv3x3_wgrad_plain(x.double(), g.double())
+    for got, (xi, wi) in ((out, (x, w2d)), (dx, (g, w_t))):
+        ref = conv3x3_fwd_plain(xi.double(), wi.double())
+        if dtype == torch.float32:
+            assert _max_abs(got, ref) <= 1e-4
+        else:
+            ulps, share = common.bf16_ulps(got, ref)
+            assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
+    assert _rel_l2(dw, dw_ref) <= (1e-5 if dtype == torch.float32
+                                   else K2_BF16_REL_L2)
+
+
+def test_simt_k1_k2_are_bit_reproducible(cuda):
+    """20 calls at the recipe's fp32 shape, as chip_smoke.py phase 9."""
+    x, w2d, g = _simt_case(cuda, (4, 16, 16, 64, 64), torch.float32)
+    first = (_conv3x3_fwd_simt(x, w2d), _conv3x3_wgrad_simt(x, g))
+    for _ in range(20):
+        assert torch.equal(first[0], _conv3x3_fwd_simt(x, w2d))
+        assert torch.equal(first[1], _conv3x3_wgrad_simt(x, g))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -390,13 +449,8 @@ def test_refused_gru_shapes_take_the_two_pass_kernel(cuda, refused):
              "beyond_8_blocks": (1, 64, 64, 64, 4, torch.float32)}[refused]
     gates, blend = _gru_case(cuda, *shape)
     if refused == "misaligned":
-        def shifted(t):
-            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-            view = flat[1:].view(t.shape)
-            view.copy_(t)
-            return view
-        gates = (shifted(gates[0]), *gates[1:])
-        blend = (shifted(blend[0]), *blend[1:])
+        gates = (_shifted(gates[0]), *gates[1:])
+        blend = (_shifted(blend[0]), *blend[1:])
     b, h, w, c, _, dtype = shape
     assert sample_plan(b, h * w, c, gates[-1], dtype, _alignment(
         *(t.data_ptr() for t in gates[:2]))) is None
@@ -689,7 +743,9 @@ def test_each_wrapper_counts_its_launches(cuda):
     correlation_bwd_f2(g, x, 1, 1)
     channelnorm_fwd(x)
     assert common.launches == {"conv3x3_fwd": 1, "conv3x3_fwd_tc": 0,
-                               "conv3x3_wgrad": 1, "conv3x3_wgrad_tc": 0,
+                               "conv3x3_fwd_simt": 1, "conv3x3_wgrad": 1,
+                               "conv3x3_wgrad_tc": 0,
+                               "conv3x3_wgrad_simt": 1,
                                "gru_gates": 1, "gru_gates_sample": 1,
                                "gru_gates_2pass": 0, "gru_blend": 1,
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
