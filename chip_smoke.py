@@ -89,9 +89,37 @@ without printing its last line:
    gradient. Prints step_ms (median over steps 2-20) and the mean NFE.
    (An older checkout's SIMT kernels are timed beside these by
    ``python -m ode_rl_torch.simt_conv_times`` run from both checkouts.)
+10. recurrent family: ``ode_rl_torch.main`` on each of ``defaults`` +
+   ``train_mmnist_cgru_len20`` (ConvGRU), ``train_mmnist_cgrudecODE``,
+   ``train_mmnist_odecgrumem_len20_1ch`` (nru),
+   ``train_mmnist_odecgrumem2_len20_1ch`` (nru2) and
+   ``train_mmnist_sample_odecgru`` (sampled z0, KL term, nan_guard) at
+   their own widths and frames (fp32, B=4), 10 steps each on a frozen
+   corpus with 200-frame test videos: every logged loss and grad_norm
+   finite, a checkpoint at step 10; ConvGRU launches K3 and K4 and no K1
+   or K2, the others K1-K4 with every K1/K2 launch a SIMT one; every
+   K3/K4 launch a one-sample one. Then ``test_mmnist_cgru_len20`` (10 ->
+   190: 190 finite values of each metric) and
+   ``test_mmnist_odecgrumem_len20_1ch`` (10 -> 90; it says n_ode_layers
+   2 and builds the train run's 3 from the saved config, as JAX does);
+   one step of each block from its initial weights through the kernels
+   (profiled: device ms and busy share) against the same step on the
+   plain versions,
+   with the same batch and z0 noise (equal stats, loss 1e-5 relative,
+   prediction 1e-4 max abs, every gradient leaf 1e-3 relative L2; the
+   sampled block with its KL term on the leaves that term does not reach,
+   then with its KL weight at 0 on every leaf, see
+   ``_recurrent_reference``); ``--configs defaults`` alone for two steps
+   (ConvGRU at 256 channels: K3 at (4, 16, 16, 512) in 16 groups and K4
+   at (4, 16, 16, 256) in 8, their ``sample_plan`` printed and each held
+   to its plain version, 1e-5 max abs); and the recipe with the z0
+   encoder's hoisted projections off and on, 5 steps each way in the
+   turns off, on, on, off (step_ms and device ms; each turn's losses
+   held to the first's, 1e-5 relative). Prints each block's
+   median step_ms over steps 2-10 and mean NFE.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7, 8 and 9) run their convs in strict fp32. Then one JSON line with each
+7, 8, 9 and 10) run their convs in strict fp32. Then one JSON line with each
 kernel's launches, error, times, bound (the larger of its operations over
 the peak rate of their type and its bytes over the memory rate, at the
 shape timed) and the time of the one PyTorch call that computes the same
@@ -118,8 +146,8 @@ import torch.nn.functional as F
 from ode_rl_torch import main as port_main
 from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
                                  FlowNetCBenchConfig)
-from ode_rl_torch.core.checkpoint import CheckpointManager
-from ode_rl_torch.core.config import load_config
+from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
+from ode_rl_torch.core.config import load_config, resolve_run_id
 from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
@@ -155,7 +183,8 @@ from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         _gru_blend_2pass, _gru_blend_sample,
                                         _gru_gates_2pass, _gru_gates_sample,
                                         blend_f64, fused_gru_blend,
-                                        fused_gru_gates, gates_f64)
+                                        fused_gru_gates, gates_f64,
+                                        sample_plan)
 from ode_rl_torch.profile_step import _KERNEL_IDS, _KERNEL_NAME
 from ode_rl_torch.train import loop as train_loop
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
@@ -1284,18 +1313,21 @@ RECIPE_TEST = ("defaults", "test_mmnist_odecgru_len20_1ch")
 RECIPE_B, RECIPE_STEPS = 4, 20
 
 
-def _write_frozen_corpus(root: pathlib.Path, bank: torch.Tensor) -> None:
-    """uint8 shard_0000.npy under train/ and test/ (16 and 8 videos of 100
-    frames, 3 digits) from the port's generator, and meta.json."""
+def _write_frozen_corpus(root: pathlib.Path, bank: torch.Tensor,
+                         test_frames: int = 100) -> None:
+    """uint8 shard_0000.npy under train/ and test/ (16 videos of 100
+    frames and 8 of ``test_frames``, 3 digits) from the port's generator,
+    and meta.json."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for split, n in (("train", 16), ("test", 8)):
-        video = generate_moving_mnist(gen, bank, batch=n, n_frames=100,
+    for split, n, n_frames in (("train", 16, 100), ("test", 8, test_frames)):
+        video = generate_moving_mnist(gen, bank, batch=n, n_frames=n_frames,
                                       num_digits=3)
         frames = torch.round((video[..., 0] + 0.5) * 255.0).to(torch.uint8)
         (root / split).mkdir(parents=True)
         np.save(root / split / "shard_0000.npy", frames.cpu().numpy())
     (root / "meta.json").write_text(json.dumps(
-        {"videos": 24, "frames": 100, "digits": 3, "train_videos": 16}))
+        {"videos": 24, "frames": 100, "test_frames": test_frames,
+         "digits": 3, "train_videos": 16}))
 
 
 class _TimedTrainStep:
@@ -1308,13 +1340,14 @@ class _TimedTrainStep:
     def __call__(self, nan_guard: bool = False):
         step = make_train_step(nan_guard)
 
-        def timed(state, batch):
+        def timed(state, batch, generator=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            metrics = step(state, batch)
+            metrics = step(state, batch, generator)
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
-            self.nfe.append(int(metrics["nfe"]))
+            if "nfe" in metrics:
+                self.nfe.append(int(metrics["nfe"]))
             return metrics
 
         return timed
@@ -1397,6 +1430,14 @@ def _recipe_test(root: pathlib.Path, logs: pathlib.Path) -> None:
           f"ssim {out['final_ssim']:.4f}")
 
 
+def _tracer_warmup() -> None:
+    """One small kernel and a sync at the start of a profiler window,
+    before the step it traces: a trace of phase 9's step that began at
+    once with the window lacked the step's first five K1 launches."""
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
 def _launch_us(prof) -> dict:
     """Launches and device µs a launch of each K1-K4 kernel in a trace
     (a kernel's template instances together)."""
@@ -1436,6 +1477,7 @@ def _recipe_reference(root: pathlib.Path, run: pathlib.Path) -> dict:
     common.reset_launches()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
         m_k, pred_k, g_k = run_step()
         torch.cuda.synchronize()
     counts = dict(common.launches)
@@ -1553,6 +1595,373 @@ def phase_recipe(bank: torch.Tensor) -> dict:
     return {**train, "reference": ref, "fp32_convs": convs}
 
 
+# The Moving MNIST recurrent family (configs.yaml), each block at its own
+# widths and frames (fp32, B=4): ConvGRU (10 -> 10), cgrudecODE (50 -> 50,
+# the decode field 64 -> 64 in 2 layers), the ODE-ConvGRU memory modes
+# nru and nru2 (10 -> 10, 3 layers) and the sampled z0 with its KL term
+# and nan_guard (50 -> 50, 2 layers).
+RECURRENT = ("train_mmnist_cgru_len20", "train_mmnist_cgrudecODE",
+             "train_mmnist_odecgrumem_len20_1ch",
+             "train_mmnist_odecgrumem2_len20_1ch",
+             "train_mmnist_sample_odecgru")
+# (test block, the train block whose checkpoint it restores, frames out)
+RECURRENT_TESTS = (("test_mmnist_cgru_len20", "train_mmnist_cgru_len20",
+                    190),
+                   ("test_mmnist_odecgrumem_len20_1ch",
+                    "train_mmnist_odecgrumem_len20_1ch", 90))
+RECURRENT_STEPS, HOIST_STEPS = 10, 5
+STATS = ("nfe", "ode_accepted", "ode_rejected", "ode_converged")
+
+
+def _run_dir(argv: list) -> tuple:
+    """(config, run directory) that ``ode_rl_torch.main`` uses for argv."""
+    cfg, _ = port_main.get_cfg(argv)
+    logdir = pathlib.Path(cfg.get("logdir", "logs"))
+    return cfg, logdir / cfg.model / resolve_run_id(cfg)
+
+
+def _check_recurrent_routes(model: str, counts: dict, where: str) -> None:
+    """ConvGRU: K3 and K4 launched (every launch a one-sample one), no K1
+    or K2. The ODE blocks: as the recipe (_check_recipe_routes)."""
+    if model != "ConvGRU":
+        _check_recipe_routes(counts, where)
+        return
+    if counts["gru_gates"] == 0 or counts["gru_blend"] == 0:
+        raise AssertionError(f"K3/K4 never launched in the {where}: {counts}")
+    if counts["conv3x3_fwd"] or counts["conv3x3_wgrad"]:
+        raise AssertionError(f"K1/K2 launched in the {where}: {counts}")
+    _check_gru_sample(counts)
+
+
+def _recurrent_train(block: str, root: pathlib.Path,
+                     logs: pathlib.Path) -> dict:
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs / block), "--steps_per_epoch",
+            str(RECURRENT_STEPS), "--epochs", "1", "--loss_log_freq", "1",
+            "--ckpt_save_freq", str(RECURRENT_STEPS)]
+    cfg, run = _run_dir(argv)
+    print(f"  python -m ode_rl_torch.main --configs defaults {block} "
+          f"({cfg.model}, {cfg.train_in_seq}->{cfg.train_out_seq} frames, "
+          f"{RECURRENT_STEPS} steps)")
+    timer = _TimedTrainStep()
+    train_loop.make_train_step = timer
+    torch.cuda.synchronize()
+    common.reset_launches()
+    try:
+        out = port_main.main(argv)
+    finally:
+        train_loop.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    counts = dict(common.launches)
+    _check_recurrent_routes(cfg.model, counts, f"{block} run")
+    if out["final_step"] != RECURRENT_STEPS:
+        raise AssertionError(f"{block}: {out['final_step']} steps")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in logged] != list(range(1, RECURRENT_STEPS + 1)):
+        raise AssertionError(f"{block}: logged steps "
+                             f"{[m['step'] for m in logged]}")
+    for m in logged:
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{block} step {m['step']}: loss or "
+                                 "grad_norm not finite")
+    steps = CheckpointManager(run / "checkpoints",
+                              tag=cfg.ckpt_id).all_steps()
+    if steps != [RECURRENT_STEPS]:
+        raise AssertionError(f"{block}: checkpoints at {steps}")
+    median = statistics.median(timer.ms[1:])
+    nfe = statistics.mean(timer.nfe) if timer.nfe else None
+    per_step = {k: counts[k] / RECURRENT_STEPS for k in FLAGSHIP_KERNELS}
+    print(f"    losses {[round(m['loss'], 5) for m in logged]}")
+    print(f"    median step_ms over steps 2-{RECURRENT_STEPS}: {median:.2f}; "
+          f"mean nfe {'-' if nfe is None else f'{nfe:.1f}'}; K1-K4 "
+          f"launches a step {per_step}")
+    return {"counts": counts, "step_ms": median, "mean_nfe": nfe,
+            "logs": logs / block}
+
+
+def _recurrent_test(block: str, logs: pathlib.Path, root: pathlib.Path,
+                    n_out: int) -> None:
+    """The test block from its train run's checkpoint (under ``logs``),
+    over 2 batches: n_out finite MSE, PSNR and SSIM values."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs), "--eval_batches", "2"]
+    cfg, _ = port_main.get_cfg(argv)
+    ckpt = CheckpointManager(find_checkpoint(logs, cfg.model, cfg.ckpt_id),
+                             tag=cfg.ckpt_id)
+    merged = train_loop._resurrect_train_config(cfg, ckpt.load_config())
+    print(f"  python -m ode_rl_torch.main --configs defaults {block} "
+          f"({cfg.test_in_seq}->{cfg.test_out_seq} frames): the block says "
+          f"n_ode_layers {cfg.get('n_ode_layers')}, the train run's saved "
+          f"config builds {merged.get('n_ode_layers')}")
+    t0 = time.perf_counter()
+    out = port_main.main(argv)
+    seconds = time.perf_counter() - t0
+    per_horizon = json.loads((logs / merged.model / resolve_run_id(merged)
+                              / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim"):
+        v = per_horizon[k]
+        if len(v) != n_out or not np.all(np.isfinite(v)):
+            raise AssertionError(f"{block} per_horizon {k}: {len(v)} "
+                                 f"values, not {n_out} finite ones")
+    print(f"    {seconds:.2f} s; mse at frames 1, 10, {n_out}: "
+          + " ".join(f"{per_horizon['mse'][i]:.4f}"
+                     for i in (0, 9, n_out - 1))
+          + f"; final psnr {out['final_psnr']:.4f} ssim "
+          f"{out['final_ssim']:.4f}")
+
+
+def _device_ms(prof) -> float:
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
+def _min_std(model, batch) -> float:
+    """The smallest std of the ODE-ConvGRU z0 head on ``batch``."""
+    with torch.no_grad():
+        x = batch["observed_data"] + 0.5
+        b, t = x.shape[:2]
+        enc = model.conv_encoder(x.reshape(b * t, *x.shape[2:]))
+        _, std = model.z0_encoder(enc.reshape(b, t, *enc.shape[1:]),
+                                  batch["observed_tp"])
+    return float(std.min())
+
+
+def _kernels_vs_plain(model, batch) -> dict:
+    """One loss and its gradients through the kernels (profiled, the
+    launch counts read around it, and timed on the host's clock) and on
+    the plain versions, each drawing the z0 noise from a generator seeded
+    alike."""
+    def run_step():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        metrics, pred = loss_and_grads(model, batch, gen)
+        return metrics, pred, {n: p.grad.clone()
+                               for n, p in model.named_parameters()}
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
+        t0 = time.perf_counter()
+        m_k, pred_k, g_k = run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(common.launches)
+    with common.force_plain():
+        m_p, pred_p, g_p = run_step()
+    errs = {n: rel_l2(g_k[n], g_p[n]) for n in g_k}
+    worst = max(errs, key=errs.get)
+    return {"counts": counts, "device_ms": _device_ms(prof),
+            "wall_ms": wall_ms, "m_k": m_k,
+            "m_p": m_p, "pred_k": pred_k, "pred_p": pred_p, "errs": errs,
+            "worst": worst, "worst_err": errs[worst]}
+
+
+# The leaves upstream of the z0 head's std, which the sampled z0's KL
+# term reaches through its gradient -1/(std + 1e-6).
+KL_REACHES = ("conv_encoder.", "z0_encoder.")
+
+
+def _check_step(label: str, r: dict) -> None:
+    """Equal solver stats, loss to 1e-5 relative and prediction to 1e-4
+    max abs between the kernels' and the plain versions' step."""
+    m_k, m_p = r["m_k"], r["m_p"]
+    stats = [k for k in STATS if k in m_k]
+    print(f"  {label}: " + ", ".join(
+        f"{k} kernels {m_k[k]} plain {m_p[k]}" for k in stats))
+    for k in stats:
+        if m_k[k] != m_p[k]:
+            raise AssertionError(f"{label}: {k} differs")
+    check(f"{label[:20]} loss (relative)",
+          abs(float(m_k["loss"]) / float(m_p["loss"]) - 1.0), 1e-5, "rel")
+    check(f"{label[:20]} prediction", max_abs(r["pred_k"], r["pred_p"]),
+          1e-4, "max_abs")
+
+
+def _recurrent_reference(block: str, root: pathlib.Path) -> dict:
+    """One step of ``block`` from its training run's initial weights (the
+    seed's) on a frozen batch, through the kernels (profiled: the step's
+    device time and host time) against the same step on the plain
+    versions, with the same z0 noise. The initial weights: after 10 steps
+    at the defaults' lr 8e-4 the nru block has fallen into the blank
+    attractor ``configs.yaml`` describes for the memory modes (predictions
+    of 1e-22), where a comparison would hold nothing.
+
+    The sampled z0's step is held twice. With its KL term: solver stats,
+    loss and prediction, and every gradient leaf the KL term does not
+    reach. The KL term's gradient in std is -1/(std + 1e-6), so where a
+    std lies near zero (stds of 7e-6 to 5e-5 seen) it multiplies the fp32
+    rounding of std, which kernels and plain versions reach by other
+    orders of summation, by up to 1e6; the leaves it reaches (the conv
+    encoder's and the z0 encoder's) are printed, not held. Then with
+    ``z_kl_weight`` 0, the noise, the kernels and every other term as
+    they are: every leaf. The KL term itself is plain PyTorch, held
+    against JAX on the CPU (tests/test_torch_port_recurrent.py)."""
+    cfg = load_config(["defaults", block], overrides={"data_dir": str(root)})
+    model = create_train_state(cfg, torch.device("cuda")).model
+    video = next(FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
+                                   cfg.train_out_seq, seed=5,
+                                   device=torch.device("cuda")))
+    batch = make_batch_dict(video, cfg.train_in_seq)
+    if getattr(model, "z_sample", False):
+        r = _kernels_vs_plain(model, batch)
+        errs = r["errs"]
+        print(f"  {block} with its KL term (z_kl_weight "
+              f"{model.z_kl_weight}, smallest std "
+              f"{_min_std(model, batch):.3e})")
+        _check_step("KL " + block, r)
+        held = [n for n in errs if not n.startswith(KL_REACHES)]
+        reached = [n for n in errs if n.startswith(KL_REACHES)]
+        worst = max(held, key=errs.get)
+        check(f"KL worst grad ({worst[:17]})", errs[worst], 1e-3, "rel_l2")
+        worst = max(reached, key=errs.get)
+        print(f"    the leaves the KL term reaches: worst ({worst}) rel_l2 "
+              f"{errs[worst]:.3e}, printed, not held; held below with "
+              "z_kl_weight 0")
+        model.z_kl_weight = 0.0
+    r = _kernels_vs_plain(model, batch)
+    counts, m_k = r["counts"], r["m_k"]
+    _check_recurrent_routes(cfg.model, counts, f"{block} reference step")
+    shape = (cfg.batch_size, cfg.train_out_seq, 64, 64, 1)
+    if (tuple(r["pred_k"].shape) != shape
+            or not torch.isfinite(r["pred_k"]).all()):
+        raise AssertionError(f"{block}: prediction "
+                             f"{tuple(r['pred_k'].shape)} is not a finite "
+                             f"{shape}")
+    _check_step(block, r)
+    check(f"{block[:20]} worst grad ({r['worst'][:14]})", r["worst_err"],
+          1e-3, "rel_l2")
+    print(f"    the step (forward and backward), profiled: device ms "
+          f"{r['device_ms']:.3f} of {r['wall_ms']:.2f} ms (busy "
+          f"{100 * r['device_ms'] / r['wall_ms']:.1f}%); launches "
+          f"{({k: counts[k] for k in FLAGSHIP_KERNELS})}")
+    return {"counts": counts, "device_ms": r["device_ms"],
+            "wall_ms": r["wall_ms"], "nfe": m_k.get("nfe")}
+
+
+def _defaults_run(root: pathlib.Path, logs: pathlib.Path) -> dict:
+    """``--configs defaults`` alone: ConvGRU at convgru_out_ch 256, 50 ->
+    50 frames, two steps; K3 at (4, 16, 16, 512) in 16 groups and K4 at
+    (4, 16, 16, 256) in 8, routed by sample_plan and held to their plain
+    versions at those shapes."""
+    argv = ["--configs", "defaults", "--data_dir", str(root), "--logdir",
+            str(logs / "defaults"), "--steps_per_epoch", "2", "--epochs",
+            "1", "--loss_log_freq", "1"]
+    cfg, _ = port_main.get_cfg(argv)
+    print(f"  python -m ode_rl_torch.main --configs defaults ({cfg.model}, "
+          f"convgru_out_ch {cfg.convgru_out_ch}, {cfg.train_in_seq}->"
+          f"{cfg.train_out_seq} frames, 2 steps)")
+    torch.cuda.synchronize()
+    common.reset_launches()
+    out = port_main.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(common.launches)
+    _check_recurrent_routes(cfg.model, counts, "defaults run")
+    if out["final_step"] != 2 or not np.isfinite(out["loss"]):
+        raise AssertionError(f"defaults: {out}")
+    c = cfg.convgru_out_ch
+    gen = torch.Generator().manual_seed(8)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    h = torch.tanh(rnd(RECIPE_B, HW, HW, c))
+    gs, gb = 1.0 + 0.1 * rnd(2 * c), 0.1 * rnd(2 * c)
+    cs, cb = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
+    gates, cand = rnd(RECIPE_B, HW, HW, 2 * c), rnd(RECIPE_B, HW, HW, c)
+    z = torch.sigmoid(rnd(RECIPE_B, HW, HW, c))
+    groups_g, groups_c = max(2 * c // 32, 1), max(c // 32, 1)
+    for name, cin, groups, plan, kernel, plain in (
+            ("K3", 2 * c, groups_g, sample_plan(RECIPE_B, HW * HW, c,
+                                                groups_g, torch.float32, 16),
+             lambda: fused_gru_gates(gates, h, gs, gb, groups_g),
+             lambda: _gates_plain(gates, h, gs, gb, groups_g)),
+            ("K4", c, groups_c, sample_plan(RECIPE_B, HW * HW, c, groups_c,
+                                            torch.float32, 16, blend=True),
+             lambda: fused_gru_blend(cand, z, h, cs, cb, groups_c),
+             lambda: _blend_plain(cand, z, h, cs, cb, groups_c))):
+        print(f"    {name} at ({RECIPE_B}, {HW}, {HW}, {cin}) fp32, {groups} "
+              f"groups: sample_plan {plan}")
+        err = max(max_abs(a, b) for a, b in zip(_as_tuple(kernel()),
+                                                 _as_tuple(plain())))
+        check(f"{name} at the defaults' width", err, 1e-5, "max_abs")
+    print(f"    losses: step 2 {out['loss']:.6f}; launches "
+          f"{({k: counts[k] for k in FLAGSHIP_KERNELS})}")
+    return {"counts": counts}
+
+
+def _hoist_times(root: pathlib.Path) -> dict:
+    """The recipe with the z0 encoder's hoisted projections off and on:
+    HOIST_STEPS steps each way on the same frozen batches from the same
+    init, in the turns off, on, on, off; step_ms the least median of the
+    two turns over steps 2-5, device ms of one more profiled step. Every
+    turn's losses agree with the first turn's to 1e-5 relative."""
+    cfg = load_config(RECIPE, overrides={"data_dir": str(root)})
+    loader = FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
+                               cfg.train_out_seq, seed=6,
+                               device=torch.device("cuda"))
+    batches = [make_batch_dict(next(loader), cfg.train_in_seq)
+               for _ in range(HOIST_STEPS)]
+    step = make_train_step()
+    runs, first = {}, None
+    for hoist in (False, True, True, False):
+        state = create_train_state(cfg, torch.device("cuda"))
+        state.model.z0_encoder.hoist_projections = hoist
+        ms, nfe, losses = [], [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            nfe.append(m["nfe"])
+            losses.append(float(m["loss"]))
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"hoist {hoist}: losses {losses}")
+        first = first or losses
+        err = max(abs(a / b - 1.0) for a, b in zip(losses, first))
+        check(f"hoist {hoist} losses (relative)", err, 1e-5, "rel")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _tracer_warmup()
+            step(state, batches[0])
+            torch.cuda.synchronize()
+        run = runs.setdefault(hoist, {"step_ms": [], "device_ms": []})
+        run["step_ms"].append(statistics.median(ms[1:]))
+        run["device_ms"].append(_device_ms(prof))
+        run.update(nfe=nfe, losses=losses)
+    out = {}
+    for hoist, run in runs.items():
+        out["on" if hoist else "off"] = {
+            "step_ms": min(run["step_ms"]),
+            "device_ms": min(run["device_ms"]), "nfe": run["nfe"],
+            "losses": run["losses"]}
+        print(f"  hoist_projections {hoist}: step_ms {run['step_ms']} "
+              f"device ms {[round(v, 3) for v in run['device_ms']]} nfe "
+              f"{run['nfe']} losses {[round(v, 6) for v in run['losses']]}")
+    return out
+
+
+def phase_recurrent(bank: torch.Tensor) -> dict:
+    print(f"[10] recurrent family: {', '.join(RECURRENT)} through "
+          f"ode_rl_torch.main (fp32, B={RECIPE_B}), {RECURRENT_STEPS} steps "
+          "each on a frozen corpus (200-frame test videos), the test blocks, "
+          "a reference step each, --configs defaults, the hoist off and on")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        trains = {block: _recurrent_train(block, root, logs)
+                  for block in RECURRENT}
+        for block, train_block, n_out in RECURRENT_TESTS:
+            _recurrent_test(block, trains[train_block]["logs"], root, n_out)
+        refs = {block: _recurrent_reference(block, root)
+                for block in RECURRENT}
+        defaults = _defaults_run(root, logs)
+        hoist = _hoist_times(root)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"train": trains, "reference": refs, "defaults": defaults,
+            "hoist": hoist}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1573,6 +1982,7 @@ def main() -> int:
     counts["channelnorm"] = flownet2["channelnorm"]
     phase_flow_reference(bank)
     recipe = phase_recipe(bank)
+    recurrent = phase_recurrent(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -1595,6 +2005,28 @@ def main() -> int:
             if k in recipe["reference"]["per_launch"]}
     for name, row in recipe["fp32_convs"].items():
         timings[name]["recipe_fp32"] = row
+    # Phase 10 read the counts around each of its runs.
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["recurrent_launches"] = {
+            block: run["counts"][name]
+            for block, run in recurrent["train"].items()}
+        timings[name]["recurrent_step_launches"] = {
+            block: run["counts"][name]
+            for block, run in recurrent["reference"].items()}
+        timings[name]["defaults_launches"] = recurrent["defaults"]["counts"][
+            name]
+    for block, run in recurrent["train"].items():
+        nfe = run["mean_nfe"]
+        ref = recurrent["reference"][block]
+        print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
+              f"2-{RECURRENT_STEPS}), mean nfe "
+              f"{'-' if nfe is None else f'{nfe:.2f}'}; a forward and "
+              f"backward from its initial weights, profiled: device ms "
+              f"{ref['device_ms']:.3f} of {ref['wall_ms']:.2f} at nfe "
+              f"{ref['nfe']}")
+    for setting, run in recurrent["hoist"].items():
+        print(f"recipe, hoist_projections {setting}: step_ms "
+              f"{run['step_ms']:.2f} device ms {run['device_ms']:.3f}")
     print(f"recipe: step_ms {recipe['step_ms']:.2f} (median over steps "
           f"2-{RECIPE_STEPS}), mean nfe {recipe['mean_nfe']:.2f}")
     print(json.dumps({"kernels": [

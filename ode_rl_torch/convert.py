@@ -8,7 +8,8 @@ of leaf:
   ``out``) keep flax's HWIO ``kernel``, because its reshape to
   (9*Cin, Cout) is the layout kernels K1/K2 take;
 * ``ConvTranspose`` kernels (the decoder's ``up_i``, FlowNet's ``deconv``
-  and ``upflow``) are flipped spatially and laid out (in, out, kh, kw) for
+  and ``upflow``, ConvGRUModel's ``dec_0`` and ``dec_1``) are flipped
+  spatially and laid out (in, out, kh, kw) for
   ``conv_transpose2d(stride=2, padding=1)``: flax's 'SAME' transposed conv
   is torch's with the kernel flipped;
 * biases and the GroupNorm scales and biases copy by name.
@@ -29,7 +30,8 @@ def _is_field_conv(layer: str) -> bool:
 
 
 def _is_transposed_conv(layer: str) -> bool:
-    return layer in ("deconv", "upflow") or layer.startswith("up_")
+    return (layer in ("deconv", "upflow", "dec_0", "dec_1")
+            or layer.startswith("up_"))
 
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()

@@ -1,11 +1,15 @@
 """ODE-ConvGRU z0-inference encoder.
 
-Counterpart of ``ode_rl_tpu/nn/odeconvgru.py`` on its default path
-(``hoist_projections=False``, no mask): iterate the encoded frames
-backwards in time; at each step advance the running latent by one
-explicit Euler step of the dynamics field, then fuse the observation
-through a ConvGRU update. A 1x1-conv head maps the final latent to
-(mu, |std|).
+Counterpart of ``ode_rl_tpu/nn/odeconvgru.py`` without a mask: iterate
+the encoded frames backwards in time; at each step advance the running
+latent by one explicit Euler step of the dynamics field, then fuse the
+observation through a ConvGRU update. A 1x1-conv head maps the final
+latent to (mu, |std|).
+
+``hoist_projections`` (off by default, as in JAX) computes the
+observation-side halves of the ConvGRU's gate convolutions for every
+frame as one batched convolution before the loop (``project_x``), and
+each step then runs the cell's ``step_fused``.
 
 The first (latest-frame) Euler step uses dt = -0.01 whatever the time
 grid; later steps use the reversed grid spacing ts[i] - ts[i+1].
@@ -42,15 +46,24 @@ class _EulerGRUStep(nn.Module):
         yi_ode = prev + self.ode_func(prev) * dt_i
         return self.cgru_cell(yi_ode, x_i)
 
+    def fused(self, prev: torch.Tensor, gx_i: torch.Tensor,
+              cx_i: torch.Tensor, dt_i: torch.Tensor) -> torch.Tensor:
+        """The same step on the observation's hoisted projections."""
+        yi_ode = prev + self.ode_func(prev) * dt_i.to(prev.dtype)
+        return self.cgru_cell.step_fused(yi_ode, gx_i.to(prev.dtype),
+                                         cx_i.to(prev.dtype))
+
 
 class ODEConvGRUEncoder(nn.Module):
     """Backward ODE-ConvGRU pass producing (mu_z0, std_z0)."""
 
     def __init__(self, ch: int, ode_n_layers: int = 2, ode_n_units: int = 64,
-                 *, dtype: torch.dtype = torch.float32,
+                 *, hoist_projections: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
         self.ch = ch
+        self.hoist_projections = hoist_projections
         self.dtype = dtype
         self.step = _EulerGRUStep(ch, ode_n_layers, ode_n_units, dtype=dtype,
                                   generator=generator)
@@ -66,8 +79,17 @@ class ODEConvGRUEncoder(nn.Module):
                          spacing.flip(0)])
         prev = torch.zeros((b, h, w, self.ch), dtype=self.dtype,
                            device=xs.device)
-        for i in range(t):
-            prev = self.step(prev, xs[:, t - 1 - i], dts[i])
+        if self.hoist_projections:
+            gx, cx = self.step.cgru_cell.project_x(
+                xs.reshape(b * t, h, w, -1))
+            gx = gx.reshape(b, t, *gx.shape[1:])
+            cx = cx.reshape(b, t, *cx.shape[1:])
+            for i in range(t):
+                prev = self.step.fused(prev, gx[:, t - 1 - i],
+                                       cx[:, t - 1 - i], dts[i])
+        else:
+            for i in range(t):
+                prev = self.step(prev, xs[:, t - 1 - i], dts[i])
         z = F.relu(self.head_0(prev))
         mu, std = self.head_1(z).chunk(2, dim=-1)
         return mu, std.abs()

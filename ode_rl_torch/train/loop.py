@@ -10,8 +10,17 @@ MSE/PSNR/SSIM into ``per_horizon.json``, the last horizon as
 ``final_*``).
 
 Without a frozen corpus the train step makes its own batch on the device
-(the fused step); with one, batches come from the loader. Metrics are
-fetched to the host only at log points.
+(the fused step); with one, batches come from the loader. Every train and
+eval step draws any model noise (``z_sample``) from one sampling
+generator seeded from ``cfg.seed``, as JAX hands each step a key split
+from the run's. Metrics are fetched to the host only at log points; a
+model's own metrics (``nfe``, ``z0_kl``, ``nan_skipped`` and so on) are
+logged with the loss.
+
+A test block restores the train run's saved config for every key that is
+not one of the evaluation protocol's, as JAX does: so
+``test_mmnist_odecgrumem_len20_1ch``, which says ``n_ode_layers: 2``,
+builds the 3 layers its train block saved, and its checkpoint loads.
 
 Not ported, and each raises where a config asks for it: the GAN loop,
 the CATER classifier, plateau LR and early stopping, Vid-ODE window
@@ -41,6 +50,13 @@ from ode_rl_torch.train.step import (TrainState, create_train_state,
 # The fused loop's generator seed is the run seed plus this (JAX folds
 # the same constant into its loop key).
 _LOOP_SEED = 0xDA7A
+# The sampling generator's seed is the run seed plus this.
+_SAMPLE_SEED = 0x5A3D
+
+
+def _sample_generator(cfg, device: torch.device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(
+        int(cfg.get("seed", 0)) + _SAMPLE_SEED)
 
 
 def _refuse_unported(cfg) -> None:
@@ -109,6 +125,7 @@ def train(cfg, device: torch.device,
             int(cfg.get("seed", 0)) + _LOOP_SEED)
     else:
         train_step = make_train_step(nan_guard=cfg.get("nan_guard", False))
+    sample_gen = _sample_generator(cfg, device)
     n_train_batches = (int(cfg.get("steps_per_epoch", 0))
                        or loaders["n_train_batches"])
     total_steps = n_train_batches * cfg.epochs
@@ -135,10 +152,10 @@ def train(cfg, device: torch.device,
             if step >= total_steps:
                 break
             if fused:
-                metrics = fused_step(state, loop_gen)
+                metrics = fused_step(state, loop_gen, sample_gen)
             else:
                 batch = make_batch_dict(next(loader), n_in=cfg.train_in_seq)
-                metrics = train_step(state, batch)
+                metrics = train_step(state, batch, sample_gen)
             step += 1
             # Fetch metrics only at log points.
             if step % log_freq == 0 or step == 1:
@@ -218,12 +235,13 @@ def test(cfg, device: torch.device,
               f"from {ckpt.directory}")
 
     eval_step = make_eval_step()
+    sample_gen = _sample_generator(cfg, device)
     loader = loaders["test_dataloader"]
     batches = int(cfg.get("eval_batches", 0)) or loaders["n_test_batches"]
     all_metrics = []
     for _ in range(batches):
         batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq)
-        metrics, _pred = eval_step(state.model, batch)
+        metrics, _pred = eval_step(state.model, batch, sample_gen)
         all_metrics.append({k: v.cpu().numpy() for k, v in metrics.items()
                             if not k.startswith("aux_")})
 

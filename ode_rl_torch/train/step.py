@@ -1,21 +1,31 @@
 """Train and eval steps.
 
-Counterpart of ``ode_rl_tpu/train/step.py``: Adam (``torch.optim.Adam``
-with optax.adam's betas and eps), the ``grad_norm`` metric (global L2
-norm of the gradients, as ``optax.global_norm``), the train step on a
-given batch, the fused step that makes its own Moving MNIST batch on the
-device, and the eval step (prediction without autograd, per-horizon MSE,
-PSNR and SSIM, and the model's stats as ``aux_*``). Gradient clipping,
-``nan_guard`` and optimizers other than Adam are not ported yet (ROADMAP
-queue 1, item 3, 9d); a config asking for them raises.
+Counterpart of ``ode_rl_tpu/train/step.py``: Adam or Adamax
+(``torch.optim.Adam``/``Adamax`` with optax's betas and eps; Adamax keeps
+nu = max(b2 * nu, |g| + eps) and corrects only mu, as ``optax.adamax``),
+global-norm clipping where ``clip`` is not -1 (``optax.clip_by_global_norm``,
+not ``clip_grad_norm_``: the gradients stay as they are where the norm is
+below ``clip``, and are otherwise g / norm * clip, with no epsilon), the
+``grad_norm`` metric (global L2 norm of the raw gradients, before
+clipping, as ``optax.global_norm``), the NaN guard with its
+``nan_skipped`` metric (core/debug.py), the train step on a given batch,
+the fused step that makes its own Moving MNIST batch on the device, and
+the eval step (prediction without autograd, per-horizon MSE, PSNR and
+SSIM, and the model's stats as ``aux_*``).
+
+Each step takes an optional ``torch.Generator`` that a model drawing
+noise (ODEConv with ``z_sample``) draws it from, as JAX's steps take a
+key for the 'sample' rng.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ode_rl_torch.core.debug import nan_guard_update
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.models.registry import build_model, cfg_get
@@ -23,25 +33,26 @@ from ode_rl_torch.train.metrics import per_frame_metrics
 
 
 class TrainState:
-    """Model, optimizer and step count of one training run."""
+    """Model, optimizer, gradient clip (-1: none) and step count of one
+    training run."""
 
     def __init__(self, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer):
+                 optimizer: torch.optim.Optimizer, clip: float = -1.0):
         self.model = model
         self.optimizer = optimizer
+        self.clip = clip
         self.step = 0
 
 
+_OPTIMIZERS = {"adam": torch.optim.Adam, "adamax": torch.optim.Adamax}
+
+
 def make_optimizer(cfg, params) -> torch.optim.Optimizer:
-    if float(cfg_get(cfg, "clip", -1)) != -1:
-        raise NotImplementedError("gradient clipping is not ported: "
-                                  "ROADMAP queue 1, item 3 (9d)")
     name = cfg_get(cfg, "optimizer", "adam")
-    if name != "adam":
-        raise NotImplementedError(f"optimizer {name!r} is not ported: "
-                                  "ROADMAP queue 1, item 3 (9d)")
-    return torch.optim.Adam(params, lr=float(cfg.lr), betas=(0.9, 0.999),
-                            eps=1e-8)
+    if name not in _OPTIMIZERS:
+        raise NotImplementedError(f"optimizer {name!r}")
+    return _OPTIMIZERS[name](params, lr=float(cfg.lr), betas=(0.9, 0.999),
+                             eps=1e-8)
 
 
 def create_train_state(cfg, device: torch.device) -> TrainState:
@@ -50,7 +61,8 @@ def create_train_state(cfg, device: torch.device) -> TrainState:
     ``device``, with its optimizer."""
     generator = torch.Generator().manual_seed(int(cfg.seed))
     model = build_model(cfg, device, generator)
-    return TrainState(model, make_optimizer(cfg, model.parameters()))
+    return TrainState(model, make_optimizer(cfg, model.parameters()),
+                      clip=float(cfg_get(cfg, "clip", -1)))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -58,10 +70,19 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
-def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+def clip_by_global_norm(grads: List[torch.Tensor], norm: torch.Tensor,
+                        max_norm: float) -> List[torch.Tensor]:
+    """``optax.clip_by_global_norm`` given the global ``norm``: each
+    gradient kept where norm < max_norm, else (g / norm) * max_norm."""
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
+def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
     """Loss metrics and prediction, with gradients left in ``.grad``."""
     model.zero_grad(set_to_none=True)
-    loss, (metrics, pred) = model.loss(batch)
+    loss, (metrics, pred) = model.loss(batch, generator)
     loss.backward()
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
@@ -70,30 +91,42 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
     return metrics, pred.detach()
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
-    metrics, _ = loss_and_grads(state.model, batch)
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               nan_guard: bool = False) -> Dict:
+    """One step: gradients, ``grad_norm`` of the raw ones, the clip, the
+    optimizer's update and, with ``nan_guard``, the parameters put back
+    where a raw gradient is not finite (``nan_skipped`` 1)."""
+    metrics, _ = loss_and_grads(state.model, batch, generator)
+    params = [p for p in state.model.parameters() if p.grad is not None]
+    grads = [p.grad for p in params]
+    if state.clip != -1:
+        clipped = clip_by_global_norm(grads, metrics["grad_norm"], state.clip)
+        for p, g in zip(params, clipped):
+            p.grad = g
+    old = [p.detach().clone() for p in params] if nan_guard else None
     state.optimizer.step()
+    if nan_guard:
+        metrics["nan_skipped"] = nan_guard_update(params, old, grads)
     state.step += 1
     return metrics
 
 
-def make_train_step(nan_guard: bool = False
-                    ) -> Callable[[TrainState, Dict], Dict]:
-    """(state, batch) -> metrics: one step on a given batch."""
-    if nan_guard:
-        raise NotImplementedError("nan_guard is not ported: ROADMAP queue "
-                                  "1, item 3 (9d)")
-    return train_step
+def make_train_step(nan_guard: bool = False) -> Callable[..., Dict]:
+    """(state, batch, generator=None) -> metrics: one step on a given
+    batch."""
+    return functools.partial(train_step, nan_guard=nan_guard)
 
 
-def make_eval_step() -> Callable[[torch.nn.Module, Dict],
-                                 Tuple[Dict, torch.Tensor]]:
-    """(model, batch) -> (metrics, pred): per-horizon ``mse``, ``psnr``
-    and ``ssim`` (each (T,)) and the model's stats as ``aux_<name>``."""
+def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
+    """(model, batch, generator=None) -> (metrics, pred): per-horizon
+    ``mse``, ``psnr`` and ``ssim`` (each (T,)) and the model's stats as
+    ``aux_<name>``."""
 
     @torch.no_grad()
-    def eval_step(model: torch.nn.Module, batch: Dict):
-        pred, aux = model.predict(batch)
+    def eval_step(model: torch.nn.Module, batch: Dict,
+                  generator: Optional[torch.Generator] = None):
+        pred, aux = model.predict(batch, generator)
         target = batch["data_to_predict"].float() + 0.5
         metrics = per_frame_metrics(pred, target)
         metrics.update({f"aux_{k}": v for k, v in aux.items()
@@ -104,20 +137,26 @@ def make_eval_step() -> Callable[[torch.nn.Module, Dict],
 
 
 def make_fused_train_step(cfg, sprite_bank: torch.Tensor
-                          ) -> Callable[[TrainState, torch.Generator], Dict]:
-    """(state, generator) -> metrics: a Moving MNIST batch made on the
-    device from ``generator``, then one training step."""
+                          ) -> Callable[..., Dict]:
+    """(state, generator, sample_generator=None) -> metrics: a Moving
+    MNIST batch made on the device from ``generator``, then one training
+    step (with ``cfg.nan_guard``) that draws any model noise from
+    ``sample_generator``."""
     if cfg.resolution != IMAGE_SIZE:
         raise NotImplementedError(f"the generator makes {IMAGE_SIZE}x"
                                   f"{IMAGE_SIZE} frames")
     n_in = int(cfg.train_in_seq)
     n_frames = n_in + int(cfg.train_out_seq)
+    step = make_train_step(bool(cfg_get(cfg, "nan_guard", False)))
 
-    def fused_step(state: TrainState, generator: torch.Generator) -> Dict:
+    def fused_step(state: TrainState, generator: torch.Generator,
+                   sample_generator: Optional[torch.Generator] = None
+                   ) -> Dict:
         video = generate_moving_mnist(generator, sprite_bank,
                                       batch=int(cfg.batch_size),
                                       n_frames=n_frames,
                                       num_digits=int(cfg.num_digits))
-        return train_step(state, make_batch_dict(video, n_in=n_in))
+        return step(state, make_batch_dict(video, n_in=n_in),
+                    sample_generator)
 
     return fused_step

@@ -8,7 +8,19 @@ H != W, C not a
 multiple of 32 and d > H, the tensor-core K5-K7 against the SIMT ones
 and fp64 at maps of at most 64 pixels and the shapes the rule sends to
 SIMT, channelnorm at C = 1, 2, 3 and 64 and bit-equal to the plain
-version at FlowNet2's maps, and the checks that make a wrapper raise.
+version at FlowNet2's maps, the checks that make a wrapper raise, and one
+step of each Moving MNIST recurrent block (ConvGRU, cgrudecODE, the
+memory modes nru and nru2, the sampled z0) at its full width, fp32 and
+B=4, 10 -> 10 frames, through the kernels against the same step under
+``force_plain()`` (same weights, batch and z0 noise; loss to 1e-5
+relative, prediction to 1e-4 max abs, every gradient leaf to 1e-3
+relative L2, solver stats equal; K1/K2 on SIMT, K3/K4 one-sample) on
+a Moving MNIST batch from the port's generator. The sampled z0 is held
+with its KL term too: stats, loss and prediction, and every gradient
+leaf outside the conv encoder and the z0 encoder. The KL term's gradient
+in std is -1/(std + 1e-6), which multiplies the fp32 rounding of a std
+near zero by up to 1e6 in the leaves it reaches (those two), so they are
+held with ``z_kl_weight`` 0.
 
 These need an sm_90 GPU and skip elsewhere. The conftest of this folder
 imports JAX, which the machine with the card lacks, so run them there as
@@ -42,6 +54,10 @@ at C = 2 and 3 it is bit-equal to it in fp32 too.
 import pytest
 import torch
 
+from ode_rl_torch.core.config import load_config
+from ode_rl_torch.data.mmnist import generate_moving_mnist
+from ode_rl_torch.data.protocol import make_batch_dict
+from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
                                           channelnorm_plain)
@@ -70,6 +86,7 @@ from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
                                         _gru_gates_sample, blend_f64,
                                         fused_gru_blend, fused_gru_gates,
                                         gates_f64, sample_plan)
+from ode_rl_torch.train.step import create_train_state, loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -822,3 +839,55 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda, case):
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
+
+
+@pytest.mark.parametrize("block", [
+    "train_mmnist_cgru_len20", "train_mmnist_cgrudecODE",
+    "train_mmnist_odecgrumem_len20_1ch", "train_mmnist_odecgrumem2_len20_1ch",
+    "train_mmnist_sample_odecgru"])
+def test_recurrent_step_matches_plain(cuda, block):
+    cfg = load_config(["defaults", block], overrides={
+        "batch_size": 4, "train_in_seq": 10, "train_out_seq": 10})
+    model = create_train_state(cfg, torch.device("cuda")).model
+    bank = torch.from_numpy(get_sprite_bank(cfg.data_dir)).float().cuda()
+    video = generate_moving_mnist(torch.Generator(device="cuda").manual_seed(
+        2), bank, batch=4, n_frames=20, num_digits=3)
+    batch = make_batch_dict(video, 10)
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        metrics, pred = loss_and_grads(model, batch, gen)
+        return metrics, pred, {n: p.grad.clone()
+                               for n, p in model.named_parameters()}
+
+    def compare(leaves):
+        common.reset_launches()
+        m_k, pred_k, g_k = run()
+        counts = dict(common.launches)
+        with common.force_plain():
+            m_p, pred_p, g_p = run()
+        for k in ("nfe", "ode_accepted", "ode_rejected", "ode_converged"):
+            assert m_k.get(k) == m_p.get(k), k
+        assert abs(float(m_k["loss"]) / float(m_p["loss"]) - 1.0) <= 1e-5
+        assert _max_abs(pred_k, pred_p) <= 1e-4
+        for name in filter(leaves, g_k):
+            err = ((g_k[name] - g_p[name]).norm()
+                   / g_p[name].norm().clamp_min(1e-30)).item()
+            assert err <= 1e-3, name
+        return counts
+
+    if cfg.z_sample:
+        assert model.z_kl_weight > 0
+        compare(lambda name: not name.startswith(("conv_encoder.",
+                                                  "z0_encoder.")))
+        model.z_kl_weight = 0.0
+    counts = compare(lambda name: True)
+    assert counts["gru_gates"] > 0 and counts["gru_blend"] > 0
+    assert counts["gru_gates_sample"] == counts["gru_gates"]
+    assert counts["gru_blend_sample"] == counts["gru_blend"]
+    if cfg.model == "ConvGRU":
+        assert counts["conv3x3_fwd"] == counts["conv3x3_wgrad"] == 0
+    else:
+        assert counts["conv3x3_fwd"] > 0 and counts["conv3x3_wgrad"] > 0
+        assert counts["conv3x3_fwd_simt"] == counts["conv3x3_fwd"]
+        assert counts["conv3x3_wgrad_simt"] == counts["conv3x3_wgrad"]

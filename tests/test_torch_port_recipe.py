@@ -197,20 +197,21 @@ def test_main_defaults_to_cuda_and_refuses_the_cpu_fallback():
 
 def test_registry_refuses_unported_families_and_options():
     from ode_rl_torch.models.registry import build_model
+    from ode_rl_torch.train.loop import _refuse_unported
 
     cfg = load_config(RECIPE, overrides=NARROW)
     gen = torch.Generator().manual_seed(0)
-    for overrides, match in (({"model": "ConvGRU"}, "item 4"),
-                             ({"model": "VidODE"}, "item 8"),
-                             ({"mem": True}, "item 5"),
-                             ({"z_sample": True}, "9c")):
+    for overrides, match in (({"model": "VidODE"}, "item 8"),
+                             ({"model": "S3VAE"}, "item 9"),
+                             ({"model": "ConvLSTM"}, "item 10"),
+                             ({"model": "DSVAE"}, "item 12"),
+                             ({"mem": True, "mem_mode": "nru3"}, "nru")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(cfg.replace(**overrides), torch.device("cpu"), gen)
-    for overrides in ({"clip": 1.0}, {"optimizer": "adamax"}):
-        with pytest.raises(NotImplementedError, match="9d"):
-            create_train_state(cfg.replace(**overrides), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="9d"):
-        make_train_step(nan_guard=True)
+    with pytest.raises(NotImplementedError, match="optimizer 'sgd'"):
+        create_train_state(cfg.replace(optimizer="sgd"), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="plateau"):
+        _refuse_unported(cfg.replace(lr_scheduler="plateau"))
 
 
 @pytest.mark.parametrize("overrides,match", [
