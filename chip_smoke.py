@@ -117,15 +117,39 @@ without printing its last line:
    turns off, on, on, off (step_ms and device ms; each turn's losses
    held to the first's, 1e-5 relative). Prints each block's
    median step_ms over steps 2-10 and mean NFE.
+11. S3VAE family: ``ode_rl_torch.main`` on each of its 13 train blocks
+   (``defaults`` + ``train_mmnist_{recon,extrap}_s3vae``,
+   ``{recon,extrap}_cs3vae``, ``s3vae_odecgru``, ``s3vaeode``,
+   ``{recon,extrap}_s4vae``, ``{recon,extrap}_cs4vae``, ``recon_rims4vae``,
+   ``recon_cgrurims3vae``, ``recon_rimconvs4vae``) at their own widths and
+   frames (fp32, B=4), 4 steps each on the frozen corpus with 200-frame
+   test videos, with TF32 turned on before each call and ``main`` turning
+   it off: the eight S3VAE metrics, loss and grad_norm finite at every
+   step, a checkpoint at step 4 whose BatchNorm buffers all moved; the
+   'default' blocks launch none of K1-K4, 'cgru', 'cgru_sa' and
+   'cgru_rim' K3 and K4 (one-sample) and no K1/K2, 'odecgru' K1-K4 with
+   every K1/K2 launch a SIMT one; median step_ms over steps 2-4 and the
+   rollout's NFE. Then ``test_mmnist_recon_s3vae``, ``_cs3vae``,
+   ``_cs4vae`` and ``_rims4vae`` (20 -> 180, one batch: 200 finite values
+   of each metric) from their train runs' checkpoints; one step of
+   ``recon_cs3vae``, ``s3vae_odecgru`` and ``recon_cs4vae`` from the seed's
+   weights through the kernels (profiled) against the same step under
+   ``force_plain()`` with the same weights, buffers, batch and noise (loss
+   1e-5 relative, prediction 1e-4 max abs, every gradient leaf within 1e-3
+   of its norm plus 1e-5 of the whole norm, BatchNorm buffers 1e-5, equal
+   NFE); and K1/K2 at (4, 4, 4, 32->64) and (4, 4, 4, 128->64), K3/K4 at
+   (12, 4, 4, 128), (12, 8, 8, 512) and (4, 4, 4, 256) alone against their
+   plain versions, each with its route, device µs and bound.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7, 8, 9 and 10) run their convs in strict fp32. Then one JSON line with each
-kernel's launches, error, times, bound (the larger of its operations over
-the peak rate of their type and its bytes over the memory rate, at the
-shape timed) and the time of the one PyTorch call that computes the same
-function where there is one (cuDNN's conv for K1, cuDNN's weight gradient
-for K2, torch.linalg.vector_norm for K8; the port never calls them), and
-as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+7, 8, 9, 10 and 11) run their convs in strict fp32. Then one JSON line
+with each kernel's launches, error, times, bound (the larger of its
+operations over the peak rate of their type and its bytes over the memory
+rate, at the shape timed) and the time of the one PyTorch call that
+computes the same function where there is one (cuDNN's conv for K1,
+cuDNN's weight gradient for K2, torch.linalg.vector_norm for K8; the port
+never calls them), and as the last line {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -156,6 +180,7 @@ from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
 from ode_rl_torch.flow.train import (flow_loss_and_grads,
                                      make_fused_flow_train_step,
                                      synthetic_flow_batch)
+from ode_rl_torch.nn import s3vae_nets
 from ode_rl_torch.ops import _build, common
 from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
                                           channelnorm_plain)
@@ -163,7 +188,8 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       _conv3x3_fwd_tc, _conv3x3_wgrad_simt,
                                       _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
-                                      conv3x3_wgrad_plain, flip_transpose)
+                                      conv3x3_wgrad_plain, flip_transpose,
+                                      simt_plan, wgrad_simt_plan)
 from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           _correlation_bwd_f1_simt,
                                           _correlation_bwd_f1_tc,
@@ -1962,6 +1988,341 @@ def phase_recurrent(bank: torch.Tensor) -> dict:
             "hoist": hoist}
 
 
+S3VAE_TRAIN = (
+    "train_mmnist_recon_s3vae", "train_mmnist_extrap_s3vae",
+    "train_mmnist_recon_cs3vae", "train_mmnist_extrap_cs3vae",
+    "train_mmnist_s3vae_odecgru", "train_mmnist_s3vaeode",
+    "train_mmnist_recon_s4vae", "train_mmnist_extrap_s4vae",
+    "train_mmnist_recon_cs4vae", "train_mmnist_extrap_cs4vae",
+    "train_mmnist_recon_rims4vae", "train_mmnist_recon_cgrurims3vae",
+    "train_mmnist_recon_rimconvs4vae")
+# (test block, the train block whose checkpoint it loads).
+S3VAE_TESTS = (("test_mmnist_recon_s3vae", "train_mmnist_recon_s3vae"),
+               ("test_mmnist_recon_cs3vae", "train_mmnist_recon_cs3vae"),
+               ("test_mmnist_recon_cs4vae", "train_mmnist_recon_cs4vae"),
+               ("test_mmnist_recon_rims4vae", "train_mmnist_recon_rims4vae"))
+S3VAE_REFERENCE = ("train_mmnist_recon_cs3vae", "train_mmnist_s3vae_odecgru",
+                   "train_mmnist_recon_cs4vae")
+S3VAE_STEPS = 4
+S3VAE_METRICS = ("loss", "vae_loss", "recon_loss", "kl_zf", "kl_zt",
+                 "scc_loss", "dfp_loss", "mi_loss")
+# A gradient leaf of S3VAE's reference step: its error within 1e-3 of its
+# norm plus 1e-5 of the whole gradient's norm. The biases of the convs
+# before a training-mode BatchNorm have no gradient in exact arithmetic;
+# each side's is rounding (tests/test_torch_port_s3vae.py).
+S3VAE_GRAD_RTOL, S3VAE_GRAD_ATOL = 1e-3, 1e-5
+
+
+class _NfeRecorder:
+    """Stands in for ``odeint_aux`` in nn/s3vae_nets.py ('odecgru'
+    rollouts): the same solve, each call's NFE recorded."""
+
+    def __init__(self):
+        self.nfe = []
+
+    def __enter__(self):
+        self.real = s3vae_nets.odeint_aux
+
+        def solve(*args, **kwargs):
+            ys, stats = self.real(*args, **kwargs)
+            self.nfe.append(int(stats.nfe))
+            return ys, stats
+
+        s3vae_nets.odeint_aux = solve
+        return self
+
+    def __exit__(self, *exc):
+        s3vae_nets.odeint_aux = self.real
+
+
+def _check_tf32_off(where: str) -> None:
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError(f"TF32 left on after {where}")
+
+
+def _check_s3vae_routes(encoder: str, counts: dict, where: str) -> None:
+    """'default': no K1-K4 launch. 'cgru', 'cgru_sa', 'cgru_rim': K3/K4
+    (one-sample) and no K1/K2. 'odecgru': K1-K4, as the recipe."""
+    if encoder == "odecgru":
+        _check_recipe_routes(counts, where)
+        return
+    gru = counts["gru_gates"] + counts["gru_blend"]
+    conv = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    if encoder == "default":
+        if gru or conv:
+            raise AssertionError(f"K1-K4 launched in the {where}: {counts}")
+        return
+    if counts["gru_gates"] == 0 or counts["gru_blend"] == 0 or conv:
+        raise AssertionError(f"the {where} did not run K3/K4 alone: "
+                             f"{counts}")
+    _check_gru_sample(counts)
+
+
+def _s3vae_train(block: str, root: pathlib.Path, logs: pathlib.Path) -> dict:
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs / block), "--steps_per_epoch",
+            str(S3VAE_STEPS), "--epochs", "1", "--loss_log_freq", "1",
+            "--ckpt_save_freq", str(S3VAE_STEPS)]
+    cfg, run = _run_dir(argv)
+    timer = _TimedTrainStep()
+    train_loop.make_train_step = timer
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.synchronize()
+    common.reset_launches()
+    try:
+        with _NfeRecorder() as nfe:
+            out = port_main.main(argv)
+    finally:
+        train_loop.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    _check_tf32_off(f"main on {block}")
+    counts = dict(common.launches)
+    _check_s3vae_routes(cfg.encoder, counts, f"{block} run")
+    if out["final_step"] != S3VAE_STEPS:
+        raise AssertionError(f"{block}: {out['final_step']} steps")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in logged] != list(range(1, S3VAE_STEPS + 1)):
+        raise AssertionError(f"{block}: logged steps "
+                             f"{[m['step'] for m in logged]}")
+    for m in logged:
+        bad = [k for k in (*S3VAE_METRICS, "grad_norm")
+               if not np.isfinite(m.get(k, np.nan))]
+        if bad:
+            raise AssertionError(f"{block} step {m['step']}: {bad} missing "
+                                 "or not finite")
+    ckpt = CheckpointManager(run / "checkpoints", tag=cfg.ckpt_id)
+    if ckpt.all_steps() != [S3VAE_STEPS]:
+        raise AssertionError(f"{block}: checkpoints at {ckpt.all_steps()}")
+    # BatchNorm starts at mean 0 and var 1.
+    saved = ckpt.restore({"model": {}})["state"]["model"]
+    bn = {k: v for k, v in saved.items() if k.endswith((".mean", ".var"))}
+    still = [k for k, v in bn.items()
+             if torch.all(v == (0.0 if k.endswith(".mean") else 1.0))]
+    if not bn or still:
+        raise AssertionError(f"{block}: BatchNorm buffers that did not move "
+                             f"({len(still)} of {len(bn)}): {still[:4]}")
+    median = statistics.median(timer.ms[1:])
+    per_step = {k: counts[k] / S3VAE_STEPS for k in FLAGSHIP_KERNELS}
+    mean_nfe = statistics.mean(nfe.nfe) if nfe.nfe else None
+    print(f"  {block} ({cfg.encoder}, {cfg.train_in_seq}->"
+          f"{cfg.train_out_seq}): losses "
+          f"{[round(m['loss'], 3) for m in logged]}; median step_ms over "
+          f"steps 2-{S3VAE_STEPS} {median:.2f}; nfe "
+          f"{nfe.nfe or '-'}; {len(bn)} BatchNorm buffers moved; K1-K4 "
+          f"a step {per_step}")
+    return {"counts": counts, "step_ms": median, "mean_nfe": mean_nfe,
+            "logs": logs / block, "encoder": cfg.encoder}
+
+
+def _s3vae_test(block: str, logs: pathlib.Path, root: pathlib.Path) -> None:
+    """One eval batch of the test block from its train run's checkpoint:
+    t_in + n_out finite values of every per-horizon metric."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs), "--eval_batches", "1"]
+    cfg, _ = port_main.get_cfg(argv)
+    n = cfg.test_in_seq + cfg.test_out_seq
+    t0 = time.perf_counter()
+    out = port_main.main(argv)
+    seconds = time.perf_counter() - t0
+    _check_tf32_off(f"main on {block}")
+    run = logs / cfg.model / resolve_run_id(cfg)
+    per_horizon = json.loads((run / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim"):
+        v = per_horizon[k]
+        if len(v) != n or not np.all(np.isfinite(v)):
+            raise AssertionError(f"{block} per_horizon {k}: {len(v)} "
+                                 f"values, not {n} finite ones")
+    print(f"  {block} ({cfg.test_in_seq}->{cfg.test_out_seq}, {n} frames "
+          f"predicted): {seconds:.2f} s; mse at frames 1, 20, 21, {n}: "
+          + " ".join(f"{per_horizon['mse'][i]:.4f}"
+                     for i in (0, 19, 20, n - 1))
+          + f"; final ssim {out['final_ssim']:.4f}")
+
+
+def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
+    """One step of ``block`` at B=4 in fp32 from its seed's weights on a
+    frozen batch, through the kernels (profiled) and under
+    ``force_plain()``: the same weights, BatchNorm buffers, batch and
+    noise (a generator seeded alike). Loss to 1e-5 relative, prediction
+    1e-4 max abs, every gradient leaf within 1e-3 of its norm plus 1e-5 of
+    the whole norm, every BatchNorm buffer after the step 1e-5 relative
+    L2, equal NFE."""
+    cfg = load_config(["defaults", block], overrides={"data_dir": str(root)})
+    model = create_train_state(cfg, torch.device("cuda")).model
+    video = next(FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
+                                   cfg.train_out_seq, seed=5,
+                                   device=torch.device("cuda")))
+    batch = make_batch_dict(video, cfg.train_in_seq, with_flow_labels=True)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run_step():
+        model.load_state_dict(start)
+        model.train()
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        with _NfeRecorder() as nfe:
+            metrics, pred = loss_and_grads(model, batch, gen)
+        return (metrics, pred,
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: b.clone() for n, b in model.named_buffers()}, nfe.nfe)
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
+        t0 = time.perf_counter()
+        m_k, pred_k, g_k, b_k, nfe_k = run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(common.launches)
+    _check_s3vae_routes(cfg.encoder, counts, f"{block} reference step")
+    with common.force_plain():
+        m_p, pred_p, g_p, b_p, nfe_p = run_step()
+    shape = (cfg.batch_size, cfg.train_in_seq, 64, 64, 1)
+    if tuple(pred_k.shape) != shape or not torch.isfinite(pred_k).all():
+        raise AssertionError(f"{block}: prediction {tuple(pred_k.shape)} "
+                             f"is not a finite {shape}")
+    print(f"  {block} ({cfg.encoder}): nfe kernels {nfe_k} plain {nfe_p}")
+    if nfe_k != nfe_p:
+        raise AssertionError(f"{block}: NFE differs")
+    check(f"{block[12:30]} loss (relative)",
+          abs(float(m_k["loss"]) / float(m_p["loss"]) - 1.0), 1e-5, "rel")
+    check(f"{block[12:30]} prediction", max_abs(pred_k, pred_p), 1e-4,
+          "max_abs")
+    total = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                 for g in g_p.values())))
+    ratio = {n: float((g_k[n] - g_p[n]).double().norm())
+             / (S3VAE_GRAD_RTOL * float(g_p[n].double().norm())
+                + S3VAE_GRAD_ATOL * total) for n in g_k}
+    worst = max(ratio, key=ratio.get)
+    print(f"    worst gradient leaf {worst}: rel_l2 "
+          f"{rel_l2(g_k[worst], g_p[worst]):.3e}, {ratio[worst]:.3f} of its "
+          f"bound (1e-3 of its norm + 1e-5 of the whole norm {total:.4g})")
+    check(f"{block[12:30]} worst grad / bound", ratio[worst], 1.0, "ratio")
+    worst_b = max(b_k, key=lambda n: rel_l2(b_k[n], b_p[n]))
+    check(f"{block[12:30]} BatchNorm buffers",
+          rel_l2(b_k[worst_b], b_p[worst_b]), 1e-5, "rel_l2")
+    device = _device_ms(prof)
+    print(f"    the step (forward and backward), profiled: device ms "
+          f"{device:.3f} of {wall_ms:.2f} ms (busy "
+          f"{100 * device / wall_ms:.1f}%); launches "
+          f"{({k: counts[k] for k in FLAGSHIP_KERNELS})}")
+    return {"counts": counts, "device_ms": device, "wall_ms": wall_ms,
+            "nfe": nfe_k}
+
+
+def _s3vae_shapes() -> dict:
+    """K1/K2 and K3/K4 alone at the shapes S3VAE gives them, fp32: each
+    against its plain version (K1 1e-4 max abs, K2 1e-5 relative L2, K3
+    and K4 1e-5 max abs), its route printed, and its device µs beside its
+    plain version's and its bound."""
+    gen = torch.Generator().manual_seed(9)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for cin, cout in ((32, 64), (128, 64)):
+        b, hw = 4, 4
+        x, g = rnd(b, hw, hw, cin), rnd(b, hw, hw, cout)
+        w = rnd(9 * cin, cout) / (3.0 * cin ** 0.5)
+        label = f"({b}, {hw}, {hw}, {cin}->{cout})"
+        print(f"  K1/K2 at {label} fp32: simt_plan "
+              f"{simt_plan(b, hw, hw, cin, cout, sms)}, wgrad_simt_plan "
+              f"{wgrad_simt_plan(b, hw, hw, cin, cout, sms)}")
+        common.reset_launches()
+        y, dw = conv3x3_fwd(x, w), conv3x3_wgrad(x, g)
+        counts = dict(common.launches)
+        if (counts["conv3x3_fwd_simt"] != 1
+                or counts["conv3x3_wgrad_simt"] != 1):
+            raise AssertionError(f"K1/K2 at {label} missed SIMT: {counts}")
+        k1 = check(f"K1 at {label}", max_abs(y, conv3x3_fwd_plain(x, w)),
+                   1e-4, "max_abs")
+        k2 = check(f"K2 at {label}", rel_l2(dw, conv3x3_wgrad_plain(x, g)),
+                   1e-5, "rel_l2")
+        us = device_us({"K1": lambda: conv3x3_fwd(x, w),
+                        "K1 plain": lambda: conv3x3_fwd_plain(x, w),
+                        "K2": lambda: conv3x3_wgrad(x, g),
+                        "K2 plain": lambda: conv3x3_wgrad_plain(x, g)})
+        px = b * hw * hw
+        flops = 2 * px * 9 * cin * cout
+        out[f"K1 {label}"] = {
+            "route": "simt", "err": k1, "dev_us": us["K1"],
+            "plain_dev_us": us["K1 plain"],
+            **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
+                     PEAK_FP32)}
+        out[f"K2 {label}"] = {
+            "route": "simt", "err": k2, "dev_us": us["K2"],
+            "plain_dev_us": us["K2 plain"],
+            **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
+                     PEAK_FP32)}
+    # (B, H=W, the gates' 2C): the static heads of 'cgru'/'odecgru' (3B
+    # rows, d_zf 64) and of 'cgru_sa' (d_zf 256), the 'odecgru' z0 cell.
+    for b, hw, c2 in ((12, 4, 128), (12, 8, 512), (4, 4, 256)):
+        c = c2 // 2
+        gg, gc = max(2 * c // 32, 1), max(c // 32, 1)
+        h = torch.tanh(rnd(b, hw, hw, c))
+        gs, gb = 1.0 + 0.1 * rnd(2 * c), 0.1 * rnd(2 * c)
+        cs, cb = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
+        gates, cand = rnd(b, hw, hw, 2 * c), rnd(b, hw, hw, c)
+        z = torch.sigmoid(rnd(b, hw, hw, c))
+        px = b * hw * hw
+        for name, plan, kernel, plain, flops, nbytes in (
+                ("K3", sample_plan(b, hw * hw, c, gg, torch.float32, 16),
+                 lambda: fused_gru_gates(gates, h, gs, gb, gg),
+                 lambda: _gates_plain(gates, h, gs, gb, gg),
+                 10 * px * 2 * c, (px * 5 * c + 4 * c) * 4),
+                ("K4", sample_plan(b, hw * hw, c, gc, torch.float32, 16,
+                                   blend=True),
+                 lambda: fused_gru_blend(cand, z, h, cs, cb, gc),
+                 lambda: _blend_plain(cand, z, h, cs, cb, gc),
+                 10 * px * c, (px * 4 * c + 2 * c) * 4)):
+            cin = 2 * c if name == "K3" else c
+            label = f"({b}, {hw}, {hw}, {cin})"
+            print(f"  {name} at {label} fp32: sample_plan {plan}")
+            common.reset_launches()
+            err = max(max_abs(p, q) for p, q in zip(_as_tuple(kernel()),
+                                                     _as_tuple(plain())))
+            counts = dict(common.launches)
+            kind = "gru_gates" if name == "K3" else "gru_blend"
+            route = "sample" if counts[f"{kind}_sample"] else "2pass"
+            if (plan is None) == (route == "sample"):
+                raise AssertionError(f"{name} at {label}: route {route}, "
+                                     f"plan {plan}")
+            check(f"{name} at {label}", err, 1e-5, "max_abs")
+            us = device_us({"kernel": kernel, "plain": plain})
+            out[f"{name} {label}"] = {
+                "route": route, "err": err, "dev_us": us["kernel"],
+                "plain_dev_us": us["plain"],
+                **_bound(flops, nbytes, PEAK_FP32)}
+    for label, row in out.items():
+        print(f"    {label}: {row['route']}, dev µs {row['dev_us']:.2f} "
+              f"(plain {row['plain_dev_us']:.2f}), bound "
+              f"{row['bound_ms'] * 1e3:.3f} µs by {row['bound_by']}")
+    return out
+
+
+def phase_s3vae(bank: torch.Tensor) -> dict:
+    print(f"[11] S3VAE family: the {len(S3VAE_TRAIN)} train blocks through "
+          f"ode_rl_torch.main (fp32, B={RECIPE_B}), {S3VAE_STEPS} steps "
+          "each on a frozen corpus, the test blocks (20 -> 180), reference "
+          "steps against the plain versions, the kernels at S3VAE's shapes")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        trains = {block: _s3vae_train(block, root, logs)
+                  for block in S3VAE_TRAIN}
+        for block, train_block in S3VAE_TESTS:
+            _s3vae_test(block, trains[train_block]["logs"], root)
+        refs = {block: _s3vae_reference(block, root)
+                for block in S3VAE_REFERENCE}
+    shapes = _s3vae_shapes()
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"train": trains, "reference": refs, "shapes": shapes}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1983,6 +2344,7 @@ def main() -> int:
     phase_flow_reference(bank)
     recipe = phase_recipe(bank)
     recurrent = phase_recurrent(bank)
+    s3vae = phase_s3vae(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -2015,6 +2377,23 @@ def main() -> int:
             for block, run in recurrent["reference"].items()}
         timings[name]["defaults_launches"] = recurrent["defaults"]["counts"][
             name]
+    # Phase 11 read the counts around each of its runs.
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["s3vae_launches"] = {
+            block: run["counts"][name]
+            for block, run in s3vae["train"].items()}
+        timings[name]["s3vae_step_launches"] = {
+            block: run["counts"][name]
+            for block, run in s3vae["reference"].items()}
+    for label, row in s3vae["shapes"].items():
+        kernel = {"K1": "conv3x3_fwd", "K2": "conv3x3_wgrad",
+                  "K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
+        timings[kernel].setdefault("s3vae_shapes", {})[label[3:]] = row
+    for block, run in s3vae["train"].items():
+        nfe = run["mean_nfe"]
+        print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
+              f"2-{S3VAE_STEPS}), mean nfe "
+              f"{'-' if nfe is None else f'{nfe:.2f}'}")
     for block, run in recurrent["train"].items():
         nfe = run["mean_nfe"]
         ref = recurrent["reference"][block]

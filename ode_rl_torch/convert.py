@@ -1,25 +1,34 @@
-"""flax parameter tree -> ``state_dict`` of the port's modules.
+"""flax variable trees -> ``state_dict`` of the port's modules.
 
-The port names its parameters by the flax path, with one rule per kind
-of leaf:
+The port names its parameters and buffers by the flax path. Only conv
+kernels, the rank-4 ``kernel`` leaves, change layout, by the layer that
+holds them:
 
-* ``Conv`` kernels (HWIO) become torch's OIHW ``weight``;
+* ``Conv`` kernels (HWIO, or (kh, kw, Cin/K, Cout) for a conv of K
+  groups) become torch's OIHW ``weight``;
 * the 3x3 convs of the ODE fields (``ConvNet`` layers ``in``, ``mid_i``,
   ``out``) keep flax's HWIO ``kernel``, because its reshape to
   (9*Cin, Cout) is the layout kernels K1/K2 take;
 * ``ConvTranspose`` kernels (the decoder's ``up_i``, FlowNet's ``deconv``
-  and ``upflow``, ConvGRUModel's ``dec_0`` and ``dec_1``) are flipped
-  spatially and laid out (in, out, kh, kw) for
-  ``conv_transpose2d(stride=2, padding=1)``: flax's 'SAME' transposed conv
-  is torch's with the kernel flipped;
-* biases and the GroupNorm scales and biases copy by name.
+  and ``upflow``, ConvGRUModel's ``dec_0`` and ``dec_1``, S3VAE's
+  ``deconv_in``) are flipped spatially and laid out (in, out, kh, kw) for
+  ``conv_transpose2d``: flax's transposed conv is torch's with the kernel
+  flipped ('SAME' at stride 2 is padding 1, 'VALID' at stride 1 padding
+  0);
+* every other leaf copies by name: Dense kernels (din, dout), which the
+  port keeps in flax's layout (a GRU's Dense may be named ``in``), biases,
+  the GroupNorm, LayerNorm and BatchNorm scales and biases, the RIMs'
+  (K, din, dout) weights and slot attention's ``slots_mu`` and
+  ``slots_log_sigma``.
 
-The input holds numpy arrays only; nothing of JAX is imported.
+A ``batch_stats`` tree (BatchNorm's running ``mean`` and ``var``) fills
+the BatchNorm buffers of the same path. The input holds numpy arrays
+only; nothing of JAX is imported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +39,7 @@ def _is_field_conv(layer: str) -> bool:
 
 
 def _is_transposed_conv(layer: str) -> bool:
-    return (layer in ("deconv", "upflow", "dec_0", "dec_1")
+    return (layer in ("deconv", "upflow", "dec_0", "dec_1", "deconv_in")
             or layer.startswith("up_"))
 
 
@@ -45,7 +54,7 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
 
 def _convert(path: Tuple[str, ...], leaf: np.ndarray
              ) -> Tuple[Tuple[str, ...], np.ndarray]:
-    if path[-1] != "kernel":
+    if path[-1] != "kernel" or leaf.ndim != 4:
         return path, leaf
     if _is_transposed_conv(path[-2]):
         return path[:-1] + ("weight",), np.flip(leaf, (0, 1)).transpose(
@@ -55,10 +64,14 @@ def _convert(path: Tuple[str, ...], leaf: np.ndarray
     return path[:-1] + ("weight",), leaf.transpose(3, 2, 0, 1)
 
 
-def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax 'params' tree of numpy arrays -> a ``state_dict``."""
+def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """A flax 'params' tree of numpy arrays (and its 'batch_stats') -> a
+    ``state_dict``."""
     state = {}
     for path, leaf in _leaves(params):
         new_path, value = _convert(path, leaf)
         state[".".join(new_path)] = torch.from_numpy(np.array(value))
+    for path, leaf in _leaves(batch_stats or {}):
+        state[".".join(path)] = torch.from_numpy(np.array(leaf))
     return state

@@ -163,11 +163,11 @@ def parse_datasets(cfg, device: torch.device) -> dict:
     (the contract of the JAX ``parse_datasets``)."""
     if cfg.dataset == "sprites":
         raise NotImplementedError("the sprites dataset is not ported: "
-                                  "ROADMAP queue 1, item 12")
+                                  "ROADMAP queue 1, item 9")
     if cfg.dataset in _VIDEO_CORPORA:
         raise NotImplementedError(
             f"the {cfg.dataset} video corpus is not ported: ROADMAP queue "
-            "1, item 8 (data/video_corpus.py)")
+            "1, item 6 (data/video_corpus.py)")
     if cfg.dataset != "mmnist":
         raise NotImplementedError(f"There is no dataset named {cfg.dataset}")
     total = int(cfg.get("data_points", 10000))

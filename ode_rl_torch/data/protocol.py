@@ -1,8 +1,9 @@
 """Batch-dict protocol.
 
-Counterpart of ``ode_rl_tpu/data/protocol.py`` without flow labels:
-normalised timestamps ``arange(0, T) / T`` split into ``observed_tp`` and
-``tp_to_predict``, the observed/predicted frame split, and masks.
+Counterpart of ``ode_rl_tpu/data/protocol.py``: normalised timestamps
+``arange(0, T) / T`` split into ``observed_tp`` and ``tp_to_predict``, the
+observed/predicted frame split, masks, and, for S3VAE, the motion-grid
+labels of the frame differences (data/flow_labels.py).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from ode_rl_torch.data.flow_labels import motion_grid_labels
 
 
 def timestamps_for(n_in: int, n_out: int, device=None):
@@ -19,15 +22,18 @@ def timestamps_for(n_in: int, n_out: int, device=None):
     return ts[:n_in], ts[n_in:]
 
 
-def make_batch_dict(video: torch.Tensor, n_in: int
-                    ) -> Dict[str, torch.Tensor]:
+def make_batch_dict(video: torch.Tensor, n_in: int,
+                    with_flow_labels: bool = False, flow_grid: int = 3,
+                    flow_topk: int = 3) -> Dict[str, torch.Tensor]:
     """Split a (B, T, H, W, C) video in [-0.5, 0.5] into the batch dict;
-    every frame is observed (all-ones masks)."""
+    every frame is observed (all-ones masks). ``with_flow_labels`` adds
+    ``in_flow_labels`` and ``out_flow_labels``, both the labels of the
+    first n_in - 1 transitions, as JAX's are."""
     b, t = video.shape[:2]
     n_out = t - n_in
     observed_tp, tp_to_predict = timestamps_for(n_in, n_out, video.device)
     mask = torch.ones((b, t), dtype=video.dtype, device=video.device)
-    return {
+    batch = {
         "observed_data": video[:, :n_in],
         "data_to_predict": video[:, n_in:],
         "observed_tp": observed_tp,
@@ -35,3 +41,9 @@ def make_batch_dict(video: torch.Tensor, n_in: int
         "observed_mask": mask[:, :n_in],
         "mask_predicted_data": mask[:, n_in:],
     }
+    if with_flow_labels:
+        labels = motion_grid_labels(video + 0.5, grid=flow_grid,
+                                    topk=flow_topk)
+        batch["in_flow_labels"] = labels[:, :n_in - 1]
+        batch["out_flow_labels"] = labels[:, :n_in - 1]
+    return batch

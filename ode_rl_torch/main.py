@@ -8,6 +8,10 @@ merge left to right and every resulting key is a typed ``--key value``
 flag. ``--device`` is the port's own argument, not a config key; it
 defaults to ``cuda``, and a host without CUDA raises rather than fall
 back to the CPU.
+
+fp32 convs and matmuls run in full fp32: ``main`` turns TF32 off for
+cuDNN and for matmul before it builds anything (torch lets cuDNN's fp32
+convs run in TF32 by default; JAX's fp32 convs do not), and says so.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available on this host; pass "
                            "--device cpu to run on the CPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off: fp32 convs (cuDNN) and matmuls run in fp32")
     from ode_rl_torch.train.loop import test, train
 
     if cfg.phase == "train":

@@ -1,9 +1,10 @@
 """Model registry: config -> module.
 
 Counterpart of ``ode_rl_tpu/models/registry.py``. The port builds
-``model: ODEConv`` (with ``mem`` and ``z_sample``), ``ConvGRU`` and
-``cgrudecODE`` (``ConvGRU`` with ``decODE``); every other family of the
-JAX registry raises and names the ROADMAP item that ports it.
+``model: ODEConv`` (with ``mem`` and ``z_sample``), ``ConvGRU``,
+``cgrudecODE`` (``ConvGRU`` with ``decODE``) and ``S3VAE``; every other
+family of the JAX registry raises and names the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -14,22 +15,22 @@ import torch
 
 from ode_rl_torch.models.convgru import ConvGRUModel
 from ode_rl_torch.models.odeconvgru import ODEConvGRUModel
+from ode_rl_torch.models.s3vae import S3VAEModel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Families of the JAX registry that are not ported, and where they stand
 # in ROADMAP queue 1.
 _NOT_PORTED = {
-    "VidODE": "item 8 (Vid-ODE)",
-    "S3VAE": "item 9 (sequential VAEs)",
-    "S2VAE": "item 9 (sequential VAEs)",
-    "CS2VAE": "item 9 (sequential VAEs)",
-    "DS2VAE": "item 9 (sequential VAEs)",
-    "ConvLSTM": "item 10 (ConvLSTM)",
-    "Dreamer": "item 11 (world models)",
-    "SpatialDreamer": "item 11 (world models)",
-    "CATERClassifier": "item 11 (world models)",
-    "DSVAE": "item 12 (sprite DS-VAE)",
+    "ConvLSTM": "item 3 (ConvLSTM)",
+    "S2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
+    "CS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
+    "DS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
+    "VidODE": "item 6 (Vid-ODE)",
+    "Dreamer": "item 8 (world models)",
+    "SpatialDreamer": "item 8 (world models)",
+    "CATERClassifier": "item 8 (world models)",
+    "DSVAE": "item 9 (sprite DS-VAE)",
 }
 
 
@@ -78,8 +79,43 @@ def _build_odeconvgru(cfg, generator: torch.Generator) -> ODEConvGRUModel:
         dtype=_dtype(cfg), generator=generator)
 
 
+def _first(v):
+    return v[0] if isinstance(v, (list, tuple)) else v
+
+
+def _build_s3vae(cfg, generator: torch.Generator) -> S3VAEModel:
+    """As JAX builds it: ``n_hid`` is 512 unless ``rim``; ``num_blocks``
+    and ``topk`` reach only the 'cgru_rim' encoder (the vector RIM keeps
+    its own 3 and 3); slots apply only to 'default' and 'cgru_sa'."""
+    n_hid0 = _first(cfg_get(cfg, "n_hid", [300]))
+    return S3VAEModel(
+        in_channels=cfg.in_channels, d_zf=cfg.d_zf, d_zt=cfg.d_zt,
+        encoder=cfg_get(cfg, "encoder", "default"),
+        n_hid=int(n_hid0) if cfg_get(cfg, "rim", False) else 512,
+        encoder_out_dims=cfg_get(cfg, "encoder_out_dims", 128),
+        k_stat=cfg_get(cfg, "k_stat", -1),
+        l0=float(cfg_get(cfg, "l0", 10.0)),
+        l1=float(cfg_get(cfg, "l1", 1000.0)),
+        l2=float(cfg_get(cfg, "l2", 100.0)),
+        l3=float(cfg_get(cfg, "l3", 1.0)),
+        margin=float(cfg_get(cfg, "m", 1.0)),
+        slot_att=cfg_get(cfg, "slot_att", False),
+        num_slots=cfg_get(cfg, "num_slots", 3),
+        slot_size=cfg_get(cfg, "slot_size", 128),
+        num_iterations=cfg_get(cfg, "num_iterations", 3),
+        rim=cfg_get(cfg, "rim", False),
+        unit_per_rim=cfg_get(cfg, "unit_per_rim", 100),
+        rim_num_blocks=int(_first(cfg_get(cfg, "num_blocks", [4]))),
+        rim_topk=int(_first(cfg_get(cfg, "topk", [3]))),
+        flow_grid=cfg_get(cfg, "flow_grid", 3),
+        extrapolate=cfg_get(cfg, "extrapolate", False),
+        data_points=int(cfg_get(cfg, "data_points", 10000)),
+        train_test_split=float(cfg_get(cfg, "train_test_split", 0.8)),
+        dtype=_dtype(cfg), generator=generator)
+
+
 _BUILDERS = {"ODEConv": _build_odeconvgru, "ConvGRU": _build_convgru,
-             "cgrudecODE": _build_convgru}
+             "cgrudecODE": _build_convgru, "S3VAE": _build_s3vae}
 
 
 def build_model(cfg, device: torch.device,

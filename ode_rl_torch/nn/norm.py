@@ -1,0 +1,90 @@
+"""BatchNorm and LayerNorm with flax's numbers.
+
+Counterparts of ``flax.linen.BatchNorm`` (as the S3VAE frame stacks build
+it: ``momentum=0.9``, ``epsilon=1e-5``) and ``flax.linen.LayerNorm``
+(``epsilon=1e-6``). Both normalise over every axis but the last, so they
+take NHWC maps and (..., C) vectors alike, and both take the moments as
+flax does: in fp32 at least (fp64 stays fp64), var = E[x^2] - E[x]^2
+clamped at 0.
+
+``nn.BatchNorm2d`` is not a stand-in: it keeps the unbiased batch variance
+in its running statistics where flax keeps the biased one, and its
+``momentum=0.1`` weighs the batch as flax's ``momentum=0.9`` does, so the
+two names mean opposite things. The running statistics here are buffers
+named as flax's ``batch_stats`` leaves (``mean``, ``var``), so
+``state_dict`` and checkpoints carry them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in its dtype promoted to at least fp32, as flax takes moments."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over every axis but the last."""
+    xf = _acc(x)
+    axes = tuple(range(x.ndim - 1))
+    mean = xf.mean(dim=axes)
+    var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+    return mean, var
+
+
+def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+               scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """flax's ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) +
+    bias, in at least fp32, cast back to x's dtype."""
+    mul = torch.rsqrt(var + eps) * scale
+    return ((_acc(x) - mean) * mul + bias).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """In training: normalise by the batch's moments and move the running
+    ones, running = momentum * running + (1 - momentum) * batch, with the
+    biased variance. In eval: normalise by the running moments."""
+
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if not train:
+            return _normalize(x, self.mean, self.var, self.scale, self.bias,
+                              self.EPS)
+        mean, var = _moments(x)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.mean.mul_(m).add_((1.0 - m) * mean.detach())
+            self.var.mul_(m).add_((1.0 - m) * var.detach())
+        return _normalize(x, mean, var, self.scale, self.bias, self.EPS)
+
+
+class LayerNorm(nn.Module):
+    """Normalise each vector over its last axis, then scale and bias."""
+
+    EPS = 1e-6
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = _acc(x)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
+                          - mean * mean, min=0.0)
+        return _normalize(x, mean, var, self.scale, self.bias, self.EPS)

@@ -4,7 +4,8 @@ Counterpart of ``ode_rl_tpu/nn/odeconvgru.py`` without a mask: iterate
 the encoded frames backwards in time; at each step advance the running
 latent by one explicit Euler step of the dynamics field, then fuse the
 observation through a ConvGRU update. A 1x1-conv head maps the final
-latent to (mu, |std|).
+latent to (mu, |std|), each of ``out_ch`` channels (``ch`` unless given:
+S3VAE's ``odecgru`` dynamic head gives fewer).
 
 ``hoist_projections`` (off by default, as in JAX) computes the
 observation-side halves of the ConvGRU's gate convolutions for every
@@ -16,6 +17,8 @@ grid; later steps use the reversed grid spacing ts[i] - ts[i+1].
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +61,8 @@ class ODEConvGRUEncoder(nn.Module):
     """Backward ODE-ConvGRU pass producing (mu_z0, std_z0)."""
 
     def __init__(self, ch: int, ode_n_layers: int = 2, ode_n_units: int = 64,
-                 *, hoist_projections: bool = False,
+                 *, out_ch: Optional[int] = None,
+                 hoist_projections: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
@@ -68,7 +72,8 @@ class ODEConvGRUEncoder(nn.Module):
         self.step = _EulerGRUStep(ch, ode_n_layers, ode_n_units, dtype=dtype,
                                   generator=generator)
         self.head_0 = Conv(ch, ch, 1, dtype=dtype, generator=generator)
-        self.head_1 = Conv(ch, 2 * ch, 1, dtype=dtype, generator=generator)
+        self.head_1 = Conv(ch, 2 * (out_ch or ch), 1, dtype=dtype,
+                           generator=generator)
 
     def forward(self, xs: torch.Tensor, timesteps: torch.Tensor):
         """xs: (B, T, H, W, ch) encoded observations; timesteps: (T,)."""

@@ -10,12 +10,15 @@ MSE/PSNR/SSIM into ``per_horizon.json``, the last horizon as
 ``final_*``).
 
 Without a frozen corpus the train step makes its own batch on the device
-(the fused step); with one, batches come from the loader. Every train and
-eval step draws any model noise (``z_sample``) from one sampling
-generator seeded from ``cfg.seed``, as JAX hands each step a key split
-from the run's. Metrics are fetched to the host only at log points; a
-model's own metrics (``nfe``, ``z0_kl``, ``nan_skipped`` and so on) are
-logged with the loss.
+(the fused step); with one, batches come from the loader. S3VAE's batches
+carry its DFP labels (the frame-difference motion grid) on both paths and
+in the test phase. Every train and eval step draws any model noise
+(``z_sample``, S3VAE's) from one sampling generator seeded from
+``cfg.seed``, as JAX hands each step a key split from the run's. Metrics
+are fetched to the host only at log points; a model's own metrics
+(``nfe``, ``z0_kl``, ``nan_skipped``, S3VAE's loss terms and so on) are
+logged with the loss. Checkpoints hold the model's ``state_dict``, so
+BatchNorm's running statistics go with the weights into the test phase.
 
 A test block restores the train run's saved config for every key that is
 not one of the evaluation protocol's, as JAX does: so
@@ -24,7 +27,8 @@ builds the 3 layers its train block saved, and its checkpoint loads.
 
 Not ported, and each raises where a config asks for it: the GAN loop,
 the CATER classifier, plateau LR and early stopping, Vid-ODE window
-sampling, the device mesh and LPIPS. ``test`` writes no PNGs
+sampling, the device mesh, LPIPS and S3VAE's FlowNet labels
+(``flow_label_source: flownet``). ``test`` writes no PNGs
 (``train/visualize.py``, ROADMAP queue 1).
 """
 
@@ -45,7 +49,7 @@ from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.train.step import (TrainState, create_train_state,
                                      make_eval_step, make_fused_train_step,
-                                     make_train_step)
+                                     make_train_step, needs_flow_labels)
 
 # The fused loop's generator seed is the run seed plus this (JAX folds
 # the same constant into its loop key).
@@ -61,10 +65,10 @@ def _sample_generator(cfg, device: torch.device) -> torch.Generator:
 
 def _refuse_unported(cfg) -> None:
     asks = {
-        "gan": ("the GAN loop (train/gan.py)", "item 8"),
-        "vidode_sampling": ("Vid-ODE window sampling", "item 8"),
-        "use_mesh": ("the device mesh (parallel/)", "item 13"),
-        "debug_nans": ("debug_nans", "item 13 (core/debug.py)"),
+        "gan": ("the GAN loop (train/gan.py)", "item 6"),
+        "vidode_sampling": ("Vid-ODE window sampling", "item 6"),
+        "use_mesh": ("the device mesh (parallel/)", "item 10"),
+        "debug_nans": ("debug_nans", "item 2"),
     }
     for key, (what, item) in asks.items():
         if cfg.get(key, False):
@@ -72,12 +76,17 @@ def _refuse_unported(cfg) -> None:
                                       f"queue 1, {item}")
     if cfg.model == "CATERClassifier":
         raise NotImplementedError("the CATER classifier is not ported: "
-                                  "ROADMAP queue 1, item 11")
+                                  "ROADMAP queue 1, item 8")
     if (cfg.get("lr_scheduler", "") == "plateau"
             or int(cfg.get("early_stop_patience", 0)) > 0):
         raise NotImplementedError("plateau LR and early stopping are not "
-                                  "ported: ROADMAP queue 1, item 10 "
+                                  "ported: ROADMAP queue 1, item 3 "
                                   "(train/schedulers.py)")
+    if (needs_flow_labels(cfg)
+            and cfg.get("flow_label_source", "diff") == "flownet"):
+        raise NotImplementedError("S3VAE's FlowNet labels "
+                                  "(flow_label_source: flownet) are not "
+                                  "ported: ROADMAP queue 1, item 7")
 
 
 def setup(cfg, device: torch.device):
@@ -154,7 +163,9 @@ def train(cfg, device: torch.device,
             if fused:
                 metrics = fused_step(state, loop_gen, sample_gen)
             else:
-                batch = make_batch_dict(next(loader), n_in=cfg.train_in_seq)
+                batch = make_batch_dict(
+                    next(loader), n_in=cfg.train_in_seq,
+                    with_flow_labels=needs_flow_labels(cfg))
                 metrics = train_step(state, batch, sample_gen)
             step += 1
             # Fetch metrics only at log points.
@@ -219,7 +230,7 @@ def test(cfg, device: torch.device,
     _refuse_unported(cfg)
     if _lpips_enabled(cfg):
         raise NotImplementedError("LPIPS is not ported: ROADMAP queue 1, "
-                                  "item 8 (eval_models/lpips.py)")
+                                  "item 6 (eval_models/lpips.py)")
 
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
@@ -240,7 +251,8 @@ def test(cfg, device: torch.device,
     batches = int(cfg.get("eval_batches", 0)) or loaders["n_test_batches"]
     all_metrics = []
     for _ in range(batches):
-        batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq)
+        batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq,
+                                with_flow_labels=needs_flow_labels(cfg))
         metrics, _pred = eval_step(state.model, batch, sample_gen)
         all_metrics.append({k: v.cpu().numpy() for k, v in metrics.items()
                             if not k.startswith("aux_")})

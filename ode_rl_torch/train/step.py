@@ -11,11 +11,16 @@ clipping, as ``optax.global_norm``), the NaN guard with its
 ``nan_skipped`` metric (core/debug.py), the train step on a given batch,
 the fused step that makes its own Moving MNIST batch on the device, and
 the eval step (prediction without autograd, per-horizon MSE, PSNR and
-SSIM, and the model's stats as ``aux_*``).
+SSIM, and the model's stats as ``aux_*``). The train step runs the model
+in training mode (BatchNorm on the batch's moments, moving its running
+ones; dropout on) and the eval step in eval mode. A model that predicts
+the whole sequence (S3VAE in eval: t_in + n_out frames) is held to the
+observed frames followed by ``data_to_predict``. S3VAE's batches carry
+the motion-grid labels of its DFP loss.
 
 Each step takes an optional ``torch.Generator`` that a model drawing
-noise (ODEConv with ``z_sample``) draws it from, as JAX's steps take a
-key for the 'sample' rng.
+noise (ODEConv with ``z_sample``, S3VAE) draws it from, as JAX's steps
+take a key for the 'sample' rng.
 """
 
 from __future__ import annotations
@@ -30,6 +35,11 @@ from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.models.registry import build_model, cfg_get
 from ode_rl_torch.train.metrics import per_frame_metrics
+
+
+def needs_flow_labels(cfg) -> bool:
+    """Whether the model's loss reads the motion-grid labels (S3VAE)."""
+    return cfg.model == "S3VAE"
 
 
 class TrainState:
@@ -97,6 +107,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One step: gradients, ``grad_norm`` of the raw ones, the clip, the
     optimizer's update and, with ``nan_guard``, the parameters put back
     where a raw gradient is not finite (``nan_skipped`` 1)."""
+    state.model.train()
     metrics, _ = loss_and_grads(state.model, batch, generator)
     params = [p for p in state.model.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
@@ -126,8 +137,16 @@ def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
     @torch.no_grad()
     def eval_step(model: torch.nn.Module, batch: Dict,
                   generator: Optional[torch.Generator] = None):
-        pred, aux = model.predict(batch, generator)
+        was_training = model.training
+        model.eval()
+        try:
+            pred, aux = model.predict(batch, generator)
+        finally:
+            model.train(was_training)
         target = batch["data_to_predict"].float() + 0.5
+        if pred.shape[1] != target.shape[1]:
+            target = torch.cat([batch["observed_data"].float() + 0.5,
+                                target], dim=1)
         metrics = per_frame_metrics(pred, target)
         metrics.update({f"aux_{k}": v for k, v in aux.items()
                         if not k.startswith("_")})
@@ -147,6 +166,7 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor
                                   f"{IMAGE_SIZE} frames")
     n_in = int(cfg.train_in_seq)
     n_frames = n_in + int(cfg.train_out_seq)
+    with_flow = needs_flow_labels(cfg)
     step = make_train_step(bool(cfg_get(cfg, "nan_guard", False)))
 
     def fused_step(state: TrainState, generator: torch.Generator,
@@ -156,7 +176,8 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor
                                       batch=int(cfg.batch_size),
                                       n_frames=n_frames,
                                       num_digits=int(cfg.num_digits))
-        return step(state, make_batch_dict(video, n_in=n_in),
+        return step(state, make_batch_dict(video, n_in=n_in,
+                                           with_flow_labels=with_flow),
                     sample_generator)
 
     return fused_step

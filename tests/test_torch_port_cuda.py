@@ -891,3 +891,118 @@ def test_recurrent_step_matches_plain(cuda, block):
         assert counts["conv3x3_fwd"] > 0 and counts["conv3x3_wgrad"] > 0
         assert counts["conv3x3_fwd_simt"] == counts["conv3x3_fwd"]
         assert counts["conv3x3_wgrad_simt"] == counts["conv3x3_wgrad"]
+
+
+@pytest.mark.parametrize("block", [
+    "train_mmnist_recon_cs3vae", "train_mmnist_s3vae_odecgru",
+    "train_mmnist_recon_cs4vae"])
+def test_s3vae_step_matches_plain(cuda, block):
+    """One S3VAE step at B=4, fp32, 64x64, 20 -> 20 frames through the
+    kernels against the same step under ``force_plain()``: the same
+    weights, BatchNorm buffers, batch and noise. Loss 1e-5 relative,
+    prediction 1e-4 max abs, every gradient leaf within 1e-3 of its norm
+    plus 1e-5 of the whole norm (the biases of the convs before a
+    training-mode BatchNorm have no gradient in exact arithmetic), the
+    BatchNorm buffers after the step 1e-5 relative L2, equal NFE."""
+    from ode_rl_torch.nn import s3vae_nets
+
+    cfg = load_config(["defaults", block])
+    model = create_train_state(cfg, torch.device("cuda")).model
+    bank = torch.from_numpy(get_sprite_bank(cfg.data_dir)).float().cuda()
+    video = generate_moving_mnist(torch.Generator(device="cuda").manual_seed(
+        2), bank, batch=4, n_frames=40, num_digits=3)
+    batch = make_batch_dict(video, 20, with_flow_labels=True)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    real = s3vae_nets.odeint_aux
+
+    def run():
+        nfe = []
+
+        def solve(*args, **kwargs):
+            ys, stats = real(*args, **kwargs)
+            nfe.append(stats.nfe)
+            return ys, stats
+
+        model.load_state_dict(start)
+        s3vae_nets.odeint_aux = solve
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            metrics, pred = loss_and_grads(model, batch, gen)
+        finally:
+            s3vae_nets.odeint_aux = real
+        return (metrics, pred,
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: b.clone() for n, b in model.named_buffers()}, nfe)
+
+    common.reset_launches()
+    m_k, pred_k, g_k, b_k, nfe_k = run()
+    counts = dict(common.launches)
+    with common.force_plain():
+        m_p, pred_p, g_p, b_p, nfe_p = run()
+    assert nfe_k == nfe_p
+    assert abs(float(m_k["loss"]) / float(m_p["loss"]) - 1.0) <= 1e-5
+    assert _max_abs(pred_k, pred_p) <= 1e-4
+    total = torch.sqrt(sum(torch.sum(g.double() ** 2)
+                           for g in g_p.values())).item()
+    for name in g_k:
+        err = (g_k[name] - g_p[name]).double().norm().item()
+        assert err <= 1e-3 * g_p[name].double().norm().item() + 1e-5 * total, \
+            name
+    for name in b_k:
+        assert ((b_k[name] - b_p[name]).norm()
+                / b_p[name].norm().clamp_min(1e-30)).item() <= 1e-5, name
+    assert counts["gru_gates"] > 0 and counts["gru_blend"] > 0
+    assert counts["gru_gates_sample"] == counts["gru_gates"]
+    assert counts["gru_blend_sample"] == counts["gru_blend"]
+    if cfg.encoder == "odecgru":
+        assert nfe_k and counts["conv3x3_fwd"] > 0
+        assert counts["conv3x3_fwd_simt"] == counts["conv3x3_fwd"]
+        assert counts["conv3x3_wgrad_simt"] == counts["conv3x3_wgrad"] > 0
+    else:
+        assert counts["conv3x3_fwd"] == counts["conv3x3_wgrad"] == 0
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (128, 64), (64, 32),
+                                      (64, 128)])
+def test_simt_conv_at_s3vae_maps(cuda, cin, cout):
+    """K1 (forward and as dx) and K2 on S3VAE's 4x4 maps at B=4, fp32,
+    through the SIMT kernels, against the fp64 conv."""
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(4, 4, 4, cin, generator=gen).cuda()
+    g = torch.randn(4, 4, 4, cout, generator=gen).cuda()
+    w = (torch.randn(9 * cin, cout, generator=gen) / (3 * cin ** 0.5)).cuda()
+    common.reset_launches()
+    y = conv3x3_fwd(x, w)
+    dx = conv3x3_fwd(g, flip_transpose(w, cin, cout))
+    dw = conv3x3_wgrad(x, g)
+    assert common.launches["conv3x3_fwd_simt"] == 2
+    assert common.launches["conv3x3_wgrad_simt"] == 1
+    assert _max_abs(y, conv3x3_fwd_plain(x.double(), w.double())) <= 1e-4
+    assert _max_abs(dx, conv3x3_fwd_plain(
+        g.double(), flip_transpose(w, cin, cout).double())) <= 1e-4
+    ref = conv3x3_wgrad_plain(x.double(), g.double())
+    assert ((dw.double() - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,hw,c", [(12, 4, 64), (12, 8, 256), (4, 4, 128),
+                                    (4, 8, 32)])
+def test_gru_tails_at_s3vae_shapes(cuda, b, hw, c):
+    """K3 and K4 at S3VAE's ConvGRU shapes (3B rows of the static heads,
+    4x4 and 8x8 maps, the 'odecgru' z0 cell), fp32, through their
+    one-sample kernels, against the plain versions (1e-5 max abs)."""
+    gen = torch.Generator().manual_seed(b * hw + c)
+    rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
+    h = torch.tanh(rnd(b, hw, hw, c))
+    gates, cand = rnd(b, hw, hw, 2 * c), rnd(b, hw, hw, c)
+    z = torch.sigmoid(rnd(b, hw, hw, c))
+    gs, gb, cs, cb = (1.0 + 0.1 * rnd(2 * c), 0.1 * rnd(2 * c),
+                      1.0 + 0.1 * rnd(c), 0.1 * rnd(c))
+    gg, gc = max(2 * c // 32, 1), max(c // 32, 1)
+    common.reset_launches()
+    zk, rhk = fused_gru_gates(gates, h, gs, gb, gg)
+    out = fused_gru_blend(cand, z, h, cs, cb, gc)
+    assert common.launches["gru_gates_sample"] == 1
+    assert common.launches["gru_blend_sample"] == 1
+    zp, rhp = _gates_plain(gates, h, gs, gb, gg)
+    assert _max_abs(zk, zp) <= 1e-5 and _max_abs(rhk, rhp) <= 1e-5
+    assert _max_abs(out, _blend_plain(cand, z, h, cs, cb, gc)) <= 1e-5

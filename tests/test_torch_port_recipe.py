@@ -201,10 +201,12 @@ def test_registry_refuses_unported_families_and_options():
 
     cfg = load_config(RECIPE, overrides=NARROW)
     gen = torch.Generator().manual_seed(0)
-    for overrides, match in (({"model": "VidODE"}, "item 8"),
-                             ({"model": "S3VAE"}, "item 9"),
-                             ({"model": "ConvLSTM"}, "item 10"),
-                             ({"model": "DSVAE"}, "item 12"),
+    for overrides, match in (({"model": "ConvLSTM"}, "item 3"),
+                             ({"model": "S2VAE"}, "item 5"),
+                             ({"model": "DS2VAE"}, "item 5"),
+                             ({"model": "VidODE"}, "item 6"),
+                             ({"model": "Dreamer"}, "item 8"),
+                             ({"model": "DSVAE"}, "item 9"),
                              ({"mem": True, "mem_mode": "nru3"}, "nru")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(cfg.replace(**overrides), torch.device("cpu"), gen)
@@ -218,7 +220,8 @@ def test_registry_refuses_unported_families_and_options():
     ({"gan": True}, "GAN"), ({"vidode_sampling": True}, "window"),
     ({"use_mesh": True}, "mesh"), ({"lr_scheduler": "plateau"}, "plateau"),
     ({"early_stop_patience": 3}, "early stopping"),
-    ({"model": "CATERClassifier"}, "CATER")])
+    ({"model": "CATERClassifier"}, "CATER"),
+    ({"model": "S3VAE", "flow_label_source": "flownet"}, "item 7")])
 def test_loop_refuses_unported_options(tmp_path, overrides, match):
     from ode_rl_torch.train.loop import train
 
