@@ -140,9 +140,32 @@ without printing its last line:
    NFE); and K1/K2 at (4, 4, 4, 32->64) and (4, 4, 4, 128->64), K3/K4 at
    (12, 4, 4, 128), (12, 8, 8, 512) and (4, 4, 4, 256) alone against their
    plain versions, each with its route, device µs and bound.
+12. Vid-ODE family: ``ode_rl_torch.main`` on ``defaults`` +
+   ``train_mmnist_vidode_len20`` (the latent (4, 16, 16, 128), the ODE
+   field 128 -> 64 -> 64 -> 64 -> 128, the z0 ConvGRU at 128 channels),
+   ``_irregular`` (window sampling with observation masks), ``_gan``
+   (the GAN loop) and ``_slots`` (B * S = 16 programs of 32 channels) on
+   the frozen corpus, and ``train_kth_vidode`` on a synthetic kth corpus
+   written with numpy into the temporary directory, fp32, B=4, 5 steps
+   each: every logged loss finite (and grad_norm, or for the GAN D's and
+   G's losses), a checkpoint whose BatchNorm buffers all moved, K1-K4
+   launched with every K1/K2 launch a SIMT one and every K3/K4 launch a
+   one-sample one, TF32 off after each ``main``; median step_ms over
+   steps 2-5 and the NFE. Then the test phase of ``len20`` (20 -> 180)
+   and of ``kth`` (10 -> 30) from their checkpoints, one batch: finite
+   MSE, PSNR, SSIM and ``lpips_uncalibrated`` at every horizon; one step
+   of ``len20`` and of ``slots`` from the seed's weights through the
+   kernels (profiled: device ms and busy share) against the same step
+   under ``force_plain()`` (loss 1e-5 relative, prediction 1e-4 max abs,
+   every gradient leaf within 1e-3 of its norm plus 1e-5 of the whole
+   norm, BatchNorm buffers 1e-5, equal NFE); and K1/K2 at (4, 16, 16,
+   128->64), (4, 16, 16, 64->64), (4, 16, 16, 64->128) and (16, 16, 16,
+   32->32), K3 at (4, 16, 16, 256) and (16, 16, 16, 64), K4 at (4, 16,
+   16, 128) and (16, 16, 16, 32) alone against their plain versions,
+   each with its plan, route, device µs and bound.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7, 8, 9, 10 and 11) run their convs in strict fp32. Then one JSON line
+7, 8, 9, 10, 11 and 12) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -176,6 +199,7 @@ from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
+from ode_rl_torch.data.video_corpus import write_synthetic_corpus
 from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
 from ode_rl_torch.flow.train import (flow_loss_and_grads,
                                      make_fused_flow_train_step,
@@ -1357,14 +1381,16 @@ def _write_frozen_corpus(root: pathlib.Path, bank: torch.Tensor,
 
 
 class _TimedTrainStep:
-    """Stands in for the loop's ``make_train_step``: the same step, with
-    each step's host time (closed by a synchronize) and NFE recorded."""
+    """Stands in for the loop's ``make_train_step`` (or another step
+    factory, ``make_gan_train_step``): the same step, with each step's
+    host time (closed by a synchronize) and NFE recorded."""
 
-    def __init__(self):
+    def __init__(self, factory=make_train_step):
+        self.factory = factory
         self.ms, self.nfe = [], []
 
-    def __call__(self, nan_guard: bool = False):
-        step = make_train_step(nan_guard)
+    def __call__(self, *args, **kwargs):
+        step = self.factory(*args, **kwargs)
 
         def timed(state, batch, generator=None):
             torch.cuda.synchronize()
@@ -2143,13 +2169,23 @@ def _s3vae_test(block: str, logs: pathlib.Path, root: pathlib.Path) -> None:
 
 
 def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
-    """One step of ``block`` at B=4 in fp32 from its seed's weights on a
-    frozen batch, through the kernels (profiled) and under
+    """S3VAE predicts the observed frames in training."""
+    return _bn_reference(block, root, lambda cfg, counts, where:
+                         _check_s3vae_routes(cfg.encoder, counts, where),
+                         "observed_data")
+
+
+def _bn_reference(block: str, root: pathlib.Path, check_routes,
+                  predicts: str) -> dict:
+    """One step of ``block`` (a model with BatchNorm) at B=4 in fp32 from
+    its seed's weights on a frozen batch, through the kernels (profiled,
+    its launches held by ``check_routes(cfg, counts, where)``) and under
     ``force_plain()``: the same weights, BatchNorm buffers, batch and
-    noise (a generator seeded alike). Loss to 1e-5 relative, prediction
-    1e-4 max abs, every gradient leaf within 1e-3 of its norm plus 1e-5 of
-    the whole norm, every BatchNorm buffer after the step 1e-5 relative
-    L2, equal NFE."""
+    noise (a generator seeded alike). The prediction finite and of the
+    shape of ``batch[predicts]``, loss to 1e-5 relative, prediction 1e-4
+    max abs, every gradient leaf within 1e-3 of its norm plus 1e-5 of the
+    whole norm, every BatchNorm buffer after the step 1e-5 relative L2,
+    equal NFE (the model's metric, or each 'odecgru' rollout's)."""
     cfg = load_config(["defaults", block], overrides={"data_dir": str(root)})
     model = create_train_state(cfg, torch.device("cuda")).model
     video = next(FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
@@ -2162,11 +2198,12 @@ def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
         model.load_state_dict(start)
         model.train()
         gen = torch.Generator(device="cuda").manual_seed(7)
-        with _NfeRecorder() as nfe:
+        with _NfeRecorder() as rec:
             metrics, pred = loss_and_grads(model, batch, gen)
+        nfe = int(metrics["nfe"]) if "nfe" in metrics else rec.nfe
         return (metrics, pred,
                 {n: p.grad.clone() for n, p in model.named_parameters()},
-                {n: b.clone() for n, b in model.named_buffers()}, nfe.nfe)
+                {n: b.clone() for n, b in model.named_buffers()}, nfe)
 
     torch.cuda.synchronize()
     common.reset_launches()
@@ -2178,20 +2215,21 @@ def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = dict(common.launches)
-    _check_s3vae_routes(cfg.encoder, counts, f"{block} reference step")
+    check_routes(cfg, counts, f"{block} reference step")
     with common.force_plain():
         m_p, pred_p, g_p, b_p, nfe_p = run_step()
-    shape = (cfg.batch_size, cfg.train_in_seq, 64, 64, 1)
+    shape = tuple(batch[predicts].shape)
     if tuple(pred_k.shape) != shape or not torch.isfinite(pred_k).all():
         raise AssertionError(f"{block}: prediction {tuple(pred_k.shape)} "
                              f"is not a finite {shape}")
-    print(f"  {block} ({cfg.encoder}): nfe kernels {nfe_k} plain {nfe_p}")
+    print(f"  {block} ({cfg.get('encoder', cfg.model)}): nfe kernels "
+          f"{nfe_k} plain {nfe_p}")
     if nfe_k != nfe_p:
         raise AssertionError(f"{block}: NFE differs")
-    check(f"{block[12:30]} loss (relative)",
+    label = block[12:30]
+    check(f"{label} loss (relative)",
           abs(float(m_k["loss"]) / float(m_p["loss"]) - 1.0), 1e-5, "rel")
-    check(f"{block[12:30]} prediction", max_abs(pred_k, pred_p), 1e-4,
-          "max_abs")
+    check(f"{label} prediction", max_abs(pred_k, pred_p), 1e-4, "max_abs")
     total = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
                                  for g in g_p.values())))
     ratio = {n: float((g_k[n] - g_p[n]).double().norm())
@@ -2201,9 +2239,9 @@ def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
     print(f"    worst gradient leaf {worst}: rel_l2 "
           f"{rel_l2(g_k[worst], g_p[worst]):.3e}, {ratio[worst]:.3f} of its "
           f"bound (1e-3 of its norm + 1e-5 of the whole norm {total:.4g})")
-    check(f"{block[12:30]} worst grad / bound", ratio[worst], 1.0, "ratio")
+    check(f"{label} worst grad / bound", ratio[worst], 1.0, "ratio")
     worst_b = max(b_k, key=lambda n: rel_l2(b_k[n], b_p[n]))
-    check(f"{block[12:30]} BatchNorm buffers",
+    check(f"{label} BatchNorm buffers",
           rel_l2(b_k[worst_b], b_p[worst_b]), 1e-5, "rel_l2")
     device = _device_ms(prof)
     print(f"    the step (forward and backward), profiled: device ms "
@@ -2215,16 +2253,25 @@ def _s3vae_reference(block: str, root: pathlib.Path) -> dict:
 
 
 def _s3vae_shapes() -> dict:
-    """K1/K2 and K3/K4 alone at the shapes S3VAE gives them, fp32: each
-    against its plain version (K1 1e-4 max abs, K2 1e-5 relative L2, K3
-    and K4 1e-5 max abs), its route printed, and its device µs beside its
+    """K1-K4 alone at the shapes S3VAE gives them (_shapes_alone)."""
+    # K1/K2: the 'odecgru' field at 4x4. K3/K4 (B, H=W, the gates' 2C):
+    # the static heads of 'cgru'/'odecgru' (3B rows, d_zf 64) and of
+    # 'cgru_sa' (d_zf 256), the 'odecgru' z0 cell.
+    return _shapes_alone(((4, 4, 32, 64), (4, 4, 128, 64)),
+                         ((12, 4, 128), (12, 8, 512), (4, 4, 256)))
+
+
+def _shapes_alone(convs, grus) -> dict:
+    """K1/K2 at each (B, H=W, Cin, Cout) of ``convs`` and K3/K4 at each
+    (B, H=W, the gates' 2C) of ``grus``, fp32, alone: each against its
+    plain version (K1 1e-4 max abs, K2 1e-5 relative L2, K3 and K4 1e-5
+    max abs), its route and plan printed, and its device µs beside its
     plain version's and its bound."""
     gen = torch.Generator().manual_seed(9)
     rnd = lambda *shape: torch.randn(*shape, generator=gen).cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for cin, cout in ((32, 64), (128, 64)):
-        b, hw = 4, 4
+    for b, hw, cin, cout in convs:
         x, g = rnd(b, hw, hw, cin), rnd(b, hw, hw, cout)
         w = rnd(9 * cin, cout) / (3.0 * cin ** 0.5)
         label = f"({b}, {hw}, {hw}, {cin}->{cout})"
@@ -2257,9 +2304,7 @@ def _s3vae_shapes() -> dict:
             "plain_dev_us": us["K2 plain"],
             **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
                      PEAK_FP32)}
-    # (B, H=W, the gates' 2C): the static heads of 'cgru'/'odecgru' (3B
-    # rows, d_zf 64) and of 'cgru_sa' (d_zf 256), the 'odecgru' z0 cell.
-    for b, hw, c2 in ((12, 4, 128), (12, 8, 512), (4, 4, 256)):
+    for b, hw, c2 in grus:
         c = c2 // 2
         gg, gc = max(2 * c // 32, 1), max(c // 32, 1)
         h = torch.tanh(rnd(b, hw, hw, c))
@@ -2323,6 +2368,148 @@ def phase_s3vae(bank: torch.Tensor) -> dict:
     return {"train": trains, "reference": refs, "shapes": shapes}
 
 
+# The Vid-ODE family (configs.yaml): the four Moving MNIST blocks at
+# their own widths (fp32, B=4, base_ch 32, n_downs 2: the latent (4, 16,
+# 16, 128)) and train_kth_vidode on a synthetic corpus.
+VIDODE_TRAIN = ("train_mmnist_vidode_len20", "train_mmnist_vidode_irregular",
+                "train_mmnist_vidode_gan", "train_mmnist_vidode_slots",
+                "train_kth_vidode")
+VIDODE_REFERENCE = ("train_mmnist_vidode_len20", "train_mmnist_vidode_slots")
+VIDODE_STEPS = 5
+VIDODE_METRICS = ("loss", "recon_l1", "diff_l1", "nfe")
+
+
+def _bn_moved(state: dict, block: str) -> int:
+    """The BatchNorm buffers of a saved state dict all moved from their
+    start (mean 0, var 1); returns how many there are."""
+    bn = {k: v for k, v in state.items() if k.endswith((".mean", ".var"))}
+    still = [k for k, v in bn.items()
+             if torch.all(v == (0.0 if k.endswith(".mean") else 1.0))]
+    if not bn or still:
+        raise AssertionError(f"{block}: BatchNorm buffers that did not move "
+                             f"({len(still)} of {len(bn)}): {still[:4]}")
+    return len(bn)
+
+
+def _vidode_train(block: str, data: pathlib.Path,
+                  logs: pathlib.Path) -> dict:
+    """``block`` through ``ode_rl_torch.main`` for VIDODE_STEPS steps: every
+    logged loss finite (and grad_norm, which the GAN loop does not log:
+    there D's and G's losses), a checkpoint whose BatchNorm buffers moved,
+    K1-K4 launched (K1/K2 on SIMT, K3/K4 one-sample)."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(data),
+            "--logdir", str(logs / block), "--steps_per_epoch",
+            str(VIDODE_STEPS), "--epochs", "1", "--loss_log_freq", "1",
+            "--ckpt_save_freq", str(VIDODE_STEPS)]
+    cfg, run = _run_dir(argv)
+    gan = cfg.get("gan", False)
+    name = "make_gan_train_step" if gan else "make_train_step"
+    real = getattr(train_loop, name)
+    timer = _TimedTrainStep(real)
+    setattr(train_loop, name, timer)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    try:
+        out = port_main.main(argv)
+    finally:
+        setattr(train_loop, name, real)
+    torch.cuda.synchronize()
+    _check_tf32_off(f"main on {block}")
+    counts = dict(common.launches)
+    _check_recipe_routes(counts, f"{block} run")
+    if out["final_step"] != VIDODE_STEPS:
+        raise AssertionError(f"{block}: {out['final_step']} steps")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in logged] != list(range(1, VIDODE_STEPS + 1)):
+        raise AssertionError(f"{block}: logged steps "
+                             f"{[m['step'] for m in logged]}")
+    keys = (*VIDODE_METRICS, *(("d_loss", "g_loss", "g_adv_loss") if gan
+                               else ("grad_norm",)))
+    for m in logged:
+        bad = [k for k in keys if not np.isfinite(m.get(k, np.nan))]
+        if bad:
+            raise AssertionError(f"{block} step {m['step']}: {bad} missing "
+                                 "or not finite")
+    ckpt = CheckpointManager(run / "checkpoints", tag=cfg.ckpt_id)
+    if ckpt.all_steps() != [VIDODE_STEPS]:
+        raise AssertionError(f"{block}: checkpoints at {ckpt.all_steps()}")
+    field = "gen_model_state" if gan else "model"
+    n_bn = _bn_moved(ckpt.restore({field: {}})["state"][field], block)
+    median = statistics.median(timer.ms[1:])
+    per_step = {k: counts[k] / VIDODE_STEPS for k in FLAGSHIP_KERNELS}
+    ws = int(cfg.get("window_size", 0))
+    frames = (f"a {ws}-frame window split {ws // 2}->{ws // 2}"
+              if cfg.get("vidode_sampling", False)
+              else f"{cfg.train_in_seq}->{cfg.train_out_seq}")
+    print(f"  {block} ({cfg.get('dataset')}, {frames}): losses "
+          f"{[round(m['loss'], 4) for m in logged]}; step_ms "
+          f"{[round(t, 2) for t in timer.ms]}, median over steps "
+          f"2-{VIDODE_STEPS} {median:.2f}; nfe {timer.nfe}; {n_bn} "
+          f"BatchNorm buffers moved; K1-K4 a step {per_step}")
+    return {"counts": counts, "step_ms": median,
+            "mean_nfe": statistics.mean(timer.nfe), "logs": logs / block}
+
+
+def _vidode_test(block: str, data: pathlib.Path, logs: pathlib.Path,
+                 frames: int) -> None:
+    """The test phase of ``block`` from its train run's checkpoint, one
+    batch: ``frames`` finite values of MSE, PSNR, SSIM and
+    ``lpips_uncalibrated`` a horizon."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(data),
+            "--logdir", str(logs), "--phase", "test", "--load_model", "True",
+            "--eval_batches", "1"]
+    t0 = time.perf_counter()
+    out = port_main.main(argv)
+    seconds = time.perf_counter() - t0
+    _check_tf32_off(f"main on {block} (test)")
+    cfg, _ = port_main.get_cfg(argv)
+    run = logs / cfg.model / resolve_run_id(cfg)
+    per_horizon = json.loads((run / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim", "lpips_uncalibrated"):
+        v = per_horizon.get(k, [])
+        if len(v) != frames or not np.all(np.isfinite(v)):
+            raise AssertionError(f"{block} test per_horizon {k}: {len(v)} "
+                                 f"values, not {frames} finite ones")
+    print(f"  {block} test ({frames} frames predicted): {seconds:.2f} s; "
+          f"final mse {out['final_mse']:.4f} ssim {out['final_ssim']:.4f} "
+          f"lpips_uncalibrated {out['final_lpips_uncalibrated']:.4f}")
+
+
+def phase_vidode(bank: torch.Tensor) -> dict:
+    print(f"[12] Vid-ODE family: {', '.join(VIDODE_TRAIN)} through "
+          f"ode_rl_torch.main (fp32, B={RECIPE_B}), {VIDODE_STEPS} steps "
+          "each (frozen Moving MNIST, the irregular block's own windows, a "
+          "synthetic kth corpus), two test phases, reference steps against "
+          "the plain versions, the kernels at Vid-ODE's shapes")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        kth = write_synthetic_corpus(pathlib.Path(tmp) / "kth", "kth",
+                                     train_videos=8, test_videos=4)
+        trains = {block: _vidode_train(
+            block, kth if "kth" in block else root, logs)
+            for block in VIDODE_TRAIN}
+        # defaults test 20 -> 180; kth's block 10 -> 30.
+        _vidode_test("train_mmnist_vidode_len20", root,
+                     trains["train_mmnist_vidode_len20"]["logs"], 180)
+        _vidode_test("train_kth_vidode", kth,
+                     trains["train_kth_vidode"]["logs"], 30)
+        refs = {block: _bn_reference(
+            block, root, lambda cfg, counts, where: _check_recipe_routes(
+                counts, where), "data_to_predict")
+            for block in VIDODE_REFERENCE}
+    # K1/K2: the field's in, mid and out convs at (4, 16, 16), the slots'
+    # at (16, 16, 16). K3/K4: the z0 cell, B x 256 gates at 16x16, and the
+    # slots' (B*S = 16, slot_dim 32).
+    shapes = _shapes_alone(((4, 16, 128, 64), (4, 16, 64, 64),
+                            (4, 16, 64, 128), (16, 16, 32, 32)),
+                           ((4, 16, 256), (16, 16, 64)))
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    return {"train": trains, "reference": refs, "shapes": shapes}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2345,6 +2532,7 @@ def main() -> int:
     recipe = phase_recipe(bank)
     recurrent = phase_recurrent(bank)
     s3vae = phase_s3vae(bank)
+    vidode = phase_vidode(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -2389,6 +2577,27 @@ def main() -> int:
         kernel = {"K1": "conv3x3_fwd", "K2": "conv3x3_wgrad",
                   "K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
         timings[kernel].setdefault("s3vae_shapes", {})[label[3:]] = row
+    # Phase 12 read the counts around each of its runs.
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["vidode_launches"] = {
+            block: run["counts"][name]
+            for block, run in vidode["train"].items()}
+        timings[name]["vidode_step_launches"] = {
+            block: run["counts"][name]
+            for block, run in vidode["reference"].items()}
+    for label, row in vidode["shapes"].items():
+        kernel = {"K1": "conv3x3_fwd", "K2": "conv3x3_wgrad",
+                  "K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
+        timings[kernel].setdefault("vidode_shapes", {})[label[3:]] = row
+    for block, run in vidode["train"].items():
+        print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
+              f"2-{VIDODE_STEPS}), mean nfe {run['mean_nfe']:.2f}")
+    for block, ref in vidode["reference"].items():
+        print(f"{block}: a forward and backward from its initial weights, "
+              f"profiled: device ms {ref['device_ms']:.3f} of "
+              f"{ref['wall_ms']:.2f} (busy "
+              f"{100 * ref['device_ms'] / ref['wall_ms']:.1f}%) at nfe "
+              f"{ref['nfe']}")
     for block, run in s3vae["train"].items():
         nfe = run["mean_nfe"]
         print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "

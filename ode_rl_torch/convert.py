@@ -22,7 +22,11 @@ holds them:
   ``slots_log_sigma``.
 
 A ``batch_stats`` tree (BatchNorm's running ``mean`` and ``var``) fills
-the BatchNorm buffers of the same path. The input holds numpy arrays
+the BatchNorm buffers of the same path. The same names carry Vid-ODE
+(its encoder's and decoder's convs and BatchNorms, the z0 encoder, the
+field, ``encoder_pos`` and ``slot_attention``), the GAN's two
+discriminators (``disc_params`` {'image', 'seq'} into an ``nn.ModuleDict``
+of those names) and LPIPS (``alex.conv{i}`` and the 1-D ``lin{i}``). The input holds numpy arrays
 only; nothing of JAX is imported.
 """
 

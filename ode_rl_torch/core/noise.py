@@ -16,7 +16,9 @@ import torch
 
 class Noise:
     """Permutations, standard normals and dropout masks from
-    ``generator`` (on the device the draws are made on)."""
+    ``generator`` (on the device the draws are made on); uniforms and
+    integers (the window samplers' and the video transforms' draws) on
+    the generator's device, then moved to ``device``."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -28,6 +30,20 @@ class Noise:
                ) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
                            dtype=like.dtype, device=like.device)
+
+    def uniform(self, shape: Sequence[int], device: torch.device,
+                low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+        """fp32 uniforms in [low, high)."""
+        u = torch.rand(tuple(shape), generator=self.generator,
+                       device=self.generator.device)
+        return (low + (high - low) * u).to(device)
+
+    def randint(self, low: int, high: int, shape: Sequence[int],
+                device: torch.device) -> torch.Tensor:
+        """int64 integers in [low, high)."""
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.generator,
+                             device=self.generator.device).to(device)
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """``flax.linen.Dropout`` in training: each element kept with

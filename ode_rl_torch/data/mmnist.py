@@ -7,10 +7,12 @@ Bounces are the closed-form triangle wave. Motion draws (x0, y0, theta,
 sprite index) come from an explicit ``torch.Generator``; placement is an
 index-put of each 28x28 sprite at its integer offset.
 
-``parse_datasets`` builds a run's train and test loaders for
-``dataset: mmnist``: the frozen corpus (data/frozen.py) where ``frozen``
-is on and ``data_dir`` holds ``meta.json`` (or an mp4 corpus, which
-raises), else the generator.
+``parse_datasets`` builds a run's train and test loaders: for ``dataset:
+mmnist`` the frozen corpus (data/frozen.py) where ``frozen`` is on and
+``data_dir`` holds ``meta.json`` (or an mp4 corpus, which raises), else
+the generator; for the Vid-ODE corpora (kth, mgif, penn, hurricane,
+phyre, minerl, mmnist_video) the per-video corpus of
+data/video_corpus.py.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.sprites import DIGIT_SIZE, get_sprite_bank
+from ode_rl_torch.data.video_corpus import DATASET_SPECS, parse_video_corpus
 
 IMAGE_SIZE = 64
 STEP_LENGTH = 0.1
@@ -153,21 +156,18 @@ class MovingMNIST:
                                      num_digits=self.num_digits)
 
 
-# Datasets of the JAX package that are not ported, and their ROADMAP items.
-_VIDEO_CORPORA = ("hurricane", "kth", "mgif", "minerl", "mmnist_video",
-                  "penn", "phyre")
-
-
 def parse_datasets(cfg, device: torch.device) -> dict:
     """Train and test loaders and batch counts for ``dataset: mmnist``
-    (the contract of the JAX ``parse_datasets``)."""
+    and the Vid-ODE video corpora (the contract of the JAX
+    ``parse_datasets``)."""
     if cfg.dataset == "sprites":
         raise NotImplementedError("the sprites dataset is not ported: "
                                   "ROADMAP queue 1, item 9")
-    if cfg.dataset in _VIDEO_CORPORA:
-        raise NotImplementedError(
-            f"the {cfg.dataset} video corpus is not ported: ROADMAP queue "
-            "1, item 6 (data/video_corpus.py)")
+    if cfg.dataset == "cater":
+        raise NotImplementedError("the CATER corpus is not ported: ROADMAP "
+                                  "queue 1, item 8 (wm/cater.py)")
+    if cfg.dataset in DATASET_SPECS:
+        return parse_video_corpus(cfg, device)
     if cfg.dataset != "mmnist":
         raise NotImplementedError(f"There is no dataset named {cfg.dataset}")
     total = int(cfg.get("data_points", 10000))

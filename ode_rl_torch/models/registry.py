@@ -2,9 +2,9 @@
 
 Counterpart of ``ode_rl_tpu/models/registry.py``. The port builds
 ``model: ODEConv`` (with ``mem`` and ``z_sample``), ``ConvGRU``,
-``cgrudecODE`` (``ConvGRU`` with ``decODE``) and ``S3VAE``; every other
-family of the JAX registry raises and names the ROADMAP item that ports
-it.
+``cgrudecODE`` (``ConvGRU`` with ``decODE``), ``S3VAE`` and ``VidODE``
+(with its slot variant and ``mem``); every other family of the JAX
+registry raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from ode_rl_torch.models.convgru import ConvGRUModel
 from ode_rl_torch.models.odeconvgru import ODEConvGRUModel
 from ode_rl_torch.models.s3vae import S3VAEModel
+from ode_rl_torch.models.vidode import VidODEModel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,7 +27,6 @@ _NOT_PORTED = {
     "S2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
     "CS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
     "DS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
-    "VidODE": "item 6 (Vid-ODE)",
     "Dreamer": "item 8 (world models)",
     "SpatialDreamer": "item 8 (world models)",
     "CATERClassifier": "item 8 (world models)",
@@ -114,8 +114,27 @@ def _build_s3vae(cfg, generator: torch.Generator) -> S3VAEModel:
         dtype=_dtype(cfg), generator=generator)
 
 
+def _build_vidode(cfg, generator: torch.Generator) -> VidODEModel:
+    return VidODEModel(
+        in_channels=cfg.in_channels, n_downs=cfg.n_downs,
+        n_layers=cfg_get(cfg, "n_layers", 3),
+        method=cfg.decode_diff_method,
+        rtol=float(cfg_get(cfg, "odeint_rtol", 1e-3)),
+        atol=float(cfg_get(cfg, "odeint_atol", 1e-4)),
+        ode_max_steps=int(cfg_get(cfg, "ode_max_steps", 128)),
+        slot_attention=bool(cfg_get(cfg, "slot_attention", False)),
+        num_slots=int(cfg_get(cfg, "num_slots", 4)),
+        slot_dim=int(cfg_get(cfg, "slot_dim", 32)),
+        pos=int(cfg_get(cfg, "pos", 2)),
+        slot_iters=int(cfg_get(cfg, "slot_iters", 3)),
+        mem=bool(cfg_get(cfg, "mem", False)),
+        mem_mode=str(cfg_get(cfg, "mem_mode", "nru")),
+        dtype=_dtype(cfg), generator=generator)
+
+
 _BUILDERS = {"ODEConv": _build_odeconvgru, "ConvGRU": _build_convgru,
-             "cgrudecODE": _build_convgru, "S3VAE": _build_s3vae}
+             "cgrudecODE": _build_convgru, "S3VAE": _build_s3vae,
+             "VidODE": _build_vidode}
 
 
 def build_model(cfg, device: torch.device,

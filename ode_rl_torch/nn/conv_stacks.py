@@ -13,6 +13,7 @@ fan-in scaled) and zero biases, drawn from an explicit generator.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,27 +46,31 @@ def lecun_normal(shape: tuple, fan_in: int,
     return nn.Parameter(w)
 
 
-def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                stride: int, padding: int, dtype: torch.dtype) -> torch.Tensor:
-    """``nn.Conv`` on NHWC: operands in ``dtype``, bias added after the
-    conv in ``dtype`` (two roundings under bf16, as flax)."""
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int, padding: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``nn.Conv`` on NHWC: operands in ``dtype``, bias (where there is
+    one) added after the conv in ``dtype`` (two roundings under bf16, as
+    flax)."""
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
                  stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1).contiguous() + bias.to(dtype)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y if bias is None else y + bias.to(dtype)
 
 
 class Conv(nn.Module):
-    """``nn.Conv(features, (k, k), strides, padding)``: OIHW weight."""
+    """``nn.Conv(features, (k, k), strides, padding, use_bias)``: OIHW
+    weight."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, *,
-                 stride: int = 1, padding: int = 0,
+                 stride: int = 1, padding: int = 0, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
         self.weight = lecun_normal((cout, cin, k, k), k * k * cin, generator)
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(x, self.weight, self.bias, self.stride,

@@ -1,9 +1,12 @@
 """ODE-ConvGRU z0-inference encoder.
 
-Counterpart of ``ode_rl_tpu/nn/odeconvgru.py`` without a mask: iterate
-the encoded frames backwards in time; at each step advance the running
-latent by one explicit Euler step of the dynamics field, then fuse the
-observation through a ConvGRU update. A 1x1-conv head maps the final
+Counterpart of ``ode_rl_tpu/nn/odeconvgru.py``: iterate the encoded
+frames backwards in time; at each step advance the running latent by one
+explicit Euler step of the dynamics field, then fuse the observation
+through a ConvGRU update. A (B, T) ``mask`` (Vid-ODE's irregular
+observations) is reversed with the frames and gates each step's ConvGRU
+update: where it is 0 the state keeps its Euler step's value, the
+update discarded. Without one, no gating runs. A 1x1-conv head maps the final
 latent to (mu, |std|), each of ``out_ch`` channels (``ch`` unless given:
 S3VAE's ``odecgru`` dynamic head gives fewer).
 
@@ -43,18 +46,20 @@ class _EulerGRUStep(nn.Module):
         self.cgru_cell = ConvGRUCell(ch, ch, dtype=dtype, generator=generator)
 
     def forward(self, prev: torch.Tensor, x_i: torch.Tensor,
-                dt_i: torch.Tensor) -> torch.Tensor:
+                dt_i: torch.Tensor,
+                m_i: Optional[torch.Tensor] = None) -> torch.Tensor:
         x_i = x_i.to(prev.dtype)
         dt_i = dt_i.to(prev.dtype)
         yi_ode = prev + self.ode_func(prev) * dt_i
-        return self.cgru_cell(yi_ode, x_i)
+        return self.cgru_cell(yi_ode, x_i, m_i)
 
     def fused(self, prev: torch.Tensor, gx_i: torch.Tensor,
-              cx_i: torch.Tensor, dt_i: torch.Tensor) -> torch.Tensor:
+              cx_i: torch.Tensor, dt_i: torch.Tensor,
+              m_i: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The same step on the observation's hoisted projections."""
         yi_ode = prev + self.ode_func(prev) * dt_i.to(prev.dtype)
         return self.cgru_cell.step_fused(yi_ode, gx_i.to(prev.dtype),
-                                         cx_i.to(prev.dtype))
+                                         cx_i.to(prev.dtype), m_i)
 
 
 class ODEConvGRUEncoder(nn.Module):
@@ -75,8 +80,10 @@ class ODEConvGRUEncoder(nn.Module):
         self.head_1 = Conv(ch, 2 * (out_ch or ch), 1, dtype=dtype,
                            generator=generator)
 
-    def forward(self, xs: torch.Tensor, timesteps: torch.Tensor):
-        """xs: (B, T, H, W, ch) encoded observations; timesteps: (T,)."""
+    def forward(self, xs: torch.Tensor, timesteps: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+        """xs: (B, T, H, W, ch) encoded observations; timesteps: (T,);
+        mask: (B, T) or None."""
         b, t, h, w, _ = xs.shape
         spacing = timesteps[:-1] - timesteps[1:]           # negative steps
         dts = torch.cat([torch.full((1,), _FIRST_DT, dtype=timesteps.dtype,
@@ -84,6 +91,7 @@ class ODEConvGRUEncoder(nn.Module):
                          spacing.flip(0)])
         prev = torch.zeros((b, h, w, self.ch), dtype=self.dtype,
                            device=xs.device)
+        m = lambda i: None if mask is None else mask[:, t - 1 - i]
         if self.hoist_projections:
             gx, cx = self.step.cgru_cell.project_x(
                 xs.reshape(b * t, h, w, -1))
@@ -91,10 +99,10 @@ class ODEConvGRUEncoder(nn.Module):
             cx = cx.reshape(b, t, *cx.shape[1:])
             for i in range(t):
                 prev = self.step.fused(prev, gx[:, t - 1 - i],
-                                       cx[:, t - 1 - i], dts[i])
+                                       cx[:, t - 1 - i], dts[i], m(i))
         else:
             for i in range(t):
-                prev = self.step(prev, xs[:, t - 1 - i], dts[i])
+                prev = self.step(prev, xs[:, t - 1 - i], dts[i], m(i))
         z = F.relu(self.head_0(prev))
         mu, std = self.head_1(z).chunk(2, dim=-1)
         return mu, std.abs()

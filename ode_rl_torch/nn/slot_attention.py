@@ -10,13 +10,16 @@ exp(slots_log_sigma) * noise``: both are learnable parameters, and the
 noise is one (B, S, D) draw from the caller's ``Noise``
 (core/noise.py). The autoencoder wrapper adds JAX's LayerNorm + MLP
 preprocessing; a feature map (B, H, W, C) becomes a set of H*W elements,
-a vector (B, C) a set of one. ``SoftPositionEmbed`` is not ported (it
-comes with Vid-ODE, ROADMAP queue 1, item 6).
+a vector (B, C) a set of one. ``SoftPositionEmbed`` adds a Dense
+projection of the [y, x, 1 - y, 1 - x] grid to a feature map (Vid-ODE's
+slot encoder); the grid is ``linspace(0, 1, n)`` rounded once from fp64,
+within an fp32 ulp of ``jnp.linspace``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +28,7 @@ from torch import nn
 from ode_rl_torch.core.noise import Noise
 from ode_rl_torch.nn.dense import Dense, GRUCell
 from ode_rl_torch.nn.norm import LayerNorm
+from ode_rl_torch.ops.warp import linspace
 
 
 def _xavier_uniform(d: int, generator: torch.Generator) -> nn.Parameter:
@@ -36,11 +40,11 @@ def _xavier_uniform(d: int, generator: torch.Generator) -> nn.Parameter:
 
 
 class SlotAttention(nn.Module):
-    MLP_HIDDEN, EPSILON = 128, 1e-8
+    EPSILON = 1e-8
 
     def __init__(self, d_in: int, num_slots: int = 3,
                  num_iterations: int = 3, slot_size: int = 128, *,
-                 generator: torch.Generator):
+                 mlp_hidden: int = 128, generator: torch.Generator):
         super().__init__()
         d = slot_size
         self.num_slots, self.num_iterations = num_slots, num_iterations
@@ -55,16 +59,20 @@ class SlotAttention(nn.Module):
         self.norm_slots = LayerNorm(d)
         self.norm_mlp = LayerNorm(d)
         self.project_q = Dense(d, d, use_bias=False, **kw)
-        self.mlp_0 = Dense(d, self.MLP_HIDDEN, **kw)
-        self.mlp_1 = Dense(self.MLP_HIDDEN, d, **kw)
+        self.mlp_0 = Dense(d, mlp_hidden, **kw)
+        self.mlp_1 = Dense(mlp_hidden, d, **kw)
 
-    def forward(self, x: torch.Tensor, noise: Noise) -> torch.Tensor:
-        """x: (B, N, d_in) -> slots (B, S, slot_size)."""
+    def forward(self, x: torch.Tensor, noise: Optional[Noise] = None,
+                init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, N, d_in) -> slots (B, S, slot_size). The slots' initial
+        noise is ``init_noise`` (B, S, slot_size) where given, else a
+        draw from ``noise``."""
         b, d, s = x.shape[0], self.slot_size, self.num_slots
         x = self.norm_inputs(x)
         k = self.project_k(x)
         v = self.project_v(x)
-        init = noise.normal((b, s, d), x)
+        init = (noise.normal((b, s, d), x) if init_noise is None
+                else init_noise.to(x.dtype))
         slots = self.slots_mu + torch.exp(self.slots_log_sigma) * init
         for _ in range(self.num_iterations):
             slots_prev = slots
@@ -112,3 +120,20 @@ class SlotAttentionAutoEncoder(nn.Module):
             x = x[:, None, :]                  # a set of one element
         x = self.pre_mlp_1(F.relu(self.pre_mlp_0(self.pre_norm(x))))
         return self.slot_attention(x, noise)
+
+
+class SoftPositionEmbed(nn.Module):
+    """x (..., H, W, C) + Dense(4 -> C) of the grid [y, x, 1 - y, 1 - x],
+    y and x each ``linspace(0, 1, n)``."""
+
+    def __init__(self, hidden_size: int, *, generator: torch.Generator):
+        super().__init__()
+        self.dense = Dense(4, hidden_size, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-3], x.shape[-2]
+        gy, gx = torch.meshgrid(linspace(0.0, 1.0, h, x.device),
+                                linspace(0.0, 1.0, w, x.device),
+                                indexing="ij")
+        grid = torch.stack([gy, gx, 1.0 - gy, 1.0 - gx], dim=-1)
+        return x + self.dense(grid.to(x.dtype))

@@ -16,6 +16,15 @@ import torch
 import torch.nn.functional as F
 
 
+def linspace(start: float, stop: float, n: int,
+             device: torch.device = None) -> torch.Tensor:
+    """fp32 ``linspace`` of n points, each rounded once from fp64 (within
+    an fp32 ulp of ``jnp.linspace``): the coordinates of a sampling
+    grid."""
+    return torch.linspace(start, stop, n, dtype=torch.float64,
+                          device=device).float()
+
+
 def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Sample (B,H,W,C) at the normalized grid (B,Ho,Wo,2) of (gx, gy) in
     [-1, 1], with torch's conventions (align_corners=False), border-clamped."""

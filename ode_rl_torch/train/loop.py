@@ -1,35 +1,43 @@
 """Training and evaluation loop.
 
-Counterpart of ``setup``, ``train`` and ``test`` in
+Counterpart of ``setup``, ``train``, ``train_gan`` and ``test`` in
 ``ode_rl_tpu/train/loop.py`` for the video-prediction families the port
 builds (models/registry.py): the epoch x batch loop with loss logging at
 ``loss_log_freq``, checkpoints every ``ckpt_save_freq`` and at the end,
 auto-resume from the newest checkpoint, the per-epoch line, and the test
 protocol (restore by ``ckpt_id``, ``eval_batches`` batches, per-horizon
-MSE/PSNR/SSIM into ``per_horizon.json``, the last horizon as
-``final_*``).
+MSE/PSNR/SSIM, and LPIPS for Vid-ODE, into ``per_horizon.json``, the
+last horizon as ``final_*``, and a prediction/ground-truth sheet
+``pred_gt.png``).
 
 Without a frozen corpus the train step makes its own batch on the device
 (the fused step); with one, batches come from the loader. S3VAE's batches
 carry its DFP labels (the frame-difference motion grid) on both paths and
-in the test phase. Every train and eval step draws any model noise
-(``z_sample``, S3VAE's) from one sampling generator seeded from
-``cfg.seed``, as JAX hands each step a key split from the run's. Metrics
-are fetched to the host only at log points; a model's own metrics
-(``nfe``, ``z0_kl``, ``nan_skipped``, S3VAE's loss terms and so on) are
-logged with the loss. Checkpoints hold the model's ``state_dict``, so
-BatchNorm's running statistics go with the weights into the test phase.
+in the test phase. With ``vidode_sampling`` each batch is a window of
+``window_size`` frames (Moving MNIST clips of that length, or a video
+corpus's), sampled and split by data/samplers.py from a generator seeded
+from ``cfg.seed``. ``gan`` trains Vid-ODE adversarially (train/gan.py):
+no resume, as in JAX; every ``gan_test_freq_epochs`` epochs an
+evaluation over ``gan_eval_batches`` test batches writes its curves and a
+sheet; its checkpoints hold ``gen_params``, ``gen_model_state`` and
+``disc_params``, and its test phase restores the first two. Every train
+and eval step draws any model noise (``z_sample``, S3VAE's, Vid-ODE's
+slots) from one sampling generator seeded from ``cfg.seed``, as JAX
+hands each step a key split from the run's. Metrics are fetched to the
+host only at log points; a model's own metrics (``nfe``, ``z0_kl``,
+``nan_skipped``, S3VAE's loss terms and so on) are logged with the loss.
+Checkpoints hold the model's ``state_dict``, so BatchNorm's running
+statistics go with the weights into the test phase.
 
 A test block restores the train run's saved config for every key that is
 not one of the evaluation protocol's, as JAX does: so
 ``test_mmnist_odecgrumem_len20_1ch``, which says ``n_ode_layers: 2``,
 builds the 3 layers its train block saved, and its checkpoint loads.
 
-Not ported, and each raises where a config asks for it: the GAN loop,
-the CATER classifier, plateau LR and early stopping, Vid-ODE window
-sampling, the device mesh, LPIPS and S3VAE's FlowNet labels
-(``flow_label_source: flownet``). ``test`` writes no PNGs
-(``train/visualize.py``, ROADMAP queue 1).
+Not ported, and each raises where a config asks for it: the CATER
+classifier, plateau LR and early stopping, the device mesh,
+``debug_nans`` and S3VAE's FlowNet labels (``flow_label_source:
+flownet``). The metric-vs-horizon plot (matplotlib) is not written.
 """
 
 from __future__ import annotations
@@ -44,18 +52,25 @@ import torch
 from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
 from ode_rl_torch.core.config import Config, resolve_run_id
 from ode_rl_torch.core.logging import MetricLogger
-from ode_rl_torch.data.mmnist import parse_datasets
+from ode_rl_torch.core.noise import Noise
+from ode_rl_torch.data.mmnist import MovingMNIST, parse_datasets
 from ode_rl_torch.data.protocol import make_batch_dict
+from ode_rl_torch.data.samplers import sample, split_batch
 from ode_rl_torch.data.sprites import get_sprite_bank
+from ode_rl_torch.eval_models.lpips import lpips_horizon_fn
+from ode_rl_torch.train.gan import create_gan_state, make_gan_train_step
 from ode_rl_torch.train.step import (TrainState, create_train_state,
                                      make_eval_step, make_fused_train_step,
                                      make_train_step, needs_flow_labels)
+from ode_rl_torch.train.visualize import save_filmstrip
 
 # The fused loop's generator seed is the run seed plus this (JAX folds
 # the same constant into its loop key).
 _LOOP_SEED = 0xDA7A
 # The sampling generator's seed is the run seed plus this.
 _SAMPLE_SEED = 0x5A3D
+# The window samplers' generator's seed is the run seed plus this.
+_WINDOW_SEED = 0x3D1D
 
 
 def _sample_generator(cfg, device: torch.device) -> torch.Generator:
@@ -65,8 +80,6 @@ def _sample_generator(cfg, device: torch.device) -> torch.Generator:
 
 def _refuse_unported(cfg) -> None:
     asks = {
-        "gan": ("the GAN loop (train/gan.py)", "item 6"),
-        "vidode_sampling": ("Vid-ODE window sampling", "item 6"),
         "use_mesh": ("the device mesh (parallel/)", "item 10"),
         "debug_nans": ("debug_nans", "item 2"),
     }
@@ -109,9 +122,31 @@ def _load(state: TrainState, snapshot: Dict) -> None:
     state.optimizer.load_state_dict(snapshot["optimizer"])
 
 
+def _window_batches(cfg, loader):
+    """A function that gives the next batch of Vid-ODE's window sampling:
+    a clip of ``loader``, sampled (``sample_size`` train_in_seq +
+    train_out_seq) and split."""
+    noise = Noise(torch.Generator().manual_seed(int(cfg.get("seed", 0))
+                                                + _WINDOW_SEED))
+    extrap = cfg.get("extrapolate", True)
+
+    def next_batch() -> Dict:
+        frames, mask = sample(
+            noise, next(loader),
+            sample_size=cfg.train_in_seq + cfg.train_out_seq,
+            window_size=int(cfg.get("window_size", cfg.train_seq)),
+            irregular=cfg.get("irregular", False), extrap=extrap,
+            train=True)
+        return split_batch(frames, mask, extrap=extrap)
+
+    return next_batch
+
+
 def train(cfg, device: torch.device,
           logdir: Optional[pathlib.Path] = None) -> Dict:
     _refuse_unported(cfg)
+    if cfg.get("gan", False):
+        return train_gan(cfg, device, logdir)
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
               / run_id)
@@ -121,9 +156,19 @@ def train(cfg, device: torch.device,
                              tag=cfg.get("ckpt_id", run_id))
     loaders, state = setup(cfg, device)
 
+    windows = cfg.get("vidode_sampling", False)
     fused = (cfg.get("fused_datagen", True) and cfg.dataset == "mmnist"
-             and not loaders.get("frozen", False))
+             and not loaders.get("frozen", False) and not windows)
     loader = loaders["train_dataloader"]
+    if windows and cfg.dataset == "mmnist":
+        # Moving MNIST clips of the window's length.
+        loader = MovingMNIST(
+            batch_size=cfg.batch_size,
+            n_frames_input=int(cfg.get("window_size", cfg.train_seq)),
+            n_frames_output=0, num_digits=cfg.num_digits,
+            data_dir=cfg.get("data_dir"), seed=cfg.get("seed", 0),
+            device=device)
+    next_window = _window_batches(cfg, loader) if windows else None
     if fused:
         bank = get_sprite_bank(cfg.get("data_dir"))
         if int(cfg.get("num_sprites", 0) or 0):
@@ -162,6 +207,8 @@ def train(cfg, device: torch.device,
                 break
             if fused:
                 metrics = fused_step(state, loop_gen, sample_gen)
+            elif windows:
+                metrics = train_step(state, next_window(), sample_gen)
             else:
                 batch = make_batch_dict(
                     next(loader), n_in=cfg.train_in_seq,
@@ -185,6 +232,78 @@ def train(cfg, device: torch.device,
     return {"final_step": step, **last_metrics}
 
 
+def train_gan(cfg, device: torch.device,
+              logdir: Optional[pathlib.Path] = None) -> Dict:
+    """Adversarial Vid-ODE training (train/gan.py), as JAX's
+    ``train_gan``."""
+    run_id = resolve_run_id(cfg)
+    logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
+              / run_id)
+    logger = MetricLogger(logdir, quiet=cfg.get("quiet", False))
+    ckpt = CheckpointManager(logdir / "checkpoints",
+                             tag=cfg.get("ckpt_id", run_id))
+    loaders = parse_datasets(cfg, device)
+    loader = loaders["train_dataloader"]
+    sample_batch = make_batch_dict(next(loader), n_in=cfg.train_in_seq)
+    n_batches = (int(cfg.get("steps_per_epoch", 0))
+                 or loaders["n_train_batches"])
+    extrap = bool(cfg.get("extrapolate", True))
+    state = create_gan_state(cfg, device, sample_batch,
+                             steps_per_epoch=n_batches, extrap=extrap)
+    step_fn = make_gan_train_step(extrap=extrap,
+                                  lamb_adv=float(cfg.get("lamb_adv", 0.003)))
+    sample_gen = _sample_generator(cfg, device)
+    eval_step = make_eval_step()
+    test_loader = loaders.get("test_dataloader")
+    test_freq = int(cfg.get("gan_test_freq_epochs", 100))
+
+    def periodic_eval(epoch: int) -> Dict:
+        """Metrics over ``gan_eval_batches`` test batches, their curves
+        and a ground truth/prediction sheet of the last batch."""
+        acc, pred, tbatch = [], None, None
+        for _ in range(int(cfg.get("gan_eval_batches", 4))):
+            tbatch = make_batch_dict(next(test_loader), n_in=cfg.train_in_seq)
+            m, pred = eval_step(state.gen, tbatch, sample_gen)
+            acc.append({k: _host(v) for k, v in m.items()
+                        if not k.startswith("aux_")})
+        m = {k: np.mean(np.stack([a[k] for a in acc]), axis=0)
+             for k in acc[0]}
+        (logdir / f"gan_eval_epoch{epoch:05d}.json").write_text(json.dumps(
+            {k: v.tolist() for k, v in m.items()}))
+        save_filmstrip(logdir / f"test_epoch{epoch:05d}.png",
+                       [_host(tbatch["data_to_predict"][0]) + 0.5,
+                        _host(pred[0])])
+        return {f"test_{k}": float(v.mean()) for k, v in m.items()}
+
+    total = n_batches * cfg.epochs
+    step = 0
+    last: Dict = {}
+    log_freq = int(cfg.get("loss_log_freq", 50))
+    for epoch in range(cfg.epochs):
+        for _ in range(n_batches):
+            if step >= total:
+                break
+            batch = make_batch_dict(next(loader), n_in=cfg.train_in_seq)
+            metrics = step_fn(state, batch, sample_gen)
+            step += 1
+            if step % log_freq == 0 or step == 1:
+                last = {k: float(v) for k, v in metrics.items()}
+                logger.log(step, last)
+            if step % cfg.get("ckpt_save_freq", 5000) == 0:
+                ckpt.save(step, state.snapshot(), config=cfg.to_dict())
+        if test_loader is not None and (epoch + 1) % test_freq == 0:
+            test_metrics = periodic_eval(epoch + 1)
+            last.update(test_metrics)
+            logger.log(step, test_metrics)
+    ckpt.save(max(step, 1), state.snapshot(), config=cfg.to_dict())
+    logger.close()
+    return {"final_step": step, **last}
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 # Keys the test block keeps when it resurrects a saved train config:
 # those that define the evaluation protocol rather than the model.
 _TEST_PROTOCOL_KEYS = frozenset({
@@ -205,13 +324,6 @@ def _resurrect_train_config(cfg, saved: Dict) -> Config:
     return Config(merged)
 
 
-def _lpips_enabled(cfg) -> bool:
-    mode = cfg.get("eval_lpips", "auto")
-    if isinstance(mode, str) and mode.lower() == "auto":
-        return cfg.model in ("VidODE",)
-    return bool(mode)
-
-
 def test(cfg, device: torch.device,
          logdir: Optional[pathlib.Path] = None) -> Dict:
     ckpt = None
@@ -228,9 +340,6 @@ def test(cfg, device: torch.device,
         if saved_cfg is not None:
             cfg = _resurrect_train_config(cfg, saved_cfg)
     _refuse_unported(cfg)
-    if _lpips_enabled(cfg):
-        raise NotImplementedError("LPIPS is not ported: ROADMAP queue 1, "
-                                  "item 6 (eval_models/lpips.py)")
 
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
@@ -239,9 +348,19 @@ def test(cfg, device: torch.device,
     loaders, state = setup(cfg, device)
     if ckpt is not None:
         step = cfg.get("ckpt_step") or None
-        restored = ckpt.restore(_snapshot(state),
-                                step=int(step) if step else None)
-        _load(state, restored["state"])
+        step = int(step) if step else None
+        if cfg.get("gan", False):
+            # The generator's parameters and BatchNorm statistics.
+            model = state.model
+            restored = ckpt.restore(
+                {"gen_params": dict(model.named_parameters()),
+                 "gen_model_state": dict(model.named_buffers())},
+                step=step, allow_missing=("gen_model_state",))
+            model.load_state_dict({**restored["state"]["gen_params"],
+                                   **restored["state"]["gen_model_state"]})
+        else:
+            restored = ckpt.restore(_snapshot(state), step=step)
+            _load(state, restored["state"])
         print(f"loaded checkpoint {ckpt.tag} step {restored['step']} "
               f"from {ckpt.directory}")
 
@@ -249,13 +368,18 @@ def test(cfg, device: torch.device,
     sample_gen = _sample_generator(cfg, device)
     loader = loaders["test_dataloader"]
     batches = int(cfg.get("eval_batches", 0)) or loaders["n_test_batches"]
+    lpips_fn = lpips_horizon_fn(cfg, device)
     all_metrics = []
     for _ in range(batches):
         batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq,
                                 with_flow_labels=needs_flow_labels(cfg))
-        metrics, _pred = eval_step(state.model, batch, sample_gen)
-        all_metrics.append({k: v.cpu().numpy() for k, v in metrics.items()
-                            if not k.startswith("aux_")})
+        metrics, pred = eval_step(state.model, batch, sample_gen)
+        host = {k: v.cpu().numpy() for k, v in metrics.items()
+                if not k.startswith("aux_")}
+        gt = batch["data_to_predict"] + 0.5
+        if lpips_fn is not None and pred.shape[:2] == gt.shape[:2]:
+            host[lpips_fn.metric_key] = lpips_fn(pred, gt).cpu().numpy()
+        all_metrics.append(host)
 
     # Mean over batches -> per-horizon curves; the last horizon is the
     # final metric.
@@ -265,5 +389,11 @@ def test(cfg, device: torch.device,
     per_horizon = {k: v.tolist() for k, v in stacked.items()}
     logger.log(0, final)
     (logdir / "per_horizon.json").write_text(json.dumps(per_horizon))
+    # The last batch's first video: ground truth over prediction (the
+    # observed frames lead both where the model predicts them too).
+    gt, pr = _host(batch["data_to_predict"][0]) + 0.5, _host(pred[0])
+    if pr.shape[0] != gt.shape[0]:
+        gt = np.concatenate([_host(batch["observed_data"][0]) + 0.5, gt])
+    save_filmstrip(logdir / "pred_gt.png", [gt, pr])
     logger.close()
     return {**final, "per_horizon": per_horizon}

@@ -96,7 +96,7 @@ def test_generated_streams_are_seeded_and_test_offset():
 
 
 @pytest.mark.parametrize("dataset,match", [("sprites", "item 9"),
-                                           ("kth", "item 6"),
+                                           ("cater", "item 8"),
                                            ("nope", "no dataset")])
 def test_parse_datasets_refuses_unported(tmp_path, dataset, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -204,7 +204,7 @@ def test_registry_refuses_unported_families_and_options():
     for overrides, match in (({"model": "ConvLSTM"}, "item 3"),
                              ({"model": "S2VAE"}, "item 5"),
                              ({"model": "DS2VAE"}, "item 5"),
-                             ({"model": "VidODE"}, "item 6"),
+                             ({"model": "SpatialDreamer"}, "item 8"),
                              ({"model": "Dreamer"}, "item 8"),
                              ({"model": "DSVAE"}, "item 9"),
                              ({"mem": True, "mem_mode": "nru3"}, "nru")):
@@ -217,7 +217,8 @@ def test_registry_refuses_unported_families_and_options():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"gan": True}, "GAN"), ({"vidode_sampling": True}, "window"),
+    ({"debug_nans": True}, "debug_nans"),
+    ({"gan": True, "use_mesh": True}, "mesh"),
     ({"use_mesh": True}, "mesh"), ({"lr_scheduler": "plateau"}, "plateau"),
     ({"early_stop_patience": 3}, "early stopping"),
     ({"model": "CATERClassifier"}, "CATER"),
@@ -232,9 +233,13 @@ def test_loop_refuses_unported_options(tmp_path, overrides, match):
 
 
 def test_test_phase_refuses_lpips(tmp_path):
+    """LPIPS named to load weights from a file that is missing: the test
+    phase refuses rather than score with random features."""
     from ode_rl_torch.train.loop import test
 
     cfg = load_config(["defaults", "test_mmnist_odecgru_len20_1ch"],
-                      overrides={"load_model": False, "eval_lpips": True})
-    with pytest.raises(NotImplementedError, match="LPIPS"):
+                      overrides={"load_model": False, "eval_lpips": True,
+                                 "lpips_alexnet_npz": str(
+                                     tmp_path / "missing.npz")})
+    with pytest.raises(FileNotFoundError, match="lpips_alexnet_npz"):
         test(cfg, torch.device("cpu"), logdir=tmp_path)

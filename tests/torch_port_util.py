@@ -3,6 +3,9 @@ numpy inputs go through the JAX package and the PyTorch port."""
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,3 +89,25 @@ def net_parity(flax_module, port_module, inputs, out_metric=rel_l2,
     for a, b in zip(t_outs, j_outs):
         assert out_metric(a, b) <= out_tol
     assert_grads_close(port_module, j_grads, grad_tol)
+
+
+def decode_png(path) -> np.ndarray:
+    """A plain decoder: chunks, CRCs, IHDR, the IDAT stream inflated with
+    zlib, filter type 0 on every row."""
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, []
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        assert struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == (
+            zlib.crc32(kind + body) & 0xFFFFFFFF)
+        chunks.append((kind, body))
+        pos += 12 + n
+    assert [k for k, _ in chunks] == [b"IHDR", b"IDAT", b"IEND"]
+    w, h, depth, color = struct.unpack(">IIBB", chunks[0][1][:10])
+    assert (depth, color) == (8, 2)
+    raw = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, 3)
