@@ -163,9 +163,30 @@ without printing its last line:
    32->32), K3 at (4, 16, 16, 256) and (16, 16, 16, 64), K4 at (4, 16,
    16, 128) and (16, 16, 16, 32) alone against their plain versions,
    each with its plan, route, device µs and bound.
+13. ConvLSTM, the S2VAE family and the Sprites DS-VAE: ``ode_rl_torch.main``
+   on ``defaults`` + ``train_mmnist_convlstm``, ``train_mmnist_s2vae``,
+   ``_cs2vae`` (3 slots of 128: K3 at (4, 4, 4, 256) in 8 groups and K4
+   at (4, 4, 4, 128) in 4, once a slot a step), ``_ds2vae`` and
+   ``train_sprite_dsvae`` (procedural clips made on the card), 4 steps
+   each at their own widths (fp32, B=4) on the frozen corpus, and
+   ``train_mmnist_convlstm_sched`` with lr 0, plateau patience 0 and
+   early stopping after 2 epochs, over up to eight epochs of 2 steps:
+   loss and grad_norm finite at every step, a checkpoint whose BatchNorm
+   buffers all moved (ConvLSTM has none), CS2VAE's K3/K4 launched (every
+   launch one-sample, no K1/K2) and the other blocks launching none of
+   K1-K4, the plateau block stopped early with the stop epoch and the lr
+   scale of its checkpoint (below 1) those of the plateau's and early
+   stopping's state machines replayed on its logged ``val_mse``; median
+   step_ms. Then ``test_mmnist_s2vae``, ``_cs2vae`` and ``_ds2vae`` (20
+   -> 20, one batch) from their train runs' checkpoints; one CS2VAE step
+   from the seed's weights through the kernels (profiled) against the
+   same step under ``force_plain()`` (as phase 11's); one profiled
+   forward and backward of each other block (device ms and busy share);
+   a ConvLSTM step with ``debug_nans`` on a batch holding one NaN, which
+   must raise ``FloatingPointError``; and K3/K4 at CS2VAE's shapes alone.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7, 8, 9, 10, 11 and 12) run their convs in strict fp32. Then one JSON line
+7-13) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -237,6 +258,10 @@ from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         sample_plan)
 from ode_rl_torch.profile_step import _KERNEL_IDS, _KERNEL_NAME
 from ode_rl_torch.train import loop as train_loop
+from ode_rl_torch.core.noise import Noise
+from ode_rl_torch.sprite.data import sprites_batch
+from ode_rl_torch.train.schedulers import (EarlyStopping, ReduceLROnPlateau,
+                                           lr_scale)
 from ode_rl_torch.train.step import (create_train_state, loss_and_grads,
                                      make_fused_train_step, make_train_step)
 
@@ -2510,6 +2535,246 @@ def phase_vidode(bank: torch.Tensor) -> dict:
     return {"train": trains, "reference": refs, "shapes": shapes}
 
 
+# The last video-prediction families (configs.yaml), each block at its own
+# widths (fp32, B=4): ConvLSTM (10 -> 10; stages 16/64/96), with the plateau
+# LR and early stopping; S2VAE, CS2VAE and DS2VAE (20 -> 20, 64x64, d_zf
+# 256, 3 slots of 128, DS2VAE's RIM of 3 blocks of 100); the Sprites DS-VAE
+# (8 frames of 64x64x3, procedural clips made on the card).
+FAMILIES13_TRAIN = ("train_mmnist_convlstm", "train_mmnist_convlstm_sched",
+                    "train_mmnist_s2vae", "train_mmnist_cs2vae",
+                    "train_mmnist_ds2vae", "train_sprite_dsvae")
+# (test block, the train block whose checkpoint it loads), 20 -> 20.
+FAMILIES13_TESTS = (("test_mmnist_s2vae", "train_mmnist_s2vae"),
+                    ("test_mmnist_cs2vae", "train_mmnist_cs2vae"),
+                    ("test_mmnist_ds2vae", "train_mmnist_ds2vae"))
+FAMILIES13_STEPS = 4
+# The plateau block: lr 0, so the weights stay and the validation MSE
+# moves only by the card's rounding (cuDNN's transposed convs are not
+# deterministic: about 3e-5 relative between epochs on an H100 80GB HBM3
+# at 700 W); plateau
+# patience 0 and early stopping after 2 epochs without a new best, over up
+# to eight epochs of 2 steps.
+SCHED_OVERRIDES = ("--lr", "0.0", "--plateau_patience", "0",
+                   "--early_stop_patience", "2", "--steps_per_epoch", "2",
+                   "--epochs", "8")
+
+
+def _check_families13_routes(model: str, counts: dict, where: str) -> None:
+    """CS2VAE: K3 and K4 (every launch a one-sample one), no K1/K2. The
+    others run none of K1-K4."""
+    gru = counts["gru_gates"] + counts["gru_blend"]
+    conv = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    if model != "CS2VAE":
+        if gru or conv:
+            raise AssertionError(f"K1-K4 launched in the {where}: {counts}")
+        return
+    if counts["gru_gates"] == 0 or counts["gru_blend"] == 0 or conv:
+        raise AssertionError(f"the {where} did not run K3/K4 alone: "
+                             f"{counts}")
+    _check_gru_sample(counts)
+
+
+def _families13_train(block: str, root: pathlib.Path,
+                      logs: pathlib.Path) -> dict:
+    """``block`` through ``ode_rl_torch.main``: FAMILIES13_STEPS steps (the
+    plateau block: SCHED_OVERRIDES), loss and grad_norm finite at every
+    step, the checkpoint at the last step (its BatchNorm buffers all
+    moved where the model has any), the kernels' routes. The plateau
+    block: a ``val_mse`` an epoch, the run stopped early, and the two
+    state machines replayed on the logged ``val_mse`` stop at its last
+    epoch with the lr scale its checkpoint holds, below 1."""
+    sched = block.endswith("_sched")
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs / block), "--loss_log_freq", "1"]
+    argv += (list(SCHED_OVERRIDES) if sched else [
+        "--steps_per_epoch", str(FAMILIES13_STEPS), "--epochs", "1",
+        "--ckpt_save_freq", str(FAMILIES13_STEPS)])
+    cfg, run = _run_dir(argv)
+    timer = _TimedTrainStep()
+    train_loop.make_train_step = timer
+    torch.cuda.synchronize()
+    common.reset_launches()
+    try:
+        out = port_main.main(argv)
+    finally:
+        train_loop.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    _check_tf32_off(f"main on {block}")
+    counts = dict(common.launches)
+    _check_families13_routes(cfg.model, counts, f"{block} run")
+    steps = out["final_step"]
+    if steps != FAMILIES13_STEPS and not sched:
+        raise AssertionError(f"{block}: {steps} steps, not "
+                             f"{FAMILIES13_STEPS}")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    train_logs = [m for m in logged if "loss" in m]
+    if [m["step"] for m in train_logs] != list(range(1, steps + 1)):
+        raise AssertionError(f"{block}: logged steps "
+                             f"{[m['step'] for m in train_logs]}")
+    for m in train_logs:
+        bad = [k for k in ("loss", "grad_norm")
+               if not np.isfinite(m.get(k, np.nan))]
+        if bad:
+            raise AssertionError(f"{block} step {m['step']}: {bad} missing "
+                                 "or not finite")
+    ckpt = CheckpointManager(run / "checkpoints", tag=cfg.ckpt_id)
+    if ckpt.all_steps() != [steps]:
+        raise AssertionError(f"{block}: checkpoints at {ckpt.all_steps()}")
+    saved = ckpt.restore({"model": {}, "optimizer": {}})["state"]
+    n_bn = (_bn_moved(saved["model"], block) if cfg.model != "ConvLSTM"
+            else 0)
+    note = ""
+    if sched:
+        vals = [m["val_mse"] for m in logged if "val_mse" in m]
+        plateau = ReduceLROnPlateau(
+            float(cfg.get("plateau_factor", 0.5)),
+            int(cfg.get("plateau_patience", 4)),
+            float(cfg.get("plateau_min_scale", 1e-3)))
+        early = EarlyStopping(int(cfg.early_stop_patience))
+        stops = []
+        for v in vals:
+            plateau.step(v)
+            stops.append(early.step(v))
+        scale = lr_scale(saved["optimizer"])
+        if (not np.all(np.isfinite(vals)) or steps != 2 * len(vals)
+                or steps >= 2 * cfg.epochs or True not in stops
+                or stops.index(True) != len(vals) - 1
+                or scale != plateau.scale or scale >= 1.0):
+            raise AssertionError(
+                f"{block}: {steps} steps, val_mse {vals}, stops {stops}, "
+                f"lr scale {scale} (replayed {plateau.scale}): the loop's "
+                "plateau and early stopping disagree with their state "
+                "machines, or did not fire")
+        note = (f"; val_mse {vals}, lr scale {scale}, early stop after "
+                f"epoch {len(vals)} of {cfg.epochs}")
+    median = statistics.median(timer.ms[1:])
+    per_step = {k: counts[k] / steps for k in ("gru_gates", "gru_blend")}
+    print(f"  {block} ({cfg.model}, {cfg.train_in_seq}->"
+          f"{cfg.train_out_seq}): losses "
+          f"{[round(m['loss'], 4) for m in train_logs]}; step_ms "
+          f"{[round(t, 2) for t in timer.ms]}, median over steps 2-{steps} "
+          f"{median:.2f}; {n_bn} BatchNorm buffers moved; K3/K4 a step "
+          f"{per_step}{note}")
+    return {"counts": counts, "step_ms": median, "steps": steps,
+            "logs": logs / block, "model": cfg.model}
+
+
+def _families13_test(block: str, logs: pathlib.Path,
+                     root: pathlib.Path) -> None:
+    """One batch of the test block (20 -> 20) from its train run's
+    checkpoint: 20 finite values of each per-horizon metric."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs), "--eval_batches", "1", "--test_out_seq",
+            "20"]
+    cfg, _ = port_main.get_cfg(argv)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    out = port_main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_tf32_off(f"main on {block}")
+    _check_families13_routes(cfg.model, dict(common.launches),
+                             f"{block} test")
+    run = logs / cfg.model / resolve_run_id(cfg)
+    per_horizon = json.loads((run / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim"):
+        v = per_horizon[k]
+        if len(v) != 20 or not np.all(np.isfinite(v)):
+            raise AssertionError(f"{block} per_horizon {k}: {len(v)} "
+                                 "values, not 20 finite ones")
+    print(f"  {block} ({cfg.test_in_seq}->{cfg.test_out_seq}): "
+          f"{seconds:.2f} s; mse at frames 1, 10, 20: "
+          + " ".join(f"{per_horizon['mse'][i]:.4f}" for i in (0, 9, 19))
+          + f"; final ssim {out['final_ssim']:.4f}")
+
+
+def _families13_batch(cfg, root: pathlib.Path) -> dict:
+    if cfg.dataset == "sprites":
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        video, _, _ = sprites_batch(Noise(gen), cfg.batch_size,
+                                    cfg.train_in_seq + cfg.train_out_seq)
+    else:
+        video = next(FrozenMovingMNIST(root, cfg.batch_size,
+                                       cfg.train_in_seq, cfg.train_out_seq,
+                                       seed=5, device=torch.device("cuda")))
+    return make_batch_dict(video, cfg.train_in_seq)
+
+
+def _families13_profile(block: str, root: pathlib.Path) -> dict:
+    """One forward and backward of ``block`` from its seed's weights on a
+    fixed batch, after one unprofiled: device ms of its wall ms."""
+    cfg = load_config(["defaults", block])
+    model = create_train_state(cfg, torch.device("cuda")).model.train()
+    batch = _families13_batch(cfg, root)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    loss_and_grads(model, batch, gen)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
+        t0 = time.perf_counter()
+        loss_and_grads(model, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = _device_ms(prof)
+    print(f"  {block}: a profiled forward and backward, device ms "
+          f"{device:.3f} of {wall_ms:.2f} (busy "
+          f"{100 * device / wall_ms:.1f}%)")
+    return {"device_ms": device, "wall_ms": wall_ms}
+
+
+def _check_debug_nans(root: pathlib.Path) -> None:
+    """A ConvLSTM step with ``debug_nans`` on a batch holding one NaN must
+    raise ``FloatingPointError``; without the flag it runs."""
+    cfg = load_config(["defaults", "train_mmnist_convlstm"])
+    state = create_train_state(cfg, torch.device("cuda"))
+    batch = _families13_batch(cfg, root)
+    batch["observed_data"] = batch["observed_data"].clone()
+    batch["observed_data"][0, 3, 30, 30, 0] = float("nan")
+    try:
+        make_train_step(debug_nans=True)(state, batch)
+    except FloatingPointError as e:
+        print(f"  debug_nans on a batch with one NaN raised: {e}")
+    else:
+        raise AssertionError("debug_nans did not raise on a NaN batch")
+    metrics = make_train_step()(state, batch)
+    if np.isfinite(float(metrics["loss"])):
+        raise AssertionError("the NaN batch gave a finite loss")
+
+
+def phase_families13(bank: torch.Tensor) -> dict:
+    print(f"[13] ConvLSTM, S2VAE/CS2VAE/DS2VAE and the Sprites DS-VAE: "
+          f"{len(FAMILIES13_TRAIN)} train blocks through ode_rl_torch.main "
+          f"(fp32, B={RECIPE_B}), the three test blocks (20 -> 20), a "
+          "CS2VAE step against the plain versions, debug_nans, K3/K4 at "
+          "CS2VAE's shapes")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        trains = {block: _families13_train(block, root, logs)
+                  for block in FAMILIES13_TRAIN}
+        for block, train_block in FAMILIES13_TESTS:
+            _families13_test(block, trains[train_block]["logs"], root)
+        ref = _bn_reference(
+            "train_mmnist_cs2vae", root, lambda cfg, counts, where:
+            _check_families13_routes(cfg.model, counts, where),
+            "data_to_predict")
+        profiles = {block: _families13_profile(block, root)
+                    for block in FAMILIES13_TRAIN if block not in (
+                        "train_mmnist_convlstm_sched", "train_mmnist_cs2vae")}
+        profiles["train_mmnist_cs2vae"] = ref
+        _check_debug_nans(root)
+    # K3 at CS2VAE's gates (4, 4, 4, 256) in 8 groups, K4 at its candidate
+    # (4, 4, 4, 128) in 4 groups: one call a slot a step.
+    shapes = _shapes_alone((), ((4, 4, 256),))
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    return {"train": trains, "reference": ref, "profiles": profiles,
+            "shapes": shapes}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2533,6 +2798,7 @@ def main() -> int:
     recurrent = phase_recurrent(bank)
     s3vae = phase_s3vae(bank)
     vidode = phase_vidode(bank)
+    families13 = phase_families13(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -2589,6 +2855,25 @@ def main() -> int:
         kernel = {"K1": "conv3x3_fwd", "K2": "conv3x3_wgrad",
                   "K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
         timings[kernel].setdefault("vidode_shapes", {})[label[3:]] = row
+    # Phase 13 read the counts around each of its runs.
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["phase13_launches"] = {
+            block: run["counts"][name]
+            for block, run in families13["train"].items()}
+        timings[name]["phase13_step_launches"] = {
+            "train_mmnist_cs2vae": families13["reference"]["counts"][name]}
+    for label, row in families13["shapes"].items():
+        kernel = {"K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
+        timings[kernel].setdefault("cs2vae_shapes", {})[label[3:]] = row
+    for block, run in families13["train"].items():
+        prof = families13["profiles"].get(block)
+        busy = ("" if prof is None else
+                f"; a profiled forward and backward from its initial "
+                f"weights: device ms {prof['device_ms']:.3f} of "
+                f"{prof['wall_ms']:.2f} (busy "
+                f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%)")
+        print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
+              f"2-{run['steps']}){busy}")
     for block, run in vidode["train"].items():
         print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
               f"2-{VIDODE_STEPS}), mean nfe {run['mean_nfe']:.2f}")

@@ -21,6 +21,18 @@ holds them:
   (K, din, dout) weights and slot attention's ``slots_mu`` and
   ``slots_log_sigma``.
 
+Given the port's ``module`` as well, a kernel's layout follows the type
+of the submodule that holds it, not its name: ``Conv`` and ``Conv3d``
+kernels ((kh, kw, I, O), (kd, kh, kw, I, O)) become (O, I, ...);
+``ConvTranspose`` and ``ConvTransposeStride1`` kernels are flipped
+spatially and laid out (I, O, kh, kw); ``Conv3x3``
+keeps HWIO; a leaf of any other submodule takes the name rules above.
+Under an ``nn.ModuleList`` whose flax path has no index (JAX's
+``nn.vmap`` over S2VAE's slots, ``slot_rollout``), each leaf is a stack
+along its first axis and its slices go to the list's members in order:
+a rank-5 leaf there is a stack of 2-D conv kernels. The LSTM cells'
+Dense kernels (nn/dense.py) copy by name.
+
 A ``batch_stats`` tree (BatchNorm's running ``mean`` and ``var``) fills
 the BatchNorm buffers of the same path. The same names carry Vid-ODE
 (its encoder's and decoder's convs and BatchNorms, the z0 encoder, the
@@ -36,6 +48,7 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _is_field_conv(layer: str) -> bool:
@@ -68,14 +81,64 @@ def _convert(path: Tuple[str, ...], leaf: np.ndarray
     return path[:-1] + ("weight",), leaf.transpose(3, 2, 0, 1)
 
 
-def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None
+def _layouts() -> Dict[type, str]:
+    from ode_rl_torch.nn.c3d import Conv3d
+    from ode_rl_torch.nn.conv_stacks import Conv, Conv3x3, ConvTranspose
+    from ode_rl_torch.nn.s3vae_nets import ConvTransposeStride1
+
+    return {Conv: "out_in", Conv3d: "out_in", Conv3x3: "keep",
+            ConvTranspose: "flip", ConvTransposeStride1: "flip"}
+
+
+def _unstack(path: Tuple[str, ...], leaf: np.ndarray, module: nn.Module
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray, nn.Module]]:
+    """(path, leaf, the submodule holding it), a stacked leaf split among
+    the members of the ``nn.ModuleList`` it is stacked over."""
+    mod = module
+    for i, key in enumerate(path[:-1]):
+        if isinstance(mod, nn.ModuleList) and not key.isdigit():
+            for s in range(len(mod)):
+                yield from _unstack(path[:i] + (str(s),) + path[i:],
+                                    leaf[s], module)
+            return
+        mod = mod.get_submodule(key)
+    yield path, leaf, mod
+
+
+def _convert_typed(path: Tuple[str, ...], leaf: np.ndarray,
+                   holder: Optional[nn.Module], layouts: Dict[type, str]
+                   ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """The leaf's layout by its holder's type, else by its name."""
+    layout = layouts.get(type(holder))
+    if path[-1] != "kernel" or layout is None:
+        return _convert(path, leaf)
+    if layout == "keep":
+        return path, leaf
+    weight = path[:-1] + ("weight",)
+    if layout == "flip":
+        return weight, np.flip(leaf, (0, 1)).transpose(2, 3, 0, 1)
+    return weight, np.moveaxis(leaf, (-1, -2), (0, 1))
+
+
+def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None,
+                  module: Optional[nn.Module] = None
                   ) -> Dict[str, torch.Tensor]:
     """A flax 'params' tree of numpy arrays (and its 'batch_stats') -> a
-    ``state_dict``."""
+    ``state_dict``; by the port's ``module``'s submodule types where it
+    is given, else by the names."""
+    layouts = _layouts() if module is not None else {}
+
+    def pieces(tree):
+        for path, leaf in _leaves(tree):
+            if module is None:
+                yield path, leaf, None
+            else:
+                yield from _unstack(path, leaf, module)
+
     state = {}
-    for path, leaf in _leaves(params):
-        new_path, value = _convert(path, leaf)
+    for path, leaf, holder in pieces(params):
+        new_path, value = _convert_typed(path, leaf, holder, layouts)
         state[".".join(new_path)] = torch.from_numpy(np.array(value))
-    for path, leaf in _leaves(batch_stats or {}):
+    for path, leaf, _ in pieces(batch_stats or {}):
         state[".".join(path)] = torch.from_numpy(np.array(leaf))
     return state

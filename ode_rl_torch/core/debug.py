@@ -1,7 +1,16 @@
-"""The NaN guard of the train step.
+"""The NaN guard of the train step, and ``debug_nans``.
 
 Counterpart of ``all_finite`` and ``nan_guard_update`` in
-``ode_rl_tpu/core/debug.py``: where a gradient holds a non-finite value,
+``ode_rl_tpu/core/debug.py``, and of the ``jax_debug_nans`` flag that
+``debug_nans`` turns on in JAX (``ode_rl_tpu/train/loop.py::setup``),
+which raises ``FloatingPointError`` at the first operation that makes a
+NaN. Here ``nan_checks`` raises it for the step: at the first backward
+node that returns a NaN (``torch.autograd.detect_anomaly``, which names
+that node and prints where its forward ran), and ``check_finite`` at a
+forward whose loss, metrics or prediction hold a NaN. Neither changes
+a finite step's numbers; both sync with the host.
+
+The guard: where a gradient holds a non-finite value,
 the step's parameter update is undone. As in JAX, only the parameters are
 guarded: the optimizer's state has already taken the non-finite step, so
 Adam's moments hold NaN and the next finite step writes NaN into the
@@ -12,7 +21,8 @@ device, with no host sync.
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+import contextlib
+from typing import Iterable, Iterator, Mapping, Sequence
 
 import torch
 
@@ -32,3 +42,29 @@ def nan_guard_update(params: Sequence[torch.Tensor],
     for p, old in zip(params, old_params):
         p.copy_(torch.where(ok, p, old))
     return (~ok).to(torch.int32)
+
+
+def check_finite(where: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Raise ``FloatingPointError`` naming the first of ``tensors`` that
+    holds a NaN."""
+    for name, t in tensors.items():
+        if torch.is_tensor(t) and t.is_floating_point() and bool(
+                torch.isnan(t).any()):
+            raise FloatingPointError(f"debug_nans: NaN in {name} of the "
+                                     f"{where}")
+
+
+@contextlib.contextmanager
+def nan_checks(enabled: bool) -> Iterator[None]:
+    """Autograd's anomaly mode, its NaN in a backward as
+    ``FloatingPointError``; nothing where not ``enabled``."""
+    if not enabled:
+        yield
+        return
+    with torch.autograd.detect_anomaly(check_nan=True):
+        try:
+            yield
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            raise FloatingPointError(f"debug_nans: {e}") from e

@@ -8,6 +8,7 @@ sprite index) come from an explicit ``torch.Generator``; placement is an
 index-put of each 28x28 sprite at its integer offset.
 
 ``parse_datasets`` builds a run's train and test loaders: for ``dataset:
+sprites`` the Sprites clips (sprite/data.py); for ``dataset:
 mmnist`` the frozen corpus (data/frozen.py) where ``frozen`` is on and
 ``data_dir`` holds ``meta.json`` (or an mp4 corpus, which raises), else
 the generator; for the Vid-ODE corpora (kth, mgif, penn, hurricane,
@@ -26,6 +27,7 @@ import torch
 from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.sprites import DIGIT_SIZE, get_sprite_bank
 from ode_rl_torch.data.video_corpus import DATASET_SPECS, parse_video_corpus
+from ode_rl_torch.sprite.data import SpritesLoader
 
 IMAGE_SIZE = 64
 STEP_LENGTH = 0.1
@@ -156,13 +158,30 @@ class MovingMNIST:
                                      num_digits=self.num_digits)
 
 
+def _parse_sprites(cfg, device: torch.device) -> dict:
+    """The Sprites clips (sprite/data.py) of the phase's frames, without
+    their labels; the test loader's seed is the train one's plus 99."""
+    if cfg.get("phase", "train") == "train":
+        n_frames = int(cfg.train_in_seq) + int(cfg.train_out_seq)
+    else:
+        n_frames = int(cfg.test_in_seq) + int(cfg.test_out_seq)
+    seed = cfg.get("seed", 0)
+    mk = lambda s: (video for video, _, _ in SpritesLoader(
+        batch_size=cfg.batch_size, n_frames=n_frames,
+        data_dir=cfg.get("data_dir"), seed=s, device=device))
+    total = int(cfg.get("data_points", 10000))
+    n_train = int(cfg.get("train_test_split", 0.8) * total)
+    return {"train_dataloader": mk(seed), "test_dataloader": mk(seed + 99),
+            "n_train_batches": max(n_train // cfg.batch_size, 1),
+            "n_test_batches": max((total - n_train) // cfg.batch_size, 1)}
+
+
 def parse_datasets(cfg, device: torch.device) -> dict:
     """Train and test loaders and batch counts for ``dataset: mmnist``
     and the Vid-ODE video corpora (the contract of the JAX
     ``parse_datasets``)."""
     if cfg.dataset == "sprites":
-        raise NotImplementedError("the sprites dataset is not ported: "
-                                  "ROADMAP queue 1, item 9")
+        return _parse_sprites(cfg, device)
     if cfg.dataset == "cater":
         raise NotImplementedError("the CATER corpus is not ported: ROADMAP "
                                   "queue 1, item 8 (wm/cater.py)")

@@ -2,9 +2,11 @@
 
 Counterpart of ``ode_rl_tpu/models/registry.py``. The port builds
 ``model: ODEConv`` (with ``mem`` and ``z_sample``), ``ConvGRU``,
-``cgrudecODE`` (``ConvGRU`` with ``decODE``), ``S3VAE`` and ``VidODE``
-(with its slot variant and ``mem``); every other family of the JAX
-registry raises and names the ROADMAP item that ports it.
+``cgrudecODE`` (``ConvGRU`` with ``decODE``), ``S3VAE``, ``VidODE``
+(with its slot variant and ``mem``), ``ConvLSTM``, ``S2VAE``, ``CS2VAE``,
+``DS2VAE`` and the Sprites ``DSVAE``, each with JAX's defaults; the world
+models (Dreamer, SpatialDreamer, the CATER classifier) raise and name the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -14,23 +16,22 @@ from typing import Any
 import torch
 
 from ode_rl_torch.models.convgru import ConvGRUModel
+from ode_rl_torch.models.convlstm import ConvLSTMED
+from ode_rl_torch.models.ds2vae import DS2VAEModel
 from ode_rl_torch.models.odeconvgru import ODEConvGRUModel
+from ode_rl_torch.models.s2vae import S2VAEModel
 from ode_rl_torch.models.s3vae import S3VAEModel
 from ode_rl_torch.models.vidode import VidODEModel
+from ode_rl_torch.sprite.dsvae import DisentangledVAE
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Families of the JAX registry that are not ported, and where they stand
 # in ROADMAP queue 1.
 _NOT_PORTED = {
-    "ConvLSTM": "item 3 (ConvLSTM)",
-    "S2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
-    "CS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
-    "DS2VAE": "item 5 (S2VAE, CS2VAE, DS2VAE)",
     "Dreamer": "item 8 (world models)",
     "SpatialDreamer": "item 8 (world models)",
     "CATERClassifier": "item 8 (world models)",
-    "DSVAE": "item 9 (sprite DS-VAE)",
 }
 
 
@@ -132,9 +133,50 @@ def _build_vidode(cfg, generator: torch.Generator) -> VidODEModel:
         dtype=_dtype(cfg), generator=generator)
 
 
+def _build_s2vae(cfg, generator: torch.Generator) -> S2VAEModel:
+    cs2vae = cfg.model == "CS2VAE"
+    return S2VAEModel(
+        in_channels=cfg.in_channels, d_zf=cfg_get(cfg, "d_zf", 128),
+        num_slots=cfg_get(cfg, "num_slots", 3),
+        slot_size=cfg_get(cfg, "slot_size", 128),
+        num_iterations=cfg_get(cfg, "num_iterations", 3),
+        gru_layers=cfg_get(cfg, "gru_layers", 2),
+        transition="cgru" if cs2vae else cfg_get(cfg, "transition", "gru"),
+        conv_mode=cs2vae, prior=cfg_get(cfg, "prior", "standard"),
+        unmasked=cfg_get(cfg, "unmasked", True), dtype=_dtype(cfg),
+        generator=generator)
+
+
+def _build_ds2vae(cfg, generator: torch.Generator) -> DS2VAEModel:
+    return DS2VAEModel(
+        in_channels=cfg.in_channels, d_zf=cfg_get(cfg, "d_zf", 128),
+        n_hid=int(_first(cfg_get(cfg, "n_hid", [300]))),
+        num_slots=cfg_get(cfg, "num_slots", 3),
+        slot_size=cfg_get(cfg, "slot_size", 128),
+        num_iterations=cfg_get(cfg, "num_iterations", 3),
+        num_blocks=int(_first(cfg_get(cfg, "num_blocks", [3]))),
+        topk=int(_first(cfg_get(cfg, "topk", [3]))),
+        dtype=_dtype(cfg), generator=generator)
+
+
+def _build_dsvae(cfg, generator: torch.Generator) -> DisentangledVAE:
+    return DisentangledVAE(
+        f_dim=cfg_get(cfg, "f_dim", 256), z_dim=cfg_get(cfg, "z_dim", 32),
+        g_dim=cfg_get(cfg, "g_dim", 128), channels=cfg.in_channels,
+        hidden_dim=cfg_get(cfg, "rnn_size", 256), dtype=_dtype(cfg),
+        generator=generator)
+
+
+def _build_convlstm(cfg, generator: torch.Generator) -> ConvLSTMED:
+    return ConvLSTMED(in_channels=cfg.in_channels, dtype=_dtype(cfg),
+                      generator=generator)
+
+
 _BUILDERS = {"ODEConv": _build_odeconvgru, "ConvGRU": _build_convgru,
              "cgrudecODE": _build_convgru, "S3VAE": _build_s3vae,
-             "VidODE": _build_vidode}
+             "VidODE": _build_vidode, "ConvLSTM": _build_convlstm,
+             "S2VAE": _build_s2vae, "CS2VAE": _build_s2vae,
+             "DS2VAE": _build_ds2vae, "DSVAE": _build_dsvae}
 
 
 def build_model(cfg, device: torch.device,

@@ -1,11 +1,13 @@
-"""BatchNorm and LayerNorm with flax's numbers.
+"""BatchNorm, LayerNorm and GroupNorm with flax's numbers.
 
 Counterparts of ``flax.linen.BatchNorm`` (as the S3VAE frame stacks build
-it: ``momentum=0.9``, ``epsilon=1e-5``) and ``flax.linen.LayerNorm``
-(``epsilon=1e-6``). Both normalise over every axis but the last, so they
-take NHWC maps and (..., C) vectors alike, and both take the moments as
-flax does: in fp32 at least (fp64 stays fp64), var = E[x^2] - E[x]^2
-clamped at 0.
+it: ``momentum=0.9``, ``epsilon=1e-5``), ``flax.linen.LayerNorm``
+(``epsilon=1e-6``) and ``flax.linen.GroupNorm`` (``epsilon=1e-6``, groups
+of contiguous channels on the last axis, moments over every axis but the
+batch's). BatchNorm and LayerNorm normalise over every axis but the last,
+so they take NHWC maps and (..., C) vectors alike; all three take the
+moments as flax does: in fp32 at least (fp64 stays fp64), var = E[x^2] -
+E[x]^2 clamped at 0.
 
 ``nn.BatchNorm2d`` is not a stand-in: it keeps the unbiased batch variance
 in its running statistics where flax keeps the biased one, and its
@@ -87,4 +89,32 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
                           - mean * mean, min=0.0)
+        return _normalize(x, mean, var, self.scale, self.bias, self.EPS)
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm(num_groups)`` on (B, ..., C): each sample's
+    ``num_groups`` groups of C / num_groups contiguous channels
+    normalised over their channels and every spatial axis, then scaled
+    and biased per channel. Not ``torch.nn.GroupNorm``, whose eps is
+    1e-5 and which takes channels first."""
+
+    EPS = 1e-6
+
+    def __init__(self, features: int, num_groups: int):
+        super().__init__()
+        self.num_groups = num_groups
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.num_groups
+        xg = _acc(x).reshape(*x.shape[:-1], g, x.shape[-1] // g)
+        axes = tuple(range(1, x.ndim - 1)) + (-1,)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=axes, keepdim=True)
+                          - mean * mean, min=0.0)
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        mean = mean.expand(*mean.shape[:-1], x.shape[-1] // g).reshape(shape)
+        var = var.expand(*var.shape[:-1], x.shape[-1] // g).reshape(shape)
         return _normalize(x, mean, var, self.scale, self.bias, self.EPS)

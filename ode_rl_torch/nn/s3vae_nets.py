@@ -90,22 +90,24 @@ class FrameEncoder(nn.Module):
         return torch.tanh(self.bn_out(self.conv_out(x), train))
 
 
-class ConvTransposeValid(nn.Module):
-    """``nn.ConvTranspose(features, (k, k), padding='VALID')`` at stride
-    1: an (H, W) map becomes (H + k - 1, W + k - 1). The weight is (in,
-    out, k, k), flax's kernel flipped (convert.py)."""
+class ConvTransposeStride1(nn.Module):
+    """``nn.ConvTranspose(features, (k, k))`` at stride 1: with
+    ``padding`` 0 flax's 'VALID' (an (H, W) map becomes (H + k - 1,
+    W + k - 1)), with (k - 1) // 2 its 'SAME' for an odd k. The weight is
+    (in, out, k, k), flax's kernel flipped (convert.py)."""
 
-    def __init__(self, cin: int, cout: int, k: int = 4, *,
+    def __init__(self, cin: int, cout: int, k: int = 4, *, padding: int = 0,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.padding = dtype, padding
         self.weight = lecun_normal((cin, cout, k, k), k * k * cin, generator)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
-                               self.weight.to(self.dtype))
+                               self.weight.to(self.dtype),
+                               padding=self.padding)
         return y.permute(0, 2, 3, 1).contiguous() + self.bias.to(self.dtype)
 
 
@@ -124,7 +126,7 @@ class FrameDecoder(nn.Module):
         kw = dict(dtype=dtype, generator=generator)
         self.default = encoder_type == "default"
         if self.default:
-            self.deconv_in = ConvTransposeValid(in_ch, 512, **kw)
+            self.deconv_in = ConvTransposeStride1(in_ch, 512, **kw)
             cin = 512
         else:
             self.conv_in = Conv(in_ch, 256, 3, padding=1, **kw)

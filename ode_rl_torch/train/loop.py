@@ -34,10 +34,21 @@ not one of the evaluation protocol's, as JAX does: so
 ``test_mmnist_odecgrumem_len20_1ch``, which says ``n_ode_layers: 2``,
 builds the 3 layers its train block saved, and its checkpoint loads.
 
+With ``lr_scheduler: plateau`` or ``early_stop_patience`` > 0 the loop
+monitors, once an epoch, the mean eval-mode MSE over ``val_batches``
+batches of the test loader drawn once before training (split at
+``train_in_seq``, as JAX splits them), logs it as ``val_mse``, scales
+every param group's lr by the plateau's scale (train/schedulers.py;
+the optimizer's ``state_dict`` carries it into checkpoints) and stops
+early when the metric stalls. ``debug_nans`` raises
+``FloatingPointError`` at a train step whose forward or backward makes a
+NaN, and at a test batch whose prediction or metrics hold one
+(core/debug.py).
+
 Not ported, and each raises where a config asks for it: the CATER
-classifier, plateau LR and early stopping, the device mesh,
-``debug_nans`` and S3VAE's FlowNet labels (``flow_label_source:
-flownet``). The metric-vs-horizon plot (matplotlib) is not written.
+classifier, the device mesh and S3VAE's FlowNet labels
+(``flow_label_source: flownet``). The metric-vs-horizon plot
+(matplotlib) is not written.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch
 
 from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
 from ode_rl_torch.core.config import Config, resolve_run_id
+from ode_rl_torch.core.debug import check_finite
 from ode_rl_torch.core.logging import MetricLogger
 from ode_rl_torch.core.noise import Noise
 from ode_rl_torch.data.mmnist import MovingMNIST, parse_datasets
@@ -59,6 +71,8 @@ from ode_rl_torch.data.samplers import sample, split_batch
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.eval_models.lpips import lpips_horizon_fn
 from ode_rl_torch.train.gan import create_gan_state, make_gan_train_step
+from ode_rl_torch.train.schedulers import (EarlyStopping, ReduceLROnPlateau,
+                                           set_lr_scale)
 from ode_rl_torch.train.step import (TrainState, create_train_state,
                                      make_eval_step, make_fused_train_step,
                                      make_train_step, needs_flow_labels)
@@ -79,22 +93,12 @@ def _sample_generator(cfg, device: torch.device) -> torch.Generator:
 
 
 def _refuse_unported(cfg) -> None:
-    asks = {
-        "use_mesh": ("the device mesh (parallel/)", "item 10"),
-        "debug_nans": ("debug_nans", "item 2"),
-    }
-    for key, (what, item) in asks.items():
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{what} is not ported: ROADMAP "
-                                      f"queue 1, {item}")
+    if cfg.get("use_mesh", False):
+        raise NotImplementedError("the device mesh (parallel/) is not "
+                                  "ported: ROADMAP queue 1, item 10")
     if cfg.model == "CATERClassifier":
         raise NotImplementedError("the CATER classifier is not ported: "
                                   "ROADMAP queue 1, item 8")
-    if (cfg.get("lr_scheduler", "") == "plateau"
-            or int(cfg.get("early_stop_patience", 0)) > 0):
-        raise NotImplementedError("plateau LR and early stopping are not "
-                                  "ported: ROADMAP queue 1, item 3 "
-                                  "(train/schedulers.py)")
     if (needs_flow_labels(cfg)
             and cfg.get("flow_label_source", "diff") == "flownet"):
         raise NotImplementedError("S3VAE's FlowNet labels "
@@ -178,7 +182,9 @@ def train(cfg, device: torch.device,
         loop_gen = torch.Generator(device=device).manual_seed(
             int(cfg.get("seed", 0)) + _LOOP_SEED)
     else:
-        train_step = make_train_step(nan_guard=cfg.get("nan_guard", False))
+        train_step = make_train_step(
+            nan_guard=cfg.get("nan_guard", False),
+            debug_nans=cfg.get("debug_nans", False))
     sample_gen = _sample_generator(cfg, device)
     n_train_batches = (int(cfg.get("steps_per_epoch", 0))
                        or loaders["n_train_batches"])
@@ -197,6 +203,7 @@ def train(cfg, device: torch.device,
             start_step = state.step = restored["step"]
             print(f"resumed from step {start_step}")
 
+    plateau, early, val_monitor = _monitors(cfg, loaders, state, device)
     step = start_step
     last_metrics: Dict = {}
     log_freq = int(cfg.get("loss_log_freq", 50))
@@ -225,11 +232,57 @@ def train(cfg, device: torch.device,
         epoch_loss = (float(np.mean(epoch_losses)) if epoch_losses
                       else last_metrics.get("loss", float("nan")))
         logger.log_epoch(epoch, epoch_loss, step, total_steps)
+        if val_monitor is not None:
+            val_mse = val_monitor()
+            logger.log(step, {"val_mse": val_mse})
+            if plateau is not None:
+                prev = plateau.scale
+                scale = plateau.step(val_mse)
+                if scale != prev:
+                    set_lr_scale(state.optimizer, float(cfg.lr), scale)
+                    print(f"plateau: val_mse {val_mse:.6f} stalled — lr "
+                          f"scale {prev:g} → {scale:g}")
+            if early is not None and early.step(val_mse):
+                print(f"early stop at epoch {epoch}: val_mse {val_mse:.6f} "
+                      f"has not improved past {early.best:.6f} for "
+                      f"{early.patience} epochs")
+                break
         if step >= total_steps:
             break
     ckpt.save(max(step, 1), _snapshot(state), config=cfg.to_dict())
     logger.close()
     return {"final_step": step, **last_metrics}
+
+
+def _monitors(cfg, loaders: Dict, state: TrainState, device: torch.device):
+    """(plateau, early stopping, the validation monitor), each None where
+    the config does not ask for it. The monitor is the mean eval-mode MSE
+    over the ``val_batches`` held-out batches, the model's draws from a
+    generator seeded 0 at every call (JAX passes key 0)."""
+    plateau = early = None
+    if cfg.get("lr_scheduler", "") == "plateau":
+        plateau = ReduceLROnPlateau(
+            factor=float(cfg.get("plateau_factor", 0.5)),
+            patience=int(cfg.get("plateau_patience", 4)),
+            min_scale=float(cfg.get("plateau_min_scale", 1e-3)))
+    if int(cfg.get("early_stop_patience", 0)) > 0:
+        early = EarlyStopping(patience=int(cfg.early_stop_patience))
+    if plateau is None and early is None:
+        return None, None, None
+    eval_step = make_eval_step()
+    val_batches = [
+        make_batch_dict(next(loaders["test_dataloader"]),
+                        n_in=cfg.train_in_seq,
+                        with_flow_labels=needs_flow_labels(cfg))
+        for _ in range(int(cfg.get("val_batches", 2)))]
+
+    def val_monitor() -> float:
+        mses = [float(eval_step(state.model, vb, torch.Generator(
+            device=device).manual_seed(0))[0]["mse"].mean())
+            for vb in val_batches]
+        return float(np.mean(mses))
+
+    return plateau, early, val_monitor
 
 
 def train_gan(cfg, device: torch.device,
@@ -374,6 +427,8 @@ def test(cfg, device: torch.device,
         batch = make_batch_dict(next(loader), n_in=cfg.test_in_seq,
                                 with_flow_labels=needs_flow_labels(cfg))
         metrics, pred = eval_step(state.model, batch, sample_gen)
+        if cfg.get("debug_nans", False):
+            check_finite("test batch", {"prediction": pred, **metrics})
         host = {k: v.cpu().numpy() for k, v in metrics.items()
                 if not k.startswith("aux_")}
         gt = batch["data_to_predict"] + 0.5

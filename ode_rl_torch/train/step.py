@@ -8,7 +8,10 @@ not ``clip_grad_norm_``: the gradients stay as they are where the norm is
 below ``clip``, and are otherwise g / norm * clip, with no epsilon), the
 ``grad_norm`` metric (global L2 norm of the raw gradients, before
 clipping, as ``optax.global_norm``), the NaN guard with its
-``nan_skipped`` metric (core/debug.py), the train step on a given batch,
+``nan_skipped`` metric (core/debug.py), ``debug_nans`` (core/debug.py:
+``FloatingPointError`` at a step whose forward or backward makes a NaN),
+the lr of ``lr_scheduler: plateau`` (``cfg.lr`` times the scale that
+train/schedulers.py sets in the param groups), the train step on a given batch,
 the fused step that makes its own Moving MNIST batch on the device, and
 the eval step (prediction without autograd, per-horizon MSE, PSNR and
 SSIM, and the model's stats as ``aux_*``). The train step runs the model
@@ -30,7 +33,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ode_rl_torch.core.debug import nan_guard_update
+from ode_rl_torch.core.debug import (check_finite, nan_checks,
+                                     nan_guard_update)
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.models.registry import build_model, cfg_get
@@ -89,11 +93,18 @@ def clip_by_global_norm(grads: List[torch.Tensor], norm: torch.Tensor,
 
 
 def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None):
-    """Loss metrics and prediction, with gradients left in ``.grad``."""
+                   generator: Optional[torch.Generator] = None,
+                   debug_nans: bool = False):
+    """Loss metrics and prediction, with gradients left in ``.grad``;
+    with ``debug_nans``, ``FloatingPointError`` where the forward or the
+    backward makes a NaN."""
     model.zero_grad(set_to_none=True)
-    loss, (metrics, pred) = model.loss(batch, generator)
-    loss.backward()
+    with nan_checks(debug_nans):
+        loss, (metrics, pred) = model.loss(batch, generator)
+        if debug_nans:
+            check_finite("forward", {"loss": loss, **metrics,
+                                     "prediction": pred})
+        loss.backward()
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
     metrics["grad_norm"] = global_norm(
@@ -103,12 +114,12 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               nan_guard: bool = False) -> Dict:
+               nan_guard: bool = False, debug_nans: bool = False) -> Dict:
     """One step: gradients, ``grad_norm`` of the raw ones, the clip, the
     optimizer's update and, with ``nan_guard``, the parameters put back
     where a raw gradient is not finite (``nan_skipped`` 1)."""
     state.model.train()
-    metrics, _ = loss_and_grads(state.model, batch, generator)
+    metrics, _ = loss_and_grads(state.model, batch, generator, debug_nans)
     params = [p for p in state.model.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
     if state.clip != -1:
@@ -123,10 +134,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     return metrics
 
 
-def make_train_step(nan_guard: bool = False) -> Callable[..., Dict]:
+def make_train_step(nan_guard: bool = False,
+                    debug_nans: bool = False) -> Callable[..., Dict]:
     """(state, batch, generator=None) -> metrics: one step on a given
     batch."""
-    return functools.partial(train_step, nan_guard=nan_guard)
+    return functools.partial(train_step, nan_guard=nan_guard,
+                             debug_nans=debug_nans)
 
 
 def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
@@ -159,15 +172,16 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor
                           ) -> Callable[..., Dict]:
     """(state, generator, sample_generator=None) -> metrics: a Moving
     MNIST batch made on the device from ``generator``, then one training
-    step (with ``cfg.nan_guard``) that draws any model noise from
-    ``sample_generator``."""
+    step (with ``cfg.nan_guard`` and ``cfg.debug_nans``) that draws any
+    model noise from ``sample_generator``."""
     if cfg.resolution != IMAGE_SIZE:
         raise NotImplementedError(f"the generator makes {IMAGE_SIZE}x"
                                   f"{IMAGE_SIZE} frames")
     n_in = int(cfg.train_in_seq)
     n_frames = n_in + int(cfg.train_out_seq)
     with_flow = needs_flow_labels(cfg)
-    step = make_train_step(bool(cfg_get(cfg, "nan_guard", False)))
+    step = make_train_step(bool(cfg_get(cfg, "nan_guard", False)),
+                           bool(cfg_get(cfg, "debug_nans", False)))
 
     def fused_step(state: TrainState, generator: torch.Generator,
                    sample_generator: Optional[torch.Generator] = None
