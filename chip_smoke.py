@@ -183,10 +183,30 @@ without printing its last line:
    same step under ``force_plain()`` (as phase 11's); one profiled
    forward and backward of each other block (device ms and busy share);
    a ConvLSTM step with ``debug_nans`` on a batch holding one NaN, which
-   must raise ``FloatingPointError``; and K3/K4 at CS2VAE's shapes alone.
+   must raise ``FloatingPointError``; and K3/K4 at CS2VAE's shapes alone;
+14. world models: ``train_mmnist_dreamer``, ``_dreamer_discrete`` and
+    ``_dreamer_spatial`` through ``ode_rl_torch.main`` at their blocks'
+    widths (fp32, B=4; 5 steps each, cut from 25 epochs; every logged
+    loss, KL and grad_norm finite, a checkpoint at step 5; step_ms the
+    median of steps 2-5), their test phase from it (one batch; 10 -> 90
+    frames for Dreamer, 10 -> 10 for the other two, cut from the
+    blocks' epochs of batches; every per-horizon value finite);
+    ``train_cater_classifier`` cut to one epoch of 6 steps on the corpus
+    it writes at the block's 120 + 40 episodes of 40 frames (val_mAP,
+    val_top5 and random_mAP_baseline finite) and
+    ``test_cater_classifier`` from its checkpoint (ckpt_step 6); one
+    fp32 forward and backward of each Dreamer block on the card against
+    the same on the CPU (the same weights, batch and draws, recorded on
+    the CPU and replayed; loss to 1e-5 relative, every gradient leaf to
+    1e-3 relative L2; TF32 and cuDNN's choice of algorithm show here),
+    profiled (device ms and busy share), likewise one CATER step;
+    ``ode_rl_torch.rl_demo --wm_steps 50 --behavior_steps 20
+    --eval_episodes 16`` (cut from 2000, 600 and 64) into a temporary
+    report, every number finite. No K1-K8 launch over the phase
+    (``phase14_launches`` in the kernels line).
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-13) run their convs in strict fp32. Then one JSON line
+7-14) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -327,29 +347,37 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def device_us(fns: dict, reps: int = 20, windows: int = 3) -> dict:
     """Device time of one call of each fn, in µs: every device kernel and
-    copy in a torch.profiler window of `reps` calls, over `reps`. A window
-    that records no device time at all (the tracer once dropped a whole
-    window after phase 9's profiled step) is taken again, up to
-    `windows` times; then the call raises rather than report 0."""
+    copy in the active step of a torch.profiler window of `reps` calls,
+    over `reps`; a warm-up step of `reps` calls before it is traced and
+    thrown away. A window that records no device time at all (the tracer
+    has dropped whole windows, once three in a row) is taken again, up
+    to `windows` times; after that the CUDA-event median of one call
+    stands in, and the line says so, rather than a 0."""
     out = {}
     for label, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         for _ in range(windows):
             with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(
+                        wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
             total = sum(e.self_device_time_total
                         for e in prof.key_averages()
                         if e.device_type.name == "CUDA")
             if total > 0:
+                out[label] = total / reps
                 break
         else:
-            raise AssertionError(f"{label}: no device time recorded in "
-                                 f"{windows} profiler windows")
-        out[label] = total / reps
+            out[label] = median_ms(fn, reps=reps) * 1e3
+            print(f"  {label}: the profiler recorded no device time in "
+                  f"{windows} windows; CUDA-event µs a call instead: "
+                  f"{out[label]:.2f}")
     return out
 
 
@@ -2580,9 +2608,10 @@ def _families13_train(block: str, root: pathlib.Path,
     plateau block: SCHED_OVERRIDES), loss and grad_norm finite at every
     step, the checkpoint at the last step (its BatchNorm buffers all
     moved where the model has any), the kernels' routes. The plateau
-    block: a ``val_mse`` an epoch, the run stopped early, and the two
-    state machines replayed on the logged ``val_mse`` stop at its last
-    epoch with the lr scale its checkpoint holds, below 1."""
+    block: a ``val_mse`` an epoch, the same at every epoch (lr 0, cuDNN's
+    deterministic algorithms), the run stopped early, and the two state
+    machines replayed on the logged ``val_mse`` stop at its last epoch
+    with the lr scale its checkpoint holds, below 1."""
     sched = block.endswith("_sched")
     argv = ["--configs", "defaults", block, "--data_dir", str(root),
             "--logdir", str(logs / block), "--loss_log_freq", "1"]
@@ -2592,12 +2621,18 @@ def _families13_train(block: str, root: pathlib.Path,
     cfg, run = _run_dir(argv)
     timer = _TimedTrainStep()
     train_loop.make_train_step = timer
+    # At lr 0 the validation MSE stalls only if cuDNN repeats it bit for
+    # bit: its default transposed-conv algorithm does not, and its noise
+    # of about 1e-5 relative can count as improvement for the whole run.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = sched
     torch.cuda.synchronize()
     common.reset_launches()
     try:
         out = port_main.main(argv)
     finally:
         train_loop.make_train_step = make_train_step
+        torch.backends.cudnn.deterministic = deterministic
     torch.cuda.synchronize()
     _check_tf32_off(f"main on {block}")
     counts = dict(common.launches)
@@ -2637,15 +2672,16 @@ def _families13_train(block: str, root: pathlib.Path,
             plateau.step(v)
             stops.append(early.step(v))
         scale = lr_scale(saved["optimizer"])
-        if (not np.all(np.isfinite(vals)) or steps != 2 * len(vals)
+        if (not np.all(np.isfinite(vals)) or len(set(vals)) != 1
+                or steps != 2 * len(vals)
                 or steps >= 2 * cfg.epochs or True not in stops
                 or stops.index(True) != len(vals) - 1
                 or scale != plateau.scale or scale >= 1.0):
             raise AssertionError(
                 f"{block}: {steps} steps, val_mse {vals}, stops {stops}, "
-                f"lr scale {scale} (replayed {plateau.scale}): the loop's "
-                "plateau and early stopping disagree with their state "
-                "machines, or did not fire")
+                f"lr scale {scale} (replayed {plateau.scale}): val_mse "
+                "moved at lr 0, or the loop's plateau and early stopping "
+                "disagree with their state machines, or did not fire")
         note = (f"; val_mse {vals}, lr scale {scale}, early stop after "
                 f"epoch {len(vals)} of {cfg.epochs}")
     median = statistics.median(timer.ms[1:])
@@ -2775,6 +2811,339 @@ def phase_families13(bank: torch.Tensor) -> dict:
             "shapes": shapes}
 
 
+# The world models (configs.yaml), each block at its own widths (fp32,
+# B=4, 64x64 frames): Dreamer (depth 32, stoch 50 Gaussian, sigmoid2,
+# min_std 0.1, deter/hidden 200, the LayerNorm cell; 20 frames), its
+# discrete variant (32 x 32 classes) and the spatial RSSM (stoch 16,
+# deter/hidden/embed 64 on 16x16 maps, stochastic ConvGRU gates, clip
+# 100), on phase 10's frozen corpus; the CATER classifier (B=4, 40-frame
+# 64x64x3 episodes in chunks of 20, deter 200, stoch 32, classifier 256)
+# on a corpus it writes at the block's 120 + 40 episodes.
+WM_TRAIN = ("train_mmnist_dreamer", "train_mmnist_dreamer_discrete",
+            "train_mmnist_dreamer_spatial")
+# Frames the test phase predicts after 10: Dreamer's test protocol is 10
+# -> 90 (the corpus's test videos hold 200 frames).
+WM_TEST_OUT = {"train_mmnist_dreamer": 90,
+               "train_mmnist_dreamer_discrete": 10,
+               "train_mmnist_dreamer_spatial": 10}
+WM_STEPS, CATER_STEPS = 5, 6
+# The RL loop, cut: its flags.
+RL_CUT = ("--wm_steps", "50", "--behavior_steps", "20", "--eval_episodes",
+          "16")
+# A step on the card against the same step on the CPU (same weights,
+# batch and draws): loss relative, every gradient leaf relative L2.
+WM_LOSS_TOL, WM_GRAD_TOL = 1e-5, 1e-3
+
+
+def _check_no_kernels(counts: dict, where: str) -> None:
+    launched = {k: counts[k] for k in KERNELS if counts.get(k, 0)}
+    if launched:
+        raise AssertionError(f"K1-K8 launched in the {where}: {launched}")
+
+
+def _wm_train(block: str, root: pathlib.Path, logs: pathlib.Path) -> dict:
+    """``block`` through ``ode_rl_torch.main``: WM_STEPS steps, every
+    logged loss, KL and grad_norm finite, the checkpoint at the last
+    step, no K1-K8 launch; step_ms the median of steps 2-5."""
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs / block), "--loss_log_freq", "1",
+            "--steps_per_epoch", str(WM_STEPS), "--epochs", "1",
+            "--ckpt_save_freq", str(WM_STEPS)]
+    cfg, run = _run_dir(argv)
+    timer = _TimedTrainStep()
+    train_loop.make_train_step = timer
+    try:
+        out = port_main.main(argv)
+    finally:
+        train_loop.make_train_step = make_train_step
+    _check_tf32_off(f"main on {block}")
+    if out["final_step"] != WM_STEPS:
+        raise AssertionError(f"{block}: {out['final_step']} steps")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()
+              if "loss" in json.loads(line)]
+    kl = "kl" if cfg.model == "Dreamer" else "kl_loss"
+    if [m["step"] for m in logged] != list(range(1, WM_STEPS + 1)):
+        raise AssertionError(f"{block}: logged steps "
+                             f"{[m['step'] for m in logged]}")
+    for m in logged:
+        bad = [k for k in ("loss", kl, "grad_norm", "image_loss")
+               if not np.isfinite(m.get(k, np.nan))]
+        if bad:
+            raise AssertionError(f"{block} step {m['step']}: {bad} missing "
+                                 "or not finite")
+    ckpt = CheckpointManager(run / "checkpoints", tag=cfg.ckpt_id)
+    if ckpt.all_steps() != [WM_STEPS]:
+        raise AssertionError(f"{block}: checkpoints at {ckpt.all_steps()}")
+    median = statistics.median(timer.ms[1:])
+    print(f"  {block} ({cfg.model}, {cfg.train_in_seq}+"
+          f"{cfg.train_out_seq} frames): losses "
+          f"{[round(m['loss'], 2) for m in logged]}, {kl} "
+          f"{[round(m[kl], 4) for m in logged]}; step_ms "
+          f"{[round(t, 2) for t in timer.ms]}, median over steps "
+          f"2-{WM_STEPS} {median:.2f}")
+    return {"step_ms": median, "logs": logs / block, "model": cfg.model}
+
+
+def _wm_test(block: str, logs: pathlib.Path, root: pathlib.Path) -> None:
+    """The test phase from the train run's checkpoint, one batch, 10 ->
+    WM_TEST_OUT frames: every per-horizon value finite."""
+    n_out = WM_TEST_OUT[block]
+    argv = ["--configs", "defaults", block, "--phase", "test",
+            "--load_model", "True", "--data_dir", str(root), "--logdir",
+            str(logs), "--eval_batches", "1", "--test_in_seq", "10",
+            "--test_out_seq", str(n_out)]
+    cfg, run = _run_dir(argv)
+    t0 = time.perf_counter()
+    out = port_main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_tf32_off(f"main on {block} --phase test")
+    per_horizon = json.loads((run / "per_horizon.json").read_text())
+    for k in ("mse", "psnr", "ssim"):
+        v = per_horizon[k]
+        if len(v) != n_out or not np.all(np.isfinite(v)):
+            raise AssertionError(f"{block} test per_horizon {k}: {len(v)} "
+                                 f"values, not {n_out} finite ones")
+    print(f"  {block} --phase test (10 -> {n_out}): {seconds:.2f} s; mse "
+          f"at frames 1 and {n_out}: {per_horizon['mse'][0]:.4f} "
+          f"{per_horizon['mse'][-1]:.4f}; final ssim "
+          f"{out['final_ssim']:.4f}")
+
+
+class _RecordNoise(Noise):
+    """The port's ``Noise`` on the CPU, each draw recorded in order."""
+
+    def __init__(self, seed: int):
+        super().__init__(torch.Generator().manual_seed(seed))
+        self.draws = []
+
+    def _keep(self, kind: str, a: torch.Tensor) -> torch.Tensor:
+        self.draws.append((kind, a.detach().clone()))
+        return a
+
+    def normal(self, shape, like):
+        return self._keep("normal", super().normal(shape, like))
+
+    def gumbel(self, shape, like):
+        return self._keep("gumbel", super().gumbel(shape, like))
+
+    def uniform(self, shape, device, low=0.0, high=1.0):
+        return self._keep("uniform", super().uniform(shape, device, low,
+                                                     high))
+
+
+class _ReplayNoise(Noise):
+    """A ``_RecordNoise``'s draws, in order, on the card."""
+
+    def __init__(self, draws):
+        super().__init__(None)
+        self.draws = list(draws)
+
+    def _next(self, kind: str, shape) -> torch.Tensor:
+        got, a = self.draws.pop(0)
+        if got != kind or tuple(a.shape) != tuple(shape):
+            raise AssertionError(f"replay: asked {kind} {tuple(shape)}, "
+                                 f"recorded {got} {tuple(a.shape)}")
+        return a.cuda()
+
+    def normal(self, shape, like):
+        return self._next("normal", shape).to(like.dtype)
+
+    def gumbel(self, shape, like):
+        return self._next("gumbel", shape).to(like.dtype)
+
+    def uniform(self, shape, device, low=0.0, high=1.0):
+        return self._next("uniform", shape)
+
+
+def _wm_batch(cfg, root: pathlib.Path, device: torch.device) -> dict:
+    video = next(FrozenMovingMNIST(root, cfg.batch_size, cfg.train_in_seq,
+                                   cfg.train_out_seq, seed=5,
+                                   device=device))
+    return make_batch_dict(video, cfg.train_in_seq)
+
+
+def _wm_card_vs_cpu(block: str, root: pathlib.Path) -> dict:
+    """One fp32 forward and backward of ``block`` from its seed's weights
+    on the card against the same on the CPU: the same weights, batch and
+    draws (recorded on the CPU, replayed on the card). The card's step is
+    profiled: device ms of its wall ms."""
+    cfg = load_config(["defaults", block], overrides={"data_dir": str(root)})
+    cpu = torch.device("cpu")
+    model = create_train_state(cfg, cpu).model.train()
+    batch = _wm_batch(cfg, root, cpu)
+    rec = _RecordNoise(7)
+    m_c, _ = loss_and_grads(model, batch, rec)
+    g_c = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.cuda()
+    batch = {k: v.cuda() if torch.is_tensor(v) else v
+             for k, v in batch.items()}
+    loss_and_grads(model, batch, _ReplayNoise(rec.draws))   # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
+        t0 = time.perf_counter()
+        replay = _ReplayNoise(rec.draws)
+        m_g, pred = loss_and_grads(model, batch, replay)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if replay.draws or not torch.isfinite(pred).all():
+        raise AssertionError(f"{block}: draws left over, or the prediction "
+                             "is not finite")
+    label = block[12:]
+    check(f"{label} loss card vs CPU (relative)",
+          abs(float(m_g["loss"]) / float(m_c["loss"]) - 1.0), WM_LOSS_TOL,
+          "rel")
+    worst = max(((rel_l2(p.grad.cpu(), g_c[n]), n)
+                 for n, p in model.named_parameters()))
+    check(f"{label} worst gradient leaf card vs CPU ({worst[1]})", worst[0],
+          WM_GRAD_TOL, "rel_l2")
+    device = _device_ms(prof)
+    print(f"  {block}: draws {len(rec.draws)}; a profiled forward and "
+          f"backward, device ms {device:.3f} of {wall_ms:.2f} (busy "
+          f"{100 * device / wall_ms:.1f}%)")
+    return {"device_ms": device, "wall_ms": wall_ms}
+
+
+def _cater(root: pathlib.Path, logs: pathlib.Path) -> dict:
+    """``train_cater_classifier`` through ``ode_rl_torch.main``, cut to
+    one epoch of CATER_STEPS steps, on the corpus it writes at the
+    block's size; then ``test_cater_classifier`` from its checkpoint; one
+    profiled forward and backward of the classifier step."""
+    from ode_rl_torch.core import logging as port_logging
+    from ode_rl_torch.wm.cater import CaterClassifierModel, CaterEpisodes
+    from ode_rl_torch.wm.classifier import multilabel_bce
+
+    common_argv = ["--data_dir", str(root), "--logdir", str(logs)]
+    stamps = []
+    log = port_logging.MetricLogger.log
+
+    def stamped(self, step, metrics, prefix=""):
+        # Each step logs (loss_log_freq 1) after its metrics reach the
+        # host, so the stamps are a synced step clock.
+        stamps.append(time.perf_counter())
+        return log(self, step, metrics, prefix)
+
+    t0 = time.perf_counter()
+    port_logging.MetricLogger.log = stamped
+    try:
+        out = port_main.main(["--configs", "defaults",
+                              "train_cater_classifier", *common_argv,
+                              "--epochs", "1", "--steps_per_epoch",
+                              str(CATER_STEPS), "--loss_log_freq", "1"])
+    finally:
+        port_logging.MetricLogger.log = log
+    seconds = time.perf_counter() - t0
+    _check_tf32_off("main on train_cater_classifier")
+    n_videos = len(list((root / "videos").iterdir()))
+    bad = [k for k in ("val_mAP", "val_top5", "random_mAP_baseline")
+           if not np.isfinite(out[k])]
+    if bad or out["steps"] != CATER_STEPS or n_videos != 160:
+        raise AssertionError(f"train_cater_classifier: {out}, {n_videos} "
+                             "episodes")
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps[:CATER_STEPS - 1],
+                                             stamps[1:CATER_STEPS])]
+    test = port_main.main(["--configs", "defaults", "test_cater_classifier",
+                           *common_argv])
+    if test["ckpt_step"] != CATER_STEPS or not np.isfinite(test["val_mAP"]):
+        raise AssertionError(f"test_cater_classifier: {test}")
+    print(f"  train_cater_classifier ({CATER_STEPS} steps, {n_videos} "
+          f"episodes written, {seconds:.1f} s with the corpus): val_mAP "
+          f"{out['val_mAP']:.4f}, val_top5 {out['val_top5']:.4f}, "
+          f"random_mAP_baseline {out['random_mAP_baseline']:.4f}; step_ms "
+          f"{[round(t, 2) for t in step_ms]} (median over steps "
+          f"2-{CATER_STEPS} {statistics.median(step_ms):.2f}); "
+          f"test_cater_classifier: ckpt_step {test['ckpt_step']}, val_mAP "
+          f"{test['val_mAP']:.4f}")
+    cfg = load_config(["defaults", "train_cater_classifier"])
+    model = CaterClassifierModel(
+        cfg, generator=torch.Generator().manual_seed(0)).cuda().train()
+    batch = next(CaterEpisodes(root, "train", cfg.batch_size, 20, seed=5,
+                               device=torch.device("cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, (metrics, _) = model.wm.loss({"image": batch["image"]}, gen,
+                                           return_features=True)
+        logits = model.classify(metrics.pop("_features"), batch["n_chunks"])
+        (loss + multilabel_bce(logits, batch["label"])).backward()
+
+    step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _tracer_warmup()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = _device_ms(prof)
+    print(f"  train_cater_classifier: a profiled forward and backward, "
+          f"device ms {device:.3f} of {wall_ms:.2f} (busy "
+          f"{100 * device / wall_ms:.1f}%)")
+    return {"step_ms": statistics.median(step_ms), "device_ms": device,
+            "wall_ms": wall_ms}
+
+
+def _finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, (int, float)):
+        return bool(np.isfinite(tree))
+    return True
+
+
+def _rl_loop(tmp: pathlib.Path) -> dict:
+    """``ode_rl_torch.rl_demo`` cut (RL_CUT) into a temporary report:
+    every number in it finite."""
+    from ode_rl_torch import rl_demo
+
+    t0 = time.perf_counter()
+    report = rl_demo.main([*RL_CUT, "--report", str(tmp / "rl.json")])
+    seconds = time.perf_counter() - t0
+    saved = json.loads((tmp / "rl.json").read_text())
+    if not _finite(saved) or saved != json.loads(json.dumps(report)):
+        raise AssertionError(f"rl_demo report: {saved}")
+    print(f"  rl_demo {' '.join(RL_CUT)}: {seconds:.1f} s (wm "
+          f"{saved['wm_seconds']} s, behavior {saved['behavior_seconds']} "
+          f"s); eval mean reward actor "
+          f"{saved['eval_mean_reward_actor']:.4f}, random "
+          f"{saved['eval_mean_reward_random']:.4f}")
+    return saved
+
+
+def phase_world_models(bank: torch.Tensor) -> dict:
+    print("[14] the world models: Dreamer (Gaussian, discrete) and the "
+          f"spatial RSSM through ode_rl_torch.main ({WM_STEPS} steps, fp32, "
+          "B=4) and their tests, the CATER classifier (train "
+          f"{CATER_STEPS} steps, test), a step of each card vs CPU, the RL "
+          "loop cut")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        root, logs = tmp / "frozen", tmp / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        trains = {block: _wm_train(block, root, logs) for block in WM_TRAIN}
+        for block in WM_TRAIN:
+            _wm_test(block, trains[block]["logs"], root)
+        profiles = {block: _wm_card_vs_cpu(block, root)
+                    for block in WM_TRAIN}
+        cater = _cater(tmp / "cater", logs / "cater")
+        rl = _rl_loop(tmp)
+    torch.cuda.synchronize()
+    counts = {k: common.launches[k] for k in KERNELS}
+    _check_no_kernels(counts, "world models' phase")
+    print(f"  K1-K8 launches over phase 14: {counts}")
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"train": trains, "profiles": profiles, "cater": cater,
+            "rl": rl, "counts": counts}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2799,6 +3168,7 @@ def main() -> int:
     s3vae = phase_s3vae(bank)
     vidode = phase_vidode(bank)
     families13 = phase_families13(bank)
+    world_models = phase_world_models(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -2865,6 +3235,21 @@ def main() -> int:
     for label, row in families13["shapes"].items():
         kernel = {"K3": "gru_gates", "K4": "gru_blend"}[label[:2]]
         timings[kernel].setdefault("cs2vae_shapes", {})[label[3:]] = row
+    # Phase 14 read the counts around the whole phase.
+    for name in KERNELS:
+        timings[name]["phase14_launches"] = world_models["counts"][name]
+    for block, run in world_models["train"].items():
+        prof = world_models["profiles"][block]
+        print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "
+              f"2-{WM_STEPS}); a profiled forward and backward from its "
+              f"initial weights: device ms {prof['device_ms']:.3f} of "
+              f"{prof['wall_ms']:.2f} (busy "
+              f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%)")
+    cater = world_models["cater"]
+    print(f"train_cater_classifier: step_ms {cater['step_ms']:.2f} (median "
+          f"over steps 2-{CATER_STEPS}); a profiled forward and backward: "
+          f"device ms {cater['device_ms']:.3f} of {cater['wall_ms']:.2f} "
+          f"(busy {100 * cater['device_ms'] / cater['wall_ms']:.1f}%)")
     for block, run in families13["train"].items():
         prof = families13["profiles"].get(block)
         busy = ("" if prof is None else

@@ -24,8 +24,8 @@ holds them:
 Given the port's ``module`` as well, a kernel's layout follows the type
 of the submodule that holds it, not its name: ``Conv`` and ``Conv3d``
 kernels ((kh, kw, I, O), (kd, kh, kw, I, O)) become (O, I, ...);
-``ConvTranspose`` and ``ConvTransposeStride1`` kernels are flipped
-spatially and laid out (I, O, kh, kw); ``Conv3x3``
+``ConvTranspose``, ``ConvTransposeStride1`` and ``ConvTransposeValid``
+kernels are flipped spatially and laid out (I, O, kh, kw); ``Conv3x3``
 keeps HWIO; a leaf of any other submodule takes the name rules above.
 Under an ``nn.ModuleList`` whose flax path has no index (JAX's
 ``nn.vmap`` over S2VAE's slots, ``slot_rollout``), each leaf is a stack
@@ -38,8 +38,13 @@ the BatchNorm buffers of the same path. The same names carry Vid-ODE
 (its encoder's and decoder's convs and BatchNorms, the z0 encoder, the
 field, ``encoder_pos`` and ``slot_attention``), the GAN's two
 discriminators (``disc_params`` {'image', 'seq'} into an ``nn.ModuleDict``
-of those names) and LPIPS (``alex.conv{i}`` and the 1-D ``lin{i}``). The input holds numpy arrays
-only; nothing of JAX is imported.
+of those names) and LPIPS (``alex.conv{i}`` and the 1-D ``lin{i}``).
+The world models need the module: Dreamer's encoder ``h{i}`` are
+``Conv`` and its decoder's ``h{i}`` ``ConvTransposeValid`` under the
+same names; the spatial RSSM's cell convs ``update``, ``reset`` and
+``out`` are ``Conv``; the CATER classifier's tree is {'wm', 'clf'}, as
+its module's. The input holds numpy arrays only; nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -85,9 +90,11 @@ def _layouts() -> Dict[type, str]:
     from ode_rl_torch.nn.c3d import Conv3d
     from ode_rl_torch.nn.conv_stacks import Conv, Conv3x3, ConvTranspose
     from ode_rl_torch.nn.s3vae_nets import ConvTransposeStride1
+    from ode_rl_torch.wm.networks import ConvTransposeValid
 
     return {Conv: "out_in", Conv3d: "out_in", Conv3x3: "keep",
-            ConvTranspose: "flip", ConvTransposeStride1: "flip"}
+            ConvTranspose: "flip", ConvTransposeStride1: "flip",
+            ConvTransposeValid: "flip"}
 
 
 def _unstack(path: Tuple[str, ...], leaf: np.ndarray, module: nn.Module

@@ -15,7 +15,7 @@ import torch
 
 
 class Noise:
-    """Permutations, standard normals and dropout masks from
+    """Permutations, standard normals, Gumbels and dropout masks from
     ``generator`` (on the device the draws are made on); uniforms and
     integers (the window samplers' and the video transforms' draws) on
     the generator's device, then moved to ``device``."""
@@ -30,6 +30,16 @@ class Noise:
                ) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
                            dtype=like.dtype, device=like.device)
+
+    def gumbel(self, shape: Sequence[int], like: torch.Tensor
+               ) -> torch.Tensor:
+        """Standard Gumbels -log(-log(u)) in ``like``'s dtype, the
+        uniforms u clamped below at the dtype's smallest normal, as
+        ``jax.random.gumbel`` draws them."""
+        u = torch.rand(tuple(shape), generator=self.generator,
+                       dtype=like.dtype, device=like.device)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(like.dtype)
+                                                 .tiny)))
 
     def uniform(self, shape: Sequence[int], device: torch.device,
                 low: float = 0.0, high: float = 1.0) -> torch.Tensor:

@@ -13,7 +13,9 @@ mmnist`` the frozen corpus (data/frozen.py) where ``frozen`` is on and
 ``data_dir`` holds ``meta.json`` (or an mp4 corpus, which raises), else
 the generator; for the Vid-ODE corpora (kth, mgif, penn, hurricane,
 phyre, minerl, mmnist_video) the per-video corpus of
-data/video_corpus.py.
+data/video_corpus.py. Any other dataset raises, as in JAX: the CATER
+blocks' ``dataset: cater`` never reaches here (wm/cater.py reads its
+corpus).
 """
 
 from __future__ import annotations
@@ -182,9 +184,6 @@ def parse_datasets(cfg, device: torch.device) -> dict:
     ``parse_datasets``)."""
     if cfg.dataset == "sprites":
         return _parse_sprites(cfg, device)
-    if cfg.dataset == "cater":
-        raise NotImplementedError("the CATER corpus is not ported: ROADMAP "
-                                  "queue 1, item 8 (wm/cater.py)")
     if cfg.dataset in DATASET_SPECS:
         return parse_video_corpus(cfg, device)
     if cfg.dataset != "mmnist":

@@ -4,9 +4,10 @@ Counterpart of ``ode_rl_tpu/models/registry.py``. The port builds
 ``model: ODEConv`` (with ``mem`` and ``z_sample``), ``ConvGRU``,
 ``cgrudecODE`` (``ConvGRU`` with ``decODE``), ``S3VAE``, ``VidODE``
 (with its slot variant and ``mem``), ``ConvLSTM``, ``S2VAE``, ``CS2VAE``,
-``DS2VAE`` and the Sprites ``DSVAE``, each with JAX's defaults; the world
-models (Dreamer, SpatialDreamer, the CATER classifier) raise and name the
-ROADMAP item that ports them.
+``DS2VAE``, the Sprites ``DSVAE`` and the world models ``Dreamer``
+(``DreamerVideoModel``), ``SpatialDreamer`` (``SpatialWorldModel``) and
+``CATERClassifier`` (``CaterClassifierModel``, which trains through its
+own path, wm/cater.py), each with JAX's defaults.
 """
 
 from __future__ import annotations
@@ -25,15 +26,6 @@ from ode_rl_torch.models.vidode import VidODEModel
 from ode_rl_torch.sprite.dsvae import DisentangledVAE
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# Families of the JAX registry that are not ported, and where they stand
-# in ROADMAP queue 1.
-_NOT_PORTED = {
-    "Dreamer": "item 8 (world models)",
-    "SpatialDreamer": "item 8 (world models)",
-    "CATERClassifier": "item 8 (world models)",
-}
-
 
 def cfg_get(cfg, key: str, default: Any = None) -> Any:
     """``cfg.get`` for a ``Config`` and for the port's dataclasses."""
@@ -172,11 +164,57 @@ def _build_convlstm(cfg, generator: torch.Generator) -> ConvLSTMED:
                       generator=generator)
 
 
+def _build_dreamer(cfg, generator: torch.Generator):
+    from ode_rl_torch.wm.world_model import DreamerVideoModel
+    return DreamerVideoModel(
+        image_shape=(cfg.resolution, cfg.resolution, cfg.in_channels),
+        cnn_depth=cfg_get(cfg, "cnn_depth", 32),
+        stoch=cfg_get(cfg, "dyn_stoch", 30),
+        deter=cfg_get(cfg, "dyn_deter", 200),
+        hidden=cfg_get(cfg, "dyn_hidden", 200),
+        discrete=cfg_get(cfg, "dyn_discrete", 0),
+        mean_act=cfg_get(cfg, "dyn_mean_act", "none"),
+        std_act=cfg_get(cfg, "dyn_std_act", "sigmoid2"),
+        min_std=float(cfg_get(cfg, "dyn_min_std", 0.1)),
+        cell_norm=cfg_get(cfg, "dyn_cell",
+                          "gru_layer_norm") == "gru_layer_norm",
+        kl_balance=float(cfg_get(cfg, "kl_balance", 0.8)),
+        kl_free=float(cfg_get(cfg, "kl_free", 1.0)),
+        kl_scale=float(cfg_get(cfg, "kl_scale", 1.0)),
+        dtype=_dtype(cfg), generator=generator)
+
+
+def _build_spatial_dreamer(cfg, generator: torch.Generator):
+    from ode_rl_torch.wm.spatial_rssm import SpatialWorldModel
+    return SpatialWorldModel(
+        image_shape=(cfg.resolution, cfg.resolution, cfg.in_channels),
+        stoch_ch=int(cfg_get(cfg, "dyn_stoch_ch", 16)),
+        deter_ch=int(cfg_get(cfg, "dyn_deter_ch", 64)),
+        hidden_ch=int(cfg_get(cfg, "dyn_hidden_ch", 64)),
+        embed_ch=int(cfg_get(cfg, "embed_ch", 64)),
+        kl_scale=float(cfg_get(cfg, "kl_scale", 1.0)),
+        kl_free=float(cfg_get(cfg, "kl_free", 1.0)),
+        stochastic_gates=bool(cfg_get(cfg, "stochastic_gates", True)),
+        sparsity_scale=float(cfg_get(cfg, "sparsity_scale",
+                                     cfg_get(cfg, "dyn_gate_scale", 0.1))),
+        gate_prior=float(cfg_get(cfg, "dyn_gate_prior", 0.3)),
+        gate_free=float(cfg_get(cfg, "dyn_gate_free", 0.0)),
+        dtype=_dtype(cfg), generator=generator)
+
+
+def _build_cater_classifier(cfg, generator: torch.Generator):
+    from ode_rl_torch.wm.cater import CaterClassifierModel
+    return CaterClassifierModel(cfg, generator=generator)
+
+
 _BUILDERS = {"ODEConv": _build_odeconvgru, "ConvGRU": _build_convgru,
              "cgrudecODE": _build_convgru, "S3VAE": _build_s3vae,
              "VidODE": _build_vidode, "ConvLSTM": _build_convlstm,
              "S2VAE": _build_s2vae, "CS2VAE": _build_s2vae,
-             "DS2VAE": _build_ds2vae, "DSVAE": _build_dsvae}
+             "DS2VAE": _build_ds2vae, "DSVAE": _build_dsvae,
+             "Dreamer": _build_dreamer,
+             "SpatialDreamer": _build_spatial_dreamer,
+             "CATERClassifier": _build_cater_classifier}
 
 
 def build_model(cfg, device: torch.device,
@@ -187,10 +225,5 @@ def build_model(cfg, device: torch.device,
     name = cfg.model
     if name in _BUILDERS:
         return _BUILDERS[name](cfg, generator).to(device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: ROADMAP queue 1, "
-            f"{_NOT_PORTED[name]}")
     raise NotImplementedError(
-        f"Model {name!r} is not implemented. Try one of "
-        f"{sorted([*_NOT_PORTED, *_BUILDERS])}")
+        f"Model {name!r} is not implemented. Try one of {sorted(_BUILDERS)}")

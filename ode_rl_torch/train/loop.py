@@ -45,8 +45,10 @@ early when the metric stalls. ``debug_nans`` raises
 NaN, and at a test batch whose prediction or metrics hold one
 (core/debug.py).
 
-Not ported, and each raises where a config asks for it: the CATER
-classifier, the device mesh and S3VAE's FlowNet labels
+``model: CATERClassifier`` trains and tests through its own path
+(wm/cater.py), as JAX's ``train`` (after the GAN's) and ``test`` (before
+any checkpoint is resolved) send it. Not ported, and each raises where a
+config asks for it: the device mesh and S3VAE's FlowNet labels
 (``flow_label_source: flownet``). The metric-vs-horizon plot
 (matplotlib) is not written.
 """
@@ -77,6 +79,7 @@ from ode_rl_torch.train.step import (TrainState, create_train_state,
                                      make_eval_step, make_fused_train_step,
                                      make_train_step, needs_flow_labels)
 from ode_rl_torch.train.visualize import save_filmstrip
+from ode_rl_torch.wm.cater import eval_cater_classifier, train_cater_classifier
 
 # The fused loop's generator seed is the run seed plus this (JAX folds
 # the same constant into its loop key).
@@ -96,9 +99,6 @@ def _refuse_unported(cfg) -> None:
     if cfg.get("use_mesh", False):
         raise NotImplementedError("the device mesh (parallel/) is not "
                                   "ported: ROADMAP queue 1, item 10")
-    if cfg.model == "CATERClassifier":
-        raise NotImplementedError("the CATER classifier is not ported: "
-                                  "ROADMAP queue 1, item 8")
     if (needs_flow_labels(cfg)
             and cfg.get("flow_label_source", "diff") == "flownet"):
         raise NotImplementedError("S3VAE's FlowNet labels "
@@ -151,6 +151,8 @@ def train(cfg, device: torch.device,
     _refuse_unported(cfg)
     if cfg.get("gan", False):
         return train_gan(cfg, device, logdir)
+    if cfg.model == "CATERClassifier":
+        return train_cater_classifier(cfg, device, logdir)
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
               / run_id)
@@ -379,6 +381,8 @@ def _resurrect_train_config(cfg, saved: Dict) -> Config:
 
 def test(cfg, device: torch.device,
          logdir: Optional[pathlib.Path] = None) -> Dict:
+    if cfg.model == "CATERClassifier":
+        return eval_cater_classifier(cfg, device, logdir)
     ckpt = None
     if cfg.get("load_model", False):
         ckpt_id = cfg.get("ckpt_id")

@@ -201,10 +201,8 @@ def test_registry_refuses_unported_families_and_options():
 
     cfg = load_config(RECIPE, overrides=NARROW)
     gen = torch.Generator().manual_seed(0)
-    for overrides, match in (({"model": "SpatialDreamer"}, "item 8"),
-                             ({"model": "Dreamer"}, "item 8"),
-                             ({"model": "CATERClassifier"}, "item 8"),
-                             ({"mem": True, "mem_mode": "nru3"}, "nru")):
+    for overrides, match in (({"mem": True, "mem_mode": "nru3"}, "nru"),
+                             ({"model": "NoSuchModel"}, "not implemented")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(cfg.replace(**overrides), torch.device("cpu"), gen)
     with pytest.raises(NotImplementedError, match="optimizer 'sgd'"):
@@ -216,7 +214,6 @@ def test_registry_refuses_unported_families_and_options():
 @pytest.mark.parametrize("overrides,match", [
     ({"gan": True, "use_mesh": True}, "mesh"),
     ({"use_mesh": True}, "mesh"),
-    ({"model": "CATERClassifier"}, "CATER"),
     ({"model": "S3VAE", "flow_label_source": "flownet"}, "item 7")])
 def test_loop_refuses_unported_options(tmp_path, overrides, match):
     from ode_rl_torch.train.loop import train

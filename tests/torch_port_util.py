@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ode_rl_torch.convert import flax_to_torch
+from ode_rl_torch.core.noise import Noise
 
 # The suite runs under several xdist workers.
 torch.set_num_threads(2)
@@ -111,3 +112,149 @@ def decode_png(path) -> np.ndarray:
     rows = raw.reshape(h, 1 + 3 * w)
     assert not rows[:, 0].any()
     return rows[:, 1:].reshape(h, w, 3)
+
+
+# --- The world models' draws (tests/test_torch_port_wm_*.py) -------------
+#
+# JAX's world models draw from keys; these compute the arrays a model
+# draws from a given key, in the order the port's ``Noise`` is asked for
+# them (the modules' docstrings state it), and ``DrawReplay`` hands them
+# out. ``KeyRecorder`` records the keys JAX's methods receive, where a
+# key comes from flax's ``make_rng``.
+
+
+class DrawReplay(Noise):
+    """The port's ``Noise`` over recorded (kind, array) draws, each
+    checked for its kind and shape."""
+
+    def __init__(self, draws):
+        super().__init__(None)
+        self.draws = list(draws)
+
+    def _next(self, kind, shape):
+        assert self.draws, f"no draw left for {kind} {tuple(shape)}"
+        got, a = self.draws.pop(0)
+        assert got == kind and a.shape == tuple(shape), (got, a.shape,
+                                                         kind, tuple(shape))
+        return torch.from_numpy(np.array(a))
+
+    def normal(self, shape, like):
+        return self._next("normal", shape).to(like.dtype)
+
+    def gumbel(self, shape, like):
+        return self._next("gumbel", shape).to(like.dtype)
+
+    def uniform(self, shape, device, low=0.0, high=1.0):
+        return self._next("uniform", shape).float()
+
+    def randint(self, low, high, shape, device):
+        return self._next("randint", shape).long()
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def rssm_noise(key, b: int, stoch: int, discrete: int):
+    if discrete:
+        return ("gumbel", _f32(jax.random.gumbel(key, (b, stoch, discrete),
+                                                 jnp.float32)))
+    return ("normal", _f32(jax.random.normal(key, (b, stoch), jnp.float32)))
+
+
+def rssm_observe_draws(key, t: int, b: int, stoch: int, discrete: int):
+    """``RSSM.observe``: for each step the prior's, then the
+    posterior's."""
+    out = []
+    for k in jax.random.split(key, t):
+        k1, k2 = jax.random.split(k)
+        out += [rssm_noise(k1, b, stoch, discrete),
+                rssm_noise(k2, b, stoch, discrete)]
+    return out
+
+
+def rssm_imagine_draws(key, n: int, b: int, stoch: int, discrete: int):
+    return [rssm_noise(k, b, stoch, discrete)
+            for k in jax.random.split(key, n)]
+
+
+def spatial_img_draws(key, b: int, hw: int, stoch: int, deter: int,
+                      gates: bool):
+    """``SpatialRSSM.img_step``: the gate's uniform, then the normal."""
+    ka, kb = jax.random.split(key)
+    out = ([("uniform", _f32(jax.random.uniform(ka, (b, deter))))]
+           if gates else [])
+    return out + [("normal", _f32(jax.random.normal(kb, (b, hw, hw,
+                                                         stoch))))]
+
+
+def spatial_observe_draws(key, t: int, b: int, hw: int, stoch: int,
+                          deter: int, gates: bool):
+    out = []
+    for k in jax.random.split(key, t):
+        k1, k2 = jax.random.split(k)
+        out += spatial_img_draws(k1, b, hw, stoch, deter, gates)
+        out.append(("normal", _f32(jax.random.normal(k2, (b, hw, hw,
+                                                          stoch)))))
+    return out
+
+
+def spatial_imagine_draws(key, t: int, b: int, hw: int, stoch: int,
+                          deter: int, gates: bool):
+    out = []
+    for k in jax.random.split(key, t):
+        out += spatial_img_draws(k, b, hw, stoch, deter, gates)
+    return out
+
+
+class KeyRecorder:
+    """Wraps flax methods so each call's key argument is recorded as
+    (method name, key), through ``jax.debug.callback``, so under ``jit``
+    too, where the callbacks' order is not the calls'. A callback that
+    fires again with the same key (autodiff may replay the forward) is
+    recorded once."""
+
+    def __init__(self):
+        self.keys = []
+
+    def _record(self, name, data):
+        data = np.asarray(data)
+        if not any(n == name and np.array_equal(np.asarray(
+                jax.random.key_data(k)), data) for n, k in self.keys):
+            self.keys.append((name, jax.random.wrap_key_data(data)))
+
+    def wrap(self, monkeypatch, cls, name: str, key_index: int):
+        orig = getattr(cls, name)
+
+        def wrapper(mod, *args, **kwargs):
+            jax.debug.callback(lambda d: self._record(name, d),
+                               jax.random.key_data(args[key_index]))
+            return orig(mod, *args, **kwargs)
+
+        monkeypatch.setattr(cls, name, wrapper)
+
+
+def typed_grads(module: torch.nn.Module, flax_grads) -> dict:
+    """A flax gradient tree in the port's names and layouts, by the
+    port's submodule types."""
+    tree = jax.tree_util.tree_map(np.asarray, flax_grads)
+    return flax_to_torch(tree, module=module)
+
+
+def load_typed(module: torch.nn.Module, flax_params) -> None:
+    tree = jax.tree_util.tree_map(np.asarray, flax_params)
+    module.load_state_dict(flax_to_torch(tree, module=module), strict=True)
+
+
+def assert_leaves_close(ours: dict, ref: dict, tol: float) -> float:
+    """Every leaf within ``tol`` of its norm (relative L2); returns the
+    worst reading."""
+    assert set(ours) == set(ref), set(ours) ^ set(ref)
+    worst = 0.0
+    for name in ref:
+        got = ours[name] if ours[name] is not None else torch.zeros_like(
+            torch.as_tensor(np.asarray(ref[name])))
+        err = rel_l2(got, ref[name])
+        worst = max(worst, err)
+        assert err <= tol, f"{name}: {err:.3g} > {tol}"
+    return worst
