@@ -204,9 +204,34 @@ without printing its last line:
     --eval_episodes 16`` (cut from 2000, 600 and 64) into a temporary
     report, every number finite. No K1-K8 launch over the phase
     (``phase14_launches`` in the kernels line).
+15. FlowNet's user paths, fp32 (K5-K7 on SIMT): ``ode_rl_torch.
+    train_flownetc --net C`` (200 steps, cut from 2000, B=8; the trained
+    held-out EPE below the random-init one; K5-K7 launched), ``--net S``
+    (50 steps; no K5-K8) and ``--net 2 --warm_start`` (3 steps; JAX's
+    graft counts 48/0, 41/1, 41/1; K5-K8 launched) into a temporary
+    ``logs/flow``; the saved ``flownetc.msgpack`` read back on the card
+    (parameters and, with cuDNN deterministic, the forward bit-equal to
+    the writer's); one FlowNetC step from those weights on a
+    FlyingChairs-layout batch against ``force_plain()`` (loss and EPE
+    1e-5 relative, worst gradient leaf 1e-3 relative L2), profiled;
+    ``ode_rl_torch.train_flownetc_highres`` (320x448, B=8, its 300 steps:
+    the mean EPE of the last 10 below that of the first 10) and K5-K7 at
+    its features (8, 40, 56, 256) alone against their plain versions
+    (1e-5 max abs) with median ms, device µs, bound and the share of it
+    reached, and a profiled step; ``defaults`` + ``train_mmnist_recon_s3vae``
+    with ``--flow_label_source flownet`` and the trained weights through
+    ``ode_rl_torch.main`` (4 steps on phase 10's corpus; labels in {0, 1};
+    K5 launched, no K6/K7) and its test block (one batch); one batch's
+    labels through the kernels against ``force_plain()`` (the upsampled
+    flow 1e-4 max abs, the labels equal on every cell more than 1e-4 from
+    its k-th value), a profiled labelled step, and K5 at the labels'
+    (156, 8, 8, 256) alone; ``ode_rl_torch.get_labels_from_pred_flow`` on
+    the corpus's train split ((16, 100, 9), row 0 zero, at least 3 ones
+    in every other row). Each path's launches (``phase15_launches``) and
+    the new shapes' rows (``phase15_shapes``) go into the kernels line.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-14) run their convs in strict fp32. Then one JSON line
+7-15) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -241,10 +266,16 @@ from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.data.video_corpus import write_synthetic_corpus
+from ode_rl_torch.data.flow_labels import (flow_grid_labels,
+                                          make_flownet_label_fn)
+from ode_rl_torch.flow.data import FlyingChairsCorpus, write_synthetic_chairs
 from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC
-from ode_rl_torch.flow.train import (flow_loss_and_grads,
+from ode_rl_torch.flow.train import (flow_loss_and_grads, load_flax_params,
+                                     load_flownet_params,
+                                     make_flow_train_step,
                                      make_fused_flow_train_step,
                                      synthetic_flow_batch)
+from ode_rl_torch.ops.resize import resize_bilinear
 from ode_rl_torch.nn import s3vae_nets
 from ode_rl_torch.ops import _build, common
 from ode_rl_torch.ops.channelnorm import (ChannelNormFn, channelnorm_fwd,
@@ -3144,6 +3175,489 @@ def phase_world_models(bank: torch.Tensor) -> dict:
             "rl": rl, "counts": counts}
 
 
+# FlowNet's user paths (PR 15), fp32, on the SIMT K5-K7: the FlowNetC,
+# FlowNetS and FlowNet2 trainers (steps cut from 2000), the highres
+# trainer (steps cut from 300), S3VAE with FlowNet labels (steps cut from
+# 50 epochs) and the label script.
+FLOW_C_STEPS, FLOW_S_STEPS, FLOW_2_STEPS = 200, 50, 3
+HIGHRES_STEPS = 300
+# The highres trainer's frames and its correlation's features (1/8).
+HIGHRES_SIZE, HIGHRES_SHAPE = (320, 448), (8, 40, 56, 256)
+# S3VAE's labels: B=4 x 39 transitions of its 40 frames, 64x64 pairs.
+LABEL_SHAPE = (156, 8, 8, 256)
+FLOW_LABEL_BLOCK = ("train_mmnist_recon_s3vae", "test_mmnist_recon_s3vae")
+# FlowNet2's warm start as JAX counts it: [grafted, shape-skipped] (the
+# stacked FlowNetS's 12-channel conv1 kernel is skipped).
+GRAFTS = {"flownetc": [48, 0], "flownets1": [41, 1], "flownets2": [41, 1]}
+# Cells whose mean lies within this of the k-th value may flip with fp32
+# noise; the rest must agree exactly.
+LABEL_MARGIN = 1e-4
+FLOW_KERNELS = (*FLOWNETC_KERNELS, "channelnorm")
+
+
+def _counted(fn):
+    """(fn(), the launches of every kernel counted while it ran), with
+    the counts set to 0 just before."""
+    torch.cuda.synchronize()
+    common.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(common.launches)
+
+
+def _check_simt_corr(counts: dict, names, where: str) -> None:
+    """Each of ``names`` launched, and no K5-K7 launch on the tensor
+    cores (fp32)."""
+    missing = [k for k in names if counts[k] == 0]
+    tc = {k: counts[f"{k}_tc"] for k in CORR_TC if counts[f"{k}_tc"]}
+    if missing or tc:
+        raise AssertionError(f"{where}: not launched {missing}, tensor-core "
+                             f"launches {tc}: {counts}")
+
+
+def _profiled(fn) -> dict:
+    """Device ms and wall ms of one call of fn under torch.profiler, after
+    a call that is not traced."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"device_ms": _device_ms(prof), "wall_ms": wall_ms}
+
+
+def _flow_trainer(net: str, steps: int, tmp: pathlib.Path,
+                  extra: tuple = ()) -> tuple:
+    from ode_rl_torch import train_flownetc
+
+    argv = ["--net", net, "--steps", str(steps), "--batch", "8",
+            "--flow_dir", str(tmp / "logs" / "flow"), "--report",
+            str(tmp / "results" / f"flownet{net}.json"), *extra]
+    print(f"  python -m ode_rl_torch.train_flownetc {' '.join(argv)}")
+    t0 = time.perf_counter()
+    (report, model), counts = _counted(
+        lambda: train_flownetc.run(train_flownetc.parse_args(argv)))
+    seconds = time.perf_counter() - t0
+    if not _finite(report):
+        raise AssertionError(f"FlowNet{net} report: {report}")
+    per_step = {k: counts[k] / steps for k in FLOW_KERNELS}
+    print(f"  FlowNet{net}: {seconds:.1f} s; val EPE random-init "
+          f"{report['val_epe_random_init']:.4f} -> trained "
+          f"{report['val_epe_trained']:.4f}; train loss "
+          f"{report['final_train_loss']:.4f}; {steps} steps in "
+          f"{report['train_seconds']} s; launches "
+          f"{ {k: counts[k] for k in FLOW_KERNELS} }, a step {per_step}")
+    return report, model, counts
+
+
+def _trainer_step(model, batch) -> dict:
+    """One fp32 FlowNetC step on a corpus batch: the kernels against
+    ``force_plain()``, same weights and batch (loss and EPE 1e-5
+    relative, worst gradient leaf 1e-3 relative L2), then a profiled
+    step."""
+    img1, img2, flow = batch
+
+    def run():
+        metrics = flow_loss_and_grads(model, (img1, img2), flow)
+        return metrics, {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+
+    m_k, g_k = run()
+    with common.force_plain():
+        m_p, g_p = run()
+    for key in ("loss", "epe"):
+        check(f"{key} (relative)", abs(float(m_k[key]) / float(m_p[key])
+                                       - 1.0), 1e-5, "rel")
+    worst = max(g_k, key=lambda n: rel_l2(g_k[n], g_p[n]))
+    check(f"worst grad leaf ({worst})", rel_l2(g_k[worst], g_p[worst]), 1e-3,
+          "rel_l2")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def step():
+        flow_loss_and_grads(model, (img1, img2), flow)
+        opt.step()
+
+    return _profiled(step)
+
+
+def _corr_bounds(shape) -> dict:
+    """K5-K7's bounds in fp32 at ``shape``, counting the (pixel,
+    displacement) pairs whose window lies in the map, as ``_bounds``
+    does."""
+    b, h, w, c = shape
+    n = n_displacements(CORR_D, CORR_STRIDE)
+    offsets = [i * CORR_STRIDE - CORR_D for i in range(n)]
+    pairs = b * (sum(max(h - abs(o), 0) for o in offsets)
+                 * sum(max(w - abs(o), 0) for o in offsets))
+    flops = 2 * pairs * c
+    feature_bytes = b * h * w * c * 4
+    return {
+        "correlation_fwd": _bound(flops, 2 * feature_bytes
+                                  + b * h * w * n * n * 4, PEAK_FP32),
+        "correlation_bwd_f1": _bound(flops, 2 * feature_bytes + pairs * 4,
+                                     PEAK_FP32),
+        "correlation_bwd_f2": _bound(flops, 2 * feature_bytes + pairs * 4,
+                                     PEAK_FP32),
+    }
+
+
+def _corr_alone(shape, names, gen) -> dict:
+    """K5-K7 (``names``) alone in fp32 at ``shape``: against their plain
+    versions (1e-5 max abs), median ms of the kernel and the plain
+    version, device µs a call, the bound and the share of it reached."""
+    bounds = _corr_bounds(shape)
+    rows = {}
+    with torch.no_grad():
+        ops = _flow_ops(shape, torch.float32, gen)
+        for name in names:
+            fn = ops[name]
+            out = fn()
+            with common.force_plain():
+                ref = fn()
+            tol, kind = _flow_tol(name, torch.float32)
+            err = check(f"{name} {shape} fp32", max_abs(out, ref), tol, kind)
+            del out, ref
+            ms = median_ms(fn)
+            with common.force_plain():
+                plain_ms = median_ms(fn, reps=10)
+            us = device_us({name: fn})[name]
+            bound = bounds[name]
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "device_us": us, **bound, "library_ms": None}
+            print(f"    {name} {shape} fp32 (SIMT): median ms kernel "
+                  f"{ms:.4f} plain {plain_ms:.4f}; device us a call "
+                  f"{us:.2f}; bound {bound['bound_ms'] * 1e3:.2f} us "
+                  f"({bound['bound_by']}), "
+                  f"{100 * bound['bound_ms'] * 1e3 / us:.1f}% of it reached")
+    return rows
+
+
+def _highres_profile(bank: torch.Tensor) -> dict:
+    """A profiled step of the highres trainer's FlowNetC (batch and
+    step as ``train_flownetc_highres``)."""
+    from ode_rl_torch.train_flownetc_highres import highres_batch_from
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    video = generate_moving_mnist(gen, bank, batch=8, n_frames=1,
+                                  num_digits=3) + 0.5
+    coarse = torch.randn((8, 5, 7, 2), generator=gen, device="cuda") * 8.0
+    img1, img2, flow = highres_batch_from(video[:, 0], coarse,
+                                          *HIGHRES_SIZE)
+    model = FlowNetC(generator=torch.Generator().manual_seed(1)).cuda()
+    init_fn, step_fn = make_flow_train_step(model)
+    state = init_fn()
+    prof = _profiled(lambda: step_fn(state, (img1, img2), flow))
+    print(f"  a profiled highres step: device ms {prof['device_ms']:.3f} of "
+          f"{prof['wall_ms']:.2f} (busy "
+          f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%)")
+    return prof
+
+
+class _LabelRecorder:
+    """Stands in for the loop's ``make_train_step``: the same step, with
+    each step's host time (closed by a synchronize) and its batch's
+    ``in_flow_labels`` recorded."""
+
+    def __init__(self):
+        self.ms, self.labels = [], []
+
+    def __call__(self, *args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def recorded(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, generator)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.labels.append(batch["in_flow_labels"].cpu())
+            return metrics
+
+        return recorded
+
+
+def _label_flows(net, video01: torch.Tensor) -> torch.Tensor:
+    """The flow ``make_flownet_label_fn`` takes its labels from:
+    FlowNetC's finest flow between consecutive frames, resized to the
+    frame and scaled by 4, (B, T-1, H, W, 2)."""
+    b, t, h, w, _ = video01.shape
+    img = video01.expand(-1, -1, -1, -1, 3)
+    i1 = img[:, :-1].reshape(b * (t - 1), h, w, 3)
+    i2 = img[:, 1:].reshape(b * (t - 1), h, w, 3)
+    with torch.no_grad():
+        full = resize_bilinear(net(i1, i2)[0], h, w) * 4.0
+    return full.reshape(b, t - 1, h, w, 2)
+
+
+def _check_labels_vs_plain(net, video01: torch.Tensor) -> dict:
+    """S3VAE's FlowNet labels of one batch through the kernels against
+    ``force_plain()``: the upsampled flow to 1e-4 max abs, the labels
+    exactly on every cell more than LABEL_MARGIN from its transition's
+    k-th value; the label function's labels equal those of the flow."""
+    label_fn = make_flownet_label_fn(net)
+    labels = label_fn(video01)
+    flow = _label_flows(net, video01)
+    with common.force_plain():
+        labels_p = label_fn(video01)
+        flow_p = _label_flows(net, video01)
+    if not torch.equal(labels, flow_grid_labels(flow)):
+        raise AssertionError("the label function's labels are not those of "
+                             "its flow")
+    check("label flow vs plain", max_abs(flow, flow_p), 1e-4, "max_abs")
+    b, t, h, w, _ = flow.shape
+    mag = torch.sqrt(torch.sum(flow * flow, dim=-1))
+    g = h // 3
+    m = mag[:, :, :3 * g, :3 * g].reshape(b, t, 3, g, 3, g).mean(
+        dim=(3, 5)).reshape(b, t, 9)
+    kth = torch.sort(m, dim=-1).values[..., -3, None]
+    clear = (m - kth).abs() > LABEL_MARGIN
+    differ = int(((labels != labels_p) & clear).sum())
+    check(f"labels vs plain ({int(clear.sum())} of {clear.numel()} cells "
+          f"beyond {LABEL_MARGIN:g})", float(differ), 0.0, "cells")
+    return {"cells": clear.numel(), "clear": int(clear.sum()),
+            "flow_err": max_abs(flow, flow_p)}
+
+
+def _s3vae_flow_labels(root: pathlib.Path, logs: pathlib.Path,
+                       params: pathlib.Path) -> dict:
+    """``train_mmnist_recon_s3vae`` with FlowNet labels through
+    ``ode_rl_torch.main`` (S3VAE_STEPS steps on the frozen corpus), its
+    test block (one batch), one batch's labels against force_plain() and
+    a profiled step (labels and training step)."""
+    from ode_rl_torch.data.mmnist import parse_datasets
+
+    block, test_block = FLOW_LABEL_BLOCK
+    argv = ["--configs", "defaults", block, "--data_dir", str(root),
+            "--logdir", str(logs), "--steps_per_epoch", str(S3VAE_STEPS),
+            "--epochs", "1", "--loss_log_freq", "1", "--ckpt_save_freq",
+            str(S3VAE_STEPS), "--flow_label_source", "flownet",
+            "--flownet_params_path", str(params)]
+    print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+    cfg, run = _run_dir(argv)
+    recorder = _LabelRecorder()
+    train_loop.make_train_step = recorder
+    try:
+        out, counts = _counted(lambda: port_main.main(argv))
+    finally:
+        train_loop.make_train_step = make_train_step
+    if out["final_step"] != S3VAE_STEPS:
+        raise AssertionError(f"{block}: {out['final_step']} steps")
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    for m in logged:
+        bad = [k for k in (*S3VAE_METRICS, "grad_norm")
+               if not np.isfinite(m.get(k, np.nan))]
+        if bad:
+            raise AssertionError(f"{block} step {m['step']}: {bad}")
+    labels = torch.cat(recorder.labels)
+    if not torch.all((labels == 0) | (labels == 1)):
+        raise AssertionError(f"{block}: labels outside {{0, 1}}")
+    if counts["correlation_fwd"] == 0 or counts["correlation_bwd_f1"] \
+            or counts["correlation_bwd_f2"] or counts["correlation_fwd_tc"]:
+        raise AssertionError(f"{block} with FlowNet labels: K5 must launch "
+                             f"(SIMT) and K6/K7 must not: {counts}")
+    per_step = counts["correlation_fwd"] / S3VAE_STEPS
+    step_ms = statistics.median(recorder.ms[1:])
+    print(f"  {block} with FlowNet labels: losses "
+          f"{[round(m['loss'], 3) for m in logged]}; labels "
+          f"{tuple(labels.shape)} in {{0, 1}}, {float(labels.sum(-1).mean()):.2f} ones a "
+          f"transition; K5 {counts['correlation_fwd']} launches "
+          f"({per_step:g} a step), K6 {counts['correlation_bwd_f1']}, K7 "
+          f"{counts['correlation_bwd_f2']}; median train step_ms (labels "
+          f"made before it) over steps 2-{S3VAE_STEPS} {step_ms:.2f}")
+    _s3vae_test(test_block, logs, root)
+
+    device = torch.device("cuda")
+    net = FlowNetC(generator=torch.Generator().manual_seed(0)).to(device)
+    net.requires_grad_(False)
+    load_flax_params(net, load_flownet_params(params)["params"])
+    video = next(parse_datasets(cfg, device)["train_dataloader"])
+    plain = _check_labels_vs_plain(net, video + 0.5)
+    state = create_train_state(cfg, device)
+    step = make_train_step()
+    label_fn = make_flownet_label_fn(net)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def labelled_step():
+        step(state, make_batch_dict(video, n_in=cfg.train_in_seq,
+                                    with_flow_labels=True,
+                                    flow_label_fn=label_fn), gen)
+
+    prof = _profiled(labelled_step)
+    labels_only = _profiled(lambda: label_fn(video + 0.5))
+    print(f"  a profiled step (labels + train step): device ms "
+          f"{prof['device_ms']:.3f} of {prof['wall_ms']:.2f} (busy "
+          f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%); the labels "
+          f"alone: device ms {labels_only['device_ms']:.3f} of "
+          f"{labels_only['wall_ms']:.2f}")
+    return {"counts": counts, "step_ms": step_ms, "k5_a_step": per_step,
+            "profile": prof, "labels_profile": labels_only, **plain}
+
+
+def _label_script(root: pathlib.Path, params: pathlib.Path) -> dict:
+    """``ode_rl_torch.get_labels_from_pred_flow`` on the corpus's train
+    split: (N, T, 9) labels, row 0 zero, every other row at least 3
+    ones."""
+    from ode_rl_torch import get_labels_from_pred_flow
+
+    argv = ["--data", str(root), "--splits", "train", "--flownet_params",
+            str(params), "--batch_videos", "8"]
+    print(f"  python -m ode_rl_torch.get_labels_from_pred_flow "
+          f"{' '.join(argv)}")
+    t0 = time.perf_counter()
+    written, counts = _counted(lambda: get_labels_from_pred_flow.main(argv))
+    seconds = time.perf_counter() - t0
+    videos = np.load(root / "train" / "shard_0000.npy", mmap_mode="r")
+    n, t = videos.shape[:2]
+    for path in written:
+        labels = np.load(path)
+        ones = labels[:, 1:].sum(-1)
+        if (labels.shape != (n, t, 9) or np.any(labels[:, 0])
+                or not np.all((labels == 0) | (labels == 1))
+                or ones.min() < 3):
+            raise AssertionError(f"{path}: shape {labels.shape}, row 0 "
+                                 f"{labels[:, 0].sum()}, fewest ones "
+                                 f"{ones.min()}")
+    if counts["correlation_fwd"] == 0 or counts["correlation_bwd_f1"]:
+        raise AssertionError(f"label script launches: {counts}")
+    print(f"  label script: {seconds:.1f} s; {len(written)} file of ({n}, "
+          f"{t}, 9), row 0 zero, every other row 3-{int(ones.max())} ones "
+          f"(mean {ones.mean():.2f}); K5 {counts['correlation_fwd']} "
+          "launches, no K6/K7")
+    return {"counts": counts, "seconds": seconds}
+
+
+def phase_flow_users(bank: torch.Tensor) -> dict:
+    from ode_rl_torch import train_flownetc_highres
+
+    print(f"[15] FlowNet's user paths (fp32): train_flownetc --net C "
+          f"({FLOW_C_STEPS} steps), --net S ({FLOW_S_STEPS}), --net 2 "
+          f"--warm_start ({FLOW_2_STEPS}); the weights file on the card; a "
+          f"trainer step vs plain; train_flownetc_highres ({HIGHRES_STEPS} "
+          f"steps, 320x448); {FLOW_LABEL_BLOCK[0]} with FlowNet labels; "
+          "get_labels_from_pred_flow")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(15)
+    counts, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        params = tmp / "logs" / "flow" / "flownetc.msgpack"
+
+        report_c, model_c, counts["train_flownetc C"] = _flow_trainer(
+            "C", FLOW_C_STEPS, tmp)
+        _check_simt_corr(counts["train_flownetc C"], FLOWNETC_KERNELS,
+                         "train_flownetc --net C")
+        if not report_c["val_epe_trained"] < report_c["val_epe_random_init"]:
+            raise AssertionError(
+                f"FlowNetC: trained val EPE {report_c['val_epe_trained']} "
+                f"not below random-init {report_c['val_epe_random_init']}")
+        times["train_flownetc C"] = (report_c["train_seconds"] * 1e3
+                                     / FLOW_C_STEPS)
+
+        report_s, model_s, counts["train_flownetc S"] = _flow_trainer(
+            "S", FLOW_S_STEPS, tmp)
+        if any(counts["train_flownetc S"][k] for k in FLOW_KERNELS):
+            raise AssertionError(f"FlowNetS launched K5-K8: "
+                                 f"{counts['train_flownetc S']}")
+        times["train_flownetc S"] = (report_s["train_seconds"] * 1e3
+                                     / FLOW_S_STEPS)
+        del model_s
+
+        report_2, model_2, counts["train_flownetc 2"] = _flow_trainer(
+            "2", FLOW_2_STEPS, tmp, ("--warm_start",))
+        _check_simt_corr(counts["train_flownetc 2"], FLOW_KERNELS,
+                         "train_flownetc --net 2 --warm_start")
+        grafts = {k: report_2["warm_start"][k] for k in GRAFTS}
+        if grafts != GRAFTS:
+            raise AssertionError(f"warm start grafts {grafts}, JAX's "
+                                 f"{GRAFTS}")
+        print(f"  FlowNet2 warm start: grafts {grafts} (JAX's counts); "
+              f"val EPE random-init {report_2['val_epe_random_init']:.4f}, "
+              f"warm {report_2['warm_start']['val_epe_warm_start']:.4f}, "
+              f"after {FLOW_2_STEPS} steps {report_2['val_epe_trained']:.4f}")
+        times["train_flownetc 2"] = (report_2["train_seconds"] * 1e3
+                                     / FLOW_2_STEPS)
+        del model_2
+
+        # The weights file read back on the card.
+        loaded = FlowNetC(generator=torch.Generator().manual_seed(5)).cuda()
+        load_flax_params(loaded, load_flownet_params(params)["params"])
+        chairs = tmp / "chairs"
+        write_synthetic_chairs(chairs, n_pairs=16, seed=7,
+                               device=torch.device("cuda"))
+        batch = tuple(torch.from_numpy(a).cuda() for a in next(
+            FlyingChairsCorpus(chairs, batch_size=8, seed=0)))
+        written, read = model_c.state_dict(), loaded.state_dict()
+        check("weights file: parameters vs writer's",
+              max(max_abs(written[k], read[k]) for k in written), 0.0,
+              "max_abs")
+        # cuDNN's deterministic algorithms, so that equal weights give
+        # equal outputs.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.no_grad():
+                ours, theirs = model_c(*batch[:2]), loaded(*batch[:2])
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        check("weights file: forward vs writer's",
+              max(max_abs(a, b) for a, b in zip(ours, theirs)), 0.0,
+              "max_abs")
+        del model_c
+        print("  one fp32 FlowNetC step on a FlyingChairs-layout batch (B=8) "
+              "from the trained weights: kernels vs plain")
+        trainer_prof = _trainer_step(loaded, batch)
+        busy = 100 * trainer_prof["device_ms"] / trainer_prof["wall_ms"]
+        print(f"  a profiled FlowNetC trainer step: device ms "
+              f"{trainer_prof['device_ms']:.3f} of "
+              f"{trainer_prof['wall_ms']:.2f} (busy {busy:.1f}%)")
+
+        report_h, counts["train_flownetc_highres"] = _counted(
+            lambda: train_flownetc_highres.main(
+                ["--steps", str(HIGHRES_STEPS), "--report",
+                 str(tmp / "results" / "highres.json")]))
+        _check_simt_corr(counts["train_flownetc_highres"], FLOWNETC_KERNELS,
+                         "train_flownetc_highres")
+        epe = report_h["epe"]
+        first10, last10 = statistics.mean(epe[:10]), statistics.mean(epe[-10:])
+        if not (_finite(report_h) and last10 < first10):
+            raise AssertionError(f"highres EPE: first 10 {first10}, last 10 "
+                                 f"{last10}")
+        times["train_flownetc_highres"] = report_h["step_ms"]
+        n_h = HIGHRES_STEPS + 1
+        print(f"  train_flownetc_highres: {n_h} steps at 320x448, B=8; EPE "
+              f"mean of the first 10 {first10:.4f}, of the last 10 "
+              f"{last10:.4f}; step_ms {report_h['step_ms']}; launches a step "
+              + str({k: counts["train_flownetc_highres"][k] / n_h
+                     for k in FLOWNETC_KERNELS}))
+        highres_rows = _corr_alone(HIGHRES_SHAPE, CORR_TC, gen)
+        highres_prof = _highres_profile(bank)
+
+        root, logs = tmp / "frozen", tmp / "logs"
+        _write_frozen_corpus(root, bank, test_frames=200)
+        s3vae = _s3vae_flow_labels(root, logs, params)
+        counts["s3vae flownet labels"] = s3vae["counts"]
+        times["s3vae flownet labels"] = s3vae["step_ms"]
+        label_rows = _corr_alone(LABEL_SHAPE, ("correlation_fwd",), gen)
+        script = _label_script(root, params)
+        counts["get_labels_from_pred_flow"] = script["counts"]
+    print(f"  step_ms by path: {times}")
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+    shapes = {name: {f"{HIGHRES_SHAPE} fp32": row}
+              for name, row in highres_rows.items()}
+    shapes["correlation_fwd"][f"{LABEL_SHAPE} fp32"] = label_rows[
+        "correlation_fwd"]
+    return {"counts": counts, "times": times, "shapes": shapes,
+            "trainer_profile": trainer_prof, "highres_profile": highres_prof,
+            "s3vae": s3vae,
+            "highres": {"first10": first10, "last10": last10}}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3169,6 +3683,7 @@ def main() -> int:
     vidode = phase_vidode(bank)
     families13 = phase_families13(bank)
     world_models = phase_world_models(bank)
+    flow_users = phase_flow_users(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -3238,6 +3753,14 @@ def main() -> int:
     # Phase 14 read the counts around the whole phase.
     for name in KERNELS:
         timings[name]["phase14_launches"] = world_models["counts"][name]
+    # Phase 15 read the counts around each of its paths.
+    for name in KERNELS:
+        timings[name]["phase15_launches"] = {
+            path: run[name] for path, run in flow_users["counts"].items()}
+    for name, rows in flow_users["shapes"].items():
+        timings[name]["phase15_shapes"] = rows
+    for path, ms in flow_users["times"].items():
+        print(f"{path}: step_ms {ms:.2f}")
     for block, run in world_models["train"].items():
         prof = world_models["profiles"][block]
         print(f"{block}: step_ms {run['step_ms']:.2f} (median over steps "

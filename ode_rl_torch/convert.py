@@ -43,13 +43,19 @@ The world models need the module: Dreamer's encoder ``h{i}`` are
 ``Conv`` and its decoder's ``h{i}`` ``ConvTransposeValid`` under the
 same names; the spatial RSSM's cell convs ``update``, ``reset`` and
 ``out`` are ``Conv``; the CATER classifier's tree is {'wm', 'clf'}, as
-its module's. The input holds numpy arrays only; nothing of JAX is
-imported.
+its module's. The leaves may be numpy arrays or torch tensors (on any
+device, ``meta`` included); nothing of JAX is imported.
+
+``torch_to_flax`` is the inverse for the layouts the FlowNets use: a
+``state_dict`` back to the flax tree, ``Conv`` weights OIHW -> HWIO,
+``ConvTranspose`` weights (I, O, kh, kw) flipped back to (kh, kw, I, O),
+every other leaf by name (by the module's submodule types where it is
+given, else by the name rules above). Per-slot stacks are not restacked.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -65,25 +71,46 @@ def _is_transposed_conv(layer: str) -> bool:
             or layer.startswith("up_"))
 
 
+Leaf = Union[np.ndarray, torch.Tensor]
+
+
+def _flip(x: Leaf) -> Leaf:
+    """x flipped along its two spatial (leading) axes."""
+    if isinstance(x, torch.Tensor):
+        return x.flip((0, 1))
+    return np.flip(x, (0, 1))
+
+
+def _permute(x: Leaf, *axes: int) -> Leaf:
+    return x.permute(*axes) if isinstance(x, torch.Tensor) else x.transpose(
+        *axes)
+
+
+def _moveaxis(x: Leaf, src: tuple, dst: tuple) -> Leaf:
+    return (torch.movedim(x, src, dst) if isinstance(x, torch.Tensor)
+            else np.moveaxis(x, src, dst))
+
+
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+            ) -> Iterator[Tuple[Tuple[str, ...], Leaf]]:
     for key, value in tree.items():
         if isinstance(value, Mapping):
             yield from _leaves(value, path + (key,))
+        elif isinstance(value, torch.Tensor):
+            yield path + (key,), value
         else:
             yield path + (key,), np.asarray(value)
 
 
-def _convert(path: Tuple[str, ...], leaf: np.ndarray
-             ) -> Tuple[Tuple[str, ...], np.ndarray]:
+def _convert(path: Tuple[str, ...], leaf: Leaf
+             ) -> Tuple[Tuple[str, ...], Leaf]:
     if path[-1] != "kernel" or leaf.ndim != 4:
         return path, leaf
     if _is_transposed_conv(path[-2]):
-        return path[:-1] + ("weight",), np.flip(leaf, (0, 1)).transpose(
-            2, 3, 0, 1)
+        return path[:-1] + ("weight",), _permute(_flip(leaf), 2, 3, 0, 1)
     if _is_field_conv(path[-2]):
         return path, leaf
-    return path[:-1] + ("weight",), leaf.transpose(3, 2, 0, 1)
+    return path[:-1] + ("weight",), _permute(leaf, 3, 2, 0, 1)
 
 
 def _layouts() -> Dict[type, str]:
@@ -112,9 +139,9 @@ def _unstack(path: Tuple[str, ...], leaf: np.ndarray, module: nn.Module
     yield path, leaf, mod
 
 
-def _convert_typed(path: Tuple[str, ...], leaf: np.ndarray,
+def _convert_typed(path: Tuple[str, ...], leaf: Leaf,
                    holder: Optional[nn.Module], layouts: Dict[type, str]
-                   ) -> Tuple[Tuple[str, ...], np.ndarray]:
+                   ) -> Tuple[Tuple[str, ...], Leaf]:
     """The leaf's layout by its holder's type, else by its name."""
     layout = layouts.get(type(holder))
     if path[-1] != "kernel" or layout is None:
@@ -123,8 +150,14 @@ def _convert_typed(path: Tuple[str, ...], leaf: np.ndarray,
         return path, leaf
     weight = path[:-1] + ("weight",)
     if layout == "flip":
-        return weight, np.flip(leaf, (0, 1)).transpose(2, 3, 0, 1)
-    return weight, np.moveaxis(leaf, (-1, -2), (0, 1))
+        return weight, _permute(_flip(leaf), 2, 3, 0, 1)
+    return weight, _moveaxis(leaf, (-1, -2), (0, 1))
+
+
+def _as_tensor(value: Leaf) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().contiguous().clone()
+    return torch.from_numpy(np.array(value))
 
 
 def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None,
@@ -145,7 +178,46 @@ def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None,
     state = {}
     for path, leaf, holder in pieces(params):
         new_path, value = _convert_typed(path, leaf, holder, layouts)
-        state[".".join(new_path)] = torch.from_numpy(np.array(value))
+        state[".".join(new_path)] = _as_tensor(value)
     for path, leaf, _ in pieces(batch_stats or {}):
-        state[".".join(path)] = torch.from_numpy(np.array(leaf))
+        state[".".join(path)] = _as_tensor(leaf)
     return state
+
+
+def _unconvert(path: Tuple[str, ...], weight: torch.Tensor,
+               layout: Optional[str]) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """A conv ``weight`` back to its flax ``kernel``: by the holder's
+    layout where it is known, else by the name rules."""
+    kernel = path[:-1] + ("kernel",)
+    if layout is None:
+        if weight.ndim != 4:
+            return path, weight
+        layout = "flip" if _is_transposed_conv(path[-2]) else "out_in"
+    if layout == "flip":
+        return kernel, _flip(_permute(weight, 2, 3, 0, 1))
+    return kernel, _moveaxis(weight, (0, 1), (-1, -2))
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor],
+                  module: Optional[nn.Module] = None) -> Dict:
+    """A ``state_dict`` of the port's parameters -> the flax 'params' tree
+    of the same values, as contiguous tensors on the state's device (the
+    inverse of ``flax_to_torch``)."""
+    layouts = _layouts() if module is not None else {}
+    tree: Dict = {}
+    for name, value in state.items():
+        path = tuple(name.split("."))
+        if path[-1] == "weight":
+            layout = None
+            if module is not None:
+                holder = module.get_submodule(".".join(path[:-1]))
+                layout = layouts.get(type(holder))
+                if layout == "keep":
+                    raise ValueError(f"{name}: a Conv3x3 keeps its flax "
+                                     "'kernel' name")
+            path, value = _unconvert(path, value, layout)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.detach().contiguous()
+    return tree

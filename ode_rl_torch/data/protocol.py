@@ -3,12 +3,13 @@
 Counterpart of ``ode_rl_tpu/data/protocol.py``: normalised timestamps
 ``arange(0, T) / T`` split into ``observed_tp`` and ``tp_to_predict``, the
 observed/predicted frame split, masks, and, for S3VAE, the motion-grid
-labels of the frame differences (data/flow_labels.py).
+labels of the frame differences or of FlowNetC's flow
+(data/flow_labels.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -24,11 +25,15 @@ def timestamps_for(n_in: int, n_out: int, device=None):
 
 def make_batch_dict(video: torch.Tensor, n_in: int,
                     with_flow_labels: bool = False, flow_grid: int = 3,
-                    flow_topk: int = 3) -> Dict[str, torch.Tensor]:
+                    flow_topk: int = 3,
+                    flow_label_fn: Optional[Callable] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Split a (B, T, H, W, C) video in [-0.5, 0.5] into the batch dict;
     every frame is observed (all-ones masks). ``with_flow_labels`` adds
     ``in_flow_labels`` and ``out_flow_labels``, both the labels of the
-    first n_in - 1 transitions, as JAX's are."""
+    first n_in - 1 transitions, as JAX's are: the frame-difference motion
+    grid, or ``flow_label_fn`` of the video in [0, 1] where it is given
+    (data/flow_labels.make_flownet_label_fn)."""
     b, t = video.shape[:2]
     n_out = t - n_in
     observed_tp, tp_to_predict = timestamps_for(n_in, n_out, video.device)
@@ -42,8 +47,11 @@ def make_batch_dict(video: torch.Tensor, n_in: int,
         "mask_predicted_data": mask[:, n_in:],
     }
     if with_flow_labels:
-        labels = motion_grid_labels(video + 0.5, grid=flow_grid,
-                                    topk=flow_topk)
+        if flow_label_fn is not None:
+            labels = flow_label_fn(video + 0.5)
+        else:
+            labels = motion_grid_labels(video + 0.5, grid=flow_grid,
+                                        topk=flow_topk)
         batch["in_flow_labels"] = labels[:, :n_in - 1]
         batch["out_flow_labels"] = labels[:, :n_in - 1]
     return batch

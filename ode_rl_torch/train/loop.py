@@ -47,10 +47,18 @@ NaN, and at a test batch whose prediction or metrics hold one
 
 ``model: CATERClassifier`` trains and tests through its own path
 (wm/cater.py), as JAX's ``train`` (after the GAN's) and ``test`` (before
-any checkpoint is resolved) send it. Not ported, and each raises where a
-config asks for it: the device mesh and S3VAE's FlowNet labels
-(``flow_label_source: flownet``). The metric-vs-horizon plot
-(matplotlib) is not written.
+any checkpoint is resolved) send it.
+
+``flow_label_source: flownet`` gives S3VAE's training batches (fused or
+from the loader) and its validation batches the DFP labels of FlowNetC's
+predicted flow (data/flow_labels.py): an fp32 FlowNetC on the run's
+device, as JAX builds ``FlowNetC()`` at its fp32 default whatever the
+run's dtype, with the weights in ``flownet_params_path`` (JAX's or the
+port's file, flow/train.py); without that file it raises, unless
+``allow_random_flownet`` opts into a randomly initialised net with a
+warning. The test phase keeps the frame-difference labels, as JAX's
+does. Not ported, and it raises where a config asks for it: the device
+mesh. The metric-vs-horizon plot (matplotlib) is not written.
 """
 
 from __future__ import annotations
@@ -67,11 +75,14 @@ from ode_rl_torch.core.config import Config, resolve_run_id
 from ode_rl_torch.core.debug import check_finite
 from ode_rl_torch.core.logging import MetricLogger
 from ode_rl_torch.core.noise import Noise
+from ode_rl_torch.data.flow_labels import make_flownet_label_fn
 from ode_rl_torch.data.mmnist import MovingMNIST, parse_datasets
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.samplers import sample, split_batch
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.eval_models.lpips import lpips_horizon_fn
+from ode_rl_torch.flow.flownets import FlowNetC
+from ode_rl_torch.flow.train import load_flax_params, load_flownet_params
 from ode_rl_torch.train.gan import create_gan_state, make_gan_train_step
 from ode_rl_torch.train.schedulers import (EarlyStopping, ReduceLROnPlateau,
                                            set_lr_scale)
@@ -99,11 +110,33 @@ def _refuse_unported(cfg) -> None:
     if cfg.get("use_mesh", False):
         raise NotImplementedError("the device mesh (parallel/) is not "
                                   "ported: ROADMAP queue 1, item 10")
-    if (needs_flow_labels(cfg)
-            and cfg.get("flow_label_source", "diff") == "flownet"):
-        raise NotImplementedError("S3VAE's FlowNet labels "
-                                  "(flow_label_source: flownet) are not "
-                                  "ported: ROADMAP queue 1, item 7")
+
+
+def _make_flow_label_fn(cfg, device: torch.device):
+    """S3VAE's DFP label source: None for the frame-difference labels;
+    for ``flow_label_source: flownet`` the labels of FlowNetC's flow."""
+    if cfg.get("flow_label_source", "diff") != "flownet":
+        return None
+    net = FlowNetC(generator=torch.Generator().manual_seed(0)).to(device)
+    net.requires_grad_(False)
+    path = str(cfg.get("flownet_params_path", "") or "")
+    if path and pathlib.Path(path).exists():
+        load_flax_params(net, load_flownet_params(path)["params"])
+        print(f"flow labels: FlowNetC weights from {path}")
+    elif cfg.get("allow_random_flownet", False):
+        print("warning: flow_label_source=flownet with "
+              "allow_random_flownet=True — DFP labels come from a "
+              "randomly initialized FlowNetC (debug only)")
+    else:
+        # The reference's DFP labels come from a trained flow net; labels
+        # from random-feature flow would be noise.
+        raise FileNotFoundError(
+            f"flow_label_source=flownet but no trained weights at "
+            f"flownet_params_path={path!r}. Train them with "
+            f"`python -m ode_rl_torch.train_flownetc` (writes the default "
+            f"path), or pass --allow_random_flownet True to opt into "
+            f"random-init flow features.")
+    return make_flownet_label_fn(net)
 
 
 def setup(cfg, device: torch.device):
@@ -175,12 +208,15 @@ def train(cfg, device: torch.device,
             data_dir=cfg.get("data_dir"), seed=cfg.get("seed", 0),
             device=device)
     next_window = _window_batches(cfg, loader) if windows else None
+    flow_label_fn = (_make_flow_label_fn(cfg, device)
+                     if needs_flow_labels(cfg) else None)
     if fused:
         bank = get_sprite_bank(cfg.get("data_dir"))
         if int(cfg.get("num_sprites", 0) or 0):
             bank = bank[:int(cfg.num_sprites)]
         fused_step = make_fused_train_step(
-            cfg, torch.from_numpy(bank).float().to(device))
+            cfg, torch.from_numpy(bank).float().to(device),
+            flow_label_fn=flow_label_fn)
         loop_gen = torch.Generator(device=device).manual_seed(
             int(cfg.get("seed", 0)) + _LOOP_SEED)
     else:
@@ -205,7 +241,8 @@ def train(cfg, device: torch.device,
             start_step = state.step = restored["step"]
             print(f"resumed from step {start_step}")
 
-    plateau, early, val_monitor = _monitors(cfg, loaders, state, device)
+    plateau, early, val_monitor = _monitors(cfg, loaders, state, device,
+                                            flow_label_fn)
     step = start_step
     last_metrics: Dict = {}
     log_freq = int(cfg.get("loss_log_freq", 50))
@@ -221,7 +258,8 @@ def train(cfg, device: torch.device,
             else:
                 batch = make_batch_dict(
                     next(loader), n_in=cfg.train_in_seq,
-                    with_flow_labels=needs_flow_labels(cfg))
+                    with_flow_labels=needs_flow_labels(cfg),
+                    flow_label_fn=flow_label_fn)
                 metrics = train_step(state, batch, sample_gen)
             step += 1
             # Fetch metrics only at log points.
@@ -256,10 +294,12 @@ def train(cfg, device: torch.device,
     return {"final_step": step, **last_metrics}
 
 
-def _monitors(cfg, loaders: Dict, state: TrainState, device: torch.device):
+def _monitors(cfg, loaders: Dict, state: TrainState, device: torch.device,
+              flow_label_fn=None):
     """(plateau, early stopping, the validation monitor), each None where
     the config does not ask for it. The monitor is the mean eval-mode MSE
-    over the ``val_batches`` held-out batches, the model's draws from a
+    over the ``val_batches`` held-out batches (S3VAE's labels from
+    ``flow_label_fn`` where it is given), the model's draws from a
     generator seeded 0 at every call (JAX passes key 0)."""
     plateau = early = None
     if cfg.get("lr_scheduler", "") == "plateau":
@@ -275,7 +315,8 @@ def _monitors(cfg, loaders: Dict, state: TrainState, device: torch.device):
     val_batches = [
         make_batch_dict(next(loaders["test_dataloader"]),
                         n_in=cfg.train_in_seq,
-                        with_flow_labels=needs_flow_labels(cfg))
+                        with_flow_labels=needs_flow_labels(cfg),
+                        flow_label_fn=flow_label_fn)
         for _ in range(int(cfg.get("val_batches", 2)))]
 
     def val_monitor() -> float:

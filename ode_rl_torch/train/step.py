@@ -19,7 +19,8 @@ in training mode (BatchNorm on the batch's moments, moving its running
 ones; dropout on) and the eval step in eval mode. A model that predicts
 the whole sequence (S3VAE in eval: t_in + n_out frames) is held to the
 observed frames followed by ``data_to_predict``. S3VAE's batches carry
-the motion-grid labels of its DFP loss.
+the motion-grid labels of its DFP loss (from FlowNetC's flow where the
+fused step is given its label function).
 
 Each step takes an optional ``torch.Generator`` that a model drawing
 noise (ODEConv with ``z_sample``, S3VAE) draws it from, as JAX's steps
@@ -168,12 +169,14 @@ def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
     return eval_step
 
 
-def make_fused_train_step(cfg, sprite_bank: torch.Tensor
+def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
+                          flow_label_fn: Optional[Callable] = None
                           ) -> Callable[..., Dict]:
     """(state, generator, sample_generator=None) -> metrics: a Moving
-    MNIST batch made on the device from ``generator``, then one training
-    step (with ``cfg.nan_guard`` and ``cfg.debug_nans``) that draws any
-    model noise from ``sample_generator``."""
+    MNIST batch made on the device from ``generator`` (S3VAE's labels
+    from ``flow_label_fn`` where it is given), then one training step
+    (with ``cfg.nan_guard`` and ``cfg.debug_nans``) that draws any model
+    noise from ``sample_generator``."""
     if cfg.resolution != IMAGE_SIZE:
         raise NotImplementedError(f"the generator makes {IMAGE_SIZE}x"
                                   f"{IMAGE_SIZE} frames")
@@ -191,7 +194,8 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor
                                       n_frames=n_frames,
                                       num_digits=int(cfg.num_digits))
         return step(state, make_batch_dict(video, n_in=n_in,
-                                           with_flow_labels=with_flow),
+                                           with_flow_labels=with_flow,
+                                           flow_label_fn=flow_label_fn),
                     sample_generator)
 
     return fused_step

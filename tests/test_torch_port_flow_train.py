@@ -83,8 +83,6 @@ def test_synthetic_flow_batch_from_a_torch_generator(bank):
         n_frames=2)
     assert per.shape == (2, 3, 2, 64, 64) and idx.shape == (2, 3)
     assert pos.shape == (2, 3, 2, 2)
-    with pytest.raises(NotImplementedError):
-        synthetic_flow_batch(gen, torch.from_numpy(bank), style="smooth")
 
 
 @pytest.fixture(scope="module")

@@ -185,7 +185,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR
 
 
-_FORBIDDEN = {"jax", "flax", "optax", "yaml"}
+_FORBIDDEN = {"jax", "flax", "optax", "yaml", "imageio", "msgpack"}
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -213,8 +213,7 @@ def test_registry_refuses_unported_families_and_options():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"gan": True, "use_mesh": True}, "mesh"),
-    ({"use_mesh": True}, "mesh"),
-    ({"model": "S3VAE", "flow_label_source": "flownet"}, "item 7")])
+    ({"use_mesh": True}, "mesh")])
 def test_loop_refuses_unported_options(tmp_path, overrides, match):
     from ode_rl_torch.train.loop import train
 
