@@ -229,9 +229,35 @@ without printing its last line:
     the corpus's train split ((16, 100, 9), row 0 zero, at least 3 ones
     in every other row). Each path's launches (``phase15_launches``) and
     the new shapes' rows (``phase15_shapes``) go into the kernels line.
+16. the evaluation tools and the last helpers, fp32:
+    ``ode_rl_torch.make_frozen_mmnist --videos 256 --frames 200
+    --train_split 0.75`` with the native generator built on this host
+    (its build seconds and flags printed; each shard's sha256 equal to
+    ``CORPUS_SHA256``, the CPU host's, else the first video that differs
+    is named); ``ode_rl_torch.parity_eval`` on the corpus's first 4 test
+    videos with the recipe's seed weights saved as a checkpoint (JAX's
+    keys, 10 and 90 finite values of each metric); ``checked_odeint``
+    over the recipe's decode field at (4, 16, 16, 64) bit-equal to
+    ``odeint_aux`` with its K1 launches (all SIMT) counted, and raising
+    ``FloatingPointError`` naming t=0.5 on a field that turns NaN there;
+    ``StepTimer(warmup=3)`` over 10 fused recipe steps (K1-K4 launched)
+    and a 2-step ``trace`` whose Chrome trace holds the ``annotate``
+    spans and K1 kernel events; two one-digit ``train_mmnist_recon_s3vae``
+    runs (4 steps; the second with l1 = l2 = l3 = 0) and
+    ``ode_rl_torch.mmnist_disentangle`` cut (judge 1000 steps): the judge
+    above chance on real videos (sprite > 1/16, both quadrants > 1/4); a
+    4-step ``train_sprite_dsvae`` run, ``sprite_probe_grids`` (six PNGs)
+    and ``sprite_disagreement`` cut (100 judge steps, 2 batches): JAX's
+    keys, finite scores, accuracies in [0, 1]; the CEM plan's predicted
+    return at least its first iteration's mean proposal's and the
+    gradient planner's objective after 50 steps at most its first,
+    through rl_demo's action-conditioned world model trained 50 steps;
+    ``ImpalaCNN`` on the card against the CPU (1e-5, cuDNN
+    deterministic); ``EpisodeLoader``'s shapes (JAX's short batch pinned).
+    Each path's launches (``phase16_launches``) go into the kernels line.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-15) run their convs in strict fp32. Then one JSON line
+7-16) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -244,6 +270,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import pathlib
 import statistics
@@ -335,6 +362,16 @@ KERNELS = {
                     "ode_rl_tpu/ops/channelnorm.py:30"),
 }
 FLAGSHIP_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "gru_gates", "gru_blend")
+# The shards of ``python -m ode_rl_torch.make_frozen_mmnist --videos 256
+# --frames 200 --train_split 0.75`` (seed 0, 3 digits), as the native
+# generator wrote them on the CPU host the port is tested on; phase 16
+# holds the card's host to the same bytes.
+CORPUS_SHA256 = {
+    "train/shard_0000.npy":
+        "7269415d720f7acf6c089842473ac46b4a885e7def5eca9804619d67498a6bfd",
+    "test/shard_0001.npy":
+        "b4ddaef073f752afca14e52d82e2938348840e37ee7bf728f4073856ac5ff045",
+}
 FLOWNETC_KERNELS = ("correlation_fwd", "correlation_bwd_f1",
                     "correlation_bwd_f2")
 # Flagship shapes: the field state (B, 16, 16, 64); gates 2C = 128 in 4
@@ -3658,6 +3695,401 @@ def phase_flow_users(bank: torch.Tensor) -> dict:
             "highres": {"first10": first10, "last10": last10}}
 
 
+# The evaluation tools and the last helpers, fp32. The first 8 hex
+# digits of the sha256 of each video of the corpus CORPUS_SHA256 names,
+# train then test, 8 videos a line: where a shard differs, the first video
+# that differs is named.
+CORPUS_VIDEO_SHA256_8 = (
+    "0ed2b7ec703fe8ee2c7537b51ff3bc606e8905893aa01318b5073a4c7934bb1f"
+    "9fa9c9bc0666119bee9ef4e19889071808ad40e2e595d80218ddfbb05a88f251"
+    "a0bc290bb4a1d941b8d27336151da5d333ca7ce74b86d66c2de9d022442a8b0a"
+    "3461550e7da2cda01bac908331441beba5cc6c407220a9edf710da76249799c5"
+    "9eef34ddd7d485dc3ea82c144f1585bab2e8ceefc0aae23d825dab42fe65788d"
+    "a15e7d3559c21e83e9c1df10f80fd3fc238d086e9f5e6ecfce6ef29c4af506b9"
+    "e3c938177c8871b3bfcc0de534c8f7bc069b996d7948187f24ace95c75c68d1e"
+    "be4fde3457a945bf1c135effe4bb246147259920cfd5b367eea65a86cd57577f"
+    "a169e4105b4b503121744492b9c05bd9ada0f7bf25265fef91d37f2e1d11b353"
+    "1e1370635caa11db88a897a8488e497d8590a01d6e43349c989bcde987b81a95"
+    "48d64dc87f4d26cd2020fa8843d64646b7b20380bc8b2a0cde3d78c5bd516a45"
+    "e0da0dea8f6387b1b2cbc472550bd7684af9d093893b0fd13166e8d025ebdf5d"
+    "97d0a0a9b9f1cb270138c98406df487cc5db7c2ce727fa10f898a2b6de19e6cf"
+    "dc969b51570ea4639225cb5a4925b2513266ce97fe66a23e5c62f6baedccb9b0"
+    "8c36f9878c6b519d40193f3d1e661dc7fdd50f4ffa7d1a351c5027257fb74017"
+    "35f14009977b112e20e899a7719d2dc3c024bf497c9bb187634d12b9dac5c155"
+    "89dff99a3062c15927d3ced3e472b39502ec5eeecf3ba8ae3634b0f3a79ae149"
+    "ed4726b9d1faf20d6ec4169d622d54d6d9e56fd61d1472ac84023e0d4391eee3"
+    "2d753a95e8725528a480b8b2a0d148fd095d5cf80dabde1ee80ddb459dd9bd5d"
+    "c5806b45f53b74e16c7832f6ca0a83d10eac085c867e3aa9600f141bbcae436f"
+    "9bc2ed93e82c93e0202bb67d3aee0bb8ce560f6469dc72d718b2ca731a007f68"
+    "b96d75aaf77ad89e819390068d91384f0c6b659216338013c312637cdfd6593b"
+    "5f61a1c12546f628c8620cdb575191a8f358647fc4aa70006817104d28ef3562"
+    "27691c7186f7a21f29b112797c2797960fa14325ee48bee79bece15257c49058"
+    "8a09de0e2426d1b58cfe7ffe0fa6130bdf4eb225dc6b928accb05c75e4c09d65"
+    "b4d62ad49b227088b769b11e652931dbbf605a951cbc08e883134e5104e80d12"
+    "4227f1434ddc9b0bd15e1dacfc687635ccdc3becd186a779aa3ba1ada840900a"
+    "62832ceb0ed060fbbb3fcef7c4daafee12744f4c6219be26c6e22fe022491071"
+    "72b5f2da1c1c9fd3c56f58af4207d18ebf287af8a8e2c324fb839b842131088e"
+    "f4ed931ab2f31026ba45e2b2d158785fa33405cc7cb803b02ebb52d369821b96"
+    "49ee3cb30ae30f317019e06a0289204ac23d68a73a2c424731e036bcd4a7c4d7"
+    "bb99eaa528ae84e84902ef8d48363dc7c9160c14f24fa3e24e9159d4dce5b0f4"
+)
+CORPUS_ARGS = ("--videos", "256", "--frames", "200", "--train_split", "0.75")
+PARITY_VIDEOS = 4
+# mmnist_disentangle, cut: the judge's steps (from 1500; on an H100 80GB
+# HBM3 at 700 W its batch accuracy on the sprite read 0.23, 0.44, 0.80 and
+# 0.89 at steps 500, 750, 1000 and 1250), the swaps' batches (from 16),
+# the probes' batches and steps (from 64 + 16, 600).
+JUDGE_CUT = ("--judge_steps", "1000", "--eval_batches", "2",
+             "--probe_train_batches", "8", "--probe_eval_batches", "2",
+             "--probe_steps", "200")
+# sprite_disagreement, cut: the judge's steps (from 400), the batches of
+# each sweep (from 8).
+DISAGREE_CUT = ("--steps", "100", "--batches", "2")
+JUDGE_TRAIN_STEPS = 4
+# The planners on an action-conditioned world model (rl_demo's widths),
+# trained this many steps on random episodes first.
+PLAN_WM_STEPS, PLAN_HORIZON = 50, 12
+
+
+def _corpus_writer(tmp: pathlib.Path) -> tuple:
+    """The native generator built on this host, then the corpus written
+    and held to the bytes the CPU host wrote."""
+    from ode_rl_torch import make_frozen_mmnist
+    from ode_rl_torch.data import native_gen
+
+    gen = native_gen.native_generator()
+    # The library's name holds this host's key: one built elsewhere and
+    # copied with the tree is not loaded (0.00 s: built here before).
+    print(f"  native generator: {' '.join((native_gen.CXX, *native_gen.FLAGS))}"
+          f"; built on this host in {gen.build_seconds:.2f} s ({gen.path.name})")
+    root = tmp / "corpus"
+    t0 = time.perf_counter()
+    digests = make_frozen_mmnist.main(["--out", str(root), *CORPUS_ARGS])
+    seconds = time.perf_counter() - t0
+    if digests != CORPUS_SHA256:
+        videos = [v for name in CORPUS_SHA256 for v in np.load(root / name)]
+        ref = "".join(CORPUS_VIDEO_SHA256_8)
+        for i, v in enumerate(videos):
+            ours = hashlib.sha256(v.tobytes()).hexdigest()[:8]
+            if ours != ref[8 * i:8 * i + 8]:
+                raise AssertionError(
+                    f"corpus: shard digests {digests}, expected "
+                    f"{CORPUS_SHA256}; video {i} (in corpus order) differs "
+                    f"first: {ours} against {ref[8 * i:8 * i + 8]}")
+        raise AssertionError(f"corpus: shard digests {digests}, expected "
+                             f"{CORPUS_SHA256}, every video equal")
+    print(f"  corpus {' '.join(CORPUS_ARGS)}: {seconds:.2f} s, every shard "
+          "sha256 equal to the CPU host's")
+    return root, {"build_s": gen.build_seconds, "write_s": seconds}
+
+
+def _parity_eval(corpus: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """ode_rl_torch.parity_eval on the corpus's first test videos, the
+    recipe model from the seed's weights saved as a checkpoint."""
+    from ode_rl_torch import parity_eval
+
+    cfg = load_config(RECIPE)
+    state = create_train_state(cfg, torch.device("cuda"))
+    CheckpointManager(tmp / "logs" / cfg.model / "parity" / "checkpoints",
+                      tag="parity_port").save(
+        0, {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}, config=cfg.to_dict())
+    del state
+    results = parity_eval.main([
+        "--data", str(corpus), "--ckpt_id", "parity_port", "--logdir",
+        str(tmp / "logs"), "--eval_videos", str(PARITY_VIDEOS), "--batch",
+        str(PARITY_VIDEOS), "--out", str(tmp / "parity")])
+    # The keys of scripts/jax_parity_eval.py's metrics.json.
+    if set(results) != {"ckpt_id", "step", "10to10", "10to90"}:
+        raise AssertionError(f"parity_eval keys {sorted(results)}")
+    for horizon, n in (("10to10", 10), ("10to90", 90)):
+        row = results[horizon]
+        if set(row) != {"mse", "psnr", "ssim"} or not all(
+                len(v) == n and np.all(np.isfinite(v)) for v in row.values()):
+            raise AssertionError(f"parity_eval {horizon}: {row}")
+    print(f"  parity_eval on {PARITY_VIDEOS} test videos: final mse "
+          f"10to10 {results['10to10']['mse'][-1]:.5f}, 10to90 "
+          f"{results['10to90']['mse'][-1]:.5f}; keys as JAX's script's")
+    return results
+
+
+def _checked_odeint() -> dict:
+    """checked_odeint over the recipe's decode field on the card: bit-equal
+    to odeint_aux on a clean run, FloatingPointError at t=0.5 on a field
+    that turns NaN there."""
+    from ode_rl_torch.core.debug import checked_odeint
+    from ode_rl_torch.ode.solvers import odeint_aux
+
+    cfg = load_config(RECIPE)
+    model = create_train_state(cfg, torch.device("cuda")).model
+    field = lambda t, y: model.ode_decoder_func(y).float()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    y0 = 0.5 * torch.randn((RECIPE_B, 16, 16, 64), generator=gen,
+                           device="cuda")
+    ts = np.linspace(0.0, 1.0, 11).astype(np.float32)
+    kw = dict(method="dopri5", rtol=float(cfg.get("odeint_rtol", 1e-4)),
+              atol=float(cfg.get("odeint_atol", 1e-5)),
+              max_steps=int(cfg.get("ode_max_steps", 128)))
+    with torch.no_grad():
+        (ys, stats), counts = _counted(lambda: checked_odeint(field, y0, ts,
+                                                              **kw))
+        ref, ref_stats = odeint_aux(field, y0, ts, **kw)
+    if not (torch.equal(ys, ref) and stats == ref_stats):
+        raise AssertionError(f"checked_odeint vs odeint_aux: max abs "
+                             f"{max_abs(ys, ref)}, stats {stats} vs "
+                             f"{ref_stats}")
+    if not counts["conv3x3_fwd"] or (counts["conv3x3_fwd_simt"]
+                                     != counts["conv3x3_fwd"]):
+        raise AssertionError(f"checked_odeint's K1 launches: {counts}")
+    nan_at = lambda t, y: field(t, y) * (float("nan") if t >= 0.5 else 1.0)
+    try:
+        with torch.no_grad():
+            checked_odeint(nan_at, y0, np.linspace(0.0, 1.0, 5).astype(
+                np.float32), method="euler")
+    except FloatingPointError as e:
+        if "t=0.5" not in str(e):
+            raise AssertionError(f"checked_odeint named another time: {e}")
+        print(f"  a field NaN from t=0.5: FloatingPointError({e})")
+    else:
+        raise AssertionError("checked_odeint passed a NaN field")
+    print(f"  checked_odeint (dopri5, (4, 16, 16, 64), 11 times): bit-equal "
+          f"to odeint_aux, nfe {stats.nfe}, K1 launches "
+          f"{counts['conv3x3_fwd']} (all SIMT)")
+    return counts
+
+
+def _profiler_paths(bank: torch.Tensor, tmp: pathlib.Path) -> dict:
+    """StepTimer over 10 fused recipe steps, then a 2-step trace."""
+    from ode_rl_torch.core.profiler import StepTimer, annotate, trace
+
+    cfg = load_config(RECIPE)
+    state = create_train_state(cfg, torch.device("cuda"))
+    step = make_fused_train_step(cfg, bank)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    timer = StepTimer(warmup=3, device=torch.device("cuda"))
+
+    def timed():
+        timer.tick()
+        for _ in range(10):
+            step(state, gen)
+            timer.tick()
+
+    _, counts = _counted(timed)
+    summary = timer.summary()
+    if set(summary) != {"mean_ms", "p50_ms", "p95_ms", "steps_per_sec"}:
+        raise AssertionError(f"StepTimer summary {summary}")
+    _check_recipe_routes(counts, "StepTimer's recipe steps")
+    print(f"  StepTimer(warmup=3) over 10 recipe steps: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in summary.items()))
+    _tracer_warmup()
+    with trace(tmp / "trace"):
+        for _ in range(2):
+            with annotate("recipe_step"):
+                step(state, gen)
+        torch.cuda.synchronize()
+    events = json.loads((tmp / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    names = [e.get("name", "") for e in events]
+    spans = names.count("recipe_step")
+    k1 = sum(1 for n in names if _KERNEL_NAME.search(n)
+             and _KERNEL_IDS[_KERNEL_NAME.search(n).group(1)] == "K1")
+    if spans < 2 or not k1:
+        raise AssertionError(f"trace: {spans} recipe_step spans, {k1} K1 "
+                             "kernel events")
+    print(f"  trace: {len(events)} events, {spans} recipe_step spans, {k1} K1 "
+          "kernel events")
+    return {"summary": summary, "counts": counts}
+
+
+def _s3vae_judge(tmp: pathlib.Path) -> dict:
+    """Two one-digit S3VAE runs (the four terms, l1 = l2 = l3 = 0), then
+    mmnist_disentangle cut; the judge beats chance on real videos."""
+    from ode_rl_torch import mmnist_disentangle
+
+    logs = tmp / "s3vae_logs"
+    base = ["--configs", "defaults", "train_mmnist_recon_s3vae",
+            "--num_digits", "1", "--num_sprites", "16", "--logdir", str(logs),
+            "--steps_per_epoch", str(JUDGE_TRAIN_STEPS), "--epochs", "1",
+            "--ckpt_save_freq", str(JUDGE_TRAIN_STEPS), "--quiet", "True"]
+    port_main.main([*base, "--id", "s3vae_full", "--ckpt_id", "s3vae_full"])
+    port_main.main([*base, "--id", "s3vae_abl", "--ckpt_id", "s3vae_abl",
+                    "--l1", "0", "--l2", "0", "--l3", "0"])
+    t0 = time.perf_counter()
+    report = mmnist_disentangle.main([
+        "--ckpt_full", "s3vae_full", "--ckpt_abl", "s3vae_abl", "--logdir",
+        str(logs), "--out", str(tmp / "s3vae_disentangle.json"), *JUDGE_CUT])
+    seconds = time.perf_counter() - t0
+    for tag, row in report["models"].items():
+        real = row["real"]
+        if not (real["sprite"] > 1 / 16 and real["q0"] > 0.25
+                and real["q1"] > 0.25):
+            raise AssertionError(f"{tag}: the judge on real videos {real}, "
+                                 "not above chance (1/16, 1/4, 1/4)")
+        print(f"  mmnist_disentangle {tag}: judge on real videos {real}; "
+              f"recon {row['recon']}; probes {row['latent_probes']}")
+    print(f"  mmnist_disentangle ({' '.join(JUDGE_CUT)}): {seconds:.1f} s; "
+          f"judge's last step {report['judge_train_final']}")
+    return report
+
+
+def _dsvae_tools(tmp: pathlib.Path) -> dict:
+    """train_sprite_dsvae, then sprite_probe_grids and sprite_disagreement
+    cut."""
+    from ode_rl_torch import sprite_disagreement, sprite_probe_grids
+
+    logs = tmp / "dsvae_logs"
+    port_main.main(["--configs", "defaults", "train_sprite_dsvae",
+                    "--logdir", str(logs), "--steps_per_epoch",
+                    str(JUDGE_TRAIN_STEPS), "--epochs", "1",
+                    "--ckpt_save_freq", str(JUDGE_TRAIN_STEPS), "--data_dir",
+                    str(tmp / "no_sprites"), "--quiet", "True"])
+    paths = sprite_probe_grids.main(["--logdir", str(logs), "--out",
+                                     str(tmp / "grids")])
+    if len(paths) != 6 or not all(p.stat().st_size for p in paths):
+        raise AssertionError(f"sprite_probe_grids wrote {paths}")
+    report = sprite_disagreement.main([
+        "--logdir", str(logs), "--out", str(tmp / "disagreement.json"),
+        *DISAGREE_CUT])
+    sweeps = ("fixed_action_resampled_content",
+              "fixed_content_resampled_motion")
+    if set(report) != {"ckpt_step", "judge_steps", *sweeps}:
+        raise AssertionError(f"sprite_disagreement keys {sorted(report)}")
+    for name in sweeps:
+        row = report[name]
+        if (set(row) != {"acc", "kl", "IS", "H_yx", "H_y"}
+                or not _finite(row) or not 0.0 <= row["acc"] <= 1.0):
+            raise AssertionError(f"sprite_disagreement {name}: {row}")
+    print(f"  sprite_probe_grids: {len(paths)} PNGs; sprite_disagreement "
+          f"({' '.join(DISAGREE_CUT)}): " + "; ".join(
+              f"{n} {report[n]}" for n in sweeps))
+    return report
+
+
+def _wm_helpers(bank: torch.Tensor) -> dict:
+    """The CEM and gradient planners through an action-conditioned world
+    model (rl_demo's), ImpalaCNN on the card against the CPU, and
+    EpisodeLoader's shapes."""
+    from ode_rl_torch.nn.impala import ImpalaCNN
+    from ode_rl_torch.wm import envs
+    from ode_rl_torch.wm.datasets import EpisodeLoader
+    from ode_rl_torch.wm.planners import cem_planner, grad_planner
+    from ode_rl_torch.wm.world_model import WorldModel, world_model_optimizer
+
+    cuda = torch.device("cuda")
+    wm = WorldModel(image_shape=(64, 64, 1), cnn_depth=16, stoch=16,
+                    deter=128, hidden=128, discrete=16, pred_reward=True,
+                    action_dim=2,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    opt = world_model_optimizer(wm.parameters(), lr=3e-4)
+    collect = Noise(torch.Generator(device="cuda").manual_seed(42))
+    sample = Noise(torch.Generator(device="cuda").manual_seed(43))
+    for _ in range(PLAN_WM_STEPS):
+        opt.zero_grad()
+        loss, _ = wm.loss(envs.collect_random(collect, bank, 16, 12), sample)
+        loss.backward()
+        opt.step()
+    wm.requires_grad_(False)
+    with torch.no_grad():
+        ep = envs.collect_random(collect, bank, 1, 12)
+        post, _ = wm.dynamics.observe(wm.encoder(ep["image"]), sample,
+                                      actions=ep["action"])
+    start = {k: v[:, -1] for k, v in post.items()}
+    seen = []
+
+    def rollout_fn(actions: torch.Tensor, noise) -> torch.Tensor:
+        """Predicted return of (P, H, 2) actions: the prior's mode rolled
+        from the start state, the reward head summed."""
+        p = actions.shape[0]
+        state = {k: v.expand(p, *v.shape[1:]) for k, v in start.items()}
+        total = torch.zeros(p, device=cuda)
+        for h in range(actions.shape[1]):
+            state = wm.dynamics.img_step(state, None, sample=False,
+                                         action=actions[:, h])
+            total = total + wm.reward_head(wm.dynamics.get_feat(state))
+        seen.append(float(total.detach().mean()))
+        return total
+
+    plan = cem_planner(rollout_fn, torch.Generator(device="cuda")
+                       .manual_seed(5), PLAN_HORIZON, 2, device=cuda)
+    first = seen[0]
+    with torch.no_grad():
+        planned = float(rollout_fn(plan[None], None))
+    if not planned >= first:
+        raise AssertionError(f"CEM: the plan's return {planned} below the "
+                             f"first iteration's mean proposal {first}")
+    seen.clear()
+    actions = grad_planner(rollout_fn, torch.Generator(device="cuda")
+                           .manual_seed(6), PLAN_HORIZON, 2, device=cuda)
+    first_obj = -seen[0]
+    with torch.no_grad():
+        final_obj = -float(rollout_fn(actions[None], None))
+    if not final_obj <= first_obj:
+        raise AssertionError(f"grad planner: objective {final_obj} after, "
+                             f"{first_obj} first")
+    print(f"  CEM (10 x 1000 proposals, top 100, H={PLAN_HORIZON}): plan "
+          f"return {planned:.4f} >= first mean proposal {first:.4f}; grad "
+          f"planner (50 steps, lr 0.1): objective {first_obj:.4f} -> "
+          f"{final_obj:.4f}")
+
+    x = torch.randn((8, 64, 64, 3), generator=torch.Generator().manual_seed(
+        16))
+    net = ImpalaCNN(3, out_features=256, in_hw=(64, 64),
+                    generator=torch.Generator().manual_seed(16))
+    with torch.no_grad():
+        on_cpu = net(x)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            on_card = net.to(cuda)(x.to(cuda))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    check("ImpalaCNN (8, 64, 64, 3) -> 256: card vs CPU",
+          max_abs(on_card.cpu(), on_cpu), 1e-5, "max_abs")
+
+    shapes = {}
+    for batch, rows in ((6, 4), (8, 8)):
+        image = next(EpisodeLoader(batch, 200, 50, device=cuda))["image"]
+        shapes[batch] = tuple(image.shape)
+        if (shapes[batch] != (rows, 50, 64, 64, 1)
+                or image.device.type != "cuda"):
+            raise AssertionError(f"EpisodeLoader({batch}, 200, 50): "
+                                 f"{shapes[batch]} on {image.device}")
+    print(f"  EpisodeLoader (200-frame episodes in chunks of 50): batch 6 -> "
+          f"{shapes[6]} (JAX's short batch), batch 8 -> {shapes[8]}")
+    return {"cem": (first, planned), "grad": (first_obj, final_obj)}
+
+
+def phase_eval_tools(bank: torch.Tensor) -> dict:
+    print("[16] the evaluation tools and the last helpers: the native corpus "
+          "writer, parity_eval, checked_odeint, the profiler, the two "
+          "judges' scripts, the planners, ImpalaCNN, EpisodeLoader")
+    t0 = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        corpus, corpus_s = _corpus_writer(tmp)
+        parity, counts["parity_eval"] = _counted(
+            lambda: _parity_eval(corpus, tmp))
+        counts["checked_odeint"] = _checked_odeint()
+        profiler = _profiler_paths(bank, tmp)
+        counts["StepTimer"] = profiler["counts"]
+        judge, counts["mmnist_disentangle"] = _counted(
+            lambda: _s3vae_judge(tmp))
+        disagreement, counts["dsvae tools"] = _counted(
+            lambda: _dsvae_tools(tmp))
+        planners, counts["wm helpers"] = _counted(lambda: _wm_helpers(bank))
+    _check_tf32_off("phase 16")
+    seconds = time.perf_counter() - t0
+    print(f"  K1-K8 launches by path: " + str({
+        path: {k: run[k] for k in KERNELS if run[k]}
+        for path, run in counts.items()}))
+    print(f"  phase 16: {seconds:.1f} s")
+    return {"counts": counts, "corpus": corpus_s, "parity": parity,
+            "profiler": profiler["summary"], "judge": judge,
+            "disagreement": disagreement, "planners": planners,
+            "seconds": seconds}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3684,6 +4116,7 @@ def main() -> int:
     families13 = phase_families13(bank)
     world_models = phase_world_models(bank)
     flow_users = phase_flow_users(bank)
+    eval_tools = phase_eval_tools(bank)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -3759,6 +4192,10 @@ def main() -> int:
             path: run[name] for path, run in flow_users["counts"].items()}
     for name, rows in flow_users["shapes"].items():
         timings[name]["phase15_shapes"] = rows
+    # Phase 16 read the counts around each of its paths.
+    for name in KERNELS:
+        timings[name]["phase16_launches"] = {
+            path: run[name] for path, run in eval_tools["counts"].items()}
     for path, ms in flow_users["times"].items():
         print(f"{path}: step_ms {ms:.2f}")
     for block, run in world_models["train"].items():

@@ -43,8 +43,14 @@ The world models need the module: Dreamer's encoder ``h{i}`` are
 ``Conv`` and its decoder's ``h{i}`` ``ConvTransposeValid`` under the
 same names; the spatial RSSM's cell convs ``update``, ``reset`` and
 ``out`` are ``Conv``; the CATER classifier's tree is {'wm', 'clf'}, as
-its module's. The leaves may be numpy arrays or torch tensors (on any
-device, ``meta`` included); nothing of JAX is imported.
+its module's. The evaluation models convert by the same rules, either
+way: ``MMNISTJudge``'s convs ``c0``-``c2`` and ``ImpalaCNN``'s
+``block{i}_conv`` and residual ``c0``/``c1`` are ``Conv`` (the judge's
+``fc_m`` and Impala's ``fc`` read their maps flattened NHWC, as flax's,
+so their kernels copy unpermuted), ``SpriteJudge``'s ``z_lstm.cell`` is
+an LSTM cell and its heads Dense. The leaves may be numpy arrays or
+torch tensors (on any device, ``meta`` included); nothing of JAX is
+imported.
 
 ``torch_to_flax`` is the inverse for the layouts the FlowNets use: a
 ``state_dict`` back to the flax tree, ``Conv`` weights OIHW -> HWIO,

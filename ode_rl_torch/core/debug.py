@@ -1,7 +1,7 @@
-"""The NaN guard of the train step, and ``debug_nans``.
+"""The NaN guard of the train step, ``debug_nans`` and ``checked_odeint``.
 
-Counterpart of ``all_finite`` and ``nan_guard_update`` in
-``ode_rl_tpu/core/debug.py``, and of the ``jax_debug_nans`` flag that
+Counterpart of ``all_finite``, ``nan_guard_update`` and
+``checked_odeint`` in ``ode_rl_tpu/core/debug.py``, and of the ``jax_debug_nans`` flag that
 ``debug_nans`` turns on in JAX (``ode_rl_tpu/train/loop.py::setup``),
 which raises ``FloatingPointError`` at the first operation that makes a
 NaN. Here ``nan_checks`` raises it for the step: at the first backward
@@ -17,6 +17,12 @@ Adam's moments hold NaN and the next finite step writes NaN into the
 parameters (ROADMAP queue 3 records this fault of the JAX package, which
 the port keeps so that both give the same results). Both run on the
 device, with no host sync.
+
+``checked_odeint`` is ``odeint_aux`` with every field output and the
+solution checked for finiteness; it raises ``FloatingPointError`` naming
+the time of the first non-finite field output. It reads a flag on the
+host at every evaluation (JAX's checkify version raises from the
+device), which a debugging tool may: no training path calls it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import contextlib
 from typing import Iterable, Iterator, Mapping, Sequence
 
 import torch
+
+from ode_rl_torch.ode.solvers import odeint_aux
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -68,3 +76,25 @@ def nan_checks(enabled: bool) -> Iterator[None]:
             if "nan values" not in str(e):
                 raise
             raise FloatingPointError(f"debug_nans: {e}") from e
+
+
+def _finite(t: torch.Tensor) -> bool:
+    return bool(torch.isfinite(t).all())
+
+
+def checked_odeint(func, y0: torch.Tensor, ts, **kwargs):
+    """``odeint_aux(func, y0, ts, **kwargs)`` -> (ys, stats), raising
+    ``FloatingPointError`` where a field output or the solution holds a
+    non-finite value; on a finite run its results are ``odeint_aux``'s."""
+
+    def checked_func(t, y):
+        dy = func(t, y)
+        if not _finite(dy):
+            raise FloatingPointError(
+                f"non-finite dynamics output at t={float(t)}")
+        return dy
+
+    ys, stats = odeint_aux(checked_func, y0, ts, **kwargs)
+    if not _finite(ys):
+        raise FloatingPointError("non-finite ODE solution")
+    return ys, stats

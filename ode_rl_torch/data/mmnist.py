@@ -115,6 +115,18 @@ def generate_moving_mnist(generator: torch.Generator,
     return render_moving_mnist(sprite_bank, idx, pos)
 
 
+def generate_moving_mnist_labeled(generator: torch.Generator,
+                                  sprite_bank: torch.Tensor, batch: int,
+                                  n_frames: int, num_digits: int = 1):
+    """The labelled batch of the disentanglement probes: (video (B, T,
+    64, 64, 1) in [-0.5, 0.5], sprite_idx (B, D), positions (B, D, T, 2)
+    int32), all from the same draws. The sprite is the content factor,
+    the trajectory the motion factor."""
+    idx, pos = draw_digits(generator, sprite_bank, batch, n_frames,
+                           num_digits)
+    return render_moving_mnist(sprite_bank, idx, pos), idx, pos
+
+
 def generate_moving_mnist_per_digit(generator: torch.Generator,
                                     sprite_bank: torch.Tensor, batch: int,
                                     n_frames: int, num_digits: int = 3):

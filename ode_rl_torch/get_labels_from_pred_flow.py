@@ -28,6 +28,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ode_rl_torch.core.device import resolve_device
 from ode_rl_torch.data.flow_labels import make_flownet_label_fn
 from ode_rl_torch.flow.flownets import FlowNetC
 from ode_rl_torch.flow.train import load_flax_params, load_flownet_params
@@ -48,12 +49,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, tuple]:
     """Writes the label files; returns {label file: its shape}."""
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "--device cpu to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
     net = FlowNetC(generator=torch.Generator().manual_seed(0)).to(device)
     net.requires_grad_(False)
     if args.flownet_params and pathlib.Path(args.flownet_params).exists():

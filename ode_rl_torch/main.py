@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ode_rl_torch.core.config import Config, add_cli_overrides, load_config
+from ode_rl_torch.core.device import resolve_device
 
 
 def get_cfg(argv: Sequence[str]) -> Tuple[Config, torch.device]:
@@ -37,11 +38,7 @@ def get_cfg(argv: Sequence[str]) -> Tuple[Config, torch.device]:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     cfg, device = get_cfg(sys.argv[1:] if argv is None else argv)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "--device cpu to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(device)
     print("TF32 off: fp32 convs (cuDNN) and matmuls run in fp32")
     from ode_rl_torch.train.loop import test, train
 

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ode_rl_torch.core.device import resolve_device
 from ode_rl_torch.core.noise import Noise
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.wm import envs
@@ -69,12 +70,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "--device cpu to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
     bank = torch.from_numpy(get_sprite_bank()).float().to(device)
     b, t = args.batch, args.episode_len
 

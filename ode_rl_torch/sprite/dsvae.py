@@ -18,9 +18,17 @@ Counterpart of the training and predict path of
 
 Every sample is mean + exp(logvar / 2) * eps, the eps drawn from the
 caller's generator through ``Noise`` in JAX's order: f (B, f_dim), z
-(B, T, z_dim), then the prior's (B, z_dim) at each of the T steps. The
-probe forwards of JAX's module (exchange, fixed motion or content,
-generation) serve only the disentanglement scripts and are not ported.
+(B, T, z_dim), then the prior's (B, z_dim) at each of the T steps.
+
+The probe forwards of the disentanglement evaluation (JAX's
+``forward_exchange``, ``forward_fixed_content_for_classification``,
+``forward_fixed_action_for_classification``, ``forward_fixed_motion``,
+``forward_fixed_content`` and ``forward_generating``) take frames in
+[0, 1], run in eval mode unless ``train`` says otherwise, and draw the
+posterior's f and z, then their own draws: the free prior rollout's (B,
+z_dim) at each step (its sample is the next step's input), or the
+resampled content's (B, f_dim). ``forward_exchange`` swaps the content
+of consecutive pairs, so an odd batch fails in the reshape, as in JAX.
 """
 
 from __future__ import annotations
@@ -95,24 +103,28 @@ class DisentangledVAE(nn.Module):
         return f_mean, f_logvar, f_post, z_mean, z_logvar, z_post
 
     def _prior_rollout(self, frames: int, noise: Noise,
-                       z_teacher: torch.Tensor):
-        """The two-layer LSTM prior teacher-forced on ``z_teacher``."""
-        b = z_teacher.shape[0]
-        zeros = lambda: torch.zeros((b, self.hidden_dim),
-                                    dtype=z_teacher.dtype,
-                                    device=z_teacher.device)
-        z_t = torch.zeros((b, self.z_dim), dtype=z_teacher.dtype,
-                          device=z_teacher.device)
+                       z_teacher: Optional[torch.Tensor] = None,
+                       like: Optional[torch.Tensor] = None):
+        """The two-layer LSTM prior, teacher-forced on ``z_teacher`` where
+        it is given, else free-running on its own samples over the batch
+        of ``like`` (B, ...)."""
+        ref = like if z_teacher is None else z_teacher
+        b = ref.shape[0]
+        zeros = lambda: torch.zeros((b, self.hidden_dim), dtype=ref.dtype,
+                                    device=ref.device)
+        z_t = torch.zeros((b, self.z_dim), dtype=ref.dtype,
+                          device=ref.device)
         c1, c2 = (zeros(), zeros()), (zeros(), zeros())
         means, logvars, zs = [], [], []
         for i in range(frames):
             c1, h1 = self.prior_ly1(c1, z_t)
             c2, h2 = self.prior_ly2(c2, h1)
             m, lv = self.z_prior_mean(h2), self.z_prior_logvar(h2)
+            z_prior = self._reparam(m, lv, noise)
             means.append(m)
             logvars.append(lv)
-            zs.append(self._reparam(m, lv, noise))
-            z_t = z_teacher[:, i]
+            zs.append(z_prior)
+            z_t = z_prior if z_teacher is None else z_teacher[:, i]
         stack = lambda v: torch.stack(v, dim=1)
         return stack(means), stack(logvars), stack(zs)
 
@@ -171,3 +183,63 @@ class DisentangledVAE(nn.Module):
                 train: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
         x = batch["observed_data"].to(self.dtype) + 0.5
         return self(x, generator, train)["recon"].float(), {}
+
+    # --------------------- probe forwards (evaluation) -----------------
+    def _posterior(self, x: torch.Tensor, generator, train: bool):
+        noise = as_noise(generator, "DisentangledVAE")
+        return noise, self.encode_and_sample_post(x, train, noise)
+
+    def forward_exchange(self, x: torch.Tensor, generator=None,
+                         train: bool = False) -> torch.Tensor:
+        """Each video decoded with its pair partner's content f (pairs
+        (0, 1), (2, 3), ...)."""
+        _, (_, _, f_post, _, _, z_post) = self._posterior(x, generator, train)
+        perm = torch.arange(f_post.shape[0], device=f_post.device)
+        perm = perm.reshape(-1, 2).flip(1).reshape(-1)
+        return self._decode(z_post, f_post[perm], train)
+
+    def forward_fixed_content_for_classification(
+            self, x: torch.Tensor, generator=None, train: bool = False
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The disagreement protocol's generator with the content pinned:
+        (the decode of the free prior's per-step means with the posterior
+        mean of f, the decode of the posterior means)."""
+        noise, (f_mean, _, _, z_mean_post, _, _) = self._posterior(
+            x, generator, train)
+        z_mean_prior, _, _ = self._prior_rollout(x.shape[1], noise,
+                                                 like=f_mean)
+        return (self._decode(z_mean_prior, f_mean, train),
+                self._decode(z_mean_post, f_mean, train))
+
+    def forward_fixed_action_for_classification(
+            self, x: torch.Tensor, generator=None, train: bool = False
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The disagreement protocol's generator with the motion pinned:
+        (the decode of the posterior means of z with f drawn from N(0, I),
+        the decode of the posterior means)."""
+        noise, (f_mean, _, _, z_mean_post, _, _) = self._posterior(
+            x, generator, train)
+        f_prior = noise.normal(f_mean.shape, f_mean)
+        return (self._decode(z_mean_post, f_prior, train),
+                self._decode(z_mean_post, f_mean, train))
+
+    def forward_fixed_motion(self, x: torch.Tensor, generator=None,
+                             train: bool = False) -> torch.Tensor:
+        """The first video's z for all, each video's own f."""
+        _, (_, _, f_post, _, _, z_post) = self._posterior(x, generator, train)
+        return self._decode(z_post[:1].expand_as(z_post), f_post, train)
+
+    def forward_fixed_content(self, x: torch.Tensor, generator=None,
+                              train: bool = False) -> torch.Tensor:
+        """The first video's f for all, each video's own z."""
+        _, (_, _, f_post, _, _, z_post) = self._posterior(x, generator, train)
+        return self._decode(z_post, f_post[:1].expand_as(f_post), train)
+
+    def forward_generating(self, x: torch.Tensor, generator=None,
+                           train: bool = False) -> torch.Tensor:
+        """The posterior's f with z sampled from the free-running prior."""
+        noise, (_, _, f_post, _, _, z_post) = self._posterior(
+            x, generator, train)
+        _, _, z_gen = self._prior_rollout(z_post.shape[1], noise,
+                                          like=f_post)
+        return self._decode(z_gen, f_post, train)

@@ -34,6 +34,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
+from ode_rl_torch.core.config import Config
 from ode_rl_torch.core.debug import (check_finite, nan_checks,
                                      nan_guard_update)
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
@@ -78,6 +80,28 @@ def create_train_state(cfg, device: torch.device) -> TrainState:
     model = build_model(cfg, device, generator)
     return TrainState(model, make_optimizer(cfg, model.parameters()),
                       clip=float(cfg_get(cfg, "clip", -1)))
+
+
+def restore_model(logdir, model_name: str, ckpt_id: str,
+                  device: torch.device, step: Optional[int] = None
+                  ) -> Tuple[torch.nn.Module, Config, int]:
+    """The model of a run of ``python -m ode_rl_torch.main`` (tag
+    ``ckpt_id`` under ``<logdir>/<model_name>``): built from the config
+    saved beside its checkpoints, its parameters and buffers (BatchNorm's
+    running statistics) from the newest snapshot or ``step``. Returns
+    (model, config, step)."""
+    ckpt = CheckpointManager(find_checkpoint(logdir, model_name, ckpt_id),
+                             tag=ckpt_id)
+    saved = ckpt.load_config()
+    if saved is None:
+        raise FileNotFoundError(f"no saved config beside the checkpoints "
+                                f"in {ckpt.directory}")
+    cfg = Config(saved)
+    model = build_model(cfg, device, torch.Generator().manual_seed(
+        int(cfg.get("seed", 0))))
+    restored = ckpt.restore({"model": model.state_dict()}, step=step)
+    model.load_state_dict(restored["state"]["model"])
+    return model, cfg, restored["step"]
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ode_rl_torch.core.device import resolve_device
 from ode_rl_torch.flow.data import (FlyingChairsCorpus, validate_epe,
                                     write_synthetic_chairs)
 from ode_rl_torch.flow.flownets import FlowNet2, FlowNetC, FlowNetS
@@ -90,12 +91,7 @@ def _warm_start(net: FlowNet2, flow_dir: pathlib.Path) -> Dict:
 
 def run(args: argparse.Namespace) -> Tuple[Dict, torch.nn.Module]:
     """The run ``main`` makes: (the report, the trained net)."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "--device cpu to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
     tag = TAGS[args.net]
     flow_dir = pathlib.Path(args.flow_dir)
     out_path = pathlib.Path(args.out or flow_dir / f"{tag}.msgpack")

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ode_rl_torch.core.device import resolve_device
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.flow.flownets import FlowNetC
@@ -67,12 +68,7 @@ def highres_batch_from(frame: torch.Tensor, coarse: torch.Tensor,
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "--device cpu to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
     h, w, b = args.height, args.width, args.batch
     bank = torch.from_numpy(get_sprite_bank()).float().to(device)
     generator = torch.Generator(device=device).manual_seed(0)
