@@ -217,15 +217,20 @@ without printing its last line:
     ``ode_rl_torch.train_flownetc_highres`` (320x448, B=8, its 300 steps:
     the mean EPE of the last 10 below that of the first 10) and K5-K7 at
     its features (8, 40, 56, 256) alone against their plain versions
-    (1e-5 max abs) with median ms, device µs, bound and the share of it
-    reached, and a profiled step; ``defaults`` + ``train_mmnist_recon_s3vae``
+    (1e-5 max abs), 20 calls bit-equal, with median ms, device µs, bound
+    and the share of it reached, and a profiled step; ``defaults`` +
+    ``train_mmnist_recon_s3vae``
     with ``--flow_label_source flownet`` and the trained weights through
     ``ode_rl_torch.main`` (4 steps on phase 10's corpus; labels in {0, 1};
     K5 launched, no K6/K7) and its test block (one batch); one batch's
     labels through the kernels against ``force_plain()`` (the upsampled
     flow 1e-4 max abs, the labels equal on every cell more than 1e-4 from
     its k-th value), a profiled labelled step, and K5 at the labels'
-    (156, 8, 8, 256) alone; ``ode_rl_torch.get_labels_from_pred_flow`` on
+    (156, 8, 8, 256) alone; K5 and K7 alone likewise at FlyingChairs'
+    features (8, 48, 64, 256) in fp32 and bf16 (bf16 K5 1e-4 relative L2,
+    K7 bit-equal) and the FlowNetC trainers' (8, 8, 8, 256) in fp32, each
+    row naming its SIMT kernel (tiles, or the pair view on maps of at most
+    32 cells a class); ``ode_rl_torch.get_labels_from_pred_flow`` on
     the corpus's train split ((16, 100, 9), row 0 zero, at least 3 ones
     in every other row). Each path's launches (``phase15_launches``) and
     the new shapes' rows (``phase15_shapes``) go into the kernels line.
@@ -3222,6 +3227,9 @@ HIGHRES_STEPS = 300
 HIGHRES_SIZE, HIGHRES_SHAPE = (320, 448), (8, 40, 56, 256)
 # S3VAE's labels: B=4 x 39 transitions of its 40 frames, 64x64 pairs.
 LABEL_SHAPE = (156, 8, 8, 256)
+# FlyingChairs' features (384x512 frames), and the FlowNetC trainers'
+# (64x64 frames, B=8).
+CHAIRS_SHAPE, TRAINER_SHAPE = (8, 48, 64, 256), (8, 8, 8, 256)
 FLOW_LABEL_BLOCK = ("train_mmnist_recon_s3vae", "test_mmnist_recon_s3vae")
 # FlowNet2's warm start as JAX counts it: [grafted, shape-skipped] (the
 # stacked FlowNetS's 12-channel conv1 kernel is skipped).
@@ -3322,42 +3330,65 @@ def _trainer_step(model, batch) -> dict:
     return _profiled(step)
 
 
-def _corr_bounds(shape) -> dict:
-    """K5-K7's bounds in fp32 at ``shape``, counting the (pixel,
-    displacement) pairs whose window lies in the map, as ``_bounds``
-    does."""
+def _corr_bounds(shape, dtype=torch.float32) -> dict:
+    """K5-K7's bounds at ``shape``, counting the (pixel, displacement)
+    pairs whose window lies in the map, as ``_bounds`` does: the products
+    against the fp32 units' peak in fp32 and the tensor cores' in bf16 (a
+    matrix unit could do them), bytes at the dtype's size."""
     b, h, w, c = shape
     n = n_displacements(CORR_D, CORR_STRIDE)
     offsets = [i * CORR_STRIDE - CORR_D for i in range(n)]
     pairs = b * (sum(max(h - abs(o), 0) for o in offsets)
                  * sum(max(w - abs(o), 0) for o in offsets))
     flops = 2 * pairs * c
-    feature_bytes = b * h * w * c * 4
+    size = 4 if dtype == torch.float32 else 2
+    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+    feature_bytes = b * h * w * c * size
     return {
         "correlation_fwd": _bound(flops, 2 * feature_bytes
-                                  + b * h * w * n * n * 4, PEAK_FP32),
-        "correlation_bwd_f1": _bound(flops, 2 * feature_bytes + pairs * 4,
-                                     PEAK_FP32),
-        "correlation_bwd_f2": _bound(flops, 2 * feature_bytes + pairs * 4,
-                                     PEAK_FP32),
+                                  + b * h * w * n * n * size, peak),
+        "correlation_bwd_f1": _bound(flops, 2 * feature_bytes + pairs * size,
+                                     peak),
+        "correlation_bwd_f2": _bound(flops, 2 * feature_bytes + pairs * size,
+                                     peak),
     }
 
 
-def _corr_alone(shape, names, gen) -> dict:
-    """K5-K7 (``names``) alone in fp32 at ``shape``: against their plain
-    versions (1e-5 max abs), median ms of the kernel and the plain
-    version, device µs a call, the bound and the share of it reached."""
-    bounds = _corr_bounds(shape)
+# K5 and K7, whose SIMT kernels take tiles or, on maps of at most 32
+# cells a class, the pair view (counted apart as "<name>_pairs").
+SIMT_CORR = ("correlation_fwd", "correlation_bwd_f2")
+
+
+def _corr_alone(shape, names, gen, dtype=torch.float32) -> dict:
+    """K5-K7 (``names``) alone at ``shape`` in ``dtype``, on the SIMT
+    kernels: against their plain versions (fp32 1e-5 max abs; bf16 K5 1e-4
+    relative L2, K6 and K7 bit-equal), 20 calls bit-equal to the first,
+    median ms of the kernel and the plain version, device µs a call, the
+    bound and the share of it reached, and the SIMT kernel the call took
+    (K5 and K7: tiles, or the pair view; K6: its gather)."""
+    label = str(dtype)[6:]
+    bounds = _corr_bounds(shape, dtype)
     rows = {}
     with torch.no_grad():
-        ops = _flow_ops(shape, torch.float32, gen)
+        ops = _flow_ops(shape, dtype, gen)
         for name in names:
             fn = ops[name]
+            common.reset_launches()
             out = fn()
+            route = ("pairs" if common.launches.get(f"{name}_pairs") else
+                     "tiles" if name in SIMT_CORR else "gather")
+            if common.launches[f"{name}_tc"]:
+                raise AssertionError(f"{name} {shape} {label}: took the "
+                                     f"tensor cores")
             with common.force_plain():
                 ref = fn()
-            tol, kind = _flow_tol(name, torch.float32)
-            err = check(f"{name} {shape} fp32", max_abs(out, ref), tol, kind)
+            tol, kind = _flow_tol(name, dtype)
+            metric = max_abs if kind == "max_abs" else rel_l2
+            err = check(f"{name} {shape} {label}", metric(out, ref), tol,
+                        kind)
+            check(f"{name} {shape} {label}: 20 calls", float(sum(
+                not torch.equal(out, fn()) for _ in range(20))), 0.0,
+                "unequal")
             del out, ref
             ms = median_ms(fn)
             with common.force_plain():
@@ -3365,9 +3396,10 @@ def _corr_alone(shape, names, gen) -> dict:
             us = device_us({name: fn})[name]
             bound = bounds[name]
             rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "device_us": us, **bound, "library_ms": None}
-            print(f"    {name} {shape} fp32 (SIMT): median ms kernel "
-                  f"{ms:.4f} plain {plain_ms:.4f}; device us a call "
+                          "device_us": us, **bound, "library_ms": None,
+                          "simt_kernel": route}
+            print(f"    {name} {shape} {label} (SIMT {route}): median ms "
+                  f"kernel {ms:.4f} plain {plain_ms:.4f}; device us a call "
                   f"{us:.2f}; bound {bound['bound_ms'] * 1e3:.2f} us "
                   f"({bound['bound_by']}), "
                   f"{100 * bound['bound_ms'] * 1e3 / us:.1f}% of it reached")
@@ -3681,6 +3713,12 @@ def phase_flow_users(bank: torch.Tensor) -> dict:
         counts["s3vae flownet labels"] = s3vae["counts"]
         times["s3vae flownet labels"] = s3vae["step_ms"]
         label_rows = _corr_alone(LABEL_SHAPE, ("correlation_fwd",), gen)
+        more_rows = {
+            f"{CHAIRS_SHAPE} fp32": _corr_alone(CHAIRS_SHAPE, SIMT_CORR, gen),
+            f"{CHAIRS_SHAPE} bf16": _corr_alone(CHAIRS_SHAPE, SIMT_CORR, gen,
+                                                torch.bfloat16),
+            f"{TRAINER_SHAPE} fp32": _corr_alone(TRAINER_SHAPE, SIMT_CORR,
+                                                 gen)}
         script = _label_script(root, params)
         counts["get_labels_from_pred_flow"] = script["counts"]
     print(f"  step_ms by path: {times}")
@@ -3689,6 +3727,9 @@ def phase_flow_users(bank: torch.Tensor) -> dict:
               for name, row in highres_rows.items()}
     shapes["correlation_fwd"][f"{LABEL_SHAPE} fp32"] = label_rows[
         "correlation_fwd"]
+    for key, rows in more_rows.items():
+        for name, row in rows.items():
+            shapes[name][key] = row
     return {"counts": counts, "times": times, "shapes": shapes,
             "trainer_profile": trainer_prof, "highres_profile": highres_prof,
             "s3vae": s3vae,

@@ -21,10 +21,15 @@
 // (256, 8, 8, 256), d = 20, stride 2, bf16) each pixel meets 16 of the 441
 // windows inside the 8 x 8 map, so K5 writes 14 MB of mostly zeros against
 // 17 MB of features read, 0.5 GFLOP: bytes (9.3 us at 3.35 TB/s). At the
-// FlyingChairs feature shape (8, 48, 64, 256) nearly every window
-// overlaps, and each f2 pixel is read by up to 441 output pixels: L2
-// bandwidth, about 5 GB of window reads. Tiling f2's neighbourhood in
-// shared memory for maps above 64 pixels is later work.
+// highres trainer's features (8, 40, 56, 256), d = 20, stride 2, fp32, the
+// 4.7 M in-map (pixel, displacement) pairs are 2.43 GFLOP: operations,
+// 36.24 us at the 67 TFLOP/s of the fp32 units. Read window by window,
+// every f2 pixel comes from L2 once for each of the up to 441 output
+// pixels whose window covers it, about 4.7 GB a call: the first SIMT K5
+// and K7, which did so, took 879-1015 us there (PERF.md). The SIMT K5 and
+// K7 below stage each feature pixel in shared memory once a tile and
+// reuse it from registers; what holds them now is shared-memory and
+// issue bandwidth (about 15-20% of the fp32 rate at highres).
 //
 // K5, K6 and K7 have two kernels each; ops/correlation.py::tc_plan picks
 // one.
@@ -33,29 +38,35 @@
 //   (bf16, H*W <= 64, C = 64, 128 or 256, 16-byte aligned features): one
 //   sample a block, the pixel-pair products on the tensor cores (section
 //   "Tensor-core K5-K7" below). The bench shape takes them: K5, K6 and
-//   K7 about 13.3, 10.5 and 10.4 us a call alone there, against the SIMT
-//   kernels' 96, 89 and 103 (H100, PERF.md).
+//   K7 about 13.3, 10.5 and 10.4 us a call alone there, against the first
+//   SIMT kernels' 96, 89 and 103 (H100, PERF.md).
 // * The SIMT kernels (everything else, fp32 included, so fp32 stays strict
-//   fp32), described next.
-//
-// Design of the SIMT kernels.
-//   K5: one block per output pixel (b, y, x). The block stages f1's C
-//       channels in shared memory as fp32; its 8 warps share out the
-//       windows that overlap the map, each warp's lanes read neighbouring
-//       channels of the f2 window (coalesced), and a fixed-order warp
-//       butterfly sums them into a row of n*n outputs in shared memory,
-//       zero for the windows in the padding. The block then writes the
-//       row, coalesced.
-//   K6: a gather, one thread per (b, y, x, c): sum over the in-bounds
-//       displacements of g[b,y,x,i] * f2[b, y+oy, x+ox, c], / C.
-//   K7: the TPU kernel scatters into overlapping windows of the padded f2,
-//       which needs atomics on a GPU. Here it is a gather instead, one
-//       thread per unpadded (b, y', x', c): the sum over the displacements
-//       whose source pixel (y'-oy, x'-ox) is in bounds of
-//       g[b, y'-oy, x'-ox, i] * f1[b, y'-oy, x'-ox, c], / C. No atomics, so
-//       the result is bit-reproducible, and the padded border that the TPU
-//       kernel computes and slices away is never computed.
-// All six kernels accumulate in fp32 in a fixed order and round once to
+//   fp32 FFMA on the CUDA cores), with tiles from
+//   ops/correlation.py::simt_plan (section "SIMT K5 and K7" below):
+//   K5 (corr_fwd_simt_kernel): parity classes; a tile of 2 rows of f1
+//       cells and its partner rows staged 32 channels at a time,
+//       double-buffered by cp.async; each thread keeps 2 rows x 4 cells x
+//       8 partners of sums in registers over all channels (8 + 8 float4
+//       loads for 256 FFMAs); only pairs in the map are computed; the
+//       block's outputs, zeros included, are staged and written a pixel's
+//       run at a time. On maps of at most 32 cells a class,
+//       corr_fwd_pairs_kernel takes every (cell, partner) pair instead.
+//   K6 (corr_bwd_f1_kernel): a gather, one thread per (b, y, x, c): sum
+//       over the in-bounds displacements of g[b,y,x,i] * f2[b, y+oy, x+ox,
+//       c], / C.
+//   K7 (corr_bwd_f2_simt_kernel): the TPU kernel scatters into overlapping
+//       windows of the padded f2, which needs atomics on a GPU. Here it is
+//       a gather: a tile of f2 cells walks its halo of source rows from
+//       the last to the first, each row's f1 and cotangent entries staged
+//       by cp.async, double-buffered; each thread keeps a 4-cell x
+//       16-channel micro-tile (one float4 of the pair matrix and four of
+//       f1 for 64 FFMAs). Every output adds its displacements in
+//       increasing i, as correlation_bwd_f2_plain does. No atomics, so the
+//       result is bit-reproducible, and the padded border that the TPU
+//       kernel computes and slices away is never computed. On maps of at
+//       most 32 cells a class, corr_bwd_f2_pairs_kernel walks a whole
+//       class's sources in the same order.
+// All the kernels accumulate in fp32 in a fixed order and round once to
 // the input dtype. (The Pallas backward kernels round their bf16
 // accumulator after every dy step, K6, or every (dy, dx) step, K7.)
 
@@ -73,14 +84,12 @@ using odek::k_major_desc;
 using odek::mn_major_desc;
 using odek::smem_u32;
 using odek::to_f32;
-using odek::warp_sum;
 using odek::warpgroup_sync;
 using odek::wgmma_commit;
 using odek::wgmma_fence;
 using odek::wgmma_m64n64k16;
 using odek::wgmma_wait_all;
 
-constexpr int kFwdWarps = 8;
 constexpr int kThreads = 256;
 
 struct CorrShape {
@@ -100,65 +109,209 @@ __device__ __forceinline__ void window_range(int p, int size,
   hi = min(s.n - 1, (size - 1 - p + s.d) / s.stride);
 }
 
-// Displacement indices [lo, hi] along one axis for which the source pixel
-// q - (i*stride - d) of f2 pixel q lies in [0, size).
-__device__ __forceinline__ void source_range(int q, int size,
-                                             const CorrShape& s, int& lo,
-                                             int& hi) {
-  lo = ceil_div_pos(q + s.d - size + 1, s.stride);
-  hi = min(s.n - 1, (q + s.d) / s.stride);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
 
-// f1, f2 (B, H, W, C) -> out (B, H, W, n*n); grid B*H*W, C + n*n floats
-// of dynamic shared memory.
-template <typename T>
-__global__ void __launch_bounds__(32 * kFwdWarps)
-    corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
-                    T* __restrict__ out, CorrShape s) {
-  extern __shared__ float smem[];
-  float* f1s = smem;         // f1[b, y, x, :] in fp32
-  float* outs = smem + s.C;  // this pixel's n*n outputs
-  const long long pix = blockIdx.x;
-  const int x = (int)(pix % s.W);
-  const int y = (int)((pix / s.W) % s.H);
-  const long long b = pix / ((long long)s.H * s.W);
-  const int nd = s.n * s.n;
-  for (int c = threadIdx.x; c < s.C; c += blockDim.x) {
-    f1s[c] = to_f32(f1[pix * s.C + c]);
-  }
-  for (int i = threadIdx.x; i < nd; i += blockDim.x) {
-    outs[i] = 0.f;  // windows in the zero padding
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
 
-  // Only the windows that overlap the map are computed: 7 x 7 of the
-  // 21 x 21 at the bench shape.
-  int iy0, iy1, ix0, ix1;
-  window_range(y, s.H, s, iy0, iy1);
-  window_range(x, s.W, s, ix0, ix1);
-  const int nx = ix1 - ix0 + 1;
-  const int n_valid = (iy1 - iy0 + 1) * nx;
-  const int lane = threadIdx.x % 32;
-  const T* f2b = f2 + b * s.H * s.W * s.C;
-  for (int k = threadIdx.x / 32; k < n_valid; k += kFwdWarps) {
-    const int iy = iy0 + k / nx;
-    const int ix = ix0 + k % nx;
-    const int yy = y + iy * s.stride - s.d;
-    const int xx = x + ix * s.stride - s.d;
-    const T* win = f2b + ((long long)yy * s.W + xx) * s.C;
-    float acc = 0.f;
-    for (int c = lane; c < s.C; c += 32) {
-      acc += f1s[c] * to_f32(win[c]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      outs[iy * s.n + ix] = acc / (float)s.C;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// SIMT K5 and K7: parity classes, shared-memory halo tiles, register
+// micro-tiles.
+//
+// Parity classes. Every offset i*stride - d is congruent to -d modulo the
+// stride, so along one axis the pixels r, r + stride, r + 2*stride, ...
+// (class r, `cells` of them) meet only the pixels r2, r2 + stride, ... of
+// class r2 = (r - d) mod stride: cell a of class r and displacement i meet
+// cell a + k + i of class r2, k = (r - d - r2) / stride. Within a pair of
+// classes the correlation is a stride-1 one of n consecutive offsets on a
+// dense (H/stride) x (W/stride) grid: 20 x 28 cells and offsets -10..10 at
+// the highres trainer's (40, 56) features, d = 20, stride 2. A tile of
+// class cells and its halo of partner cells are then dense rectangles.
+//
+// Both kernels stage fp32 in shared memory (bf16 inputs are widened on
+// the way), multiply and add with FFMA in fp32 (no tensor cores, no TF32),
+// sum each output in one fixed order with no atomics, divide by C once and
+// round once to the input dtype. ops/correlation.py::simt_plan picks the
+// tiles and the launch.
+// ---------------------------------------------------------------------------
+
+// One axis of a parity class: cells of class r in a map `size` wide, and
+// the class r2 of their partners, offset k and cells.
+struct ClassAxis {
+  int r, cells, r2, k, cells2;
+};
+
+__host__ __device__ __forceinline__ int class_cells(int r, int size,
+                                                    int stride) {
+  return r < size ? (size - r + stride - 1) / stride : 0;
+}
+
+__device__ __forceinline__ ClassAxis class_axis(int r, int size,
+                                                const CorrShape& s) {
+  ClassAxis a;
+  a.r = r;
+  a.cells = class_cells(r, size, s.stride);
+  a.r2 = ((r - s.d) % s.stride + s.stride) % s.stride;
+  a.k = (r - s.d - a.r2) / s.stride;  // exact
+  a.cells2 = class_cells(a.r2, size, s.stride);
+  return a;
+}
+
+__host__ __device__ __forceinline__ int div_up(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+
+constexpr int kSimtR = 4;            // output cells a micro-tile, along x
+constexpr int kSimtMaxThreads = 256;
+constexpr int kSmemBytes = 232448;   // the H100's most a block can use
+constexpr int kFwdThreads = 192;  // K5's tiles: most threads a block
+constexpr int kFwdRows = 2;  // K5: f1 rows of a tile; they share a partner row
+constexpr int kFwdQ = 8;     // K5: partner cells a micro-tile
+constexpr int kFwdCK = 32;   // K5: channels a chunk
+constexpr int kFwdCKP = 36;  // K5: a staged pixel's pitch in floats
+constexpr int kPairCells = 32;  // K5: most cells of a class for the pair view
+constexpr int kPairQ = 4;    // K5, pair view: partner cells a thread
+constexpr int kBwdS = 16;    // K7: channels a micro-tile (four float4s)
+
+// K5's tile: kFwdRows x tx cells of an f1 class (tx a multiple of kSimtR)
+// and ny consecutive displacement rows.
+struct FwdTile {
+  int tx, ny;
+};
+
+// K5's pair view: `units` (sample, class) units a block, ck channels a
+// stage.
+struct PairTile {
+  int units, ck;
+};
+
+// K7's tile: ty x tx cells of an f2 class and 16 * ncg channels.
+struct BwdTile {
+  int ty, tx, ncg;
+};
+
+// K5's partner rows and columns a block stages, at most: the tile's
+// rows' and columns' partners, within the largest class.
+__host__ __device__ __forceinline__ int fwd_halo_rows(const FwdTile& t,
+                                                      const CorrShape& s) {
+  return imin(kFwdRows + t.ny - 1, div_up(s.H, s.stride));
+}
+__host__ __device__ __forceinline__ int fwd_halo_cols(const FwdTile& t,
+                                                      const CorrShape& s) {
+  return imin(t.tx + s.n - 1, div_up(s.W, s.stride));
+}
+
+// A staged partner row's slots: its columns, and kFwdQ - 1 more that a
+// micro-tile reads past the last one (values it never writes out).
+__host__ __device__ __forceinline__ int fwd_row_slots(const FwdTile& t,
+                                                      const CorrShape& s) {
+  return fwd_halo_cols(t, s) + kFwdQ - 1;
+}
+
+// Partner chunks of kFwdQ a micro-tile's 4 cells can need.
+__host__ __device__ __forceinline__ int fwd_chunks(const FwdTile& t,
+                                                   const CorrShape& s) {
+  return div_up(imin(s.n + kSimtR - 1, fwd_halo_cols(t, s)), kFwdQ);
+}
+
+// Pixel slots of one K5 stage: the f1 tile (kFwdRows x tx) and the
+// partner rows; kFwdCKP floats a slot.
+__host__ __device__ __forceinline__ long long fwd_slots(const FwdTile& t,
+                                                        const CorrShape& s) {
+  return (long long)kFwdRows * t.tx +
+         (long long)fwd_halo_rows(t, s) * fwd_row_slots(t, s);
+}
+
+// K5's dynamic shared memory in floats: two stages, or the block's staged
+// outputs, the larger.
+__host__ __device__ __forceinline__ long long fwd_smem_floats(
+    const FwdTile& t, const CorrShape& s) {
+  const long long stages = 2LL * kFwdCKP * fwd_slots(t, s);
+  const long long staged_out = (long long)kFwdRows * t.tx * t.ny * s.n;
+  return stages > staged_out ? stages : staged_out;
+}
+
+// K5's micro-tiles a block: (partner row, 4 cells, partner chunk).
+__host__ __device__ __forceinline__ long long fwd_jobs(const FwdTile& t,
+                                                       const CorrShape& s) {
+  return (long long)fwd_halo_rows(t, s) * (t.tx / kSimtR) * fwd_chunks(t, s);
+}
+
+// K5's pair view: cells of the largest class, padded to a float4, and one
+// channel of a unit's stage (f1's cells, then the partners').
+__host__ __device__ __forceinline__ int pair_cells(const CorrShape& s) {
+  return div_up(s.H, s.stride) * div_up(s.W, s.stride);
+}
+__host__ __device__ __forceinline__ int pair_plane(const CorrShape& s) {
+  return 2 * div_up(pair_cells(s), 4) * 4 + 4;
+}
+
+// One K7 stage: a halo row of f1 (tx + n - 1 pixels, 16 * ncg channels)
+// and its cotangent entries for the tile, (ty, tx + n - 1, tx).
+__host__ __device__ __forceinline__ long long bwd_stage_floats(
+    const BwdTile& t, int n) {
+  const long long hw = (long long)t.tx + n - 1;
+  return hw * 16 * t.ncg + t.ty * hw * t.tx;
+}
+
+// Channels [c0, c0 + width) of `count` pixels into shared memory: pixel j
+// from src + j*step (src at channel c0) to dst + slot(j)*pitch floats;
+// channels at or past c_end (C - c0) are zeros. kVec (fp32, C and width
+// multiples of 4, 16-byte aligned): one 16-byte cp.async a float4; else
+// a 4-byte cp.async a float (fp32), or a load widened to fp32 and stored
+// (bf16). Every thread of the block takes part.
+template <typename T, bool kVec, typename Slot>
+__device__ __forceinline__ void stage_pixels(float* dst, int pitch,
+                                             const T* src, long long step,
+                                             int count, int width, int c_end,
+                                             Slot slot) {
+  const int per = kVec ? width / 4 : width;
+  for (int e = threadIdx.x; e < count * per; e += blockDim.x) {
+    const int j = e / per;
+    const int c = (kVec ? 4 : 1) * (e - j * per);
+    float* to = dst + slot(j) * pitch + c;
+    if (c >= c_end) {
+      if constexpr (kVec) {
+        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        *to = 0.f;
+      }
+    } else if constexpr (kVec) {
+      cp_async16(smem_u32(to), src + j * step + c);
+    } else if constexpr (std::is_same_v<T, float>) {
+      cp_async4(smem_u32(to), src + j * step + c);
+    } else {
+      *to = to_f32(src[j * step + c]);
     }
   }
-  __syncthreads();
-  T* o = out + pix * nd;
-  for (int i = threadIdx.x; i < nd; i += blockDim.x) {
-    o[i] = from_f32<T>(outs[i]);  // coalesced
+}
+
+// `count` floats (count % 4 == 0, 16-byte aligned) of shared memory to 0.
+__device__ __forceinline__ void zero_shared(float* p, int count) {
+  for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -192,34 +345,641 @@ __global__ void __launch_bounds__(kThreads)
   gf1[t] = from_f32<T>(acc / (float)s.C);
 }
 
-// g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C); one thread per
-// element of gf2, gathering from the output pixels whose windows cover it.
+// One element of a K5 pair-view stage: fp32 by a 4-byte cp.async, bf16
+// widened.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    corr_bwd_f2_kernel(const T* __restrict__ g, const T* __restrict__ f1,
-                       T* __restrict__ gf2, CorrShape s) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)s.B * s.H * s.W * s.C) return;
-  const int c = (int)(t % s.C);
-  const long long pix = t / s.C;
-  const int x = (int)(pix % s.W);
-  const int y = (int)((pix / s.W) % s.H);
-  const long long b = pix / ((long long)s.H * s.W);
-  const long long bpix = b * s.H * s.W;
-  const int nd = s.n * s.n;
-  int iy0, iy1, ix0, ix1;
-  source_range(y, s.H, s, iy0, iy1);
-  source_range(x, s.W, s, ix0, ix1);
-  float acc = 0.f;
-  for (int iy = iy0; iy <= iy1; ++iy) {
-    const int ys = y + s.d - iy * s.stride;
-    for (int ix = ix0; ix <= ix1; ++ix) {
-      const long long src = bpix + (long long)ys * s.W + x + s.d -
-                            ix * s.stride;
-      acc += to_f32(g[src * nd + iy * s.n + ix]) * to_f32(f1[src * s.C + c]);
+__device__ __forceinline__ void stage_elem(float* dst, const T* src) {
+  if constexpr (std::is_same_v<T, float>) {
+    cp_async4(smem_u32(dst), src);
+  } else {
+    *dst = to_f32(*src);
+  }
+}
+
+// K5's channels [c0, c0 + kFwdCK) into one stage at buf, pixel-major,
+// kFwdCKP floats a pixel (the 4-float pad puts neighbouring pixels' float4
+// of a channel quad in different banks): the tile's f1 cells of row r at
+// slots r*tx + (xl % 4) * (tx / 4) + xl / 4 (so the 4-cell groups of
+// neighbouring threads are neighbouring slots), then partner row hr's
+// cells at kFwdRows*tx + hr*row_slots + column. Only cells in the map;
+// channels at or past C are zeros.
+template <typename T, bool kVec>
+__device__ __forceinline__ void fwd_stage(float* buf, const T* f1,
+                                          const T* f2, const CorrShape& s,
+                                          const FwdTile& t,
+                                          const ClassAxis& ay,
+                                          const ClassAxis& ax, int y0, int x0,
+                                          int pr_lo, int nh, int pc_lo,
+                                          int nw, long long b, int c0) {
+  const int row_slots = fwd_row_slots(t, s);
+  const int quarter = t.tx / kSimtR;
+  const long long step = (long long)s.stride * s.C;
+  const int xn = imin(t.tx, ax.cells - x0);
+  for (int r = 0; r < kFwdRows && y0 + r < ay.cells; ++r) {
+    const long long pix = (b * s.H + ay.r + s.stride * (y0 + r)) * s.W +
+                          ax.r + s.stride * x0;
+    stage_pixels<T, kVec>(buf, kFwdCKP, f1 + pix * s.C + c0, step, xn, kFwdCK,
+                          s.C - c0, [&](int j) {
+                            return r * t.tx + (j % kSimtR) * quarter +
+                                   j / kSimtR;
+                          });
+  }
+  for (int hr = 0; hr < nh; ++hr) {
+    const long long pix = (b * s.H + ay.r2 + s.stride * (pr_lo + hr)) * s.W +
+                          ax.r2 + s.stride * pc_lo;
+    const int first = kFwdRows * t.tx + hr * row_slots;
+    stage_pixels<T, kVec>(buf, kFwdCKP, f2 + pix * s.C + c0, step, nw, kFwdCK,
+                          s.C - c0, [&](int j) { return first + j; });
+  }
+}
+
+// K5, SIMT: f1, f2 (B, H, W, C) -> out (B, H, W, n*n). Grid (stride^2 x
+// ytiles x xtiles x displacement groups, B), fwd_jobs threads or more;
+// fwd_smem_floats floats of dynamic shared memory.
+//
+// A block takes kFwdRows x tx cells of one f1 class and displacement rows
+// [iy0, iy0 + ny). Their partners lie in the partner rows [pr_lo, pr_hi]
+// and columns [pc_lo, pc_hi] of the partner class, clipped to the map;
+// those rows, and the tile, are staged kFwdCK channels at a time,
+// pixel-major and double-buffered by 16-byte cp.async. A thread takes one
+// partner row, 4 cells of each tile row and kFwdQ consecutive partners
+// from the first that those cells' windows reach: for each 4 channels it
+// loads a float4 of f1 for each of its kFwdRows x 4 cells and one for each
+// partner, for 2 x 4 x 8 x 4 FFMAs (the partner row is shared by the tile
+// rows, each at its own displacement row). Sums stay in registers over
+// all channels. Pairs outside the map are not computed; their outputs are
+// the zeros the block stages before it scatters its sums, then each
+// pixel's run of ny*n outputs is written coalesced.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    corr_fwd_simt_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                         T* __restrict__ out, CorrShape s, FwdTile t) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int ytiles = div_up(div_up(s.H, s.stride), kFwdRows);
+  const int xtiles = div_up(div_up(s.W, s.stride), t.tx);
+  const int dgroups = div_up(s.n, t.ny);
+  int bx = blockIdx.x;
+  const int dg = bx % dgroups;
+  bx /= dgroups;
+  const int xt = bx % xtiles;
+  bx /= xtiles;
+  const int yt = bx % ytiles;
+  const int cls = bx / ytiles;
+  const ClassAxis ay = class_axis(cls / s.stride, s.H, s);
+  const ClassAxis ax = class_axis(cls % s.stride, s.W, s);
+  const int y0 = yt * kFwdRows, x0 = xt * t.tx;
+  if (y0 >= ay.cells || x0 >= ax.cells) return;  // the whole block
+  const long long b = blockIdx.y;
+  const int iy0 = dg * t.ny;
+  const int ny = imin(t.ny, s.n - iy0);
+  const int pr_lo = max(y0 + ay.k + iy0, 0);
+  const int pr_hi = imin(y0 + kFwdRows - 1 + ay.k + iy0 + ny - 1,
+                         ay.cells2 - 1);
+  const int pc_lo = max(x0 + ax.k, 0);
+  const int pc_hi = imin(x0 + t.tx - 1 + ax.k + s.n - 1, ax.cells2 - 1);
+  const int nh = pr_hi - pr_lo + 1, nw = pc_hi - pc_lo + 1;
+  const int nch = fwd_chunks(t, s);
+  const int nxg = t.tx / kSimtR;
+
+  // This thread's micro-tile: partner row pr_lo + hr, cells xa..xa+3,
+  // partners start..start+7 (those up to `last` exist).
+  const int ch = threadIdx.x % nch;
+  const int xg = (threadIdx.x / nch) % nxg;
+  const int hr = threadIdx.x / (nch * nxg);
+  const int xa = x0 + kSimtR * xg;
+  const int start = max(xa + ax.k, pc_lo) + kFwdQ * ch;
+  const int last = imin(xa + kSimtR - 1 + ax.k + s.n - 1, pc_hi);
+  // Tile rows r whose displacement row pr - y - k is ours. Kept rolled:
+  // unrolled, CUDA 12.8's ptxas at -O3 miscompiled this kernel (most
+  // outputs left at zero; right at -O0 and with kFwdRows = 3).
+  int rows = 0;
+#pragma unroll 1
+  for (int r = 0; r < kFwdRows; ++r) {
+    const int iy = pr_lo + hr - (y0 + r) - ay.k;
+    if (y0 + r < ay.cells && iy >= iy0 && iy < iy0 + ny) rows |= 1 << r;
+  }
+  const bool active = hr < nh && nw > 0 && xa < ax.cells && start <= last &&
+                      rows != 0;
+  // Slots of this thread's cells (row r, cell p at f1o + r*tx + p*nxg) and
+  // first partner.
+  const int f1o = xg;
+  const int f2o = kFwdRows * t.tx + hr * fwd_row_slots(t, s) + start - pc_lo;
+
+  float acc[kFwdRows][kSimtR][kFwdQ];
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+    for (int p = 0; p < kSimtR; ++p)
+#pragma unroll
+      for (int q = 0; q < kFwdQ; ++q) acc[r][p][q] = 0.f;
+
+  if (__syncthreads_or(active)) {
+    const int chunks = div_up(s.C, kFwdCK);
+    const long long stage = kFwdCKP * fwd_slots(t, s);
+    fwd_stage<T, kVec>(smem, f1, f2, s, t, ay, ax, y0, x0, pr_lo, nh, pc_lo,
+                       nw, b, 0);
+    cp_async_commit();
+    for (int k = 0; k < chunks; ++k) {
+      if (k + 1 < chunks) {
+        fwd_stage<T, kVec>(smem + ((k + 1) & 1) * stage, f1, f2, s, t, ay,
+                           ax, y0, x0, pr_lo, nh, pc_lo, nw, b,
+                           (k + 1) * kFwdCK);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        const float* buf = smem + (k & 1) * stage;
+        const int quads = div_up(imin(kFwdCK, s.C - k * kFwdCK), 4);
+        for (int c4 = 0; c4 < quads; ++c4) {
+          const float* pa = buf + f1o * kFwdCKP + 4 * c4;
+          const float* pb = buf + f2o * kFwdCKP + 4 * c4;
+          float4 a[kFwdRows][kSimtR];
+#pragma unroll
+          for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+            for (int p = 0; p < kSimtR; ++p)
+              a[r][p] = *reinterpret_cast<const float4*>(
+                  pa + (r * t.tx + p * nxg) * kFwdCKP);
+#pragma unroll
+          for (int q = 0; q < kFwdQ; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(pb + q * kFwdCKP);
+            // Channel by channel, the 8 sums of a channel one after the
+            // other: no FFMA waits on the one before it.
+#pragma unroll
+            for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+              for (int p = 0; p < kSimtR; ++p)
+                acc[r][p][q] = fmaf(a[r][p].x, v.x, acc[r][p][q]);
+#pragma unroll
+            for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+              for (int p = 0; p < kSimtR; ++p)
+                acc[r][p][q] = fmaf(a[r][p].y, v.y, acc[r][p][q]);
+#pragma unroll
+            for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+              for (int p = 0; p < kSimtR; ++p)
+                acc[r][p][q] = fmaf(a[r][p].z, v.z, acc[r][p][q]);
+#pragma unroll
+            for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+              for (int p = 0; p < kSimtR; ++p)
+                acc[r][p][q] = fmaf(a[r][p].w, v.w, acc[r][p][q]);
+          }
+        }
+      }
+      __syncthreads();
     }
   }
-  gf2[t] = from_f32<T>(acc / (float)s.C);
+
+  // The block's outputs in shared memory, zeros first: cell r*tx + xl,
+  // its run of ny*n outputs from displacement iy0*n on.
+  const int run = ny * s.n;
+  const int staged = kFwdRows * t.tx * run;
+  for (int i = threadIdx.x; i < staged; i += blockDim.x) smem[i] = 0.f;
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < kFwdRows; ++r) {
+      if (!(rows >> r & 1)) continue;
+      const int iy = pr_lo + hr - (y0 + r) - ay.k;
+#pragma unroll
+      for (int p = 0; p < kSimtR; ++p) {
+        const int xl = kSimtR * xg + p;
+        if (x0 + xl >= ax.cells) continue;
+        float* o = smem + (r * t.tx + xl) * run + (iy - iy0) * s.n;
+#pragma unroll
+        for (int q = 0; q < kFwdQ; ++q) {
+          const int ix = start + q - (x0 + xl) - ax.k;
+          if (start + q <= last && ix >= 0 && ix < s.n) {
+            o[ix] = acc[r][p][q] / (float)s.C;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  for (int pl = threadIdx.x / 32; pl < kFwdRows * t.tx;
+       pl += blockDim.x / 32) {
+    const int y = y0 + pl / t.tx, x = x0 + pl % t.tx;
+    if (y >= ay.cells || x >= ax.cells) continue;
+    const long long pix = (b * s.H + ay.r + s.stride * y) * s.W + ax.r +
+                          s.stride * x;
+    T* dst = out + pix * s.n * s.n + (long long)iy0 * s.n;
+    const float* src = smem + pl * run;
+    for (int k = lane; k < run; k += 32) dst[k] = from_f32<T>(src[k]);
+  }
+}
+
+// K5, SIMT, on maps whose classes have at most kPairCells cells (the
+// S3VAE labels' and the FlowNetC trainers' 8 x 8 features: 4 x 4 cells a
+// class): the pair view, every (cell, partner) pair of a (sample, class)
+// unit. Grid (ceil(B * stride^2 / units)), a unit's threads a cell by
+// kPairQ partners; `units` x ck x pair_plane floats of dynamic shared
+// memory, ck channels a stage. A thread loads one f1 value and a float4
+// of partners a channel for 4 FFMAs; the units' outputs are zeroed, then
+// each pair whose window lies in the map writes its mean.
+template <typename T>
+__global__ void __launch_bounds__(kSimtMaxThreads)
+    corr_fwd_pairs_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                          T* __restrict__ out, CorrShape s, PairTile t) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int cells = pair_cells(s);
+  const int np4 = div_up(cells, 4) * 4;
+  const int plane = pair_plane(s);
+  const int groups = np4 / kPairQ;
+  const int per_unit = cells * groups;
+  const int classes = s.stride * s.stride;
+  const int units_total = s.B * classes;  // below 2^31 (the launcher)
+  const int u0 = blockIdx.x * t.units;
+  const int nd = s.n * s.n;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+
+  // Zeros first: every output of the block's units.
+  for (int ul = 0; ul < t.units && u0 + ul < units_total; ++ul) {
+    const int cls = (u0 + ul) % classes;
+    const ClassAxis ay = class_axis(cls / s.stride, s.H, s);
+    const ClassAxis ax = class_axis(cls % s.stride, s.W, s);
+    const long long row0 = (long long)((u0 + ul) / classes) * s.H;
+    for (int p = warp; p < ay.cells * ax.cells; p += warps) {
+      const long long pix = (row0 + ay.r + s.stride * (p / ax.cells)) * s.W +
+                            ax.r + s.stride * (p % ax.cells);
+      for (int k = lane; k < nd; k += 32) out[pix * nd + k] = from_f32<T>(0.f);
+    }
+  }
+
+  const int ul = threadIdx.x / per_unit;
+  const int p = threadIdx.x % per_unit / groups;
+  const int qg = threadIdx.x % groups;
+  const int u = u0 + ul;
+  const bool mine = ul < t.units && u < units_total;
+  const int cls = mine ? u % classes : 0;
+  const ClassAxis ay = class_axis(cls / s.stride, s.H, s);
+  const ClassAxis ax = class_axis(cls % s.stride, s.W, s);
+  const bool active = mine && p < ay.cells * ax.cells &&
+                      kPairQ * qg < ay.cells2 * ax.cells2;
+  float acc[kPairQ] = {0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < s.C; c0 += t.ck) {
+    const int ck = imin(t.ck, s.C - c0);
+    __syncthreads();  // the previous stage is read
+    // Stage each unit: a warp a cell (f1's, then the partners'), a lane a
+    // channel.
+    for (int vl = 0; vl < t.units && u0 + vl < units_total; ++vl) {
+      const int vcls = (u0 + vl) % classes;
+      const ClassAxis vy = class_axis(vcls / s.stride, s.H, s);
+      const ClassAxis vx = class_axis(vcls % s.stride, s.W, s);
+      const long long row0 = (long long)((u0 + vl) / classes) * s.H;
+      const int n1 = vy.cells * vx.cells;
+      float* base = smem + vl * ck * plane;
+      for (int cell = warp; cell < n1 + vy.cells2 * vx.cells2;
+           cell += warps) {
+        const bool second = cell >= n1;
+        const int j = second ? cell - n1 : cell;
+        const int cx = second ? vx.cells2 : vx.cells;
+        const long long pix =
+            (row0 + (second ? vy.r2 : vy.r) + s.stride * (j / cx)) * s.W +
+            (second ? vx.r2 : vx.r) + s.stride * (j % cx);
+        const T* src = (second ? f2 : f1) + pix * s.C + c0;
+        float* dst = base + (second ? np4 : 0) + j;
+        for (int cc = lane; cc < ck; cc += 32) {
+          stage_elem(dst + cc * plane, src + cc);
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      const float* pl = smem + ul * ck * plane;
+      for (int cc = 0; cc < ck; ++cc, pl += plane) {
+        const float a = pl[p];
+        const float4 v =
+            *reinterpret_cast<const float4*>(pl + np4 + kPairQ * qg);
+        acc[0] = fmaf(a, v.x, acc[0]);
+        acc[1] = fmaf(a, v.y, acc[1]);
+        acc[2] = fmaf(a, v.z, acc[2]);
+        acc[3] = fmaf(a, v.w, acc[3]);
+      }
+    }
+  }
+  __syncthreads();  // the zeros are written before the sums
+  if (!active) return;
+  const int y = ay.r + s.stride * (p / ax.cells);
+  const int x = ax.r + s.stride * (p % ax.cells);
+  const long long pix = ((long long)(u / classes) * s.H + y) * s.W + x;
+#pragma unroll
+  for (int j = 0; j < kPairQ; ++j) {
+    const int q = kPairQ * qg + j;
+    if (q >= ay.cells2 * ax.cells2) break;
+    const int iy = (ay.r2 + s.stride * (q / ax.cells2) - y + s.d) / s.stride;
+    const int ix = (ax.r2 + s.stride * (q % ax.cells2) - x + s.d) / s.stride;
+    if (iy >= 0 && iy < s.n && ix >= 0 && ix < s.n) {
+      out[pix * nd + iy * s.n + ix] = from_f32<T>(acc[j] / (float)s.C);
+    }
+  }
+}
+
+// K7's halo row hr (source row py0 + hr) into one stage at buf: f1's
+// channels [c0, c0 + 16*ncg) of the halo columns in the map at pixel hx
+// (pitch 16*ncg), then M[tyl][hx][qxl] = g[source (hr, hx), iy*n + ix]
+// with iy = tyl + n-1 - hr, ix = qxl + n-1 - hx, for the tile rows tyl
+// whose iy is a displacement row and every (hx, ix) whose qxl lies in the
+// tile. Entries of M off that band are left as they are (zeros).
+template <typename T, bool kVec>
+__device__ __forceinline__ void bwd_stage(float* buf, const T* g, const T* f1,
+                                          const CorrShape& s,
+                                          const BwdTile& t,
+                                          const ClassAxis& ay,
+                                          const ClassAxis& ax, int qy0,
+                                          int qx0, int py0, int px0,
+                                          int hx_lo, int hx_hi, int hr,
+                                          long long b, int c0) {
+  const int hw = t.tx + s.n - 1;
+  const int cs = 16 * t.ncg;
+  const int nd = s.n * s.n;
+  const long long row = (b * s.H + ay.r + s.stride * (py0 + hr)) * s.W;
+  stage_pixels<T, kVec>(
+      buf + hx_lo * cs, cs,
+      f1 + (row + ax.r + s.stride * (px0 + hx_lo)) * s.C + c0,
+      (long long)s.stride * s.C, hx_hi - hx_lo + 1, cs, s.C - c0,
+      [](int j) { return j; });
+  float* m = buf + hw * cs;
+  const int nhx = hx_hi - hx_lo + 1;
+  const int lane = threadIdx.x % 32;
+  const int q_end = min(t.tx, ax.cells2 - qx0);  // tile columns in the map
+  // A warp a (tile row, halo column), a lane a displacement column; the
+  // pair (tyl, hx) steps by the warps, without a division a step.
+  const int warps = blockDim.x / 32;
+  int tyl = threadIdx.x / 32 / nhx;
+  int hx = hx_lo + threadIdx.x / 32 % nhx;
+  for (; tyl < t.ty; hx += warps) {
+    while (hx > hx_hi) {
+      hx -= nhx;
+      ++tyl;
+    }
+    if (tyl >= t.ty) break;
+    const int iy = tyl + s.n - 1 - hr;
+    if (iy < 0 || iy >= s.n || qy0 + tyl >= ay.cells2) continue;
+    const int ix_lo = max(0, s.n - 1 - hx);
+    const int ix_hi = min(s.n - 1, s.n - 1 - hx + q_end - 1);
+    const T* src =
+        g + (row + ax.r + s.stride * (px0 + hx)) * nd + (long long)iy * s.n;
+    float* dst = m + (tyl * hw + hx) * t.tx + hx - (s.n - 1);
+    for (int ix = ix_lo + lane; ix <= ix_hi; ix += 32) {
+      if constexpr (std::is_same_v<T, float>) {
+        cp_async4(smem_u32(dst + ix), src + ix);
+      } else {
+        dst[ix] = to_f32(src[ix]);
+      }
+    }
+  }
+}
+
+// K7, SIMT: g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C). Grid
+// (stride^2 x ytiles x xtiles x channel slices, B); 2 *
+// bwd_stage_floats(t, n) floats of dynamic shared memory.
+//
+// A block takes ty x tx cells of one f2 class and 16*ncg channels. Its
+// sources are the (ty + n - 1) x (tx + n - 1) halo of the f1 class whose
+// displacements reach the tile. The block walks the halo rows from the
+// last to the first, double-buffered: each row's f1 channels and the
+// cotangent entries that map into the tile (the pair matrix M) are staged
+// by cp.async. A thread keeps a micro-tile of kSimtR outputs along x by
+// kBwdS channels; for each source pixel of its window, from the last to
+// the first, it loads a float4 of M and four float4s of f1 for 64 FFMAs.
+// Every output so adds its displacements in increasing i, as the plain
+// version does, and an entry of M off an output's band is an exact zero:
+// a product of two bf16 values is exact in fp32, so the bf16 kernel is
+// bit-equal to correlation_bwd_f2_plain. No atomics; one fixed order.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSimtMaxThreads, 2)
+    corr_bwd_f2_simt_kernel(const T* __restrict__ g,
+                            const T* __restrict__ f1, T* __restrict__ gf2,
+                            CorrShape s, BwdTile t) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int cs = 16 * t.ncg;
+  const int ytiles = div_up(div_up(s.H, s.stride), t.ty);
+  const int xtiles = div_up(div_up(s.W, s.stride), t.tx);
+  const int slices = div_up(s.C, cs);
+  int bx = blockIdx.x;
+  const int sl = bx % slices;
+  bx /= slices;
+  const int xt = bx % xtiles;
+  bx /= xtiles;
+  const int yt = bx % ytiles;
+  const int cls = bx / ytiles;
+  // The source classes (r) whose partners (r2) are this f2 class.
+  const ClassAxis ay = class_axis((cls / s.stride + s.d) % s.stride, s.H, s);
+  const ClassAxis ax = class_axis((cls % s.stride + s.d) % s.stride, s.W, s);
+  const int qy0 = yt * t.ty, qx0 = xt * t.tx;
+  if (qy0 >= ay.cells2 || qx0 >= ax.cells2) return;  // the whole block
+  const long long b = blockIdx.y;
+  const int c0 = sl * cs;
+  const int hw = t.tx + s.n - 1;
+  // Halo (hr, hx) is source cell (py0 + hr, px0 + hx); tile cell (tyl, qxl)
+  // meets it at displacement (tyl + n-1 - hr, qxl + n-1 - hx).
+  const int py0 = qy0 - ay.k - (s.n - 1);
+  const int px0 = qx0 - ax.k - (s.n - 1);
+  const int hr_lo = max(0, -py0);
+  const int hr_hi = min(t.ty + s.n - 2, ay.cells - 1 - py0);
+  const int hx_lo = max(0, -px0);
+  const int hx_hi = min(hw - 1, ax.cells - 1 - px0);
+
+  const int cg = threadIdx.x % t.ncg;
+  const int qxg = (threadIdx.x / t.ncg) % (t.tx / kSimtR);
+  const int tyl = threadIdx.x / (t.ncg * (t.tx / kSimtR));
+  const int q0 = kSimtR * qxg;
+  const bool mine = tyl < t.ty && qy0 + tyl < ay.cells2 &&
+                    qx0 + q0 < ax.cells2;
+  // The sources of this thread's outputs: halo columns [q0, q0 + n + 2].
+  const int my_lo = max(q0, hx_lo);
+  const int my_hi = min(q0 + s.n + kSimtR - 2, hx_hi);
+
+  float acc[kSimtR][kBwdS];
+#pragma unroll
+  for (int p = 0; p < kSimtR; ++p)
+#pragma unroll
+    for (int c = 0; c < kBwdS; ++c) acc[p][c] = 0.f;
+
+  if (hr_lo <= hr_hi && hx_lo <= hx_hi) {
+    const int stage = (int)bwd_stage_floats(t, s.n);
+    zero_shared(smem, 2 * stage);
+    __syncthreads();
+    bwd_stage<T, kVec>(smem, g, f1, s, t, ay, ax, qy0, qx0, py0, px0, hx_lo,
+                       hx_hi, hr_hi, b, c0);
+    cp_async_commit();
+    for (int hr = hr_hi, k = 0; hr >= hr_lo; --hr, ++k) {
+      if (hr > hr_lo) {
+        bwd_stage<T, kVec>(smem + ((k + 1) & 1) * stage, g, f1, s, t, ay, ax,
+                           qy0, qx0, py0, px0, hx_lo, hx_hi, hr - 1, b, c0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int iy = tyl + s.n - 1 - hr;
+      if (mine && iy >= 0 && iy < s.n) {
+        const float* buf = smem + (k & 1) * stage;
+        const float* fs = buf + 4 * cg;
+        const float* ms = buf + hw * cs + tyl * hw * t.tx + q0;
+        for (int hx = my_hi; hx >= my_lo; --hx) {
+          const float4 mv = *reinterpret_cast<const float4*>(ms + hx * t.tx);
+          const float mp[kSimtR] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+          for (int u = 0; u < kBwdS / 4; ++u) {
+            const float4 fv =
+                *reinterpret_cast<const float4*>(fs + hx * cs + 4 * t.ncg * u);
+#pragma unroll
+            for (int p = 0; p < kSimtR; ++p) {
+              acc[p][4 * u] = fmaf(mp[p], fv.x, acc[p][4 * u]);
+              acc[p][4 * u + 1] = fmaf(mp[p], fv.y, acc[p][4 * u + 1]);
+              acc[p][4 * u + 2] = fmaf(mp[p], fv.z, acc[p][4 * u + 2]);
+              acc[p][4 * u + 3] = fmaf(mp[p], fv.w, acc[p][4 * u + 3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (!mine) return;
+  // Channel c0 + 4*cg + 4*ncg*u + e is acc[p][4u + e].
+  const long long row = (b * s.H + ay.r2 + s.stride * (qy0 + tyl)) * s.W;
+#pragma unroll
+  for (int p = 0; p < kSimtR; ++p) {
+    const int qx = qx0 + q0 + p;
+    if (qx >= ax.cells2) continue;
+    T* o = gf2 + (row + ax.r2 + s.stride * qx) * s.C;
+#pragma unroll
+    for (int u = 0; u < kBwdS / 4; ++u) {
+      const int c = c0 + 4 * cg + 4 * t.ncg * u;
+      if constexpr (kVec) {
+        if (c < s.C) {
+          *reinterpret_cast<float4*>(o + c) = make_float4(
+              acc[p][4 * u] / (float)s.C, acc[p][4 * u + 1] / (float)s.C,
+              acc[p][4 * u + 2] / (float)s.C, acc[p][4 * u + 3] / (float)s.C);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < s.C) {
+            o[c + e] = from_f32<T>(acc[p][4 * u + e] / (float)s.C);
+          }
+        }
+      }
+    }
+  }
+}
+
+// K7, SIMT, on maps whose classes have at most kPairCells cells: the pair
+// view. Grid (stride^2 x channel slices, B), a block a (sample, f2 class,
+// 16 * ncg channels) unit, a thread an output cell by kBwdS channels;
+// 4 * (cells * 16 * ncg + cells * cells) bytes of dynamic shared memory.
+// The block stages the source class's f1 channels and the pair matrix
+// M[q][p] = g[p, i] for each (output cell q, source cell p) pair at
+// displacement i (zeros elsewhere); each thread walks the sources from the
+// last to the first, a float of M and four float4s of f1 for 64 FFMAs.
+// Every output so adds its displacements in increasing i, as
+// correlation_bwd_f2_plain does: the bf16 kernel is bit-equal to it.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSimtMaxThreads)
+    corr_bwd_f2_pairs_kernel(const T* __restrict__ g,
+                             const T* __restrict__ f1, T* __restrict__ gf2,
+                             CorrShape s, int ncg) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int cs = 16 * ncg;
+  const int cells = pair_cells(s);
+  const int slices = div_up(s.C, cs);
+  const int sl = blockIdx.x % slices;
+  const int cls = blockIdx.x / slices;
+  const ClassAxis ay = class_axis((cls / s.stride + s.d) % s.stride, s.H, s);
+  const ClassAxis ax = class_axis((cls % s.stride + s.d) % s.stride, s.W, s);
+  const int np = ay.cells * ax.cells;     // sources
+  const int nq = ay.cells2 * ax.cells2;   // outputs
+  if (nq == 0) return;
+  const long long b = blockIdx.y;
+  const int c0 = sl * cs;
+  const int nd = s.n * s.n;
+  float* fs = smem;                 // [np][cs]
+  float* m = smem + cells * cs;     // [nq][cells]
+  for (int i = threadIdx.x; i < nq * cells; i += blockDim.x) m[i] = 0.f;
+  __syncthreads();
+  // The sources' channels, a class row at a time, and M at each pair in
+  // the window.
+  for (int py = 0; py < ay.cells; ++py) {
+    const long long pix = (b * s.H + ay.r + s.stride * py) * s.W + ax.r;
+    stage_pixels<T, kVec>(fs + py * ax.cells * cs, cs, f1 + pix * s.C + c0,
+                          (long long)s.stride * s.C, ax.cells, cs, s.C - c0,
+                          [](int j) { return j; });
+  }
+  for (int e = threadIdx.x; e < nq * np; e += blockDim.x) {
+    const int q = e / np, p = e % np;
+    const int y = ay.r + s.stride * (p / ax.cells);
+    const int x = ax.r + s.stride * (p % ax.cells);
+    const int iy = (ay.r2 + s.stride * (q / ax.cells2) - y + s.d) / s.stride;
+    const int ix = (ax.r2 + s.stride * (q % ax.cells2) - x + s.d) / s.stride;
+    if (iy < 0 || iy >= s.n || ix < 0 || ix >= s.n) continue;
+    const T* src = g + ((b * s.H + y) * s.W + x) * nd + iy * s.n + ix;
+    if constexpr (std::is_same_v<T, float>) {
+      cp_async4(smem_u32(m + q * cells + p), src);
+    } else {
+      m[q * cells + p] = to_f32(*src);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int cg = threadIdx.x % ncg;
+  const int q = threadIdx.x / ncg;
+  if (q >= nq) return;
+  float acc[kBwdS];
+#pragma unroll
+  for (int c = 0; c < kBwdS; ++c) acc[c] = 0.f;
+  const float* mq = m + q * cells;
+  for (int p = np - 1; p >= 0; --p) {
+    const float mv = mq[p];
+    const float* fp = fs + p * cs + 4 * cg;
+#pragma unroll
+    for (int u = 0; u < kBwdS / 4; ++u) {
+      const float4 fv = *reinterpret_cast<const float4*>(fp + 4 * ncg * u);
+      acc[4 * u] = fmaf(mv, fv.x, acc[4 * u]);
+      acc[4 * u + 1] = fmaf(mv, fv.y, acc[4 * u + 1]);
+      acc[4 * u + 2] = fmaf(mv, fv.z, acc[4 * u + 2]);
+      acc[4 * u + 3] = fmaf(mv, fv.w, acc[4 * u + 3]);
+    }
+  }
+  const long long pix = (b * s.H + ay.r2 + s.stride * (q / ax.cells2)) * s.W +
+                        ax.r2 + s.stride * (q % ax.cells2);
+  T* o = gf2 + pix * s.C;
+#pragma unroll
+  for (int u = 0; u < kBwdS / 4; ++u) {
+    const int c = c0 + 4 * cg + 4 * ncg * u;
+    if constexpr (kVec) {
+      if (c < s.C) {
+        *reinterpret_cast<float4*>(o + c) = make_float4(
+            acc[4 * u] / (float)s.C, acc[4 * u + 1] / (float)s.C,
+            acc[4 * u + 2] / (float)s.C, acc[4 * u + 3] / (float)s.C);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + e < s.C) o[c + e] = from_f32<T>(acc[4 * u + e] / (float)s.C);
+      }
+    }
+  }
 }
 
 CorrShape make_shape(int B, int H, int W, int C, int d, int stride) {
@@ -229,6 +989,25 @@ CorrShape make_shape(int B, int H, int W, int C, int d, int stride) {
 unsigned int elementwise_blocks(const CorrShape& s) {
   const long long total = (long long)s.B * s.H * s.W * s.C;
   return (unsigned int)((total + kThreads - 1) / kThreads);
+}
+
+// What the SIMT K5 and K7 index by: a shape the map and the stride make
+// sense of, a tile of at least one row and a positive multiple of kSimtR
+// columns, and 32..256 threads in whole warps (grid.y = B: at most 65535).
+bool simt_tile_ok(const CorrShape& s, int ty, int tx, int threads) {
+  return s.B >= 1 && s.B <= 65535 && s.H >= 1 && s.W >= 1 && s.C >= 1 &&
+         s.d >= 0 && s.stride >= 1 && ty >= 1 && tx >= kSimtR &&
+         tx % kSimtR == 0 && threads >= 32 && threads <= kSimtMaxThreads &&
+         threads % 32 == 0;
+}
+
+// Blocks of a SIMT K5 or K7 launch along x: stride^2 classes x tiles x
+// `groups` (displacement groups or channel slices); 0 past CUDA's limit.
+unsigned int simt_blocks(const CorrShape& s, int ty, int tx, int groups) {
+  const long long n = (long long)s.stride * s.stride *
+                      div_up(div_up(s.H, s.stride), ty) *
+                      div_up(div_up(s.W, s.stride), tx) * groups;
+  return n <= 0x7fffffffLL ? (unsigned int)n : 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -321,12 +1100,6 @@ __device__ __forceinline__ int pair_disp(const PairTable& t, int p, int q,
                                          const CorrShape& s) {
   return t.disp[(t.y[q] - t.y[p] + s.H - 1) * (2 * s.W - 1) + t.x[q] -
                 t.x[p] + s.W - 1];
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-               "l"(src)
-               : "memory");
 }
 
 __device__ __forceinline__ void st_shared_zero16(uint32_t dst) {
@@ -657,18 +1430,81 @@ int launch_bwd_tc(BwdTcKernel kernel, const void* g, const void* f, void* gf,
 
 }  // namespace
 
+// K5, SIMT: f1, f2 (B, H, W, C) -> out (B, H, W, n*n) in tiles of
+// kFwdRows x tx cells by ny displacement rows, `threads` a block
+// (ops/correlation.py::simt_plan). Returns cudaErrorInvalidValue for a
+// tile outside simt_tile_ok's bounds, else the launch's error.
 extern "C" int odek_correlation_fwd(const void* f1, const void* f2, void* out,
                                     int B, int H, int W, int C, int d,
-                                    int stride, int dtype, void* stream) {
+                                    int stride, int tx, int ny, int threads,
+                                    int dtype, void* stream) {
   const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const FwdTile t{tx, ny};
+  if (!simt_tile_ok(s, 1, tx, threads) || ny < 1 ||
+      fwd_jobs(t, s) > threads || threads > kFwdThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = fwd_smem_floats(t, s) * 4;
+  const unsigned int blocks =
+      simt_blocks(s, kFwdRows, tx, div_up(s.n, ny));
+  if (smem > kSmemBytes || blocks == 0) return (int)cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(f1) |
+                                   reinterpret_cast<uintptr_t>(f2)) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = (unsigned int)((long long)B * H * W);
-  const size_t smem = (size_t)(C + s.n * s.n) * sizeof(float);
-  return odek::launch_for_dtype(dtype, [&](auto tag) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    corr_fwd_kernel<T><<<blocks, 32 * kFwdWarps, smem, st>>>(
+    auto launch = [&](auto kernel) -> int {
+      const cudaError_t attr = allow_max_smem(
+          reinterpret_cast<const void*>(kernel), kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<dim3(blocks, B), threads, smem, st>>>(
+          static_cast<const T*>(f1), static_cast<const T*>(f2),
+          static_cast<T*>(out), s, t);
+      return 0;
+    };
+    if constexpr (std::is_same_v<T, float>) {
+      return vec ? launch(corr_fwd_simt_kernel<float, true>)
+                 : launch(corr_fwd_simt_kernel<float, false>);
+    } else {
+      return launch(corr_fwd_simt_kernel<T, false>);
+    }
+  });
+}
+
+// K5, SIMT, pair view (classes of at most kPairCells cells): `units`
+// (sample, class) units a block, ck channels a stage, `threads` a block
+// (ops/correlation.py::simt_plan). Returns cudaErrorInvalidValue outside
+// those bounds, else the launch's error.
+extern "C" int odek_correlation_fwd_pairs(const void* f1, const void* f2,
+                                          void* out, int B, int H, int W,
+                                          int C, int d, int stride, int units,
+                                          int ck, int threads, int dtype,
+                                          void* stream) {
+  const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const PairTile t{units, ck};
+  const int cells = pair_cells(s);
+  if (!simt_tile_ok(s, 1, kSimtR, threads) || cells > kPairCells ||
+      units < 1 || ck < 1 || ck > C ||
+      (long long)units * cells * div_up(cells, kPairQ) > threads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = 4LL * units * ck * pair_plane(s);
+  const long long total = (long long)B * stride * stride;
+  if (smem > kSmemBytes || total > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = (total + units - 1) / units;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    const auto kernel = corr_fwd_pairs_kernel<T>;
+    const cudaError_t attr =
+        allow_max_smem(reinterpret_cast<const void*>(kernel), kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<(unsigned int)blocks, threads, smem, st>>>(
         static_cast<const T*>(f1), static_cast<const T*>(f2),
-        static_cast<T*>(out), s);
+        static_cast<T*>(out), s, t);
+    return 0;
   });
 }
 
@@ -686,17 +1522,87 @@ extern "C" int odek_correlation_bwd_f1(const void* g, const void* f2,
   });
 }
 
+// K7, SIMT: g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C) in tiles
+// of ty x tx cells by 16*ncg channels, `threads` a block
+// (ops/correlation.py::simt_plan). Returns cudaErrorInvalidValue for a
+// tile outside simt_tile_ok's bounds, else the launch's error.
 extern "C" int odek_correlation_bwd_f2(const void* g, const void* f1,
                                        void* gf2, int B, int H, int W, int C,
-                                       int d, int stride, int dtype,
+                                       int d, int stride, int ty, int tx,
+                                       int ncg, int threads, int dtype,
                                        void* stream) {
   const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const BwdTile t{ty, tx, ncg};
+  if (!simt_tile_ok(s, ty, tx, threads) || ncg < 1 ||
+      (long long)ty * (tx / kSimtR) * ncg > threads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = 2LL * bwd_stage_floats(t, s.n) * 4;
+  const unsigned int blocks = simt_blocks(s, ty, tx, div_up(C, 16 * ncg));
+  if (smem > kSmemBytes || blocks == 0) return (int)cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(f1) |
+                                   reinterpret_cast<uintptr_t>(gf2)) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return odek::launch_for_dtype(dtype, [&](auto tag) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    corr_bwd_f2_kernel<T><<<elementwise_blocks(s), kThreads, 0, st>>>(
-        static_cast<const T*>(g), static_cast<const T*>(f1),
-        static_cast<T*>(gf2), s);
+    auto launch = [&](auto kernel) -> int {
+      const cudaError_t attr = allow_max_smem(
+          reinterpret_cast<const void*>(kernel), kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<dim3(blocks, B), threads, smem, st>>>(
+          static_cast<const T*>(g), static_cast<const T*>(f1),
+          static_cast<T*>(gf2), s, t);
+      return 0;
+    };
+    if constexpr (std::is_same_v<T, float>) {
+      return vec ? launch(corr_bwd_f2_simt_kernel<float, true>)
+                 : launch(corr_bwd_f2_simt_kernel<float, false>);
+    } else {
+      return launch(corr_bwd_f2_simt_kernel<T, false>);
+    }
+  });
+}
+
+// K7, SIMT, pair view (classes of at most kPairCells cells): 16 * ncg
+// channels a block, `threads` a block (ops/correlation.py::simt_plan).
+// Returns cudaErrorInvalidValue outside those bounds, else the launch's
+// error.
+extern "C" int odek_correlation_bwd_f2_pairs(const void* g, const void* f1,
+                                             void* gf2, int B, int H, int W,
+                                             int C, int d, int stride,
+                                             int ncg, int threads, int dtype,
+                                             void* stream) {
+  const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const int cells = pair_cells(s);
+  if (!simt_tile_ok(s, 1, kSimtR, threads) || cells > kPairCells ||
+      ncg < 1 || (long long)cells * ncg > threads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = 4LL * cells * (16LL * ncg + cells);
+  const long long blocks = (long long)stride * stride * div_up(C, 16 * ncg);
+  if (smem > kSmemBytes || blocks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(f1) |
+                                   reinterpret_cast<uintptr_t>(gf2)) & 15) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    auto launch = [&](auto kernel) -> int {
+      const cudaError_t attr = allow_max_smem(
+          reinterpret_cast<const void*>(kernel), kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<dim3((unsigned int)blocks, B), threads, smem, st>>>(
+          static_cast<const T*>(g), static_cast<const T*>(f1),
+          static_cast<T*>(gf2), s, ncg);
+      return 0;
+    };
+    if constexpr (std::is_same_v<T, float>) {
+      return vec ? launch(corr_bwd_f2_pairs_kernel<float, true>)
+                 : launch(corr_bwd_f2_pairs_kernel<float, false>);
+    } else {
+      return launch(corr_bwd_f2_pairs_kernel<T, false>);
+    }
   });
 }
 

@@ -50,13 +50,26 @@ SIGNATURES = {
     # px_per_rank, dtype, stream
     "odek_gru_blend_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                               _I, _I, _I, _P],
-    # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream
-    "odek_correlation_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2, out, B, H, W, C, max_displacement, stride, tx, ny, threads,
+    # dtype, stream
+    "odek_correlation_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
+    # f1, f2, out, B, H, W, C, max_displacement, stride, units, ck,
+    # threads, dtype, stream
+    "odek_correlation_fwd_pairs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P],
     # g, f2, gf1, B, H, W, C, max_displacement, stride, dtype, stream
     "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # g, f1, gf2, B, H, W, C, max_displacement, stride, dtype, stream
-    "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # as odek_correlation_fwd, odek_correlation_bwd_f1 and _f2
+    # g, f1, gf2, B, H, W, C, max_displacement, stride, ty, tx, ncg,
+    # threads, dtype, stream
+    "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+    # g, f1, gf2, B, H, W, C, max_displacement, stride, ncg, threads,
+    # dtype, stream
+    "odek_correlation_bwd_f2_pairs": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
+    # as odek_correlation_bwd_f1: f1 or g, f2, out, B, H, W, C,
+    # max_displacement, stride, dtype, stream
     "odek_correlation_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "odek_correlation_bwd_f1_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _P],

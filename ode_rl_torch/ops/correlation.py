@@ -21,10 +21,17 @@ correlation into products over pixel pairs (``pair_displacements``):
 K5 is S = f1 . f2^T gathered at the pairs, K7 is M . f1 with M the
 cotangent scattered to the pairs, K6 is M^T . f2 on the same M. At the
 bench shape K5, K6 and K7 take about 13.3, 10.5 and 10.4 µs a call alone,
-against 96, 89 and 103 for the SIMT kernels; the bytes bounds are 9.3
-(K5) and 5.2 (K6, K7) (H100 80GB HBM3, 700 W; PERF.md).
+against 96, 89 and 103 for the first SIMT kernels; the bytes bounds are
+9.3 (K5) and 5.2 (K6, K7) (H100 80GB HBM3, 700 W; PERF.md).
 Every other call takes the SIMT kernels (fp32, so it stays strict fp32;
-the FlyingChairs feature maps; misaligned views).
+the FlyingChairs feature maps; misaligned views). K6's is a gather, a
+thread an output. K5's and K7's split the map into parity classes
+(``class_axis``): at stride s a pixel meets only the pixels of one other
+class, on a dense grid, so a tile of cells and its halo of partners are
+staged in shared memory and reused from registers. ``simt_plan`` picks
+their tiles, or, on maps of at most 32 cells a class (the 8 x 8 label and
+trainer features), the pair view: every (cell, partner) pair of a
+(sample, class).
 
 ``CorrelationFn`` is the ``custom_vjp`` of ``_corr_with_vjp``: K5 forward,
 K6 and K7 backward. The JAX package falls back to autograd of the XLA
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -46,9 +54,24 @@ import torch.nn.functional as F
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops._build import library
 
-# K5 stages one f1 pixel's channels and its n*n outputs in fp32 shared
-# memory: 48 KB without opting in to more.
-_MAX_SHARED_FLOATS = 12288
+# The SIMT K5 and K7 (csrc/correlation.cu::corr_fwd_simt_kernel,
+# corr_fwd_pairs_kernel, corr_bwd_f2_simt_kernel), as the source fixes
+# them: output cells a micro-tile along x, most threads a block, the
+# H100's shared memory a block; K5's tile rows, partners a micro-tile,
+# channels a chunk and a staged pixel's pitch in floats; the most cells a
+# class may have for K5's pair view and its partners a thread; K7's
+# channels a micro-tile.
+_SIMT_R = 4
+_SIMT_THREADS = 256
+_FWD_THREADS = 192  # K5's tiles: most threads a block
+_SMEM_BYTES = 232_448
+_FWD_ROWS, _FWD_Q, _FWD_CK, _FWD_CKP = 2, 8, 32, 36
+_PAIR_CELLS, _PAIR_Q = 32, 4
+_BWD_S = 16
+# Tiles are at most this many cells wide (a highres class row, 28, fits).
+_TX_MAX = 32
+# Shared memory a plan keeps within where it can: two blocks an SM.
+_SMEM_HALF = _SMEM_BYTES // 2 - 1024
 
 # The tensor-core K5-K7 (csrc/correlation.cu::corr_fwd_tc_kernel,
 # corr_bwd_f1_tc_kernel, corr_bwd_f2_tc_kernel): a sample's map is one tile
@@ -116,6 +139,181 @@ def _tc_shape(h, w, c, max_displacement, stride, dtype) -> bool:
             <= _TC_MAX_DISPLACEMENTS)
 
 
+class SimtPlan(NamedTuple):
+    """One SIMT kernel's launch. ``kernel``: "tiles" (K5, K7) or "pairs"
+    (K5's pair view); grid (blocks, grid.y); threads a block; tile (K5
+    tiles: rows, tx, ny; pairs: units a block; K7: ty, tx, ncg); channels
+    a chunk (K5) or a block (K7); dynamic shared bytes; and ``args``, the
+    ints the C entry point takes after the geometry (the tile and the
+    threads)."""
+    kernel: str
+    grid: tuple
+    threads: int
+    tile: tuple
+    chunk: int
+    smem_bytes: int
+    args: tuple
+
+
+def _cells(r: int, size: int, stride: int) -> int:
+    return -(-(size - r) // stride) if r < size else 0
+
+
+def class_axis(r: int, size: int, max_displacement: int,
+               stride: int) -> tuple:
+    """One axis of parity class r (the pixels r, r + stride, ... of a map
+    ``size`` wide): (cells, partner class r2, offset k, partner cells).
+    Every offset i*stride - d is congruent to -d modulo the stride, so cell
+    a of class r meets cell a + k + i of class r2 = (r - d) mod stride at
+    displacement index i, and nothing else. As
+    ``csrc/correlation.cu::class_axis``."""
+    d = max_displacement
+    r2 = (r - d) % stride
+    return (_cells(r, size, stride), r2, (r - d - r2) // stride,
+            _cells(r2, size, stride))
+
+
+def _div_up(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_simt_geometry(tx: int, ny: int, h: int, w: int, n: int,
+                      stride: int) -> dict:
+    """K5's tile geometry, as csrc/correlation.cu's fwd_* helpers: partner
+    rows and columns staged at most, slots a staged partner row (its
+    columns and ``_FWD_Q - 1`` more read past the last), partner chunks a
+    micro-tile, pixel slots a stage (``_FWD_CKP`` floats each), the
+    dynamic shared bytes and the micro-tiles (threads) a block."""
+    rows = min(_FWD_ROWS + ny - 1, _div_up(h, stride))
+    cols = min(tx + n - 1, _div_up(w, stride))
+    row_slots = cols + _FWD_Q - 1
+    chunks = _div_up(min(n + _SIMT_R - 1, cols), _FWD_Q)
+    slots = _FWD_ROWS * tx + rows * row_slots
+    smem = 4 * max(2 * _FWD_CKP * slots, _FWD_ROWS * tx * ny * n)
+    return dict(rows=rows, cols=cols, row_slots=row_slots, chunks=chunks,
+                slots=slots, smem=smem,
+                jobs=rows * (tx // _SIMT_R) * chunks)
+
+
+def _fwd_simt_plan(b, h, w, c, n, stride) -> SimtPlan:
+    """K5's launch. Classes of at most ``_PAIR_CELLS`` cells take the pair
+    view: as many units as make 64 threads (one, at 4 x 4 cells: many
+    small blocks hide the round trips of their one or two stages), stages
+    of at most 48 KB. Larger ones take tiles: the widest row up to
+    ``_TX_MAX`` cells, then the ny whose micro-tiles, summed over the
+    blocks, are fewest (ties: the larger ny), within 192 threads and
+    shared memory for two blocks an SM where that is possible."""
+    rows, cols = _div_up(h, stride), _div_up(w, stride)
+    if rows * cols <= _PAIR_CELLS:
+        cells = rows * cols
+        np4 = _div_up(cells, 4) * 4
+        per_unit = cells * (np4 // _PAIR_Q)
+        units = max(1, min(64 // per_unit, b * stride ** 2))
+        plane = 2 * np4 + 4
+        ck = min(c, max(1, 48 * 1024 // (4 * units * plane)))
+        ck = _div_up(c, _div_up(c, ck))  # even stages
+        threads = _div_up(units * per_unit, 32) * 32
+        return SimtPlan("pairs", (_div_up(b * stride ** 2, units), 1),
+                        threads, (units,), ck, 4 * units * ck * plane,
+                        (units, ck, threads))
+    tx = min(_div_up(cols, _SIMT_R) * _SIMT_R, _TX_MAX)
+    while (tx > _SIMT_R and
+           fwd_simt_geometry(tx, 1, h, w, n, stride)["jobs"] > _FWD_THREADS):
+        tx -= _SIMT_R
+    for limit in (_SMEM_HALF, _SMEM_BYTES):
+        best = None
+        for ny in range(1, n + 1):
+            geo = fwd_simt_geometry(tx, ny, h, w, n, stride)
+            if geo["jobs"] > _FWD_THREADS or geo["smem"] > limit:
+                continue
+            key = (_div_up(n, ny) * geo["rows"], -ny)
+            if best is None or key < best[0]:
+                best = (key, ny, geo)
+        if best is not None:
+            break
+    else:
+        raise ValueError(f"correlation_fwd: {n} displacements a row do not "
+                         f"fit the SIMT kernel's block")
+    _, ny, geo = best
+    threads = _div_up(geo["jobs"], 32) * 32
+    blocks = (stride ** 2 * _div_up(rows, _FWD_ROWS) * _div_up(cols, tx)
+              * _div_up(n, ny))
+    return SimtPlan("tiles", (blocks, b), threads, (_FWD_ROWS, tx, ny),
+                    _FWD_CK, geo["smem"], (tx, ny, threads))
+
+
+def bwd_f2_simt_smem(ty: int, tx: int, ncg: int, n: int) -> int:
+    """K7's dynamic shared bytes: two stages of a halo row of f1 (16*ncg
+    channels) and its pair matrix (ty, tx + n - 1, tx)."""
+    halo_w = tx + n - 1
+    return 4 * 2 * (halo_w * 16 * ncg + ty * halo_w * tx)
+
+
+def _bwd_f2_simt_plan(b, h, w, c, n, stride) -> SimtPlan:
+    """K7's launch. Classes of at most ``_PAIR_CELLS`` cells take the pair
+    view: a block a (sample, class, channel slice), a thread a cell by 16
+    channels. Larger ones take tiles: up to ``_TX_MAX`` cells wide, up to
+    128 channels, and as many rows as fill 256 threads, fewer where the
+    shared memory would pass half the block's (two blocks an SM), then
+    narrower where it would pass all of it."""
+    rows, cols = _div_up(h, stride), _div_up(w, stride)
+    if rows * cols <= _PAIR_CELLS:
+        cells = rows * cols
+        ncg = min(_div_up(c, _BWD_S), _SIMT_THREADS // cells)
+        threads = _div_up(cells * ncg, 32) * 32
+        return SimtPlan("pairs",
+                        (stride ** 2 * _div_up(c, _BWD_S * ncg), b),
+                        threads, (ncg,), _BWD_S * ncg,
+                        4 * cells * (_BWD_S * ncg + cells), (ncg, threads))
+    tx = min(_div_up(cols, _SIMT_R) * _SIMT_R, _TX_MAX)
+    ncg = min(8, _div_up(c, _BWD_S))
+    while True:
+        per_row = tx // _SIMT_R * ncg
+        ty = max(1, min(rows, _SIMT_THREADS // per_row))
+        while ty > 1 and bwd_f2_simt_smem(ty, tx, ncg, n) > _SMEM_HALF:
+            ty -= 1
+        if bwd_f2_simt_smem(ty, tx, ncg, n) <= _SMEM_BYTES:
+            break
+        if ncg > 1:
+            ncg //= 2
+        elif tx > _SIMT_R:
+            tx -= _SIMT_R
+        else:
+            raise ValueError(f"correlation_bwd_f2: {n} displacements a row "
+                             f"do not fit the SIMT kernel's block")
+    threads = max(32, _div_up(ty * per_row, 32) * 32)
+    blocks = (stride ** 2 * _div_up(rows, ty) * _div_up(cols, tx)
+              * _div_up(c, _BWD_S * ncg))
+    return SimtPlan("tiles", (blocks, b), threads, (ty, tx, ncg),
+                    _BWD_S * ncg, bwd_f2_simt_smem(ty, tx, ncg, n),
+                    (ty, tx, ncg, threads))
+
+
+@functools.lru_cache(maxsize=256)
+def simt_plan(b: int, h: int, w: int, c: int, max_displacement: int,
+              stride: int, dtype: torch.dtype) -> dict:
+    """The launches of the SIMT K5 and K7 for features (b, h, w, c):
+    {"correlation_fwd": SimtPlan, "correlation_bwd_f2": SimtPlan}.
+    Raises ValueError for what the kernels cannot index: an empty shape, a
+    dtype other than fp32 and bf16, a batch beyond the grid's 65,535, a
+    grid beyond 2**31 - 1 blocks, or a displacement row too long for a
+    block's shared memory (csrc/correlation.cu::simt_tile_ok). Cached: it
+    runs on every launch."""
+    n = n_displacements(max_displacement, stride)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"correlation: SIMT kernels take float32 and "
+                         f"bfloat16, not {dtype}")
+    if min(b, h, w, c) < 1 or b > 65_535:
+        raise ValueError(f"correlation: features ({b}, {h}, {w}, {c}) are "
+                         f"outside the SIMT kernels' grid")
+    plans = {"correlation_fwd": _fwd_simt_plan(b, h, w, c, n, stride),
+             "correlation_bwd_f2": _bwd_f2_simt_plan(b, h, w, c, n, stride)}
+    if any(p.grid[0] >= 2 ** 31 for p in plans.values()):
+        raise ValueError(f"correlation: features ({b}, {h}, {w}, {c}) at "
+                         f"stride {stride} need more blocks than a grid has")
+    return plans
+
+
 def _padded_offsets(max_displacement: int, stride: int):
     """(dy, dx) of each displacement into f2 padded by d on each side."""
     n = n_displacements(max_displacement, stride)
@@ -178,12 +376,14 @@ def _check_cotangent(name, g, f, n) -> None:
                          f"{(*f.shape[:3], n * n)}")
 
 
-def _launch(name, fn, a, b, out, features, max_displacement, stride):
+def _launch(name, fn, a, b, out, features, max_displacement, stride,
+            plan=None):
     """Launch with pointers (a, b, out) and the (B, H, W, C) of the
-    feature maps."""
+    feature maps, and a SIMT kernel's tile and threads from ``plan``."""
     bb, h, w, c = features.shape
+    extra = () if plan is None else plan.args
     common.launch(name, fn, a.data_ptr(), b.data_ptr(), out.data_ptr(), bb, h,
-                  w, c, max_displacement, stride,
+                  w, c, max_displacement, stride, *extra,
                   common.DTYPE_CODES[features.dtype],
                   common.stream_handle(features))
 
@@ -217,12 +417,16 @@ def _fwd_cuda(f1, f2, max_displacement, stride, kernel="rule"):
                 f2, out, f1, max_displacement, stride)
         common.launches["correlation_fwd"] += 1
         return out
-    if f1.shape[3] + n * n > _MAX_SHARED_FLOATS:
-        raise ValueError(f"correlation_fwd: {f1.shape[3]} channels and "
-                         f"{n * n} displacements exceed {_MAX_SHARED_FLOATS} "
-                         f"floats of shared memory")
-    _launch("correlation_fwd", library().odek_correlation_fwd, f1, f2, out,
-            f1, max_displacement, stride)
+    plan = simt_plan(*f1.shape, max_displacement, stride,
+                     f1.dtype)["correlation_fwd"]
+    if plan.kernel == "pairs":
+        _launch("correlation_fwd_pairs",
+                library().odek_correlation_fwd_pairs, f1, f2, out, f1,
+                max_displacement, stride, plan)
+        common.launches["correlation_fwd"] += 1
+    else:
+        _launch("correlation_fwd", library().odek_correlation_fwd, f1, f2,
+                out, f1, max_displacement, stride, plan)
     return out
 
 
@@ -273,8 +477,16 @@ def _bwd_f2_cuda(g, f1, max_displacement, stride, kernel="rule"):
                 g, f1, gf2, f1, max_displacement, stride)
         common.launches["correlation_bwd_f2"] += 1
     else:
-        _launch("correlation_bwd_f2", library().odek_correlation_bwd_f2, g,
-                f1, gf2, f1, max_displacement, stride)
+        plan = simt_plan(*f1.shape, max_displacement, stride,
+                         f1.dtype)["correlation_bwd_f2"]
+        if plan.kernel == "pairs":
+            _launch("correlation_bwd_f2_pairs",
+                    library().odek_correlation_bwd_f2_pairs, g, f1, gf2, f1,
+                    max_displacement, stride, plan)
+            common.launches["correlation_bwd_f2"] += 1
+        else:
+            _launch("correlation_bwd_f2", library().odek_correlation_bwd_f2,
+                    g, f1, gf2, f1, max_displacement, stride, plan)
     return gf2
 
 

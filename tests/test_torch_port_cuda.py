@@ -7,7 +7,9 @@ the rule sends to the two-pass kernels, correlation windows at stride 1,
 H != W, C not a
 multiple of 32 and d > H, the tensor-core K5-K7 against the SIMT ones
 and fp64 at maps of at most 64 pixels and the shapes the rule sends to
-SIMT, channelnorm at C = 1, 2, 3 and 64 and bit-equal to the plain
+SIMT, the SIMT K5 and K7 forced at every correlation shape (the highres
+trainer's maps, odd maps with C = 40, the label features) and 20 calls of
+them bit-equal, channelnorm at C = 1, 2, 3 and 64 and bit-equal to the plain
 version at FlowNet2's maps, the checks that make a wrapper raise, and one
 step of each Moving MNIST recurrent block (ConvGRU, cgrudecODE, the
 memory modes nru and nru2, the sampled z0) at its full width, fp32 and
@@ -492,10 +494,15 @@ def test_refused_gru_shapes_take_the_two_pass_kernel(cuda, refused):
 
 # (B, H, W, C, max_displacement, stride): ragged C, H != W, stride 1,
 # d > H, every window overlapping (d <= H/2, stride 1), the FlowNetC bench
-# geometry, and the FlyingChairs feature shape.
+# geometry, the FlyingChairs feature shape, then the SIMT K5 and K7's
+# shapes: the highres trainer's maps at B=2, odd maps with C = 40 (parity
+# classes of 21 and 20 rows, 29 and 28 columns), and the S3VAE label
+# features.
+CORR_SIMT_SHAPES = [(2, 40, 56, 256, 20, 2), (2, 41, 57, 40, 20, 2),
+                    (156, 8, 8, 256, 20, 2)]
 CORR_SHAPES = [(2, 5, 7, 19, 2, 1), (3, 6, 4, 40, 3, 2), (2, 3, 5, 33, 4, 1),
                (1, 8, 8, 16, 4, 1), (2, 8, 8, 256, 20, 2),
-               (2, 48, 64, 256, 20, 2)]
+               (2, 48, 64, 256, 20, 2), *CORR_SIMT_SHAPES]
 
 
 def _corr_inputs(gen, shape, dtype):
@@ -531,6 +538,45 @@ def test_correlation_kernels_match_plain(cuda, shape, dtype):
         else:
             assert torch.equal(outs[1], refs[1])
             assert torch.equal(outs[2], refs[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CORR_SHAPES)
+def test_simt_correlation_kernels_match_plain(cuda, shape, dtype):
+    """The SIMT K5 and K7 at every shape, whatever the rule says (in bf16
+    the bench geometry and the label features would take the tensor
+    cores): one launch each under the wrappers' counters, fp32 within 1e-5
+    of fp64, bf16 K5 within 1e-4 relative L2 and K7 bit-equal to the bf16
+    plain versions."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    common.reset_launches()
+    fwd = _correlation_fwd_simt(f1, f2, d, stride)
+    gf2 = _correlation_bwd_f2_simt(g, f1, d, stride)
+    torch.cuda.synchronize()
+    assert common.launches["correlation_fwd"] == 1
+    assert common.launches["correlation_bwd_f2"] == 1
+    assert common.launches["correlation_fwd_tc"] == 0
+    assert common.launches["correlation_bwd_f2_tc"] == 0
+    if dtype == torch.float32:
+        a, b, gg = (t.double() for t in (f1, f2, g))
+        assert _max_abs(fwd, correlation_fwd_plain(a, b, d, stride)) <= 1e-5
+        assert _max_abs(gf2, correlation_bwd_f2_plain(gg, a, d,
+                                                      stride)) <= 1e-5
+    else:
+        assert _rel_l2(fwd, correlation_fwd_plain(f1, f2, d, stride)) <= 1e-4
+        assert torch.equal(gf2, correlation_bwd_f2_plain(g, f1, d, stride))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_simt_correlation_is_bit_reproducible(cuda, dtype):
+    """20 calls of the SIMT K5 and K7 at the highres trainer's maps (B=2)
+    give the same bits: one fixed order of summation, no atomics."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, (2, 40, 56, 256, 20, 2), dtype)
+    fwd = _correlation_fwd_simt(f1, f2, d, stride)
+    gf2 = _correlation_bwd_f2_simt(g, f1, d, stride)
+    for _ in range(20):
+        assert torch.equal(fwd, _correlation_fwd_simt(f1, f2, d, stride))
+        assert torch.equal(gf2, _correlation_bwd_f2_simt(g, f1, d, stride))
 
 
 def _takes_tc(f1, f2, d, stride) -> bool:
