@@ -32,7 +32,8 @@ without printing its last line:
    at the FlowNetC bench shape (features (256, 8, 8, 256), d=20, stride 2)
    and the FlyingChairs feature shape (8, 48, 64, 256), in fp32 and bf16
    (bf16 SIMT K6 and K7 bit-equal to their plain versions, K5 and the
-   tensor-core K6 and K7 to 1e-4 relative L2); each shape and dtype
+   tensor-core K6 and K7 to 1e-4 relative L2; every SIMT call 20 times
+   bit-equal to the first); each shape and dtype
    routed as tc_plan says (the bench shape in bf16 to the tensor-core
    K5-K7, the rest to SIMT). At the bench shape in bf16 the tensor-core
    K5-K7, the SIMT ones and the plain versions against fp64 of the same
@@ -218,7 +219,8 @@ without printing its last line:
     the mean EPE of the last 10 below that of the first 10) and K5-K7 at
     its features (8, 40, 56, 256) alone against their plain versions
     (1e-5 max abs), 20 calls bit-equal, with median ms, device µs, bound
-    and the share of it reached, and a profiled step; ``defaults`` +
+    and the share of it reached, each row naming its SIMT kernel, and a
+    profiled step; ``defaults`` +
     ``train_mmnist_recon_s3vae``
     with ``--flow_label_source flownet`` and the trained weights through
     ``ode_rl_torch.main`` (4 steps on phase 10's corpus; labels in {0, 1};
@@ -226,13 +228,13 @@ without printing its last line:
     labels through the kernels against ``force_plain()`` (the upsampled
     flow 1e-4 max abs, the labels equal on every cell more than 1e-4 from
     its k-th value), a profiled labelled step, and K5 at the labels'
-    (156, 8, 8, 256) alone; K5 and K7 alone likewise at FlyingChairs'
+    (156, 8, 8, 256) alone; K5-K7 alone likewise at FlyingChairs'
     features (8, 48, 64, 256) in fp32 and bf16 (bf16 K5 1e-4 relative L2,
-    K7 bit-equal) and the FlowNetC trainers' (8, 8, 8, 256) in fp32, each
-    row naming its SIMT kernel (tiles, or the pair view on maps of at most
-    32 cells a class); ``ode_rl_torch.get_labels_from_pred_flow`` on
-    the corpus's train split ((16, 100, 9), row 0 zero, at least 3 ones
-    in every other row). Each path's launches (``phase15_launches``) and
+    K6 and K7 bit-equal) and the FlowNetC trainers' (8, 8, 8, 256) in
+    fp32, each row naming its SIMT kernel (tiles, or the pair view on maps
+    of at most 32 cells a class);
+    ``ode_rl_torch.get_labels_from_pred_flow`` on the corpus's train
+    split ((16, 100, 9), row 0 zero, at least 3 ones in every other row). Each path's launches (``phase15_launches``) and
     the new shapes' rows (``phase15_shapes``) go into the kernels line.
 16. the evaluation tools and the last helpers, fp32:
     ``ode_rl_torch.make_frozen_mmnist --videos 256 --frames 200
@@ -1040,6 +1042,10 @@ def _check_flow_kernels(gen) -> dict:
                     metric = max_abs if kind == "max_abs" else rel_l2
                     check(f"{name} {label} {str(dtype)[6:]}",
                           metric(out, ref), tol, kind)
+                    if not tc:
+                        check(f"{name} {label} {str(dtype)[6:]}: 20 calls",
+                              float(sum(not torch.equal(out, fn())
+                                        for _ in range(20))), 0.0, "unequal")
                     # The tensor-core K5-K7 are timed beside the SIMT ones
                     # in _check_corr_tc.
                     if dtype == torch.bfloat16 and not tc:
@@ -3251,13 +3257,17 @@ def _counted(fn):
 
 
 def _check_simt_corr(counts: dict, names, where: str) -> None:
-    """Each of ``names`` launched, and no K5-K7 launch on the tensor
-    cores (fp32)."""
+    """Each of ``names`` launched, no K5-K7 launch on the tensor cores
+    (fp32), and each kernel's pair-view launches ("<name>_pairs", on maps
+    of at most 32 cells a class) among its launches."""
     missing = [k for k in names if counts[k] == 0]
     tc = {k: counts[f"{k}_tc"] for k in CORR_TC if counts[f"{k}_tc"]}
-    if missing or tc:
+    pairs = {k: counts[f"{k}_pairs"] for k in CORR_TC
+             if counts[f"{k}_pairs"] > counts[k]}
+    if missing or tc or pairs:
         raise AssertionError(f"{where}: not launched {missing}, tensor-core "
-                             f"launches {tc}: {counts}")
+                             f"launches {tc}, pair-view launches beyond the "
+                             f"kernel's {pairs}: {counts}")
 
 
 def _profiled(fn) -> dict:
@@ -3354,9 +3364,9 @@ def _corr_bounds(shape, dtype=torch.float32) -> dict:
     }
 
 
-# K5 and K7, whose SIMT kernels take tiles or, on maps of at most 32
-# cells a class, the pair view (counted apart as "<name>_pairs").
-SIMT_CORR = ("correlation_fwd", "correlation_bwd_f2")
+# K5-K7, whose SIMT kernels take tiles or, on maps of at most 32 cells a
+# class, the pair view (counted apart as "<name>_pairs").
+SIMT_CORR = ("correlation_fwd", "correlation_bwd_f1", "correlation_bwd_f2")
 
 
 def _corr_alone(shape, names, gen, dtype=torch.float32) -> dict:
@@ -3365,7 +3375,7 @@ def _corr_alone(shape, names, gen, dtype=torch.float32) -> dict:
     relative L2, K6 and K7 bit-equal), 20 calls bit-equal to the first,
     median ms of the kernel and the plain version, device µs a call, the
     bound and the share of it reached, and the SIMT kernel the call took
-    (K5 and K7: tiles, or the pair view; K6: its gather)."""
+    (tiles, or the pair view)."""
     label = str(dtype)[6:]
     bounds = _corr_bounds(shape, dtype)
     rows = {}
@@ -3375,8 +3385,7 @@ def _corr_alone(shape, names, gen, dtype=torch.float32) -> dict:
             fn = ops[name]
             common.reset_launches()
             out = fn()
-            route = ("pairs" if common.launches.get(f"{name}_pairs") else
-                     "tiles" if name in SIMT_CORR else "gather")
+            route = "pairs" if common.launches[f"{name}_pairs"] else "tiles"
             if common.launches[f"{name}_tc"]:
                 raise AssertionError(f"{name} {shape} {label}: took the "
                                      f"tensor cores")

@@ -24,12 +24,12 @@
 // highres trainer's features (8, 40, 56, 256), d = 20, stride 2, fp32, the
 // 4.7 M in-map (pixel, displacement) pairs are 2.43 GFLOP: operations,
 // 36.24 us at the 67 TFLOP/s of the fp32 units. Read window by window,
-// every f2 pixel comes from L2 once for each of the up to 441 output
-// pixels whose window covers it, about 4.7 GB a call: the first SIMT K5
-// and K7, which did so, took 879-1015 us there (PERF.md). The SIMT K5 and
-// K7 below stage each feature pixel in shared memory once a tile and
-// reuse it from registers; what holds them now is shared-memory and
-// issue bandwidth (about 15-20% of the fp32 rate at highres).
+// every feature pixel comes from L2 once for each of the up to 441 output
+// pixels whose window covers it, about 4.7 GB a call: the first SIMT
+// K5-K7, which did so, took 636-1015 us there (PERF.md). The SIMT K5-K7
+// below stage each feature pixel in shared memory once a tile and reuse
+// it from registers; what holds them now is shared-memory and issue
+// bandwidth (about 12-20% of the fp32 rate at highres).
 //
 // K5, K6 and K7 have two kernels each; ops/correlation.py::tc_plan picks
 // one.
@@ -42,7 +42,7 @@
 //   SIMT kernels' 96, 89 and 103 (H100, PERF.md).
 // * The SIMT kernels (everything else, fp32 included, so fp32 stays strict
 //   fp32 FFMA on the CUDA cores), with tiles from
-//   ops/correlation.py::simt_plan (section "SIMT K5 and K7" below):
+//   ops/correlation.py::simt_plan (section "SIMT K5-K7" below):
 //   K5 (corr_fwd_simt_kernel): parity classes; a tile of 2 rows of f1
 //       cells and its partner rows staged 32 channels at a time,
 //       double-buffered by cp.async; each thread keeps 2 rows x 4 cells x
@@ -51,9 +51,17 @@
 //       block's outputs, zeros included, are staged and written a pixel's
 //       run at a time. On maps of at most 32 cells a class,
 //       corr_fwd_pairs_kernel takes every (cell, partner) pair instead.
-//   K6 (corr_bwd_f1_kernel): a gather, one thread per (b, y, x, c): sum
-//       over the in-bounds displacements of g[b,y,x,i] * f2[b, y+oy, x+ox,
-//       c], / C.
+//   K6 (corr_bwd_f1_simt_kernel): a gather per parity class: a tile of
+//       f1 cells walks its halo of f2 partner rows from the first to the
+//       last, each row's f2 channels and the cotangent entries the tile
+//       needs staged by cp.async, double-buffered (bf16 f2 stays bf16 in
+//       shared memory, 16 bytes a copy, and is widened on the read); each
+//       thread keeps a 4-cell x 16-channel micro-tile (a float4 of the
+//       pair matrix and 16 channels of f2 for 64 FFMAs). Every output adds
+//       its displacements in increasing i, as correlation_bwd_f1_plain
+//       does. On maps of at most 32 cells a class,
+//       corr_bwd_f1_pairs_kernel walks a whole class's partners in the
+//       same order.
 //   K7 (corr_bwd_f2_simt_kernel): the TPU kernel scatters into overlapping
 //       windows of the padded f2, which needs atomics on a GPU. Here it is
 //       a gather: a tile of f2 cells walks its halo of source rows from
@@ -90,24 +98,9 @@ using odek::wgmma_fence;
 using odek::wgmma_m64n64k16;
 using odek::wgmma_wait_all;
 
-constexpr int kThreads = 256;
-
 struct CorrShape {
   int B, H, W, C, d, stride, n;
 };
-
-__device__ __forceinline__ int ceil_div_pos(int a, int b) {
-  return a > 0 ? (a + b - 1) / b : 0;
-}
-
-// Displacement indices [lo, hi] along one axis for which the window pixel
-// p + i*stride - d of output pixel p lies in [0, size).
-__device__ __forceinline__ void window_range(int p, int size,
-                                             const CorrShape& s, int& lo,
-                                             int& hi) {
-  lo = ceil_div_pos(s.d - p, s.stride);
-  hi = min(s.n - 1, (size - 1 - p + s.d) / s.stride);
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
@@ -133,7 +126,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// SIMT K5 and K7: parity classes, shared-memory halo tiles, register
+// SIMT K5-K7: parity classes, shared-memory halo tiles, register
 // micro-tiles.
 //
 // Parity classes. Every offset i*stride - d is congruent to -d modulo the
@@ -146,11 +139,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // the highres trainer's (40, 56) features, d = 20, stride 2. A tile of
 // class cells and its halo of partner cells are then dense rectangles.
 //
-// Both kernels stage fp32 in shared memory (bf16 inputs are widened on
-// the way), multiply and add with FFMA in fp32 (no tensor cores, no TF32),
-// sum each output in one fixed order with no atomics, divide by C once and
-// round once to the input dtype. ops/correlation.py::simt_plan picks the
-// tiles and the launch.
+// K5 and K7 stage fp32 in shared memory (bf16 inputs are widened on the
+// way); K6 keeps bf16 features as bf16 there, copied 16 bytes at a time,
+// and widens them on the read. All multiply and add with FFMA in fp32 (no
+// tensor cores, no TF32), sum each output in one fixed order with no
+// atomics, divide by C once and round once to the input dtype.
+// ops/correlation.py::simt_plan picks the tiles and the launch.
 // ---------------------------------------------------------------------------
 
 // One axis of a parity class: cells of class r in a map `size` wide, and
@@ -193,7 +187,7 @@ constexpr int kFwdCK = 32;   // K5: channels a chunk
 constexpr int kFwdCKP = 36;  // K5: a staged pixel's pitch in floats
 constexpr int kPairCells = 32;  // K5: most cells of a class for the pair view
 constexpr int kPairQ = 4;    // K5, pair view: partner cells a thread
-constexpr int kBwdS = 16;    // K7: channels a micro-tile (four float4s)
+constexpr int kBwdS = 16;    // K6, K7: channels a micro-tile
 
 // K5's tile: kFwdRows x tx cells of an f1 class (tx a multiple of kSimtR)
 // and ny consecutive displacement rows.
@@ -207,7 +201,8 @@ struct PairTile {
   int units, ck;
 };
 
-// K7's tile: ty x tx cells of an f2 class and 16 * ncg channels.
+// K6's and K7's tile: ty x tx cells of an f1 (K6) or f2 (K7) class and
+// 16 * ncg channels.
 struct BwdTile {
   int ty, tx, ncg;
 };
@@ -268,42 +263,49 @@ __host__ __device__ __forceinline__ int pair_plane(const CorrShape& s) {
   return 2 * div_up(pair_cells(s), 4) * 4 + 4;
 }
 
-// One K7 stage: a halo row of f1 (tx + n - 1 pixels, 16 * ncg channels)
-// and its cotangent entries for the tile, (ty, tx + n - 1, tx).
-__host__ __device__ __forceinline__ long long bwd_stage_floats(
-    const BwdTile& t, int n) {
+// One K6 or K7 stage in bytes: a halo row of features (tx + n - 1
+// pixels, 16 * ncg channels of `size` bytes: K7 widens bf16 to fp32, K6
+// keeps it) and the tile's fp32 pair matrix, (ty, tx + n - 1, tx). A
+// multiple of 16.
+__host__ __device__ __forceinline__ long long bwd_stage_bytes(
+    const BwdTile& t, int n, int size) {
   const long long hw = (long long)t.tx + n - 1;
-  return hw * 16 * t.ncg + t.ty * hw * t.tx;
+  return hw * 16 * t.ncg * size + 4LL * t.ty * hw * t.tx;
 }
 
 // Channels [c0, c0 + width) of `count` pixels into shared memory: pixel j
-// from src + j*step (src at channel c0) to dst + slot(j)*pitch floats;
-// channels at or past c_end (C - c0) are zeros. kVec (fp32, C and width
-// multiples of 4, 16-byte aligned): one 16-byte cp.async a float4; else
-// a 4-byte cp.async a float (fp32), or a load widened to fp32 and stored
-// (bf16). Every thread of the block takes part.
-template <typename T, bool kVec, typename Slot>
-__device__ __forceinline__ void stage_pixels(float* dst, int pitch,
-                                             const T* src, long long step,
-                                             int count, int width, int c_end,
+// from src + j*step (src at channel c0) to dst + slot(j)*pitch elements of
+// D (fp32, or T itself); channels at or past c_end (C - c0) are zeros.
+// kVec (D = T, C and width multiples of a 16-byte unit's elements, 16-byte
+// aligned): one 16-byte cp.async a unit; else a 4-byte cp.async a float
+// (fp32), or a load, widened to fp32 where D is, and a store (bf16). Every
+// thread of the block takes part.
+template <typename T, bool kVec, typename D, typename Slot>
+__device__ __forceinline__ void stage_pixels(D* dst, int pitch, const T* src,
+                                             long long step, int count,
+                                             int width, int c_end,
                                              Slot slot) {
-  const int per = kVec ? width / 4 : width;
+  static_assert(!kVec || std::is_same_v<T, D>, "16-byte copies do not widen");
+  constexpr int kUnit = kVec ? 16 / (int)sizeof(D) : 1;  // elements a copy
+  const int per = width / kUnit;
   for (int e = threadIdx.x; e < count * per; e += blockDim.x) {
     const int j = e / per;
-    const int c = (kVec ? 4 : 1) * (e - j * per);
-    float* to = dst + slot(j) * pitch + c;
+    const int c = kUnit * (e - j * per);
+    D* to = dst + slot(j) * pitch + c;
     if (c >= c_end) {
       if constexpr (kVec) {
-        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
       } else {
-        *to = 0.f;
+        *to = from_f32<D>(0.f);
       }
     } else if constexpr (kVec) {
       cp_async16(smem_u32(to), src + j * step + c);
     } else if constexpr (std::is_same_v<T, float>) {
       cp_async4(smem_u32(to), src + j * step + c);
-    } else {
+    } else if constexpr (std::is_same_v<D, float>) {
       *to = to_f32(src[j * step + c]);
+    } else {
+      *to = src[j * step + c];
     }
   }
 }
@@ -313,36 +315,6 @@ __device__ __forceinline__ void zero_shared(float* p, int count) {
   for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x) {
     *reinterpret_cast<float4*>(p + i) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// g (B, H, W, n*n), f2 (B, H, W, C) -> gf1 (B, H, W, C); one thread per
-// element of gf1.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    corr_bwd_f1_kernel(const T* __restrict__ g, const T* __restrict__ f2,
-                       T* __restrict__ gf1, CorrShape s) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)s.B * s.H * s.W * s.C) return;
-  const int c = (int)(t % s.C);
-  const long long pix = t / s.C;
-  const int x = (int)(pix % s.W);
-  const int y = (int)((pix / s.W) % s.H);
-  const long long b = pix / ((long long)s.H * s.W);
-  const T* gp = g + pix * s.n * s.n;
-  const T* f2b = f2 + b * s.H * s.W * s.C + c;
-  int iy0, iy1, ix0, ix1;
-  window_range(y, s.H, s, iy0, iy1);
-  window_range(x, s.W, s, ix0, ix1);
-  float acc = 0.f;
-  for (int iy = iy0; iy <= iy1; ++iy) {
-    const int yy = y + iy * s.stride - s.d;
-    for (int ix = ix0; ix <= ix1; ++ix) {
-      const int xx = x + ix * s.stride - s.d;
-      acc += to_f32(gp[iy * s.n + ix]) *
-             to_f32(f2b[((long long)yy * s.W + xx) * s.C]);
-    }
-  }
-  gf1[t] = from_f32<T>(acc / (float)s.C);
 }
 
 // One element of a K5 pair-view stage: fp32 by a 4-byte cp.async, bf16
@@ -687,6 +659,67 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
   }
 }
 
+// One 16-byte unit of a staged feature pixel, widened to fp32: 4 fp32 or
+// 8 bf16 channels.
+__device__ __forceinline__ void load_unit(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+__device__ __forceinline__ void load_unit(const __nv_bfloat16* p,
+                                          float (&v)[8]) {
+  // A bf16 value is the upper half of its fp32 value; element 0 is the
+  // low half of the first word.
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// A K6 or K7 thread's kP outputs, pix_step pixels apart (the first
+// `cells` of them in the map), channels c0 + kUnit*cg + kUnit*ncg*u + e
+// (e < kUnit) from acc[p][kUnit*u + e], divided by C and rounded once:
+// 16 bytes a store where kVec (C a multiple of kUnit, 16-byte aligned),
+// else an element a store within C.
+template <typename T, bool kVec, int kUnit, int kP>
+__device__ __forceinline__ void store_micro_tile(
+    T* out, const float (&acc)[kP][kBwdS], long long pix0,
+    long long pix_step, int cells, const CorrShape& s, int c0, int cg,
+    int ncg) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if (p >= cells) continue;
+    T* o = out + (pix0 + p * pix_step) * s.C;
+#pragma unroll
+    for (int u = 0; u < kBwdS / kUnit; ++u) {
+      const int c = c0 + kUnit * cg + kUnit * ncg * u;
+      if constexpr (kVec) {
+        if (c < s.C) {
+          alignas(16) T v[kUnit];
+#pragma unroll
+          for (int e = 0; e < kUnit; ++e) {
+            v[e] = from_f32<T>(acc[p][kUnit * u + e] / (float)s.C);
+          }
+          *reinterpret_cast<uint4*>(o + c) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kUnit; ++e) {
+          if (c + e < s.C) {
+            o[c + e] = from_f32<T>(acc[p][kUnit * u + e] / (float)s.C);
+          }
+        }
+      }
+    }
+  }
+}
+
 // K7's halo row hr (source row py0 + hr) into one stage at buf: f1's
 // channels [c0, c0 + 16*ncg) of the halo columns in the map at pixel hx
 // (pitch 16*ncg), then M[tyl][hx][qxl] = g[source (hr, hx), iy*n + ix]
@@ -745,7 +778,7 @@ __device__ __forceinline__ void bwd_stage(float* buf, const T* g, const T* f1,
 
 // K7, SIMT: g (B, H, W, n*n), f1 (B, H, W, C) -> gf2 (B, H, W, C). Grid
 // (stride^2 x ytiles x xtiles x channel slices, B); 2 *
-// bwd_stage_floats(t, n) floats of dynamic shared memory.
+// bwd_stage_bytes(t, n, 4) bytes of dynamic shared memory.
 //
 // A block takes ty x tx cells of one f2 class and 16*ncg channels. Its
 // sources are the (ty + n - 1) x (tx + n - 1) halo of the f1 class whose
@@ -811,7 +844,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
     for (int c = 0; c < kBwdS; ++c) acc[p][c] = 0.f;
 
   if (hr_lo <= hr_hi && hx_lo <= hx_hi) {
-    const int stage = (int)bwd_stage_floats(t, s.n);
+    const int stage = (int)bwd_stage_bytes(t, s.n, 4) / 4;  // floats
     zero_shared(smem, 2 * stage);
     __syncthreads();
     bwd_stage<T, kVec>(smem, g, f1, s, t, ay, ax, qy0, qx0, py0, px0, hx_lo,
@@ -854,32 +887,10 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
   }
 
   if (!mine) return;
-  // Channel c0 + 4*cg + 4*ncg*u + e is acc[p][4u + e].
-  const long long row = (b * s.H + ay.r2 + s.stride * (qy0 + tyl)) * s.W;
-#pragma unroll
-  for (int p = 0; p < kSimtR; ++p) {
-    const int qx = qx0 + q0 + p;
-    if (qx >= ax.cells2) continue;
-    T* o = gf2 + (row + ax.r2 + s.stride * qx) * s.C;
-#pragma unroll
-    for (int u = 0; u < kBwdS / 4; ++u) {
-      const int c = c0 + 4 * cg + 4 * t.ncg * u;
-      if constexpr (kVec) {
-        if (c < s.C) {
-          *reinterpret_cast<float4*>(o + c) = make_float4(
-              acc[p][4 * u] / (float)s.C, acc[p][4 * u + 1] / (float)s.C,
-              acc[p][4 * u + 2] / (float)s.C, acc[p][4 * u + 3] / (float)s.C);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (c + e < s.C) {
-            o[c + e] = from_f32<T>(acc[p][4 * u + e] / (float)s.C);
-          }
-        }
-      }
-    }
-  }
+  const long long pix0 = (b * s.H + ay.r2 + s.stride * (qy0 + tyl)) * s.W +
+                         ax.r2 + s.stride * (qx0 + q0);
+  store_micro_tile<T, kVec, 4>(gf2, acc, pix0, s.stride,
+                               ax.cells2 - qx0 - q0, s, c0, cg, t.ncg);
 }
 
 // K7, SIMT, on maps whose classes have at most kPairCells cells: the pair
@@ -945,9 +956,9 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
   const int cg = threadIdx.x % ncg;
   const int q = threadIdx.x / ncg;
   if (q >= nq) return;
-  float acc[kBwdS];
+  float acc[1][kBwdS];
 #pragma unroll
-  for (int c = 0; c < kBwdS; ++c) acc[c] = 0.f;
+  for (int c = 0; c < kBwdS; ++c) acc[0][c] = 0.f;
   const float* mq = m + q * cells;
   for (int p = np - 1; p >= 0; --p) {
     const float mv = mq[p];
@@ -955,43 +966,314 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
 #pragma unroll
     for (int u = 0; u < kBwdS / 4; ++u) {
       const float4 fv = *reinterpret_cast<const float4*>(fp + 4 * ncg * u);
-      acc[4 * u] = fmaf(mv, fv.x, acc[4 * u]);
-      acc[4 * u + 1] = fmaf(mv, fv.y, acc[4 * u + 1]);
-      acc[4 * u + 2] = fmaf(mv, fv.z, acc[4 * u + 2]);
-      acc[4 * u + 3] = fmaf(mv, fv.w, acc[4 * u + 3]);
+      acc[0][4 * u] = fmaf(mv, fv.x, acc[0][4 * u]);
+      acc[0][4 * u + 1] = fmaf(mv, fv.y, acc[0][4 * u + 1]);
+      acc[0][4 * u + 2] = fmaf(mv, fv.z, acc[0][4 * u + 2]);
+      acc[0][4 * u + 3] = fmaf(mv, fv.w, acc[0][4 * u + 3]);
     }
   }
   const long long pix = (b * s.H + ay.r2 + s.stride * (q / ax.cells2)) * s.W +
                         ax.r2 + s.stride * (q % ax.cells2);
-  T* o = gf2 + pix * s.C;
+  store_micro_tile<T, kVec, 4>(gf2, acc, pix, 0, 1, s, c0, cg, ncg);
+}
+
+// K6's halo row hr (partner row py0 + hr of the partner class) into one
+// stage: f2's channels [c0, c0 + 16*ncg) of the halo columns in the map at
+// fs + hx * 16*ncg (in T), then the pair matrix M[tyl][hx][qxl] =
+// g[tile cell (tyl, qxl), iy*n + ix] at m, iy = hr - tyl, ix = hx - qxl,
+// for the tile rows whose iy is a displacement row and every (qxl, ix)
+// whose hx lies in [hx_lo, hx_hi]: a cell's run of n cotangent entries for
+// displacement row iy, contiguous in g. Entries of M off that band are
+// left as they are (zeros).
+template <typename T, bool kVec>
+__device__ __forceinline__ void bwd_f1_stage(T* fs, float* m, const T* g,
+                                             const T* f2, const CorrShape& s,
+                                             const BwdTile& t,
+                                             const ClassAxis& ay,
+                                             const ClassAxis& ax, int qy0,
+                                             int qx0, int py0, int px0,
+                                             int hx_lo, int hx_hi, int hr,
+                                             long long b, int c0) {
+  const int hw = t.tx + s.n - 1;
+  const int cs = 16 * t.ncg;
+  const int nd = s.n * s.n;
+  const long long row2 = (b * s.H + ay.r2 + s.stride * (py0 + hr)) * s.W;
+  stage_pixels<T, kVec>(
+      fs + hx_lo * cs, cs,
+      f2 + (row2 + ax.r2 + s.stride * (px0 + hx_lo)) * s.C + c0,
+      (long long)s.stride * s.C, hx_hi - hx_lo + 1, cs, s.C - c0,
+      [](int j) { return j; });
+  const int ncell = imin(t.ty, ay.cells - qy0) * imin(t.tx, ax.cells - qx0);
+  const int q_end = imin(t.tx, ax.cells - qx0);  // tile columns in the map
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  // A warp a tile cell, a lane a displacement column; bf16 is loaded and
+  // widened by the threads, kBatch cells' loads in flight before their
+  // stores (fp32 goes by cp.async).
+  constexpr int kBatch = std::is_same_v<T, float> ? 1 : 4;
+  for (int cell0 = threadIdx.x / 32; cell0 < ncell;
+       cell0 += kBatch * warps) {
+    for (int ix0 = 0; ix0 < s.n; ix0 += 32) {
+      float v[kBatch];
+      int at[kBatch];  // M's entry, or -1
 #pragma unroll
-  for (int u = 0; u < kBwdS / 4; ++u) {
-    const int c = c0 + 4 * cg + 4 * ncg * u;
-    if constexpr (kVec) {
-      if (c < s.C) {
-        *reinterpret_cast<float4*>(o + c) = make_float4(
-            acc[4 * u] / (float)s.C, acc[4 * u + 1] / (float)s.C,
-            acc[4 * u + 2] / (float)s.C, acc[4 * u + 3] / (float)s.C);
+      for (int k = 0; k < kBatch; ++k) {
+        at[k] = -1;
+        const int cell = cell0 + k * warps;
+        const int tyl = cell / q_end;
+        const int qxl = cell - tyl * q_end;
+        const int iy = hr - tyl;
+        const int ix = ix0 + lane;
+        if (cell >= ncell || iy < 0 || iy >= s.n || ix >= s.n ||
+            qxl + ix < hx_lo || qxl + ix > hx_hi) {
+          continue;
+        }
+        const T* src = g + ((b * s.H + ay.r + s.stride * (qy0 + tyl)) * s.W +
+                            ax.r + s.stride * (qx0 + qxl)) * nd +
+                       (long long)iy * s.n + ix;
+        at[k] = (tyl * hw + qxl + ix) * t.tx + qxl;  // hx = qxl + ix
+        if constexpr (std::is_same_v<T, float>) {
+          cp_async4(smem_u32(m + at[k]), src);
+        } else {
+          v[k] = to_f32(*src);
+        }
       }
-    } else {
+      if constexpr (!std::is_same_v<T, float>) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (c + e < s.C) o[c + e] = from_f32<T>(acc[4 * u + e] / (float)s.C);
+        for (int k = 0; k < kBatch; ++k) {
+          if (at[k] >= 0) m[at[k]] = v[k];
+        }
       }
     }
   }
+}
+
+// K6, SIMT: g (B, H, W, n*n), f2 (B, H, W, C) -> gf1 (B, H, W, C). Grid
+// (stride^2 x ytiles x xtiles x channel slices, B); 2 *
+// bwd_stage_bytes(t, n, sizeof(T)) bytes of dynamic shared memory.
+//
+// A block takes ty x tx cells of one f1 class and 16*ncg channels. Their
+// partners are the (ty + n - 1) x (tx + n - 1) halo of the partner class
+// from cell (py0, px0) on: tile cell (tyl, qxl) meets halo cell (hr, hx)
+// at displacement (hr - tyl, hx - qxl). The block walks the halo rows
+// from the first to the last, double-buffered: each row's f2 channels and
+// the cotangent entries that meet it (the pair matrix M) are staged by
+// cp.async (bf16 f2 as bf16, 16 bytes a copy where aligned; bf16 g widened
+// by the threads). A thread keeps a micro-tile of kSimtR outputs along x
+// by kBwdS channels; for each partner of its window, from the first to
+// the last, it loads a float4 of M and 16 channels of f2 (four float4s, or
+// two 16-byte units of bf16 widened in registers) for 64 FFMAs. Every
+// output so adds its displacements in increasing i, as the plain version
+// does, and an entry of M off an output's band is an exact zero: a
+// product of two bf16 values is exact in fp32, so the bf16 kernel is
+// bit-equal to correlation_bwd_f1_plain. Outputs with no partner in the
+// map are written as zeros. No atomics; one fixed order.
+//
+// On the H100 (ptxas, CUDA 12.8, -O3): 126-128 registers a thread, no
+// spills but for the bf16 kernel with 16-byte copies (8 bytes, in the
+// staging of g: four cells' loads in flight ran faster on the card than
+// two, which spill nothing). At the highres and FlyingChairs maps the
+// plan's 4 x 16 cells by 256 channels take 92,160 bytes of shared memory
+// (fp32) or 55,296 (bf16) and 256 threads: two blocks an SM.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSimtMaxThreads, 2)
+    corr_bwd_f1_simt_kernel(const T* __restrict__ g,
+                            const T* __restrict__ f2, T* __restrict__ gf1,
+                            CorrShape s, BwdTile t) {
+  constexpr int kUnit = 16 / (int)sizeof(T);  // channels a 16-byte unit
+  extern __shared__ float4 smem_f4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f4);
+  const int cs = 16 * t.ncg;
+  const int ytiles = div_up(div_up(s.H, s.stride), t.ty);
+  const int xtiles = div_up(div_up(s.W, s.stride), t.tx);
+  const int slices = div_up(s.C, cs);
+  int bx = blockIdx.x;
+  const int sl = bx % slices;
+  bx /= slices;
+  const int xt = bx % xtiles;
+  bx /= xtiles;
+  const int yt = bx % ytiles;
+  const int cls = bx / ytiles;
+  const ClassAxis ay = class_axis(cls / s.stride, s.H, s);
+  const ClassAxis ax = class_axis(cls % s.stride, s.W, s);
+  const int qy0 = yt * t.ty, qx0 = xt * t.tx;
+  if (qy0 >= ay.cells || qx0 >= ax.cells) return;  // the whole block
+  const long long b = blockIdx.y;
+  const int c0 = sl * cs;
+  const int hw = t.tx + s.n - 1;
+  const int rows = imin(t.ty, ay.cells - qy0);
+  const int q_end = imin(t.tx, ax.cells - qx0);
+  const int py0 = qy0 + ay.k, px0 = qx0 + ax.k;
+  // The halo rows and columns in the map that some tile cell meets.
+  const int hr_lo = max(0, -py0);
+  const int hr_hi = min(rows + s.n - 2, ay.cells2 - 1 - py0);
+  const int hx_lo = max(0, -px0);
+  const int hx_hi = min(q_end + s.n - 2, ax.cells2 - 1 - px0);
+
+  const int cg = threadIdx.x % t.ncg;
+  const int qxg = (threadIdx.x / t.ncg) % (t.tx / kSimtR);
+  const int tyl = threadIdx.x / (t.ncg * (t.tx / kSimtR));
+  const int q0 = kSimtR * qxg;
+  const bool mine = tyl < rows && q0 < q_end;
+  // The partners of this thread's outputs: halo columns [q0, q0 + n + 2].
+  const int my_lo = max(q0, hx_lo);
+  const int my_hi = min(q0 + s.n + kSimtR - 2, hx_hi);
+
+  float acc[kSimtR][kBwdS];
+#pragma unroll
+  for (int p = 0; p < kSimtR; ++p)
+#pragma unroll
+    for (int c = 0; c < kBwdS; ++c) acc[p][c] = 0.f;
+
+  if (hr_lo <= hr_hi && hx_lo <= hx_hi) {
+    const int stage = (int)bwd_stage_bytes(t, s.n, sizeof(T));
+    const int m_off = hw * cs * (int)sizeof(T);
+    zero_shared(reinterpret_cast<float*>(smem), 2 * stage / 4);
+    __syncthreads();
+    bwd_f1_stage<T, kVec>(reinterpret_cast<T*>(smem),
+                          reinterpret_cast<float*>(smem + m_off), g, f2, s, t,
+                          ay, ax, qy0, qx0, py0, px0, hx_lo, hx_hi, hr_lo, b,
+                          c0);
+    cp_async_commit();
+    for (int hr = hr_lo, k = 0; hr <= hr_hi; ++hr, ++k) {
+      if (hr < hr_hi) {
+        unsigned char* next = smem + ((k + 1) & 1) * stage;
+        bwd_f1_stage<T, kVec>(reinterpret_cast<T*>(next),
+                              reinterpret_cast<float*>(next + m_off), g, f2,
+                              s, t, ay, ax, qy0, qx0, py0, px0, hx_lo, hx_hi,
+                              hr + 1, b, c0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int iy = hr - tyl;
+      if (mine && iy >= 0 && iy < s.n) {
+        const unsigned char* buf = smem + (k & 1) * stage;
+        const T* fs = reinterpret_cast<const T*>(buf) + kUnit * cg;
+        const float* ms = reinterpret_cast<const float*>(buf + m_off) +
+                          tyl * hw * t.tx + q0;
+        for (int hx = my_lo; hx <= my_hi; ++hx) {
+          const float4 mv = *reinterpret_cast<const float4*>(ms + hx * t.tx);
+          const float mp[kSimtR] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+          for (int u = 0; u < kBwdS / kUnit; ++u) {
+            float v[kUnit];
+            load_unit(fs + hx * cs + kUnit * t.ncg * u, v);
+#pragma unroll
+            for (int p = 0; p < kSimtR; ++p)
+#pragma unroll
+              for (int e = 0; e < kUnit; ++e)
+                acc[p][kUnit * u + e] =
+                    fmaf(mp[p], v[e], acc[p][kUnit * u + e]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (!mine) return;
+  const long long pix0 = (b * s.H + ay.r + s.stride * (qy0 + tyl)) * s.W +
+                         ax.r + s.stride * (qx0 + q0);
+  store_micro_tile<T, kVec, kUnit>(gf1, acc, pix0, s.stride, q_end - q0, s,
+                                   c0, cg, t.ncg);
+}
+
+// K6, SIMT, on maps whose classes have at most kPairCells cells: the pair
+// view. Grid (stride^2 x channel slices, B), a block a (sample, f1 class,
+// 16 * ncg channels) unit, a thread an output cell by kBwdS channels;
+// cells * (16 * ncg * sizeof(T) + 4 * cells) bytes of dynamic shared
+// memory. The block stages the partner class's f2 channels (as the tiles
+// do: bf16 stays bf16) and the pair matrix M[p][q] = g[p, i] for each
+// (output cell p, partner cell q) pair at displacement i (zeros
+// elsewhere); each thread walks the partners from the first to the last,
+// a float of M and 16 channels of f2 for 16 FFMAs. Every output so adds
+// its displacements in increasing i, as correlation_bwd_f1_plain does: the
+// bf16 kernel is bit-equal to it. On the H100: 40-48 registers, no
+// spills; at the trainers' 8 x 8 maps 128 threads and 9,216 bytes (fp32)
+// or 5,120 (bf16) of shared memory a block.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSimtMaxThreads)
+    corr_bwd_f1_pairs_kernel(const T* __restrict__ g,
+                             const T* __restrict__ f2, T* __restrict__ gf1,
+                             CorrShape s, int ncg) {
+  constexpr int kUnit = 16 / (int)sizeof(T);  // channels a 16-byte unit
+  extern __shared__ float4 smem_f4[];
+  const int cs = 16 * ncg;
+  const int cells = pair_cells(s);
+  const int slices = div_up(s.C, cs);
+  const int sl = blockIdx.x % slices;
+  const int cls = blockIdx.x / slices;
+  const ClassAxis ay = class_axis(cls / s.stride, s.H, s);
+  const ClassAxis ax = class_axis(cls % s.stride, s.W, s);
+  const int np = ay.cells * ax.cells;     // outputs
+  const int nq = ay.cells2 * ax.cells2;   // partners
+  if (np == 0) return;
+  const long long b = blockIdx.y;
+  const int c0 = sl * cs;
+  const int nd = s.n * s.n;
+  T* fs = reinterpret_cast<T*>(smem_f4);  // [nq][cs]
+  float* m = reinterpret_cast<float*>(fs + cells * cs);  // [np][cells]
+  for (int i = threadIdx.x; i < np * cells; i += blockDim.x) m[i] = 0.f;
+  __syncthreads();
+  // The partners' channels, a class row at a time, and M at each pair in
+  // the window.
+  for (int qy = 0; qy < ay.cells2; ++qy) {
+    const long long pix = (b * s.H + ay.r2 + s.stride * qy) * s.W + ax.r2;
+    stage_pixels<T, kVec>(fs + qy * ax.cells2 * cs, cs, f2 + pix * s.C + c0,
+                          (long long)s.stride * s.C, ax.cells2, cs, s.C - c0,
+                          [](int j) { return j; });
+  }
+  for (int e = threadIdx.x; e < np * nq; e += blockDim.x) {
+    const int p = e / nq, q = e % nq;
+    const int y = ay.r + s.stride * (p / ax.cells);
+    const int x = ax.r + s.stride * (p % ax.cells);
+    const int iy = (ay.r2 + s.stride * (q / ax.cells2) - y + s.d) / s.stride;
+    const int ix = (ax.r2 + s.stride * (q % ax.cells2) - x + s.d) / s.stride;
+    if (iy < 0 || iy >= s.n || ix < 0 || ix >= s.n) continue;
+    const T* src = g + ((b * s.H + y) * s.W + x) * nd + iy * s.n + ix;
+    if constexpr (std::is_same_v<T, float>) {
+      cp_async4(smem_u32(m + p * cells + q), src);
+    } else {
+      m[p * cells + q] = to_f32(*src);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int cg = threadIdx.x % ncg;
+  const int p = threadIdx.x / ncg;
+  if (p >= np) return;
+  float acc[1][kBwdS];
+#pragma unroll
+  for (int c = 0; c < kBwdS; ++c) acc[0][c] = 0.f;
+  const float* mp = m + p * cells;
+  for (int q = 0; q < nq; ++q) {
+    const float mv = mp[q];
+    const T* fq = fs + q * cs + kUnit * cg;
+#pragma unroll
+    for (int u = 0; u < kBwdS / kUnit; ++u) {
+      float v[kUnit];
+      load_unit(fq + kUnit * ncg * u, v);
+#pragma unroll
+      for (int e = 0; e < kUnit; ++e) {
+        acc[0][kUnit * u + e] = fmaf(mv, v[e], acc[0][kUnit * u + e]);
+      }
+    }
+  }
+  const long long pix = (b * s.H + ay.r + s.stride * (p / ax.cells)) * s.W +
+                        ax.r + s.stride * (p % ax.cells);
+  store_micro_tile<T, kVec, kUnit>(gf1, acc, pix, 0, 1, s, c0, cg, ncg);
 }
 
 CorrShape make_shape(int B, int H, int W, int C, int d, int stride) {
   return CorrShape{B, H, W, C, d, stride, 2 * d / stride + 1};
 }
 
-unsigned int elementwise_blocks(const CorrShape& s) {
-  const long long total = (long long)s.B * s.H * s.W * s.C;
-  return (unsigned int)((total + kThreads - 1) / kThreads);
-}
-
-// What the SIMT K5 and K7 index by: a shape the map and the stride make
+// What the SIMT K5-K7 index by: a shape the map and the stride make
 // sense of, a tile of at least one row and a positive multiple of kSimtR
 // columns, and 32..256 threads in whole warps (grid.y = B: at most 65535).
 bool simt_tile_ok(const CorrShape& s, int ty, int tx, int threads) {
@@ -1001,7 +1283,7 @@ bool simt_tile_ok(const CorrShape& s, int ty, int tx, int threads) {
          threads % 32 == 0;
 }
 
-// Blocks of a SIMT K5 or K7 launch along x: stride^2 classes x tiles x
+// Blocks of a SIMT K5, K6 or K7 launch along x: stride^2 classes x tiles x
 // `groups` (displacement groups or channel slices); 0 past CUDA's limit.
 unsigned int simt_blocks(const CorrShape& s, int ty, int tx, int groups) {
   const long long n = (long long)s.stride * s.stride *
@@ -1508,17 +1790,85 @@ extern "C" int odek_correlation_fwd_pairs(const void* f1, const void* f2,
   });
 }
 
+// K6, SIMT: g (B, H, W, n*n), f2 (B, H, W, C) -> gf1 (B, H, W, C) in tiles
+// of ty x tx cells by 16*ncg channels, `threads` a block
+// (ops/correlation.py::simt_plan). Returns cudaErrorInvalidValue for a
+// tile outside simt_tile_ok's bounds or shared memory, else the launch's
+// error.
 extern "C" int odek_correlation_bwd_f1(const void* g, const void* f2,
                                        void* gf1, int B, int H, int W, int C,
-                                       int d, int stride, int dtype,
+                                       int d, int stride, int ty, int tx,
+                                       int ncg, int threads, int dtype,
                                        void* stream) {
   const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const BwdTile t{ty, tx, ncg};
+  if (!simt_tile_ok(s, ty, tx, threads) || ncg < 1 ||
+      (long long)ty * (tx / kSimtR) * ncg > threads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned int blocks = simt_blocks(s, ty, tx, div_up(C, 16 * ncg));
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(f2) |
+                         reinterpret_cast<uintptr_t>(gf1)) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return odek::launch_for_dtype(dtype, [&](auto tag) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    corr_bwd_f1_kernel<T><<<elementwise_blocks(s), kThreads, 0, st>>>(
-        static_cast<const T*>(g), static_cast<const T*>(f2),
-        static_cast<T*>(gf1), s);
+    const long long smem = 2 * bwd_stage_bytes(t, s.n, sizeof(T));
+    if (smem > kSmemBytes) return (int)cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) -> int {
+      const cudaError_t attr = allow_max_smem(
+          reinterpret_cast<const void*>(kernel), kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<dim3(blocks, B), threads, smem, st>>>(
+          static_cast<const T*>(g), static_cast<const T*>(f2),
+          static_cast<T*>(gf1), s, t);
+      return 0;
+    };
+    // 16-byte copies and stores where a pixel's channels come in whole
+    // 16-byte units.
+    return aligned && C % (16 / (int)sizeof(T)) == 0
+               ? launch(corr_bwd_f1_simt_kernel<T, true>)
+               : launch(corr_bwd_f1_simt_kernel<T, false>);
+  });
+}
+
+// K6, SIMT, pair view (classes of at most kPairCells cells): 16 * ncg
+// channels a block, `threads` a block (ops/correlation.py::simt_plan).
+// Returns cudaErrorInvalidValue outside those bounds, else the launch's
+// error.
+extern "C" int odek_correlation_bwd_f1_pairs(const void* g, const void* f2,
+                                             void* gf1, int B, int H, int W,
+                                             int C, int d, int stride,
+                                             int ncg, int threads, int dtype,
+                                             void* stream) {
+  const CorrShape s = make_shape(B, H, W, C, d, stride);
+  const int cells = pair_cells(s);
+  if (!simt_tile_ok(s, 1, kSimtR, threads) || cells > kPairCells ||
+      ncg < 1 || (long long)cells * ncg > threads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = (long long)stride * stride * div_up(C, 16 * ncg);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(f2) |
+                         reinterpret_cast<uintptr_t>(gf1)) & 15) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    const long long smem =
+        (long long)cells * (16LL * ncg * (int)sizeof(T) + 4LL * cells);
+    if (smem > kSmemBytes) return (int)cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) -> int {
+      const cudaError_t attr = allow_max_smem(
+          reinterpret_cast<const void*>(kernel), kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      kernel<<<dim3((unsigned int)blocks, B), threads, smem, st>>>(
+          static_cast<const T*>(g), static_cast<const T*>(f2),
+          static_cast<T*>(gf1), s, ncg);
+      return 0;
+    };
+    return aligned && C % (16 / (int)sizeof(T)) == 0
+               ? launch(corr_bwd_f1_pairs_kernel<T, true>)
+               : launch(corr_bwd_f1_pairs_kernel<T, false>);
   });
 }
 
@@ -1537,7 +1887,7 @@ extern "C" int odek_correlation_bwd_f2(const void* g, const void* f1,
       (long long)ty * (tx / kSimtR) * ncg > threads) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = 2LL * bwd_stage_floats(t, s.n) * 4;
+  const long long smem = 2 * bwd_stage_bytes(t, s.n, 4);
   const unsigned int blocks = simt_blocks(s, ty, tx, div_up(C, 16 * ncg));
   if (smem > kSmemBytes || blocks == 0) return (int)cudaErrorInvalidValue;
   const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(f1) |
@@ -1634,8 +1984,8 @@ extern "C" int odek_correlation_fwd_tc(const void* f1, const void* f2,
   });
 }
 
-// K6, tensor cores: as odek_correlation_bwd_f1 for bf16, under K5's rule
-// (g needs no alignment: it is read by element).
+// K6, tensor cores: g, f2 -> gf1 as odek_correlation_bwd_f1, with no tile,
+// for bf16 under K5's rule (g needs no alignment: it is read by element).
 extern "C" int odek_correlation_bwd_f1_tc(const void* g, const void* f2,
                                           void* gf1, int B, int H, int W,
                                           int C, int d, int stride, int dtype,
@@ -1645,7 +1995,8 @@ extern "C" int odek_correlation_bwd_f1_tc(const void* g, const void* f2,
                        static_cast<cudaStream_t>(stream));
 }
 
-// K7, tensor cores: as odek_correlation_bwd_f2 for bf16, under K5's rule.
+// K7, tensor cores: g, f1 -> gf2 as odek_correlation_bwd_f2, with no tile,
+// for bf16 under K5's rule.
 extern "C" int odek_correlation_bwd_f2_tc(const void* g, const void* f1,
                                           void* gf2, int B, int H, int W,
                                           int C, int d, int stride, int dtype,

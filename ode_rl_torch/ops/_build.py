@@ -58,8 +58,14 @@ SIGNATURES = {
     # threads, dtype, stream
     "odek_correlation_fwd_pairs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P],
-    # g, f2, gf1, B, H, W, C, max_displacement, stride, dtype, stream
-    "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, f2, gf1, B, H, W, C, max_displacement, stride, ty, tx, ncg,
+    # threads, dtype, stream
+    "odek_correlation_bwd_f1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+    # g, f2, gf1, B, H, W, C, max_displacement, stride, ncg, threads,
+    # dtype, stream
+    "odek_correlation_bwd_f1_pairs": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
     # g, f1, gf2, B, H, W, C, max_displacement, stride, ty, tx, ncg,
     # threads, dtype, stream
     "odek_correlation_bwd_f2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -68,8 +74,8 @@ SIGNATURES = {
     # dtype, stream
     "odek_correlation_bwd_f2_pairs": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _P],
-    # as odek_correlation_bwd_f1: f1 or g, f2, out, B, H, W, C,
-    # max_displacement, stride, dtype, stream
+    # f1 or g, f2, out, B, H, W, C, max_displacement, stride, dtype,
+    # stream
     "odek_correlation_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "odek_correlation_bwd_f1_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _P],

@@ -33,15 +33,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # likewise K4. "correlation_fwd" counts every K5 launch,
 # "correlation_fwd_tc" those of its tensor-core kernel and
 # "correlation_fwd_pairs" those of its SIMT pair-view kernel (small maps);
-# likewise K6 and K7 ("correlation_bwd_f2_pairs").
+# likewise K6 and K7 ("correlation_bwd_f1_pairs",
+# "correlation_bwd_f2_pairs").
 launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
             "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
             "conv3x3_wgrad_simt": 0, "gru_gates": 0, "gru_gates_sample": 0,
             "gru_gates_2pass": 0, "gru_blend": 0, "gru_blend_sample": 0,
             "gru_blend_2pass": 0, "correlation_fwd": 0,
             "correlation_fwd_tc": 0, "correlation_fwd_pairs": 0,
-            "correlation_bwd_f1": 0,
-            "correlation_bwd_f1_tc": 0, "correlation_bwd_f2": 0,
+            "correlation_bwd_f1": 0, "correlation_bwd_f1_tc": 0,
+            "correlation_bwd_f1_pairs": 0, "correlation_bwd_f2": 0,
             "correlation_bwd_f2_tc": 0, "correlation_bwd_f2_pairs": 0,
             "channelnorm": 0}
 

@@ -24,14 +24,15 @@ bench shape K5, K6 and K7 take about 13.3, 10.5 and 10.4 µs a call alone,
 against 96, 89 and 103 for the first SIMT kernels; the bytes bounds are
 9.3 (K5) and 5.2 (K6, K7) (H100 80GB HBM3, 700 W; PERF.md).
 Every other call takes the SIMT kernels (fp32, so it stays strict fp32;
-the FlyingChairs feature maps; misaligned views). K6's is a gather, a
-thread an output. K5's and K7's split the map into parity classes
-(``class_axis``): at stride s a pixel meets only the pixels of one other
-class, on a dense grid, so a tile of cells and its halo of partners are
-staged in shared memory and reused from registers. ``simt_plan`` picks
-their tiles, or, on maps of at most 32 cells a class (the 8 x 8 label and
-trainer features), the pair view: every (cell, partner) pair of a
-(sample, class).
+the FlyingChairs feature maps; misaligned views). They split the map into
+parity classes (``class_axis``): at stride s a pixel meets only the
+pixels of one other class, on a dense grid, so a tile of cells and its
+halo of partners are staged in shared memory and reused from registers.
+``simt_plan`` picks their tiles, or, on maps of at most 32 cells a class
+(the 8 x 8 label and trainer features), the pair view: every (cell,
+partner) pair of a (sample, class). K6 and K7 add each output's
+displacements in increasing i, as their plain versions do, so in bf16
+they are bit-equal to them.
 
 ``CorrelationFn`` is the ``custom_vjp`` of ``_corr_with_vjp``: K5 forward,
 K6 and K7 backward. The JAX package falls back to autograd of the XLA
@@ -54,13 +55,14 @@ import torch.nn.functional as F
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops._build import library
 
-# The SIMT K5 and K7 (csrc/correlation.cu::corr_fwd_simt_kernel,
-# corr_fwd_pairs_kernel, corr_bwd_f2_simt_kernel), as the source fixes
+# The SIMT K5-K7 (csrc/correlation.cu::corr_fwd_simt_kernel,
+# corr_fwd_pairs_kernel, corr_bwd_f1_simt_kernel, corr_bwd_f1_pairs_kernel,
+# corr_bwd_f2_simt_kernel, corr_bwd_f2_pairs_kernel), as the source fixes
 # them: output cells a micro-tile along x, most threads a block, the
 # H100's shared memory a block; K5's tile rows, partners a micro-tile,
 # channels a chunk and a staged pixel's pitch in floats; the most cells a
-# class may have for K5's pair view and its partners a thread; K7's
-# channels a micro-tile.
+# class may have for a pair view and K5's partners a thread; K6's and
+# K7's channels a micro-tile.
 _SIMT_R = 4
 _SIMT_THREADS = 256
 _FWD_THREADS = 192  # K5's tiles: most threads a block
@@ -72,6 +74,14 @@ _BWD_S = 16
 _TX_MAX = 32
 # Shared memory a plan keeps within where it can: two blocks an SM.
 _SMEM_HALF = _SMEM_BYTES // 2 - 1024
+# K6's and K7's plans (_bwd_simt_plan): widest tile, most channel groups
+# of 16 a block, most threads of a pair-view block. K6's, from a sweep on
+# the card (PERF.md, PR 18): tiles 16 cells wide, so that 256 threads
+# hold 4 rows of all 256 channels and each staged halo row serves more
+# outputs; pair-view blocks of 128 threads (two slices, twice the blocks
+# on the trainers' 8 x 8 maps).
+_BWD_F1_SHAPE = (16, 16, 128)
+_BWD_F2_SHAPE = (_TX_MAX, 8, _SIMT_THREADS)
 
 # The tensor-core K5-K7 (csrc/correlation.cu::corr_fwd_tc_kernel,
 # corr_bwd_f1_tc_kernel, corr_bwd_f2_tc_kernel): a sample's map is one tile
@@ -140,12 +150,12 @@ def _tc_shape(h, w, c, max_displacement, stride, dtype) -> bool:
 
 
 class SimtPlan(NamedTuple):
-    """One SIMT kernel's launch. ``kernel``: "tiles" (K5, K7) or "pairs"
-    (K5's pair view); grid (blocks, grid.y); threads a block; tile (K5
-    tiles: rows, tx, ny; pairs: units a block; K7: ty, tx, ncg); channels
-    a chunk (K5) or a block (K7); dynamic shared bytes; and ``args``, the
-    ints the C entry point takes after the geometry (the tile and the
-    threads)."""
+    """One SIMT kernel's launch. ``kernel``: "tiles" or "pairs" (the pair
+    view); grid (blocks, grid.y); threads a block; tile (K5 tiles: rows,
+    tx, ny; K5 pairs: units a block; K6 and K7 tiles: ty, tx, ncg; their
+    pairs: ncg); channels a chunk (K5) or a block (K6, K7); dynamic shared
+    bytes; and ``args``, the ints the C entry point takes after the
+    geometry (the tile and the threads)."""
     kernel: str
     grid: tuple
     threads: int
@@ -242,58 +252,69 @@ def _fwd_simt_plan(b, h, w, c, n, stride) -> SimtPlan:
                     _FWD_CK, geo["smem"], (tx, ny, threads))
 
 
-def bwd_f2_simt_smem(ty: int, tx: int, ncg: int, n: int) -> int:
-    """K7's dynamic shared bytes: two stages of a halo row of f1 (16*ncg
-    channels) and its pair matrix (ty, tx + n - 1, tx)."""
+def bwd_simt_smem(ty: int, tx: int, ncg: int, n: int,
+                  feature_bytes: int = 4) -> int:
+    """K6's or K7's dynamic shared bytes: two stages of a halo row of
+    features (16*ncg channels of ``feature_bytes``: K7 widens bf16 to
+    fp32, K6 keeps it; csrc/correlation.cu::bwd_stage_bytes) and its
+    fp32 pair matrix (ty, tx + n - 1, tx)."""
     halo_w = tx + n - 1
-    return 4 * 2 * (halo_w * 16 * ncg + ty * halo_w * tx)
+    return 2 * (halo_w * 16 * ncg * feature_bytes + 4 * ty * halo_w * tx)
 
 
-def _bwd_f2_simt_plan(b, h, w, c, n, stride) -> SimtPlan:
-    """K7's launch. Classes of at most ``_PAIR_CELLS`` cells take the pair
-    view: a block a (sample, class, channel slice), a thread a cell by 16
-    channels. Larger ones take tiles: up to ``_TX_MAX`` cells wide, up to
-    128 channels, and as many rows as fill 256 threads, fewer where the
-    shared memory would pass half the block's (two blocks an SM), then
-    narrower where it would pass all of it."""
+def _bwd_simt_plan(b, h, w, c, n, stride, tx_max, ncg_max, pair_threads,
+                   feature_bytes=4) -> SimtPlan:
+    """K6's or K7's launch (their tiles and pair views have one geometry:
+    an output tile, its halo of the other class, a pair matrix). Classes
+    of at most ``_PAIR_CELLS`` cells take the pair view: a block a
+    (sample, class, channel slice) of at most ``pair_threads``, a thread a
+    cell by 16 channels. Larger ones take tiles up to ``tx_max`` cells
+    wide and ``16 * ncg_max`` channels (a slice reads the cotangent once),
+    and as many rows as fill 256 threads, fewer where the shared memory
+    would pass half the block's (two blocks an SM), then fewer channels
+    and narrower where it would pass all of it. ``feature_bytes``: a
+    staged feature channel's (K7 widens bf16 to fp32, K6 keeps it)."""
     rows, cols = _div_up(h, stride), _div_up(w, stride)
     if rows * cols <= _PAIR_CELLS:
         cells = rows * cols
-        ncg = min(_div_up(c, _BWD_S), _SIMT_THREADS // cells)
+        ncg = min(_div_up(c, _BWD_S), pair_threads // cells)
         threads = _div_up(cells * ncg, 32) * 32
         return SimtPlan("pairs",
                         (stride ** 2 * _div_up(c, _BWD_S * ncg), b),
                         threads, (ncg,), _BWD_S * ncg,
-                        4 * cells * (_BWD_S * ncg + cells), (ncg, threads))
-    tx = min(_div_up(cols, _SIMT_R) * _SIMT_R, _TX_MAX)
-    ncg = min(8, _div_up(c, _BWD_S))
+                        cells * (_BWD_S * ncg * feature_bytes + 4 * cells),
+                        (ncg, threads))
+    tx = min(_div_up(cols, _SIMT_R) * _SIMT_R, tx_max)
+    ncg = min(ncg_max, _div_up(c, _BWD_S))
     while True:
         per_row = tx // _SIMT_R * ncg
         ty = max(1, min(rows, _SIMT_THREADS // per_row))
-        while ty > 1 and bwd_f2_simt_smem(ty, tx, ncg, n) > _SMEM_HALF:
+        smem = bwd_simt_smem(ty, tx, ncg, n, feature_bytes)
+        while ty > 1 and smem > _SMEM_HALF:
             ty -= 1
-        if bwd_f2_simt_smem(ty, tx, ncg, n) <= _SMEM_BYTES:
+            smem = bwd_simt_smem(ty, tx, ncg, n, feature_bytes)
+        if smem <= _SMEM_BYTES:
             break
         if ncg > 1:
             ncg //= 2
         elif tx > _SIMT_R:
             tx -= _SIMT_R
         else:
-            raise ValueError(f"correlation_bwd_f2: {n} displacements a row "
-                             f"do not fit the SIMT kernel's block")
+            raise ValueError(f"correlation backward: {n} displacements a "
+                             f"row do not fit the SIMT kernel's block")
     threads = max(32, _div_up(ty * per_row, 32) * 32)
     blocks = (stride ** 2 * _div_up(rows, ty) * _div_up(cols, tx)
               * _div_up(c, _BWD_S * ncg))
     return SimtPlan("tiles", (blocks, b), threads, (ty, tx, ncg),
-                    _BWD_S * ncg, bwd_f2_simt_smem(ty, tx, ncg, n),
-                    (ty, tx, ncg, threads))
+                    _BWD_S * ncg, smem, (ty, tx, ncg, threads))
 
 
 @functools.lru_cache(maxsize=256)
 def simt_plan(b: int, h: int, w: int, c: int, max_displacement: int,
               stride: int, dtype: torch.dtype) -> dict:
-    """The launches of the SIMT K5 and K7 for features (b, h, w, c):
-    {"correlation_fwd": SimtPlan, "correlation_bwd_f2": SimtPlan}.
+    """The launches of the SIMT K5-K7 for features (b, h, w, c):
+    {"correlation_fwd": SimtPlan, "correlation_bwd_f1": SimtPlan,
+    "correlation_bwd_f2": SimtPlan}.
     Raises ValueError for what the kernels cannot index: an empty shape, a
     dtype other than fp32 and bf16, a batch beyond the grid's 65,535, a
     grid beyond 2**31 - 1 blocks, or a displacement row too long for a
@@ -307,7 +328,10 @@ def simt_plan(b: int, h: int, w: int, c: int, max_displacement: int,
         raise ValueError(f"correlation: features ({b}, {h}, {w}, {c}) are "
                          f"outside the SIMT kernels' grid")
     plans = {"correlation_fwd": _fwd_simt_plan(b, h, w, c, n, stride),
-             "correlation_bwd_f2": _bwd_f2_simt_plan(b, h, w, c, n, stride)}
+             "correlation_bwd_f1": _bwd_simt_plan(
+                 b, h, w, c, n, stride, *_BWD_F1_SHAPE, dtype.itemsize),
+             "correlation_bwd_f2": _bwd_simt_plan(b, h, w, c, n, stride,
+                                                  *_BWD_F2_SHAPE)}
     if any(p.grid[0] >= 2 ** 31 for p in plans.values()):
         raise ValueError(f"correlation: features ({b}, {h}, {w}, {c}) at "
                          f"stride {stride} need more blocks than a grid has")
@@ -439,21 +463,36 @@ def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
     return _fwd_cuda(f1, f2, max_displacement, stride)
 
 
-def _bwd_f1_cuda(g, f2, max_displacement, stride, kernel="rule"):
-    """K6 on CUDA tensors; ``kernel`` as for ``_use_tc``. The tensor-core
-    kernel reads g by element, so f2's and gf1's pointers enter the
-    rule."""
-    common.check_inputs("correlation_bwd_f1", {"g": g, "f2": f2}, f2.dtype)
-    gf1 = torch.empty_like(f2)
-    if _use_tc("correlation_bwd_f1", kernel, f2,
-               (f2.data_ptr(), gf1.data_ptr()), max_displacement, stride):
-        _launch("correlation_bwd_f1_tc", library().odek_correlation_bwd_f1_tc,
-                g, f2, gf1, f2, max_displacement, stride)
-        common.launches["correlation_bwd_f1"] += 1
+def _bwd_cuda(name, g, f, fname, tc_ptrs, max_displacement, stride,
+              kernel="rule"):
+    """K6 (``name`` "correlation_bwd_f1", f = f2) or K7
+    ("correlation_bwd_f2", f = f1) on CUDA tensors; ``kernel`` as for
+    ``_use_tc``. The tensor-core kernels read g by element, so only the
+    pointers ``tc_ptrs(f, gf)`` (K6: f2 and the gradient, K7: f1) enter
+    the rule."""
+    common.check_inputs(name, {"g": g, fname: f}, f.dtype)
+    gf = torch.empty_like(f)
+    lib = library()
+    if _use_tc(name, kernel, f, tc_ptrs(f, gf), max_displacement, stride):
+        _launch(f"{name}_tc", getattr(lib, f"odek_{name}_tc"), g, f, gf, f,
+                max_displacement, stride)
+        common.launches[name] += 1
+        return gf
+    plan = simt_plan(*f.shape, max_displacement, stride, f.dtype)[name]
+    if plan.kernel == "pairs":
+        _launch(f"{name}_pairs", getattr(lib, f"odek_{name}_pairs"), g, f,
+                gf, f, max_displacement, stride, plan)
+        common.launches[name] += 1
     else:
-        _launch("correlation_bwd_f1", library().odek_correlation_bwd_f1, g,
-                f2, gf1, f2, max_displacement, stride)
-    return gf1
+        _launch(name, getattr(lib, f"odek_{name}"), g, f, gf, f,
+                max_displacement, stride, plan)
+    return gf
+
+
+def _bwd_f1_cuda(g, f2, max_displacement, stride, kernel="rule"):
+    return _bwd_cuda("correlation_bwd_f1", g, f2, "f2",
+                     lambda f, gf: (f.data_ptr(), gf.data_ptr()),
+                     max_displacement, stride, kernel)
 
 
 def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
@@ -467,27 +506,9 @@ def correlation_bwd_f1(g: torch.Tensor, f2: torch.Tensor,
 
 
 def _bwd_f2_cuda(g, f1, max_displacement, stride, kernel="rule"):
-    """K7 on CUDA tensors; ``kernel`` as for ``_use_tc``. The tensor-core
-    kernel reads g by element, so only f1's pointer enters the rule."""
-    common.check_inputs("correlation_bwd_f2", {"g": g, "f1": f1}, f1.dtype)
-    gf2 = torch.empty_like(f1)
-    if _use_tc("correlation_bwd_f2", kernel, f1, (f1.data_ptr(),),
-               max_displacement, stride):
-        _launch("correlation_bwd_f2_tc", library().odek_correlation_bwd_f2_tc,
-                g, f1, gf2, f1, max_displacement, stride)
-        common.launches["correlation_bwd_f2"] += 1
-    else:
-        plan = simt_plan(*f1.shape, max_displacement, stride,
-                         f1.dtype)["correlation_bwd_f2"]
-        if plan.kernel == "pairs":
-            _launch("correlation_bwd_f2_pairs",
-                    library().odek_correlation_bwd_f2_pairs, g, f1, gf2, f1,
-                    max_displacement, stride, plan)
-            common.launches["correlation_bwd_f2"] += 1
-        else:
-            _launch("correlation_bwd_f2", library().odek_correlation_bwd_f2,
-                    g, f1, gf2, f1, max_displacement, stride, plan)
-    return gf2
+    return _bwd_cuda("correlation_bwd_f2", g, f1, "f1",
+                     lambda f, gf: (f.data_ptr(),), max_displacement, stride,
+                     kernel)
 
 
 def correlation_bwd_f2(g: torch.Tensor, f1: torch.Tensor,

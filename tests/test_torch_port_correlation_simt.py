@@ -1,9 +1,10 @@
-"""The design of the SIMT K5 and K7, on the CPU.
+"""The design of the SIMT K5-K7, on the CPU.
 
 The kernels (``csrc/correlation.cu::corr_fwd_simt_kernel``,
-``corr_bwd_f2_simt_kernel``) cannot run here, so what they rest on is
-tested instead, through a walk in Python of the same block and thread
-decode, with the tiles ``simt_plan`` gives:
+``corr_bwd_f1_simt_kernel``, ``corr_bwd_f2_simt_kernel`` and their pair
+views) cannot run here, so what they rest on is tested instead, through a
+walk in Python of the same block and thread decode, with the tiles
+``simt_plan`` gives:
 
 * the parity classes (``class_axis``): cell a of a class meets cell
   a + k + i of its partner class at displacement i, every in-map window
@@ -11,25 +12,32 @@ decode, with the tiles ``simt_plan`` gives:
 * K5's plan: every (pixel, displacement) whose window lies in the map
   computed and written by exactly one slot of a tile's micro-tiles, or of
   the pair view on maps of at most 32 cells a class, and no other one;
-  K7's plan: every (pixel, channel) of the gradient stored by exactly one
-  thread; both within a block's 232,448 bytes of shared memory and 256
+  K6's and K7's plans: every (pixel, channel) of the gradient stored by
+  exactly one thread (K6 in fp32 and in bf16, whose threads own 8-channel
+  units); all within a block's 232,448 bytes of shared memory and 256
   threads, at the highres, label, FlyingChairs and trainer shapes, every
   ragged card shape and a 1x1 map;
 * the plan's refusals;
 * the kernels' algorithms in plain torch, block by block: K5 (each
   written slot the mean of its cell times its partner, the rest zero)
-  within 1e-6 of
-  ``correlation_fwd_plain`` in fp64, and K7 (halo rows walked from the
-  last to the first, each row's pair matrix built as the kernel stages it,
-  sources walked from the last to the first, one fp32 multiply-add each)
-  bit-equal to ``correlation_bwd_f2_plain`` on bf16-valued inputs.
+  within 1e-6 of ``correlation_fwd_plain`` in fp64; K6 (halo rows walked
+  from the first to the last, each row's pair matrix built as the kernel
+  stages it, partners walked from the first to the last, one fp32
+  multiply-add each) bit-equal to ``correlation_bwd_f1_plain`` on
+  bf16-valued inputs and in fp32 (where a product rounds, so only the
+  same order of summation is bit-equal), within 1e-6 of it in fp64, and
+  within 1e-5 of the JAX package's Pallas K6 in interpret mode; K7 (halo rows walked from the
+  last to the first, sources from the last to the first) bit-equal to
+  ``correlation_bwd_f2_plain`` on bf16-valued inputs.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ode_rl_torch.ops.correlation import (class_axis, correlation_bwd_f2_plain,
+from ode_rl_torch.ops.correlation import (bwd_simt_smem, class_axis,
+                                          correlation_bwd_f1_plain,
+                                          correlation_bwd_f2_plain,
                                           correlation_fwd_plain,
                                           fwd_simt_geometry, n_displacements,
                                           simt_plan)
@@ -41,11 +49,13 @@ SMEM_BYTES = 232_448
 MAIN_SHAPES = [(8, 40, 56, 256, 20, 2), (156, 8, 8, 256, 20, 2),
                (8, 48, 64, 256, 20, 2), (8, 8, 8, 256, 20, 2)]
 # The card tests' shapes (tests/test_torch_port_cuda.py::CORR_SHAPES and
-# its new SIMT rows) and a 1x1 map.
+# its new SIMT rows, K6_SHAPES' maps of cells without partners) and a 1x1
+# map.
 CARD_SHAPES = [(2, 5, 7, 19, 2, 1), (3, 6, 4, 40, 3, 2), (2, 3, 5, 33, 4, 1),
                (1, 8, 8, 16, 4, 1), (2, 8, 8, 256, 20, 2),
                (2, 48, 64, 256, 20, 2), (2, 40, 56, 256, 20, 2),
-               (2, 41, 57, 40, 20, 2), (1, 1, 1, 1, 20, 2)]
+               (2, 41, 57, 40, 20, 2), (1, 1, 1, 1, 20, 2),
+               (2, 1, 1, 8, 3, 2), (2, 1, 80, 8, 3, 2)]
 # Small enough to walk the kernels' algorithms block by block here: ragged
 # C, H != W, stride 1 and 2, d not a multiple of the stride, d beyond the
 # map, odd maps whose parity classes differ in size, and a 1x1 map.
@@ -486,6 +496,297 @@ def test_k7_algorithm_is_bit_equal_to_the_plain_version_in_bf16(shape):
     ref = correlation_bwd_f2_plain(g, f1, d, stride)
     assert out.dtype == ref.dtype == torch.bfloat16
     assert torch.equal(out, ref)
+
+
+# --------------------------------------------------------------------------
+# K6
+
+
+def _bwd_f1_blocks(h, w, c, d, stride, plan):
+    """Yield one dict a block of K6, as corr_bwd_f1_simt_kernel sees it:
+    the f1 class axes, the tile and its rows and columns in the map, the
+    channel slice, the halo's origin in the partner class and its rows and
+    columns that some tile cell meets in the map."""
+    n = n_displacements(d, stride)
+    ty, tx, ncg = plan.tile
+    rows, cols = _div_up(h, stride), _div_up(w, stride)
+    tiles = (_div_up(rows, ty), _div_up(cols, tx), _div_up(c, 16 * ncg))
+    assert plan.grid[0] == stride ** 2 * np.prod(tiles)
+    for bx in range(plan.grid[0]):
+        cy, cx, yt, xt, sl = _decode(bx, stride, tiles)
+        ay, ax = class_axis(cy, h, d, stride), class_axis(cx, w, d, stride)
+        qy0, qx0 = yt * ty, xt * tx
+        if qy0 >= ay[0] or qx0 >= ax[0]:
+            continue
+        nrows, q_end = min(ty, ay[0] - qy0), min(tx, ax[0] - qx0)
+        py0, px0 = qy0 + ay[2], qx0 + ax[2]
+        yield dict(cy=cy, cx=cx, ay=ay, ax=ax, qy0=qy0, qx0=qx0,
+                   rows=nrows, q_end=q_end, c0=sl * 16 * ncg, py0=py0,
+                   px0=px0, hr=(max(0, -py0),
+                                min(nrows + n - 2, ay[3] - 1 - py0)),
+                   hx=(max(0, -px0), min(q_end + n - 2, ax[3] - 1 - px0)))
+
+
+def _bwd_f1_threads(blk, plan):
+    """Per thread of a K6 block: tile row, first tile column, channel
+    group, and whether it owns outputs."""
+    ty, tx, ncg = plan.tile
+    t = np.arange(plan.threads)
+    cg, qxg, tyl = t % ncg, t // ncg % (tx // 4), t // (ncg * (tx // 4))
+    mine = (tyl < blk["rows"]) & (4 * qxg < blk["q_end"])
+    return tyl, 4 * qxg, cg, mine
+
+
+def _unit(dtype):
+    """Channels a K6 thread reads and stores together: one 16-byte unit."""
+    return 16 // torch.tensor([], dtype=dtype).element_size()
+
+
+def _bwd_f1_pair_units(h, w, c, d, stride, plan):
+    """Yield one dict a block of K6's pair view, as
+    corr_bwd_f1_pairs_kernel sees it: the partner cells (row-major), and
+    per thread its output cell's map position and channel group."""
+    (ncg,) = plan.tile
+    cells = _div_up(h, stride) * _div_up(w, stride)
+    assert cells <= 32 and cells * ncg <= plan.threads
+    slices = _div_up(c, 16 * ncg)
+    assert plan.grid[0] == stride ** 2 * slices
+    for bx in range(plan.grid[0]):
+        sl, cls = bx % slices, bx // slices
+        cy, cx = cls // stride, cls % stride
+        ay, ax = class_axis(cy, h, d, stride), class_axis(cx, w, d, stride)
+        t = np.arange(plan.threads)
+        cg, p = t % ncg, t // ncg
+        npix = ay[0] * ax[0]
+        pc = np.minimum(p, max(npix - 1, 0))
+        yield dict(c0=sl * 16 * ncg, cg=cg, mine=p < npix,
+                   y=cy + stride * (pc // max(ax[0], 1)),
+                   x=cx + stride * (pc % max(ax[0], 1)),
+                   partners=[(ay[1] + stride * qy, ax[1] + stride * qx)
+                             for qy in range(ay[3]) for qx in range(ax[3])])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MAIN_SHAPES + CARD_SHAPES)
+def test_k6_plan_stores_every_gradient_once(shape, dtype):
+    """Every (pixel, channel) of grad f1 is stored by exactly one thread,
+    zeros included (cells with no partner in the map); each owned output's
+    in-map partners lie in the halo rows its block walks and the columns
+    its thread walks."""
+    b, h, w, c, d, stride = shape
+    n = n_displacements(d, stride)
+    plan = simt_plan(b, h, w, c, d, stride, dtype)["correlation_bwd_f1"]
+    assert plan.grid[1] == b and plan.smem_bytes <= SMEM_BYTES
+    assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
+    counts = np.zeros(h * w * c, np.int64)
+    k = _unit(dtype)
+    if plan.kernel == "pairs":
+        assert plan.threads <= 128
+        for unit in _bwd_f1_pair_units(h, w, c, d, stride, plan):
+            for u in range(16 // k):
+                for e in range(k):
+                    ch = unit["c0"] + k * unit["cg"] + k * plan.tile[0] * u + e
+                    ok = unit["mine"] & (ch < c)
+                    np.add.at(counts, (unit["y"][ok] * w + unit["x"][ok]) * c
+                              + ch[ok], 1)
+        assert (counts == 1).all()
+        return
+    ty, tx, ncg = plan.tile
+    assert ty * (tx // 4) * ncg <= plan.threads and plan.chunk == 16 * ncg
+    assert plan.smem_bytes == bwd_simt_smem(
+        ty, tx, ncg, n, torch.tensor([], dtype=dtype).element_size())
+    p, u, e = np.meshgrid(np.arange(4), np.arange(16 // k), np.arange(k),
+                          indexing="ij")
+    for blk in _bwd_f1_blocks(h, w, c, d, stride, plan):
+        tyl, q0, cg, mine = _bwd_f1_threads(blk, plan)
+        (_, _, ky, cells2_y), (_, _, kx, cells2_x) = blk["ay"], blk["ax"]
+        hr_lo, hr_hi = blk["hr"]
+        hx_lo, hx_hi = blk["hx"]
+        for t in np.flatnonzero(mine):
+            qy = blk["qy0"] + tyl[t]
+            rows = [tyl[t] + iy for iy in range(n)
+                    if 0 <= qy + ky + iy < cells2_y]
+            assert all(hr_lo <= hr <= hr_hi for hr in rows)
+            my_lo, my_hi = max(q0[t], hx_lo), min(q0[t] + n + 2, hx_hi)
+            for pp in range(4):
+                if q0[t] + pp >= blk["q_end"]:
+                    continue
+                qx = blk["qx0"] + q0[t] + pp
+                band = [q0[t] + pp + ix for ix in range(n)
+                        if 0 <= qx + kx + ix < cells2_x]
+                assert all(my_lo <= hx <= my_hi for hx in band)
+        sel = (slice(None), None, None, None)
+        qxl = q0[sel] + p
+        ch = blk["c0"] + k * cg[sel] + k * ncg * u + e
+        ok = mine[sel] & (qxl < blk["q_end"]) & (ch < c)
+        y = blk["cy"] + stride * (blk["qy0"] + tyl[sel])
+        x = blk["cx"] + stride * (blk["qx0"] + qxl)
+        y = np.broadcast_to(y, ok.shape)[ok]
+        np.add.at(counts, (y * w + x[ok]) * c + ch[ok], 1)
+    assert (counts == 1).all()
+
+
+def test_k6_plans_at_the_main_shapes():
+    """(8, 40, 56, 256) and FlyingChairs' (8, 48, 64, 256): tiles of 4
+    rows of 16 cells by all 256 channels (one slice), 256 threads, two
+    blocks an SM by shared memory; bf16 stages half the feature bytes.
+    The trainers' (8, 8, 8, 256): the pair view, a block a (sample, class,
+    128 channels) of 128 threads."""
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        for shape, xtiles in (((8, 40, 56, 256), 2), ((8, 48, 64, 256), 2)):
+            plan = simt_plan(*shape, 20, 2, dtype)["correlation_bwd_f1"]
+            rows = _div_up(shape[1], 2)
+            assert plan.kernel == "tiles" and plan.tile == (4, 16, 16)
+            assert plan.threads == 256 and plan.chunk == 256
+            assert plan.grid == (4 * _div_up(rows, 4) * xtiles, 8)
+            assert plan.smem_bytes == 2 * (36 * 256 * size + 4 * 4 * 36 * 16)
+            assert plan.smem_bytes <= SMEM_BYTES // 2 - 1024
+    plan = simt_plan(8, 8, 8, 256, 20, 2, torch.float32)["correlation_bwd_f1"]
+    assert plan.kernel == "pairs" and plan.tile == (8,)
+    assert plan.threads == 128 and plan.grid == (4 * 2, 8)
+
+
+def _bwd_f1_pairs_emulated(g, f2, d, stride, plan):
+    """K6's pair view: each output cell walks its class's partners from the
+    first to the last (row-major), adding M times f2 with M the cotangent
+    at the pair's displacement, or 0 outside the window; in the inputs'
+    accumulation dtype (fp32, fp64 for fp64)."""
+    b, h, w, c = f2.shape
+    n = n_displacements(d, stride)
+    acc_t = torch.promote_types(f2.dtype, torch.float32)
+    gf, ff = g.to(acc_t), f2.to(acc_t)
+    out = torch.full((b, h, w, c), float("nan"), dtype=acc_t)
+    for unit in _bwd_f1_pair_units(h, w, c, d, stride, plan):
+        chans = torch.arange(unit["c0"], min(unit["c0"] + 16 * plan.tile[0],
+                                             c))
+        for y, x in sorted({(int(y), int(x)) for y, x, m in zip(
+                unit["y"], unit["x"], unit["mine"]) if m}):
+            acc = torch.zeros(b, len(chans), dtype=acc_t)
+            for qy, qx in unit["partners"]:
+                iy, ix = (qy - y + d) // stride, (qx - x + d) // stride
+                m = (gf[:, y, x, iy * n + ix] if 0 <= iy < n and 0 <= ix < n
+                     else torch.zeros(b, dtype=acc_t))
+                acc += m[:, None] * ff[:, qy, qx, chans]
+            out[:, y, x, chans] = acc / c
+    return out.to(f2.dtype)
+
+
+def _bwd_f1_emulated(g, f2, d, stride):
+    """K6 block by block, with the plan of f2's dtype (fp64 takes fp32's),
+    in the inputs' accumulation dtype: for each halo row from the first to
+    the last, f2's channels of the halo columns in the map and the pair
+    matrix M[tyl, hx, qxl] = g[tile cell (tyl, qxl), iy*n + ix] over the
+    band the kernel stages; then for each halo column from the first to
+    the last, every output of the tile adds M times f2 (one product and
+    one rounding, as the kernel's FFMA for bf16-valued inputs). Tile rows
+    whose displacement row is out of range for a halo row add nothing from
+    it, as the kernel's threads skip it. Cells with no partner stay 0."""
+    b, h, w, c = f2.shape
+    n = n_displacements(d, stride)
+    plan_t = torch.bfloat16 if f2.dtype == torch.bfloat16 else torch.float32
+    plan = simt_plan(b, h, w, c, d, stride, plan_t)["correlation_bwd_f1"]
+    if plan.kernel == "pairs":
+        return _bwd_f1_pairs_emulated(g, f2, d, stride, plan)
+    ty, tx, ncg = plan.tile
+    cs, hw = 16 * ncg, tx + n - 1
+    acc_t = torch.promote_types(f2.dtype, torch.float32)
+    gf, ff = g.to(acc_t), f2.to(acc_t)
+    out = torch.full((b, h, w, c), float("nan"), dtype=acc_t)
+    for blk in _bwd_f1_blocks(h, w, c, d, stride, plan):
+        (_, r2y, _, _), (_, r2x, _, _) = blk["ay"], blk["ax"]
+        chans = torch.arange(blk["c0"], blk["c0"] + cs)
+        acc = torch.zeros(b, ty, tx, cs, dtype=acc_t)
+        hr_lo, hr_hi = blk["hr"]
+        hx_lo, hx_hi = blk["hx"]
+        for hr in range(hr_lo, hr_hi + 1):
+            sy = r2y + stride * (blk["py0"] + hr)
+            fs = torch.zeros(b, hw, cs, dtype=acc_t)
+            m = torch.zeros(b, ty, hw, tx, dtype=acc_t)
+            for hx in range(hx_lo, hx_hi + 1):
+                sx = r2x + stride * (blk["px0"] + hx)
+                fs[:, hx] = torch.where(chans < c,
+                                        ff[:, sy, sx, chans.clamp(max=c - 1)],
+                                        torch.zeros((), dtype=acc_t))
+            for tyl in range(blk["rows"]):
+                iy = hr - tyl
+                if not 0 <= iy < n:
+                    continue
+                y = blk["cy"] + stride * (blk["qy0"] + tyl)
+                for qxl in range(blk["q_end"]):
+                    x = blk["cx"] + stride * (blk["qx0"] + qxl)
+                    for ix in range(max(0, hx_lo - qxl),
+                                    min(n - 1, hx_hi - qxl) + 1):
+                        m[:, tyl, qxl + ix, qxl] = gf[:, y, x, iy * n + ix]
+            live = torch.tensor([0 <= hr - tyl < n for tyl in range(ty)])
+            for hx in range(hx_lo, hx_hi + 1):
+                acc += torch.where(live[None, :, None, None],
+                                   m[:, :, hx, :, None] * fs[:, None, None,
+                                                             hx],
+                                   torch.zeros((), dtype=acc_t))
+        keep = chans < c
+        for tyl in range(blk["rows"]):
+            y = blk["cy"] + stride * (blk["qy0"] + tyl)
+            for qxl in range(blk["q_end"]):
+                x = blk["cx"] + stride * (blk["qx0"] + qxl)
+                out[:, y, x, chans[keep]] = acc[:, tyl, qxl, keep] / c
+    return out.to(f2.dtype)
+
+
+def _k6_inputs(shape, seed, dtype):
+    b, h, w, c, d, stride = shape
+    n = n_displacements(d, stride)
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(b, h, w, n * n)).to(dtype)
+    f2 = torch.from_numpy(rng.randn(b, h, w, c)).to(dtype)
+    return g, f2, d, stride
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_k6_algorithm_is_bit_equal_to_the_plain_version_in_bf16(shape):
+    g, f2, d, stride = _k6_inputs(shape, 29, torch.bfloat16)
+    out = _bwd_f1_emulated(g, f2, d, stride)
+    ref = correlation_bwd_f1_plain(g, f2, d, stride)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_k6_order_of_summation_is_the_plain_versions(shape):
+    """In fp32 a product rounds, and the emulation rounds it as the plain
+    version does, so the two are bit-equal only if every output adds its
+    displacements in the same order. (A bf16 result rounds fp32 sums to 8
+    bits, so another order shows there only near a rounding boundary.)"""
+    g, f2, d, stride = _k6_inputs(shape, 41, torch.float32)
+    assert torch.equal(_bwd_f1_emulated(g, f2, d, stride),
+                       correlation_bwd_f1_plain(g, f2, d, stride))
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_k6_algorithm_matches_the_plain_version_in_fp64(shape):
+    g, f2, d, stride = _k6_inputs(shape, 31, torch.float64)
+    out = _bwd_f1_emulated(g, f2, d, stride)
+    ref = correlation_bwd_f1_plain(g, f2, d, stride)
+    assert (out - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [EMULATED[0], EMULATED[1]])
+def test_k6_algorithm_matches_the_pallas_kernel(shape):
+    """In fp32 against the JAX package's K6 (``_bwd_f1_kernel`` through
+    ``_correlation_bwd_pallas`` in interpret mode, as
+    tests/test_torch_port_flow_ops.py runs the Pallas path)."""
+    import jax.numpy as jnp
+
+    from ode_rl_tpu.ops.correlation import _correlation_bwd_pallas
+
+    g, f2, d, stride = _k6_inputs(shape, 37, torch.float32)
+    out = _bwd_f1_emulated(g, f2, d, stride)
+    f1 = jnp.zeros(f2.shape, jnp.float32)
+    ref, _ = _correlation_bwd_pallas(f1, jnp.asarray(f2.numpy()),
+                                     jnp.asarray(g.numpy()), d, stride,
+                                     interpret=True)
+    assert out.dtype == torch.float32
+    assert np.abs(out.numpy() - np.asarray(ref)).max() <= 1e-5
 
 
 # --------------------------------------------------------------------------

@@ -7,10 +7,11 @@ the rule sends to the two-pass kernels, correlation windows at stride 1,
 H != W, C not a
 multiple of 32 and d > H, the tensor-core K5-K7 against the SIMT ones
 and fp64 at maps of at most 64 pixels and the shapes the rule sends to
-SIMT, the SIMT K5 and K7 forced at every correlation shape (the highres
-trainer's maps, odd maps with C = 40, the label features) and 20 calls of
-them bit-equal, channelnorm at C = 1, 2, 3 and 64 and bit-equal to the plain
-version at FlowNet2's maps, the checks that make a wrapper raise, and one
+SIMT, the SIMT K5-K7 forced at every correlation shape (the highres
+trainer's maps, odd maps with C = 40, the label features; K6 also where
+cells meet no partner, and at views one element into their storage) and
+20 calls of them bit-equal, channelnorm at C = 1, 2, 3 and 64 and
+bit-equal to the plain version at FlowNet2's maps, the checks that make a wrapper raise, and one
 step of each Moving MNIST recurrent block (ConvGRU, cgrudecODE, the
 memory modes nru and nru2, the sampled z0) at its full width, fp32 and
 B=4, 10 -> 10 frames, through the kernels against the same step under
@@ -81,7 +82,8 @@ from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           correlation_bwd_f2_plain,
                                           correlation_fwd,
                                           correlation_fwd_plain,
-                                          n_displacements, tc_plan)
+                                          n_displacements, simt_plan,
+                                          tc_plan)
 from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
                                         _gates_plain, _gru_blend_2pass,
                                         _gru_blend_sample, _gru_gates_2pass,
@@ -577,6 +579,72 @@ def test_simt_correlation_is_bit_reproducible(cuda, dtype):
     for _ in range(20):
         assert torch.equal(fwd, _correlation_fwd_simt(f1, f2, d, stride))
         assert torch.equal(gf2, _correlation_bwd_f2_simt(g, f1, d, stride))
+
+
+# The SIMT K6's shapes: every correlation shape, and maps where cells
+# meet no partner in the map (d = 3, stride 2 on one row: the pair view on
+# a 1x1 map, the tiles on a 1x80 one), whose gradients are zeros.
+K6_SHAPES = [*CORR_SHAPES, (2, 1, 1, 8, 3, 2), (2, 1, 80, 8, 3, 2)]
+
+
+def _check_k6(gf1, g, f2, d, stride, dtype):
+    """The SIMT K6 against its plain version and fp64: fp32 1e-5 max abs
+    to both; bf16 bit-equal to the bf16 plain version and within one bf16
+    ulp of fp64 (at most 1e-3 of the outputs one ulp off)."""
+    ref64 = correlation_bwd_f1_plain(g.double(), f2.double(), d, stride)
+    plain = correlation_bwd_f1_plain(g, f2, d, stride)
+    assert gf1.dtype == dtype and gf1.shape == f2.shape
+    if dtype == torch.float32:
+        assert _max_abs(gf1, ref64) <= 1e-5
+        assert _max_abs(gf1, plain) <= 1e-5
+    else:
+        assert torch.equal(gf1, plain)
+        ulps, share = common.bf16_ulps(gf1, ref64)
+        assert ulps <= CORR_BF16_ULPS and share <= CORR_BF16_SHARE
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_simt_k6_matches_plain_and_fp64(cuda, shape, dtype):
+    """The SIMT K6 forced at every shape: one launch, of the tile kernel or
+    (maps of at most 32 cells a class) of the pair view as simt_plan says,
+    none on the tensor cores; held as ``_check_k6`` says, and 20 calls
+    bit-equal to the first."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    plan = simt_plan(*f2.shape, d, stride, dtype)["correlation_bwd_f1"]
+    common.reset_launches()
+    gf1 = _correlation_bwd_f1_simt(g, f2, d, stride)
+    torch.cuda.synchronize()
+    assert common.launches["correlation_bwd_f1"] == 1
+    assert common.launches["correlation_bwd_f1_tc"] == 0
+    assert common.launches["correlation_bwd_f1_pairs"] == int(
+        plan.kernel == "pairs")
+    _check_k6(gf1, g, f2, d, stride, dtype)
+    if shape[1] == 1:
+        assert torch.equal(gf1, torch.zeros_like(gf1))
+    for _ in range(20):
+        assert torch.equal(gf1, _correlation_bwd_f1_simt(g, f2, d, stride))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["g", "f2", "both"])
+@pytest.mark.parametrize("shape", [(2, 40, 56, 256, 20, 2),
+                                   (2, 8, 8, 256, 20, 2),
+                                   (2, 41, 57, 40, 20, 2)])
+def test_simt_k6_at_misaligned_views(cuda, shape, which, dtype):
+    """Views one element into their storage: the tile kernel and the pair
+    view without 16-byte copies (f2) or with g read at any offset, held as
+    at aligned pointers."""
+    f1, f2, g, d, stride = _corr_inputs(cuda, shape, dtype)
+    if which in ("g", "both"):
+        g = _misaligned(g)
+    if which in ("f2", "both"):
+        f2 = _misaligned(f2)
+    common.reset_launches()
+    gf1 = _correlation_bwd_f1_simt(g, f2, d, stride)
+    torch.cuda.synchronize()
+    assert common.launches["correlation_bwd_f1"] == 1
+    _check_k6(gf1, g, f2, d, stride, dtype)
 
 
 def _takes_tc(f1, f2, d, stride) -> bool:
