@@ -30,6 +30,7 @@ from ode_rl_torch.flow.data import FlyingChairsCorpus, validate_epe
 from ode_rl_torch.flow.losses import epe, multiscale_loss
 from ode_rl_torch.ops.resize import resize_bicubic, resize_bilinear
 from ode_rl_torch.ops.warp import resample2d
+from ode_rl_torch.parallel.mesh import Mesh
 from ode_rl_torch.train.step import TrainState, global_norm
 
 
@@ -108,12 +109,15 @@ def flow_loss_and_grads(model: torch.nn.Module,
 
 
 def make_flow_train_step(model: torch.nn.Module, lr: float = 1e-4,
-                         loss_norm: str = "l1", single_scale: bool = False
+                         loss_norm: str = "l1", single_scale: bool = False,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[Callable, Callable]:
     """(init_fn, step_fn): ``init_fn()`` gives the model's TrainState with
     Adam at ``lr`` (optax's betas and eps); ``step_fn(state, inputs,
     target_flow)`` takes one step and returns {"loss", "epe",
-    "grad_norm"}."""
+    "grad_norm"}. Under a ``mesh`` the inputs are this rank's rows, the
+    gradients are averaged over the ranks before ``grad_norm`` and the
+    update, and the metrics are the global batch's."""
 
     def init_fn() -> TrainState:
         return TrainState(model, torch.optim.Adam(
@@ -123,6 +127,9 @@ def make_flow_train_step(model: torch.nn.Module, lr: float = 1e-4,
                 target_flow: torch.Tensor) -> Dict:
         metrics = flow_loss_and_grads(state.model, inputs, target_flow,
                                       loss_norm, single_scale)
+        if mesh is not None:
+            mesh.all_reduce_grads(state.model.parameters())
+            metrics = mesh.mean_metrics(metrics)
         metrics["grad_norm"] = global_norm(
             p.grad for p in state.model.parameters() if p.grad is not None)
         state.optimizer.step()
@@ -135,20 +142,25 @@ def make_flow_train_step(model: torch.nn.Module, lr: float = 1e-4,
 def make_fused_flow_train_step(model: torch.nn.Module,
                                sprite_bank: torch.Tensor, batch: int,
                                lr: float = 1e-4, loss_norm: str = "l1",
-                               single_scale: bool = False
+                               single_scale: bool = False,
+                               mesh: Optional[Mesh] = None
                                ) -> Tuple[Callable, Callable]:
     """(init_fn, step_fn) where ``step_fn(state, generator)`` makes a
     synthetic-chairs batch on the device and trains on it. The JAX version
     double-buffers the batch inside one XLA program so that its scheduler
     can overlap datagen with the network step; eager PyTorch has no such
     scheduler, so this step generates its batch first and then trains on
-    that same batch."""
+    that same batch. Under a ``mesh`` every rank makes the global batch
+    of ``batch`` pairs and trains on its rows."""
     init_fn, base_step = make_flow_train_step(model, lr, loss_norm,
-                                              single_scale)
+                                              single_scale, mesh)
 
     def step_fn(state: TrainState, generator: torch.Generator) -> Dict:
         img1, img2, flow = synthetic_flow_batch(generator, sprite_bank,
                                                 batch=batch)
+        if mesh is not None:
+            rows = mesh.rows(batch)
+            img1, img2, flow = img1[rows], img2[rows], flow[rows]
         return base_step(state, (img1, img2), flow)
 
     return init_fn, step_fn

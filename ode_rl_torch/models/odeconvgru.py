@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ode_rl_torch.core.noise import as_noise
 from ode_rl_torch.nn.conv_stacks import ConvDecoder, ConvEncoder, ConvNet
 from ode_rl_torch.nn.odeconvgru import ODEConvGRUEncoder
 from ode_rl_torch.ode.fast import odeint_fast
@@ -109,11 +110,7 @@ class ODEConvGRUModel(nn.Module):
         """(z0, z0_kl or None)."""
         if not self.z_sample:
             return mu, None
-        if generator is None:
-            raise ValueError("z_sample draws z0's noise from a generator: "
-                             "pass one")
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                          device=mu.device)
+        eps = as_noise(generator, "z_sample").normal(mu.shape, mu)
         z0_kl = None
         if self.z_kl_weight > 0.0:
             mu32, std32 = mu.float(), std.float()

@@ -31,6 +31,12 @@ Every random draw comes from the caller's generator, through one
 (3B, S, D) slot-init draw for each slot module, the z_f and z_t
 epsilons; then in the loss the SCC anchor, positive and negative, and
 MI's z_t and z_f samples.
+
+Inside a data-parallel mesh (parallel/mesh.py) a rank holds rows of the
+global batch: ``perm_b`` permutes the global batch and the negatives'
+features are all-gathered, MI's logsumexp runs over the stats of every
+row, log(N * M) takes the global M, and the draws are the rank's rows of
+the global ones (the static pass's of each of its three blocks).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ode_rl_torch.core.noise import Noise, as_noise
 from ode_rl_torch.nn.s3vae_nets import (DFP, ConvGRUEncoderS3, FrameDecoder,
                                         FrameEncoder, GRUEncoder)
 from ode_rl_torch.nn.slot_attention import SlotAttentionAutoEncoder
+from ode_rl_torch.parallel.mesh import active, gather_rows, world
 
 
 def _normal_logprob(mu, std, x):
@@ -188,12 +195,20 @@ class S3VAEModel(nn.Module):
         feats = feats.reshape(b, t_in, -1) if self.vec else feats.reshape(
             b, t_in, *feats.shape[1:])
         perm_t = noise.permutation(t_in, feats.device)
-        perm_b = noise.permutation(b, feats.device)
+        # The negative is another video of the global batch, under a
+        # data-parallel mesh perhaps another rank's (parallel/mesh.py).
+        mesh = active()
+        n_ranks = 1 if mesh is None else mesh.world
+        perm_b = noise.permutation(b * n_ranks, feats.device)
+        if mesh is None:
+            neg = feats[perm_b]
+        else:
+            neg = gather_rows(feats)[perm_b[mesh.rows(b * n_ranks)]]
 
         # Anchor, time-shuffled positive and the other video's negative as
         # one pass of 3B rows.
-        mu3, lv3 = self._static(torch.cat(
-            [feats, feats[:, perm_t], feats[perm_b]]), t_in, train, noise)
+        mu3, lv3 = self._static(torch.cat([feats, feats[:, perm_t], neg]),
+                                t_in, train, noise.in_blocks(3))
         mu_zf, pos_mu, neg_mu = mu3.chunk(3)
         lv_zf, pos_lv, neg_lv = lv3.chunk(3)
         to_std = lambda lv: torch.exp(0.5 * lv)
@@ -288,10 +303,16 @@ class S3VAEModel(nn.Module):
         n = self.data_points * self.train_test_split
         mu_t = aux["mu_zt"].float().movedim(1, 0)
         std_t = aux["std_zt"].float().movedim(1, 0)
-        zt_s = mu_t + std_t * noise.normal(mu_t.shape, mu_t)
+        zt_s = mu_t + std_t * noise.normal_at(mu_t.shape, mu_t, batch_axis=1)
         mu_f, std_f = aux["mu_zf"].float(), aux["std_zf"].float()
         zf_s = mu_f + std_f * noise.normal(mu_f.shape, mu_f)
+        # The rank's samples against the stats of every row of the global
+        # batch (parallel/mesh.py).
         # log(N * M) taken in fp32, as jnp.log takes it.
-        log_nm = torch.log(torch.tensor(n * b, dtype=torch.float32,
+        log_nm = torch.log(torch.tensor(n * b * world(),
+                                        dtype=torch.float32,
                                         device=mu_t.device))
-        return mi_estimate(mu_t, std_t, zt_s, mu_f, std_f, zf_s, log_nm)
+        return mi_estimate(gather_rows(mu_t, dim=1),
+                           gather_rows(std_t, dim=1), zt_s,
+                           gather_rows(mu_f), gather_rows(std_f), zf_s,
+                           log_nm)

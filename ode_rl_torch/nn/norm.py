@@ -24,6 +24,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ode_rl_torch.parallel.mesh import global_sum, world
+
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
     """x in its dtype promoted to at least fp32, as flax takes moments."""
@@ -39,6 +41,19 @@ def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def _global_moments(x: torch.Tensor, n_ranks: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moments`` of the global batch: the ranks' sums of x and x^2
+    all-reduced in one call, with their gradients."""
+    xf = _acc(x)
+    axes = tuple(range(x.ndim - 1))
+    sums = global_sum(torch.stack([xf.sum(dim=axes),
+                                   (xf * xf).sum(dim=axes)]))
+    count = x.numel() // x.shape[-1] * n_ranks
+    mean, mean_sq = sums[0] / count, sums[1] / count
+    return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
+
+
 def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
@@ -51,7 +66,9 @@ def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 class BatchNorm(nn.Module):
     """In training: normalise by the batch's moments and move the running
     ones, running = momentum * running + (1 - momentum) * batch, with the
-    biased variance. In eval: normalise by the running moments."""
+    biased variance. In eval: normalise by the running moments. Inside a
+    data-parallel mesh the moments are the global batch's, so the running
+    ones stay equal on every rank."""
 
     MOMENTUM, EPS = 0.9, 1e-5
 
@@ -66,7 +83,9 @@ class BatchNorm(nn.Module):
         if not train:
             return _normalize(x, self.mean, self.var, self.scale, self.bias,
                               self.EPS)
-        mean, var = _moments(x)
+        n_ranks = world()
+        mean, var = (_moments(x) if n_ranks == 1
+                     else _global_moments(x, n_ranks))
         with torch.no_grad():
             m = self.MOMENTUM
             self.mean.mul_(m).add_((1.0 - m) * mean.detach())

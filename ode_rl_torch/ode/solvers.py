@@ -4,7 +4,8 @@ Counterpart of ``ode_rl_tpu/ode/solvers.py``. ``odeint_aux`` integrates
 ``dy/dt = func(t, y)`` and reports the solution at every requested time,
 with gradients by backprop through the solver's own steps. The pieces the
 O(NFE) solver (ode/fast.py) shares live here too: the tableau and
-controller constants, ``ODEStats``, the batch-wide RMS norm, the error
+controller constants, ``ODEStats``, the batch-wide RMS norm (over the
+global batch inside a data-parallel mesh, parallel/mesh.py), the error
 ratio, the Hairer-Norsett-Wanner initial step and one dopri5 attempt.
 
 The state is one tensor. Times and step sizes are fp32 host scalars
@@ -31,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ode_rl_torch.ode.interp import interp_eval, interp_fit
+from ode_rl_torch.parallel.mesh import global_sum, world
 
 # Dormand-Prince 5(4) Butcher tableau.
 _C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0], np.float32)
@@ -94,7 +96,10 @@ def _axpy(alpha, xs, y: Optional[torch.Tensor], scale: float):
 
 
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.square(x.float())) / x.numel())
+    """The RMS over every element, of the global batch under a mesh: every
+    rank then takes the same step sizes and attempts."""
+    total = global_sum(torch.sum(torch.square(x.float())))
+    return torch.sqrt(total / (x.numel() * world()))
 
 
 def _error_ratio(err, y0, y1, rtol: float, atol: float) -> torch.Tensor:

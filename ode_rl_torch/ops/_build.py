@@ -5,12 +5,15 @@ source, in parallel) and links them into a library with a plain C
 interface, bound with ``ctypes``. The library lands in
 ``build/ode_rl_torch/`` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source rebuilds. A failed build
-raises with nvcc's messages; nothing else is built or fetched.
+raises with nvcc's messages; nothing else is built or fetched. Processes
+that build at once wait on a lock in that directory, so one of them
+builds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -129,11 +132,22 @@ def _run_all(cmds: list[list[str]]) -> str:
 def build() -> str:
     """Compile the library if it is not there yet: one nvcc per source, all
     started together, then one link. Return nvcc's messages (ptxas register
-    and shared-memory use), or "" if it was built."""
+    and shared-memory use), or "" if it was built. Processes that start at
+    once (the ranks of a data-parallel run) build it once: each takes an
+    exclusive lock on the build directory, and a process that waited for
+    it finds the library there."""
     target = library_path()
     if target.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            return ""
+        return _compile(target)
+
+
+def _compile(target: pathlib.Path) -> str:
     stem = target.with_name(f"{target.stem}.{os.getpid()}")
     cus = [p for p in sources() if p.suffix == ".cu"]
     objs = [f"{stem}.{p.stem}.o" for p in cus]

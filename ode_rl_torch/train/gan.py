@@ -26,6 +26,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ode_rl_torch.core.noise import global_rows
 from ode_rl_torch.models.registry import build_model, cfg_get
 from ode_rl_torch.nn.discriminators import (PatchDiscriminator,
                                             frames_to_images, lsgan_d_loss,
@@ -33,6 +34,7 @@ from ode_rl_torch.nn.discriminators import (PatchDiscriminator,
                                             rearrange_seq_extrap,
                                             rearrange_seq_interp,
                                             seq_channels)
+from ode_rl_torch.parallel.mesh import Mesh, entered
 
 
 def make_gan_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int],
@@ -91,15 +93,25 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def make_gan_train_step(extrap: bool = True, lamb_adv: float = 0.003
-                        ) -> Callable[..., Dict]:
+def make_gan_train_step(extrap: bool = True, lamb_adv: float = 0.003,
+                        mesh: Optional[Mesh] = None) -> Callable[..., Dict]:
     """(state, batch, generator=None) -> metrics: the D update, then the
     G update. The metrics: the generator's loss terms, ``g_adv_loss``,
-    ``recon_total``, ``d_loss``, ``g_loss`` and ``lr``."""
+    ``recon_total``, ``d_loss``, ``g_loss`` and ``lr``. Under a ``mesh``
+    ``batch`` holds this rank's rows, the generator runs inside the mesh,
+    D's and G's gradients are each averaged over the ranks before their
+    update, and the metrics are the global batch's."""
     rearrange = rearrange_seq_extrap if extrap else rearrange_seq_interp
 
     def train_step(state: GANState, batch: Dict,
                    generator: Optional[torch.Generator] = None) -> Dict:
+        if mesh is not None:
+            generator = global_rows(generator, mesh.rank, mesh.world)
+        with entered(mesh):
+            metrics = _step(state, batch, generator)
+        return metrics if mesh is None else mesh.mean_metrics(metrics)
+
+    def _step(state: GANState, batch: Dict, generator) -> Dict:
         gen, disc = state.gen, state.disc
         real = batch["data_to_predict"].float() + 0.5
         context = batch["observed_data"].float() + 0.5
@@ -117,6 +129,8 @@ def make_gan_train_step(extrap: bool = True, lamb_adv: float = 0.003
                   + lsgan_d_loss(d_seq(rearrange(real, context)),
                                  d_seq(rearrange(fake_d, context))))
         d_loss.backward()
+        if mesh is not None:
+            mesh.all_reduce_grads(disc.parameters())
         _set_lr(state.disc_opt, lr)
         state.disc_opt.step()
 
@@ -129,6 +143,8 @@ def make_gan_train_step(extrap: bool = True, lamb_adv: float = 0.003
             disc.requires_grad_(True)
         g_loss = recon_loss + lamb_adv * adv
         g_loss.backward()
+        if mesh is not None:
+            mesh.all_reduce_grads(gen.parameters())
         _set_lr(state.gen_opt, lr)
         state.gen_opt.step()
         state.step += 1

@@ -57,8 +57,19 @@ run's dtype, with the weights in ``flownet_params_path`` (JAX's or the
 port's file, flow/train.py); without that file it raises, unless
 ``allow_random_flownet`` opts into a randomly initialised net with a
 warning. The test phase keeps the frame-difference labels, as JAX's
-does. Not ported, and it raises where a config asks for it: the device
-mesh. The metric-vs-horizon plot (matplotlib) is not written.
+does. The metric-vs-horizon plot (matplotlib) is not written.
+
+``use_mesh`` trains data-parallel (parallel/mesh.py) over the ranks
+torchrun starts, one a card (``python -m torch.distributed.run
+--nproc_per_node N -m ode_rl_torch.main ... --use_mesh True``), or gloo
+ranks on the CPU with ``--device cpu``. ``batch_size`` stays the global
+batch: every rank makes or reads it from the same generators and trains
+on its rows, so the step is the one-process step on the whole batch.
+Rank 0 alone writes logs and checkpoints, between barriers; on resume
+every rank reads the checkpoint; the validation monitor runs on every
+rank over the whole batches, so every rank takes the same decision. As
+in JAX, the GAN and CATER paths return before the mesh is built, and the
+test phase runs on one process: ``use_mesh`` changes neither.
 """
 
 from __future__ import annotations
@@ -83,6 +94,7 @@ from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.eval_models.lpips import lpips_horizon_fn
 from ode_rl_torch.flow.flownets import FlowNetC
 from ode_rl_torch.flow.train import load_flax_params, load_flownet_params
+from ode_rl_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch
 from ode_rl_torch.train.gan import create_gan_state, make_gan_train_step
 from ode_rl_torch.train.schedulers import (EarlyStopping, ReduceLROnPlateau,
                                            set_lr_scale)
@@ -104,12 +116,6 @@ _WINDOW_SEED = 0x3D1D
 def _sample_generator(cfg, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(
         int(cfg.get("seed", 0)) + _SAMPLE_SEED)
-
-
-def _refuse_unported(cfg) -> None:
-    if cfg.get("use_mesh", False):
-        raise NotImplementedError("the device mesh (parallel/) is not "
-                                  "ported: ROADMAP queue 1, item 10")
 
 
 def _make_flow_label_fn(cfg, device: torch.device):
@@ -179,21 +185,54 @@ def _window_batches(cfg, loader):
     return next_batch
 
 
+def _make_mesh(cfg, device: torch.device) -> Optional[Mesh]:
+    """The data-parallel mesh where ``use_mesh`` asks for it: torchrun's
+    ranks, on ``device`` where it is the CPU (gloo), else on the card of
+    the rank's ``LOCAL_RANK`` (NCCL)."""
+    if not cfg.get("use_mesh", False):
+        return None
+    mesh = make_mesh(device=device if device.type == "cpu" else None)
+    mesh.rows(int(cfg.batch_size))      # the global batch must split
+    return mesh
+
+
+def _saver(ckpt: CheckpointManager, mesh: Optional[Mesh], lead: bool):
+    """save(step, snapshot, config): rank 0 writes, every rank waits for
+    the others before and after."""
+
+    def save(step: int, snapshot: Dict, config: Dict) -> None:
+        if mesh is not None:
+            mesh.barrier()
+        if lead:
+            ckpt.save(step, snapshot, config=config)
+        if mesh is not None:
+            mesh.barrier()
+
+    return save
+
+
 def train(cfg, device: torch.device,
           logdir: Optional[pathlib.Path] = None) -> Dict:
-    _refuse_unported(cfg)
     if cfg.get("gan", False):
         return train_gan(cfg, device, logdir)
     if cfg.model == "CATERClassifier":
         return train_cater_classifier(cfg, device, logdir)
+    mesh = _make_mesh(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model
               / run_id)
-    logger = MetricLogger(logdir, use_wandb=not cfg.get("off_wandb", True),
-                          quiet=cfg.get("quiet", False))
+    logger = MetricLogger(logdir if lead else None,
+                          use_wandb=lead and not cfg.get("off_wandb", True),
+                          quiet=cfg.get("quiet", False) or not lead)
     ckpt = CheckpointManager(logdir / "checkpoints",
                              tag=cfg.get("ckpt_id", run_id))
+    save = _saver(ckpt, mesh, lead)
     loaders, state = setup(cfg, device)
+    if mesh is not None:
+        replicate(state.model, mesh)
 
     windows = cfg.get("vidode_sampling", False)
     fused = (cfg.get("fused_datagen", True) and cfg.dataset == "mmnist"
@@ -216,18 +255,19 @@ def train(cfg, device: torch.device,
             bank = bank[:int(cfg.num_sprites)]
         fused_step = make_fused_train_step(
             cfg, torch.from_numpy(bank).float().to(device),
-            flow_label_fn=flow_label_fn)
+            flow_label_fn=flow_label_fn, mesh=mesh)
         loop_gen = torch.Generator(device=device).manual_seed(
             int(cfg.get("seed", 0)) + _LOOP_SEED)
     else:
         train_step = make_train_step(
             nan_guard=cfg.get("nan_guard", False),
-            debug_nans=cfg.get("debug_nans", False))
+            debug_nans=cfg.get("debug_nans", False), mesh=mesh)
     sample_gen = _sample_generator(cfg, device)
     n_train_batches = (int(cfg.get("steps_per_epoch", 0))
                        or loaders["n_train_batches"])
     total_steps = n_train_batches * cfg.epochs
-    logger.print_exp_details(cfg, n_train_batches)
+    if lead:
+        logger.print_exp_details(cfg, n_train_batches)
 
     start_step = 0
     if ckpt.latest_step() is not None and cfg.get("auto_resume", True):
@@ -253,13 +293,17 @@ def train(cfg, device: torch.device,
                 break
             if fused:
                 metrics = fused_step(state, loop_gen, sample_gen)
-            elif windows:
-                metrics = train_step(state, next_window(), sample_gen)
             else:
-                batch = make_batch_dict(
-                    next(loader), n_in=cfg.train_in_seq,
-                    with_flow_labels=needs_flow_labels(cfg),
-                    flow_label_fn=flow_label_fn)
+                if windows:
+                    batch = next_window()
+                else:
+                    # The global batch; a rank trains on its rows.
+                    batch = make_batch_dict(
+                        next(loader), n_in=cfg.train_in_seq,
+                        with_flow_labels=needs_flow_labels(cfg),
+                        flow_label_fn=flow_label_fn)
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh)
                 metrics = train_step(state, batch, sample_gen)
             step += 1
             # Fetch metrics only at log points.
@@ -268,10 +312,11 @@ def train(cfg, device: torch.device,
                 logger.log(step, last_metrics)
                 epoch_losses.append(last_metrics["loss"])
             if step % cfg.get("ckpt_save_freq", 5000) == 0:
-                ckpt.save(step, _snapshot(state), config=cfg.to_dict())
+                save(step, _snapshot(state), cfg.to_dict())
         epoch_loss = (float(np.mean(epoch_losses)) if epoch_losses
                       else last_metrics.get("loss", float("nan")))
-        logger.log_epoch(epoch, epoch_loss, step, total_steps)
+        if lead:
+            logger.log_epoch(epoch, epoch_loss, step, total_steps)
         if val_monitor is not None:
             val_mse = val_monitor()
             logger.log(step, {"val_mse": val_mse})
@@ -289,7 +334,7 @@ def train(cfg, device: torch.device,
                 break
         if step >= total_steps:
             break
-    ckpt.save(max(step, 1), _snapshot(state), config=cfg.to_dict())
+    save(max(step, 1), _snapshot(state), cfg.to_dict())
     logger.close()
     return {"final_step": step, **last_metrics}
 
@@ -437,7 +482,6 @@ def test(cfg, device: torch.device,
         saved_cfg = ckpt.load_config()
         if saved_cfg is not None:
             cfg = _resurrect_train_config(cfg, saved_cfg)
-    _refuse_unported(cfg)
 
     run_id = resolve_run_id(cfg)
     logdir = (pathlib.Path(logdir or cfg.get("logdir", "logs")) / cfg.model

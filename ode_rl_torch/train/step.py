@@ -25,6 +25,12 @@ fused step is given its label function).
 Each step takes an optional ``torch.Generator`` that a model drawing
 noise (ODEConv with ``z_sample``, S3VAE) draws it from, as JAX's steps
 take a key for the 'sample' rng.
+
+With a data-parallel ``mesh`` (parallel/mesh.py) the steps compute, on
+each rank, its share of the unsharded step on the global batch: the
+model's cross-row terms and draws global, the gradients averaged over
+the ranks before ``grad_norm``, the clip and the NaN guard, and the
+metrics the global batch's.
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
 from ode_rl_torch.core.config import Config
 from ode_rl_torch.core.debug import (check_finite, nan_checks,
                                      nan_guard_update)
+from ode_rl_torch.core.noise import global_rows
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.models.registry import build_model, cfg_get
+from ode_rl_torch.parallel.mesh import Mesh, entered
 from ode_rl_torch.train.metrics import per_frame_metrics
 
 
@@ -119,12 +127,17 @@ def clip_by_global_norm(grads: List[torch.Tensor], norm: torch.Tensor,
 
 def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
-                   debug_nans: bool = False):
+                   debug_nans: bool = False, mesh: Optional[Mesh] = None):
     """Loss metrics and prediction, with gradients left in ``.grad``;
     with ``debug_nans``, ``FloatingPointError`` where the forward or the
-    backward makes a NaN."""
+    backward makes a NaN. With a ``mesh``, ``batch`` holds this rank's
+    rows: the model runs inside the mesh (its terms that mix rows global,
+    its draws the rank's rows of the global ones), then the gradients
+    are averaged over the ranks and the metrics are the global batch's."""
     model.zero_grad(set_to_none=True)
-    with nan_checks(debug_nans):
+    if mesh is not None:
+        generator = global_rows(generator, mesh.rank, mesh.world)
+    with nan_checks(debug_nans), entered(mesh):
         loss, (metrics, pred) = model.loss(batch, generator)
         if debug_nans:
             check_finite("forward", {"loss": loss, **metrics,
@@ -132,6 +145,9 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
         loss.backward()
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
+    if mesh is not None:
+        mesh.all_reduce_grads(model.parameters())
+        metrics = mesh.mean_metrics(metrics)
     metrics["grad_norm"] = global_norm(
         p.grad for p in model.parameters() if p.grad is not None)
     return metrics, pred.detach()
@@ -139,12 +155,15 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               nan_guard: bool = False, debug_nans: bool = False) -> Dict:
-    """One step: gradients, ``grad_norm`` of the raw ones, the clip, the
-    optimizer's update and, with ``nan_guard``, the parameters put back
-    where a raw gradient is not finite (``nan_skipped`` 1)."""
+               nan_guard: bool = False, debug_nans: bool = False,
+               mesh: Optional[Mesh] = None) -> Dict:
+    """One step: gradients (averaged over the ``mesh``'s ranks),
+    ``grad_norm`` of the raw ones, the clip, the optimizer's update and,
+    with ``nan_guard``, the parameters put back where a raw gradient is
+    not finite (``nan_skipped`` 1); every rank takes the same decision."""
     state.model.train()
-    metrics, _ = loss_and_grads(state.model, batch, generator, debug_nans)
+    metrics, _ = loss_and_grads(state.model, batch, generator, debug_nans,
+                                mesh)
     params = [p for p in state.model.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
     if state.clip != -1:
@@ -159,12 +178,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     return metrics
 
 
-def make_train_step(nan_guard: bool = False,
-                    debug_nans: bool = False) -> Callable[..., Dict]:
+def make_train_step(nan_guard: bool = False, debug_nans: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable[..., Dict]:
     """(state, batch, generator=None) -> metrics: one step on a given
-    batch."""
+    batch (this rank's rows of it under a ``mesh``)."""
     return functools.partial(train_step, nan_guard=nan_guard,
-                             debug_nans=debug_nans)
+                             debug_nans=debug_nans, mesh=mesh)
 
 
 def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
@@ -194,13 +213,16 @@ def make_eval_step() -> Callable[..., Tuple[Dict, torch.Tensor]]:
 
 
 def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
-                          flow_label_fn: Optional[Callable] = None
+                          flow_label_fn: Optional[Callable] = None,
+                          mesh: Optional[Mesh] = None
                           ) -> Callable[..., Dict]:
     """(state, generator, sample_generator=None) -> metrics: a Moving
     MNIST batch made on the device from ``generator`` (S3VAE's labels
     from ``flow_label_fn`` where it is given), then one training step
     (with ``cfg.nan_guard`` and ``cfg.debug_nans``) that draws any model
-    noise from ``sample_generator``."""
+    noise from ``sample_generator``. Under a ``mesh`` every rank makes the
+    global batch from the same generator and trains on its rows, as JAX
+    shards the generated batch at its source."""
     if cfg.resolution != IMAGE_SIZE:
         raise NotImplementedError(f"the generator makes {IMAGE_SIZE}x"
                                   f"{IMAGE_SIZE} frames")
@@ -208,7 +230,7 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
     n_frames = n_in + int(cfg.train_out_seq)
     with_flow = needs_flow_labels(cfg)
     step = make_train_step(bool(cfg_get(cfg, "nan_guard", False)),
-                           bool(cfg_get(cfg, "debug_nans", False)))
+                           bool(cfg_get(cfg, "debug_nans", False)), mesh)
 
     def fused_step(state: TrainState, generator: torch.Generator,
                    sample_generator: Optional[torch.Generator] = None
@@ -217,6 +239,8 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
                                       batch=int(cfg.batch_size),
                                       n_frames=n_frames,
                                       num_digits=int(cfg.num_digits))
+        if mesh is not None:
+            video = video[mesh.rows(video.shape[0])]
         return step(state, make_batch_dict(video, n_in=n_in,
                                            with_flow_labels=with_flow,
                                            flow_label_fn=flow_label_fn),

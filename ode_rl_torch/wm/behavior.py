@@ -35,14 +35,15 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ode_rl_torch.core.noise import Noise
+from ode_rl_torch.core.noise import Noise, global_rows
 from ode_rl_torch.nn.dense import Dense
+from ode_rl_torch.parallel.mesh import Mesh, entered
 from ode_rl_torch.wm.networks import ACTS, DenseHead
 from ode_rl_torch.wm.rssm import stack
 from ode_rl_torch.wm.tools import lambda_return, one_hot_st_sample
@@ -222,9 +223,22 @@ class ImagBehavior(nn.Module):
 
     def train_step(self, start_state: Dict, img_step_fn: Callable,
                    get_feat_fn: Callable, reward_fn: Callable,
-                   noise: Noise) -> Dict:
+                   noise: Noise, mesh: Optional[Mesh] = None) -> Dict:
         """One update of the actor, then of the value, then the slow
-        target's copy where due; returns the actor rollout's metrics."""
+        target's copy where due; returns the actor rollout's metrics.
+        Under a ``mesh`` ``start_state`` holds this rank's rows, the
+        rollout's draws are its rows of the global ones, each gradient is
+        averaged over the ranks before its clip, and the metrics are the
+        global batch's."""
+        if mesh is not None:
+            noise = global_rows(noise, mesh.rank, mesh.world)
+        with entered(mesh):
+            metrics = self._train_step(start_state, img_step_fn, get_feat_fn,
+                                       reward_fn, noise, mesh)
+        return metrics if mesh is None else mesh.mean_metrics(metrics)
+
+    def _train_step(self, start_state, img_step_fn, get_feat_fn, reward_fn,
+                    noise, mesh) -> Dict:
         if self.actor_opt is None:
             # Over the parameters where they now are (after ``.to``).
             self.actor_opt = _adam(self.actor.parameters(), self.actor_lr,
@@ -233,11 +247,11 @@ class ImagBehavior(nn.Module):
                                    self.value_grad_clip)
         actor_loss, _, metrics = self.loss(start_state, img_step_fn,
                                            get_feat_fn, reward_fn, noise)
-        _set_grads(actor_loss, self.actor_opt.params)
+        _set_grads(actor_loss, self.actor_opt.params, mesh)
         self.actor_opt.step()
         _, value_loss, _ = self.loss(start_state, img_step_fn, get_feat_fn,
                                      reward_fn, noise, rollout_grad=False)
-        _set_grads(value_loss, self.value_opt.params)
+        _set_grads(value_loss, self.value_opt.params, mesh)
         self.value_opt.step()
         self.updates += 1
         if self.updates % self.slow_target_update == 0:
@@ -245,11 +259,15 @@ class ImagBehavior(nn.Module):
         return metrics
 
 
-def _set_grads(loss: torch.Tensor, params: List[torch.Tensor]) -> None:
-    """``.grad`` of ``params`` from ``loss``, and of nothing else."""
+def _set_grads(loss: torch.Tensor, params: List[torch.Tensor],
+               mesh: Optional[Mesh] = None) -> None:
+    """``.grad`` of ``params`` from ``loss``, and of nothing else
+    (averaged over the ``mesh``'s ranks)."""
     for p, g in zip(params, torch.autograd.grad(loss, params,
                                                 allow_unused=True)):
         p.grad = torch.zeros_like(p) if g is None else g
+    if mesh is not None:
+        mesh.all_reduce_grads(params)
 
 
 def rssm_behavior_fns(rssm) -> Tuple[Callable, Callable]:

@@ -46,6 +46,7 @@ from torch import nn
 from ode_rl_torch.core.noise import Noise
 from ode_rl_torch.nn.dense import Dense
 from ode_rl_torch.nn.norm import LayerNorm
+from ode_rl_torch.parallel.mesh import global_mean
 from ode_rl_torch.wm.networks import ACTS
 
 State = Dict[str, torch.Tensor]
@@ -261,9 +262,10 @@ class RSSM(nn.Module):
         if balance == 0.5:
             loss = torch.clamp(value, min=free).mean()
         else:
-            loss_lhs = torch.clamp(self._kl(lhs, detach(rhs)).mean(),
+            # Free bits clamp the global batch's mean (parallel/mesh.py).
+            loss_lhs = torch.clamp(global_mean(self._kl(lhs, detach(rhs))),
                                    min=free)
-            loss_rhs = torch.clamp(self._kl(detach(lhs), rhs).mean(),
+            loss_rhs = torch.clamp(global_mean(self._kl(detach(lhs), rhs)),
                                    min=free)
             loss = mix * loss_lhs + (1.0 - mix) * loss_rhs
         return loss * scale, value

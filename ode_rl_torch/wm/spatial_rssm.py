@@ -45,6 +45,7 @@ from torch import nn
 from ode_rl_torch.core.noise import Noise, as_noise
 from ode_rl_torch.nn.conv_stacks import Conv, ConvTranspose
 from ode_rl_torch.nn.dense import Dense
+from ode_rl_torch.parallel.mesh import global_mean
 from ode_rl_torch.wm.rssm import stack
 from ode_rl_torch.wm.world_model import image_log_prob
 
@@ -227,7 +228,7 @@ class SpatialRSSM(nn.Module):
         mq, sq = prior["mean"].float(), prior["std"].float()
         kl = (torch.log(sq / sp) + (sp ** 2 + (mp - mq) ** 2) / (2 * sq ** 2)
               - 0.5)
-        return torch.clamp(kl.sum(dim=(-3, -2, -1)).mean(), min=free)
+        return torch.clamp(global_mean(kl.sum(dim=(-3, -2, -1))), min=free)
 
     def sparsity_loss(self, post: State, prior_prob: float = 0.3,
                       free: float = 0.0, scale: float = 0.1,
@@ -242,7 +243,7 @@ class SpatialRSSM(nn.Module):
         a, b = (p, q) if forward else (q, p)
         kl = a * torch.log(a / b) + (1.0 - a) * torch.log((1.0 - a)
                                                           / (1.0 - b))
-        return torch.clamp(kl.sum(dim=-1).mean(), min=free) * scale
+        return torch.clamp(global_mean(kl.sum(dim=-1)), min=free) * scale
 
 
 class SpatialWorldModel(nn.Module):

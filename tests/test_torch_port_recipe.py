@@ -197,7 +197,7 @@ def test_main_defaults_to_cuda_and_refuses_the_cpu_fallback():
 
 def test_registry_refuses_unported_families_and_options():
     from ode_rl_torch.models.registry import build_model
-    from ode_rl_torch.train.loop import _refuse_unported
+    from ode_rl_torch.parallel import make_mesh
 
     cfg = load_config(RECIPE, overrides=NARROW)
     gen = torch.Generator().manual_seed(0)
@@ -207,19 +207,34 @@ def test_registry_refuses_unported_families_and_options():
             build_model(cfg.replace(**overrides), torch.device("cpu"), gen)
     with pytest.raises(NotImplementedError, match="optimizer 'sgd'"):
         create_train_state(cfg.replace(optimizer="sgd"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _refuse_unported(cfg.replace(use_mesh=True))
+    # The data axis is ported (parallel/mesh.py); the 'model' axis is not.
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_mesh(n_model=2)
 
 
 @pytest.mark.parametrize("overrides,match", [
     ({"gan": True, "use_mesh": True}, "mesh"),
     ({"use_mesh": True}, "mesh")])
-def test_loop_refuses_unported_options(tmp_path, overrides, match):
-    from ode_rl_torch.train.loop import train
+def test_loop_refuses_unported_options(tmp_path, monkeypatch, overrides,
+                                       match):
+    """``use_mesh`` trains data-parallel (parallel/mesh.py). The GAN path
+    returns before the mesh is built, as JAX's does; a mesh whose ranks
+    do not split the global batch is refused before anything is
+    written."""
+    from ode_rl_torch.parallel import Mesh
+    from ode_rl_torch.train import loop
 
     cfg = load_config(RECIPE, overrides=NARROW).replace(**overrides)
-    with pytest.raises(NotImplementedError, match=match):
-        train(cfg, torch.device("cpu"), logdir=tmp_path)
+    if cfg.get("gan", False):
+        monkeypatch.setattr(loop, "train_gan", lambda *a: {"path": "gan"})
+        monkeypatch.setattr(loop, "make_mesh", None)
+        assert loop.train(cfg, torch.device("cpu"), logdir=tmp_path) == {
+            "path": "gan"}
+    else:
+        monkeypatch.setattr(loop, "make_mesh",
+                            lambda **kw: Mesh(rank=0, world=3))
+        with pytest.raises(ValueError, match="does not split over 3 ranks"):
+            loop.train(cfg, torch.device("cpu"), logdir=tmp_path)
     assert not list(tmp_path.iterdir())
 
 
