@@ -279,9 +279,40 @@ without printing its last line:
     rank; step_ms of two ranks and of one (two processes on one card:
     not a multi-card figure). Each rank's launches
     (``phase17_launches``) go into the kernels line.
+18. the 'model' and 'space' axes (parallel/tp.py, parallel/sp.py):
+    ``flagship_bench_tp`` (the fused bench step, B=128 bf16, on a 1 x 2
+    ('data', 'model') mesh: the 13 wide kernels' output channels split,
+    the channels all-gathered) and ``flagship_bench_sp`` (on a 1 x 2
+    ('data', 'space') mesh: 32 of the 64 frame rows a rank, halo rows
+    exchanged, K3/K4's moments all-reduced) over two gloo ranks sharing
+    this card against the one-rank step on the same weights and batch:
+    loss and grad_norm within AXIS_BENCH_TOL, NFE equal, parameters
+    after the step bit-equal across the ranks (the 'model' slices
+    gathered) and their update within BENCH_PARAM_TOL relative L2 of the
+    one-rank update; each rank's K1-K4 launches and routes (under
+    'space' every K3/K4 launch a moments-in one, each with its moments
+    pass), and the bytes each axis moved in a step. Then the dry run's
+    flagship dp x tp and dp x sp steps at four gloo ranks on this card
+    (fp32, its shapes): with the convs outside K1-K4 on cuDNN, printed,
+    then on PyTorch's own CUDA convolution, held at its tolerances
+    (cuDNN's fp32 algorithms differ by shape, and at the one-process
+    shapes read grad_norm 1.1e-4 off the others). Each rank's launches
+    (``phase18_launches``) go into the kernels line; the moments-in
+    K3/K4 and their moments pass take their launches from the 'space'
+    run's rank 0. Two or four processes on one card: not a multi-card
+    figure.
+
+Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
+'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
+rank's tile (128, 10, 16, 64) -> 64 in bf16 against fp64 (their routes
+printed; the fp32 K1 of the column-parallel dx against its plain
+version), and the moments-in K3 and K4 with their moments pass at a
+'space' rank's rows (128, 8, 16, 128 / 64) against their plain versions
+(fp32, 1e-5; bf16, one ulp of the fp64 formula), bit-equal over 20
+calls, timed beside their plain versions.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-17) run their convs in strict fp32. Then one JSON line
+7-18) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -338,7 +369,9 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
                                       conv3x3_wgrad_plain, flip_transpose,
-                                      simt_plan, wgrad_simt_plan)
+                                      simt_plan, uses_tensor_cores,
+                                      wgrad_simt_plan,
+                                      wgrad_uses_tensor_cores)
 from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           _correlation_bwd_f1_simt,
                                           _correlation_bwd_f1_tc,
@@ -357,9 +390,10 @@ from ode_rl_torch.ops.correlation import (CorrelationFn,
 from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         _gru_blend_2pass, _gru_blend_sample,
                                         _gru_gates_2pass, _gru_gates_sample,
-                                        blend_f64, fused_gru_blend,
-                                        fused_gru_gates, gates_f64,
-                                        sample_plan)
+                                        blend_f64, blend_from_moments,
+                                        fused_gru_blend, fused_gru_gates,
+                                        gates_f64, gates_from_moments,
+                                        gru_moments, sample_plan)
 from ode_rl_torch.profile_step import _KERNEL_IDS, _KERNEL_NAME
 from ode_rl_torch.train import loop as train_loop
 from ode_rl_torch.core.noise import Noise
@@ -386,7 +420,16 @@ KERNELS = {
                            "ode_rl_tpu/ops/correlation.py:136"),
     "channelnorm": ("ode_rl_torch/csrc/channelnorm.cu",
                     "ode_rl_tpu/ops/channelnorm.py:30"),
+    # The moments-in K3 and K4 under a 'space' axis, and their moments
+    # pass (which takes the GroupNorm sums of both Pallas kernels).
+    "gru_gates_mom": ("ode_rl_torch/csrc/gru_gates.cu",
+                      "ode_rl_tpu/ops/gru_gates.py:103"),
+    "gru_blend_mom": ("ode_rl_torch/csrc/gru_gates.cu",
+                      "ode_rl_tpu/ops/gru_gates.py:184"),
+    "gru_moments": ("ode_rl_torch/csrc/gru_gates.cu",
+                    "ode_rl_tpu/ops/gru_gates.py:103"),
 }
+AXIS_KERNELS = ("gru_gates_mom", "gru_blend_mom", "gru_moments")
 FLAGSHIP_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "gru_gates", "gru_blend")
 # The shards of ``python -m ode_rl_torch.make_frozen_mmnist --videos 256
 # --frames 200 --train_split 0.75`` (seed 0, 3 digits), as the native
@@ -909,10 +952,211 @@ def phase_kernels() -> dict:
     for name, cost in _gru_backward_cost(gen).items():
         results[name].update(cost)
     results.update(_check_flow_kernels(gen))
+    axes = _check_axis_shapes(gen)
+    for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+        results[name]["axis_shapes"] = axes.pop(name)
+    results.update(axes)
     for name, bound in _bounds().items():
         results[name].update(bound)
+    for name in results:
         results[name].setdefault("library_ms", None)
     return results
+
+
+# A 'model' rank's Cout slice and a 'space' rank's rows at the flagship's
+# lines of two (phase 18): Cout 32 of 64; 8 of the latent's 16 rows, a
+# K1/K2 tile 10 rows high with its halo.
+TP_COUT, SP_ROWS = C // 2, HW // 2
+
+
+def _axis_conv_bound(shape, cout: int, which: str) -> dict:
+    """K1 (``forward``) or K2 (``wgrad``) in bf16 on a (B, H, W, 64) map
+    to ``cout`` channels, as ``_bounds`` counts them: the products at the
+    tensor-core rate; x and w in, out (K1), or x and g in, dW in fp32 out
+    (K2)."""
+    b, h, w, cin = shape
+    px = b * h * w
+    flops = 2 * px * 9 * cin * cout
+    if which == "forward":
+        nbytes = px * cin * 2 + 9 * cin * cout * 2 + px * cout * 2
+    else:
+        nbytes = px * cin * 2 + px * cout * 2 + 9 * cin * cout * 4
+    return _bound(flops, nbytes, PEAK_BF16)
+
+
+def _check_axis_k12(gen) -> dict:
+    """K1 and K2 in bf16 at the 'model' and 'space' shapes against fp64,
+    by the route the rule picks; the column-parallel dx (K1 in fp32 on
+    the slice's cotangent) against its plain version; each timed beside
+    its plain version."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            "cuda", torch.bfloat16)
+    shapes = {
+        "tp": (rnd(B, HW, HW, C), rnd(9 * C, TP_COUT, scale=1 / 24),
+               rnd(B, HW, HW, TP_COUT)),
+        "sp": (rnd(B, SP_ROWS + 2, HW, C), rnd(9 * C, C, scale=1 / 24),
+               rnd(B, SP_ROWS + 2, HW, C))}
+    rows = {"conv3x3_fwd": {}, "conv3x3_wgrad": {}}
+    for label, (x, w2d, g) in shapes.items():
+        cout = w2d.shape[1]
+        k1 = {"shape": f"{tuple(x.shape)} -> {cout}", "route": (
+            "tensor cores" if uses_tensor_cores(x.dtype, C, cout, HW)
+            else "SIMT")}
+        k2 = {"shape": f"{tuple(x.shape)} x {tuple(g.shape)}", "route": (
+            "tensor cores" if wgrad_uses_tensor_cores(x.dtype, C, cout, HW)
+            else "SIMT")}
+        y = conv3x3_fwd(x, w2d)
+        ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
+            x.double(), w2d.double()))
+        check(f"K1 bf16 {label} ({k1['route']}): ulps", ulps, K1_BF16_ULPS,
+              "max")
+        check(f"K1 bf16 {label}: share 1 ulp off", share, K1_BF16_SHARE,
+              "share")
+        dw = conv3x3_wgrad(x, g)
+        k2["rel_l2"] = check(
+            f"K2 bf16 {label} ({k2['route']}) vs fp64",
+            rel_l2(dw, conv3x3_wgrad_plain(x.double(), g.double())),
+            K2_BF16_REL_L2, "rel_l2")
+        with common.force_plain():
+            k1["max_abs_err"] = max_abs(y, conv3x3_fwd(x, w2d))
+            k2["max_abs_err"] = max_abs(dw, conv3x3_wgrad(x, g))
+        k1["ulps"], k1["share"] = ulps, share
+        for row, fn in ((k1, lambda: conv3x3_fwd(x, w2d)),
+                        (k2, lambda: conv3x3_wgrad(x, g))):
+            row["ms"] = median_ms(fn)
+            row["device_us"] = device_us({"kernel": fn})["kernel"]
+            with common.force_plain():
+                row["plain_ms"] = median_ms(fn)
+        if label == "tp":
+            gf = g.float()
+            wf = flip_transpose(w2d, C, cout).float()
+            dx = conv3x3_fwd(gf, wf)
+            with common.force_plain():
+                plain = conv3x3_fwd(gf, wf)
+            k1["dx_fp32_max_abs_err"] = check(
+                "K1 fp32 column-parallel dx partial", max_abs(dx, plain),
+                _TOL["conv3x3_fwd as dx"][0], "max_abs")
+            k1["dx_fp32_ms"] = median_ms(lambda: conv3x3_fwd(gf, wf))
+            k1["dx_fp32_device_us"] = device_us(
+                {"dx": lambda: conv3x3_fwd(gf, wf)})["dx"]
+            px = B * HW * HW
+            k1["dx_fp32_bound"] = _bound(
+                2 * px * 9 * cout * C, (px * (cout + C) + 9 * cout * C) * 4,
+                PEAK_FP32)
+            with common.force_plain():
+                k1["dx_fp32_plain_ms"] = median_ms(
+                    lambda: conv3x3_fwd(gf, wf))
+        k1.update(_axis_conv_bound(x.shape, cout, "forward"))
+        k2.update(_axis_conv_bound(x.shape, cout, "wgrad"))
+        rows["conv3x3_fwd"][label] = k1
+        rows["conv3x3_wgrad"][label] = k2
+        print(f"  {label}: K1 {k1['shape']} on {k1['route']} "
+              f"{k1['ms']:.4f} ms, {k1['device_us']:.2f} device us (plain "
+              f"{k1['plain_ms']:.4f} ms; bound {k1['bound_ms'] * 1e3:.2f} "
+              f"us by {k1['bound_by']}); K2 on {k2['route']} "
+              f"{k2['ms']:.4f} ms, {k2['device_us']:.2f} device us (plain "
+              f"{k2['plain_ms']:.4f} ms; bound {k2['bound_ms'] * 1e3:.2f} "
+              f"us by {k2['bound_by']})" + (
+                  f"; the fp32 dx partial {k1['dx_fp32_ms']:.4f} ms, "
+                  f"{k1['dx_fp32_device_us']:.2f} device us (plain "
+                  f"{k1['dx_fp32_plain_ms']:.4f} ms)"
+                  if label == "tp" else ""))
+    return rows
+
+
+def _check_axis_gru(gen) -> dict:
+    """The moments-in K3 and K4 and their moments pass at a 'space'
+    rank's rows, against their plain versions on the same moments (fp32
+    1e-5; bf16 one ulp of the fp64 formula, whose moments are the same
+    rows'), bit-equal over 20 calls, timed in bf16 beside the plain
+    versions. One rank: the moments are its own, as a line of one's."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    base = {"gates": rnd(B, SP_ROWS, HW, 2 * C),
+            "h": torch.tanh(rnd(B, SP_ROWS, HW, C)),
+            "cand": rnd(B, SP_ROWS, HW, C),
+            "z": torch.sigmoid(rnd(B, SP_ROWS, HW, C))}
+    gs, gb = 1.0 + 0.1 * rnd(2 * C), 0.1 * rnd(2 * C)
+    cs, cb = 1.0 + 0.1 * rnd(C), 0.1 * rnd(C)
+    n_g, n_c = float(SP_ROWS * HW * (2 * C // 4)), float(
+        SP_ROWS * HW * (C // 2))
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = {k: v.to(dtype) for k, v in base.items()}
+        ops = {
+            "gru_moments": (lambda: gru_moments(t["gates"], 4), None),
+            "gru_gates_mom": (
+                lambda: gates_from_moments(
+                    t["gates"], t["h"], gru_moments(t["gates"], 4), gs, gb,
+                    4, n_g),
+                lambda: gates_f64(t["gates"], t["h"], gs, gb, 4)),
+            "gru_blend_mom": (
+                lambda: blend_from_moments(
+                    t["cand"], t["z"], t["h"], gru_moments(t["cand"], 2),
+                    cs, cb, 2, n_c),
+                lambda: blend_f64(t["cand"], t["z"], t["h"], cs, cb, 2)),
+        }
+        for name, (fn, f64) in ops.items():
+            out = _as_tuple(fn())
+            with common.force_plain():
+                ref = _as_tuple(fn())
+            label = f"{name} {str(dtype)[6:]}"
+            if name == "gru_moments":
+                err = max(max_abs(o, r) / r.abs().max().item()
+                          for o, r in zip(out, ref))
+                check(f"{label} (of the largest sum)", err, 1e-5,
+                      "max_abs")
+            elif dtype == torch.float32:
+                err = check(label, max(max_abs(o, r) for o, r in
+                                       zip(out, ref)), 1e-5, "max_abs")
+            else:
+                readings = [common.bf16_ulps(o, r) for o, r in
+                            zip(out, _as_tuple(f64()))]
+                check(f"{label}: ulps", max(u for u, _ in readings),
+                      K34_BF16_ULPS, "max")
+                check(f"{label}: share 1 ulp off",
+                      max(v for _, v in readings), K34_BF16_SHARE, "share")
+                err = max(max_abs(o, r) for o, r in zip(out, ref))
+            if not all(all(torch.equal(a, b) for a, b in
+                           zip(out, _as_tuple(fn()))) for _ in range(20)):
+                raise AssertionError(f"{label}: 20 calls are not "
+                                     "bit-equal")
+            if dtype == torch.bfloat16:
+                results[name] = {"max_abs_err": err}
+    # Each kernel alone, on its inputs' moments taken once.
+    t = {k: v.to(torch.bfloat16) for k, v in base.items()}
+    mom_g, mom_c = gru_moments(t["gates"], 4), gru_moments(t["cand"], 2)
+    alone = {
+        "gru_moments": lambda: gru_moments(t["gates"], 4),
+        "gru_gates_mom": lambda: gates_from_moments(
+            t["gates"], t["h"], mom_g, gs, gb, 4, n_g),
+        "gru_blend_mom": lambda: blend_from_moments(
+            t["cand"], t["z"], t["h"], mom_c, cs, cb, 2, n_c)}
+    for name, fn in alone.items():
+        results[name]["ms"] = median_ms(fn)
+        with common.force_plain():
+            results[name]["plain_ms"] = median_ms(fn)
+        results[name]["device_us"] = device_us({name: fn})[name]
+    px = B * SP_ROWS * HW
+    results["gru_moments"].update(_bound(
+        2 * px * 2 * C, px * 2 * C * 2 + B * 4 * 2 * 4, PEAK_FP32))
+    results["gru_gates_mom"].update(_bound(
+        10 * px * 2 * C, px * 5 * C * 2 + 4 * C * 4 + B * 4 * 2 * 4,
+        PEAK_FP32))
+    results["gru_blend_mom"].update(_bound(
+        10 * px * C, px * 4 * C * 2 + 2 * C * 4 + B * 2 * 2 * 4, PEAK_FP32))
+    for name, r in results.items():
+        print(f"  {name} bf16 at a 'space' rank's rows: {r['ms']:.4f} ms "
+              f"({r['device_us']:.2f} device us; plain {r['plain_ms']:.4f} "
+              f"ms), bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}")
+    return results
+
+
+def _check_axis_shapes(gen) -> dict:
+    print("  -- the shapes of phase 18 ('model' and 'space' lines of 2)")
+    with torch.no_grad():
+        return {**_check_axis_k12(gen), **_check_axis_gru(gen)}
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
@@ -4337,6 +4581,97 @@ def phase_data_parallel(bank: torch.Tensor) -> dict:
     return {"recipe": recipe, "gloo": gloo, "seconds": seconds}
 
 
+# Phase 18: the 'model' and 'space' axes (parallel/tp.py, parallel/sp.py).
+AXIS_TOL = (f"(rtol, atol) {dryrun.AXIS_BENCH_TOL}, update "
+            f"{dryrun.BENCH_PARAM_TOL} relative L2")
+# K1-K4 on each rank: under 'space' K3 and K4 are the moments-in ones.
+AXIS_ROUTES = {
+    "flagship_bench_tp": FLAGSHIP_KERNELS,
+    "flagship_bench_sp": ("conv3x3_fwd", "conv3x3_wgrad", *AXIS_KERNELS)}
+
+
+def _axis_bench(baseline: float) -> dict:
+    """``baseline``: the update's relative L2 of phase 17's two-rank
+    ``flagship_bench`` (a 'data' line) against one rank."""
+    names = tuple(AXIS_ROUTES)
+    results = dryrun.run(names, ranks=2, device="cuda:0", backend="gloo",
+                         timed_steps=1, threads=4, timeout=600)
+    print(f"  (phase 17's flagship_bench over a 'data' line of two: update "
+          f"{baseline!r} relative L2 from the one-rank update)")
+    for name in names:
+        res = results[name]
+        bad = dryrun.misses(name, res, res["single"])
+        print(f"  {name}: two ranks {_short(res['sharded'])}; one rank "
+              f"{_short(res['single'])}; parameters bit-equal across the "
+              f"ranks {res['params_equal']}; update "
+              f"{res['update_rel_l2']!r} relative L2 from the one-rank "
+              f"update; bytes sent a rank in the step {res['moved_bytes']}"
+              f" (gradient all-reduce {res['grad_bytes']}); step_ms two "
+              f"ranks {[round(t, 2) for t in res['step_ms']]}, one rank "
+              f"{[round(t, 2) for t in res['single_step_ms']]}")
+        if bad:
+            raise AssertionError(f"{name}: {bad}")
+        for rank, counts in enumerate(res["rank_launches"]):
+            print(f"    rank {rank} launches: "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            missing = [k for k in AXIS_ROUTES[name] if counts[k] == 0]
+            if name.endswith("_sp") and (
+                    counts["gru_gates"] != counts["gru_gates_mom"]
+                    or counts["gru_blend"] != counts["gru_blend_mom"]
+                    or counts["gru_moments"] != counts["gru_gates_mom"]
+                    + counts["gru_blend_mom"]):
+                missing.append("a K3/K4 launch off the moments-in kernels")
+            if missing:
+                raise AssertionError(f"{name} rank {rank}: missing "
+                                     f"{missing}")
+    return results
+
+
+def _axis_dryrun() -> dict:
+    """The dry run's flagship dp x tp and dp x sp steps at four gloo
+    ranks on this card, against the one-process step: with the convs
+    outside K1-K4 on cuDNN (a reading), then on PyTorch's own CUDA
+    convolution (held at the dry run's tolerances). cuDNN's fp32
+    algorithms at the one-process step's shapes read 1.1e-4 of grad_norm
+    off that convolution's (H100 80GB HBM3, 700 W), past the dry run's
+    1e-4, while the 'space' tiles' shapes take other algorithms."""
+    out = {}
+    for cudnn in (True, False):
+        results = dryrun.run(dryrun.DRYRUN_AXES, ranks=4, device="cuda:0",
+                             backend="gloo", threads=2, timeout=600,
+                             cudnn=cudnn)
+        for name in dryrun.DRYRUN_AXES:
+            res = results[name]
+            bad = dryrun.misses(name, res, res["single"])
+            print(f"  dry run {name} at 4 ranks, convs outside K1-K4 on "
+                  f"{'cuDNN' if cudnn else 'PyTorch own'}: "
+                  f"{_short(res['sharded'])}; one process "
+                  f"{_short(res['single'])}; update "
+                  f"{res['update_rel_l2']!r} relative L2; parameters "
+                  f"bit-equal across the ranks {res['params_equal']}"
+                  f"{'; ' + '; '.join(bad) if bad else ''}")
+            if bad and not cudnn:
+                raise AssertionError(f"dry run {name}: {bad}")
+        out["cudnn" if cudnn else "native"] = results
+    return out
+
+
+def phase_axes(data_parallel: dict) -> dict:
+    print(f"[18] the 'model' and 'space' axes: flagship_bench on a 1x2 "
+          f"('data', 'model') and a 1x2 ('data', 'space') mesh, two gloo "
+          f"ranks on this one card, vs one rank ({AXIS_TOL}); the dry "
+          f"run's flagship dp x tp and dp x sp at four gloo ranks; not a "
+          f"multi-card figure")
+    t0 = time.perf_counter()
+    bench = _axis_bench(
+        data_parallel["gloo"]["flagship_bench"]["update_rel_l2"])
+    dry = _axis_dryrun()
+    _check_tf32_off("phase 18")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 18: {seconds:.1f} s")
+    return {"bench": bench, "dry": dry, "seconds": seconds}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4365,6 +4700,7 @@ def main() -> int:
     flow_users = phase_flow_users(bank)
     eval_tools = phase_eval_tools(bank)
     data_parallel = phase_data_parallel(bank)
+    axes = phase_axes(data_parallel)
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -4451,6 +4787,18 @@ def main() -> int:
             **{f"{path}_by_rank": [c[name] for c in
                                    data_parallel["gloo"][path]["rank_launches"]]
                for path in ("flagship_bench", "flownetc_bench")}}
+    # Phase 18 read the counts around each of its runs, on each rank; the
+    # moments-in K3/K4 and their moments pass run on its 'space' path.
+    for name in KERNELS:
+        timings[name]["phase18_launches"] = {
+            f"{path}_by_rank": [c[name] for c in run["rank_launches"]]
+            for path, run in axes["bench"].items()}
+    for name in AXIS_KERNELS:
+        counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][
+            0][name]
+    for path, run in axes["bench"].items():
+        print(f"{path}: step_ms {run['step_ms'][0]:.2f} (two gloo ranks on "
+              f"one card), one rank {run['single_step_ms'][0]:.2f}")
     for path, ms in flow_users["times"].items():
         print(f"{path}: step_ms {ms:.2f}")
     for block, run in world_models["train"].items():

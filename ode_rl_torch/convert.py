@@ -190,6 +190,26 @@ def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping] = None,
     return state
 
 
+def flax_last_axis(name: str, value: Leaf,
+                   module: Optional[nn.Module] = None) -> int:
+    """The dimension of the port's parameter ``name`` that holds the last
+    axis of the flax leaf it converts from (a kernel's output channels):
+    0 for a ``Conv``'s (and a 3-D conv's) (O, I, ...) ``weight``, 1 for a
+    transposed conv's (I, O, kh, kw), the last for a ``Conv3x3``'s HWIO
+    ``kernel`` and every leaf copied by name. By the holder's type where
+    ``module`` is given, else by the name rules."""
+    path = tuple(name.split("."))
+    if path[-1] != "weight" or value.ndim < 4:
+        return value.ndim - 1
+    layout = None
+    if module is not None:
+        layout = _layouts().get(type(module.get_submodule(
+            ".".join(path[:-1]))))
+    if layout is None:
+        layout = "flip" if _is_transposed_conv(path[-2]) else "out_in"
+    return 1 if layout == "flip" else 0
+
+
 def _unconvert(path: Tuple[str, ...], weight: torch.Tensor,
                layout: Optional[str]) -> Tuple[Tuple[str, ...], torch.Tensor]:
     """A conv ``weight`` back to its flax ``kernel``: by the holder's

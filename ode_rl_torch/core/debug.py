@@ -43,10 +43,16 @@ def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def nan_guard_update(params: Sequence[torch.Tensor],
                      old_params: Sequence[torch.Tensor],
-                     grads: Sequence[torch.Tensor]) -> torch.Tensor:
+                     grads: Sequence[torch.Tensor],
+                     mesh=None) -> torch.Tensor:
     """Put ``old_params`` back into ``params`` (in place) unless every
-    gradient is finite; returns the int32 'skipped' flag, 0 or 1."""
+    gradient is finite, on every rank of ``mesh`` (where one is given:
+    a rank's ``'model'`` slices are its own); returns the int32
+    'skipped' flag, 0 or 1."""
     ok = all_finite(grads)
+    if mesh is not None and mesh.world > 1:
+        bad = (~ok).to(torch.float32).reshape(1)
+        ok = mesh.all_reduce_(bad)[0] == 0
     for p, old in zip(params, old_params):
         p.copy_(torch.where(ok, p, old))
     return (~ok).to(torch.int32)

@@ -61,6 +61,34 @@
 //   group); pass 1 takes the moments with a deterministic block reduction,
 //   pass 2 reads the group again (from L2) to normalise and write, one
 //   element a thread at a time.
+//
+// The moments-in variants (the frame height split over a 'space' mesh
+// axis, ode_rl_torch/parallel/sp.py): a sample's (H, W, C/G) moments
+// span the ranks of a line, so a group's statistics cannot be taken on
+// one card. They replace the same Pallas kernels, in three steps:
+//
+// * gru_moments_kernel: one block per (sample, group) takes fp32 s1 =
+//   sum x and s2 = sum x^2 over this rank's rows, in the fixed order of
+//   the two-pass kernel's group_moments (a strided sum a thread, then
+//   block_sum2), so two calls are bit-equal; it writes (B, G, 2) floats.
+// * the wrapper all-reduces those B*G*2 floats over 'space' (a
+//   collective off the card: what the one-sample kernel adds across a
+//   cluster's blocks through distributed shared memory now crosses
+//   ranks).
+// * gru_{gates,blend}_mom_kernel: the epilogue on the global moments, an
+//   element a thread over the grid: mean = s1 / n and rstd =
+//   rsqrt(max(s2 / n - mean^2, 0) + eps) with n the group's elements over
+//   the whole height, a_c = scale_c * rstd and b_c = bias_c - mean * a_c,
+//   one FMA, the activation (the one-sample kernel's: __fdividef(1, 1 +
+//   __expf(-y)) for the sigmoid, tanhf), and r*h or the blend in fp32,
+//   rounded once, as the one-sample kernel forms them.
+//
+// Bound by bytes as K3 and K4 are: the moments pass reads the normalised
+// input once more than the one-sample kernel (at the flagship's 'space'
+// slice, gates (128, 8, 16, 128) bf16: 4.2 MB), the epilogue what K3 or
+// K4 reads and writes. A simple first version: the epilogue recomputes
+// its group's statistics from the moments at every element, and neither
+// pass keeps the sample on chip.
 
 #include <cooperative_groups.h>
 
@@ -482,7 +510,169 @@ int launch_sample(const SampleArgs& a, int B, int threads,
   return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+// ---------------------------------------------------------------------------
+// Moments-in K3 and K4 (the 'space' axis).
+// ---------------------------------------------------------------------------
+
+// x (B, HW, Ct) -> mom (B, G, 2): s1, s2 of group g of sample b; grid (B, G).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gru_moments_kernel(const T* __restrict__ x, float* __restrict__ mom,
+                       int HW, int Ct, int G) {
+  const int b = blockIdx.x;
+  const int g = blockIdx.y;
+  const int cs = Ct / G;
+  const int n = HW * cs;
+  const T* xs = x + (long long)b * HW * Ct;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int p = i / cs;
+    const int c = g * cs + i - p * cs;
+    const float v = to_f32(xs[(long long)p * Ct + c]);
+    s1 += v;
+    s2 += v * v;
+  }
+  block_sum2(s1, s2);
+  if (threadIdx.x == 0) {
+    mom[((long long)b * G + g) * 2] = s1;
+    mom[((long long)b * G + g) * 2 + 1] = s2;
+  }
+}
+
+// Element c of a pixel of sample b, normalised from the moments of its
+// group over `count` elements.
+__device__ __forceinline__ float norm_from_moments(
+    float v, const float* __restrict__ mom, const float* __restrict__ scale,
+    const float* __restrict__ bias, int b, int c, int cs, int G, float count,
+    float eps) {
+  const int g = c / cs;
+  const float s1 = mom[((long long)b * G + g) * 2];
+  const float s2 = mom[((long long)b * G + g) * 2 + 1];
+  const float mean = s1 / count;
+  const float var = fmaxf(s2 / count - mean * mean, 0.f);
+  const float a = scale[c] * rsqrtf(var + eps);
+  return fmaf(v, a, fmaf(-mean, a, bias[c]));
+}
+
+// gates (B, HW, 2C), h (B, HW, C), mom (B, G, 2) -> z, rh (B, HW, C).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gru_gates_mom_kernel(const T* __restrict__ gates, const T* __restrict__ h,
+                         const float* __restrict__ mom,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, T* __restrict__ z,
+                         T* __restrict__ rh, long long total, int HW, int C,
+                         int G, float count, float eps) {
+  const int C2 = 2 * C;
+  const int cs = C2 / G;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long p = i / C2;
+    const int c = (int)(i - p * C2);
+    const int b = (int)(p / HW);
+    const float y = norm_from_moments(to_f32(gates[i]), mom, scale, bias, b,
+                                      c, cs, G, count, eps);
+    const float sig = __fdividef(1.f, 1.f + __expf(-y));
+    if (c < C) {
+      z[p * C + c] = from_f32<T>(sig);
+    } else {
+      const long long o = p * C + (c - C);
+      rh[o] = from_f32<T>(sig * to_f32(h[o]));
+    }
+  }
+}
+
+// cand, z, h (B, HW, C), mom (B, G, 2) -> out (B, HW, C).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gru_blend_mom_kernel(const T* __restrict__ cand, const T* __restrict__ z,
+                         const T* __restrict__ h,
+                         const float* __restrict__ mom,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, T* __restrict__ out,
+                         long long total, int HW, int C, int G, float count,
+                         float eps) {
+  const int cs = C / G;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long p = i / C;
+    const int c = (int)(i - p * C);
+    const int b = (int)(p / HW);
+    const float y = norm_from_moments(to_f32(cand[i]), mom, scale, bias, b,
+                                      c, cs, G, count, eps);
+    const float zv = to_f32(z[i]);
+    const float hv = to_f32(h[i]);
+    out[i] = from_f32<T>((1.f - zv) * hv + zv * tanhf(y));
+  }
+}
+
+// Blocks of an elementwise epilogue: enough to fill the card a few times
+// over, each thread then striding over the rest.
+inline int epilogue_blocks(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return (int)(want < 132 * 16 ? want : 132 * 16);
+}
+
 }  // namespace
+
+// Moments of the normalised input of K3 (Ct = 2C) or K4 (Ct = C): mom
+// (B, G, 2) fp32 (s1, s2) over this rank's HW pixels; grid (B, G).
+extern "C" int odek_gru_moments(const void* x, void* mom, int B, int HW,
+                                int Ct, int G, int dtype, void* stream) {
+  if (B < 1 || HW < 1 || G < 1 || Ct % G || G > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    gru_moments_kernel<T><<<dim3(B, G), kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<float*>(mom), HW, Ct, G);
+  });
+}
+
+// Moments-in K3: as odek_gru_gates, the GroupNorm statistics from mom
+// (B, G, 2), the moments summed over `count` elements a group.
+extern "C" int odek_gru_gates_mom(const void* gates, const void* h,
+                                  const void* mom, const void* scale,
+                                  const void* bias, void* z, void* rh, int B,
+                                  int HW, int C, int G, float count,
+                                  float eps, int dtype, void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || G < 1 || (2 * C) % G || count < 1.f) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long total = (long long)B * HW * 2 * C;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    gru_gates_mom_kernel<T><<<epilogue_blocks(total), kThreads, 0, st>>>(
+        static_cast<const T*>(gates), static_cast<const T*>(h),
+        static_cast<const float*>(mom), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<T*>(z),
+        static_cast<T*>(rh), total, HW, C, G, count, eps);
+  });
+}
+
+// Moments-in K4: as odek_gru_blend, the statistics from mom (B, G, 2).
+extern "C" int odek_gru_blend_mom(const void* cand, const void* z,
+                                  const void* h, const void* mom,
+                                  const void* scale, const void* bias,
+                                  void* out, int B, int HW, int C, int G,
+                                  float count, float eps, int dtype,
+                                  void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || G < 1 || C % G || count < 1.f) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long total = (long long)B * HW * C;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    gru_blend_mom_kernel<T><<<epilogue_blocks(total), kThreads, 0, st>>>(
+        static_cast<const T*>(cand), static_cast<const T*>(z),
+        static_cast<const T*>(h), static_cast<const float*>(mom),
+        static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<T*>(out), total, HW, C, G, count, eps);
+  });
+}
 
 extern "C" int odek_gru_gates(const void* gates, const void* h,
                               const void* scale, const void* bias, void* z,

@@ -12,7 +12,9 @@ sigmoid and MSE. Both recurrences take the fused scan functions
 (nn/convgru.py), as JAX's do.
 
 The aux output is the solver's ``nfe`` and ``ode_converged`` with
-``decODE``, and empty otherwise.
+``decODE``, and empty otherwise. Inside a mesh (parallel/) the MSE is
+this rank's share, over its rows of the batch and, under ``'space'``, of
+the frame height; every layer knows the cut (``supports_space``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvGRUModel(nn.Module):
+    supports_space = True
+
     def __init__(self, in_channels: int = 1, conv_encoder_out_ch: int = 64,
                  convgru_out_ch: int = 64, kernel_size: int = 5, *,
                  decODE: bool = False, latent_dim: int = 64,

@@ -20,6 +20,15 @@ The solver state and its RK arithmetic run in fp32 under bf16 compute;
 the convolutions inside the field still take bf16 operands. A bf16 state
 puts the embedded error's noise floor above rtol 1e-4 / atol 1e-5 and pins
 the solve at its step budget.
+
+Inside a mesh (parallel/) the loss, the MSE and ``z0_kl`` are this rank's
+share: means over its rows of the batch (and of the frame height under
+``'space'``), whose mean over the ranks that split the activations is
+the global mean (the train step averages the gradients and the
+metrics). Every layer knows the cut (``supports_space``): the convs take
+their halos, K3/K4 their moments over ``'space'``, the solver's error
+norm sums over ``'data'`` x ``'space'``, and a sampled z0's noise is
+this rank's rows and height rows of the global draw.
 """
 
 from __future__ import annotations
@@ -36,9 +45,13 @@ from ode_rl_torch.nn.odeconvgru import ODEConvGRUEncoder
 from ode_rl_torch.ode.fast import odeint_fast
 from ode_rl_torch.ode.memory import odeint_memory
 from ode_rl_torch.ode.solvers import odeint_aux
+from ode_rl_torch.parallel.mesh import SPACE_AXIS
+from ode_rl_torch.parallel.sp import space_mesh
 
 
 class ODEConvGRUModel(nn.Module):
+    supports_space = True
+
     def __init__(self, in_channels: int = 1, n_downs: int = 2,
                  conv_encoder_out_ch: int = 64,
                  neural_ode_decoder_out_ch: int = 64,
@@ -110,7 +123,15 @@ class ODEConvGRUModel(nn.Module):
         """(z0, z0_kl or None)."""
         if not self.z_sample:
             return mu, None
-        eps = as_noise(generator, "z_sample").normal(mu.shape, mu)
+        noise = as_noise(generator, "z_sample")
+        mesh = space_mesh()
+        if mesh is None:
+            eps = noise.normal(mu.shape, mu)
+        else:
+            b, h, w, c = mu.shape
+            s = mesh.index(SPACE_AXIS)
+            eps = noise.normal((b, h * mesh.size(SPACE_AXIS), w, c),
+                               mu)[:, s * h:(s + 1) * h]
         z0_kl = None
         if self.z_kl_weight > 0.0:
             mu32, std32 = mu.float(), std.float()

@@ -8,6 +8,19 @@ whose reshape to (9*Cin, Cout) is the layout kernels K1/K2 take.
 
 Parameters start as flax's do: lecun-normal kernels (truncated normal,
 fan-in scaled) and zero biases, drawn from an explicit generator.
+
+Inside a mesh the layers take their share of the step (parallel/):
+
+* a layer whose weights hold a ``'model'`` slice of its output channels
+  (``parallel.tp.shard_params_tp``) computes that slice on its
+  replicated input and all-gathers the channels
+  (``parallel.tp.column_parallel``; ``Conv3x3`` through K1/K2 in
+  ``column_conv3x3``), then adds its replicated bias;
+* under a ``'space'`` axis every map holds this rank's rows: a conv
+  takes the rows its kernel reaches across the cut from its neighbours
+  (``parallel.sp.halo_rows``) and runs unpadded along H; ``Conv3x3``
+  runs K1/K2 on the tile with one halo row each side and drops the
+  tile's first and last output rows.
 """
 
 from __future__ import annotations
@@ -20,6 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ode_rl_torch.ops.conv3x3 import conv3x3_same
+from ode_rl_torch.parallel.sp import (conv_halo, halo_rows, space_mesh,
+                                      transposed_halo)
+from ode_rl_torch.parallel.tp import (column_conv3x3, column_parallel,
+                                      is_sharded, model_mesh)
 
 # Std of a unit normal truncated to [-2, 2]; flax divides by it.
 _TRUNC_STD = 0.87962566103423978
@@ -46,15 +63,31 @@ def lecun_normal(shape: tuple, fan_in: int,
     return nn.Parameter(w)
 
 
+def _conv_rows(x: torch.Tensor, weight: torch.Tensor, stride: int,
+               padding: int, dtype: torch.dtype) -> torch.Tensor:
+    """F.conv2d on NHWC, this rank's rows with their halo under a
+    ``'space'`` axis."""
+    pad = padding
+    mesh = space_mesh()
+    if mesh is not None:
+        x = halo_rows(x, *conv_halo(weight.shape[-2], stride, padding),
+                      mesh)
+        pad = (0, padding)
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
+                 stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], stride: int, padding: int,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, sharded: bool = False) -> torch.Tensor:
     """``nn.Conv`` on NHWC: operands in ``dtype``, bias (where there is
     one) added after the conv in ``dtype`` (two roundings under bf16, as
-    flax)."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
-                 stride=stride, padding=padding)
-    y = y.permute(0, 2, 3, 1).contiguous()
+    flax). ``sharded`` (``weight`` is a ``'model'`` slice of the output
+    channels) makes it column-parallel."""
+    conv = lambda xx: _conv_rows(xx, weight, stride, padding, dtype)
+    y = (column_parallel(x, conv, model_mesh("a Conv")) if sharded
+         else conv(x))
     return y if bias is None else y + bias.to(dtype)
 
 
@@ -74,7 +107,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(x, self.weight, self.bias, self.stride,
-                           self.padding, self.dtype)
+                           self.padding, self.dtype, is_sharded(self))
 
 
 class ConvTranspose(nn.Module):
@@ -91,11 +124,24 @@ class ConvTranspose(nn.Module):
         self.weight = lecun_normal((cin, cout, 4, 4), 16 * cin, generator)
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = space_mesh()
+        w = self.weight.to(self.dtype)
+        if mesh is None:
+            y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
+                                   stride=2, padding=1)
+        else:
+            top, bottom, first = transposed_halo(4, 2, 1)
+            h = x.shape[1]
+            x = halo_rows(x, top, bottom, mesh)
+            y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
+                                   stride=2, padding=(0, 1))
+            y = y[:, :, first:first + 2 * h]
+        return y.permute(0, 2, 3, 1).contiguous()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
-                               self.weight.to(self.dtype), stride=2,
-                               padding=1)
-        y = y.permute(0, 2, 3, 1).contiguous()
+        y = (column_parallel(x, self._rows, model_mesh("a ConvTranspose"))
+             if is_sharded(self) else self._rows(x))
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -161,9 +207,21 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3_same(x.to(self.dtype).contiguous(),
-                            self.kernel.to(self.dtype),
-                            self.bias.to(self.dtype))
+        x = x.to(self.dtype)
+        mesh = space_mesh()
+        if mesh is not None:
+            x = halo_rows(x, 1, 1, mesh)
+        x = x.contiguous()
+        kernel = self.kernel.to(self.dtype)
+        if is_sharded(self, "kernel"):
+            cin, cout = kernel.shape[2], kernel.shape[3]
+            y = column_conv3x3(x, kernel.reshape(9 * cin, cout),
+                               model_mesh("a Conv3x3"))
+        else:
+            y = conv3x3_same(x, kernel)
+        if mesh is not None:
+            y = y[:, 1:-1]
+        return y + self.bias.to(self.dtype)
 
 
 class ConvNet(nn.Module):

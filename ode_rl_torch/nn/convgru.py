@@ -15,7 +15,10 @@ folded in) of every step as one batched convolution before the loop,
 ``project_zero`` gives a free-run's (a zero input leaves only the
 biases), and ``step_fused`` runs only the h-side convolutions. Both
 functions default to the fused path, as JAX's do; the unfused path calls the
-cell on the concatenation at every step.
+cell on the concatenation at every step. Inside a mesh each convolution
+is column-parallel where its kernel holds a ``'model'`` slice, and takes
+its halo rows under ``'space'`` (nn/conv_stacks.py); K3/K4 then take
+GroupNorm moments summed over ``'space'`` (ops/gru_gates.py).
 """
 
 from __future__ import annotations
@@ -23,22 +26,22 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ode_rl_torch.nn.conv_stacks import Conv
+from ode_rl_torch.nn.conv_stacks import Conv, conv2d_nhwc
 from ode_rl_torch.ops.gru_gates import fused_gru_blend, fused_gru_gates
+from ode_rl_torch.parallel.tp import is_sharded
 
 
 def _conv_same(x: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor],
-               dtype: torch.dtype) -> torch.Tensor:
+               bias: Optional[torch.Tensor], dtype: torch.dtype,
+               sharded: bool = False) -> torch.Tensor:
     """Stride-1 SAME conv of NHWC ``x`` with an OIHW ``weight`` (a slice
-    of a cell's kernel), the bias added after the conv where given."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
-                 padding=weight.shape[-1] // 2)
-    y = y.permute(0, 2, 3, 1).contiguous()
-    return y if bias is None else y + bias.to(dtype)
+    of a cell's kernel's input channels), the bias added after the conv
+    where given; column-parallel where the cell's kernel is ``sharded``
+    over ``'model'``, with a halo under ``'space'`` (conv2d_nhwc)."""
+    return conv2d_nhwc(x, weight, bias, 1, weight.shape[-1] // 2, dtype,
+                       sharded)
 
 
 class ConvGRUCell(nn.Module):
@@ -105,9 +108,11 @@ class ConvGRUCell(nn.Module):
         (N, H, W, x_ch); callers flatten (B, T) into N."""
         cx = self.x_ch
         return (_conv_same(x, self.conv_gates.weight[:, :cx],
-                           self.conv_gates.bias, self.dtype),
+                           self.conv_gates.bias, self.dtype,
+                           is_sharded(self.conv_gates)),
                 _conv_same(x, self.conv_cand.weight[:, :cx],
-                           self.conv_cand.bias, self.dtype))
+                           self.conv_cand.bias, self.dtype,
+                           is_sharded(self.conv_cand)))
 
     def project_zero(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """A free-run's input projection: the conv of zeros is the bias."""
@@ -121,11 +126,13 @@ class ConvGRUCell(nn.Module):
         ``project_x``/``project_zero``: only the h-side convs run here."""
         xc = self.x_ch
         gates_raw = gx + _conv_same(h, self.conv_gates.weight[:, xc:], None,
-                                    self.dtype)
+                                    self.dtype,
+                                    is_sharded(self.conv_gates))
         z, rh = fused_gru_gates(gates_raw, h, self.gates_scale,
                                 self.gates_bias, self.groups_g)
         cand_raw = cx + _conv_same(rh, self.conv_cand.weight[:, xc:], None,
-                                   self.dtype)
+                                   self.dtype,
+                                   is_sharded(self.conv_cand))
         h_next = fused_gru_blend(cand_raw, z, h, self.cand_scale,
                                  self.cand_bias, self.groups_c)
         return self._apply_mask(h_next, h, mask)

@@ -25,7 +25,9 @@ host reads one number per attempt, the error ratio.
 
 The dynamics take parameters explicitly, ``func(t, y, params)`` with
 ``params`` a dict of tensors; they are inputs of the autograd Function,
-whose backward returns their gradients.
+whose backward returns their gradients. The backward replays the field
+inside the mesh the forward ran in (parallel/mesh.py), which autograd's
+device thread would not otherwise see.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ode_rl_torch.ode.interp import interp_eval, interp_fit
+from ode_rl_torch.parallel.mesh import current, entered
 from ode_rl_torch.ode.solvers import (
     _DFACTOR, _F32, _IFACTOR, _ORDER, _SAFETY, ODEStats, _dopri5_step,
     _error_ratio, _initial_step)
@@ -85,6 +88,7 @@ class _Problem:
         self.stats: ODEStats | None = None
         self.history: list = []    # (t, dt, y, output slots, thetas)
         self.k_out = 1
+        self.mesh = current()
 
     def forward(self, y0: torch.Tensor, params: Params) -> torch.Tensor:
         g = lambda tt, yy: self.func(tt, yy, params)
@@ -149,6 +153,11 @@ class _Problem:
 
     def backward(self, ct_ys: torch.Tensor, y0: torch.Tensor,
                  param_values: Tuple[torch.Tensor, ...]):
+        with entered(self.mesh):
+            return self._backward(ct_ys, y0, param_values)
+
+    def _backward(self, ct_ys: torch.Tensor, y0: torch.Tensor,
+                  param_values: Tuple[torch.Tensor, ...]):
         ct_ys = ct_ys.float()
         # Unreached slots hold the final state: their cotangents flow into
         # it.

@@ -4,9 +4,10 @@ Counterpart of ``ode_rl_tpu/ode/solvers.py``. ``odeint_aux`` integrates
 ``dy/dt = func(t, y)`` and reports the solution at every requested time,
 with gradients by backprop through the solver's own steps. The pieces the
 O(NFE) solver (ode/fast.py) shares live here too: the tableau and
-controller constants, ``ODEStats``, the batch-wide RMS norm (over the
-global batch inside a data-parallel mesh, parallel/mesh.py), the error
-ratio, the Hairer-Norsett-Wanner initial step and one dopri5 attempt.
+controller constants, ``ODEStats``, the batch-wide RMS norm (inside a
+mesh, over the global batch and the whole frame: the ranks of ``'data'``
+x ``'space'``, never ``'model'``, parallel/mesh.py), the error ratio,
+the Hairer-Norsett-Wanner initial step and one dopri5 attempt.
 
 The state is one tensor. Times and step sizes are fp32 host scalars
 (``numpy.float32``), as JAX carries them in fp32; stage sums keep the JAX
@@ -32,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ode_rl_torch.ode.interp import interp_eval, interp_fit
-from ode_rl_torch.parallel.mesh import global_sum, world
+from ode_rl_torch.parallel.mesh import current, entered, global_sum, world
 
 # Dormand-Prince 5(4) Butcher tableau.
 _C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0], np.float32)
@@ -96,8 +97,8 @@ def _axpy(alpha, xs, y: Optional[torch.Tensor], scale: float):
 
 
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
-    """The RMS over every element, of the global batch under a mesh: every
-    rank then takes the same step sizes and attempts."""
+    """The RMS over every element, of the global batch and frame under a
+    mesh: every rank then takes the same step sizes and attempts."""
     total = global_sum(torch.sum(torch.square(x.float())))
     return torch.sqrt(total / (x.numel() * world()))
 
@@ -140,6 +141,15 @@ def _dopri5_step(func: ODEFunc, t: np.float32, y: torch.Tensor,
     return y1.to(y.dtype), ks[6].to(y.dtype), err, y_mid.to(y.dtype)
 
 
+def _in_mesh(mesh):
+    """``_dopri5_step`` inside ``mesh``: the backward recomputes a remat'd
+    attempt on autograd's thread, which does not see the entered mesh."""
+    def step(*args):
+        with entered(mesh):
+            return _dopri5_step(*args)
+    return step
+
+
 def _dopri5(func: ODEFunc, y0: torch.Tensor, ts: np.ndarray, rtol: float,
             atol: float, max_steps: int, first_step: Optional[float],
             remat: bool) -> Tuple[torch.Tensor, ODEStats]:
@@ -166,8 +176,8 @@ def _dopri5(func: ODEFunc, y0: torch.Tensor, ts: np.ndarray, rtol: float,
             break
         dt_used = np.maximum(np.minimum(dt, t_end - t), _F32(1e-12))
         if remat and torch.is_grad_enabled():
-            y1, f7, err, y_mid = checkpoint(_dopri5_step, func, t, y, f,
-                                            dt_used, use_reentrant=False)
+            y1, f7, err, y_mid = checkpoint(_in_mesh(current()), func, t, y,
+                                            f, dt_used, use_reentrant=False)
         else:
             y1, f7, err, y_mid = _dopri5_step(func, t, y, f, dt_used)
         with torch.no_grad():

@@ -23,6 +23,19 @@ the two-pass kernels (a block per sample and group, the group read twice).
 Both form r*h and the blend in fp32 and round once, where the plain
 formula rounds r, z and cand to h's dtype first.
 
+Under a ``'space'`` mesh axis (parallel/sp.py) a sample's rows lie on
+several ranks, and each call takes the moments-in variants: the moments
+pass ``gru_moments`` (kernel ``odek_gru_moments``: fp32 sums of x and
+x^2 a (sample, group) over this rank's rows), an all-reduce of those
+B*G*2 floats over ``'space'``, then ``gates_from_moments`` /
+``blend_from_moments`` (kernels ``odek_gru_{gates,blend}_mom``): the
+epilogue on the global moments. Their plain versions
+(``gru_moments_plain``, ``_gates_mom_plain``, ``_blend_mom_plain``)
+compute the same from the same moments; the backward is autograd of
+them with the moments' all-reduce in the graph, so it is global too.
+The Functions keep the forward's mesh in ``ctx``: autograd runs a CUDA
+backward on its own thread, which does not see the entered mesh.
+
 The plain versions ``_gates_plain``/``_blend_plain`` are written out as
 ``_gates_xla``/``_blend_xla``. ``gates_f64``/``blend_f64`` evaluate the
 Pallas kernels' formula in fp64, a reference for the bf16 kernels. The
@@ -40,6 +53,8 @@ import torch
 
 from ode_rl_torch.ops import common
 from ode_rl_torch.ops._build import library
+from ode_rl_torch.parallel.mesh import SPACE_AXIS, Mesh, all_reduce_sum
+from ode_rl_torch.parallel.sp import space_mesh
 
 _EPS = 1e-5
 
@@ -57,7 +72,53 @@ def _groupnorm_reshape(x, scale, bias, groups, eps=_EPS,
     return norm * scale.to(acc) + bias.to(acc)
 
 
-def _gates_plain(gates_raw, h, scale, bias, groups):
+def gru_moments_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, H, W, Ct) -> (B, G, 2) fp32: the sums of x and x^2 of each
+    (sample, group) over the map's pixels."""
+    b, h, w, c = x.shape
+    xf = x.float().reshape(b, h * w, groups, c // groups)
+    return torch.stack([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))],
+                       dim=-1)
+
+
+def _norm_from_moments(x, mom, scale, bias, groups, count):
+    """GroupNorm of (B, H, W, C) ``x`` in fp32 with each group's moments
+    from ``mom`` (B, G, 2), sums over ``count`` elements a group."""
+    b, h, w, c = x.shape
+    xf = x.float().reshape(b, h, w, groups, c // groups)
+    mean = (mom[..., 0] / count).reshape(b, 1, 1, groups, 1)
+    mean2 = (mom[..., 1] / count).reshape(b, 1, 1, groups, 1)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    norm = ((xf - mean) * torch.rsqrt(var + _EPS)).reshape(b, h, w, c)
+    return norm * scale.float() + bias.float()
+
+
+def _gates_mom_plain(gates_raw, h, mom, scale, bias, groups, count):
+    gn = _norm_from_moments(gates_raw, mom, scale, bias, groups, count)
+    z, r = torch.sigmoid(gn).chunk(2, dim=-1)
+    return z.to(h.dtype), r.to(h.dtype) * h
+
+
+def _blend_mom_plain(cand_raw, z, h, mom, scale, bias, groups, count):
+    gn = _norm_from_moments(cand_raw, mom, scale, bias, groups, count)
+    cand = torch.tanh(gn).to(h.dtype)
+    zc = z.to(h.dtype)
+    return (1.0 - zc) * h + zc * cand
+
+
+def _space_moments(x, groups, mesh: Mesh):
+    """The moments of ``x``'s groups over the whole height (with their
+    gradient), and their element count."""
+    b, hh, w, c = x.shape
+    mom = all_reduce_sum(gru_moments_plain(x, groups), mesh, SPACE_AXIS)
+    return mom, float(hh * w * (c // groups) * mesh.size(SPACE_AXIS))
+
+
+def _gates_plain(gates_raw, h, scale, bias, groups, mesh=None):
+    if mesh is not None:
+        mom, count = _space_moments(gates_raw, groups, mesh)
+        return _gates_mom_plain(gates_raw, h, mom, scale, bias, groups,
+                                count)
     gn = _groupnorm_reshape(gates_raw, scale, bias, groups)
     z, r = torch.sigmoid(gn).chunk(2, dim=-1)
     z = z.to(h.dtype)
@@ -65,7 +126,11 @@ def _gates_plain(gates_raw, h, scale, bias, groups):
     return z, r * h
 
 
-def _blend_plain(cand_raw, z, h, scale, bias, groups):
+def _blend_plain(cand_raw, z, h, scale, bias, groups, mesh=None):
+    if mesh is not None:
+        mom, count = _space_moments(cand_raw, groups, mesh)
+        return _blend_mom_plain(cand_raw, z, h, mom, scale, bias, groups,
+                                count)
     gn = _groupnorm_reshape(cand_raw, scale, bias, groups)
     cand = torch.tanh(gn).to(h.dtype)
     zc = z.to(h.dtype)
@@ -219,6 +284,82 @@ def _blend_cuda(cand_raw, z, h, scale, bias, groups, kernel="rule"):
     return out
 
 
+def gru_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The moments pass of the moments-in K3/K4: (B, H, W, Ct) -> (B, G,
+    2) fp32 sums of x and x^2 a (sample, group) over this rank's rows."""
+    b, hh, ww, c = x.shape
+    _check_groups("gru_moments", c, groups)
+    if not common.use_kernel(x):
+        return gru_moments_plain(x, groups)
+    common.check_inputs("gru_moments", {"x": x}, x.dtype)
+    mom = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
+    common.launch("gru_moments", library().odek_gru_moments, x.data_ptr(),
+                  mom.data_ptr(), b, hh * ww, c, groups,
+                  common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    return mom
+
+
+def _check_moments(name, mom, b, groups):
+    if mom.shape != (b, groups, 2) or mom.dtype != torch.float32:
+        raise ValueError(f"{name}: moments {tuple(mom.shape)} {mom.dtype}, "
+                         f"expected ({b}, {groups}, 2) float32")
+
+
+def gates_from_moments(gates_raw, h, mom, scale, bias, groups: int,
+                       count: float):
+    """The moments-in K3: (z, r*h) with each group's statistics from
+    ``mom`` (B, G, 2), sums over ``count`` elements a group. No
+    autograd."""
+    _check_gates(gates_raw, h, groups)
+    _check_moments("gates_from_moments", mom, h.shape[0], groups)
+    if not common.use_kernel(gates_raw):
+        return _gates_mom_plain(gates_raw, h, mom, scale, bias, groups,
+                                count)
+    b, hh, ww, c = h.shape
+    scale, bias = _checked_affine("gates_from_moments", {
+        "gates_raw": gates_raw, "h": h}, h.dtype, scale, bias)
+    common.check_inputs("gates_from_moments", {"mom": mom}, torch.float32)
+    z = torch.empty_like(h)
+    rh = torch.empty_like(h)
+    common.launch("gru_gates_mom", library().odek_gru_gates_mom,
+                  gates_raw.data_ptr(), h.data_ptr(), mom.data_ptr(),
+                  scale.data_ptr(), bias.data_ptr(), z.data_ptr(),
+                  rh.data_ptr(), b, hh * ww, c, groups, float(count), _EPS,
+                  common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    common.launches["gru_gates"] += 1
+    return z, rh
+
+
+def blend_from_moments(cand_raw, z, h, mom, scale, bias, groups: int,
+                       count: float):
+    """The moments-in K4: the blend with the candidate's group statistics
+    from ``mom`` (B, G, 2). No autograd."""
+    _check_blend(cand_raw, z, h, groups)
+    _check_moments("blend_from_moments", mom, h.shape[0], groups)
+    if not common.use_kernel(cand_raw):
+        return _blend_mom_plain(cand_raw, z, h, mom, scale, bias, groups,
+                                count)
+    b, hh, ww, c = h.shape
+    scale, bias = _checked_affine("blend_from_moments", {
+        "cand_raw": cand_raw, "z": z, "h": h}, h.dtype, scale, bias)
+    common.check_inputs("blend_from_moments", {"mom": mom}, torch.float32)
+    out = torch.empty_like(h)
+    common.launch("gru_blend_mom", library().odek_gru_blend_mom,
+                  cand_raw.data_ptr(), z.data_ptr(), h.data_ptr(),
+                  mom.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), b, hh * ww, c, groups, float(count), _EPS,
+                  common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    common.launches["gru_blend"] += 1
+    return out
+
+
+def _moments_over_space(x, groups, mesh: Mesh):
+    """The moments pass, all-reduced over ``'space'``; and the count."""
+    b, hh, ww, c = x.shape
+    mom = mesh.all_reduce_(gru_moments(x, groups), SPACE_AXIS)
+    return mom, float(hh * ww * (c // groups) * mesh.size(SPACE_AXIS))
+
+
 def _vjp_of_plain(plain, inputs, cotangents, groups):
     """Gradients of ``plain(*inputs, groups)`` for ``cotangents``."""
     with torch.enable_grad():
@@ -233,35 +374,45 @@ def _vjp_of_plain(plain, inputs, cotangents, groups):
 
 class FusedGRUGatesFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, gates_raw, h, scale, bias, groups: int):
-        ctx.groups = groups
+    def forward(ctx, gates_raw, h, scale, bias, groups: int, mesh=None):
+        ctx.groups, ctx.mesh = groups, mesh
         ctx.save_for_backward(gates_raw, h, scale, bias)
         if common.use_kernel(gates_raw):
-            return _gates_cuda(gates_raw, h, scale, bias, groups)
-        z, rh = _gates_plain(gates_raw, h, scale, bias, groups)
+            if mesh is None:
+                return _gates_cuda(gates_raw, h, scale, bias, groups)
+            mom, count = _moments_over_space(gates_raw, groups, mesh)
+            return gates_from_moments(gates_raw, h, mom, scale, bias,
+                                      groups, count)
+        z, rh = _gates_plain(gates_raw, h, scale, bias, groups, mesh)
         return z.contiguous(), rh
 
     @staticmethod
     def backward(ctx, g_z, g_rh):
-        grads = _vjp_of_plain(_gates_plain, ctx.saved_tensors, (g_z, g_rh),
+        plain = functools.partial(_gates_plain, mesh=ctx.mesh)
+        grads = _vjp_of_plain(plain, ctx.saved_tensors, (g_z, g_rh),
                               ctx.groups)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 class FusedGRUBlendFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cand_raw, z, h, scale, bias, groups: int):
-        ctx.groups = groups
+    def forward(ctx, cand_raw, z, h, scale, bias, groups: int, mesh=None):
+        ctx.groups, ctx.mesh = groups, mesh
         ctx.save_for_backward(cand_raw, z, h, scale, bias)
         if common.use_kernel(cand_raw):
-            return _blend_cuda(cand_raw, z, h, scale, bias, groups)
-        return _blend_plain(cand_raw, z, h, scale, bias, groups)
+            if mesh is None:
+                return _blend_cuda(cand_raw, z, h, scale, bias, groups)
+            mom, count = _moments_over_space(cand_raw, groups, mesh)
+            return blend_from_moments(cand_raw, z, h, mom, scale, bias,
+                                      groups, count)
+        return _blend_plain(cand_raw, z, h, scale, bias, groups, mesh)
 
     @staticmethod
     def backward(ctx, g_out):
-        grads = _vjp_of_plain(_blend_plain, ctx.saved_tensors, (g_out,),
+        plain = functools.partial(_blend_plain, mesh=ctx.mesh)
+        grads = _vjp_of_plain(plain, ctx.saved_tensors, (g_out,),
                               ctx.groups)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def _check_gates(gates_raw, h, groups):
@@ -285,7 +436,8 @@ def fused_gru_gates(gates_raw: torch.Tensor, h: torch.Tensor,
                     groups: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(B,H,W,2C) raw gate conv output -> (z, r*h), each (B,H,W,C)."""
     _check_gates(gates_raw, h, groups)
-    return FusedGRUGatesFn.apply(gates_raw, h, scale, bias, groups)
+    return FusedGRUGatesFn.apply(gates_raw, h, scale, bias, groups,
+                                 space_mesh())
 
 
 def fused_gru_blend(cand_raw: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
@@ -293,7 +445,8 @@ def fused_gru_blend(cand_raw: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
                     groups: int) -> torch.Tensor:
     """(B,H,W,C) raw candidate conv output + gate z + state h -> h_next."""
     _check_blend(cand_raw, z, h, groups)
-    return FusedGRUBlendFn.apply(cand_raw, z, h, scale, bias, groups)
+    return FusedGRUBlendFn.apply(cand_raw, z, h, scale, bias, groups,
+                                 space_mesh())
 
 
 def _gru_gates_sample(gates_raw, h, scale, bias, groups):

@@ -1,13 +1,18 @@
-"""The data-parallel dry run: each family's train step sharded over ranks.
+"""The dry run: each family's train step sharded over ranks.
 
-Counterpart of the data-parallel steps of
-``__graft_entry__.py::dryrun_multichip``: for each family at the dry
-run's shapes, the step of N ranks (each on its rows of the global batch,
-parallel/mesh.py) is held against the port's one-process step on the
-whole batch, from the same weights, batch and draws, at the dry run's
-tolerances; the NFE must be equal, and the parameters after the step
-bit-equal across the ranks. The dp x tp and dp x sp steps are not ported
-(ROADMAP queue 1, items 13 and 14).
+Counterpart of ``__graft_entry__.py::dryrun_multichip``: for each family
+at the dry run's shapes, the step of N ranks (each on its rows of the
+global batch, parallel/mesh.py) is held against the port's one-process
+step on the whole batch, from the same weights, batch and draws, at the
+dry run's tolerances; the NFE must be equal, and the parameters after
+the step bit-equal across the ranks. Then, where N is even and at least
+4, the flagship's dp x tp step (``flagship_tp``: an (N/2, 2) ('data',
+'model') mesh, the wide kernels' output channels sharded,
+parallel/tp.py) and dp x sp step (``flagship_sp``: an (N/2, 2) ('data',
+'space') mesh, the frame height sharded, parallel/sp.py), whose update
+(the 'model' slices gathered) must also lie within ``PARAM_TOL``
+relative L2 of the one-process step's. ``convgru_sp`` is ConvGRU's dp x
+sp step (tests/test_mesh.py).
 
     python -m ode_rl_torch.parallel.dryrun --ranks 4 --device cpu
 
@@ -25,7 +30,8 @@ The families, with their sizes in the dry run: the flagship ODE-ConvGRU
 stages), FlowNetC (full width, B=8) and the imagination behavior step;
 ``flagship_bench`` (``FlagshipConfig``: the fused step, B=128, bf16) and
 ``flownetc_bench`` (``FlowNetCBenchConfig``: the fused step, B=256,
-bf16) are the card's full-width runs.
+bf16) are the card's full-width runs, and ``flagship_bench_tp`` and
+``flagship_bench_sp`` the first on a 'model' or 'space' line.
 
 Every process this starts is joined within ``timeout`` seconds or
 killed; the process group is set up through a ``file://`` store in a
@@ -55,8 +61,11 @@ from torch import nn
 
 from ode_rl_torch.core.config import Config
 from ode_rl_torch.core.noise import Noise, as_noise
-from ode_rl_torch.parallel.mesh import (Mesh, make_mesh, replicate,
-                                        shard_batch)
+from ode_rl_torch.parallel.mesh import (MODEL_AXIS, SPACE_AXIS, Mesh,
+                                        gather_pytree, grid_mesh, make_mesh,
+                                        replicate, shard_batch)
+from ode_rl_torch.parallel.sp import shard_batch_sp
+from ode_rl_torch.parallel.tp import shard_params_tp
 
 SEED = 0
 # Tolerances of ``dryrun_multichip`` (rtol, atol) by metric; the norm of
@@ -80,6 +89,29 @@ BEHAVIOR_TOL = {**{k: (2e-4, 1e-5) for k in (
 BENCH_TOL = {"loss": (1e-4, 0.0), "grad_norm": (1e-3, 0.0)}
 FLOW_BENCH_TOL = {"loss": (1e-4, 0.0), "epe": (1e-4, 0.0),
                   "grad_norm": (5e-4, 0.0)}
+# The update of the parameters by the 'model' and 'space' steps (the
+# slices gathered) against the one-process step's, relative L2. Adam's
+# first step moves each parameter by about lr * sign(g), whatever |g|, so
+# a leaf whose small gradient moves (a ReLU input at exactly 0 in one
+# order of summation and 1e-9 in another) moves its whole update: an
+# elementwise limit would hold the optimizer's conditioning, not the
+# sharding. Readings on the CPU from JAX's init (tests/
+# test_torch_port_parallel_{ode,rnn}.py): flagship_tp 4.2e-6,
+# flagship_sp 1.24e-3 (its decode field's first kernel, gradient norm
+# 8e-5, 1.3e-3 off, as the ReLUs at exact zeros move), convgru_sp
+# 9.7e-6; from the dry run's seeded init 5.0e-6, 9.7e-6 and 1.0e-5.
+PARAM_TOL = 5e-3
+# flagship_bench on a 1 x 2 ('data', 'model') or ('data', 'space') mesh,
+# two gloo ranks on one card, against one rank. Set from the H100
+# readings: loss 1.3e-7 ('model') and 3.3e-7 ('space') off, grad_norm
+# 1.27e-4 and 1.6e-3 (in bf16 every layer's roundings move as the
+# moments-in K3/K4 and the halo tiles sum in another order, and ten
+# ConvGRU steps carry them; 'data' read 1.24e-4); the update 0.0803 and
+# 0.0793 relative L2, as a 'data' line of two reads (0.0797): in bf16 a
+# gradient element's sign is noise where its sum cancels, and Adam's
+# first step moves it by lr whatever its size.
+AXIS_BENCH_TOL = {"loss": (1e-4, 0.0), "grad_norm": (5e-3, 0.0)}
+BENCH_PARAM_TOL = 0.15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +123,15 @@ class Family:
     tol: Dict[str, tuple]
     batch_size: int
     stochastic: bool = False
+    # The mesh's second axis (lines of AXIS_RANKS), None for 'data' alone,
+    # and the largest difference allowed between the parameters after
+    # the sharded step (gathered) and after the one-process step.
+    axis: Optional[str] = None
+    param_tol: Optional[float] = None
+
+
+# Ranks a 'model' or 'space' line, as dryrun_multichip's meshes.
+AXIS_RANKS = 2
 
 
 class Recorded(Noise):
@@ -262,6 +303,15 @@ def _flow_step(state, batch, noise, mesh):
     return step(state, (batch["img1"], batch["img2"]), batch["flow"])
 
 
+def _on_axis(family: Callable[[], Family], axis: str, param_tol: float,
+             tol: Optional[Dict[str, tuple]] = None) -> Callable[[], Family]:
+    def make() -> Family:
+        fam = family()
+        return dataclasses.replace(fam, axis=axis, param_tol=param_tol,
+                                   tol=tol or fam.tol)
+    return make
+
+
 def _flownetc() -> Family:
     from ode_rl_torch.data.sprites import get_sprite_bank
     from ode_rl_torch.flow.flownets import FlowNetC
@@ -389,9 +439,19 @@ FAMILIES = {"flagship": _flagship, "convgru": _convgru, "gan": _gan,
             "s3vae": _s3vae, "dreamer": _dreamer, "convlstm": _convlstm,
             "flownetc": _flownetc, "behavior": _behavior,
             "flagship_bench": _flagship_bench,
-            "flownetc_bench": _flownetc_bench}
+            "flownetc_bench": _flownetc_bench,
+            "flagship_tp": _on_axis(_flagship, MODEL_AXIS, PARAM_TOL),
+            "flagship_sp": _on_axis(_flagship, SPACE_AXIS, PARAM_TOL),
+            "convgru_sp": _on_axis(_convgru, SPACE_AXIS, PARAM_TOL),
+            "flagship_bench_tp": _on_axis(_flagship_bench, MODEL_AXIS,
+                                          BENCH_PARAM_TOL, AXIS_BENCH_TOL),
+            "flagship_bench_sp": _on_axis(_flagship_bench, SPACE_AXIS,
+                                          BENCH_PARAM_TOL, AXIS_BENCH_TOL)}
 DRYRUN = ("flagship", "convgru", "gan", "s3vae", "dreamer", "convlstm",
           "flownetc", "behavior")
+# dryrun_multichip's dp x tp and dp x sp flagship steps, after the data-
+# parallel families where the ranks split into lines of AXIS_RANKS.
+DRYRUN_AXES = ("flagship_tp", "flagship_sp")
 
 
 # -- one family on one rank -------------------------------------------------
@@ -403,10 +463,19 @@ def _floats(metrics: Dict) -> Dict:
             or isinstance(v, (int, float))}
 
 
-def _digest(modules: Dict[str, nn.Module]) -> str:
+def _flat(modules: Dict[str, nn.Module]) -> torch.Tensor:
+    """Every floating parameter and buffer of ``modules``, flattened in
+    fp64."""
+    return torch.cat([t.detach().double().reshape(-1)
+                      for m in modules.values()
+                      for t in m.state_dict().values()
+                      if t.is_floating_point()])
+
+
+def _digest(states: Dict[str, Dict[str, torch.Tensor]]) -> str:
     h = hashlib.sha256()
-    for name in sorted(modules):
-        for key, t in modules[name].state_dict().items():
+    for name in sorted(states):
+        for key, t in states[name].items():
             h.update(key.encode())
             h.update(t.detach().cpu().contiguous().view(torch.uint8)
                      .numpy().tobytes())
@@ -433,6 +502,8 @@ def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
                 module.load_state_dict(given["weights"][key])
             if shared:
                 replicate(module, mesh)
+                if fam.axis == MODEL_AXIS:
+                    shard_params_tp(module, mesh, min_channels=64)
         return state
 
     def noise():
@@ -452,13 +523,21 @@ def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
     batch = ({k: torch.as_tensor(np.asarray(v), device=device)
               for k, v in given["batch"].items()} if "batch" in given
              else fam.batch(device))
-    rows = shard_batch(batch, mesh, fam.batch_size)
+    rows = (shard_batch_sp(batch, mesh) if fam.axis == SPACE_AXIS
+            and "observed_data" in batch
+            else shard_batch(batch, mesh, fam.batch_size))
     state = fresh(shared=True)
     common.reset_launches()
+    mesh.moved = {}
     metrics = run(state, rows, mesh)
-    out = {"sharded": _floats(metrics), "grad_bytes": mesh.grad_bytes}
+    out = {"sharded": _floats(metrics), "grad_bytes": mesh.grad_bytes,
+           "moved_bytes": dict(mesh.moved)}
+    # The parameters after the step, the 'model' slices gathered whole.
+    after = {key: {k: t.detach().clone() for k, t in
+                   gather_pytree(module, mesh).items()}
+             for key, module in fam.modules(state).items()}
     gathered = [None] * mesh.world
-    dist.all_gather_object(gathered, {"digest": _digest(fam.modules(state)),
+    dist.all_gather_object(gathered, {"digest": _digest(after),
                                       "launches": dict(common.launches)})
     out["params_equal"] = len({g["digest"] for g in gathered}) == 1
     out["rank_launches"] = [g["launches"] for g in gathered]
@@ -466,7 +545,16 @@ def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
                             device)
     if single:
         one = fresh(shared=False)
+        before = _flat(fam.modules(one))
         out["single"] = _floats(run(one, batch, None))
+        single_after = _flat(fam.modules(one))
+        sharded_after = torch.cat([after[key][k].double().reshape(-1)
+                                   for key, m in fam.modules(one).items()
+                                   for k, t in m.state_dict().items()
+                                   if t.is_floating_point()])
+        out["update_rel_l2"] = (
+            torch.linalg.vector_norm(sharded_after - single_after)
+            / torch.linalg.vector_norm(single_after - before)).item()
         out["single_step_ms"] = _times(lambda: run(one, batch, None),
                                        timed_steps, device)
     return out
@@ -487,8 +575,13 @@ def _times(fn: Callable, n: int, device: torch.device) -> List[float]:
 def _worker(rank: int, world: int, store: str, device: str,
             backend: Optional[str], families: List[str],
             inputs_path: Optional[str], out_dir: str, timed_steps: int,
-            threads: int) -> None:
+            threads: int, cudnn: bool = True) -> None:
     torch.set_num_threads(threads)
+    # Strict fp32 on the card, as on the CPU: the ranks' convs must not
+    # round to TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = cudnn
     mesh = make_mesh(backend=backend, device=torch.device(device),
                      init_method=f"file://{store}", rank=rank,
                      world_size=world,
@@ -496,10 +589,15 @@ def _worker(rank: int, world: int, store: str, device: str,
     inputs = (torch.load(inputs_path, weights_only=False) if inputs_path
               else {})
     results = {}
+    meshes = {None: mesh}
     try:
         for i, name in enumerate(families):
+            axis = FAMILIES[name]().axis
+            if axis not in meshes:   # every rank, in the families' order
+                meshes[axis] = grid_mesh(mesh, axis, AXIS_RANKS)
             # The one-process steps are spread over the ranks.
-            results[name] = _run_family(name, inputs.get(name), mesh,
+            results[name] = _run_family(name, inputs.get(name),
+                                        meshes[axis],
                                         single=(i % world == rank),
                                         timed_steps=timed_steps)
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(
@@ -530,12 +628,17 @@ def _spawn(fn: Callable, args: tuple, ranks: int, timeout: float) -> None:
 def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
         device: str = "cpu", backend: Optional[str] = None,
         inputs: Optional[Dict] = None, timed_steps: int = 0, threads: int = 1,
-        timeout: float = 600.0) -> Dict[str, Dict]:
+        timeout: float = 600.0, cudnn: bool = True) -> Dict[str, Dict]:
     """Run ``families`` over ``ranks`` spawned processes; returns, per
     family, the sharded step's metrics (``sharded``), the one-process
     step's (``single``), ``params_equal``, each rank's kernel launches
-    (``rank_launches``), the gradient all-reduce's bytes and the timed
-    steps' ms."""
+    (``rank_launches``), the gradient all-reduce's bytes, the bytes rank
+    0 sent into the collectives of its first step by axis
+    (``moved_bytes``), the relative L2 of the step's update against the
+    one-process step's (``update_rel_l2``) and the timed steps' ms.
+    ``cudnn`` False runs the convs outside the repo's kernels on
+    PyTorch's own CUDA convolution instead of cuDNN's, on every rank and
+    in the one-process step alike."""
     for name in families:
         if name not in FAMILIES:
             raise ValueError(f"unknown family {name!r}: {sorted(FAMILIES)}")
@@ -546,14 +649,14 @@ def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
             torch.save(inputs, inputs_path)
         _spawn(_worker, (ranks, str(pathlib.Path(tmp, "store")), device,
                          backend, list(families), inputs_path, tmp,
-                         timed_steps, threads),
+                         timed_steps, threads, cudnn),
                ranks, timeout)
         parts = [json.loads(pathlib.Path(tmp, f"rank{r}.json").read_text())
                  for r in range(ranks)]
     results = parts[0]
     for part in parts[1:]:
         for name, res in part.items():
-            for key in ("single", "single_step_ms"):
+            for key in ("single", "single_step_ms", "update_rel_l2"):
                 if key in res:
                     results[name][key] = res[key]
     return results
@@ -655,6 +758,11 @@ def misses(name: str, result: Dict, reference: Dict,
         out.append(f"nfe {got.get('nfe')} vs {reference['nfe']}")
     if not result["params_equal"]:
         out.append("parameters differ across the ranks")
+    param_tol = FAMILIES[name]().param_tol
+    if param_tol is not None and not result["update_rel_l2"] <= param_tol:
+        out.append(f"the step's update {result['update_rel_l2']!r} from "
+                   f"the one-process step's, relative L2 (limit "
+                   f"{param_tol})")
     return out
 
 
@@ -662,9 +770,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ranks", type=int, default=4)
     parser.add_argument("--device", default="cpu")
-    parser.add_argument("--families", nargs="+", default=list(DRYRUN))
+    parser.add_argument("--families", nargs="+", default=None)
     parser.add_argument("--timeout", type=float, default=1200.0)
     args = parser.parse_args(argv)
+    if args.families is None:
+        args.families = list(DRYRUN) + (
+            list(DRYRUN_AXES) if args.ranks % AXIS_RANKS == 0
+            and args.ranks >= 4 else [])
     results = run(args.families, args.ranks, args.device,
                   backend="gloo", timeout=args.timeout)
     failed = False
@@ -677,10 +789,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            for k in FAMILIES[name]().tol)
         nfe = (f" nfe={res['sharded']['nfe']}" if "nfe" in res["sharded"]
                else "")
+        update = (f", update {res['update_rel_l2']:.3g} relative L2 from "
+                  "the one-process step's" if FAMILIES[name]().axis
+                  else "")
         print(f"dryrun({args.ranks}) {name}: "
               f"{'ok' if not bad else 'MISS ' + '; '.join(bad)} {metrics}"
               f"{nfe}, parameters bit-equal across ranks: "
-              f"{res['params_equal']}")
+              f"{res['params_equal']}{update}")
     return 1 if failed else 0
 
 

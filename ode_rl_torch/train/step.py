@@ -26,11 +26,17 @@ Each step takes an optional ``torch.Generator`` that a model drawing
 noise (ODEConv with ``z_sample``, S3VAE) draws it from, as JAX's steps
 take a key for the 'sample' rng.
 
-With a data-parallel ``mesh`` (parallel/mesh.py) the steps compute, on
-each rank, its share of the unsharded step on the global batch: the
-model's cross-row terms and draws global, the gradients averaged over
-the ranks before ``grad_norm``, the clip and the NaN guard, and the
-metrics the global batch's.
+With a ``mesh`` (parallel/) the steps compute, on each rank, its share
+of the unsharded step on the global batch: the model's cross-row terms
+and draws global, the gradients averaged over the ranks before
+``grad_norm``, the clip and the NaN guard, and the metrics the global
+batch's. On a ``('data', 'model')`` mesh a parameter may hold a
+``'model'`` slice (parallel/tp.py): its squares enter ``grad_norm``
+summed over the ``'model'`` line, a replicated one's once, and the NaN
+guard skips on every rank where any rank's gradient is not finite. On a
+``('data', 'space')`` mesh every batch tensor holds this rank's rows of
+the frame height too (parallel/sp.py); the models whose every layer
+knows the cut (``supports_space``) take it.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ from ode_rl_torch.core.noise import global_rows
 from ode_rl_torch.data.mmnist import IMAGE_SIZE, generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.models.registry import build_model, cfg_get
-from ode_rl_torch.parallel.mesh import Mesh, entered
+from ode_rl_torch.parallel.mesh import MODEL_AXIS, SPACE_AXIS, Mesh, entered
+from ode_rl_torch.parallel.sp import shard_video
 from ode_rl_torch.train.metrics import per_frame_metrics
 
 
@@ -117,6 +124,24 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def grad_norm(params, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The global norm of the ``.grad`` of ``params``: a parameter that
+    holds a ``'model'`` slice (``tp_dim``) adds its squares summed over
+    the ``'model'`` line, a replicated one its own once."""
+    params = [p for p in params if p.grad is not None]
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return global_norm(p.grad for p in params)
+    squares = lambda ps: sum((torch.sum(torch.square(p.grad.float()))
+                              for p in ps), torch.zeros(
+                                  (), device=params[0].grad.device))
+    sharded = squares(p for p in params
+                      if getattr(p, "tp_dim", None) is not None)
+    mesh.all_reduce_(sharded, MODEL_AXIS)
+    return torch.sqrt(squares(p for p in params
+                              if getattr(p, "tp_dim", None) is None)
+                      + sharded)
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], norm: torch.Tensor,
                         max_norm: float) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm`` given the global ``norm``: each
@@ -136,7 +161,14 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     are averaged over the ranks and the metrics are the global batch's."""
     model.zero_grad(set_to_none=True)
     if mesh is not None:
-        generator = global_rows(generator, mesh.rank, mesh.world)
+        if mesh.size(SPACE_AXIS) > 1 and not getattr(
+                model, "supports_space", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} under a 'space' axis: only the "
+                "models whose every layer knows the cut take height-sharded "
+                "frames (ODEConvGRUModel, ConvGRUModel)")
+        generator = global_rows(generator, mesh.index("data"),
+                                mesh.size("data"))
     with nan_checks(debug_nans), entered(mesh):
         loss, (metrics, pred) = model.loss(batch, generator)
         if debug_nans:
@@ -148,8 +180,7 @@ def loss_and_grads(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     if mesh is not None:
         mesh.all_reduce_grads(model.parameters())
         metrics = mesh.mean_metrics(metrics)
-    metrics["grad_norm"] = global_norm(
-        p.grad for p in model.parameters() if p.grad is not None)
+    metrics["grad_norm"] = grad_norm(model.parameters(), mesh)
     return metrics, pred.detach()
 
 
@@ -173,7 +204,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     old = [p.detach().clone() for p in params] if nan_guard else None
     state.optimizer.step()
     if nan_guard:
-        metrics["nan_skipped"] = nan_guard_update(params, old, grads)
+        metrics["nan_skipped"] = nan_guard_update(params, old, grads, mesh)
     state.step += 1
     return metrics
 
@@ -222,7 +253,8 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
     (with ``cfg.nan_guard`` and ``cfg.debug_nans``) that draws any model
     noise from ``sample_generator``. Under a ``mesh`` every rank makes the
     global batch from the same generator and trains on its rows, as JAX
-    shards the generated batch at its source."""
+    shards the generated batch at its source (rows of the height too
+    under ``'space'``)."""
     if cfg.resolution != IMAGE_SIZE:
         raise NotImplementedError(f"the generator makes {IMAGE_SIZE}x"
                                   f"{IMAGE_SIZE} frames")
@@ -240,7 +272,8 @@ def make_fused_train_step(cfg, sprite_bank: torch.Tensor,
                                       n_frames=n_frames,
                                       num_digits=int(cfg.num_digits))
         if mesh is not None:
-            video = video[mesh.rows(video.shape[0])]
+            video = (shard_video(video, mesh) if mesh.size(SPACE_AXIS) > 1
+                     else video[mesh.rows(video.shape[0])])
         return step(state, make_batch_dict(video, n_in=n_in,
                                            with_flow_labels=with_flow,
                                            flow_label_fn=flow_label_fn),

@@ -880,6 +880,8 @@ def test_each_wrapper_counts_its_launches(cuda):
                                "gru_gates": 1, "gru_gates_sample": 1,
                                "gru_gates_2pass": 0, "gru_blend": 1,
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
+                               "gru_gates_mom": 0, "gru_blend_mom": 0,
+                               "gru_moments": 0,
                                "correlation_fwd": 1, "correlation_fwd_tc": 0,
                                "correlation_bwd_f1": 1,
                                "correlation_bwd_f1_tc": 0,

@@ -1,5 +1,5 @@
-"""parallel/ in the port, in one process: the mesh at one rank, the
-refusals of the 'model' and 'space' axes, ``shard_batch`` on every key
+"""parallel/ in the port, in one process: the mesh at one rank,
+``shard_batch`` on every key
 of ``make_batch_dict``, the global draws (each rank's draws are rows of
 the one-process draws), and the terms that mix rows of the batch on a
 fake two-rank group: two threads, each a rank, exchanging tensors. Each
@@ -80,14 +80,14 @@ class ThreadMesh(Mesh):
         super().__init__(rank, group.world, torch.device("cpu"), "threads")
         self.group = group
 
-    def all_reduce_(self, t):
+    def all_reduce_(self, t, axis=None):
         parts = self.group.exchange(self.rank, t)
         total = parts[0].clone()
         for p in parts[1:]:
             total += p
         return t.copy_(total)
 
-    def all_gather(self, t, dim=0):
+    def all_gather(self, t, dim=0, axis=None):
         return torch.cat(self.group.exchange(self.rank, t), dim=dim)
 
     def broadcast_(self, t, src=0):
@@ -140,19 +140,6 @@ def test_mesh_at_one_rank(monkeypatch):
         Mesh(rank=0, world=4).rows(6)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(n_data=2)
-
-
-@pytest.mark.parametrize("call,item", [
-    (lambda: make_mesh(n_model=2), "item 13 (TP)"),
-    (lambda: parallel.shard_pytree({}, None, {}), "item 13 (TP)"),
-    (lambda: parallel.make_sp_mesh(n_space=2), "item 14 (SP)"),
-    (lambda: parallel.shard_batch_sp({}, None), "item 14 (SP)")],
-    ids=["make_mesh_n_model", "shard_pytree", "make_sp_mesh",
-         "shard_batch_sp"])
-def test_unported_axes_raise_naming_their_item(call, item):
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        call()
 
 
 def test_shard_batch_takes_rows_of_every_batch_key():

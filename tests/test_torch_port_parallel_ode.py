@@ -13,17 +13,28 @@ ranks. The GAN runs on 32x32 frames where the dry run's are 64x64: JAX's
 step on the CPU takes 45 s at 64x64 after a 19 s init, 10 s at 32x32,
 the same program at B=8. ``python -m ode_rl_torch.parallel.dryrun``
 runs it at 64x64 against the port's one-process step.
+
+The same spawn runs ``dryrun_multichip``'s dp x tp and dp x sp flagship
+steps (``flagship_tp``: a 2 x 2 ('data', 'model') mesh, the 11 wide
+kernels' output channels sharded; ``flagship_sp``: a 2 x 2 ('data',
+'space') mesh, the frame height sharded) from the flagship's inputs,
+held to the same references at the same tolerances, with equal NFE;
+the update of their parameters (the 'model' slices gathered) lies within
+``PARAM_TOL`` relative L2 of the one-process step's.
 """
 
 import jax
 import pytest
 
+from ode_rl_torch.parallel import dryrun
 from torch_port_parallel_util import (RANKS, first_step_grad_norm,
                                       load_named, port_weights, run_families,
                                       scalars, tolerance_misses, train_case,
                                       video_batches)
 
-FAMILIES = ("flagship", "gan")
+FAMILIES = ("flagship", "gan", "flagship_tp", "flagship_sp")
+# dryrun_multichip's dp x tp and dp x sp flagship steps.
+AXES = ("flagship_tp", "flagship_sp")
 
 
 def _flagship():
@@ -64,7 +75,9 @@ def _gan():
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_families({"flagship": _flagship(), "gan": _gan()})
+    flagship = _flagship()
+    return run_families({"flagship": flagship, "gan": _gan(),
+                         **{name: flagship for name in AXES}})
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -92,3 +105,9 @@ def test_parameters_bit_equal_across_ranks(runs, name):
     assert result["params_equal"]
     assert result["grad_bytes"] > 0
     assert len(result["rank_launches"]) == RANKS
+
+
+@pytest.mark.parametrize("name", AXES)
+def test_parameters_after_the_step_match_the_one_process_step(runs, name):
+    result, _ = runs[name]
+    assert result["update_rel_l2"] <= dryrun.FAMILIES[name]().param_tol

@@ -14,7 +14,11 @@ loss 1e-5 relative; Dreamer's loss, KL and image loss 5e-4 plus 1e-4;
 every scalar of the behavior step 2e-4 plus 1e-5; every gradient norm
 1e-4 (the behavior's actor and value norms against JAX's read from its
 Adam states after the step). The parameters after the step are
-bit-equal across the ranks.
+bit-equal across the ranks. ``convgru_sp`` is ConvGRU's dp x sp step of
+tests/test_mesh.py::test_sp_sharded_train_step_matches_single_device (a
+2 x 2 ('data', 'space') mesh, the frame height sharded) from ConvGRU's
+inputs, held to the same references; the update of its parameters lies
+within ``PARAM_TOL`` relative L2 of the one-process step's.
 """
 
 import jax
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from ode_rl_torch.parallel import dryrun
 from torch_port_parallel_util import (RANKS, first_step_grad_norm,
                                       load_named, load_typed, port_weights,
                                       run_families, scalars,
@@ -30,7 +35,7 @@ from torch_port_parallel_util import (RANKS, first_step_grad_norm,
                                       train_state_and_step, video_batches)
 from torch_port_util import KeyRecorder, rssm_observe_draws
 
-FAMILIES = ("convgru", "convlstm", "dreamer", "behavior")
+FAMILIES = ("convgru", "convlstm", "dreamer", "behavior", "convgru_sp")
 B = 8
 
 
@@ -118,8 +123,10 @@ def _behavior():
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_families({"convgru": _convgru(), "convlstm": _convlstm(),
-                         "dreamer": _dreamer(), "behavior": _behavior()})
+    convgru = _convgru()
+    return run_families({"convgru": convgru, "convlstm": _convlstm(),
+                         "dreamer": _dreamer(), "behavior": _behavior(),
+                         "convgru_sp": convgru})
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -140,3 +147,9 @@ def test_parameters_bit_equal_across_ranks(runs, name):
     assert result["params_equal"]
     assert result["grad_bytes"] > 0
     assert len(result["rank_launches"]) == RANKS
+
+
+def test_convgru_sp_parameters_match_the_one_process_step(runs):
+    result, _ = runs["convgru_sp"]
+    assert result["update_rel_l2"] <= dryrun.FAMILIES[
+        "convgru_sp"]().param_tol

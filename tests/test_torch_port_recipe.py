@@ -207,8 +207,9 @@ def test_registry_refuses_unported_families_and_options():
             build_model(cfg.replace(**overrides), torch.device("cpu"), gen)
     with pytest.raises(NotImplementedError, match="optimizer 'sgd'"):
         create_train_state(cfg.replace(optimizer="sgd"), torch.device("cpu"))
-    # The data axis is ported (parallel/mesh.py); the 'model' axis is not.
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # Every axis is ported (parallel/); a 'model' line of two needs a
+    # process group, as JAX's make_mesh(n_model=2) needs two devices.
+    with pytest.raises(ValueError, match="torchrun"):
         make_mesh(n_model=2)
 
 
