@@ -289,9 +289,13 @@ without printing its last line:
     loss and grad_norm within AXIS_BENCH_TOL, NFE equal, parameters
     after the step bit-equal across the ranks (the 'model' slices
     gathered) and their update within BENCH_PARAM_TOL relative L2 of the
-    one-rank update; each rank's K1-K4 launches and routes (under
-    'space' every K3/K4 launch a moments-in one, each with its moments
-    pass), and the bytes each axis moved in a step. Then the dry run's
+    one-rank update; each rank's K1-K4 launches and routes (every K1
+    and K2 launch a tensor-core one on both axes, the 'model' rank's
+    Cout 32 K2 and fp32-output dx partials included; under 'space' every
+    K3/K4 launch a moments-in one, each with its moments pass), the bytes
+    each axis moved in a step, and one more step profiled on each rank:
+    rank 0's device ms by kernel group and its K1-K8 kernels' µs a launch
+    (``phase18_rank0_profiled`` for K1 and K2). Then the dry run's
     flagship dp x tp and dp x sp steps at four gloo ranks on this card
     (fp32, its shapes): with the convs outside K1-K4 on cuDNN, printed,
     then on PyTorch's own CUDA convolution, held at its tolerances
@@ -304,9 +308,14 @@ without printing its last line:
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
-rank's tile (128, 10, 16, 64) -> 64 in bf16 against fp64 (their routes
-printed; the fp32 K1 of the column-parallel dx against its plain
-version), and the moments-in K3 and K4 with their moments pass at a
+rank's tile (128, 10, 16, 64) -> 64 in bf16 against fp64, all on the
+tensor cores (K2 at Cout 32 in blocks of 32 output channels; K2 20 calls
+bit-equal), the column-parallel dx partial (K1 with bf16 in and fp32 out,
+(128, 16, 16, 32) -> 64, on the tensor cores) against its plain version
+and 20 calls bit-equal, each timed in one run beside the SIMT route it
+replaced and cuDNN's call (the fp32 F.conv2d for the dx partial), with
+host µs a call and the 'model' forward read three more times; and the
+moments-in K3 and K4 with their moments pass at a
 'space' rank's rows (128, 8, 16, 128 / 64) against their plain versions
 (fp32, 1e-5; bf16, one ulp of the fp64 formula), bit-equal over 20
 calls, timed beside their plain versions.
@@ -986,9 +995,16 @@ def _axis_conv_bound(shape, cout: int, which: str) -> dict:
 
 def _check_axis_k12(gen) -> dict:
     """K1 and K2 in bf16 at the 'model' and 'space' shapes against fp64,
-    by the route the rule picks; the column-parallel dx (K1 in fp32 on
-    the slice's cotangent) against its plain version; each timed beside
-    its plain version."""
+    by the route the rule picks, which must be the tensor cores, K2 20
+    calls bit-equal; the column-parallel dx partial (K1 with bf16 in and
+    fp32 out, on the slice's cotangent and flipped weights) on the tensor
+    cores against its plain version (F.conv2d of the values in fp32), 20
+    calls bit-equal. Each timed in one run beside the route it replaced
+    where it replaced one (the SIMT K2 at Cout 32; the fp32 SIMT K1 on the
+    dx partial's values) and the library call (cuDNN's bf16 conv and
+    weight gradient; the fp32 F.conv2d for the dx partial), with its plain
+    version's ms, its bound and each wrapper's host µs a call; the 'model'
+    slice's forward read three more times (device µs of 50 calls)."""
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(
             "cuda", torch.bfloat16)
@@ -1000,69 +1016,136 @@ def _check_axis_k12(gen) -> dict:
     rows = {"conv3x3_fwd": {}, "conv3x3_wgrad": {}}
     for label, (x, w2d, g) in shapes.items():
         cout = w2d.shape[1]
-        k1 = {"shape": f"{tuple(x.shape)} -> {cout}", "route": (
-            "tensor cores" if uses_tensor_cores(x.dtype, C, cout, HW)
-            else "SIMT")}
-        k2 = {"shape": f"{tuple(x.shape)} x {tuple(g.shape)}", "route": (
-            "tensor cores" if wgrad_uses_tensor_cores(x.dtype, C, cout, HW)
-            else "SIMT")}
+        w_oihw = oihw(w2d, C, cout)
+        k1 = {"shape": f"{tuple(x.shape)} -> {cout}"}
+        k2 = {"shape": f"{tuple(x.shape)} x {tuple(g.shape)}"}
+        if not (uses_tensor_cores(x.dtype, C, cout, HW)
+                and wgrad_uses_tensor_cores(x.dtype, C, cout, HW)):
+            raise AssertionError(f"K1/K2 at the {label} shape off the "
+                                 "tensor cores")
+        k1["route"] = k2["route"] = "tensor cores"
         y = conv3x3_fwd(x, w2d)
         ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
             x.double(), w2d.double()))
-        check(f"K1 bf16 {label} ({k1['route']}): ulps", ulps, K1_BF16_ULPS,
+        check(f"K1 bf16 {label} (tensor cores): ulps", ulps, K1_BF16_ULPS,
               "max")
         check(f"K1 bf16 {label}: share 1 ulp off", share, K1_BF16_SHARE,
               "share")
         dw = conv3x3_wgrad(x, g)
         k2["rel_l2"] = check(
-            f"K2 bf16 {label} ({k2['route']}) vs fp64",
+            f"K2 bf16 {label} (tensor cores) vs fp64",
             rel_l2(dw, conv3x3_wgrad_plain(x.double(), g.double())),
             K2_BF16_REL_L2, "rel_l2")
+        if not all(torch.equal(dw, conv3x3_wgrad(x, g)) for _ in range(20)):
+            raise AssertionError(f"tensor-core K2 at the {label} shape: 20 "
+                                 "calls are not bit-equal")
         with common.force_plain():
             k1["max_abs_err"] = max_abs(y, conv3x3_fwd(x, w2d))
             k2["max_abs_err"] = max_abs(dw, conv3x3_wgrad(x, g))
         k1["ulps"], k1["share"] = ulps, share
-        for row, fn in ((k1, lambda: conv3x3_fwd(x, w2d)),
-                        (k2, lambda: conv3x3_wgrad(x, g))):
-            row["ms"] = median_ms(fn)
-            row["device_us"] = device_us({"kernel": fn})["kernel"]
-            with common.force_plain():
-                row["plain_ms"] = median_ms(fn)
+        k1_fns = {"kernel": lambda: conv3x3_fwd(x, w2d),
+                  "library": lambda: conv_library(x, w_oihw)}
+        k2_fns = {"kernel": lambda: conv3x3_wgrad(x, g),
+                  "library": lambda: wgrad_library(x, g, w_oihw)}
         if label == "tp":
-            gf = g.float()
-            wf = flip_transpose(w2d, C, cout).float()
-            dx = conv3x3_fwd(gf, wf)
+            k2_fns["simt"] = lambda: _conv3x3_wgrad_simt(x, g)
+        for row, fns in ((k1, k1_fns), (k2, k2_fns)):
+            for key, (ms, us) in _time_turns(fns).items():
+                prefix = "" if key == "kernel" else f"{key}_"
+                row[f"{prefix}ms"], row[f"{prefix}device_us"] = ms, us
             with common.force_plain():
-                plain = conv3x3_fwd(gf, wf)
-            k1["dx_fp32_max_abs_err"] = check(
-                "K1 fp32 column-parallel dx partial", max_abs(dx, plain),
-                _TOL["conv3x3_fwd as dx"][0], "max_abs")
-            k1["dx_fp32_ms"] = median_ms(lambda: conv3x3_fwd(gf, wf))
-            k1["dx_fp32_device_us"] = device_us(
-                {"dx": lambda: conv3x3_fwd(gf, wf)})["dx"]
-            px = B * HW * HW
-            k1["dx_fp32_bound"] = _bound(
-                2 * px * 9 * cout * C, (px * (cout + C) + 9 * cout * C) * 4,
-                PEAK_FP32)
-            with common.force_plain():
-                k1["dx_fp32_plain_ms"] = median_ms(
-                    lambda: conv3x3_fwd(gf, wf))
+                row["plain_ms"] = median_ms(fns["kernel"])
+        host = {("K1", "host_us", "K1 tensor cores"): k1_fns["kernel"],
+                ("K2", "host_us", "K2 tensor cores"): k2_fns["kernel"]}
+        if label == "tp":
+            k1["device_us_reads"] = [
+                device_us({"k1": k1_fns["kernel"]}, reps=50)["k1"]
+                for _ in range(3)]
+            host[("K2", "simt_host_us", "K2 SIMT")] = k2_fns["simt"]
+            _check_dx_partial(k1, w2d, g, host)
+        times = _host_turns(host, f"at the {label} shape")
+        k1.update(times["K1"])
+        k2.update(times["K2"])
+        if "dx" in times:
+            k1["dx"].update(times["dx"])
         k1.update(_axis_conv_bound(x.shape, cout, "forward"))
         k2.update(_axis_conv_bound(x.shape, cout, "wgrad"))
         rows["conv3x3_fwd"][label] = k1
         rows["conv3x3_wgrad"][label] = k2
-        print(f"  {label}: K1 {k1['shape']} on {k1['route']} "
-              f"{k1['ms']:.4f} ms, {k1['device_us']:.2f} device us (plain "
-              f"{k1['plain_ms']:.4f} ms; bound {k1['bound_ms'] * 1e3:.2f} "
-              f"us by {k1['bound_by']}); K2 on {k2['route']} "
-              f"{k2['ms']:.4f} ms, {k2['device_us']:.2f} device us (plain "
-              f"{k2['plain_ms']:.4f} ms; bound {k2['bound_ms'] * 1e3:.2f} "
-              f"us by {k2['bound_by']})" + (
-                  f"; the fp32 dx partial {k1['dx_fp32_ms']:.4f} ms, "
-                  f"{k1['dx_fp32_device_us']:.2f} device us (plain "
-                  f"{k1['dx_fp32_plain_ms']:.4f} ms)"
-                  if label == "tp" else ""))
+    for label in shapes:
+        k1, k2 = rows["conv3x3_fwd"][label], rows["conv3x3_wgrad"][label]
+        print(f"  {label}: K1 {k1['shape']} on the tensor cores "
+              f"{k1['ms']:.4f} ms, {k1['device_us']:.2f} device us, host "
+              f"{k1['host_us']:.2f} us (plain {k1['plain_ms']:.4f} ms; cuDNN "
+              f"{k1['library_ms']:.4f} ms, {k1['library_device_us']:.2f} "
+              f"device us; bound {k1['bound_ms'] * 1e3:.2f} us by "
+              f"{k1['bound_by']})")
+        print(f"  {label}: K2 {k2['shape']} on the tensor cores "
+              f"{k2['ms']:.4f} ms, {k2['device_us']:.2f} device us, host "
+              f"{k2['host_us']:.2f} us (plain {k2['plain_ms']:.4f} ms; cuDNN "
+              f"{k2['library_ms']:.4f} ms, {k2['library_device_us']:.2f} "
+              f"device us; bound {k2['bound_ms'] * 1e3:.2f} us by "
+              f"{k2['bound_by']})" + (
+                  f"; the SIMT K2 it replaced {k2['simt_ms']:.4f} ms, "
+                  f"{k2['simt_device_us']:.2f} device us, host "
+                  f"{k2['simt_host_us']:.2f} us" if label == "tp" else ""))
+    k1 = rows["conv3x3_fwd"]["tp"]
+    print(f"  tp: K1 forward at Cout 32, device us of 50 calls, three more "
+          f"reads: {', '.join(f'{u:.2f}' for u in k1['device_us_reads'])}")
+    dx = k1["dx"]
+    print(f"  tp: the dx partial {dx['shape']}, bf16 in, fp32 out, on the "
+          f"tensor cores {dx['ms']:.4f} ms, {dx['device_us']:.2f} device "
+          f"us, host {dx['host_us']:.2f} us (plain {dx['plain_ms']:.4f} ms;"
+          f" fp32 F.conv2d {dx['library_ms']:.4f} ms, "
+          f"{dx['library_device_us']:.2f} device us; bound "
+          f"{dx['bound_ms'] * 1e3:.2f} us by {dx['bound_by']}); the fp32 "
+          f"SIMT K1 it replaced {dx['simt_ms']:.4f} ms, "
+          f"{dx['simt_device_us']:.2f} device us, host "
+          f"{dx['simt_host_us']:.2f} us")
     return rows
+
+
+def _check_dx_partial(k1: dict, w2d: torch.Tensor, g: torch.Tensor,
+                      host: dict) -> None:
+    """A 'model' rank's dx partial (parallel/tp.py): K1 with bf16 in and
+    fp32 out on the Cout slice's cotangent and flipped weights, on the
+    tensor cores, against its plain version (``_TOL["conv3x3_fwd as
+    dx"]``) and 20 calls bit-equal; timed beside the fp32 SIMT K1 on the
+    same values (the route it replaced) and the fp32 F.conv2d; into
+    ``k1["dx"]``, its wrappers into ``host``."""
+    cout = g.shape[3]
+    w_t = flip_transpose(w2d, C, cout)
+    if not uses_tensor_cores(g.dtype, cout, C, HW, torch.float32):
+        raise AssertionError("the dx partial is off the tensor cores")
+    gf, wf = g.float(), w_t.float()
+    wf_oihw = oihw(wf, cout, C)
+    fns = {"kernel": lambda: conv3x3_fwd(g, w_t, out_dtype=torch.float32),
+           "simt": lambda: _conv3x3_fwd_simt(gf, wf),
+           "library": lambda: conv_library(gf, wf_oihw)}
+    dx = fns["kernel"]()
+    with common.force_plain():
+        plain = fns["kernel"]()
+    row = {"shape": f"{tuple(g.shape)} -> {C}", "route": "tensor cores",
+           "max_abs_err": check("K1 bf16 -> fp32, the dx partial",
+                                max_abs(dx, plain),
+                                _TOL["conv3x3_fwd as dx"][0], "max_abs")}
+    if dx.dtype != torch.float32 or not all(
+            torch.equal(dx, fns["kernel"]()) for _ in range(20)):
+        raise AssertionError("the dx partial: not fp32, or 20 calls are "
+                             "not bit-equal")
+    for key, (ms, us) in _time_turns(fns).items():
+        prefix = "" if key == "kernel" else f"{key}_"
+        row[f"{prefix}ms"], row[f"{prefix}device_us"] = ms, us
+    with common.force_plain():
+        row["plain_ms"] = median_ms(fns["kernel"])
+    px = B * HW * HW
+    # bf16 cotangent and weights in, fp32 out.
+    row.update(_bound(2 * px * 9 * cout * C,
+                      px * cout * 2 + 9 * cout * C * 2 + px * C * 4,
+                      PEAK_BF16))
+    k1["dx"] = row
+    host[("dx", "host_us", "the dx partial, tensor cores")] = fns["kernel"]
+    host[("dx", "simt_host_us", "the dx partial, fp32 SIMT")] = fns["simt"]
 
 
 def _check_axis_gru(gen) -> dict:
@@ -4592,10 +4675,14 @@ AXIS_ROUTES = {
 
 def _axis_bench(baseline: float) -> dict:
     """``baseline``: the update's relative L2 of phase 17's two-rank
-    ``flagship_bench`` (a 'data' line) against one rank."""
+    ``flagship_bench`` (a 'data' line) against one rank. Every K1 and K2
+    launch on every rank must take the tensor cores (the 'model' rank's
+    Cout 32 K2 and fp32-output dx partials included); one more step on
+    each rank is profiled, and rank 0's device ms by kernel group and
+    each K1-K8 kernel's µs a launch are printed."""
     names = tuple(AXIS_ROUTES)
     results = dryrun.run(names, ranks=2, device="cuda:0", backend="gloo",
-                         timed_steps=1, threads=4, timeout=600)
+                         timed_steps=1, threads=4, timeout=600, profile=True)
     print(f"  (phase 17's flagship_bench over a 'data' line of two: update "
           f"{baseline!r} relative L2 from the one-rank update)")
     for name in names:
@@ -4615,6 +4702,9 @@ def _axis_bench(baseline: float) -> dict:
             print(f"    rank {rank} launches: "
                   f"{ {k: v for k, v in counts.items() if v} }")
             missing = [k for k in AXIS_ROUTES[name] if counts[k] == 0]
+            missing += [f"a {k} launch off the tensor cores"
+                        for k in ("conv3x3_fwd", "conv3x3_wgrad")
+                        if counts[f"{k}_tc"] != counts[k]]
             if name.endswith("_sp") and (
                     counts["gru_gates"] != counts["gru_gates_mom"]
                     or counts["gru_blend"] != counts["gru_blend_mom"]
@@ -4624,6 +4714,14 @@ def _axis_bench(baseline: float) -> dict:
             if missing:
                 raise AssertionError(f"{name} rank {rank}: missing "
                                      f"{missing}")
+        prof = res["profile"]
+        print(f"    rank 0, one more step profiled (the other rank shares "
+              f"the card): device ms {prof['device_ms']:.3f}; by group "
+              + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+                  prof["groups"].items(), key=lambda kv: -kv[1])))
+        for kernel, (n, us) in sorted(prof["kernels"].items()):
+            print(f"    rank 0 {kernel}: {n} launches, {us:.2f} device us "
+                  "a launch")
     return results
 
 
@@ -4792,6 +4890,13 @@ def main() -> int:
     for name in KERNELS:
         timings[name]["phase18_launches"] = {
             f"{path}_by_rank": [c[name] for c in run["rank_launches"]]
+            for path, run in axes["bench"].items()}
+    # Phase 18's profiled step on rank 0: K1's and K2's launches and
+    # device µs a launch, by template instance.
+    for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+        timings[name]["phase18_rank0_profiled"] = {
+            path: {k: v for k, v in run["profile"]["kernels"].items()
+                   if k.startswith(name)}
             for path, run in axes["bench"].items()}
     for name in AXIS_KERNELS:
         counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][

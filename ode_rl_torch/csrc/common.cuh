@@ -203,6 +203,22 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "n"(TransA), "n"(TransB));
 }
 
+// D (64 x 32, fp32) += A (64 x 16) . B (16 x 32), as wgmma_m64n64k16.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, 1, 1, 1, %18, %19;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "n"(TransA), "n"(TransB));
+}
+
 // Lets `kernel` ask for `bytes` of dynamic shared memory, once per kernel
 // (each caller passes one size per kernel); setting it twice from two
 // threads is harmless.

@@ -15,10 +15,12 @@
 //
 // K1 has two kernels; ops/conv3x3.py::uses_tensor_cores picks one.
 //
-// * conv3x3_fwd_tc_kernel (bf16, Cin % 16 == 0, Cout % 16 == 0, Cout <= 256,
-//   the weights, two halo stages and the output staging within the 227 KB
-//   of shared memory): the tensor-core K1 (section "Tensor-core K1" below),
-//   about 7 us a launch at the flagship shape against cuDNN's 11.
+// * conv3x3_fwd_tc_kernel (bf16 in, Cin % 16 == 0, Cout % 16 == 0, Cout <=
+//   256, the weights, two halo stages and the output staging within the
+//   227 KB of shared memory; bf16 out, or fp32 out for the column-parallel
+//   dx partials of a 'model' axis): the tensor-core K1 (section
+//   "Tensor-core K1" below), about 7 us a launch at the flagship shape
+//   against cuDNN's 11.
 // * conv3x3_fwd_simt_kernel (everything else, fp32 included, so fp32 stays
 //   strict fp32): fp32 FMA from shared memory (section "SIMT K1" below). A
 //   block owns a run of 16-pixel row segments for 16 output channels, with
@@ -37,13 +39,13 @@
 // data, so the result is deterministic. ops/conv3x3.py::
 // wgrad_uses_tensor_cores picks one of two kernels.
 //
-// * conv3x3_wgrad_tc_kernel (bf16, Cin % 64 == 0, Cout % 64 == 0): the
+// * conv3x3_wgrad_tc_kernel (bf16, Cin % 64 == 0, Cout % 32 == 0): the
 //   tensor-core K2 (section "Tensor-core K2" below): TMA halo and
-//   cotangent tiles, wgmma with pixels as the reduction axis, the partials
-//   summed after a grid sync in the same cooperative launch. About 13
-//   us a launch at the flagship shape against cuDNN's weight gradient's
-//   19.5; the partials' round trip through L2 and the grid sync are most
-//   of the gap to the bound.
+//   cotangent tiles, wgmma with pixels as the reduction axis (64 or 32
+//   output channels a block), the partials summed after a grid sync in the
+//   same cooperative launch. About 12 us a launch at the flagship shape
+//   against cuDNN's weight gradient's 19.5; the partials' round trip
+//   through L2 and the grid sync are most of the gap to the bound.
 // * conv3x3_wgrad_simt_kernel + conv3x3_wgrad_sum_kernel (everything else,
 //   fp32 included): fp32 FMA (section "SIMT K2" below). A block owns a
 //   64 x 64 tile of dW (one tap at Cin = 64) and a run of pixels,
@@ -77,6 +79,7 @@ using odek::to_f32;
 using odek::warpgroup_sync;
 using odek::wgmma_commit;
 using odek::wgmma_fence;
+using odek::wgmma_m64n32k16;
 using odek::wgmma_m64n64k16;
 using odek::wgmma_wait_all;
 using odek::wgmma_wait_one;
@@ -666,6 +669,15 @@ __global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
 //   and store it with one TMA store, which clips what lies outside the
 //   image. Storing the fragments directly, 4 bytes a lane, took a third
 //   of the tile's time.
+// * fp32 output (OutT = float; the column-parallel dx partials of a bf16
+//   step under a 'model' axis, summed across ranks before one rounding):
+//   the fp32 sums are staged unrounded. A pixel of 64 fp32 channels is
+//   256 bytes, past TMA's 128-byte swizzle span, so the block is staged
+//   and stored as NT / OB boxes of OB = min(NT, 32) channels (rows of at
+//   most 128 bytes, swizzled by their width), one TMA store each. The
+//   staging buffer doubles to 8 x 8 x NT x 4 bytes a warpgroup. Bound by
+//   the fp32 bytes written: at (128, 16, 16, 32) -> 64, 2.1 MB of bf16 in
+//   and 8.4 MB out, 3.1 us at 3.35 TB/s.
 // * Deterministic: every output is summed by one warpgroup in a fixed
 //   order (taps, then channels). No split-K, no atomics.
 // ---------------------------------------------------------------------------
@@ -681,6 +693,12 @@ __host__ __device__ constexpr int round1k(int bytes) {
   return (bytes + 1023) / 1024 * 1024;
 }
 
+// Output channels of one TMA store box of a K1 block: rows of at most
+// 128 bytes (TMA's widest swizzle), so all NT in bf16 and 32 in fp32.
+__host__ __device__ constexpr int out_box(int nt, int out_size) {
+  return nt < 128 / out_size ? nt : 128 / out_size;
+}
+
 // Shared-memory plan of one launch; mirrors ops/conv3x3.py::_tc_smem_bytes.
 struct TcPlan {
   int tw, halo_w, halo_h;
@@ -691,11 +709,13 @@ struct TcPlan {
   int nt;              // output channels per wgmma (64 or 16)
   int w_region_bytes;  // 9*Cin rows of nt channels, 1 KB aligned
   int w_bytes;         // Cout / nt regions
+  int ob;              // output channels of one store box (rows <= 128 B)
   int out_bytes;       // one warpgroup's 8 x 8 x nt staging buffer
   int smem_bytes;      // weights + 2 stages + 2 staging + 1 KB to align
 };
 
-TcPlan tc_plan(int Cin, int Cout, int tw) {
+// out_size: bytes of an output element, 2 (bf16) or 4 (fp32).
+TcPlan tc_plan(int Cin, int Cout, int tw, int out_size) {
   TcPlan p;
   p.tw = tw;
   p.halo_w = tw + 2;
@@ -707,7 +727,8 @@ TcPlan tc_plan(int Cin, int Cout, int tw) {
   p.nt = Cout % 64 == 0 ? 64 : 16;
   p.w_region_bytes = round1k(9 * Cin * p.nt * 2);
   p.w_bytes = (Cout / p.nt) * p.w_region_bytes;
-  p.out_bytes = round1k(64 * p.nt * 2);
+  p.ob = out_box(p.nt, out_size);
+  p.out_bytes = round1k(64 * p.nt * out_size);
   p.smem_bytes = p.w_bytes + 2 * p.stage_bytes + 2 * p.out_bytes + 1024;
   return p;
 }
@@ -810,7 +831,7 @@ __device__ __forceinline__ void block_products(float (&acc)[NT / 2],
   }
 }
 
-template <int NT, int KS>
+template <int NT, int KS, typename OutT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv3x3_fwd_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                           const __grid_constant__ CUtensorMap w_map,
@@ -911,24 +932,40 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         // The staging buffer is free once the last store has read it.
         if (leader) tma_store_wait_read();
         warpgroup_sync(wg);
+        constexpr int OB = out_box(NT, sizeof(OutT));
+        constexpr int kBoxBytes = 64 * OB * (int)sizeof(OutT);
 #pragma unroll
         for (int half_row = 0; half_row < 2; ++half_row) {
           const int pixel = (2 * warp + half_row) * 8 + g;
 #pragma unroll
           for (int j = 0; j < NT / 8; ++j) {
-            __nv_bfloat162 v = __floats2bfloat162_rn(
-                acc[4 * j + 2 * half_row], acc[4 * j + 2 * half_row + 1]);
-            const uint32_t off = swizzle(
-                (pixel * NT + 8 * j + 2 * t4) * 2, NT * 2);
-            asm volatile("st.shared.b32 [%0], %1;" ::"r"(out_stage + off),
-                         "r"(*reinterpret_cast<uint32_t*>(&v))
-                         : "memory");
+            const float lo = acc[4 * j + 2 * half_row];
+            const float hi = acc[4 * j + 2 * half_row + 1];
+            const int c = 8 * j + 2 * t4;
+            const uint32_t addr =
+                out_stage + (c / OB) * kBoxBytes +
+                swizzle((pixel * OB + c % OB) * (int)sizeof(OutT),
+                        OB * (int)sizeof(OutT));
+            if constexpr (sizeof(OutT) == 2) {
+              __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+              asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
+                           "r"(*reinterpret_cast<uint32_t*>(&v))
+                           : "memory");
+            } else {
+              asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr),
+                           "f"(lo), "f"(hi)
+                           : "memory");
+            }
           }
         }
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         warpgroup_sync(wg);
         if (leader) {
-          tma_store_4d(&out_map, out_stage, nb * NT, x0 + blk * 8, y0, b);
+#pragma unroll
+          for (int box = 0; box < NT / OB; ++box) {
+            tma_store_4d(&out_map, out_stage + box * kBoxBytes,
+                         nb * NT + box * OB, x0 + blk * 8, y0, b);
+          }
         }
       }
     }
@@ -984,21 +1021,24 @@ CUtensorMapSwizzle swizzle_mode(int row_bytes) {
 // (kTcMapError + its CUresult), or cuTensorMapEncodeTiled is missing.
 constexpr int kTcMapError = 10000;
 
-// A bf16 NHWC tensor (B, H, W, C) as a TMA map with box (box_c, box_w,
-// box_h, 1), swizzled by box_c * 2 bytes.
+// A bf16 (elem 2) or fp32 (elem 4) NHWC tensor (B, H, W, C) as a TMA
+// map with box (box_c, box_w, box_h, 1), swizzled by box_c * elem bytes.
 CUresult encode_nhwc(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                      int B, int H, int W, int C, int box_c, int box_w,
-                     int box_h) {
+                     int box_h, int elem = 2) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * elem,
+                                 (cuuint64_t)W * C * elem,
+                                 (cuuint64_t)H * W * C * elem};
   const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w,
                              (cuuint32_t)box_h, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(box_c * 2),
+  return encode(map,
+                elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(ptr), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(box_c * elem),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -1006,88 +1046,111 @@ CUresult encode_nhwc(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 // ---------------------------------------------------------------------------
 // Tensor-core K2 (bf16): dW (9*Cin, Cout) = patches^T . g, fp32 sums.
 //
-// Orientation. One wgmma.m64n64k16 per (tap, 16 pixels): M = 64 input
-// channels (A: the halo, shifted by the tap), N = 64 output channels (B:
+// Orientation. One wgmma.m64nNTk16 per (tap, 16 pixels): M = 64 input
+// channels (A: the halo, shifted by the tap), N = NT output channels (B:
 // the cotangent tile), K = 16 pixels. Both operands are read straight from
 // the TMA tiles by descriptor, MN-major (channels are the contiguous axis,
-// one pixel is one 128-byte swizzle row; the instruction's transpose flags
-// say so). Rule: Cin and Cout multiples of 64, so that both M and N are
-// whole 64-channel blocks; a wider conv has (Cin/64) * (Cout/64) channel
-// pairs, each its own blocks.
+// one pixel is one swizzle row; the instruction's transpose flags say so).
+// NT is 64 where Cout % 64 == 0 (a 128-byte g row) and 32 otherwise (a
+// 64-byte g row under the 64-byte swizzle: a 'model' rank's Cout 32 at
+// width 64). Rule: Cin % 64 == 0 and Cout % 32 == 0; a wider conv has
+// (Cin/64) * (Cout/NT) channel pairs, each its own blocks.
 //
 // * Tiles are 8 image rows by TW = 8, 16 or 32 pixels, as for K1. A K-step
 //   is two groups of 8 pixels, each 8 consecutive pixels of one image row:
 //   8 consecutive swizzle rows of the g tile and, for tap (dy, dx), of the
 //   halo, starting dy halo rows and dx pixels on. The descriptor's stride
-//   byte offset is the distance between the two groups: 1 KB (the next 8
-//   pixels of the same row, TW >= 16) or one halo row (the next image row,
-//   TW = 8, for the halo; 1 KB for g). As for K1, the start address is not
-//   1 KB aligned and the base offset stays 0.
+//   byte offset is the distance between the two groups: 8 pixels (the next
+//   8 of the same row, TW >= 16) or one halo row (the next image row,
+//   TW = 8, for the halo; 8 pixels for g). As for K1, the start address is
+//   not 1 KB aligned and the base offset stays 0.
 // * A block owns one tap row dy of one channel pair over a run of tiles;
-//   its three warpgroups own dx = 0, 1, 2, one 64 x 64 fp32 accumulator
-//   (32 registers) each. So a block's partial is 48 KB, not the 147 KB of
-//   all 9 taps: writing the partials to L2 and reading them back cost
-//   more than the products when a block held all 9 taps (PERF.md §6).
-// * The halo (10 x (TW+2) x 64) and the g tile (8 x TW x 64) come by 4-D TMA
-//   into 2-4 stages; the box elements outside the image are zeros, so SAME
-//   padding and ragged tiles (g = 0 there) need no branch. A tile's TW/2
-//   wgmmas go out back to back in one commit group (unrolled by TW), and
-//   the next tile's group goes out before this one is waited for.
+//   its three warpgroups own dx = 0, 1, 2, one 64 x NT fp32 accumulator
+//   (NT / 2 registers) each. So a block's partial is 48 KB at NT = 64 (24
+//   KB at 32), not the 147 KB of all 9 taps: writing the partials to L2
+//   and reading them back cost more than the products when a block held
+//   all 9 taps (PERF.md §6).
+// * The halo (10 x (TW+2) x 64) and the g tile (8 x TW x NT) come by 4-D
+//   TMA into 2-kWgMaxStages stages (the wrapper's plan says how many); the
+//   box elements outside the image are zeros, so SAME padding and ragged
+//   tiles (g = 0 there) need no branch. A tile's TW/2 wgmmas go out back
+//   to back in one commit group (unrolled by TW), and the next tile's group
+//   goes out before this one is waited for.
 // * Reduction across blocks, in the same launch, deterministic. The launch
 //   is cooperative (every block resident at once): block (pair, dy, s)
 //   writes its partial (staged in shared memory, 16-byte stores) to
 //   scratch[s]; cooperative groups' grid sync; then every block sums a
 //   fixed slice of dW over s in a fixed tree (q threads a unit, each a
 //   fixed range of s in order, then the q sums in order). No atomics on
-//   the data, and the plan (T, S, q) is a function of the shape alone, so
-//   two calls are bit-equal.
+//   the data, and the plan (T, S, q, stages) is a function of the shape
+//   alone, so two calls are bit-equal.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 384;  // three warpgroups, one per tap column dx
-constexpr int kWgMaxStages = 4;
-// One block's partial: the 3 taps of its row, 64 x 64 fp32 each, in
+constexpr int kWgMaxStages = 6;
+// One block's partial: the 3 taps of its row, 64 x NT fp32 each, in
 // 16-byte units; a channel pair's partial is 3 of them (9 taps).
-constexpr int kWgRowUnits = 3 * 64 * 64 / 4;
-constexpr int kWgPairUnits = 3 * kWgRowUnits;
+__host__ __device__ constexpr int wg_row_units(int nt) {
+  return 3 * 64 * nt / 4;
+}
 
 // Shared-memory plan of the tensor-core K2: at most 231,424 bytes (three
-// stages of 8 x 32 tiles), so it fits at every width.
+// stages of 8 x 32 tiles at NT = 64), so it fits at every width.
 struct WgPlan {
   int tw, halo_w, halo_h;
+  int nt;           // output channels of a block's wgmma, 64 or 32
   int halo_bytes;   // one 64-channel halo, 1 KB aligned
-  int stage_bytes;  // halo + the 64-channel g tile, each 1 KB aligned
-  int stages;       // as many as fit, 2 to kWgMaxStages
+  int stage_bytes;  // halo + the NT-channel g tile, each 1 KB aligned
+  int stages;       // 2 to kWgMaxStages
   int smem_bytes;   // the stages or the staged partial, + 1 KB to align
 };
 
-WgPlan wg_plan(int tw) {
+// `stages` 0 takes as many as fit, up to 4; else exactly `stages`, which
+// must fit (stages 0 if it does not).
+WgPlan wg_plan(int tw, int nt, int stages) {
   WgPlan p;
   p.tw = tw;
+  p.nt = nt;
   p.halo_w = tw + 2;
   p.halo_h = kTcTileRows + 2;
   p.halo_bytes = round1k(p.halo_h * p.halo_w * 128);
-  p.stage_bytes = p.halo_bytes + round1k(kTcTileRows * tw * 128);
-  p.stages = std::max(2, std::min(kWgMaxStages,
-                                  (kTcMaxSmem - 1024) / p.stage_bytes));
+  p.stage_bytes = p.halo_bytes + round1k(kTcTileRows * tw * nt * 2);
+  const int fit = (kTcMaxSmem - 1024) / p.stage_bytes;
+  p.stages = stages == 0 ? std::max(2, std::min(4, fit))
+             : (stages >= 2 && stages <= std::min(kWgMaxStages, fit))
+                 ? stages
+                 : 0;
   p.smem_bytes =
-      std::max(p.stages * p.stage_bytes, kWgRowUnits * 16) + 1024;
+      std::max(p.stages * p.stage_bytes, wg_row_units(nt) * 16) + 1024;
   return p;
+}
+
+template <int NT>
+__device__ __forceinline__ void wgrad_mma(float (&acc)[NT / 2], uint64_t a,
+                                          uint64_t b) {
+  if constexpr (NT == 64) {
+    wgmma_m64n64k16<1, 1>(acc, a, b);
+  } else {
+    wgmma_m64n32k16<1, 1>(acc, a, b);
+  }
 }
 
 // The products of one tile for one tap: halo_tap addresses halo pixel
 // (dy, dx) of the stage, g_tile the cotangent tile, both MN-major
 // (transpose flags 1, 1). The descriptor encoding is the one of
-// k_major_desc (128-byte swizzle); descriptors step by adding to their
-// start address in 16-byte units (8 a pixel).
-template <int TW>
-__device__ __forceinline__ void wgrad_tile_products(float (&acc)[32],
+// k_major_desc (128-byte swizzle for the halo, NT * 2 bytes for g);
+// descriptors step by adding to their start address in 16-byte units (8
+// a halo pixel, NT / 8 a g pixel).
+template <int TW, int NT>
+__device__ __forceinline__ void wgrad_tile_products(float (&acc)[NT / 2],
                                                     uint32_t halo_tap,
                                                     uint32_t g_tile) {
   constexpr int halo_w = TW + 2;
+  constexpr int g_px = NT * 2;  // bytes of one pixel of the g tile
   // Second group of 8 pixels: the next 8 of the row, or the next row.
   constexpr uint32_t a_sbo = TW == 8 ? halo_w * 128 : 1024;
   const uint64_t a0 = k_major_desc(halo_tap, a_sbo, 1);
-  const uint64_t b0 = k_major_desc(g_tile, 1024, 1);
+  const uint64_t b0 = k_major_desc(g_tile, 8 * g_px, NT == 64 ? 1 : 2);
 #pragma unroll
   for (int k = 0; k < TW / 2; ++k) {  // 8 * TW pixels, 16 a step
     int py, px;
@@ -1098,8 +1161,8 @@ __device__ __forceinline__ void wgrad_tile_products(float (&acc)[32],
       py = k / (TW / 16);
       px = (k % (TW / 16)) * 16;
     }
-    wgmma_m64n64k16<1, 1>(acc, a0 + (py * halo_w + px) * 8,
-                          b0 + (py * TW + px) * 8);
+    wgrad_mma<NT>(acc, a0 + (py * halo_w + px) * 8,
+                  b0 + (py * TW + px) * (g_px / 16));
   }
 }
 
@@ -1119,7 +1182,7 @@ __device__ __forceinline__ float4 sum_splits(const float4* __restrict__ src,
   return acc;
 }
 
-template <int TW>
+template <int TW, int NT>
 __global__ void __launch_bounds__(kWgThreads, 1)
     conv3x3_wgrad_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                             const __grid_constant__ CUtensorMap g_map,
@@ -1127,6 +1190,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                             float* __restrict__ dw, int B, int H, int W,
                             int Cin, int Cout, int splits,
                             int tiles_per_split, WgPlan p) {
+  // 16-byte units of a partial row (64 x NT fp32 per tap, 3 taps), of a
+  // channel pair's 9 taps, and of one dW row segment of NT channels.
+  constexpr int kRowUnits = wg_row_units(NT);
+  constexpr int kPairUnits = 3 * kRowUnits;
+  constexpr int kUnits = NT / 4;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[kWgMaxStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -1136,8 +1204,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int split = blockIdx.x % splits;
   const int dy = (blockIdx.x / splits) % 3;
   const int pair = blockIdx.x / splits / 3;
-  const int mb = pair / (Cout / 64);  // input-channel block
-  const int nb = pair % (Cout / 64);  // output-channel block
+  const int n_blocks = Cout / NT;  // output-channel blocks
+  const int mb = pair / n_blocks;  // input-channel block
+  const int nb = pair % n_blocks;  // output-channel block
 
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_img = tiles_x * ((H + kTcTileRows - 1) / kTcTileRows);
@@ -1145,7 +1214,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const int n = max(t_end - t_begin, 0);
-  const uint32_t stage_tx = (p.halo_h * p.halo_w + kTcTileRows * TW) * 128;
+  const uint32_t stage_tx =
+      p.halo_h * p.halo_w * 128 + kTcTileRows * TW * NT * 2;
 
   auto load_tile = [&](int i, int stage) {
     const int tile = t_begin + i;
@@ -1157,7 +1227,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t dst = base + stage * p.stage_bytes;
     mbar_expect_tx(bar, stage_tx);
     tma_load_4d(dst, &x_map, bar, mb * 64, x0 - 1, y0 - 1, b);
-    tma_load_4d(dst + p.halo_bytes, &g_map, bar, nb * 64, x0, y0, b);
+    tma_load_4d(dst + p.halo_bytes, &g_map, bar, nb * NT, x0, y0, b);
   };
 
   if (tid == 0) {
@@ -1170,9 +1240,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 
   const int dx = tid / 128;
-  float acc[32];
+  float acc[NT / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
   // One commit group a tile, and the next tile's group goes out before
   // this one is waited for: the tensor cores do not drain between tiles.
@@ -1182,8 +1252,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int stage = i % p.stages;
     mbar_wait(smem_u32(&bars[stage]), (i / p.stages) & 1);
     const uint32_t halo = base + stage * p.stage_bytes;
-    wgrad_tile_products<TW>(acc, halo + (dy * p.halo_w + dx) * 128,
-                            halo + p.halo_bytes);
+    wgrad_tile_products<TW, NT>(acc, halo + (dy * p.halo_w + dx) * 128,
+                                halo + p.halo_bytes);
     wgmma_commit();
     if (i == 0) continue;
     wgmma_wait_one();
@@ -1201,11 +1271,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   // This block's partial, staged in shared memory (the stages are free:
   // the loop ends on a __syncthreads) as [dx][ci][16-byte unit u ^ (ci %
-  // 16)] of 64 x 64 fp32, then copied out whole with 16-byte stores to
-  // taps dy*3 .. dy*3+2 of its pair's region of scratch[split]. Fragment
-  // of a thread: rows ci = 16 * warp + g and + 8, output channels 8j + 2t
-  // and 8j + 2t + 1. The XOR puts the 8 rows of a store in 8 distinct
-  // bank groups.
+  // kUnits)] of 64 x NT fp32, then copied out whole with 16-byte stores
+  // to taps dy*3 .. dy*3+2 of its pair's region of scratch[split].
+  // Fragment of a thread: rows ci = 16 * warp + g and + 8, output channels
+  // 8j + 2t and 8j + 2t + 1. The XOR puts the 8 rows of a store in 8
+  // distinct bank groups.
   float4* staged = reinterpret_cast<float4*>(smem_raw +
                                              (base - smem_u32(smem_raw)));
   {
@@ -1215,22 +1285,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int ci = warp * 16 + g + 8 * half;
-      float* row = reinterpret_cast<float*>(staged + dx * 1024 + ci * 16);
+      float* row = reinterpret_cast<float*>(staged + dx * 64 * kUnits +
+                                            ci * kUnits);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int unit = (2 * j + t4 / 2) ^ (ci % 16);
+      for (int j = 0; j < NT / 8; ++j) {
+        const int unit = (2 * j + t4 / 2) ^ (ci % kUnits);
         *reinterpret_cast<float2*>(row + 4 * unit + 2 * (t4 % 2)) =
             make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
       }
     }
   }
   __syncthreads();
-  const int pairs = (Cin / 64) * (Cout / 64);
+  const int pairs = (Cin / 64) * n_blocks;
   {
     float4* part = reinterpret_cast<float4*>(scratch) +
-                   (long long)(split * pairs + pair) * kWgPairUnits +
-                   dy * kWgRowUnits;
-    for (int i = tid; i < kWgRowUnits; i += kWgThreads) part[i] = staged[i];
+                   (long long)(split * pairs + pair) * kPairUnits +
+                   dy * kRowUnits;
+    for (int i = tid; i < kRowUnits; i += kWgThreads) part[i] = staged[i];
   }
 
   // Every partial is written before any block sums.
@@ -1239,7 +1310,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // This block's slice of the partials' units [c0, c0 + cols), summed over
   // the splits: q threads a unit, thread r over splits [r*S/q, (r+1)*S/q),
   // then the q sums in order of r; each sum goes to its place in dW.
-  const long long n4 = (long long)pairs * kWgPairUnits;
+  const long long n4 = (long long)pairs * kPairUnits;
   const long long per = (n4 + gridDim.x - 1) / gridDim.x;
   const long long c0 = blockIdx.x * per;
   const int cols = (int)max(min(c0 + per, n4) - c0, 0LL);
@@ -1247,13 +1318,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float4* out = reinterpret_cast<float4*>(dw);
   // dW's unit of partial unit e: pair, tap, row ci, swizzled unit.
   auto dw_unit = [&](long long e) {
-    const int pr = (int)(e / kWgPairUnits);
-    const int rem = (int)(e - (long long)pr * kWgPairUnits);
-    const int tap = rem / 1024;
-    const int ci = (rem % 1024) / 16;
-    const int unit = (rem % 16) ^ (ci % 16);
-    const int row = tap * Cin + (pr / (Cout / 64)) * 64 + ci;
-    return ((long long)row * Cout + (pr % (Cout / 64)) * 64) / 4 + unit;
+    const int pr = (int)(e / kPairUnits);
+    const int rem = (int)(e - (long long)pr * kPairUnits);
+    const int tap = rem / (64 * kUnits);
+    const int ci = (rem % (64 * kUnits)) / kUnits;
+    const int unit = (rem % kUnits) ^ (ci % kUnits);
+    const int row = tap * Cin + (pr / n_blocks) * 64 + ci;
+    return ((long long)row * Cout + (pr % n_blocks) * NT) / 4 + unit;
   };
   if (cols > kWgThreads / 2) {
     for (int c = tid; c < cols; c += kWgThreads) {
@@ -1286,13 +1357,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 using TcKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, int, int,
                           int, int, int, TcPlan);
 
-template <int NT>
+template <int NT, typename OutT>
 TcKernel tc_kernel(int Cin) {
   switch (Cin) {
-    case 16: return conv3x3_fwd_tc_kernel<NT, 1>;
-    case 32: return conv3x3_fwd_tc_kernel<NT, 2>;
-    case 64: return conv3x3_fwd_tc_kernel<NT, 4>;
-    default: return conv3x3_fwd_tc_kernel<NT, 0>;
+    case 16: return conv3x3_fwd_tc_kernel<NT, 1, OutT>;
+    case 32: return conv3x3_fwd_tc_kernel<NT, 2, OutT>;
+    case 64: return conv3x3_fwd_tc_kernel<NT, 4, OutT>;
+    default: return conv3x3_fwd_tc_kernel<NT, 0, OutT>;
   }
 }
 
@@ -1309,8 +1380,10 @@ int sm_count() {
   return count;
 }
 
+// out_size: 2 for a bf16 output, 4 for fp32 (the sums unrounded).
 int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
-                  int W, int Cin, int Cout, int tw, cudaStream_t stream) {
+                  int W, int Cin, int Cout, int tw, int out_size,
+                  cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(out)) & 15) == 0;
@@ -1318,7 +1391,7 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
       (tw != 8 && tw != 16 && tw != 32)) {
     return (int)cudaErrorInvalidValue;
   }
-  const TcPlan p = tc_plan(Cin, Cout, tw);
+  const TcPlan p = tc_plan(Cin, Cout, tw, out_size);
   if (p.smem_bytes > kTcMaxSmem) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTcMapError;
@@ -1327,7 +1400,8 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
   CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, p.cw,
                              p.halo_w, p.halo_h);
   if (res == CUDA_SUCCESS) {
-    res = encode_nhwc(encode, &out_map, out, B, H, W, Cout, p.nt, 8, 8);
+    res = encode_nhwc(encode, &out_map, out, B, H, W, Cout, p.ob, 8, 8,
+                      out_size);
   }
   if (res == CUDA_SUCCESS) {  // (9*Cin, Cout) as a 2-D map, box (nt, 144)
     const cuuint64_t dims[2] = {(cuuint64_t)Cout, (cuuint64_t)9 * Cin};
@@ -1346,7 +1420,11 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
                     ((W + p.tw - 1) / p.tw);
   const int sms = sm_count();
   const int grid = tiles < sms ? tiles : sms;
-  const TcKernel kernel = p.nt == 64 ? tc_kernel<64>(Cin) : tc_kernel<16>(Cin);
+  const TcKernel kernel =
+      out_size == 4 ? (p.nt == 64 ? tc_kernel<64, float>(Cin)
+                                  : tc_kernel<16, float>(Cin))
+                    : (p.nt == 64 ? tc_kernel<64, __nv_bfloat16>(Cin)
+                                  : tc_kernel<16, __nv_bfloat16>(Cin));
   const cudaError_t attr =
       allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1358,35 +1436,43 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
 using WgKernel = void (*)(CUtensorMap, CUtensorMap, float*, float*, int, int,
                           int, int, int, int, int, WgPlan);
 
+template <int NT>
+WgKernel wg_kernel(int tw) {
+  return tw == 8    ? conv3x3_wgrad_tc_kernel<8, NT>
+         : tw == 16 ? conv3x3_wgrad_tc_kernel<16, NT>
+                    : conv3x3_wgrad_tc_kernel<32, NT>;
+}
+
 int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
                     int B, int H, int W, int Cin, int Cout, int tw,
-                    int splits, int tiles_per_split, cudaStream_t stream) {
+                    int splits, int tiles_per_split, int stages,
+                    cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(scratch) |
                          reinterpret_cast<uintptr_t>(dw)) & 15) == 0;
+  const int nt = Cout % 64 == 0 ? 64 : 32;
   const int tiles = B * ((H + kTcTileRows - 1) / kTcTileRows) *
                     ((W + tw - 1) / tw);
-  const int grid = (Cin / 64) * (Cout / 64) * 3 * splits;
-  if (!aligned || Cin % 64 || Cout % 64 || (tw != 8 && tw != 16 && tw != 32) ||
+  const int grid = (Cin / 64) * (Cout / nt) * 3 * splits;
+  if (!aligned || Cin % 64 || Cout % 32 || (tw != 8 && tw != 16 && tw != 32) ||
       splits < 1 || tiles_per_split < 1 ||
       (long long)splits * tiles_per_split < tiles || grid > sm_count()) {
     return (int)cudaErrorInvalidValue;
   }
-  const WgPlan p = wg_plan(tw);
+  const WgPlan p = wg_plan(tw, nt, stages);
+  if (p.stages == 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTcMapError;
   CUtensorMap x_map, g_map;
   CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, 64, p.halo_w,
                              p.halo_h);
   if (res == CUDA_SUCCESS) {
-    res = encode_nhwc(encode, &g_map, g, B, H, W, Cout, 64, tw, kTcTileRows);
+    res = encode_nhwc(encode, &g_map, g, B, H, W, Cout, nt, tw, kTcTileRows);
   }
   if (res != CUDA_SUCCESS) return kTcMapError + (int)res;
 
-  const WgKernel kernel = tw == 8    ? conv3x3_wgrad_tc_kernel<8>
-                          : tw == 16 ? conv3x3_wgrad_tc_kernel<16>
-                                     : conv3x3_wgrad_tc_kernel<32>;
+  const WgKernel kernel = nt == 64 ? wg_kernel<64>(tw) : wg_kernel<32>(tw);
   const cudaError_t attr =
       allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1446,18 +1532,23 @@ extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
   });
 }
 
-// K1, tensor cores: as odek_conv3x3_fwd for bf16 with Cin % 16 == 0,
-// Cout % 16 == 0, Cout <= 256, 16-byte aligned pointers and output tiles
-// 8 rows high and tile_w (8, 16 or 32) wide. Returns
-// cudaErrorInvalidValue for arguments outside that, 10000 + the CUresult
-// if a tensor map is refused, else cudaGetLastError().
+// K1, tensor cores: as odek_conv3x3_fwd for bf16 x and w with Cin % 16
+// == 0, Cout % 16 == 0, Cout <= 256, 16-byte aligned pointers and output
+// tiles 8 rows high and tile_w (8, 16 or 32) wide; out is bf16
+// (out_dtype 1, rounded once) or fp32 (out_dtype 0, the fp32 sums).
+// Returns cudaErrorInvalidValue for arguments outside that, 10000 + the
+// CUresult if a tensor map is refused, else cudaGetLastError().
 extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* w, void* out,
                                    int B, int H, int W, int Cin, int Cout,
-                                   int tile_w, int dtype, void* stream) {
+                                   int tile_w, int dtype, int out_dtype,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
+  const int out_size = out_dtype == 0 ? 4 : 2;
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
-      return launch_fwd_tc(x, w, out, B, H, W, Cin, Cout, tile_w, st);
+      return launch_fwd_tc(x, w, out, B, H, W, Cin, Cout, tile_w, out_size,
+                           st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -1507,23 +1598,25 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
 }
 
 // K2, tensor cores: as odek_conv3x3_wgrad for bf16 with Cin % 64 == 0,
-// Cout % 64 == 0, 16-byte aligned pointers, tiles 8 rows high and tile_w
-// (8, 16 or 32) wide, `splits` partials of `tiles_per_split` tiles each
-// (covering every tile), and (Cin/64) * (Cout/64) * splits blocks at most
-// one per SM. One cooperative launch. Returns cudaErrorInvalidValue for
-// arguments outside that, 10000 + the CUresult if a tensor map is refused,
-// else the launch's error.
+// Cout % 32 == 0 (output-channel blocks of NT = 64 where Cout % 64 == 0,
+// else 32), 16-byte aligned pointers, tiles 8 rows high and tile_w (8, 16
+// or 32) wide, `splits` partials of `tiles_per_split` tiles each
+// (covering every tile), (Cin/64) * (Cout/NT) * 3 * splits blocks at most
+// one per SM, and `stages` TMA stages (0: as many as fit, up to 4; else 2
+// to 6 that fit). One cooperative launch. Returns cudaErrorInvalidValue
+// for arguments outside that, 10000 + the CUresult if a tensor map is
+// refused, else the launch's error.
 extern "C" int odek_conv3x3_wgrad_tc(const void* x, const void* g,
                                      void* scratch, void* dw, int B, int H,
                                      int W, int Cin, int Cout, int tile_w,
                                      int splits, int tiles_per_split,
-                                     int dtype, void* stream) {
+                                     int stages, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
       return launch_wgrad_tc(x, g, static_cast<float*>(scratch),
                              static_cast<float*>(dw), B, H, W, Cin, Cout,
-                             tile_w, splits, tiles_per_split, st);
+                             tile_w, splits, tiles_per_split, stages, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }

@@ -4,11 +4,14 @@ Counterpart of ``ode_rl_tpu/ops/conv3x3.py``. NHWC x HWIO -> NHWC, with
 the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
 
 * K1 ``conv3x3_fwd`` (``csrc/conv3x3.cu``): the implicit-im2col GEMM,
-  fp32 accumulation, output in the input dtype. Its plain version is
-  ``F.conv2d``. On the card it takes one of two kernels by
-  ``uses_tensor_cores``: the tensor-core kernel (bf16; TMA halo tiles,
-  weights resident in shared memory, wgmma) or the SIMT kernel (fp32 FMA;
-  everything else, fp32 included, so fp32 stays strict fp32). The SIMT
+  fp32 accumulation, output in the input dtype, or in fp32 from bf16
+  inputs (``out_dtype``: the column-parallel dx partials of a 'model'
+  axis, summed across ranks before their one rounding). Its plain version
+  is ``F.conv2d`` (of the values in fp32 for an fp32 output). On the card
+  it takes one of two kernels by ``uses_tensor_cores``: the tensor-core
+  kernel (bf16 in, bf16 or fp32 out; TMA halo tiles, weights resident in
+  shared memory, wgmma) or the SIMT kernel (fp32 FMA; everything else,
+  fp32 included, so fp32 stays strict fp32). The SIMT
   kernel gives a block 16-pixel row segments of 16 output channels with
   their weights and halos staged once in shared memory, each thread 4
   pixels x 4 channels, the products of a segment split over up to 16
@@ -18,9 +21,10 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   over pixels with a fixed-order reduction. Its plain version builds the 9
   shifted patches, as the Pallas kernel does, and multiplies. On the card
   it takes one of two kernels by ``wgrad_uses_tensor_cores``: the
-  tensor-core kernel (bf16, channels in multiples of 64; TMA halo and
-  cotangent tiles, wgmma over pixels, one cooperative launch that sums its
-  partials after a grid sync) or the SIMT kernel (everything else, fp32
+  tensor-core kernel (bf16, Cin in multiples of 64 and Cout of 32; TMA
+  halo and cotangent tiles, wgmma over pixels in blocks of 64 or 32
+  output channels, one cooperative launch that sums its partials after a
+  grid sync) or the SIMT kernel (everything else, fp32
   included): a block a 64 x 64 tile of dW and a run of pixels staged in
   32-pixel stages, ``wgrad_simt_plan`` sizing the runs to about two
   blocks an SM, and a second launch adding the partials in split order.
@@ -56,7 +60,13 @@ def _shape_nhwc(name: str, x: torch.Tensor) -> tuple[int, int, int, int]:
     return tuple(x.shape)
 
 
-def conv3x3_fwd_plain(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def conv3x3_fwd_plain(x: torch.Tensor, w2d: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """``F.conv2d`` in x's dtype, or of the values in ``out_dtype`` (fp32
+    from bf16: the products are exact in fp32)."""
+    if out_dtype is not None and out_dtype != x.dtype:
+        x = x.to(_out_dtype(x.dtype, out_dtype))
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
     w_oihw = w2d.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
@@ -81,32 +91,47 @@ def _tc_tile_width(w: int) -> int:
     return 8 if w <= 8 else 16 if w <= 16 else 32
 
 
-def _tc_smem_bytes(cin: int, cout: int, w: int) -> int:
+def _tc_smem_bytes(cin: int, cout: int, w: int,
+                   out_dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of one tensor-core K1 block: the weights in column
     blocks of 64 (or 16) channels, two halo stages in channel chunks of 64,
-    32 or 16, two 8 x 8 output staging buffers, each region 1 KB aligned,
-    and 1 KB to align the base."""
+    32 or 16, two 8 x 8 output staging buffers of ``out_dtype`` (fp32
+    doubles them), each region 1 KB aligned, and 1 KB to align the base."""
     tw = _tc_tile_width(w)
     nt = 64 if cout % 64 == 0 else 16
     cw = 64 if cin % 64 == 0 else 32 if cin % 32 == 0 else 16
     weights = (cout // nt) * _round_1k(9 * cin * nt * 2)
     stage = (cin // cw) * _round_1k((_TC_TILE_ROWS + 2) * (tw + 2) * cw * 2)
-    staging = _round_1k(64 * nt * 2)
+    staging = _round_1k(64 * nt * out_dtype.itemsize)
     return weights + 2 * stage + 2 * staging + 1024
 
 
-def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
-                      w: int) -> bool:
+def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int, w: int,
+                      out_dtype: Optional[torch.dtype] = None) -> bool:
     """The rule that sends a K1 call on the card to the tensor-core kernel:
-    bf16, Cin % 16 == 0 (a k16 step, and TMA's 16-byte strides), Cout % 16
-    == 0 and Cout <= 256 (wgmma's N), and the resident weights, two halo
-    stages and the output staging within a block's shared memory (so the
-    rule depends on W through the tile width). Every other call takes the
-    SIMT kernel. fp32 stays on SIMT: the tensor cores would round it to
-    TF32."""
-    return (dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0
-            and cout <= 256
-            and _tc_smem_bytes(cin, cout, w) <= _TC_SMEM_LIMIT)
+    bf16 in, bf16 or fp32 out (``out_dtype``, the input's by default),
+    Cin % 16 == 0 (a k16 step, and TMA's 16-byte strides), Cout % 16 == 0
+    and Cout <= 256 (wgmma's N), and the resident weights, two halo stages
+    and the output staging within a block's shared memory (so the rule
+    depends on W through the tile width, and on the output's dtype). Every
+    other call takes the SIMT kernel. fp32 in stays on SIMT: the tensor
+    cores would round it to TF32."""
+    out_dtype = out_dtype or dtype
+    return (dtype == torch.bfloat16
+            and out_dtype in (torch.bfloat16, torch.float32)
+            and cin % 16 == 0 and cout % 16 == 0 and cout <= 256
+            and _tc_smem_bytes(cin, cout, w, out_dtype) <= _TC_SMEM_LIMIT)
+
+
+def _out_dtype(dtype: torch.dtype, out_dtype: Optional[torch.dtype]
+               ) -> torch.dtype:
+    """K1's output dtype: the input's, or fp32 from bf16."""
+    if out_dtype is None or out_dtype == dtype:
+        return dtype
+    if dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return out_dtype
+    raise TypeError(f"conv3x3_fwd: no {out_dtype} output from {dtype} "
+                    "inputs (the input's dtype, or fp32 from bf16)")
 
 
 # The SIMT K1 (csrc/conv3x3.cu::conv3x3_fwd_simt_kernel): 16 groups of
@@ -162,14 +187,22 @@ def _check_k1(x: torch.Tensor, w2d: torch.Tensor) -> tuple:
     return b, h, w, cin, w2d.shape[1]
 
 
-def conv3x3_fwd(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
-    """K1: (B, H, W, Cin) . (9*Cin, Cout) -> (B, H, W, Cout), x's dtype."""
+def conv3x3_fwd(x: torch.Tensor, w2d: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K1: (B, H, W, Cin) . (9*Cin, Cout) -> (B, H, W, Cout) in x's dtype,
+    or in fp32 from bf16 inputs (``out_dtype``): the fp32 sums, unrounded.
+    bf16 in, fp32 out takes the tensor cores by ``uses_tensor_cores``;
+    outside that rule, the fp32 SIMT kernel on the inputs' values in fp32
+    (exact), which sums the same products."""
     _, _, w, cin, cout = _check_k1(x, w2d)
+    out_dtype = _out_dtype(x.dtype, out_dtype)
     if not common.use_kernel(x):
-        return conv3x3_fwd_plain(x, w2d)
+        return conv3x3_fwd_plain(x, w2d, out_dtype)
     common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
-    if uses_tensor_cores(x.dtype, cin, cout, w):
-        return _launch_tc(x, w2d)
+    if uses_tensor_cores(x.dtype, cin, cout, w, out_dtype):
+        return _launch_tc(x, w2d, out_dtype)
+    if out_dtype != x.dtype:
+        return _launch_simt(x.to(out_dtype), w2d.to(out_dtype))
     return _launch_simt(x, w2d)
 
 
@@ -181,14 +214,18 @@ def _conv3x3_fwd_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     return _launch_simt(x, w2d)
 
 
-def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """K1's tensor-core kernel on CUDA tensors; raises outside its rule."""
     _, _, w, cin, cout = _check_k1(x, w2d)
+    out_dtype = _out_dtype(x.dtype, out_dtype)
     common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
-    if not uses_tensor_cores(x.dtype, cin, cout, w):
-        raise ValueError(f"conv3x3_fwd: {x.dtype}, Cin {cin}, Cout {cout}, "
-                         f"W {w} is outside the tensor-core kernel's rule")
-    return _launch_tc(x, w2d)
+    if not uses_tensor_cores(x.dtype, cin, cout, w, out_dtype):
+        raise ValueError(f"conv3x3_fwd: {x.dtype} -> {out_dtype}, Cin {cin}, "
+                         f"Cout {cout}, W {w} is outside the tensor-core "
+                         "kernel's rule")
+    return _launch_tc(x, w2d, out_dtype)
 
 
 def _launch_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
@@ -204,7 +241,8 @@ def _launch_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def _launch_tc(x: torch.Tensor, w2d: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
     """Raises on a pointer that is not 16-byte aligned (TMA's rule): a
     view into a larger tensor, for example, rather than rerouting it."""
     for arg, t in (("x", x), ("w", w2d)):
@@ -213,11 +251,11 @@ def _launch_tc(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
                              f"(TMA needs it); pass a fresh tensor")
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     common.launch("conv3x3_fwd_tc", library().odek_conv3x3_fwd_tc,
                   x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
                   cout, _tc_tile_width(w), common.DTYPE_CODES[x.dtype],
-                  common.stream_handle(x))
+                  common.DTYPE_CODES[out_dtype], common.stream_handle(x))
     common.launches["conv3x3_fwd"] += 1
     return out
 
@@ -235,25 +273,32 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 # The tensor-core K2 (csrc/conv3x3.cu::conv3x3_wgrad_tc_kernel): a block
-# owns one tap row of one 64 x 64 channel pair of dW and a run of tiles; at
-# most this many pairs, so that every (pair, row) gets a block on any
+# owns one tap row of one 64 x NT channel pair of dW and a run of tiles;
+# at most this many pairs, so that every (pair, row) gets a block on any
 # Hopper card (the H100 PCIe has 114 SMs).
 _WGRAD_TC_MAX_PAIRS = 32
+
+
+def wgrad_tc_nt(cout: int) -> int:
+    """Output channels of a tensor-core K2 block: 64 where Cout % 64 == 0
+    (the flagship's 64 -> 64 keeps its kernel and its bits), else 32."""
+    return 64 if cout % 64 == 0 else 32
 
 
 def wgrad_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
                             w: int) -> bool:
     """The rule that sends a K2 call on the card to the tensor-core kernel:
-    bf16, Cin % 64 == 0 and Cout % 64 == 0 (a block's wgmma is 64 input by
-    64 output channels, each a 128-byte swizzle row of its tile), and at
-    most _WGRAD_TC_MAX_PAIRS such channel pairs (each needs three resident
-    blocks). Its shared memory fits at every width (the stages of 8 x 32
-    tiles take the most, 231,424 bytes), so W does not enter. Every other
-    call takes the SIMT kernel; fp32 stays on SIMT, so it stays strict
-    fp32."""
+    bf16, Cin % 64 == 0 and Cout % 32 == 0 (a block's wgmma is 64 input by
+    NT = 64 or 32 output channels, each a 128- or 64-byte swizzle row of
+    its tile), and at most _WGRAD_TC_MAX_PAIRS channel pairs (Cin/64) x
+    (Cout/NT) (each needs three resident blocks). Its shared memory fits
+    at every width (the stages of 8 x 32 tiles at NT = 64 take the most,
+    231,424 bytes), so W does not enter. Every other call takes the SIMT
+    kernel; fp32 stays on SIMT, so it stays strict fp32."""
     del w  # the tile width changes the plan, not the rule
-    return (dtype == torch.bfloat16 and cin % 64 == 0 and cout % 64 == 0
-            and (cin // 64) * (cout // 64) <= _WGRAD_TC_MAX_PAIRS)
+    return (dtype == torch.bfloat16 and cin % 64 == 0 and cout % 32 == 0
+            and (cin // 64) * (cout // wgrad_tc_nt(cout))
+            <= _WGRAD_TC_MAX_PAIRS)
 
 
 @functools.lru_cache(maxsize=256)
@@ -265,9 +310,12 @@ def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int,
     with no split empty; 3 * channel pairs * S blocks, at most ``sms``."""
     tw = _tc_tile_width(w)
     tiles = b * -(-h // _TC_TILE_ROWS) * -(-w // tw)
-    cap = max(1, sms // (3 * (cin // 64) * (cout // 64)))
+    pairs = (cin // 64) * (cout // wgrad_tc_nt(cout))
+    cap = max(1, sms // (3 * pairs))
     per = -(-tiles // min(tiles, cap))
     return tw, -(-tiles // per), per
+
+
 
 
 # The SIMT K2 (csrc/conv3x3.cu::conv3x3_wgrad_simt_kernel): a block owns
@@ -352,12 +400,18 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = x.shape
     cout = g.shape[3]
     tw, splits, per = wgrad_tc_plan(b, h, w, cin, cout, _sm_count(x.device))
+    # Each split's partials: every (pair, tap) block of 64 x NT, as many
+    # floats as dW.
     scratch = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((9 * cin, cout), dtype=torch.float32, device=x.device)
+    # Stages 0: as many as fit, up to 4. With the splits of wgrad_tc_plan
+    # that was the fastest plan at a 'model' rank's Cout 32 in ``python -m
+    # ode_rl_torch.axis_conv_times`` (PERF.md §6): more stages gained
+    # nothing, fewer splits lost more than their partials saved.
     common.launch("conv3x3_wgrad_tc", library().odek_conv3x3_wgrad_tc,
                   x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
-                  dw.data_ptr(), b, h, w, cin, cout, tw, splits, per,
+                  dw.data_ptr(), b, h, w, cin, cout, tw, splits, per, 0,
                   common.DTYPE_CODES[x.dtype], common.stream_handle(x))
     common.launches["conv3x3_wgrad"] += 1
     return dw

@@ -487,8 +487,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _profiled(fn: Callable, device: torch.device) -> Dict:
+    """One call of ``fn`` under torch.profiler: device ms in all, by
+    kernel group, and each K1-K8 kernel's launches and µs a launch
+    (``profile_step``'s groups and names)."""
+    from ode_rl_torch.profile_step import _KERNEL_NAME, _group
+    _sync(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(device)
+    groups, kernels = {}, {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.key.startswith(
+                ("Optimizer.", "ProfilerStep")):
+            continue
+        group = _group(e.key)
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        found = _KERNEL_NAME.search(e.key)
+        if found:
+            kernels[found.group(0)] = [e.count,
+                                       e.self_device_time_total / e.count]
+    return {"device_ms": sum(groups.values()), "groups": groups,
+            "kernels": kernels}
+
+
 def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
-                single: bool, timed_steps: int) -> Dict:
+                single: bool, timed_steps: int,
+                profile: bool = False) -> Dict:
     from ode_rl_torch.ops import common
 
     fam = FAMILIES[name]()
@@ -543,6 +569,8 @@ def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
     out["rank_launches"] = [g["launches"] for g in gathered]
     out["step_ms"] = _times(lambda: run(state, rows, mesh), timed_steps,
                             device)
+    if profile:
+        out["profile"] = _profiled(lambda: run(state, rows, mesh), device)
     if single:
         one = fresh(shared=False)
         before = _flat(fam.modules(one))
@@ -575,7 +603,7 @@ def _times(fn: Callable, n: int, device: torch.device) -> List[float]:
 def _worker(rank: int, world: int, store: str, device: str,
             backend: Optional[str], families: List[str],
             inputs_path: Optional[str], out_dir: str, timed_steps: int,
-            threads: int, cudnn: bool = True) -> None:
+            threads: int, cudnn: bool = True, profile: bool = False) -> None:
     torch.set_num_threads(threads)
     # Strict fp32 on the card, as on the CPU: the ranks' convs must not
     # round to TF32.
@@ -599,7 +627,8 @@ def _worker(rank: int, world: int, store: str, device: str,
             results[name] = _run_family(name, inputs.get(name),
                                         meshes[axis],
                                         single=(i % world == rank),
-                                        timed_steps=timed_steps)
+                                        timed_steps=timed_steps,
+                                        profile=profile)
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(
             json.dumps(results))
         mesh.barrier()
@@ -628,7 +657,8 @@ def _spawn(fn: Callable, args: tuple, ranks: int, timeout: float) -> None:
 def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
         device: str = "cpu", backend: Optional[str] = None,
         inputs: Optional[Dict] = None, timed_steps: int = 0, threads: int = 1,
-        timeout: float = 600.0, cudnn: bool = True) -> Dict[str, Dict]:
+        timeout: float = 600.0, cudnn: bool = True,
+        profile: bool = False) -> Dict[str, Dict]:
     """Run ``families`` over ``ranks`` spawned processes; returns, per
     family, the sharded step's metrics (``sharded``), the one-process
     step's (``single``), ``params_equal``, each rank's kernel launches
@@ -638,7 +668,9 @@ def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
     one-process step's (``update_rel_l2``) and the timed steps' ms.
     ``cudnn`` False runs the convs outside the repo's kernels on
     PyTorch's own CUDA convolution instead of cuDNN's, on every rank and
-    in the one-process step alike."""
+    in the one-process step alike. ``profile`` adds one more sharded
+    step under torch.profiler on every rank, rank 0's device time by
+    kernel group and kernel (``profile``)."""
     for name in families:
         if name not in FAMILIES:
             raise ValueError(f"unknown family {name!r}: {sorted(FAMILIES)}")
@@ -649,7 +681,7 @@ def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
             torch.save(inputs, inputs_path)
         _spawn(_worker, (ranks, str(pathlib.Path(tmp, "store")), device,
                          backend, list(families), inputs_path, tmp,
-                         timed_steps, threads, cudnn),
+                         timed_steps, threads, cudnn, profile),
                ranks, timeout)
         parts = [json.loads(pathlib.Path(tmp, f"rank{r}.json").read_text())
                  for r in range(ranks)]

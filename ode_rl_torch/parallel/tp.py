@@ -26,9 +26,10 @@ collectives of a column-parallel layer:
 For ``Conv3x3`` (kernels K1/K2) one Function does all three:
 ``_ColumnConv3x3Fn`` runs K1 on the rank's Cout slice, gathers, and in
 its backward takes K2 on the slice's cotangent and dx as K1 on the
-slice's cotangent and flipped weights in fp32 (bf16 values are exact in
-fp32), all-reduced over ``'model'`` in fp32 and then rounded, so the dx
-of a bf16 step is rounded once, as the one-process step rounds it.
+slice's cotangent and flipped weights with an fp32 output (in a bf16
+step the tensor-core K1 writes its fp32 sums of exact bf16 products
+unrounded), all-reduced over ``'model'`` in fp32 and then rounded, so the
+dx of a bf16 step is rounded once, as the one-process step rounds it.
 
 ``Mesh.all_reduce_grads`` averages a sharded leaf's gradient over its
 ``'data'`` line only, and the train step's ``grad_norm`` sums a sharded
@@ -164,8 +165,8 @@ class _ColumnConv3x3Fn(torch.autograd.Function):
         g = g.narrow(3, i * cout, cout).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            part = conv3x3_fwd(g.float(),
-                               flip_transpose(w2d, cin, cout).float())
+            part = conv3x3_fwd(g, flip_transpose(w2d, cin, cout),
+                               out_dtype=torch.float32)
             dx = mesh.all_reduce_(part, MODEL_AXIS).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(x, g).to(w2d.dtype)

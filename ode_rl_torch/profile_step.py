@@ -55,6 +55,7 @@ _KERNEL_IDS = {
     "conv3x3_wgrad_sum": "K2",
     "gru_gates_sample": "K3", "gru_gates": "K3",
     "gru_blend_sample": "K4", "gru_blend": "K4",
+    "gru_gates_mom": "K3", "gru_blend_mom": "K4", "gru_moments": "K3/K4",
     "corr_fwd_tc": "K5", "corr_fwd": "K5",
     "corr_bwd_f1_tc": "K6", "corr_bwd_f1": "K6",
     "corr_bwd_f2_tc": "K7", "corr_bwd_f2": "K7",
@@ -68,6 +69,7 @@ _GROUPS = (
     ("K1 conv3x3_fwd, tensor cores", ("conv3x3_fwd_tc",)),
     ("K1 conv3x3_fwd, SIMT", ("conv3x3_fwd",)),
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad",)),
+    ("K3/K4 moments pass", ("gru_moments",)),
     ("K3 gru_gates", ("gru_gates",)),
     ("K4 gru_blend", ("gru_blend",)),
     ("K5-K7 correlation, tensor cores",

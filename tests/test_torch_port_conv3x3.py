@@ -1,7 +1,10 @@
 """K1 and K2 of the PyTorch port against the JAX package's Pallas kernel
-bodies themselves, K1's and K2's dispatch rules, the tensor-core K2's plan
-of splits, the SIMT K1's and K2's plans, and the SIMT kernels' order of
-summation emulated in plain torch against the Pallas kernel bodies.
+bodies themselves, K1's and K2's dispatch rules (K1 with an fp32 output
+from bf16 too, its shared memory against csrc's plan, and its plain
+version against the fp64 conv; K2 in blocks of 64 or 32 output
+channels), the tensor-core K2's plan of splits, the SIMT K1's and K2's
+plans, and the SIMT kernels' order of summation emulated in plain torch
+against the Pallas kernel bodies.
 
 ``conv3x3_same`` in the JAX package takes XLA by default, so these tests
 build ``pl.pallas_call`` around the unchanged ``_fwd_kernel`` and
@@ -25,10 +28,13 @@ from jax.experimental import pallas as pl
 
 from torch_port_util import max_abs, t32
 from ode_rl_torch.ops.common import bf16_ulps
-from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, conv3x3_fwd, conv3x3_wgrad,
-                                      flip_transpose, simt_plan, simt_split,
+from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _tc_smem_bytes,
+                                      conv3x3_fwd, conv3x3_fwd_plain,
+                                      conv3x3_wgrad, flip_transpose,
+                                      simt_plan, simt_split,
                                       uses_tensor_cores, wgrad_simt_plan,
-                                      wgrad_tc_plan, wgrad_uses_tensor_cores)
+                                      wgrad_tc_nt, wgrad_tc_plan,
+                                      wgrad_uses_tensor_cores)
 from ode_rl_tpu.ops.conv3x3 import _fwd_kernel, _wgrad_kernel
 
 TOL = 2e-5
@@ -133,6 +139,73 @@ def test_k1_dispatch_rule(dtype, cin, cout, w, expected):
     assert uses_tensor_cores(dtype, cin, cout, w) is expected
 
 
+# (Cin, Cout, W, takes the tensor cores with bf16 in and fp32 out): a
+# 'model' rank's dx partial (its Cout 32 slice of the cotangent -> 64), the
+# flagship, narrow Cout (one 16-channel box of fp32), then two shapes
+# whose bf16 output fits and whose doubled fp32 staging does not.
+FP32_OUT_RULE_CASES = [
+    (32, 64, 16, True), (64, 64, 16, True), (16, 32, 7, True),
+    (32, 16, 33, True), (48, 192, 16, False), (128, 64, 8, False),
+]
+
+
+def _tc_plan_bytes(cin, cout, w, out_size):
+    """csrc/conv3x3.cu::tc_plan's smem_bytes, transcribed: weights in
+    column blocks of nt, two halo stages of Cin / cw chunks, two 8 x 8 x nt
+    staging buffers of out_size-byte elements, each 1 KB aligned, + 1 KB."""
+    def r1k(n):
+        return (n + 1023) // 1024 * 1024
+    tw = 8 if w <= 8 else 16 if w <= 16 else 32
+    cw = 64 if cin % 64 == 0 else (32 if cin % 32 == 0 else 16)
+    nt = 64 if cout % 64 == 0 else 16
+    stage = (cin // cw) * r1k(10 * (tw + 2) * cw * 2)
+    w_bytes = (cout // nt) * r1k(9 * cin * nt * 2)
+    return w_bytes + 2 * stage + 2 * r1k(64 * nt * out_size) + 1024
+
+
+@pytest.mark.parametrize("cin,cout,w,expected", FP32_OUT_RULE_CASES)
+def test_k1_fp32_output_rule_and_shared_memory(cin, cout, w, expected):
+    """bf16 in, fp32 out: the rule counts the doubled staging buffers
+    (the Python plan mirrors tc_plan at both output sizes), fp32 in never
+    takes the tensor cores, and no other output dtype is offered."""
+    for out, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        assert _tc_smem_bytes(cin, cout, w, out) == _tc_plan_bytes(
+            cin, cout, w, size)
+    assert _tc_smem_bytes(32, 64, 16, torch.float32) == 95_232
+    assert uses_tensor_cores(torch.bfloat16, cin, cout, w,
+                             torch.float32) is expected
+    assert uses_tensor_cores(torch.bfloat16, cin, cout, w)
+    assert not uses_tensor_cores(torch.float32, cin, cout, w, torch.float32)
+    assert not uses_tensor_cores(torch.bfloat16, cin, cout, w, torch.float16)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 16, 16, 32, 64)])
+def test_k1_fp32_output_plain_matches_fp64_conv(shape):
+    """The plain version of bf16 in, fp32 out: F.conv2d of the values in
+    fp32, against the fp64 conv of the same bf16 values (products exact,
+    sums of at most 576 rounded in fp32: 1e-5 max abs), through the
+    wrapper as dx (the column-parallel dx partial's call) too; an output
+    dtype other than the input's or fp32 is refused."""
+    x, w2d, g = _inputs(shape, 6)
+    b, h, w, cin, cout = shape
+    xb, wb = t32(x).bfloat16(), t32(w2d).bfloat16()
+    ref = F.conv2d(xb.double().permute(0, 3, 1, 2),
+                   wb.double().reshape(3, 3, cin, cout).permute(3, 2, 0, 1),
+                   padding=1).permute(0, 2, 3, 1)
+    for out in (conv3x3_fwd(xb, wb, out_dtype=torch.float32),
+                conv3x3_fwd_plain(xb, wb, torch.float32)):
+        assert out.dtype == torch.float32
+        assert max_abs(out, ref) <= 1e-5
+    gb, w_t = t32(g).bfloat16(), flip_transpose(wb, cin, cout)
+    dx = conv3x3_fwd(gb, w_t, out_dtype=torch.float32)
+    assert dx.dtype == torch.float32
+    assert max_abs(dx, conv3x3_fwd_plain(gb.double(), w_t.double())) <= 1e-5
+    assert conv3x3_fwd(xb, wb, out_dtype=torch.bfloat16).dtype == \
+        torch.bfloat16
+    with pytest.raises(TypeError, match="output"):
+        conv3x3_fwd(t32(x), t32(w2d), out_dtype=torch.bfloat16)
+
+
 def test_bf16_ulps_tells_rounding_from_truncation():
     """The card tests' bf16 check: exact rounding reads 0, a result one
     ulp up reads 1 ulp on every output, truncation about half the outputs
@@ -150,9 +223,11 @@ def test_bf16_ulps_tells_rounding_from_truncation():
 
 # (dtype, Cin, Cout, W, takes the tensor cores): the flagship's 64 -> 64,
 # wider channels and several channel pairs, maps 1 to 33 wide (tiles 8, 16,
-# 32), then what stays on SIMT: a plan that does not fit (36 channel
-# pairs need 108 resident blocks beside their splits), fp32, narrow
-# channels, ragged channels.
+# 32), Cout 32 (a 'model' rank's slice at width 64; blocks of 32 output
+# channels) at Cin 64 and 128 and Cout 96 (three blocks of 32), then what
+# stays on SIMT: plans that do not fit (36 channel pairs need 108 resident
+# blocks beside their splits, at NT 64 and at NT 32), fp32, narrow
+# channels, ragged channels, Cout not a multiple of 32.
 K2_RULE_CASES = [
     (torch.bfloat16, 64, 64, 16, True),
     (torch.bfloat16, 64, 128, 16, True),
@@ -164,9 +239,15 @@ K2_RULE_CASES = [
     (torch.float32, 64, 64, 16, False),
     (torch.bfloat16, 32, 64, 16, False),
     (torch.bfloat16, 16, 16, 16, False),
-    (torch.bfloat16, 64, 96, 16, False),
+    (torch.bfloat16, 64, 96, 16, True),
     (torch.bfloat16, 3, 64, 16, False),
     (torch.bfloat16, 64, 5, 16, False),
+    (torch.bfloat16, 64, 32, 16, True),
+    (torch.bfloat16, 128, 32, 16, True),
+    (torch.bfloat16, 64, 32, 33, True),
+    (torch.bfloat16, 256, 288, 16, False),
+    (torch.float32, 64, 32, 16, False),
+    (torch.bfloat16, 64, 48, 16, False),
 ]
 
 
@@ -175,13 +256,26 @@ def test_k2_dispatch_rule(dtype, cin, cout, w, expected):
     assert wgrad_uses_tensor_cores(dtype, cin, cout, w) is expected
 
 
+@pytest.mark.parametrize("cout,nt", [(64, 64), (128, 64), (32, 32),
+                                     (96, 32), (160, 32)])
+def test_k2_output_block_width(cout, nt):
+    """Blocks of 64 output channels wherever Cout allows them (the
+    flagship keeps its kernel), else of 32."""
+    assert wgrad_tc_nt(cout) == nt
+
+
 # (B, H, W, Cin, Cout, SMs): the flagship on an H100 SXM and PCIe, the
-# card tests' shapes, one tile in all, and a cap above the tile count.
+# card tests' shapes, one tile in all, a cap above the tile count, and at
+# Cout 32 and 96 (blocks of 32 output channels) a 'model' rank's slice on
+# both cards, two input blocks and ragged maps.
 K2_PLAN_CASES = [(128, 16, 16, 64, 64, 132), (128, 16, 16, 64, 64, 114),
                  (1, 16, 16, 64, 64, 132), (3, 5, 7, 64, 64, 132),
                  (2, 9, 11, 64, 128, 132), (2, 20, 33, 64, 64, 132),
                  (2, 12, 7, 128, 64, 132), (1, 3, 3, 64, 64, 132),
-                 (64, 40, 40, 256, 256, 132)]
+                 (64, 40, 40, 256, 256, 132),
+                 (128, 16, 16, 64, 32, 132), (128, 16, 16, 64, 32, 114),
+                 (2, 9, 11, 128, 32, 132), (3, 5, 7, 64, 96, 114),
+                 (2, 20, 33, 64, 32, 132)]
 
 
 def _tile_pixels(tile, b, h, w, tw):
@@ -203,7 +297,7 @@ def test_k2_plan_covers_every_pixel_once(b, h, w, cin, cout, sms):
     runs = [range(s * per, min((s + 1) * per, tiles)) for s in range(splits)]
     assert all(len(r) > 0 for r in runs)
     assert [t for r in runs for t in r] == list(range(tiles))
-    assert 3 * (cin // 64) * (cout // 64) * splits <= sms
+    assert 3 * (cin // 64) * (cout // wgrad_tc_nt(cout)) * splits <= sms
     seen = [p for t in range(tiles) for p in _tile_pixels(t, b, h, w, tw)]
     assert len(seen) == len(set(seen)) == b * h * w
 

@@ -1,5 +1,6 @@
 """Kernels K1-K8 on the card, at shapes other than the main paths': ragged
-tiles, the tensor-core K1 and K2 against their SIMT twins and cuDNN,
+tiles, the tensor-core K1 and K2 against their SIMT twins and cuDNN
+(K2 also at 32 and 96 output channels, K1 also with an fp32 output),
 channel counts that are not multiples of 64, the one-sample K3/K4 against
 the two-pass ones and the plain versions (GroupNorm groups that straddle
 the z/r split, a cluster of blocks a sample, the flagship) and the shapes
@@ -105,9 +106,19 @@ DTYPES = [torch.float32, torch.bfloat16]
 TC_SHAPES = [(128, 16, 16, 64, 64), (1, 16, 16, 64, 64), (3, 5, 7, 16, 32),
              (2, 9, 11, 32, 48), (2, 20, 33, 32, 64), (2, 12, 7, 64, 128)]
 K1_BF16_ULPS, K1_BF16_SHARE = 1.0, 2e-3
-# The flagship K2 and K1's card geometries at K2's channel multiples.
+# The flagship K2 and K1's card geometries at K2's channel multiples; then
+# blocks of 32 output channels: a 'model' rank's Cout 32 slice, Cout 32
+# and 96 over ragged H and W (tiles 8, 16 and 32 wide), two input blocks.
 K2_SHAPES = [(128, 16, 16, 64, 64), (1, 16, 16, 64, 64), (3, 5, 7, 64, 64),
-             (2, 9, 11, 64, 128), (2, 20, 33, 64, 64), (2, 12, 7, 128, 64)]
+             (2, 9, 11, 64, 128), (2, 20, 33, 64, 64), (2, 12, 7, 128, 64),
+             (128, 16, 16, 64, 32), (3, 5, 7, 64, 32), (2, 9, 11, 64, 96),
+             (2, 20, 33, 64, 32), (2, 12, 7, 128, 96)]
+# K1 with bf16 inputs and an fp32 output (a 'model' rank's dx partial,
+# (128, 16, 16, 32) -> 64), at Cin 16, 32 and 64 over ragged W (tiles 8,
+# 16 and 32 wide), fp32 boxes of 16 and 32 channels.
+K1_FP32_OUT_SHAPES = [(128, 16, 16, 32, 64), (3, 5, 7, 16, 32),
+                      (2, 9, 11, 32, 64), (2, 20, 33, 64, 64),
+                      (2, 12, 7, 64, 16), (1, 16, 16, 16, 128)]
 # bf16 K2 against fp64 and cuDNN's (bf16-rounded) weight gradient,
 # relative L2; readings in chip_smoke.py.
 K2_BF16_REL_L2, K2_CUDNN_REL_L2 = 5e-6, 3e-3
@@ -249,6 +260,46 @@ def test_tensor_core_k2_is_bit_reproducible(cuda):
     first = _conv3x3_wgrad_tc(x, g)
     for _ in range(20):
         assert torch.equal(first, _conv3x3_wgrad_tc(x, g))
+
+
+def test_tensor_core_k2_at_32_output_channels_is_bit_reproducible(cuda):
+    x = _rnd(cuda, 128, 16, 16, 64, dtype=torch.bfloat16)
+    g = _rnd(cuda, 128, 16, 16, 32, dtype=torch.bfloat16)
+    first = _conv3x3_wgrad_tc(x, g)
+    for _ in range(20):
+        assert torch.equal(first, _conv3x3_wgrad_tc(x, g))
+
+
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+@pytest.mark.parametrize("shape", K1_FP32_OUT_SHAPES)
+def test_tensor_core_k1_fp32_output_matches_plain(cuda, shape, dx):
+    """bf16 in, fp32 out: the dispatcher picks the tensor cores; the fp32
+    sums within 1e-4 max abs (chip_smoke.py's "conv3x3_fwd as dx") of the
+    plain version (F.conv2d of the values in fp32, TF32 off) and of the
+    fp32 SIMT K1 on the same values, and within 1e-5 relative L2 of the
+    fp64 conv; 20 calls bit-equal."""
+    x, w2d = _tc_case(cuda, shape, dx)
+    common.reset_launches()
+    out = conv3x3_fwd(x, w2d, out_dtype=torch.float32)
+    assert common.launches["conv3x3_fwd_tc"] == 1
+    assert out.dtype == torch.float32
+    with common.force_plain():
+        plain = conv3x3_fwd(x, w2d, out_dtype=torch.float32)
+    assert _max_abs(out, plain) <= 1e-4
+    assert _max_abs(out, _conv3x3_fwd_simt(x.float(), w2d.float())) <= 1e-4
+    assert _rel_l2(out, conv3x3_fwd_plain(x.double(), w2d.double())) <= 1e-5
+    for _ in range(20):
+        assert torch.equal(out, _conv3x3_fwd_tc(x, w2d, torch.float32))
+
+
+def test_k1_fp32_output_off_the_tensor_cores_takes_fp32_simt(cuda):
+    """Outside the tensor-core rule (Cin 8), bf16 in and fp32 out is the
+    fp32 SIMT K1 on the same values, bit for bit."""
+    x, w2d = _tc_case(cuda, (2, 5, 7, 8, 24), False)
+    common.reset_launches()
+    out = conv3x3_fwd(x, w2d, out_dtype=torch.float32)
+    assert common.launches["conv3x3_fwd_simt"] == 1
+    assert torch.equal(out, _conv3x3_fwd_simt(x.float(), w2d.float()))
 
 
 @pytest.mark.parametrize("arg", ["x", "g"])

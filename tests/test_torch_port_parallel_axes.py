@@ -14,7 +14,8 @@ ThreadGroup), one group a line of each axis of a 2-D grid.
   grid: K1's conv, 1x1, 5x5, the stride-2 3x3 and the transposed conv.
   Each rank holds its Cout slice of the weights and the whole input and
   output; the output, the input's gradient and the bias's are the
-  unsharded ones on both ranks, the weight's gradient its slice.
+  unsharded ones on both ranks, the weight's gradient its slice; in bf16
+  K1's dx is the JAX VJP's fp32 sum rounded once.
 * The moments-in K3/K4 plain versions under 'space' against JAX's
   ``_groupnorm_f32`` formula over the whole height, with gradients.
 * ``grad_norm`` with sharded and replicated leaves; the TP rule names
@@ -227,6 +228,36 @@ def test_column_parallel_layer_matches_unsharded(name):
             assert max_abs(grads[n], want) < TOL, n
         for n, t in full.items():
             assert torch.equal(gathered[n], t), n
+
+
+def test_column_parallel_k1_bf16_dx_is_rounded_once_as_jax():
+    """A bf16 Conv3x3 on a 'model' line of 2: each rank's dx partial is K1
+    with an fp32 output on its Cout slice, summed over the line in fp32
+    and rounded once, as JAX's unsharded VJP (K1 on the flipped weights,
+    fp32 sums cast once) rounds it: within one bf16 ulp of jax.vjp of the
+    conv in fp32 on the same bf16 values, at most 2e-3 of the entries one
+    ulp off (the card's K1 limit), and bit-equal across the ranks."""
+    from ode_rl_torch.ops.common import bf16_ulps
+    from ode_rl_tpu.ops.conv3x3 import _xla_conv
+    layer = Conv3x3(16, 32, dtype=torch.bfloat16, generator=_gen(5))
+    x = torch.randn((2, 8, 8, 16), generator=_gen(6)).bfloat16()
+    gy = torch.randn((2, 8, 8, 32), generator=_gen(7)).bfloat16()
+
+    def rank(mesh):
+        mine = shard_params_tp(copy.deepcopy(layer), mesh, min_channels=8)
+        xs = x.clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad(mine(xs), xs, gy)
+        return dx
+
+    out = on_grid(rank, MODEL_AXIS)
+    kernel = jnp.asarray(layer.kernel.detach().bfloat16().float().numpy())
+    _, vjp = jax.vjp(lambda v: _xla_conv(v, kernel),
+                     jnp.asarray(x.float().numpy()))
+    (ref,) = vjp(jnp.asarray(gy.float().numpy()))
+    ref = torch.from_numpy(np.array(ref)).double()
+    assert out[0].dtype == torch.bfloat16 and torch.equal(out[0], out[1])
+    ulps, share = bf16_ulps(out[0], ref)
+    assert ulps <= 1.0 and share <= 2e-3
 
 
 # -- K3/K4 moments over the cut ------------------------------------------
