@@ -292,7 +292,9 @@ without printing its last line:
     one-rank update; each rank's K1-K4 launches and routes (every K1
     and K2 launch a tensor-core one on both axes, the 'model' rank's
     Cout 32 K2 and fp32-output dx partials included; under 'space' every
-    K3/K4 launch a moments-in one, each with its moments pass), the bytes
+    K1/K2 launch on the rank's own 8 rows with a halo operand, none under
+    'model', and every K3/K4 launch a moments-in one, each with its
+    moments pass), the bytes
     each axis moved in a step, and one more step profiled on each rank:
     rank 0's device ms by kernel group and its K1-K8 kernels' µs a launch
     (``phase18_rank0_profiled`` for K1 and K2). Then the dry run's
@@ -308,10 +310,15 @@ without printing its last line:
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
-rank's tile (128, 10, 16, 64) -> 64 in bf16 against fp64, all on the
-tensor cores (K2 at Cout 32 in blocks of 32 output channels; K2 20 calls
-bit-equal), the column-parallel dx partial (K1 with bf16 in and fp32 out,
-(128, 16, 16, 32) -> 64, on the tensor cores) against its plain version
+rank's rows (128, 8, 16, 64) -> 64 with a (128, 2, 16, 64) halo operand
+at the top, the bottom and inside the frame, in bf16 against fp64, all
+on the tensor cores (K2 at Cout 32 in blocks of 32 output channels; K2
+20 calls bit-equal; the 'space' kernels timed beside the cat-tile-crop
+composition they replaced and cuDNN on the 10-row tile, and the fp32
+SIMT K1/K2 with a halo held against their plain versions at (2, 5, 7,
+16) -> 24 and (4, 8, 16, 64) -> 64), the column-parallel dx partial (K1
+with bf16 in and fp32 out, (128, 16, 16, 32) -> 64, on the tensor cores)
+against its plain version
 and 20 calls bit-equal, each timed in one run beside the SIMT route it
 replaced and cuDNN's call (the fp32 F.conv2d for the dx partial), with
 host µs a call and the 'model' forward read three more times; and the
@@ -973,123 +980,95 @@ def phase_kernels() -> dict:
 
 
 # A 'model' rank's Cout slice and a 'space' rank's rows at the flagship's
-# lines of two (phase 18): Cout 32 of 64; 8 of the latent's 16 rows, a
-# K1/K2 tile 10 rows high with its halo.
+# lines of two (phase 18): Cout 32 of 64; 8 of the latent's 16 rows, with
+# the rows across the cuts in a (B, 2, W, C) halo operand.
 TP_COUT, SP_ROWS = C // 2, HW // 2
 
 
-def _axis_conv_bound(shape, cout: int, which: str) -> dict:
+def _axis_conv_bound(shape, cout: int, which: str, halo: bool = False
+                     ) -> dict:
     """K1 (``forward``) or K2 (``wgrad``) in bf16 on a (B, H, W, 64) map
-    to ``cout`` channels, as ``_bounds`` counts them: the products at the
-    tensor-core rate; x and w in, out (K1), or x and g in, dW in fp32 out
-    (K2)."""
+    to ``cout`` channels, as ``_bounds`` counts them: the products of the
+    H output rows at the tensor-core rate; x (and its (B, 2, W, 64) halo
+    operand where ``halo``) and w in, out (K1), or x, the halo and g in, dW
+    in fp32 out (K2)."""
     b, h, w, cin = shape
     px = b * h * w
     flops = 2 * px * 9 * cin * cout
+    x_bytes = (px + (b * 2 * w if halo else 0)) * cin * 2
     if which == "forward":
-        nbytes = px * cin * 2 + 9 * cin * cout * 2 + px * cout * 2
+        nbytes = x_bytes + 9 * cin * cout * 2 + px * cout * 2
     else:
-        nbytes = px * cin * 2 + px * cout * 2 + 9 * cin * cout * 4
+        nbytes = x_bytes + px * cout * 2 + 9 * cin * cout * 4
     return _bound(flops, nbytes, PEAK_BF16)
 
 
 def _check_axis_k12(gen) -> dict:
-    """K1 and K2 in bf16 at the 'model' and 'space' shapes against fp64,
-    by the route the rule picks, which must be the tensor cores, K2 20
-    calls bit-equal; the column-parallel dx partial (K1 with bf16 in and
-    fp32 out, on the slice's cotangent and flipped weights) on the tensor
-    cores against its plain version (F.conv2d of the values in fp32), 20
-    calls bit-equal. Each timed in one run beside the route it replaced
-    where it replaced one (the SIMT K2 at Cout 32; the fp32 SIMT K1 on the
-    dx partial's values) and the library call (cuDNN's bf16 conv and
-    weight gradient; the fp32 F.conv2d for the dx partial), with its plain
-    version's ms, its bound and each wrapper's host µs a call; the 'model'
-    slice's forward read three more times (device µs of 50 calls)."""
+    """K1 and K2 in bf16 at the 'model' shape against fp64, by the route
+    the rule picks, which must be the tensor cores, K2 20 calls bit-equal;
+    the column-parallel dx partial (K1 with bf16 in and fp32 out, on the
+    slice's cotangent and flipped weights) on the tensor cores against its
+    plain version (F.conv2d of the values in fp32), 20 calls bit-equal.
+    Each timed in one run beside the route it replaced (the SIMT K2 at
+    Cout 32; the fp32 SIMT K1 on the dx partial's values) and the library
+    call (cuDNN's bf16 conv and weight gradient; the fp32 F.conv2d for the
+    dx partial), with its plain version's ms, its bound and each wrapper's
+    host µs a call; the 'model' slice's forward read three more times
+    (device µs of 50 calls). Then the 'space' shape (``_check_space_k12``)."""
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(
             "cuda", torch.bfloat16)
-    shapes = {
-        "tp": (rnd(B, HW, HW, C), rnd(9 * C, TP_COUT, scale=1 / 24),
-               rnd(B, HW, HW, TP_COUT)),
-        "sp": (rnd(B, SP_ROWS + 2, HW, C), rnd(9 * C, C, scale=1 / 24),
-               rnd(B, SP_ROWS + 2, HW, C))}
-    rows = {"conv3x3_fwd": {}, "conv3x3_wgrad": {}}
-    for label, (x, w2d, g) in shapes.items():
-        cout = w2d.shape[1]
-        w_oihw = oihw(w2d, C, cout)
-        k1 = {"shape": f"{tuple(x.shape)} -> {cout}"}
-        k2 = {"shape": f"{tuple(x.shape)} x {tuple(g.shape)}"}
-        if not (uses_tensor_cores(x.dtype, C, cout, HW)
-                and wgrad_uses_tensor_cores(x.dtype, C, cout, HW)):
-            raise AssertionError(f"K1/K2 at the {label} shape off the "
-                                 "tensor cores")
-        k1["route"] = k2["route"] = "tensor cores"
-        y = conv3x3_fwd(x, w2d)
-        ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
-            x.double(), w2d.double()))
-        check(f"K1 bf16 {label} (tensor cores): ulps", ulps, K1_BF16_ULPS,
-              "max")
-        check(f"K1 bf16 {label}: share 1 ulp off", share, K1_BF16_SHARE,
-              "share")
-        dw = conv3x3_wgrad(x, g)
-        k2["rel_l2"] = check(
-            f"K2 bf16 {label} (tensor cores) vs fp64",
-            rel_l2(dw, conv3x3_wgrad_plain(x.double(), g.double())),
-            K2_BF16_REL_L2, "rel_l2")
-        if not all(torch.equal(dw, conv3x3_wgrad(x, g)) for _ in range(20)):
-            raise AssertionError(f"tensor-core K2 at the {label} shape: 20 "
-                                 "calls are not bit-equal")
-        with common.force_plain():
-            k1["max_abs_err"] = max_abs(y, conv3x3_fwd(x, w2d))
-            k2["max_abs_err"] = max_abs(dw, conv3x3_wgrad(x, g))
-        k1["ulps"], k1["share"] = ulps, share
-        k1_fns = {"kernel": lambda: conv3x3_fwd(x, w2d),
-                  "library": lambda: conv_library(x, w_oihw)}
-        k2_fns = {"kernel": lambda: conv3x3_wgrad(x, g),
-                  "library": lambda: wgrad_library(x, g, w_oihw)}
-        if label == "tp":
-            k2_fns["simt"] = lambda: _conv3x3_wgrad_simt(x, g)
-        for row, fns in ((k1, k1_fns), (k2, k2_fns)):
-            for key, (ms, us) in _time_turns(fns).items():
-                prefix = "" if key == "kernel" else f"{key}_"
-                row[f"{prefix}ms"], row[f"{prefix}device_us"] = ms, us
-            with common.force_plain():
-                row["plain_ms"] = median_ms(fns["kernel"])
-        host = {("K1", "host_us", "K1 tensor cores"): k1_fns["kernel"],
-                ("K2", "host_us", "K2 tensor cores"): k2_fns["kernel"]}
-        if label == "tp":
-            k1["device_us_reads"] = [
-                device_us({"k1": k1_fns["kernel"]}, reps=50)["k1"]
-                for _ in range(3)]
-            host[("K2", "simt_host_us", "K2 SIMT")] = k2_fns["simt"]
-            _check_dx_partial(k1, w2d, g, host)
-        times = _host_turns(host, f"at the {label} shape")
-        k1.update(times["K1"])
-        k2.update(times["K2"])
-        if "dx" in times:
-            k1["dx"].update(times["dx"])
-        k1.update(_axis_conv_bound(x.shape, cout, "forward"))
-        k2.update(_axis_conv_bound(x.shape, cout, "wgrad"))
-        rows["conv3x3_fwd"][label] = k1
-        rows["conv3x3_wgrad"][label] = k2
-    for label in shapes:
-        k1, k2 = rows["conv3x3_fwd"][label], rows["conv3x3_wgrad"][label]
-        print(f"  {label}: K1 {k1['shape']} on the tensor cores "
-              f"{k1['ms']:.4f} ms, {k1['device_us']:.2f} device us, host "
-              f"{k1['host_us']:.2f} us (plain {k1['plain_ms']:.4f} ms; cuDNN "
-              f"{k1['library_ms']:.4f} ms, {k1['library_device_us']:.2f} "
-              f"device us; bound {k1['bound_ms'] * 1e3:.2f} us by "
-              f"{k1['bound_by']})")
-        print(f"  {label}: K2 {k2['shape']} on the tensor cores "
-              f"{k2['ms']:.4f} ms, {k2['device_us']:.2f} device us, host "
-              f"{k2['host_us']:.2f} us (plain {k2['plain_ms']:.4f} ms; cuDNN "
-              f"{k2['library_ms']:.4f} ms, {k2['library_device_us']:.2f} "
-              f"device us; bound {k2['bound_ms'] * 1e3:.2f} us by "
-              f"{k2['bound_by']})" + (
-                  f"; the SIMT K2 it replaced {k2['simt_ms']:.4f} ms, "
-                  f"{k2['simt_device_us']:.2f} device us, host "
-                  f"{k2['simt_host_us']:.2f} us" if label == "tp" else ""))
-    k1 = rows["conv3x3_fwd"]["tp"]
+    x, w2d, g = (rnd(B, HW, HW, C), rnd(9 * C, TP_COUT, scale=1 / 24),
+                 rnd(B, HW, HW, TP_COUT))
+    cout = w2d.shape[1]
+    w_oihw = oihw(w2d, C, cout)
+    k1 = {"shape": f"{tuple(x.shape)} -> {cout}"}
+    k2 = {"shape": f"{tuple(x.shape)} x {tuple(g.shape)}"}
+    if not (uses_tensor_cores(x.dtype, C, cout, HW)
+            and wgrad_uses_tensor_cores(x.dtype, C, cout, HW)):
+        raise AssertionError("K1/K2 at the tp shape off the tensor cores")
+    k1["route"] = k2["route"] = "tensor cores"
+    y = conv3x3_fwd(x, w2d)
+    ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
+        x.double(), w2d.double()))
+    check("K1 bf16 tp (tensor cores): ulps", ulps, K1_BF16_ULPS, "max")
+    check("K1 bf16 tp: share 1 ulp off", share, K1_BF16_SHARE, "share")
+    dw = conv3x3_wgrad(x, g)
+    k2["rel_l2"] = check(
+        "K2 bf16 tp (tensor cores) vs fp64",
+        rel_l2(dw, conv3x3_wgrad_plain(x.double(), g.double())),
+        K2_BF16_REL_L2, "rel_l2")
+    if not all(torch.equal(dw, conv3x3_wgrad(x, g)) for _ in range(20)):
+        raise AssertionError("tensor-core K2 at the tp shape: 20 calls are "
+                             "not bit-equal")
+    with common.force_plain():
+        k1["max_abs_err"] = max_abs(y, conv3x3_fwd(x, w2d))
+        k2["max_abs_err"] = max_abs(dw, conv3x3_wgrad(x, g))
+    k1["ulps"], k1["share"] = ulps, share
+    k1_fns = {"kernel": lambda: conv3x3_fwd(x, w2d),
+              "library": lambda: conv_library(x, w_oihw)}
+    k2_fns = {"kernel": lambda: conv3x3_wgrad(x, g),
+              "library": lambda: wgrad_library(x, g, w_oihw),
+              "simt": lambda: _conv3x3_wgrad_simt(x, g)}
+    for row, fns in ((k1, k1_fns), (k2, k2_fns)):
+        _timed_row(row, fns)
+    host = {("K1", "host_us", "K1 tensor cores"): k1_fns["kernel"],
+            ("K2", "host_us", "K2 tensor cores"): k2_fns["kernel"],
+            ("K2", "simt_host_us", "K2 SIMT"): k2_fns["simt"]}
+    k1["device_us_reads"] = [
+        device_us({"k1": k1_fns["kernel"]}, reps=50)["k1"] for _ in range(3)]
+    _check_dx_partial(k1, w2d, g, host)
+    times = _host_turns(host, "at the tp shape")
+    k1.update(times["K1"])
+    k2.update(times["K2"])
+    k1["dx"].update(times["dx"])
+    k1.update(_axis_conv_bound(x.shape, cout, "forward"))
+    k2.update(_axis_conv_bound(x.shape, cout, "wgrad"))
+    _print_axis_row("tp", "K1", k1)
+    _print_axis_row("tp", "K2", k2, (
+        f"; the SIMT K2 it replaced {k2['simt_ms']:.4f} ms, "
+        f"{k2['simt_device_us']:.2f} device us, host "
+        f"{k2['simt_host_us']:.2f} us"))
     print(f"  tp: K1 forward at Cout 32, device us of 50 calls, three more "
           f"reads: {', '.join(f'{u:.2f}' for u in k1['device_us_reads'])}")
     dx = k1["dx"]
@@ -1102,7 +1081,153 @@ def _check_axis_k12(gen) -> dict:
           f"SIMT K1 it replaced {dx['simt_ms']:.4f} ms, "
           f"{dx['simt_device_us']:.2f} device us, host "
           f"{dx['simt_host_us']:.2f} us")
-    return rows
+    k1_sp, k2_sp = _check_space_k12(rnd)
+    return {"conv3x3_fwd": {"tp": k1, "sp": k1_sp},
+            "conv3x3_wgrad": {"tp": k2, "sp": k2_sp}}
+
+
+def _timed_row(row: dict, fns: dict) -> None:
+    """Into ``row``: each fn's CUDA-event ms and device µs from one run of
+    turns (keys ``ms``/``device_us`` for "kernel", else prefixed with the
+    fn's name), and the kernel's plain version's ms."""
+    for key, (ms, us) in _time_turns(fns).items():
+        prefix = "" if key == "kernel" else f"{key}_"
+        row[f"{prefix}ms"], row[f"{prefix}device_us"] = ms, us
+    with common.force_plain():
+        row["plain_ms"] = median_ms(fns["kernel"])
+
+
+def _print_axis_row(label: str, kernel: str, row: dict,
+                    more: str = "") -> None:
+    print(f"  {label}: {kernel} {row['shape']} on the tensor cores "
+          f"{row['ms']:.4f} ms, {row['device_us']:.2f} device us, host "
+          f"{row['host_us']:.2f} us (plain {row['plain_ms']:.4f} ms; cuDNN "
+          f"{row['library_ms']:.4f} ms, {row['library_device_us']:.2f} "
+          f"device us; bound {row['bound_ms'] * 1e3:.2f} us by "
+          f"{row['bound_by']}){more}")
+
+
+# A 'space' rank's halo operand: at the top of the frame (its row 0 the
+# frame's zero padding), at the bottom (row 1) or inside.
+HALO_WHERE = ("top", "bottom", "interior")
+
+
+def _check_space_k12(rnd) -> tuple:
+    """K1 and K2 at a 'space' rank's shape, x (B, 8, 16, 64) with a (B, 2,
+    16, 64) halo operand and g (B, 8, 16, 64), on the tensor cores (the
+    rule's route), at the top, the bottom and inside the frame: K1 within
+    one bf16 ulp of the fp64 conv of the 10 rows (at most
+    ``K1_BF16_SHARE`` one off), K2 within ``K2_BF16_REL_L2`` of fp64 and
+    20 calls bit-equal. Inside the frame, each timed in one run beside
+    the composition it replaces (cat the halo rows onto x, K1/K2 on the
+    10-row tile, crop K1's first and last rows; K2's cotangent zero-padded
+    to 10 rows, as the crop's backward made it), cuDNN on the 10-row tile,
+    with host µs and the bound of the 8 rows and the halo. Then the SIMT
+    K1/K2 with a halo in fp32 against their plain versions (1e-4 max abs,
+    1e-5 relative L2) at (2, 5, 7, 16) -> 24 (ragged) and the rank's
+    shape at B = 4."""
+    x, w2d, g = (rnd(B, SP_ROWS, HW, C), rnd(9 * C, C, scale=1 / 24),
+                 rnd(B, SP_ROWS, HW, C))
+    k1 = {"shape": f"{tuple(x.shape)} + halo (B, 2, {HW}, {C}) -> {C}",
+          "route": "tensor cores", "cases": {}}
+    k2 = {"shape": f"{tuple(x.shape)} + halo x {tuple(g.shape)}",
+          "route": "tensor cores", "cases": {}}
+    if not (uses_tensor_cores(x.dtype, C, C, HW)
+            and wgrad_uses_tensor_cores(x.dtype, C, C, HW)):
+        raise AssertionError("K1/K2 at the sp shape off the tensor cores")
+    for where in HALO_WHERE:
+        halo = rnd(B, 2, HW, C)
+        if where != "interior":
+            halo[:, 0 if where == "top" else 1] = 0
+        common.reset_launches()
+        y = conv3x3_fwd(x, w2d, halo=halo)
+        dw = conv3x3_wgrad(x, g, halo=halo)
+        if (common.launches["conv3x3_fwd_tc"], common.launches[
+                "conv3x3_wgrad_tc"], common.launches["conv3x3_fwd_halo"],
+                common.halo_heights) != (1, 1, 1, {SP_ROWS}):
+            raise AssertionError(f"K1/K2 at the sp shape ({where}): not "
+                                 f"the tensor cores' halo route")
+        ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
+            x.double(), w2d.double(), halo=halo.double()))
+        check(f"K1 bf16 sp {where} (tc, halo): ulps", ulps, K1_BF16_ULPS,
+              "max")
+        check(f"K1 bf16 sp {where}: share 1 ulp off", share,
+              K1_BF16_SHARE, "share")
+        err = check(f"K2 bf16 sp {where} (tc, halo) vs fp64", rel_l2(
+            dw, conv3x3_wgrad_plain(x.double(), g.double(), halo.double())),
+            K2_BF16_REL_L2, "rel_l2")
+        if not all(torch.equal(dw, conv3x3_wgrad(x, g, halo=halo))
+                   for _ in range(20)):
+            raise AssertionError(f"tensor-core K2 at the sp shape "
+                                 f"({where}): 20 calls are not bit-equal")
+        with common.force_plain():
+            k1["cases"][where] = {"ulps": ulps, "share": share,
+                                  "max_abs_err": max_abs(y, conv3x3_fwd(
+                                      x, w2d, halo=halo))}
+            k2["cases"][where] = {"rel_l2": err, "max_abs_err": max_abs(
+                dw, conv3x3_wgrad(x, g, halo=halo))}
+    for row in (k1, k2):
+        row["max_abs_err"] = max(c["max_abs_err"]
+                                 for c in row["cases"].values())
+    # The interior case, timed.
+    tile = torch.cat([halo[:, :1], x, halo[:, 1:]], dim=1)
+    g_tile = F.pad(g, (0, 0, 0, 0, 1, 1))
+    w_oihw = oihw(w2d, C, C)
+    k1_fns = {"kernel": lambda: conv3x3_fwd(x, w2d, halo=halo),
+              "composition": lambda: conv3x3_fwd(torch.cat(
+                  [halo[:, :1], x, halo[:, 1:]], dim=1), w2d)[:, 1:-1],
+              "library": lambda: conv_library(tile, w_oihw)}
+    k2_fns = {"kernel": lambda: conv3x3_wgrad(x, g, halo=halo),
+              "composition": lambda: conv3x3_wgrad(torch.cat(
+                  [halo[:, :1], x, halo[:, 1:]], dim=1),
+                  F.pad(g, (0, 0, 0, 0, 1, 1))),
+              "library": lambda: wgrad_library(tile, g_tile, w_oihw)}
+    for row, fns in ((k1, k1_fns), (k2, k2_fns)):
+        _timed_row(row, fns)
+    times = _host_turns(
+        {("K1", "host_us", "K1 tensor cores, halo"): k1_fns["kernel"],
+         ("K2", "host_us", "K2 tensor cores, halo"): k2_fns["kernel"]},
+        "at the sp shape")
+    k1.update(times["K1"])
+    k2.update(times["K2"])
+    k1.update(_axis_conv_bound(x.shape, C, "forward", halo=True))
+    k2.update(_axis_conv_bound(x.shape, C, "wgrad", halo=True))
+    for kernel, row in (("K1", k1), ("K2", k2)):
+        _print_axis_row("sp", kernel, row, (
+            f"; the cat-tile-crop composition it replaced "
+            f"{row['composition_ms']:.4f} ms, "
+            f"{row['composition_device_us']:.2f} device us; cuDNN on the "
+            f"10-row tile"))
+    k1["simt_fp32"], k2["simt_fp32"] = _check_space_simt_fp32()
+    return k1, k2
+
+
+def _check_space_simt_fp32() -> tuple:
+    """The SIMT K1 and K2 with a halo in fp32 (the rule's route) against
+    their plain versions on the card (TF32 off): max abs / relative L2 by
+    shape."""
+    gen = torch.Generator().manual_seed(1)
+    k1, k2 = {}, {}
+    for b, h, w, cin, cout in ((2, 5, 7, 16, 24), (4, SP_ROWS, HW, C, C)):
+        x, halo, g = (torch.randn(*shape, generator=gen).cuda() for shape in
+                      ((b, h, w, cin), (b, 2, w, cin), (b, h, w, cout)))
+        w2d = (torch.randn(9 * cin, cout, generator=gen)
+               / (9 * cin) ** 0.5).cuda()
+        common.reset_launches()
+        y, dw = conv3x3_fwd(x, w2d, halo=halo), conv3x3_wgrad(x, g, halo=halo)
+        if (common.launches["conv3x3_fwd_simt"],
+                common.launches["conv3x3_wgrad_simt"]) != (1, 1):
+            raise AssertionError("the fp32 halo K1/K2 off SIMT")
+        with common.force_plain():
+            y_ref = conv3x3_fwd(x, w2d, halo=halo)
+            dw_ref = conv3x3_wgrad(x, g, halo=halo)
+        label = f"({b}, {h}, {w}, {cin}) -> {cout}"
+        k1[label] = check(f"K1 fp32 SIMT, halo, {label}", max_abs(y, y_ref),
+                          _TOL["conv3x3_fwd"][0], "max_abs")
+        k2[label] = check(f"K2 fp32 SIMT, halo, {label}",
+                          rel_l2(dw, dw_ref), _TOL["conv3x3_wgrad"][0],
+                          "rel_l2")
+    return k1, k2
 
 
 def _check_dx_partial(k1: dict, w2d: torch.Tensor, g: torch.Tensor,
@@ -4677,7 +4802,8 @@ def _axis_bench(baseline: float) -> dict:
     """``baseline``: the update's relative L2 of phase 17's two-rank
     ``flagship_bench`` (a 'data' line) against one rank. Every K1 and K2
     launch on every rank must take the tensor cores (the 'model' rank's
-    Cout 32 K2 and fp32-output dx partials included); one more step on
+    Cout 32 K2 and fp32-output dx partials included), and on a 'space'
+    rank its own 8 rows with a halo operand; one more step on
     each rank is profiled, and rank 0's device ms by kernel group and
     each K1-K8 kernel's µs a launch are printed."""
     names = tuple(AXIS_ROUTES)
@@ -4705,7 +4831,18 @@ def _axis_bench(baseline: float) -> dict:
             missing += [f"a {k} launch off the tensor cores"
                         for k in ("conv3x3_fwd", "conv3x3_wgrad")
                         if counts[f"{k}_tc"] != counts[k]]
-            if name.endswith("_sp") and (
+            # Under 'space' every K1/K2 launch takes the rank's own rows
+            # (half the latent's) and a halo operand; none elsewhere.
+            heights = res["rank_halo_heights"][rank]
+            sp = name.endswith("_sp")
+            missing += [f"a {k} launch {'without' if sp else 'with'} a halo"
+                        for k in ("conv3x3_fwd", "conv3x3_wgrad")
+                        if counts[f"{k}_halo"] != (counts[k] if sp else 0)]
+            if heights != ([SP_ROWS] if sp else []):
+                missing.append(f"halo launches at H {heights}")
+            print(f"    rank {rank}: K1/K2 launches with a halo at H "
+                  f"{heights}")
+            if sp and (
                     counts["gru_gates"] != counts["gru_gates_mom"]
                     or counts["gru_blend"] != counts["gru_blend_mom"]
                     or counts["gru_moments"] != counts["gru_gates_mom"]

@@ -71,7 +71,7 @@ def sweep() -> list:
                          scratch=scratch, dw=dw):
                     common.launch("conv3x3_wgrad_tc",
                                   lib.odek_conv3x3_wgrad_tc, x.data_ptr(),
-                                  g.data_ptr(), scratch.data_ptr(),
+                                  None, g.data_ptr(), scratch.data_ptr(),
                                   dw.data_ptr(), b, h, w, cin, cout, tw,
                                   splits, per, stages,
                                   common.DTYPE_CODES[torch.bfloat16],

@@ -13,6 +13,16 @@
 // fp32) it is 75.5 MFLOP: 1.13 us of fp32 FMA at 67 TFLOP/s, and the grid
 // has to be cut finely to put work on every SM.
 //
+// A halo operand (B, 2, W, Cin), nullable in every launcher: a 'space'
+// rank's conv over its own H rows of a height-sharded map, row 0 of the
+// halo the row above x's first, row 1 the row below its last (zeros past
+// the frame). The conv is SAME along W and takes its H neighbours from the
+// halo instead of zero padding; the output has x's H rows. So a rank's
+// tiles cover its own rows only (at a 'space' line of two at the
+// flagship's 16 rows, 128 tiles of 8 rows, where a tile of its 8 rows and
+// their halo rows cut as 10 rows took 256), and no concatenated copy of
+// the map is made (parallel/sp.py). Both kernels of K1 and of K2 take it.
+//
 // K1 has two kernels; ops/conv3x3.py::uses_tensor_cores picks one.
 //
 // * conv3x3_fwd_tc_kernel (bf16 in, Cin % 16 == 0, Cout % 16 == 0, Cout <=
@@ -25,7 +35,8 @@
 //   strict fp32): fp32 FMA from shared memory (section "SIMT K1" below). A
 //   block owns a run of 16-pixel row segments for 16 output channels, with
 //   its weights and the segment's 3-row halo staged in shared memory, zeros
-//   for SAME written at staging; ops/conv3x3.py::simt_plan sizes the runs
+//   for SAME (or the halo operand's rows) written at staging;
+//   ops/conv3x3.py::simt_plan sizes the runs
 //   so that every SM gets about two blocks. On an H100 80GB HBM3 (700 W)
 //   about 8 us a call at the recipe's fp32 (4, 16, 16, 64) -> 64 against
 //   cuDNN's fp32 24 (ode_rl_torch/simt_conv_times.py).
@@ -162,7 +173,8 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
 //   channel tile, [tap][cc4][16], and the 3 x 18 halo of each segment,
 //   [segment][dy][col][ci] with a pixel stride of round8(cc) + 4 floats,
 //   the SAME zeros and the channels from cc up to cc4 = round4(cc) written
-//   as zeros at staging: the products test no bounds. With one chunk (Cin
+//   as zeros at staging (rows -1 and H from the halo operand where there
+//   is one): the products test no bounds. With one chunk (Cin
 //   <= 64) the weights are staged once for the whole run. Each halo pixel's
 //   place in the input is worked out once a row group into a table in
 //   shared memory, and a thread copies a fixed channel (or quad) of
@@ -222,9 +234,11 @@ constexpr int simt_smem_bytes(int cc, int sr) {
 
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kSimtThreads)
-    conv3x3_fwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            T* __restrict__ out, int B, int H, int W,
-                            int Cin, int Cout, int rows_per_block) {
+    conv3x3_fwd_simt_kernel(const T* __restrict__ x,
+                            const T* __restrict__ halo,
+                            const T* __restrict__ w, T* __restrict__ out,
+                            int B, int H, int W, int Cin, int Cout,
+                            int rows_per_block) {
   extern __shared__ __align__(16) float simt_smem[];
   const int sk = simt_split(Cin);
   const int sr = kSimtGroups / sk;
@@ -258,8 +272,10 @@ __global__ void __launch_bounds__(kSimtThreads)
 
   for (int rg = g_begin; rg < g_end; ++rg) {
     // Halo pixel p = r * 54 + dy * 18 + col of segment r of the row group:
-    // its pixel index (b * H + yy) * W + xx in the input, or -1 outside
-    // the image. The first barrier of the chunk loop publishes the table.
+    // its pixel index (b * H + yy) * W + xx in the input; rows -1 and H,
+    // with a halo operand, -2 - its pixel index (b * 2 + i) * W + xx in
+    // the halo (i = 0 above, 1 below); -1 where it is zero padding. The
+    // first barrier of the chunk loop publishes the table.
     for (int p = tid; p < halo_px; p += kSimtThreads) {
       const int r = p / kSimtHaloPx;
       const int dy = (p - r * kSimtHaloPx) / kSimtHaloW;
@@ -268,10 +284,15 @@ __global__ void __launch_bounds__(kSimtThreads)
       seg_origin(rg * sr + r, row, x0);
       const int yy = row % H + dy - 1;
       const int xx = x0 + col - 1;
-      px_tab[p] = rg * sr + r < segments && yy >= 0 && yy < H && xx >= 0 &&
-                          xx < W
-                      ? (row + dy - 1) * W + xx
-                      : -1;
+      int pix = -1;
+      if (rg * sr + r < segments && xx >= 0 && xx < W) {
+        if (yy >= 0 && yy < H) {
+          pix = (row + dy - 1) * W + xx;
+        } else if (halo != nullptr) {
+          pix = -2 - ((row / H * 2 + (yy == H)) * W + xx);
+        }
+      }
+      px_tab[p] = pix;
     }
     float acc[4][4];
 #pragma unroll
@@ -338,8 +359,10 @@ __global__ void __launch_bounds__(kSimtThreads)
         const int first = tid < ppass * upp ? tid / upp : halo_px;
         auto h_at = [&](int p, bool& ok) {
           const int pix = px_tab[p];
-          ok = pix >= 0 && ci < cc;
-          return x + (long long)pix * Cin + c0 + ci;
+          ok = pix != -1 && ci < cc;
+          return (pix >= 0 ? x + (long long)pix * Cin
+                           : halo + (long long)(-2 - pix) * Cin) +
+                 c0 + ci;
         };
         if constexpr (kMode == kAsync) {
           for (int p = first; p < halo_px; p += ppass) {
@@ -443,7 +466,8 @@ __global__ void __launch_bounds__(kSimtThreads)
 // * Pixels go in stages of 32: each block loads its 32 shifted input rows
 //   x 64 k and 32 cotangent rows x 64 channels once into registers (16-byte
 //   loads where Cin and Cout are multiples of 4 and the pointers aligned),
-//   with SAME zeros, and stores them to shared memory while the next stage
+//   with SAME zeros (rows -1 and H from the halo operand where there is
+//   one), and stores them to shared memory while the next stage
 //   loads; one barrier a stage. A thread's staging column is fixed, so its
 //   tap and channel are worked out once; a pixel's (b, y, x) once a stage.
 // * 256 threads, each a 4 x 4 register tile of the partial, over the
@@ -462,6 +486,7 @@ constexpr int kWsLd = kWsTile + 4;
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWsThreads)
     conv3x3_wgrad_simt_kernel(const T* __restrict__ x,
+                              const T* __restrict__ halo,
                               const T* __restrict__ g,
                               float* __restrict__ part, int B, int H, int W,
                               int Cin, int Cout, long long px_per_split) {
@@ -508,8 +533,14 @@ __global__ void __launch_bounds__(kWsThreads)
       const int r = m - bb * HW;
       const int ys = r / W + dy;
       const int xs = r % W + dx;
-      if (k_ok && ys >= 0 && ys < H && xs >= 0 && xs < W) {
-        const T* src = x + (((long long)bb * H + ys) * W + xs) * Cin + ci;
+      // Rows -1 and H from the halo operand (rows 0 and 1 of its image),
+      // where there is one; else zeros.
+      const bool in_x = ys >= 0 && ys < H;
+      if (k_ok && xs >= 0 && xs < W && (in_x || halo != nullptr)) {
+        const T* src =
+            in_x ? x + (((long long)bb * H + ys) * W + xs) * Cin + ci
+                 : halo + (((long long)bb * 2 + (ys == H)) * W + xs) * Cin +
+                       ci;
         if constexpr (kVec) {
           const float4 v = load4(src);
           ra[j][0] = v.x;
@@ -646,6 +677,15 @@ __global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
 //   of CW = 64, 32 or 16 (swizzle 128, 64 or 32 bytes: one pixel of a chunk
 //   is one swizzle row). Two halo stages, one mbarrier each: the load of
 //   the next tile runs under the products of this one.
+// * With a halo operand the 10 rows come in boxes that never overlap
+//   (load_rows_with_halo): row -1 from the halo's row 0 (or x's row y0-1),
+//   rows y0 .. y0+7 as one 8-row box, row y0+8 from x or, where it is row
+//   H, the halo's row 1; a ragged last tile row by row (row H from the
+//   halo, the rows past it zeros beyond the tensor). One box's zero fill
+//   would race another's data in the same bytes. The boxes after the
+//   first land 128-byte but not 1 KB aligned; TMA swizzles the absolute
+//   address, as the descriptors read it (below). Rows of 16-channel
+//   chunks are padded to 128 bytes (TcPlan::pitch) and come row by row.
 // * Implicit im2col in the operand descriptor. The 64 pixels of a block
 //   are the M rows of a wgmma, 8 image rows of 8. For tap (dy, dx) the 8
 //   pixels of one image row are 8 consecutive halo pixels, that is 8
@@ -704,6 +744,7 @@ struct TcPlan {
   int tw, halo_w, halo_h;
   int cw;              // channels per halo chunk (64, 32 or 16)
   int n_chunks;        // Cin / cw
+  int pitch;           // bytes from one halo row of a chunk to the next
   int chunk_bytes;     // one chunk of one stage, 1 KB aligned
   int stage_bytes;     // n_chunks * chunk_bytes
   int nt;              // output channels per wgmma (64 or 16)
@@ -714,15 +755,22 @@ struct TcPlan {
   int smem_bytes;      // weights + 2 stages + 2 staging + 1 KB to align
 };
 
-// out_size: bytes of an output element, 2 (bf16) or 4 (fp32).
-TcPlan tc_plan(int Cin, int Cout, int tw, int out_size) {
+// out_size: bytes of an output element, 2 (bf16) or 4 (fp32). With a
+// halo operand the stage's rows come in separate TMA boxes, each of which
+// must land 128-byte aligned: rows of 16-channel chunks (an odd number of
+// 64-byte halves) are padded to the next 128 bytes. The rule's mirror
+// (ops/conv3x3.py::_tc_smem_bytes) does not count that padding; the
+// launcher refuses a halo plan that does not fit.
+TcPlan tc_plan(int Cin, int Cout, int tw, int out_size, bool halo) {
   TcPlan p;
   p.tw = tw;
   p.halo_w = tw + 2;
   p.halo_h = kTcTileRows + 2;
   p.cw = Cin % 64 == 0 ? 64 : (Cin % 32 == 0 ? 32 : 16);
   p.n_chunks = Cin / p.cw;
-  p.chunk_bytes = round1k(p.halo_h * p.halo_w * p.cw * 2);
+  p.pitch = p.halo_w * p.cw * 2;
+  if (halo) p.pitch = (p.pitch + 127) / 128 * 128;
+  p.chunk_bytes = round1k(p.halo_h * p.pitch);
   p.stage_bytes = p.n_chunks * p.chunk_bytes;
   p.nt = Cout % 64 == 0 ? 64 : 16;
   p.w_region_bytes = round1k(9 * Cin * p.nt * 2);
@@ -766,6 +814,45 @@ __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
 // The TMA stores this thread issued have read their shared memory.
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// The 10 input rows y0 - 1 .. y0 + 8 of a tile of a map with a halo
+// operand (a 'space' rank's rows), into one stage chunk of 10 rows
+// `pitch` bytes apart at dst, channels from c, pixels from xs, image b.
+// Row -1 comes from the halo's row 0 and row H from its row 1; rows of x
+// from x8 (a box of 8 rows, where the rows are `dense`: pitch is the
+// box's row) or x1 (one row), and rows past H + 1 from x1 beyond the
+// tensor, so zeros. Every stage row is written by exactly one box (two
+// boxes writing one row would race: a box's zero fill too), and the boxes
+// land 10 rows of bytes, as the one 10-row box without a halo.
+__device__ __forceinline__ void load_rows_with_halo(
+    uint32_t dst, const CUtensorMap* x8, const CUtensorMap* x1,
+    const CUtensorMap* hm, uint32_t bar, int pitch, bool dense, int c,
+    int xs, int y0, int b, int H) {
+  if (y0 == 0) {
+    tma_load_4d(dst, hm, bar, c, xs, 0, b);
+  } else {
+    tma_load_4d(dst, x1, bar, c, xs, y0 - 1, b);
+  }
+  if (dense && y0 + kTcTileRows <= H) {
+    tma_load_4d(dst + pitch, x8, bar, c, xs, y0, b);
+    const uint32_t last = dst + (kTcTileRows + 1) * pitch;
+    if (y0 + kTcTileRows == H) {
+      tma_load_4d(last, hm, bar, c, xs, 1, b);
+    } else {
+      tma_load_4d(last, x1, bar, c, xs, y0 + kTcTileRows, b);
+    }
+    return;
+  }
+  // A ragged last tile, or padded rows: row by row.
+  for (int r = 1; r < kTcTileRows + 2; ++r) {
+    const int y = y0 - 1 + r;
+    if (y == H) {
+      tma_load_4d(dst + r * pitch, hm, bar, c, xs, 1, b);
+    } else {
+      tma_load_4d(dst + r * pitch, x1, bar, c, xs, y, b);
+    }
+  }
 }
 
 template <int NT>
@@ -834,9 +921,12 @@ __device__ __forceinline__ void block_products(float (&acc)[NT / 2],
 template <int NT, int KS, typename OutT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv3x3_fwd_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap x1_map,
+                          const __grid_constant__ CUtensorMap h_map,
                           const __grid_constant__ CUtensorMap w_map,
                           const __grid_constant__ CUtensorMap out_map, int B,
-                          int H, int W, int Cin, int Cout, TcPlan p) {
+                          int H, int W, int Cin, int Cout, TcPlan p,
+                          bool has_halo) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];  // weights, halo stage 0, 1
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -866,8 +956,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const uint32_t dst = halo_base + stage * p.stage_bytes;
     mbar_expect_tx(bar, halo_tx);
     for (int c = 0; c < p.n_chunks; ++c) {
-      tma_load_4d(dst + c * p.chunk_bytes, &x_map, bar, c * p.cw, x0 - 1,
-                  y0 - 1, b);
+      if (has_halo) {
+        load_rows_with_halo(dst + c * p.chunk_bytes, &x_map, &x1_map, &h_map,
+                            bar, p.pitch, p.pitch == p.halo_w * cwb,
+                            c * p.cw, x0 - 1, y0, b, H);
+      } else {
+        tma_load_4d(dst + c * p.chunk_bytes, &x_map, bar, c * p.cw, x0 - 1,
+                    y0 - 1, b);
+      }
     }
   };
 
@@ -900,7 +996,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int g = lane / 4;
   const int t4 = lane % 4;
   const uint32_t out_stage = out_base + wg * p.out_bytes;
-  const uint32_t row_step = (p.halo_w * cwb) >> 4;
+  const uint32_t row_step = p.pitch >> 4;
   const uint32_t col_step = cwb >> 4;
   const uint64_t a_layout = p.cw == 64 ? 1 : (p.cw == 32 ? 2 : 3);
 
@@ -1073,7 +1169,8 @@ CUresult encode_nhwc(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 // * The halo (10 x (TW+2) x 64) and the g tile (8 x TW x NT) come by 4-D
 //   TMA into 2-kWgMaxStages stages (the wrapper's plan says how many); the
 //   box elements outside the image are zeros, so SAME padding and ragged
-//   tiles (g = 0 there) need no branch. A tile's TW/2 wgmmas go out back
+//   tiles (g = 0 there) need no branch. With a halo operand the halo's
+//   rows come as in K1 (load_rows_with_halo); g keeps its own rows. A tile's TW/2 wgmmas go out back
 //   to back in one commit group (unrolled by TW), and the next tile's group
 //   goes out before this one is waited for.
 // * Reduction across blocks, in the same launch, deterministic. The launch
@@ -1185,11 +1282,13 @@ __device__ __forceinline__ float4 sum_splits(const float4* __restrict__ src,
 template <int TW, int NT>
 __global__ void __launch_bounds__(kWgThreads, 1)
     conv3x3_wgrad_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                            const __grid_constant__ CUtensorMap x1_map,
+                            const __grid_constant__ CUtensorMap h_map,
                             const __grid_constant__ CUtensorMap g_map,
                             float* __restrict__ scratch,
                             float* __restrict__ dw, int B, int H, int W,
                             int Cin, int Cout, int splits,
-                            int tiles_per_split, WgPlan p) {
+                            int tiles_per_split, WgPlan p, bool has_halo) {
   // 16-byte units of a partial row (64 x NT fp32 per tap, 3 taps), of a
   // channel pair's 9 taps, and of one dW row segment of NT channels.
   constexpr int kRowUnits = wg_row_units(NT);
@@ -1226,7 +1325,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t bar = smem_u32(&bars[stage]);
     const uint32_t dst = base + stage * p.stage_bytes;
     mbar_expect_tx(bar, stage_tx);
-    tma_load_4d(dst, &x_map, bar, mb * 64, x0 - 1, y0 - 1, b);
+    if (has_halo) {
+      load_rows_with_halo(dst, &x_map, &x1_map, &h_map, bar, p.halo_w * 128,
+                          true, mb * 64, x0 - 1, y0, b, H);
+    } else {
+      tma_load_4d(dst, &x_map, bar, mb * 64, x0 - 1, y0 - 1, b);
+    }
     tma_load_4d(dst + p.halo_bytes, &g_map, bar, nb * NT, x0, y0, b);
   };
 
@@ -1354,8 +1458,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-using TcKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, int, int,
-                          int, int, int, TcPlan);
+using TcKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                          CUtensorMap, int, int, int, int, int, TcPlan, bool);
 
 template <int NT, typename OutT>
 TcKernel tc_kernel(int Cin) {
@@ -1380,25 +1484,46 @@ int sm_count() {
   return count;
 }
 
+// The input's tensor maps, boxes of `cw` channels by `halo_w` pixels: x
+// (B, H, W, C) in boxes of 10 rows (x8_map) without a halo operand; with
+// one, x in boxes of 8 rows (x8_map) and of one (x1_map), and the halo
+// (B, 2, W, C) in boxes of one row (h_map). Without a halo the last two
+// are copies of the first, unread.
+CUresult encode_input(EncodeTiled encode, CUtensorMap* x8_map,
+                      CUtensorMap* x1_map, CUtensorMap* h_map, const void* x,
+                      const void* halo, int B, int H, int W, int C, int cw,
+                      int halo_w) {
+  CUresult res = encode_nhwc(encode, x8_map, x, B, H, W, C, cw, halo_w,
+                             halo == nullptr ? kTcTileRows + 2 : kTcTileRows);
+  if (res != CUDA_SUCCESS || halo == nullptr) {
+    *x1_map = *h_map = *x8_map;
+    return res;
+  }
+  res = encode_nhwc(encode, x1_map, x, B, H, W, C, cw, halo_w, 1);
+  if (res != CUDA_SUCCESS) return res;
+  return encode_nhwc(encode, h_map, halo, B, 2, W, C, cw, halo_w, 1);
+}
+
 // out_size: 2 for a bf16 output, 4 for fp32 (the sums unrounded).
-int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
-                  int W, int Cin, int Cout, int tw, int out_size,
-                  cudaStream_t stream) {
+int launch_fwd_tc(const void* x, const void* halo, const void* w, void* out,
+                  int B, int H, int W, int Cin, int Cout, int tw,
+                  int out_size, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(halo) |
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   if (!aligned || Cin % 16 || Cout % 16 || Cout > 256 ||
       (tw != 8 && tw != 16 && tw != 32)) {
     return (int)cudaErrorInvalidValue;
   }
-  const TcPlan p = tc_plan(Cin, Cout, tw, out_size);
+  const TcPlan p = tc_plan(Cin, Cout, tw, out_size, halo != nullptr);
   if (p.smem_bytes > kTcMaxSmem) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTcMapError;
 
-  CUtensorMap x_map, w_map, out_map;
-  CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, p.cw,
-                             p.halo_w, p.halo_h);
+  CUtensorMap x_map, x1_map, h_map, w_map, out_map;
+  CUresult res = encode_input(encode, &x_map, &x1_map, &h_map, x, halo, B, H,
+                              W, Cin, p.cw, p.halo_w);
   if (res == CUDA_SUCCESS) {
     res = encode_nhwc(encode, &out_map, out, B, H, W, Cout, p.ob, 8, 8,
                       out_size);
@@ -1429,12 +1554,14 @@ int launch_fwd_tc(const void* x, const void* w, void* out, int B, int H,
       allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<grid, kTcThreads, p.smem_bytes, stream>>>(
-      x_map, w_map, out_map, B, H, W, Cin, Cout, p);
+      x_map, x1_map, h_map, w_map, out_map, B, H, W, Cin, Cout, p,
+      halo != nullptr);
   return 0;
 }
 
-using WgKernel = void (*)(CUtensorMap, CUtensorMap, float*, float*, int, int,
-                          int, int, int, int, int, WgPlan);
+using WgKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                          float*, float*, int, int, int, int, int, int, int,
+                          WgPlan, bool);
 
 template <int NT>
 WgKernel wg_kernel(int tw) {
@@ -1443,11 +1570,12 @@ WgKernel wg_kernel(int tw) {
                     : conv3x3_wgrad_tc_kernel<32, NT>;
 }
 
-int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
-                    int B, int H, int W, int Cin, int Cout, int tw,
-                    int splits, int tiles_per_split, int stages,
-                    cudaStream_t stream) {
+int launch_wgrad_tc(const void* x, const void* halo, const void* g,
+                    float* scratch, float* dw, int B, int H, int W, int Cin,
+                    int Cout, int tw, int splits, int tiles_per_split,
+                    int stages, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(halo) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(scratch) |
                          reinterpret_cast<uintptr_t>(dw)) & 15) == 0;
@@ -1464,9 +1592,9 @@ int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
   if (p.stages == 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTcMapError;
-  CUtensorMap x_map, g_map;
-  CUresult res = encode_nhwc(encode, &x_map, x, B, H, W, Cin, 64, p.halo_w,
-                             p.halo_h);
+  CUtensorMap x_map, x1_map, h_map, g_map;
+  CUresult res = encode_input(encode, &x_map, &x1_map, &h_map, x, halo, B, H,
+                              W, Cin, 64, p.halo_w);
   if (res == CUDA_SUCCESS) {
     res = encode_nhwc(encode, &g_map, g, B, H, W, Cout, nt, tw, kTcTileRows);
   }
@@ -1478,8 +1606,10 @@ int launch_wgrad_tc(const void* x, const void* g, float* scratch, float* dw,
   if (attr != cudaSuccess) return (int)attr;
   // Cooperative: the launch fails rather than run blocks that could not
   // all be resident, which the grid sync needs.
-  void* args[] = {&x_map, &g_map, &scratch, &dw, &B, &H, &W, &Cin, &Cout,
-                  &splits, &tiles_per_split, const_cast<WgPlan*>(&p)};
+  bool has_halo = halo != nullptr;
+  void* args[] = {&x_map, &x1_map, &h_map, &g_map, &scratch, &dw, &B, &H,
+                  &W, &Cin, &Cout, &splits, &tiles_per_split,
+                  const_cast<WgPlan*>(&p), &has_halo};
   return (int)cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kWgThreads),
       args, p.smem_bytes, stream);
@@ -1491,14 +1621,19 @@ unsigned int ceil_div(long long a, long long b) {
 
 }  // namespace
 
-// K1, SIMT: x (B,H,W,Cin), w (9*Cin, Cout), out (B,H,W,Cout); one dtype.
+// K1, SIMT: x (B,H,W,Cin), halo (B,2,W,Cin) or null, w (9*Cin, Cout), out
+// (B,H,W,Cout); one dtype; the halo 16-byte aligned.
 // A block takes rows_per_block row segments (16 pixels) of one tile of 16
 // output channels (ops/conv3x3.py::simt_plan). Returns
-// cudaErrorInvalidValue for rows_per_block < 1, else the launch's error.
-extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
-                                int B, int H, int W, int Cin, int Cout,
-                                int rows_per_block, int dtype, void* stream) {
-  if (rows_per_block < 1) return (int)cudaErrorInvalidValue;
+// cudaErrorInvalidValue for rows_per_block < 1 or a misaligned halo, else
+// the launch's error.
+extern "C" int odek_conv3x3_fwd(const void* x, const void* halo,
+                                const void* w, void* out, int B, int H,
+                                int W, int Cin, int Cout, int rows_per_block,
+                                int dtype, void* stream) {
+  if (rows_per_block < 1 || reinterpret_cast<uintptr_t>(halo) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long segments =
       (long long)B * H * ((W + kSimtTileW - 1) / kSimtTileW);
   const long long row_groups =
@@ -1514,7 +1649,7 @@ extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
     // 16-byte cp.async (fp32) or 8-byte loads (bf16) of channel quads
     // where channels come in fours and the pointers are aligned.
     const bool quads = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
-                       aligned4<T>(w);
+                       aligned4<T>(w);  // the halo is 16-byte aligned
     auto kernel = conv3x3_fwd_simt_kernel<T, kElem>;
     if constexpr (std::is_same_v<T, float>) {
       if (quads) kernel = conv3x3_fwd_simt_kernel<T, kAsync>;
@@ -1526,49 +1661,53 @@ extern "C" int odek_conv3x3_fwd(const void* x, const void* w, void* out,
         allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
     if (attr != cudaSuccess) return (int)attr;
     kernel<<<(unsigned int)blocks, kSimtThreads, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<T*>(out), B, H, W, Cin, Cout, rows_per_block);
+        static_cast<const T*>(x), static_cast<const T*>(halo),
+        static_cast<const T*>(w), static_cast<T*>(out), B, H, W, Cin, Cout,
+        rows_per_block);
     return 0;
   });
 }
 
-// K1, tensor cores: as odek_conv3x3_fwd for bf16 x and w with Cin % 16
-// == 0, Cout % 16 == 0, Cout <= 256, 16-byte aligned pointers and output
+// K1, tensor cores: as odek_conv3x3_fwd (the halo too) for bf16 x and w
+// with Cin % 16 == 0, Cout % 16 == 0, Cout <= 256, 16-byte aligned
+// pointers and output
 // tiles 8 rows high and tile_w (8, 16 or 32) wide; out is bf16
 // (out_dtype 1, rounded once) or fp32 (out_dtype 0, the fp32 sums).
 // Returns cudaErrorInvalidValue for arguments outside that, 10000 + the
 // CUresult if a tensor map is refused, else cudaGetLastError().
-extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* w, void* out,
-                                   int B, int H, int W, int Cin, int Cout,
-                                   int tile_w, int dtype, int out_dtype,
-                                   void* stream) {
+extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* halo,
+                                   const void* w, void* out, int B, int H,
+                                   int W, int Cin, int Cout, int tile_w,
+                                   int dtype, int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
   const int out_size = out_dtype == 0 ? 4 : 2;
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
-      return launch_fwd_tc(x, w, out, B, H, W, Cin, Cout, tile_w, out_size,
-                           st);
+      return launch_fwd_tc(x, halo, w, out, B, H, W, Cin, Cout, tile_w,
+                           out_size, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
   });
 }
 
-// K2, SIMT: x (B,H,W,Cin), g (B,H,W,Cout) of one dtype; dw (9*Cin, Cout)
+// K2, SIMT: x (B,H,W,Cin), halo (B,2,W,Cin) or null (16-byte aligned), g
+// (B,H,W,Cout) of one dtype; dw (9*Cin, Cout)
 // fp32. Pixels [s*px_per_split, (s+1)*px_per_split) of the B*H*W go to
 // split s (ops/conv3x3.py::wgrad_simt_plan): px_per_split a multiple of
 // 32, every split non-empty, together covering every pixel. With splits >
 // 1 the partials go to scratch (splits, 9*Cin, Cout) fp32 and a second
 // launch sums them in order; with one split scratch is unused. Returns
 // cudaErrorInvalidValue for a plan outside that, else the launches' error.
-extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
-                                  void* dw, int B, int H, int W, int Cin,
-                                  int Cout, int splits,
-                                  long long px_per_split, int dtype,
-                                  void* stream) {
+extern "C" int odek_conv3x3_wgrad(const void* x, const void* halo,
+                                  const void* g, void* scratch, void* dw,
+                                  int B, int H, int W, int Cin, int Cout,
+                                  int splits, long long px_per_split,
+                                  int dtype, void* stream) {
   const long long M = (long long)B * H * W;
-  if (M > 0x7fffffffLL || splits < 1 || splits > 65535 ||
+  if (M > 0x7fffffffLL || reinterpret_cast<uintptr_t>(halo) % 16 ||
+      splits < 1 || splits > 65535 ||
       px_per_split < 1 || px_per_split % kWsPx ||
       (long long)splits * px_per_split < M ||
       (long long)(splits - 1) * px_per_split >= M ||
@@ -1583,12 +1722,12 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
   return odek::launch_for_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
-                     aligned4<T>(g);
+                     aligned4<T>(g);  // the halo is 16-byte aligned
     const auto kernel = vec ? conv3x3_wgrad_simt_kernel<T, true>
                             : conv3x3_wgrad_simt_kernel<T, false>;
     kernel<<<grid, kWsThreads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), part, B, H, W,
-        Cin, Cout, px_per_split);
+        static_cast<const T*>(x), static_cast<const T*>(halo),
+        static_cast<const T*>(g), part, B, H, W, Cin, Cout, px_per_split);
     if (splits > 1) {
       conv3x3_wgrad_sum_kernel<<<ceil_div(ceil_div(size, 4), 256), 256, 0,
                                  st>>>(part, static_cast<float*>(dw), splits,
@@ -1597,7 +1736,8 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
   });
 }
 
-// K2, tensor cores: as odek_conv3x3_wgrad for bf16 with Cin % 64 == 0,
+// K2, tensor cores: as odek_conv3x3_wgrad (the halo too) for bf16 with
+// Cin % 64 == 0,
 // Cout % 32 == 0 (output-channel blocks of NT = 64 where Cout % 64 == 0,
 // else 32), 16-byte aligned pointers, tiles 8 rows high and tile_w (8, 16
 // or 32) wide, `splits` partials of `tiles_per_split` tiles each
@@ -1606,15 +1746,16 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* g, void* scratch,
 // to 6 that fit). One cooperative launch. Returns cudaErrorInvalidValue
 // for arguments outside that, 10000 + the CUresult if a tensor map is
 // refused, else the launch's error.
-extern "C" int odek_conv3x3_wgrad_tc(const void* x, const void* g,
-                                     void* scratch, void* dw, int B, int H,
-                                     int W, int Cin, int Cout, int tile_w,
-                                     int splits, int tiles_per_split,
-                                     int stages, int dtype, void* stream) {
+extern "C" int odek_conv3x3_wgrad_tc(const void* x, const void* halo,
+                                     const void* g, void* scratch, void* dw,
+                                     int B, int H, int W, int Cin, int Cout,
+                                     int tile_w, int splits,
+                                     int tiles_per_split, int stages,
+                                     int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
-      return launch_wgrad_tc(x, g, static_cast<float*>(scratch),
+      return launch_wgrad_tc(x, halo, g, static_cast<float*>(scratch),
                              static_cast<float*>(dw), B, H, W, Cin, Cout,
                              tile_w, splits, tiles_per_split, stages, st);
     } else {

@@ -19,8 +19,8 @@ Inside a mesh the layers take their share of the step (parallel/):
 * under a ``'space'`` axis every map holds this rank's rows: a conv
   takes the rows its kernel reaches across the cut from its neighbours
   (``parallel.sp.halo_rows``) and runs unpadded along H; ``Conv3x3``
-  runs K1/K2 on the tile with one halo row each side and drops the
-  tile's first and last output rows.
+  runs K1/K2 on the rank's own rows with the row across each cut as
+  their halo operand (``parallel.sp.space_conv3x3``).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ode_rl_torch.ops.conv3x3 import conv3x3_same
-from ode_rl_torch.parallel.sp import (conv_halo, halo_rows, space_mesh,
-                                      transposed_halo)
+from ode_rl_torch.parallel.sp import (conv_halo, halo_rows, space_conv3x3,
+                                      space_mesh, transposed_halo)
 from ode_rl_torch.parallel.tp import (column_conv3x3, column_parallel,
                                       is_sharded, model_mesh)
 
@@ -207,20 +207,17 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
+        x = x.to(self.dtype).contiguous()
+        kernel = self.kernel.to(self.dtype)
+        cin, cout = kernel.shape[2], kernel.shape[3]
         mesh = space_mesh()
         if mesh is not None:
-            x = halo_rows(x, 1, 1, mesh)
-        x = x.contiguous()
-        kernel = self.kernel.to(self.dtype)
-        if is_sharded(self, "kernel"):
-            cin, cout = kernel.shape[2], kernel.shape[3]
+            y = space_conv3x3(x, kernel.reshape(9 * cin, cout), mesh)
+        elif is_sharded(self, "kernel"):
             y = column_conv3x3(x, kernel.reshape(9 * cin, cout),
                                model_mesh("a Conv3x3"))
         else:
             y = conv3x3_same(x, kernel)
-        if mesh is not None:
-            y = y[:, 1:-1]
         return y + self.bias.to(self.dtype)
 
 

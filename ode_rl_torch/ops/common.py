@@ -26,8 +26,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launches per kernel wrapper. A wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that the main path went
 # through every kernel. "conv3x3_fwd" counts every K1 launch,
-# "conv3x3_fwd_tc" those of its tensor-core kernel and "conv3x3_fwd_simt"
-# those of its SIMT kernel; likewise K2.
+# "conv3x3_fwd_tc" those of its tensor-core kernel, "conv3x3_fwd_simt"
+# those of its SIMT kernel and "conv3x3_fwd_halo" those (of either) with a
+# halo operand (a 'space' rank's rows); likewise K2.
 # "gru_gates" counts every K3 launch, "gru_gates_sample" those of its
 # one-sample kernel and "gru_gates_2pass" those of its two-pass kernel;
 # likewise K4; "gru_gates_mom" and "gru_blend_mom" count the moments-in
@@ -38,8 +39,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # likewise K6 and K7 ("correlation_bwd_f1_pairs",
 # "correlation_bwd_f2_pairs").
 launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
-            "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
-            "conv3x3_wgrad_simt": 0, "gru_gates": 0, "gru_gates_sample": 0,
+            "conv3x3_fwd_halo": 0, "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
+            "conv3x3_wgrad_simt": 0, "conv3x3_wgrad_halo": 0,
+            "gru_gates": 0, "gru_gates_sample": 0,
             "gru_gates_2pass": 0, "gru_blend": 0, "gru_blend_sample": 0,
             "gru_blend_2pass": 0, "gru_gates_mom": 0, "gru_blend_mom": 0,
             "gru_moments": 0, "correlation_fwd": 0,
@@ -54,9 +56,14 @@ launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
 _plain_forced = False
 
 
+# The H of the maps of the K1/K2 launches with a halo operand.
+halo_heights: set = set()
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    halo_heights.clear()
 
 
 @contextlib.contextmanager

@@ -40,6 +40,14 @@ fp32 call: the port keeps fp32 in strict fp32, off the tensor cores.
 ``Conv3x3Fn`` has the backward of ``_conv3x3_bwd``: dx is K1 on the
 cotangent with spatially flipped, channel-transposed weights, dw is K2
 cast to the weight dtype. The bias is added outside, in the input dtype.
+
+Both take a ``halo`` operand (B, 2, W, Cin) in x's dtype: row 0 the row
+above x's first row, row 1 the row below its last (zeros past the
+frame). The conv is then SAME along W and takes its H neighbours from the
+halo instead of zero padding, and the output has x's H rows: a 'space'
+rank's conv over its own rows (parallel/sp.py), with no concatenated
+copy and no tiles over the neighbours' rows. Every route takes it; the
+rules are those without a halo.
 """
 
 from __future__ import annotations
@@ -60,17 +68,29 @@ def _shape_nhwc(name: str, x: torch.Tensor) -> tuple[int, int, int, int]:
     return tuple(x.shape)
 
 
+def _with_halo(x: torch.Tensor, halo: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """x's rows with the halo's row 0 above and row 1 below (the plain
+    versions' tile); x itself without a halo."""
+    if halo is None:
+        return x
+    return torch.cat([halo[:, :1].to(x.dtype), x, halo[:, 1:].to(x.dtype)],
+                     dim=1)
+
+
 def conv3x3_fwd_plain(x: torch.Tensor, w2d: torch.Tensor,
-                      out_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None,
+                      halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``F.conv2d`` in x's dtype, or of the values in ``out_dtype`` (fp32
-    from bf16: the products are exact in fp32)."""
+    from bf16: the products are exact in fp32); with a ``halo``, of x's
+    rows between the halo's, padded along W only."""
     if out_dtype is not None and out_dtype != x.dtype:
         x = x.to(_out_dtype(x.dtype, out_dtype))
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
     w_oihw = w2d.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
-    out = F.conv2d(x.permute(0, 3, 1, 2), w_oihw.to(x.dtype), padding=1)
+    out = F.conv2d(_with_halo(x, halo).permute(0, 3, 1, 2),
+                   w_oihw.to(x.dtype), padding=1 if halo is None else (0, 1))
     return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -179,93 +199,143 @@ def simt_plan(b: int, h: int, w: int, cin: int, cout: int,
     return rows, tiles * -(-groups // rows)
 
 
-def _check_k1(x: torch.Tensor, w2d: torch.Tensor) -> tuple:
+def _check_k1(x: torch.Tensor, w2d: torch.Tensor,
+              halo: Optional[torch.Tensor] = None) -> tuple:
     b, h, w, cin = _shape_nhwc("conv3x3_fwd", x)
     if w2d.ndim != 2 or w2d.shape[0] != 9 * cin:
         raise ValueError(f"conv3x3_fwd: weights {tuple(w2d.shape)} do not "
                          f"match (9*{cin}, Cout)")
+    _check_halo("conv3x3_fwd", x, halo)
     return b, h, w, cin, w2d.shape[1]
 
 
+def _check_halo(name: str, x: torch.Tensor,
+                halo: Optional[torch.Tensor]) -> None:
+    """A halo is (B, 2, W, Cin) of x's dtype."""
+    if halo is None:
+        return
+    b, _, w, cin = x.shape
+    if tuple(halo.shape) != (b, 2, w, cin):
+        raise ValueError(f"{name}: halo {tuple(halo.shape)} is not "
+                         f"(B, 2, W, Cin) = {(b, 2, w, cin)}")
+    if halo.dtype != x.dtype:
+        raise TypeError(f"{name}: halo is {halo.dtype}, x {x.dtype}")
+
+
+def _inputs(x: torch.Tensor, halo: Optional[torch.Tensor], **more) -> dict:
+    """The tensors a launch reads, for ``common.check_inputs``."""
+    return {"x": x, **({} if halo is None else {"halo": halo}), **more}
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _count_halo(name: str, x: torch.Tensor,
+                halo: Optional[torch.Tensor]) -> None:
+    if halo is not None:
+        common.launches[f"{name}_halo"] += 1
+        common.halo_heights.add(x.shape[1])
+
+
 def conv3x3_fwd(x: torch.Tensor, w2d: torch.Tensor,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: (B, H, W, Cin) . (9*Cin, Cout) -> (B, H, W, Cout) in x's dtype,
     or in fp32 from bf16 inputs (``out_dtype``): the fp32 sums, unrounded.
     bf16 in, fp32 out takes the tensor cores by ``uses_tensor_cores``;
     outside that rule, the fp32 SIMT kernel on the inputs' values in fp32
-    (exact), which sums the same products."""
-    _, _, w, cin, cout = _check_k1(x, w2d)
+    (exact), which sums the same products. ``halo``: the rows above and
+    below x (module docstring)."""
+    _, _, w, cin, cout = _check_k1(x, w2d, halo)
     out_dtype = _out_dtype(x.dtype, out_dtype)
     if not common.use_kernel(x):
-        return conv3x3_fwd_plain(x, w2d, out_dtype)
-    common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
+        return conv3x3_fwd_plain(x, w2d, out_dtype, halo)
+    common.check_inputs("conv3x3_fwd", _inputs(x, halo, w=w2d), x.dtype)
     if uses_tensor_cores(x.dtype, cin, cout, w, out_dtype):
-        return _launch_tc(x, w2d, out_dtype)
+        return _launch_tc(x, w2d, out_dtype, halo)
     if out_dtype != x.dtype:
-        return _launch_simt(x.to(out_dtype), w2d.to(out_dtype))
-    return _launch_simt(x, w2d)
+        return _launch_simt(x.to(out_dtype), w2d.to(out_dtype),
+                            None if halo is None else halo.to(out_dtype))
+    return _launch_simt(x, w2d, halo)
 
 
-def _conv3x3_fwd_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def _conv3x3_fwd_simt(x: torch.Tensor, w2d: torch.Tensor,
+                      halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's SIMT kernel on CUDA tensors, whatever the rule says (the card
     tests and chip_smoke.py hold the two K1 kernels against each other)."""
-    _check_k1(x, w2d)
-    common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
-    return _launch_simt(x, w2d)
+    _check_k1(x, w2d, halo)
+    common.check_inputs("conv3x3_fwd", _inputs(x, halo, w=w2d), x.dtype)
+    return _launch_simt(x, w2d, halo)
 
 
 def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor,
-                    out_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None,
+                    halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's tensor-core kernel on CUDA tensors; raises outside its rule."""
-    _, _, w, cin, cout = _check_k1(x, w2d)
+    _, _, w, cin, cout = _check_k1(x, w2d, halo)
     out_dtype = _out_dtype(x.dtype, out_dtype)
-    common.check_inputs("conv3x3_fwd", {"x": x, "w": w2d}, x.dtype)
+    common.check_inputs("conv3x3_fwd", _inputs(x, halo, w=w2d), x.dtype)
     if not uses_tensor_cores(x.dtype, cin, cout, w, out_dtype):
         raise ValueError(f"conv3x3_fwd: {x.dtype} -> {out_dtype}, Cin {cin}, "
                          f"Cout {cout}, W {w} is outside the tensor-core "
                          "kernel's rule")
-    return _launch_tc(x, w2d, out_dtype)
+    return _launch_tc(x, w2d, out_dtype, halo)
 
 
-def _launch_simt(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+def _check_aligned(name: str, tensors: dict) -> None:
+    """Raises on a pointer that is not 16-byte aligned (TMA's rule, and
+    the halo's on every route): a view into a larger tensor, for example,
+    rather than rerouting it."""
+    for arg, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned "
+                             f"(the kernel reads it so); pass a fresh "
+                             f"tensor")
+
+
+def _launch_simt(x: torch.Tensor, w2d: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_aligned("conv3x3_fwd", {"halo": halo})
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
     rows, _ = simt_plan(b, h, w, cin, cout, _sm_count(x.device))
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     common.launch("conv3x3_fwd_simt", library().odek_conv3x3_fwd,
-                  x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
-                  cout, rows, common.DTYPE_CODES[x.dtype],
+                  x.data_ptr(), _ptr(halo), w2d.data_ptr(), out.data_ptr(),
+                  b, h, w, cin, cout, rows, common.DTYPE_CODES[x.dtype],
                   common.stream_handle(x))
     common.launches["conv3x3_fwd"] += 1
+    _count_halo("conv3x3_fwd", x, halo)
     return out
 
 
-def _launch_tc(x: torch.Tensor, w2d: torch.Tensor,
-               out_dtype: torch.dtype) -> torch.Tensor:
-    """Raises on a pointer that is not 16-byte aligned (TMA's rule): a
-    view into a larger tensor, for example, rather than rerouting it."""
-    for arg, t in (("x", x), ("w", w2d)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"conv3x3_fwd: {arg} is not 16-byte aligned "
-                             f"(TMA needs it); pass a fresh tensor")
+def _launch_tc(x: torch.Tensor, w2d: torch.Tensor, out_dtype: torch.dtype,
+               halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_aligned("conv3x3_fwd", {"x": x, "w": w2d, "halo": halo})
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     common.launch("conv3x3_fwd_tc", library().odek_conv3x3_fwd_tc,
-                  x.data_ptr(), w2d.data_ptr(), out.data_ptr(), b, h, w, cin,
-                  cout, _tc_tile_width(w), common.DTYPE_CODES[x.dtype],
-                  common.DTYPE_CODES[out_dtype], common.stream_handle(x))
+                  x.data_ptr(), _ptr(halo), w2d.data_ptr(), out.data_ptr(),
+                  b, h, w, cin, cout, _tc_tile_width(w),
+                  common.DTYPE_CODES[x.dtype], common.DTYPE_CODES[out_dtype],
+                  common.stream_handle(x))
     common.launches["conv3x3_fwd"] += 1
+    _count_halo("conv3x3_fwd", x, halo)
     return out
 
 
-def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """patches^T . g in fp32 (fp64 for fp64 inputs, a reference)."""
+def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
+                        halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """patches^T . g in fp32 (fp64 for fp64 inputs, a reference); with a
+    ``halo``, the patches of x's rows between the halo's, padded along W
+    only, and g's own rows."""
     b, h, w, cin = x.shape
     cout = g.shape[3]
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    xp = (F.pad(x, (0, 0, 1, 1, 1, 1)) if halo is None
+          else F.pad(_with_halo(x, halo), (0, 0, 1, 1)))
     g2 = g.reshape(b * h * w, cout).to(acc)
     cols = [xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin).to(acc)
             for dy in range(3) for dx in range(3)]
@@ -353,50 +423,53 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_k2(x: torch.Tensor, g: torch.Tensor) -> tuple:
+def _check_k2(x: torch.Tensor, g: torch.Tensor,
+              halo: Optional[torch.Tensor] = None) -> tuple:
     b, h, w, cin = _shape_nhwc("conv3x3_wgrad", x)
     gb, gh, gw, cout = _shape_nhwc("conv3x3_wgrad", g)
     if (gb, gh, gw) != (b, h, w):
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in (B, H, W)")
+    _check_halo("conv3x3_wgrad", x, halo)
     return b, h, w, cin, cout
 
 
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
+                  halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: input (B, H, W, Cin), cotangent (B, H, W, Cout) -> dW
-    (9*Cin, Cout) in fp32."""
-    _, _, w, cin, cout = _check_k2(x, g)
+    (9*Cin, Cout) in fp32. ``halo``: the input's rows above and below x
+    (module docstring); g has x's rows."""
+    _, _, w, cin, cout = _check_k2(x, g, halo)
     if not common.use_kernel(x):
-        return conv3x3_wgrad_plain(x, g)
-    common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
+        return conv3x3_wgrad_plain(x, g, halo)
+    common.check_inputs("conv3x3_wgrad", _inputs(x, halo, g=g), x.dtype)
     if wgrad_uses_tensor_cores(x.dtype, cin, cout, w):
-        return _launch_wgrad_tc(x, g)
-    return _launch_wgrad_simt(x, g)
+        return _launch_wgrad_tc(x, g, halo)
+    return _launch_wgrad_simt(x, g, halo)
 
 
-def _conv3x3_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _conv3x3_wgrad_simt(x: torch.Tensor, g: torch.Tensor,
+                        halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2's SIMT kernel on CUDA tensors, whatever the rule says."""
-    _check_k2(x, g)
-    common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
-    return _launch_wgrad_simt(x, g)
+    _check_k2(x, g, halo)
+    common.check_inputs("conv3x3_wgrad", _inputs(x, halo, g=g), x.dtype)
+    return _launch_wgrad_simt(x, g, halo)
 
 
-def _conv3x3_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _conv3x3_wgrad_tc(x: torch.Tensor, g: torch.Tensor,
+                      halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2's tensor-core kernel on CUDA tensors; raises outside its rule."""
-    _, _, w, cin, cout = _check_k2(x, g)
-    common.check_inputs("conv3x3_wgrad", {"x": x, "g": g}, x.dtype)
+    _, _, w, cin, cout = _check_k2(x, g, halo)
+    common.check_inputs("conv3x3_wgrad", _inputs(x, halo, g=g), x.dtype)
     if not wgrad_uses_tensor_cores(x.dtype, cin, cout, w):
         raise ValueError(f"conv3x3_wgrad: {x.dtype}, Cin {cin}, Cout {cout}, "
                          f"W {w} is outside the tensor-core kernel's rule")
-    return _launch_wgrad_tc(x, g)
+    return _launch_wgrad_tc(x, g, halo)
 
 
-def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Raises on a pointer that is not 16-byte aligned (TMA's rule)."""
-    for arg, t in (("x", x), ("g", g)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"conv3x3_wgrad: {arg} is not 16-byte aligned "
-                             f"(TMA needs it); pass a fresh tensor")
+def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor,
+                     halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_aligned("conv3x3_wgrad", {"x": x, "g": g, "halo": halo})
     b, h, w, cin = x.shape
     cout = g.shape[3]
     tw, splits, per = wgrad_tc_plan(b, h, w, cin, cout, _sm_count(x.device))
@@ -410,14 +483,17 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     # ode_rl_torch.axis_conv_times`` (PERF.md §6): more stages gained
     # nothing, fewer splits lost more than their partials saved.
     common.launch("conv3x3_wgrad_tc", library().odek_conv3x3_wgrad_tc,
-                  x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                  x.data_ptr(), _ptr(halo), g.data_ptr(), scratch.data_ptr(),
                   dw.data_ptr(), b, h, w, cin, cout, tw, splits, per, 0,
                   common.DTYPE_CODES[x.dtype], common.stream_handle(x))
     common.launches["conv3x3_wgrad"] += 1
+    _count_halo("conv3x3_wgrad", x, halo)
     return dw
 
 
-def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor,
+                       halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_aligned("conv3x3_wgrad", {"halo": halo})
     b, h, w, cin = x.shape
     cout = g.shape[3]
     splits, per = wgrad_simt_plan(b, h, w, cin, cout, _sm_count(x.device))
@@ -425,11 +501,11 @@ def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     scratch = (torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     common.launch("conv3x3_wgrad_simt", library().odek_conv3x3_wgrad,
-                  x.data_ptr(), g.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(),
+                  x.data_ptr(), _ptr(halo), g.data_ptr(), _ptr(scratch),
                   dw.data_ptr(), b, h, w, cin, cout, splits, per,
                   common.DTYPE_CODES[x.dtype], common.stream_handle(x))
     common.launches["conv3x3_wgrad"] += 1
+    _count_halo("conv3x3_wgrad", x, halo)
     return dw
 
 

@@ -563,10 +563,12 @@ def _run_family(name: str, given: Optional[Dict], mesh: Mesh,
                    gather_pytree(module, mesh).items()}
              for key, module in fam.modules(state).items()}
     gathered = [None] * mesh.world
-    dist.all_gather_object(gathered, {"digest": _digest(after),
-                                      "launches": dict(common.launches)})
+    dist.all_gather_object(gathered, {
+        "digest": _digest(after), "launches": dict(common.launches),
+        "halo_heights": sorted(common.halo_heights)})
     out["params_equal"] = len({g["digest"] for g in gathered}) == 1
     out["rank_launches"] = [g["launches"] for g in gathered]
+    out["rank_halo_heights"] = [g["halo_heights"] for g in gathered]
     out["step_ms"] = _times(lambda: run(state, rows, mesh), timed_steps,
                             device)
     if profile:
@@ -662,7 +664,8 @@ def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
     """Run ``families`` over ``ranks`` spawned processes; returns, per
     family, the sharded step's metrics (``sharded``), the one-process
     step's (``single``), ``params_equal``, each rank's kernel launches
-    (``rank_launches``), the gradient all-reduce's bytes, the bytes rank
+    (``rank_launches``) and the H of its K1/K2 launches with a halo operand
+    (``rank_halo_heights``), the gradient all-reduce's bytes, the bytes rank
     0 sent into the collectives of its first step by axis
     (``moved_bytes``), the relative L2 of the step's update against the
     one-process step's (``update_rel_l2``) and the timed steps' ms.

@@ -10,6 +10,12 @@ neighbours (``halo_rows``: zeros at the frame's edges, which are the
 convolution's own padding there), then runs on the taller tile with no
 padding along H.
 
+``Conv3x3`` (kernels K1/K2) takes no taller tile: its ``space_conv3x3``
+hands the kernels the rank's own rows and the two rows across the cuts
+as a separate halo operand (``edge_rows``), so their tiles cover the
+rank's rows only, and its backward sums the halo rows' share of dx inside
+K1 (the cotangent's edge rows exchanged the same way).
+
 The rows a convolution reaches follow from its kernel k, stride s and
 padding p along H, on a map whose rows split into equal slices with s
 dividing a slice (the output then splits into equal slices as well):
@@ -47,10 +53,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ode_rl_torch.ops.conv3x3 import (conv3x3_fwd, conv3x3_wgrad,
+                                      flip_transpose)
 from ode_rl_torch.parallel.mesh import SPACE_AXIS, Mesh, _grid, axis_mesh
 
 __all__ = ["SPACE_AXIS", "make_sp_mesh", "shard_batch_sp", "shard_video",
-           "halo_rows", "conv_halo", "transposed_halo", "space_mesh"]
+           "halo_rows", "conv_halo", "transposed_halo", "space_mesh",
+           "edge_rows", "space_conv3x3"]
 
 
 def make_sp_mesh(n_data: Optional[int] = None, n_space: int = 2,
@@ -117,6 +126,33 @@ def transposed_halo(k: int, stride: int, padding: int
     return top, bottom, top * stride + padding
 
 
+def _neighbour_rows(x: torch.Tensor, top: int, bottom: int,
+                    mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The last ``top`` rows (dim 1) of the rank above and the first
+    ``bottom`` of the rank below, zeros past the frame: one all-gather of
+    every rank's edge rows over its ``'space'`` line."""
+    h = x.shape[1]
+    if max(top, bottom) > h:
+        raise ValueError(f"a halo of {top} and {bottom} rows from slices "
+                         f"of {h}")
+    n, s = mesh.size(SPACE_AXIS), mesh.index(SPACE_AXIS)
+    # Each rank sends its first `bottom` rows (the halo of the rank above
+    # it) and its last `top` (of the rank below).
+    edge = torch.cat([x[:, :bottom], x[:, h - top:]], dim=1)
+    parts = mesh.all_gather(edge, 1, SPACE_AXIS).chunk(n, dim=1)
+    zeros = lambda r: x.new_zeros((x.shape[0], r, *x.shape[2:]))
+    above = parts[s - 1][:, bottom:] if s > 0 else zeros(top)
+    below = parts[s + 1][:, :bottom] if s < n - 1 else zeros(bottom)
+    return above, below
+
+
+def edge_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """NHWC ``x``, this rank's rows of a map -> its (B, 2, W, C) halo
+    operand for kernels K1/K2: row 0 the row above x's first, row 1 the
+    row below its last, zeros past the frame."""
+    return torch.cat(_neighbour_rows(x, 1, 1, mesh), dim=1).contiguous()
+
+
 class _Halo(torch.autograd.Function):
     """(N, h, ...) -> (N, top + h + bottom, ...): ``top`` rows of the
     rank above and ``bottom`` of the rank below along dim 1 (zeros past
@@ -126,18 +162,7 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, top, bottom, mesh):
         ctx.top, ctx.bottom, ctx.mesh = top, bottom, mesh
-        h = x.shape[1]
-        if max(top, bottom) > h:
-            raise ValueError(f"a halo of {top} and {bottom} rows from "
-                             f"slices of {h}")
-        n, s = mesh.size(SPACE_AXIS), mesh.index(SPACE_AXIS)
-        # Each rank sends its first `bottom` rows (the halo of the rank
-        # above it) and its last `top` (of the rank below).
-        edge = torch.cat([x[:, :bottom], x[:, h - top:]], dim=1)
-        parts = mesh.all_gather(edge, 1, SPACE_AXIS).chunk(n, dim=1)
-        zeros = lambda r: x.new_zeros((x.shape[0], r, *x.shape[2:]))
-        above = parts[s - 1][:, bottom:] if s > 0 else zeros(top)
-        below = parts[s + 1][:, :bottom] if s < n - 1 else zeros(bottom)
+        above, below = _neighbour_rows(x, top, bottom, mesh)
         return torch.cat([above, x, below], dim=1)
 
     @staticmethod
@@ -170,3 +195,40 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int,
     if top == 0 and bottom == 0:
         return x
     return _Halo.apply(x, top, bottom, mesh)
+
+
+class _SpaceConv3x3Fn(torch.autograd.Function):
+    """K1 on this rank's rows with their halo operand; backward dx = K1 of
+    the cotangent, its own halo exchanged, with flipped weights (the halo
+    rows' share summed in the kernel, rounded once), dw = K2 of this
+    rank's rows and their halo (summed over the ranks with the other
+    gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, w2d, mesh):
+        halo = edge_rows(x, mesh)
+        ctx.save_for_backward(x, halo, w2d)
+        # Autograd runs the backward on its own thread, outside the mesh.
+        ctx.mesh = mesh
+        return conv3x3_fwd(x, w2d, halo=halo)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, halo, w2d = ctx.saved_tensors
+        g = g.contiguous()
+        cin, cout = x.shape[3], w2d.shape[1]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_fwd(g, flip_transpose(w2d, cin, cout),
+                             halo=edge_rows(g, ctx.mesh)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, g, halo=halo).to(w2d.dtype)
+        return dx, dw, None
+
+
+def space_conv3x3(x: torch.Tensor, w2d: torch.Tensor,
+                  mesh: Mesh) -> torch.Tensor:
+    """The 3x3 SAME conv (K1/K2) of this rank's rows ``x`` (NHWC,
+    contiguous) of a height-sharded map with ``w2d`` (9*Cin, Cout): this
+    rank's rows of the whole map's conv, no bias."""
+    return _SpaceConv3x3Fn.apply(x, w2d, mesh)

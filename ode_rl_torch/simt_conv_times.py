@@ -126,7 +126,8 @@ def sweep() -> None:
         for rows in SWEEP_K1_ROWS:
             def call(rows=rows):
                 common.launch("conv3x3_fwd_simt", lib.odek_conv3x3_fwd,
-                              x.data_ptr(), w2d.data_ptr(), out.data_ptr(),
+                              x.data_ptr(), None, w2d.data_ptr(),
+                              out.data_ptr(),
                               b, 16, 16, cin, cout, rows,
                               common.DTYPE_CODES[dtype],
                               common.stream_handle(x))
@@ -144,7 +145,8 @@ def sweep() -> None:
             scratch = torch.empty(splits, 9 * 64, 64, device="cuda")
             def call(splits=splits, per=per, scratch=scratch):
                 common.launch("conv3x3_wgrad_simt", lib.odek_conv3x3_wgrad,
-                              x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                              x.data_ptr(), None, g.data_ptr(),
+                              scratch.data_ptr(),
                               dw.data_ptr(), b, 16, 16, 64, 64, splits, per,
                               common.DTYPE_CODES[torch.float32],
                               common.stream_handle(x))

@@ -475,3 +475,80 @@ def test_simt_k2_split_sum_matches_pallas_wgrad_kernel(shape, sms):
     dw, splits = _k2_simt_order(t32(x), t32(g), sms)
     assert splits > 1
     assert max_abs(dw, ref) <= TOL * max(1.0, float(np.abs(ref).max()))
+
+
+# A 'space' line's K1/K2: a (2, 16, 8, 16) map cut into slices of rows,
+# each with its halo operand (the neighbours' edge rows, zeros at the
+# frame's edges), against the Pallas kernels over the whole map.
+HALO_MAP = (2, 16, 8, 16, 16)
+HALO_TOL = 1e-5
+
+
+def _row_slices(t: torch.Tensor, n: int) -> list:
+    """[(rows, halo)] of ``t`` cut into ``n`` slices along H; halo (B, 2,
+    W, C): the row above the slice and the row below it."""
+    parts = t.chunk(n, dim=1)
+    zero = torch.zeros_like(parts[0][:, :1])
+    return [(p.contiguous(),
+             torch.cat([parts[i - 1][:, -1:] if i > 0 else zero,
+                        parts[i + 1][:, :1] if i < n - 1 else zero], dim=1))
+            for i, p in enumerate(parts)]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_halo_k1_k2_on_slices_match_pallas_whole_map(n):
+    """Each slice's K1 with its halo is its rows of the whole map's conv,
+    K1 on the cotangent's slice with the cotangent's halo its rows of the
+    whole map's dx, and the slices' K2 summed the whole map's dW. fp32,
+    1e-5 max abs, in units of the reference's largest magnitude for dW
+    (sums of 256 products of unit normals, |dW| up to about 50, grouped
+    by slice)."""
+    x, w2d, g = _inputs(HALO_MAP, 6)
+    b, h, w, cin, cout = HALO_MAP
+    y_ref = np.asarray(_pallas_fwd(jnp.asarray(x), jnp.asarray(w2d)))
+    w_t = jnp.flip(jnp.asarray(w2d).reshape(3, 3, cin, cout), axis=(0, 1))
+    dx_ref = np.asarray(_pallas_fwd(
+        jnp.asarray(g), w_t.transpose(0, 1, 3, 2).reshape(9 * cout, cin)))
+    dw_ref = np.asarray(_pallas_wgrad(jnp.asarray(x), jnp.asarray(g)))
+    w_flip = flip_transpose(t32(w2d), cin, cout)
+    dw = torch.zeros(9 * cin, cout)
+    for i, ((xs, xh), (gs, gh)) in enumerate(zip(_row_slices(t32(x), n),
+                                                 _row_slices(t32(g), n))):
+        rows = slice(i * h // n, (i + 1) * h // n)
+        y = conv3x3_fwd(xs, t32(w2d), halo=xh)
+        assert y.shape == (b, h // n, w, cout)
+        assert max_abs(y, y_ref[:, rows]) <= HALO_TOL
+        assert max_abs(conv3x3_fwd(gs, w_flip, halo=gh),
+                       dx_ref[:, rows]) <= HALO_TOL
+        dw = dw + conv3x3_wgrad(xs, gs, halo=xh)
+    assert max_abs(dw, dw_ref) <= HALO_TOL * max(1.0, np.abs(dw_ref).max())
+
+
+def test_halo_of_zeros_is_same_padding():
+    """A halo of zeros is the SAME conv's own padding: the plain versions
+    with and without it agree bit for bit, and so does the fp32-output K1
+    on bf16 inputs."""
+    x, w2d, g = _inputs((2, 5, 7, 16, 24), 7)
+    zeros = torch.zeros(2, 2, 7, 16)
+    assert torch.equal(conv3x3_fwd(t32(x), t32(w2d), halo=zeros),
+                       conv3x3_fwd(t32(x), t32(w2d)))
+    assert torch.equal(conv3x3_wgrad(t32(x), t32(g), halo=zeros),
+                       conv3x3_wgrad(t32(x), t32(g)))
+    xb, wb = t32(x).bfloat16(), t32(w2d).bfloat16()
+    assert torch.equal(
+        conv3x3_fwd(xb, wb, torch.float32, halo=zeros.bfloat16()),
+        conv3x3_fwd(xb, wb, torch.float32))
+
+
+@pytest.mark.parametrize("case", ["rows", "width", "channels", "dtype"])
+def test_halo_of_the_wrong_shape_or_dtype_raises(case):
+    x = torch.zeros(2, 4, 6, 8)
+    halo = {"rows": torch.zeros(2, 3, 6, 8),
+            "width": torch.zeros(2, 2, 5, 8),
+            "channels": torch.zeros(2, 2, 6, 4),
+            "dtype": torch.zeros(2, 2, 6, 8, dtype=torch.float64)}[case]
+    error = TypeError if case == "dtype" else ValueError
+    with pytest.raises(error, match="halo"):
+        conv3x3_fwd(x, torch.zeros(72, 16), halo=halo)
+    with pytest.raises(error, match="halo"):
+        conv3x3_wgrad(x, torch.zeros(2, 4, 6, 16), halo=halo)

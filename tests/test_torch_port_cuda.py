@@ -1,5 +1,7 @@
 """Kernels K1-K8 on the card, at shapes other than the main paths': ragged
-tiles, the tensor-core K1 and K2 against their SIMT twins and cuDNN
+tiles, K1 and K2 with a halo operand on both routes (H 8, 4 and 12, W 8,
+16 and 20, Cout 64 and 32, a 'space' rank at the top, the bottom or
+inside), the tensor-core K1 and K2 against their SIMT twins and cuDNN
 (K2 also at 32 and 96 output channels, K1 also with an fp32 output),
 channel counts that are not multiples of 64, the one-sample K3/K4 against
 the two-pass ones and the plain versions (GroupNorm groups that straddle
@@ -310,6 +312,98 @@ def test_tensor_core_k2_raises_on_a_misaligned_pointer(cuda, arg):
     args = {"x": (_shifted(x), g), "g": (x, _shifted(g))}[arg]
     with pytest.raises(ValueError, match="16-byte aligned"):
         conv3x3_wgrad(*args)
+
+
+# K1 and K2 with a halo operand (a 'space' rank's rows): H 8 (a rank's
+# rows at the flagship), 4 and 12 (a ragged second tile, its row H from
+# the halo), W 8, 16 and 20 (tiles 8, 16 and 32 wide), Cout 64 and 32
+# (K1's 64- and 16-channel column blocks, K2's NT 64 and 32), and a rank
+# at the top (halo row 0 zeros), the bottom (row 1 zeros) or inside.
+HALO_CASES = [(h, w, cout, where) for h in (8, 4, 12) for w in (8, 16, 20)
+              for cout in (64, 32) for where in ("top", "bottom", "interior")]
+# The tensor-core K1 with a halo at halo chunks of 16 channels (rows
+# padded to 128 bytes, loaded row by row; one chunk and three) and of 32
+# (one and three); HALO_CASES take chunks of 64.
+HALO_K1_CIN = [16, 32, 48, 96]
+
+
+def _halo_case(gen, b, h, w, cin, cout, where, dtype):
+    """x, its halo (the rows past the frame zeros), w2d and g."""
+    x = _rnd(gen, b, h, w, cin, dtype=dtype)
+    halo = _rnd(gen, b, 2, w, cin, dtype=dtype)
+    if where == "top":
+        halo[:, 0] = 0
+    elif where == "bottom":
+        halo[:, 1] = 0
+    w2d = _rnd(gen, 9 * cin, cout, dtype=dtype, scale=(9 * cin) ** -0.5)
+    return x, halo, w2d, _rnd(gen, b, h, w, cout, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", HALO_CASES,
+                         ids=lambda c: "h{}-w{}-cout{}-{}".format(*c))
+def test_halo_k1_k2_match_fp64_on_both_routes(cuda, case):
+    """bf16: the tensor-core K1 and K2 (the rule's route) and the SIMT
+    ones with a halo against their plain versions in fp64 (K1 one bf16
+    ulp, at most 2e-3 of the outputs one off; K2 5e-6 relative L2); fp32:
+    the SIMT K1 and K2 (the rule's route) 1e-4 max abs and 1e-5 relative
+    L2 from fp64."""
+    h, w, cout, where = case
+    x, halo, w2d, g = _halo_case(cuda, 2, h, w, 64, cout, where,
+                                 torch.bfloat16)
+    y_ref = conv3x3_fwd_plain(x.double(), w2d.double(), halo=halo.double())
+    dw_ref = conv3x3_wgrad_plain(x.double(), g.double(), halo.double())
+    common.reset_launches()
+    y, dw = conv3x3_fwd(x, w2d, halo=halo), conv3x3_wgrad(x, g, halo=halo)
+    assert y.shape == (2, h, w, cout)
+    assert common.launches["conv3x3_fwd_tc"] == 1
+    assert common.launches["conv3x3_wgrad_tc"] == 1
+    assert common.launches["conv3x3_fwd_halo"] == 1
+    assert common.launches["conv3x3_wgrad_halo"] == 1
+    assert common.halo_heights == {h}
+    for got in (y, _conv3x3_fwd_simt(x, w2d, halo)):
+        ulps, share = common.bf16_ulps(got, y_ref)
+        assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
+    for got in (dw, _conv3x3_wgrad_simt(x, g, halo)):
+        assert _rel_l2(got, dw_ref) <= K2_BF16_REL_L2
+    x, halo, w2d, g = (t.float() for t in (x, halo, w2d, g))
+    common.reset_launches()
+    assert _max_abs(conv3x3_fwd(x, w2d, halo=halo), y_ref) <= 1e-4
+    assert _rel_l2(conv3x3_wgrad(x, g, halo=halo), dw_ref) <= 1e-5
+    assert common.launches["conv3x3_fwd_simt"] == 1
+    assert common.launches["conv3x3_wgrad_simt"] == 1
+
+
+@pytest.mark.parametrize("cin", HALO_K1_CIN)
+def test_tensor_core_k1_with_a_halo_at_each_chunk_width(cuda, cin):
+    """The tensor-core K1 with a halo, forward and as dx (the cotangent's
+    halo, flipped weights), at H 12 and W 20 against fp64."""
+    x, halo, w2d, g = _halo_case(cuda, 2, 12, 20, cin, 32, "interior",
+                                 torch.bfloat16)
+    g_halo = _rnd(cuda, 2, 2, 20, 32, dtype=torch.bfloat16)
+    w_t = flip_transpose(w2d, cin, 32)
+    for a, ah, wt in ((x, halo, w2d), (g, g_halo, w_t)):
+        ref = conv3x3_fwd_plain(a.double(), wt.double(), halo=ah.double())
+        ulps, share = common.bf16_ulps(_conv3x3_fwd_tc(a, wt, halo=ah), ref)
+        assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
+
+
+def test_halo_k1_k2_are_bit_reproducible(cuda):
+    """A 'space' rank's shape at the flagship: 20 calls bit-equal."""
+    x, halo, w2d, g = _halo_case(cuda, 128, 8, 16, 64, 64, "interior",
+                                 torch.bfloat16)
+    y, dw = _conv3x3_fwd_tc(x, w2d, halo=halo), _conv3x3_wgrad_tc(x, g, halo)
+    for _ in range(20):
+        assert torch.equal(y, _conv3x3_fwd_tc(x, w2d, halo=halo))
+        assert torch.equal(dw, _conv3x3_wgrad_tc(x, g, halo))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_halo_misaligned_raises_on_every_route(cuda, dtype):
+    x, halo, w2d, g = _halo_case(cuda, 1, 8, 16, 64, 64, "top", dtype)
+    with pytest.raises(ValueError, match="halo is not 16-byte aligned"):
+        conv3x3_fwd(x, w2d, halo=_shifted(halo))
+    with pytest.raises(ValueError, match="halo is not 16-byte aligned"):
+        conv3x3_wgrad(x, g, halo=_shifted(halo))
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES[:2])

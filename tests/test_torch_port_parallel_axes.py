@@ -2,6 +2,9 @@
 ranks as threads of this process (test_torch_port_parallel.py's
 ThreadGroup), one group a line of each axis of a 2-D grid.
 
+* K1/K2 with halo operands (``space_conv3x3``) on 'space' lines of 2
+  and 4 against JAX's whole-map conv and its VJP, and a spy on the
+  kernels' calls under ``Conv3x3``: a rank's own rows and a halo only.
 * Height-sharded layers (parallel/sp.py) on a 1 x 2 ('data', 'space')
   grid against the unsharded layer, forward and every gradient: the
   3x3 stride-2 padding-1 conv of the encoders, K1's 3x3 SAME
@@ -43,7 +46,9 @@ from ode_rl_torch.ops.gru_gates import fused_gru_blend, fused_gru_gates
 from ode_rl_torch.parallel import (MODEL_AXIS, SPACE_AXIS, Mesh,
                                    gather_pytree, shard_batch_sp,
                                    shard_params_tp, tp_param_spec)
-from ode_rl_torch.parallel.sp import conv_halo, transposed_halo
+from ode_rl_torch.nn import conv_stacks
+from ode_rl_torch.parallel import sp
+from ode_rl_torch.parallel.sp import conv_halo, space_conv3x3, transposed_halo
 from ode_rl_torch.train.step import global_norm, grad_norm
 
 TOL = 1e-5
@@ -189,6 +194,75 @@ def test_height_sharded_layer_matches_unsharded(name):
     assert max_abs(torch.cat([o[1] for o in out], 1), dx_ref) < TOL
     for n, g in grads_ref.items():
         assert max_abs(out[0][2][n] + out[1][2][n], g) < TOL, n
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_space_conv3x3_matches_jax_whole_map(n):
+    """K1/K2 with halo operands (``space_conv3x3``) on a 'space' line of
+    ``n`` thread ranks against JAX's ``conv3x3_same`` over the whole map
+    and its VJP: each rank's rows of the output and of dx, and dW summed
+    over the ranks. fp32, 1e-5 max abs in units of the reference's
+    largest magnitude where that is above 1."""
+    from ode_rl_tpu.ops.conv3x3 import conv3x3_same as jax_conv3x3
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 16, 8, 16).astype(np.float32)
+    kernel = (rng.randn(3, 3, 16, 16) / 12).astype(np.float32)
+    gy = rng.randn(2, 16, 8, 16).astype(np.float32)
+    y_ref, vjp = jax.vjp(jax_conv3x3, jnp.asarray(x), jnp.asarray(kernel))
+    dx_ref, dk_ref = (torch.from_numpy(np.array(t))
+                      for t in vjp(jnp.asarray(gy)))
+    y_ref = torch.from_numpy(np.array(y_ref))
+
+    def rank(mesh):
+        rows = lambda t: torch.from_numpy(t).chunk(n, dim=1)[
+            mesh.index(SPACE_AXIS)].clone()
+        xs = rows(x).requires_grad_(True)
+        w2d = torch.from_numpy(kernel).reshape(144, 16).requires_grad_(True)
+        y = space_conv3x3(xs, w2d, mesh)
+        y.backward(rows(gy))
+        return y.detach(), xs.grad, w2d.grad
+
+    out = on_grid(rank, SPACE_AXIS, n=n)
+    assert max_abs(torch.cat([o[0] for o in out], 1), y_ref) < TOL
+    assert max_abs(torch.cat([o[1] for o in out], 1), dx_ref) < TOL
+    assert max_abs(sum(o[2] for o in out).reshape(3, 3, 16, 16),
+                   dk_ref) < TOL
+
+
+def test_space_k1_k2_take_own_rows_and_a_halo(monkeypatch):
+    """Under a 'space' line of 2, ``Conv3x3`` calls K1 (forward and dx)
+    and K2 only with the rank's own 8 of 16 rows and a (B, 2, W, C) halo,
+    never with the 10-row tile, and nothing else reaches the kernels."""
+    calls, lock = [], threading.Lock()
+
+    def spy(fn, name):
+        def call(x, *args, halo=None, **kw):
+            with lock:
+                calls.append((name, tuple(x.shape),
+                              None if halo is None else tuple(halo.shape)))
+            return fn(x, *args, halo=halo, **kw)
+        return call
+
+    def refuse(*args, **kw):
+        raise AssertionError("a K1/K2 call outside space_conv3x3")
+
+    monkeypatch.setattr(sp, "conv3x3_fwd", spy(sp.conv3x3_fwd, "K1"))
+    monkeypatch.setattr(sp, "conv3x3_wgrad", spy(sp.conv3x3_wgrad, "K2"))
+    monkeypatch.setattr(conv_stacks, "conv3x3_same", refuse)
+    monkeypatch.setattr(conv_stacks, "column_conv3x3", refuse)
+    layer = _layer("k1_conv3x3")
+    x = torch.randn((2, 16, 12, 6), generator=_gen(3))
+
+    def rank(mesh):
+        xs = x.chunk(2, dim=1)[mesh.index(SPACE_AXIS)].clone()
+        xs.requires_grad_(True)
+        copy.deepcopy(layer)(xs).sum().backward()
+
+    on_grid(rank, SPACE_AXIS)
+    assert sorted(calls) == sorted(2 * [
+        ("K1", (2, 8, 12, 6), (2, 2, 12, 6)),
+        ("K1", (2, 8, 12, 8), (2, 2, 12, 8)),
+        ("K2", (2, 8, 12, 6), (2, 2, 12, 6))])
 
 
 TP_LAYERS = ("k1_conv3x3", "conv1x1", "conv5x5", "conv3x3_stride2",
