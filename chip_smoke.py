@@ -294,7 +294,9 @@ without printing its last line:
     Cout 32 K2 and fp32-output dx partials included; under 'space' every
     K1/K2 launch on the rank's own 8 rows with a halo operand, none under
     'model', and every K3/K4 launch a moments-in one, each with its
-    moments pass), the bytes
+    moments pass, every moments-in K3 its vector kernel; every 'model'
+    K1 launch at Cout 32 in one 32-channel column block, and no K1 launch
+    of either axis in 16-channel blocks), the bytes
     each axis moved in a step, and one more step profiled on each rank:
     rank 0's device ms by kernel group and its K1-K8 kernels' µs a launch
     (``phase18_rank0_profiled`` for K1 and K2). Then the dry run's
@@ -305,15 +307,18 @@ without printing its last line:
     shapes read grad_norm 1.1e-4 off the others). Each rank's launches
     (``phase18_launches``) go into the kernels line; the moments-in
     K3/K4 and their moments pass take their launches from the 'space'
-    run's rank 0. Two or four processes on one card: not a multi-card
+    run's rank 0, K1's 32-channel blocks (``conv3x3_fwd_nt32``) from the
+    'model' run's. Two or four processes on one card: not a multi-card
     figure.
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
 rank's rows (128, 8, 16, 64) -> 64 with a (128, 2, 16, 64) halo operand
 at the top, the bottom and inside the frame, in bf16 against fp64, all
-on the tensor cores (K2 at Cout 32 in blocks of 32 output channels; K2
-20 calls bit-equal; the 'space' kernels timed beside the cat-tile-crop
+on the tensor cores (K1 and K2 at Cout 32 in blocks of 32 output
+channels, K1 against fp64 and 20 calls bit-equal and timed beside its
+NT-16 plan, whose bit-equality with it is printed; K2 20 calls
+bit-equal; the 'space' kernels timed beside the cat-tile-crop
 composition they replaced and cuDNN on the 10-row tile, and the fp32
 SIMT K1/K2 with a halo held against their plain versions at (2, 5, 7,
 16) -> 24 and (4, 8, 16, 64) -> 64), the column-parallel dx partial (K1
@@ -325,7 +330,9 @@ host µs a call and the 'model' forward read three more times; and the
 moments-in K3 and K4 with their moments pass at a
 'space' rank's rows (128, 8, 16, 128 / 64) against their plain versions
 (fp32, 1e-5; bf16, one ulp of the fp64 formula), bit-equal over 20
-calls, timed beside their plain versions.
+calls, timed beside their plain versions with host µs a call; K3 on its
+vector kernel, bit-equal to the scalar kernel it replaced and timed in
+one run beside it.
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
 7-18) run their convs in strict fp32. Then one JSON line
@@ -444,8 +451,16 @@ KERNELS = {
                       "ode_rl_tpu/ops/gru_gates.py:184"),
     "gru_moments": ("ode_rl_torch/csrc/gru_gates.cu",
                     "ode_rl_tpu/ops/gru_gates.py:103"),
+    # Routes of the mesh axes redesigned since: K1 in 32-channel column
+    # blocks (a 'model' rank's Cout 32 slice) and the moments-in K3's
+    # vector kernel (a 'space' rank's epilogue).
+    "conv3x3_fwd_nt32": ("ode_rl_torch/csrc/conv3x3.cu",
+                         "ode_rl_tpu/ops/conv3x3.py:84"),
+    "gru_gates_mom_vec": ("ode_rl_torch/csrc/gru_gates.cu",
+                          "ode_rl_tpu/ops/gru_gates.py:103"),
 }
-AXIS_KERNELS = ("gru_gates_mom", "gru_blend_mom", "gru_moments")
+AXIS_KERNELS = ("gru_gates_mom", "gru_gates_mom_vec", "gru_blend_mom",
+                "gru_moments")
 FLAGSHIP_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "gru_gates", "gru_blend")
 # The shards of ``python -m ode_rl_torch.make_frozen_mmnist --videos 256
 # --frames 200 --train_split 0.75`` (seed 0, 3 digits), as the native
@@ -972,6 +987,10 @@ def phase_kernels() -> dict:
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         results[name]["axis_shapes"] = axes.pop(name)
     results.update(axes)
+    # The NT-32 route's own row of the kernels line: the 'model' slice.
+    results["conv3x3_fwd_nt32"] = {
+        k: v for k, v in results["conv3x3_fwd"]["axis_shapes"]["tp"].items()
+        if k not in ("route", "dx")}
     for name, bound in _bounds().items():
         results[name].update(bound)
     for name in results:
@@ -1005,7 +1024,9 @@ def _axis_conv_bound(shape, cout: int, which: str, halo: bool = False
 
 def _check_axis_k12(gen) -> dict:
     """K1 and K2 in bf16 at the 'model' shape against fp64, by the route
-    the rule picks, which must be the tensor cores, K2 20 calls bit-equal;
+    the rule picks, which must be the tensor cores (K1 in one 32-channel
+    column block, NT 32), K1 and K2 20 calls bit-equal, and whether K1 at
+    NT 32 is bit-equal to the NT-16 plan (two 16-channel blocks) printed;
     the column-parallel dx partial (K1 with bf16 in and fp32 out, on the
     slice's cotangent and flipped weights) on the tensor cores against its
     plain version (F.conv2d of the values in fp32), 20 calls bit-equal.
@@ -1013,8 +1034,9 @@ def _check_axis_k12(gen) -> dict:
     Cout 32; the fp32 SIMT K1 on the dx partial's values) and the library
     call (cuDNN's bf16 conv and weight gradient; the fp32 F.conv2d for the
     dx partial), with its plain version's ms, its bound and each wrapper's
-    host µs a call; the 'model' slice's forward read three more times
-    (device µs of 50 calls). Then the 'space' shape (``_check_space_k12``)."""
+    host µs a call (K1 also beside its NT-16 plan, which it replaced);
+    the 'model' slice's forward read three more times (device µs of 50
+    calls). Then the 'space' shape (``_check_space_k12``)."""
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(
             "cuda", torch.bfloat16)
@@ -1027,12 +1049,28 @@ def _check_axis_k12(gen) -> dict:
     if not (uses_tensor_cores(x.dtype, C, cout, HW)
             and wgrad_uses_tensor_cores(x.dtype, C, cout, HW)):
         raise AssertionError("K1/K2 at the tp shape off the tensor cores")
-    k1["route"] = k2["route"] = "tensor cores"
+    k1["route"] = "tensor cores, 32-channel column blocks"
+    k2["route"] = "tensor cores"
+    common.reset_launches()
     y = conv3x3_fwd(x, w2d)
-    ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(
-        x.double(), w2d.double()))
-    check("K1 bf16 tp (tensor cores): ulps", ulps, K1_BF16_ULPS, "max")
+    if (common.launches["conv3x3_fwd_tc"],
+            common.launches["conv3x3_fwd_nt32"]) != (1, 1):
+        raise AssertionError("K1 at the tp shape: not one NT-32 launch")
+    ref = conv3x3_fwd_plain(x.double(), w2d.double())
+    ulps, share = common.bf16_ulps(y, ref)
+    check("K1 bf16 tp (tensor cores, NT 32): ulps", ulps, K1_BF16_ULPS,
+          "max")
     check("K1 bf16 tp: share 1 ulp off", share, K1_BF16_SHARE, "share")
+    if not all(torch.equal(y, conv3x3_fwd(x, w2d)) for _ in range(20)):
+        raise AssertionError("K1 at the tp shape (NT 32): 20 calls are not "
+                             "bit-equal")
+    y16 = _conv3x3_fwd_tc(x, w2d, nt=16)
+    k1["nt16_ulps"], k1["nt16_share"] = common.bf16_ulps(y16, ref)
+    k1["bit_equal_to_nt16"] = torch.equal(y, y16)
+    print(f"  tp: K1 at NT 32 bit-equal to the NT-16 plan on the same "
+          f"inputs: {k1['bit_equal_to_nt16']} (max abs "
+          f"{max_abs(y, y16):.3e}; NT 16 {k1['nt16_ulps']:.0f} ulps, share "
+          f"{k1['nt16_share']:.2e})")
     dw = conv3x3_wgrad(x, g)
     k2["rel_l2"] = check(
         "K2 bf16 tp (tensor cores) vs fp64",
@@ -1046,13 +1084,16 @@ def _check_axis_k12(gen) -> dict:
         k2["max_abs_err"] = max_abs(dw, conv3x3_wgrad(x, g))
     k1["ulps"], k1["share"] = ulps, share
     k1_fns = {"kernel": lambda: conv3x3_fwd(x, w2d),
+              "nt16": lambda: _conv3x3_fwd_tc(x, w2d, nt=16),
               "library": lambda: conv_library(x, w_oihw)}
     k2_fns = {"kernel": lambda: conv3x3_wgrad(x, g),
               "library": lambda: wgrad_library(x, g, w_oihw),
               "simt": lambda: _conv3x3_wgrad_simt(x, g)}
     for row, fns in ((k1, k1_fns), (k2, k2_fns)):
         _timed_row(row, fns)
-    host = {("K1", "host_us", "K1 tensor cores"): k1_fns["kernel"],
+    host = {("K1", "host_us", "K1 tensor cores, NT 32"): k1_fns["kernel"],
+            ("K1", "nt16_host_us", "K1 tensor cores, NT 16"):
+                k1_fns["nt16"],
             ("K2", "host_us", "K2 tensor cores"): k2_fns["kernel"],
             ("K2", "simt_host_us", "K2 SIMT"): k2_fns["simt"]}
     k1["device_us_reads"] = [
@@ -1064,7 +1105,10 @@ def _check_axis_k12(gen) -> dict:
     k1["dx"].update(times["dx"])
     k1.update(_axis_conv_bound(x.shape, cout, "forward"))
     k2.update(_axis_conv_bound(x.shape, cout, "wgrad"))
-    _print_axis_row("tp", "K1", k1)
+    _print_axis_row("tp", "K1", k1, (
+        f"; the NT-16 plan it replaced {k1['nt16_ms']:.4f} ms, "
+        f"{k1['nt16_device_us']:.2f} device us, host "
+        f"{k1['nt16_host_us']:.2f} us"))
     _print_axis_row("tp", "K2", k2, (
         f"; the SIMT K2 it replaced {k2['simt_ms']:.4f} ms, "
         f"{k2['simt_device_us']:.2f} device us, host "
@@ -1278,7 +1322,10 @@ def _check_axis_gru(gen) -> dict:
     rank's rows, against their plain versions on the same moments (fp32
     1e-5; bf16 one ulp of the fp64 formula, whose moments are the same
     rows'), bit-equal over 20 calls, timed in bf16 beside the plain
-    versions. One rank: the moments are its own, as a line of one's."""
+    versions, with each wrapper's host µs a call. K3 by the rule's route,
+    its vector kernel, which must also be bit-equal to the scalar kernel
+    it replaced on the same moments, and is timed in one run beside it.
+    One rank: the moments are its own, as a line of one's."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).cuda()
     base = {"gates": rnd(B, SP_ROWS, HW, 2 * C),
@@ -1306,7 +1353,21 @@ def _check_axis_gru(gen) -> dict:
                 lambda: blend_f64(t["cand"], t["z"], t["h"], cs, cb, 2)),
         }
         for name, (fn, f64) in ops.items():
+            common.reset_launches()
             out = _as_tuple(fn())
+            if name == "gru_gates_mom":
+                if (common.launches["gru_gates_mom_vec"],
+                        common.launches["gru_gates_mom_scalar"]) != (1, 0):
+                    raise AssertionError(f"{name} {dtype}: not the vector "
+                                         "kernel")
+                scalar = gates_from_moments(
+                    t["gates"], t["h"], gru_moments(t["gates"], 4), gs, gb,
+                    4, n_g, kernel="scalar")
+                if not all(torch.equal(a, b) for a, b in zip(out, scalar)):
+                    raise AssertionError(f"{name} {dtype}: the vector kernel "
+                                         "is not bit-equal to the scalar one")
+                print(f"  {name} {str(dtype)[6:]}: the vector kernel "
+                      f"bit-equal to the scalar kernel")
             with common.force_plain():
                 ref = _as_tuple(fn())
             label = f"{name} {str(dtype)[6:]}"
@@ -1341,11 +1402,25 @@ def _check_axis_gru(gen) -> dict:
             t["gates"], t["h"], mom_g, gs, gb, 4, n_g),
         "gru_blend_mom": lambda: blend_from_moments(
             t["cand"], t["z"], t["h"], mom_c, cs, cb, 2, n_c)}
+    scalar = lambda: gates_from_moments(  # noqa: E731
+        t["gates"], t["h"], mom_g, gs, gb, 4, n_g, kernel="scalar")
     for name, fn in alone.items():
+        if name == "gru_gates_mom":
+            _timed_row(results[name], {"kernel": fn, "scalar": scalar})
+            continue
         results[name]["ms"] = median_ms(fn)
         with common.force_plain():
             results[name]["plain_ms"] = median_ms(fn)
         results[name]["device_us"] = device_us({name: fn})[name]
+    host = _host_turns({
+        ("gru_moments", "host_us", "the moments pass"): alone["gru_moments"],
+        ("gru_gates_mom", "host_us", "K3 moments in, vector"):
+            alone["gru_gates_mom"],
+        ("gru_gates_mom", "scalar_host_us", "K3 moments in, scalar"): scalar,
+        ("gru_blend_mom", "host_us", "K4 moments in"):
+            alone["gru_blend_mom"]}, "at a 'space' rank's rows")
+    for name, row in host.items():
+        results[name].update(row)
     px = B * SP_ROWS * HW
     results["gru_moments"].update(_bound(
         2 * px * 2 * C, px * 2 * C * 2 + B * 4 * 2 * 4, PEAK_FP32))
@@ -1355,9 +1430,16 @@ def _check_axis_gru(gen) -> dict:
     results["gru_blend_mom"].update(_bound(
         10 * px * C, px * 4 * C * 2 + 2 * C * 4 + B * 2 * 2 * 4, PEAK_FP32))
     for name, r in results.items():
+        scalar = ("" if "scalar_ms" not in r else
+                  f"; the scalar kernel it replaced {r['scalar_ms']:.4f} ms, "
+                  f"{r['scalar_device_us']:.2f} device us, host "
+                  f"{r['scalar_host_us']:.2f} us")
         print(f"  {name} bf16 at a 'space' rank's rows: {r['ms']:.4f} ms "
-              f"({r['device_us']:.2f} device us; plain {r['plain_ms']:.4f} "
-              f"ms), bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}")
+              f"({r['device_us']:.2f} device us; host {r['host_us']:.2f} "
+              f"us; plain {r['plain_ms']:.4f} ms), bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}{scalar}")
+    # The vector kernel's own row of the kernels line: the rule's K3 route.
+    results["gru_gates_mom_vec"] = dict(results["gru_gates_mom"])
     return results
 
 
@@ -4794,7 +4876,7 @@ AXIS_TOL = (f"(rtol, atol) {dryrun.AXIS_BENCH_TOL}, update "
             f"{dryrun.BENCH_PARAM_TOL} relative L2")
 # K1-K4 on each rank: under 'space' K3 and K4 are the moments-in ones.
 AXIS_ROUTES = {
-    "flagship_bench_tp": FLAGSHIP_KERNELS,
+    "flagship_bench_tp": (*FLAGSHIP_KERNELS, "conv3x3_fwd_nt32"),
     "flagship_bench_sp": ("conv3x3_fwd", "conv3x3_wgrad", *AXIS_KERNELS)}
 
 
@@ -4848,6 +4930,21 @@ def _axis_bench(baseline: float) -> dict:
                     or counts["gru_moments"] != counts["gru_gates_mom"]
                     + counts["gru_blend_mom"]):
                 missing.append("a K3/K4 launch off the moments-in kernels")
+            # A 'space' rank's K3 epilogue takes the vector kernel; a
+            # 'model' rank's K1 at Cout 32 one 32-channel column block (its
+            # other K1 launches, the dx partials to 64, take blocks of 64).
+            if sp and counts["gru_gates_mom_vec"] != counts["gru_gates_mom"]:
+                missing.append("a moments-in K3 launch off the vector "
+                               "kernel")
+            if counts["conv3x3_fwd_nt16"] or (
+                    counts["conv3x3_fwd_nt32"] == 0) != sp:
+                missing.append("a K1 launch in 16-channel blocks, or NT-32 "
+                               "launches where Cout is not 32")
+            print(f"    rank {rank}: K1 launches in 32 / 16-channel blocks "
+                  f"{counts['conv3x3_fwd_nt32']} / "
+                  f"{counts['conv3x3_fwd_nt16']}; moments-in K3 vector / "
+                  f"scalar {counts['gru_gates_mom_vec']} / "
+                  f"{counts['gru_gates_mom_scalar']}")
             if missing:
                 raise AssertionError(f"{name} rank {rank}: missing "
                                      f"{missing}")
@@ -5038,6 +5135,8 @@ def main() -> int:
     for name in AXIS_KERNELS:
         counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][
             0][name]
+    counts["conv3x3_fwd_nt32"] = axes["bench"]["flagship_bench_tp"][
+        "rank_launches"][0]["conv3x3_fwd_nt32"]
     for path, run in axes["bench"].items():
         print(f"{path}: step_ms {run['step_ms'][0]:.2f} (two gloo ranks on "
               f"one card), one rank {run['single_step_ms'][0]:.2f}")

@@ -164,10 +164,11 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off, int row_bytes) {
 // wgmma shared-memory descriptor of an MN-major operand NT columns wide
 // (one swizzle atom): start address, leading byte offset (between atoms
 // along N: one atom, so unused), stride byte offset (between groups of 8
-// K rows) and the swizzle (1: 128 B, 3: 32 B).
+// K rows) and the swizzle (1: 128 B at NT 64, 2: 64 B at 32, 3: 32 B at
+// 16).
 __device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, int nt) {
   const uint64_t row_bytes = nt * 2;
-  const uint64_t layout = nt == 64 ? 1 : 3;
+  const uint64_t layout = nt == 64 ? 1 : (nt == 32 ? 2 : 3);
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          (((8 * row_bytes) >> 4) << 32) | (layout << 62);
 }

@@ -669,8 +669,10 @@ __global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
 //
 // * The weights stay resident in shared memory: each block loads the whole
 //   (9*Cin, Cout) matrix once by TMA (72 KB at the flagship), as column
-//   blocks of NT = 64 channels (128-byte swizzle) or NT = 16 (32-byte
-//   swizzle), each a region of 9*Cin rows.
+//   blocks of NT = 64 channels (128-byte swizzle), NT = 32 (64-byte
+//   swizzle) or NT = 16 (32-byte swizzle), each a region of 9*Cin rows.
+//   NT (tc_plan): 64 where Cout % 64 == 0, else 32 where Cout % 32 == 0
+//   and that plan fits a block's shared memory, else 16.
 // * The input halo of a tile, 10 x (TW+2) x Cin, is one set of 4-D TMA
 //   boxes at (y0-1, x0-1): the boxes' out-of-bounds elements are zeros, so
 //   SAME padding and ragged H and W need no branch. Channels go in chunks
@@ -699,7 +701,13 @@ __global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
 // * B, the tap's 16 x NT slice of the weights: an MN-major descriptor (Cout
 //   is the contiguous axis of w2d).
 // * The 9 * Cin/16 wgmma.m64nNTk16 of a block go out back to back in one
-//   commit group, fp32 sums in registers. The loop is unrolled at compile
+//   commit group, fp32 sums in registers. Each column block is a full pass
+//   over the halo and ends in its own wait, epilogue and store, so a
+//   'model' rank's Cout 32 takes one 32-channel block and not two of 16:
+//   the halo (A, 2 KB a k-step) is read from shared memory once, with
+//   1.5 KB of operands a 16K MACs where N = 16 took 2.5 KB (about 12
+//   clocks of shared memory against 20, inferred from the operand sizes),
+//   and the tensor cores wait through one epilogue a block, not two. The loop is unrolled at compile
 //   time for Cin = 16, 32 and 64 (KS = Cin/16 = 1, 2, 4): in a runtime
 //   loop ptxas waits for each wgmma before issuing the next. Other widths
 //   take that slower runtime loop (KS = 0).
@@ -715,7 +723,8 @@ __global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
 //   256 bytes, past TMA's 128-byte swizzle span, so the block is staged
 //   and stored as NT / OB boxes of OB = min(NT, 32) channels (rows of at
 //   most 128 bytes, swizzled by their width), one TMA store each. The
-//   staging buffer doubles to 8 x 8 x NT x 4 bytes a warpgroup. Bound by
+//   staging buffer doubles to 8 x 8 x NT x 4 bytes a warpgroup (at NT 32 one
+//   box of 32 channels, 8 KB). Bound by
 //   the fp32 bytes written: at (128, 16, 16, 32) -> 64, 2.1 MB of bf16 in
 //   and 8.4 MB out, 3.1 us at 3.35 TB/s.
 // * Deterministic: every output is summed by one warpgroup in a fixed
@@ -747,7 +756,7 @@ struct TcPlan {
   int pitch;           // bytes from one halo row of a chunk to the next
   int chunk_bytes;     // one chunk of one stage, 1 KB aligned
   int stage_bytes;     // n_chunks * chunk_bytes
-  int nt;              // output channels per wgmma (64 or 16)
+  int nt;              // output channels per wgmma (64, 32 or 16)
   int w_region_bytes;  // 9*Cin rows of nt channels, 1 KB aligned
   int w_bytes;         // Cout / nt regions
   int ob;              // output channels of one store box (rows <= 128 B)
@@ -755,13 +764,15 @@ struct TcPlan {
   int smem_bytes;      // weights + 2 stages + 2 staging + 1 KB to align
 };
 
-// out_size: bytes of an output element, 2 (bf16) or 4 (fp32). With a
-// halo operand the stage's rows come in separate TMA boxes, each of which
-// must land 128-byte aligned: rows of 16-channel chunks (an odd number of
-// 64-byte halves) are padded to the next 128 bytes. The rule's mirror
-// (ops/conv3x3.py::_tc_smem_bytes) does not count that padding; the
-// launcher refuses a halo plan that does not fit.
-TcPlan tc_plan(int Cin, int Cout, int tw, int out_size, bool halo) {
+// The plan at `nt` output channels a column block. out_size: bytes of an
+// output element, 2 (bf16) or 4 (fp32). With a halo operand the stage's
+// rows come in separate TMA boxes, each of which must land 128-byte
+// aligned: rows of 16-channel chunks (an odd number of 64-byte halves) are
+// padded to the next 128 bytes (ops/conv3x3.py::_tc_smem_bytes with
+// `halo`). The tensor-core rule (uses_tensor_cores) does not count that
+// padding; the launcher refuses a halo plan that does not fit.
+TcPlan tc_plan_at(int Cin, int Cout, int tw, int out_size, bool halo,
+                  int nt) {
   TcPlan p;
   p.tw = tw;
   p.halo_w = tw + 2;
@@ -772,13 +783,31 @@ TcPlan tc_plan(int Cin, int Cout, int tw, int out_size, bool halo) {
   if (halo) p.pitch = (p.pitch + 127) / 128 * 128;
   p.chunk_bytes = round1k(p.halo_h * p.pitch);
   p.stage_bytes = p.n_chunks * p.chunk_bytes;
-  p.nt = Cout % 64 == 0 ? 64 : 16;
+  p.nt = nt;
   p.w_region_bytes = round1k(9 * Cin * p.nt * 2);
   p.w_bytes = (Cout / p.nt) * p.w_region_bytes;
   p.ob = out_box(p.nt, out_size);
   p.out_bytes = round1k(64 * p.nt * out_size);
   p.smem_bytes = p.w_bytes + 2 * p.stage_bytes + 2 * p.out_bytes + 1024;
   return p;
+}
+
+// The NT rule (mirrored by ops/conv3x3.py::tc_nt): 64 where Cout % 64 ==
+// 0; else 32 where Cout % 32 == 0 and that plan (with this call's halo
+// padding) fits a block's shared memory; else 16, the plan every such call
+// took before NT 32, so no call leaves the tensor cores. `nt` other than 0
+// asks for that column block instead (a comparison of plans).
+TcPlan tc_plan(int Cin, int Cout, int tw, int out_size, bool halo,
+               int nt = 0) {
+  if (nt == 0) {
+    nt = Cout % 64 == 0 ? 64 : 16;
+    if (Cout % 64 != 0 && Cout % 32 == 0 &&
+        tc_plan_at(Cin, Cout, tw, out_size, halo, 32).smem_bytes <=
+            kTcMaxSmem) {
+      nt = 32;
+    }
+  }
+  return tc_plan_at(Cin, Cout, tw, out_size, halo, nt);
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
@@ -865,6 +894,16 @@ struct Wgmma<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
                                              uint64_t b) {
     wgmma_m64n64k16<0, 1>(d, a, b);
+  }
+};
+
+// D (64 x 32) += A (64 x 16) . B (16 x 32): a 'model' rank's Cout 32 in
+// one column block (B under the 64-byte swizzle).
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    wgmma_m64n32k16<0, 1>(d, a, b);
   }
 };
 
@@ -1504,19 +1543,30 @@ CUresult encode_input(EncodeTiled encode, CUtensorMap* x8_map,
   return encode_nhwc(encode, h_map, halo, B, 2, W, C, cw, halo_w, 1);
 }
 
-// out_size: 2 for a bf16 output, 4 for fp32 (the sums unrounded).
+// The kernel of column blocks NT for Cin's products and this output type.
+template <typename OutT>
+TcKernel tc_kernel_for(int nt, int Cin) {
+  return nt == 64   ? tc_kernel<64, OutT>(Cin)
+         : nt == 32 ? tc_kernel<32, OutT>(Cin)
+                    : tc_kernel<16, OutT>(Cin);
+}
+
+// out_size: 2 for a bf16 output, 4 for fp32 (the sums unrounded). nt: 0
+// for tc_plan's rule, else 64, 32 or 16 dividing Cout.
 int launch_fwd_tc(const void* x, const void* halo, const void* w, void* out,
                   int B, int H, int W, int Cin, int Cout, int tw,
-                  int out_size, cudaStream_t stream) {
+                  int out_size, int nt, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(halo) |
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   if (!aligned || Cin % 16 || Cout % 16 || Cout > 256 ||
-      (tw != 8 && tw != 16 && tw != 32)) {
+      (tw != 8 && tw != 16 && tw != 32) ||
+      (nt != 0 && nt != 16 && nt != 32 && nt != 64) ||
+      (nt != 0 && Cout % nt)) {
     return (int)cudaErrorInvalidValue;
   }
-  const TcPlan p = tc_plan(Cin, Cout, tw, out_size, halo != nullptr);
+  const TcPlan p = tc_plan(Cin, Cout, tw, out_size, halo != nullptr, nt);
   if (p.smem_bytes > kTcMaxSmem) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTcMapError;
@@ -1545,11 +1595,9 @@ int launch_fwd_tc(const void* x, const void* halo, const void* w, void* out,
                     ((W + p.tw - 1) / p.tw);
   const int sms = sm_count();
   const int grid = tiles < sms ? tiles : sms;
-  const TcKernel kernel =
-      out_size == 4 ? (p.nt == 64 ? tc_kernel<64, float>(Cin)
-                                  : tc_kernel<16, float>(Cin))
-                    : (p.nt == 64 ? tc_kernel<64, __nv_bfloat16>(Cin)
-                                  : tc_kernel<16, __nv_bfloat16>(Cin));
+  const TcKernel kernel = out_size == 4
+                              ? tc_kernel_for<float>(p.nt, Cin)
+                              : tc_kernel_for<__nv_bfloat16>(p.nt, Cin);
   const cudaError_t attr =
       allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1672,20 +1720,22 @@ extern "C" int odek_conv3x3_fwd(const void* x, const void* halo,
 // with Cin % 16 == 0, Cout % 16 == 0, Cout <= 256, 16-byte aligned
 // pointers and output
 // tiles 8 rows high and tile_w (8, 16 or 32) wide; out is bf16
-// (out_dtype 1, rounded once) or fp32 (out_dtype 0, the fp32 sums).
+// (out_dtype 1, rounded once) or fp32 (out_dtype 0, the fp32 sums); nt 0
+// takes tc_plan's column blocks, 16, 32 or 64 (dividing Cout) those.
 // Returns cudaErrorInvalidValue for arguments outside that, 10000 + the
 // CUresult if a tensor map is refused, else cudaGetLastError().
 extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* halo,
                                    const void* w, void* out, int B, int H,
                                    int W, int Cin, int Cout, int tile_w,
-                                   int dtype, int out_dtype, void* stream) {
+                                   int dtype, int out_dtype, int nt,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
   const int out_size = out_dtype == 0 ? 4 : 2;
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     if constexpr (std::is_same_v<decltype(tag), __nv_bfloat16>) {
       return launch_fwd_tc(x, halo, w, out, B, H, W, Cin, Cout, tile_w,
-                           out_size, st);
+                           out_size, nt, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }

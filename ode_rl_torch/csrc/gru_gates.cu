@@ -82,13 +82,31 @@
 //   one FMA, the activation (the one-sample kernel's: __fdividef(1, 1 +
 //   __expf(-y)) for the sigmoid, tanhf), and r*h or the blend in fp32,
 //   rounded once, as the one-sample kernel forms them.
+// * gru_gates_mom_vec_kernel: K3's epilogue where channels and groups are
+//   whole 16-byte vectors and the inputs 16-byte aligned
+//   (ops/gru_gates.py::mom_vec_plan; every other call takes
+//   gru_gates_mom_kernel). The scalar kernel spent its time on
+//   instructions, not bytes: two 64-bit divisions, the group's statistics
+//   from the moments (two loads, a division, a rsqrtf, scale and bias) and
+//   a 2-byte load and store at every element, 5x its 3.13 us of bytes at
+//   the flagship's 'space' slice (15.57-16.60 us, H100 80GB HBM3, 700 W).
+//   Here a block owns a run of pixels of one sample: it first takes a_c and
+//   b_c of all 2C channels once into shared memory (the arithmetic of
+//   affine_from_moments, which the scalar kernel shares, so the bits are
+//   the same), while each thread's first 16-byte vectors of gates (8 bf16
+//   or 4 fp32 channels, all in z or all in r) and of h are in flight. A
+//   thread keeps one vector slot of a pixel, so its channels' a_c and b_c
+//   sit in registers; then an element costs one FMA, the sigmoid and, for
+//   r, the product with h in fp32, rounded once, stored as 16-byte
+//   vectors. Index arithmetic is 32-bit within a sample.
 //
 // Bound by bytes as K3 and K4 are: the moments pass reads the normalised
 // input once more than the one-sample kernel (at the flagship's 'space'
 // slice, gates (128, 8, 16, 128) bf16: 4.2 MB), the epilogue what K3 or
-// K4 reads and writes. A simple first version: the epilogue recomputes
-// its group's statistics from the moments at every element, and neither
-// pass keeps the sample on chip.
+// K4 reads and writes. The moments pass and gru_blend_mom_kernel are the
+// simple first versions: K4's epilogue recomputes its group's statistics
+// from the moments at every element, and neither pass keeps the sample on
+// chip.
 
 #include <cooperative_groups.h>
 
@@ -539,6 +557,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// a = scale * rstd and b = bias - mean * a of a channel whose group's
+// moments (s1, s2) sum `count` elements: the normalised value is fmaf(v,
+// a, b). One function for both epilogues of K3, so their bits agree.
+__device__ __forceinline__ void affine_from_moments(float s1, float s2,
+                                                    float scale, float bias,
+                                                    float count, float eps,
+                                                    float& a, float& b) {
+  const float mean = s1 / count;
+  const float var = fmaxf(s2 / count - mean * mean, 0.f);
+  a = scale * rsqrtf(var + eps);
+  b = fmaf(-mean, a, bias);
+}
+
 // Element c of a pixel of sample b, normalised from the moments of its
 // group over `count` elements.
 __device__ __forceinline__ float norm_from_moments(
@@ -546,12 +577,11 @@ __device__ __forceinline__ float norm_from_moments(
     const float* __restrict__ bias, int b, int c, int cs, int G, float count,
     float eps) {
   const int g = c / cs;
-  const float s1 = mom[((long long)b * G + g) * 2];
-  const float s2 = mom[((long long)b * G + g) * 2 + 1];
-  const float mean = s1 / count;
-  const float var = fmaxf(s2 / count - mean * mean, 0.f);
-  const float a = scale[c] * rsqrtf(var + eps);
-  return fmaf(v, a, fmaf(-mean, a, bias[c]));
+  float a, sh;
+  affine_from_moments(mom[((long long)b * G + g) * 2],
+                      mom[((long long)b * G + g) * 2 + 1], scale[c], bias[c],
+                      count, eps, a, sh);
+  return fmaf(v, a, sh);
 }
 
 // gates (B, HW, 2C), h (B, HW, C), mom (B, G, 2) -> z, rh (B, HW, C).
@@ -579,6 +609,83 @@ __global__ void __launch_bounds__(kThreads)
       const long long o = p * C + (c - C);
       rh[o] = from_f32<T>(sig * to_f32(h[o]));
     }
+  }
+}
+
+// Vectors a thread of the vector K3 epilogue keeps in flight.
+constexpr int kMomVecPerThread = 2;
+constexpr int kMomVecMaxThreads = 1024;
+// Its a_c and b_c (16 bytes a channel of h) within the shared memory a
+// block has without opting in: C <= 3072.
+constexpr int kMomVecMaxSmem = 48 * 1024;
+
+// gates (B, HW, 2C), h (B, HW, C), mom (B, G, 2) -> z, rh (B, HW, C), as
+// gru_gates_mom_kernel; grid (pixel runs, B), block (k, b) owning pixels
+// [k * R * kMomVecPerThread, ...) of sample b with R = blockDim.x / V
+// pixels a pass, V = 2C / kVec the vectors a pixel (blockDim.x a multiple
+// of V). Dynamic shared memory: a_c then b_c, 2C floats each.
+template <typename T>
+__global__ void __launch_bounds__(kMomVecMaxThreads)
+    gru_gates_mom_vec_kernel(const T* __restrict__ gates,
+                             const T* __restrict__ h,
+                             const float* __restrict__ mom,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ bias,
+                             T* __restrict__ z, T* __restrict__ rh, int HW,
+                             int C, int G, float count, float eps) {
+  using V16 = Vec16<T>;
+  constexpr int kVec = V16::N;
+  constexpr int kPer = kMomVecPerThread;
+  extern __shared__ float affine[];
+  const int C2 = 2 * C;
+  const int V = C2 / kVec;
+  const int rows = blockDim.x / V;
+  const int slot = threadIdx.x % V;
+  const int c0 = slot * kVec;
+  const bool is_r = c0 >= C;
+  const int oc = is_r ? c0 - C : c0;  // channel of z or rh
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * rows * kPer + threadIdx.x / V;
+  // This sample's tensors; offsets within a sample fit 32 bits (checked).
+  const T* gs = gates + (long long)b * HW * C2;
+  const T* hs = h + (long long)b * HW * C;
+  T* out = (is_r ? rh : z) + (long long)b * HW * C;
+
+  // This thread's vectors, in flight while the block takes a_c and b_c.
+  float v[kPer][kVec], hv[kPer][kVec];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = p0 + j * rows;
+    if (p < HW) {
+      V16::load(gs + p * C2 + c0, v[j]);
+      if (is_r) V16::load(hs + p * C + oc, hv[j]);
+    }
+  }
+  const int cs = C2 / G;
+  const float* ms = mom + (long long)b * G * 2;
+  for (int c = threadIdx.x; c < C2; c += blockDim.x) {
+    const int g = c / cs;
+    affine_from_moments(ms[2 * g], ms[2 * g + 1], scale[c], bias[c], count,
+                        eps, affine[c], affine[C2 + c]);
+  }
+  __syncthreads();
+  float ca[kVec], cb[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    ca[e] = affine[c0 + e];
+    cb[e] = affine[C2 + c0 + e];
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = p0 + j * rows;
+    if (p >= HW) break;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float y = fmaf(v[j][e], ca[e], cb[e]);
+      v[j][e] = __fdividef(1.f, 1.f + __expf(-y));
+      if (is_r) v[j][e] *= hv[j][e];
+    }
+    V16::store(out + p * C + oc, v[j]);
   }
 }
 
@@ -649,6 +756,47 @@ extern "C" int odek_gru_gates_mom(const void* gates, const void* h,
         static_cast<const float*>(mom), static_cast<const float*>(scale),
         static_cast<const float*>(bias), static_cast<T*>(z),
         static_cast<T*>(rh), total, HW, C, G, count, eps);
+  });
+}
+
+// Moments-in K3, the vector epilogue: as odek_gru_gates_mom with
+// `threads` a block (a multiple of the 16-byte vectors a pixel of gates,
+// at most 1024), for channels and groups in whole 16-byte vectors, 16-byte
+// aligned tensors, B <= 65535, C <= 3072 and a sample's 2C * HW elements
+// within 32 bits (ops/gru_gates.py::mom_vec_plan). Returns
+// cudaErrorInvalidValue for arguments outside that, else the launch's
+// error.
+extern "C" int odek_gru_gates_mom_vec(const void* gates, const void* h,
+                                      const void* mom, const void* scale,
+                                      const void* bias, void* z, void* rh,
+                                      int B, int HW, int C, int G,
+                                      float count, float eps, int threads,
+                                      int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    constexpr int kVec = Vec16<T>::N;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(gates) |
+                           reinterpret_cast<uintptr_t>(h) |
+                           reinterpret_cast<uintptr_t>(z) |
+                           reinterpret_cast<uintptr_t>(rh)) & 15) == 0;
+    const int V = 2 * C / kVec;
+    if (!aligned || B < 1 || B > 65535 || HW < 1 || C < 1 || C % kVec ||
+        G < 1 || (2 * C) % G || (2 * C / G) % kVec || count < 1.f ||
+        threads < V || threads % V || threads > kMomVecMaxThreads ||
+        2 * 2 * C * (int)sizeof(float) > kMomVecMaxSmem ||
+        (long long)HW * 2 * C > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int px = threads / V * kMomVecPerThread;  // pixels a block
+    const dim3 grid((HW + px - 1) / px, B);
+    gru_gates_mom_vec_kernel<T><<<grid, threads, 2 * 2 * C * sizeof(float),
+                                  st>>>(
+        static_cast<const T*>(gates), static_cast<const T*>(h),
+        static_cast<const float*>(mom), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<T*>(z),
+        static_cast<T*>(rh), HW, C, G, count, eps);
+    return 0;
   });
 }
 

@@ -31,9 +31,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # x, halo, w, out, B, H, W, Cin, Cout, rows_per_block, dtype, stream
     "odek_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, halo, w, out, B, H, W, Cin, Cout, tile_w, dtype, out_dtype, stream
+    # x, halo, w, out, B, H, W, Cin, Cout, tile_w, dtype, out_dtype, nt,
+    # stream
     "odek_conv3x3_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _P],
     # x, halo, g, scratch, dw, B, H, W, Cin, Cout, splits, px_per_split,
     # dtype, stream
     "odek_conv3x3_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
@@ -60,6 +61,10 @@ SIGNATURES = {
     # stream
     "odek_gru_gates_mom": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _F, _I, _P],
+    # gates, h, mom, scale, bias, z, rh, B, HW, C, G, count, eps, threads,
+    # dtype, stream
+    "odek_gru_gates_mom_vec": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _I, _I, _P],
     # cand, z, h, mom, scale, bias, out, B, HW, C, G, count, eps, dtype,
     # stream
     "odek_gru_blend_mom": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

@@ -28,23 +28,29 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # through every kernel. "conv3x3_fwd" counts every K1 launch,
 # "conv3x3_fwd_tc" those of its tensor-core kernel, "conv3x3_fwd_simt"
 # those of its SIMT kernel and "conv3x3_fwd_halo" those (of either) with a
-# halo operand (a 'space' rank's rows); likewise K2.
+# halo operand (a 'space' rank's rows); likewise K2. "conv3x3_fwd_nt32"
+# and "conv3x3_fwd_nt16" count the tensor-core K1's launches in column
+# blocks of 32 and 16 output channels (the rest take 64).
 # "gru_gates" counts every K3 launch, "gru_gates_sample" those of its
 # one-sample kernel and "gru_gates_2pass" those of its two-pass kernel;
 # likewise K4; "gru_gates_mom" and "gru_blend_mom" count the moments-in
-# K3 and K4 (a 'space' mesh axis), and "gru_moments" their moments pass.
+# K3 and K4 (a 'space' mesh axis), "gru_gates_mom_vec" and
+# "gru_gates_mom_scalar" the moments-in K3's vector and scalar kernels,
+# and "gru_moments" their moments pass.
 # "correlation_fwd" counts every K5 launch,
 # "correlation_fwd_tc" those of its tensor-core kernel and
 # "correlation_fwd_pairs" those of its SIMT pair-view kernel (small maps);
 # likewise K6 and K7 ("correlation_bwd_f1_pairs",
 # "correlation_bwd_f2_pairs").
 launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
-            "conv3x3_fwd_halo": 0, "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
+            "conv3x3_fwd_halo": 0, "conv3x3_fwd_nt32": 0,
+            "conv3x3_fwd_nt16": 0, "conv3x3_wgrad": 0, "conv3x3_wgrad_tc": 0,
             "conv3x3_wgrad_simt": 0, "conv3x3_wgrad_halo": 0,
             "gru_gates": 0, "gru_gates_sample": 0,
             "gru_gates_2pass": 0, "gru_blend": 0, "gru_blend_sample": 0,
-            "gru_blend_2pass": 0, "gru_gates_mom": 0, "gru_blend_mom": 0,
-            "gru_moments": 0, "correlation_fwd": 0,
+            "gru_blend_2pass": 0, "gru_gates_mom": 0,
+            "gru_gates_mom_vec": 0, "gru_gates_mom_scalar": 0,
+            "gru_blend_mom": 0, "gru_moments": 0, "correlation_fwd": 0,
             "correlation_fwd_tc": 0, "correlation_fwd_pairs": 0,
             "correlation_bwd_f1": 0, "correlation_bwd_f1_tc": 0,
             "correlation_bwd_f1_pairs": 0, "correlation_bwd_f2": 0,

@@ -10,7 +10,8 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   is ``F.conv2d`` (of the values in fp32 for an fp32 output). On the card
   it takes one of two kernels by ``uses_tensor_cores``: the tensor-core
   kernel (bf16 in, bf16 or fp32 out; TMA halo tiles, weights resident in
-  shared memory, wgmma) or the SIMT kernel (fp32 FMA; everything else,
+  shared memory, wgmma over column blocks of ``tc_nt`` output channels:
+  64, 32 or 16) or the SIMT kernel (fp32 FMA; everything else,
   fp32 included, so fp32 stays strict fp32). The SIMT
   kernel gives a block 16-pixel row segments of 16 output channels with
   their weights and halos staged once in shared memory, each thread 4
@@ -112,18 +113,41 @@ def _tc_tile_width(w: int) -> int:
 
 
 def _tc_smem_bytes(cin: int, cout: int, w: int,
-                   out_dtype: torch.dtype = torch.bfloat16) -> int:
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   nt: Optional[int] = None, halo: bool = False) -> int:
     """Shared memory of one tensor-core K1 block: the weights in column
-    blocks of 64 (or 16) channels, two halo stages in channel chunks of 64,
-    32 or 16, two 8 x 8 output staging buffers of ``out_dtype`` (fp32
-    doubles them), each region 1 KB aligned, and 1 KB to align the base."""
+    blocks of ``nt`` channels (``tc_nt``'s by default), two halo stages in
+    channel chunks of 64, 32 or 16 (with a ``halo`` operand each chunk row
+    padded to 128 bytes), two 8 x 8 x NT output staging buffers of
+    ``out_dtype`` (fp32 doubles them), each region 1 KB aligned, and 1 KB
+    to align the base. Mirrors csrc/conv3x3.cu::tc_plan_at."""
     tw = _tc_tile_width(w)
-    nt = 64 if cout % 64 == 0 else 16
+    nt = nt or tc_nt(cout, cin, w, out_dtype, halo)
     cw = 64 if cin % 64 == 0 else 32 if cin % 32 == 0 else 16
+    pitch = (tw + 2) * cw * 2
+    if halo:
+        pitch = -(-pitch // 128) * 128
     weights = (cout // nt) * _round_1k(9 * cin * nt * 2)
-    stage = (cin // cw) * _round_1k((_TC_TILE_ROWS + 2) * (tw + 2) * cw * 2)
+    stage = (cin // cw) * _round_1k((_TC_TILE_ROWS + 2) * pitch)
     staging = _round_1k(64 * nt * out_dtype.itemsize)
     return weights + 2 * stage + 2 * staging + 1024
+
+
+@functools.lru_cache(maxsize=256)  # on every launch's host path
+def tc_nt(cout: int, cin: int, w: int,
+          out_dtype: torch.dtype = torch.bfloat16, halo: bool = False) -> int:
+    """Output channels of a tensor-core K1 column block: 64 where Cout % 64
+    == 0; else 32 where Cout % 32 == 0 and that plan fits a block's shared
+    memory (a 'model' rank's Cout 32 slice takes one 32-channel block, so
+    the halo is read once and one epilogue stores it); else 16, the plan
+    every such call took before, so no call leaves the tensor cores.
+    Mirrors csrc/conv3x3.cu::tc_plan."""
+    if cout % 64 == 0:
+        return 64
+    if cout % 32 == 0 and _tc_smem_bytes(cin, cout, w, out_dtype, 32,
+                                         halo) <= _TC_SMEM_LIMIT:
+        return 32
+    return 16
 
 
 def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int, w: int,
@@ -132,8 +156,9 @@ def uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int, w: int,
     bf16 in, bf16 or fp32 out (``out_dtype``, the input's by default),
     Cin % 16 == 0 (a k16 step, and TMA's 16-byte strides), Cout % 16 == 0
     and Cout <= 256 (wgmma's N), and the resident weights, two halo stages
-    and the output staging within a block's shared memory (so the rule
-    depends on W through the tile width, and on the output's dtype). Every
+    and the output staging of ``tc_nt``'s plan within a block's shared
+    memory (so the rule depends on W through the tile width, and on the
+    output's dtype). Every
     other call takes the SIMT kernel. fp32 in stays on SIMT: the tensor
     cores would round it to TF32."""
     out_dtype = out_dtype or dtype
@@ -271,8 +296,13 @@ def _conv3x3_fwd_simt(x: torch.Tensor, w2d: torch.Tensor,
 
 def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor,
                     out_dtype: Optional[torch.dtype] = None,
-                    halo: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1's tensor-core kernel on CUDA tensors; raises outside its rule."""
+                    halo: Optional[torch.Tensor] = None,
+                    nt: Optional[int] = None) -> torch.Tensor:
+    """K1's tensor-core kernel on CUDA tensors; raises outside its rule.
+    ``nt`` (16, 32 or 64, dividing Cout) takes column blocks of that many
+    channels instead of ``tc_nt``'s; the kernel's launcher refuses a plan
+    that does not fit (the card tests and chip_smoke.py hold NT 32
+    against NT 16)."""
     _, _, w, cin, cout = _check_k1(x, w2d, halo)
     out_dtype = _out_dtype(x.dtype, out_dtype)
     common.check_inputs("conv3x3_fwd", _inputs(x, halo, w=w2d), x.dtype)
@@ -280,7 +310,7 @@ def _conv3x3_fwd_tc(x: torch.Tensor, w2d: torch.Tensor,
         raise ValueError(f"conv3x3_fwd: {x.dtype} -> {out_dtype}, Cin {cin}, "
                          f"Cout {cout}, W {w} is outside the tensor-core "
                          "kernel's rule")
-    return _launch_tc(x, w2d, out_dtype, halo)
+    return _launch_tc(x, w2d, out_dtype, halo, nt)
 
 
 def _check_aligned(name: str, tensors: dict) -> None:
@@ -311,7 +341,10 @@ def _launch_simt(x: torch.Tensor, w2d: torch.Tensor,
 
 
 def _launch_tc(x: torch.Tensor, w2d: torch.Tensor, out_dtype: torch.dtype,
-               halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+               halo: Optional[torch.Tensor] = None,
+               nt: Optional[int] = None) -> torch.Tensor:
+    """``nt`` None: the kernel's own rule (tc_plan, which ``tc_nt``
+    mirrors)."""
     _check_aligned("conv3x3_fwd", {"x": x, "w": w2d, "halo": halo})
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
@@ -320,8 +353,11 @@ def _launch_tc(x: torch.Tensor, w2d: torch.Tensor, out_dtype: torch.dtype,
                   x.data_ptr(), _ptr(halo), w2d.data_ptr(), out.data_ptr(),
                   b, h, w, cin, cout, _tc_tile_width(w),
                   common.DTYPE_CODES[x.dtype], common.DTYPE_CODES[out_dtype],
-                  common.stream_handle(x))
+                  nt or 0, common.stream_handle(x))
     common.launches["conv3x3_fwd"] += 1
+    nt = nt or tc_nt(cout, cin, w, out_dtype, halo is not None)
+    if nt != 64:
+        common.launches[f"conv3x3_fwd_nt{nt}"] += 1
     _count_halo("conv3x3_fwd", x, halo)
     return out
 

@@ -29,7 +29,10 @@ pass ``gru_moments`` (kernel ``odek_gru_moments``: fp32 sums of x and
 x^2 a (sample, group) over this rank's rows), an all-reduce of those
 B*G*2 floats over ``'space'``, then ``gates_from_moments`` /
 ``blend_from_moments`` (kernels ``odek_gru_{gates,blend}_mom``): the
-epilogue on the global moments. Their plain versions
+epilogue on the global moments. K3's takes its vector kernel
+(``odek_gru_gates_mom_vec``: a block a run of one sample's pixels, each
+channel's affine taken once a block, 16-byte vectors) where
+``mom_vec_plan`` allows, else its scalar kernel. Their plain versions
 (``gru_moments_plain``, ``_gates_mom_plain``, ``_blend_mom_plain``)
 compute the same from the same moments; the backward is autograd of
 them with the moments' all-reduce in the graph, so it is global too.
@@ -299,6 +302,37 @@ def gru_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
     return mom
 
 
+# The vector moments-in K3 (csrc/gru_gates.cu::gru_gates_mom_vec_kernel):
+# about this many threads a block, each with two 16-byte vectors of gates;
+# at most 1024 threads, B in grid.y, C <= 3072 (its 16 bytes a channel of
+# a_c and b_c within 48 KB of shared memory).
+_MOM_VEC_THREADS = 256
+_MOM_VEC_MAX_THREADS = 1024
+_MOM_VEC_MAX_C = 3072
+
+
+@functools.lru_cache(maxsize=256)
+def mom_vec_plan(b: int, hw: int, c: int, groups: int, dtype: torch.dtype,
+                 align: int) -> Optional[int]:
+    """The rule that sends a moments-in K3 call on the card to the vector
+    kernel, and its threads a block; None sends it to the scalar kernel.
+    As ``sample_plan``: fp32 or bf16 with h's channels, and each group's,
+    whole 16-byte vectors (a vector lies in z or in r), inputs 16-byte
+    aligned (``align`` the alignment common to their base addresses); and
+    B <= 65535, C <= 3072, a sample's 2C * HW elements within 32 bits.
+    The block is a multiple of the V vectors a pixel, about 256 threads.
+    Mirrors csrc/gru_gates.cu::odek_gru_gates_mom_vec."""
+    elem = _ELEM_BYTES.get(dtype)
+    if (elem is None or align % 16 or c * elem % 16 or groups < 1
+            or 2 * c % groups or 2 * c // groups * elem % 16
+            or b > 65535 or c > _MOM_VEC_MAX_C
+            or hw * 2 * c > 2**31 - 1):
+        return None
+    v = 2 * c * elem // 16
+    threads = max(1, _MOM_VEC_THREADS // v) * v
+    return threads if threads <= _MOM_VEC_MAX_THREADS else None
+
+
 def _check_moments(name, mom, b, groups):
     if mom.shape != (b, groups, 2) or mom.dtype != torch.float32:
         raise ValueError(f"{name}: moments {tuple(mom.shape)} {mom.dtype}, "
@@ -306,10 +340,12 @@ def _check_moments(name, mom, b, groups):
 
 
 def gates_from_moments(gates_raw, h, mom, scale, bias, groups: int,
-                       count: float):
+                       count: float, kernel: str = "rule"):
     """The moments-in K3: (z, r*h) with each group's statistics from
     ``mom`` (B, G, 2), sums over ``count`` elements a group. No
-    autograd."""
+    autograd. On the card ``kernel`` "rule" takes the kernel
+    ``mom_vec_plan`` names, "vec" the vector kernel (raises outside its
+    rule), "scalar" the scalar kernel."""
     _check_gates(gates_raw, h, groups)
     _check_moments("gates_from_moments", mom, h.shape[0], groups)
     if not common.use_kernel(gates_raw):
@@ -319,13 +355,28 @@ def gates_from_moments(gates_raw, h, mom, scale, bias, groups: int,
     scale, bias = _checked_affine("gates_from_moments", {
         "gates_raw": gates_raw, "h": h}, h.dtype, scale, bias)
     common.check_inputs("gates_from_moments", {"mom": mom}, torch.float32)
+    ptrs = (gates_raw.data_ptr(), h.data_ptr())
+    threads = None
+    if kernel != "scalar":
+        threads = mom_vec_plan(b, hh * ww, c, groups, h.dtype,
+                               _alignment(*ptrs))
+        if threads is None and kernel == "vec":
+            raise ValueError(f"gates_from_moments: {tuple(h.shape)} "
+                             f"{h.dtype}, {groups} groups is outside the "
+                             f"vector kernel's rule")
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
-    common.launch("gru_gates_mom", library().odek_gru_gates_mom,
-                  gates_raw.data_ptr(), h.data_ptr(), mom.data_ptr(),
-                  scale.data_ptr(), bias.data_ptr(), z.data_ptr(),
-                  rh.data_ptr(), b, hh * ww, c, groups, float(count), _EPS,
-                  common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    args = (*ptrs, mom.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            z.data_ptr(), rh.data_ptr(), b, hh * ww, c, groups, float(count),
+            _EPS)
+    tail = (common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    if threads is None:
+        common.launch("gru_gates_mom_scalar", library().odek_gru_gates_mom,
+                      *args, *tail)
+    else:
+        common.launch("gru_gates_mom_vec", library().odek_gru_gates_mom_vec,
+                      *args, threads, *tail)
+    common.launches["gru_gates_mom"] += 1
     common.launches["gru_gates"] += 1
     return z, rh
 

@@ -16,9 +16,10 @@ sp step (tests/test_mesh.py).
 
     python -m ode_rl_torch.parallel.dryrun --ranks 4 --device cpu
 
-spawns gloo ranks on the CPU (``--device cuda`` puts every rank on the
-one card, still over gloo), runs every family (``--families``
-to choose) and prints a line a family; it exits 1 on any miss.
+spawns gloo ranks on the CPU (the default, ``--device cuda``, puts every
+rank on the one card, still over gloo), runs every family
+(``--families`` to choose) and prints a line a family; it exits 1 on
+any miss.
 ``run`` is the same from Python, with
 ``inputs`` (per family: ``weights``, a state dict per module; ``batch``;
 ``draws``, recorded (kind, array) draws of the global batch) to start
@@ -657,7 +658,7 @@ def _spawn(fn: Callable, args: tuple, ranks: int, timeout: float) -> None:
 
 
 def run(families: Sequence[str] = DRYRUN, ranks: int = 4,
-        device: str = "cpu", backend: Optional[str] = None,
+        device: str = "cuda", backend: Optional[str] = None,
         inputs: Optional[Dict] = None, timed_steps: int = 0, threads: int = 1,
         timeout: float = 600.0, cudnn: bool = True,
         profile: bool = False) -> Dict[str, Dict]:
@@ -804,7 +805,7 @@ def misses(name: str, result: Dict, reference: Dict,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ranks", type=int, default=4)
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda")
     parser.add_argument("--families", nargs="+", default=None)
     parser.add_argument("--timeout", type=float, default=1200.0)
     args = parser.parse_args(argv)

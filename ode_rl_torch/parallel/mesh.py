@@ -9,7 +9,8 @@ the collectives the port writes by hand:
 
 * ``make_mesh(n_data, n_model)`` reads torchrun's ``RANK``, ``WORLD_SIZE``
   and ``LOCAL_RANK`` (or takes them), binds ``cuda:LOCAL_RANK`` (or the
-  CPU) and initialises the process group: NCCL on CUDA, gloo on the CPU,
+  CPU where the caller names it; without CUDA and without a device it
+  raises) and initialises the process group: NCCL on CUDA, gloo on the CPU,
   or the backend the caller names. Without torchrun's variables the mesh
   has one rank and no process group, as JAX's ``make_mesh()`` on one chip
   has one device. Rank r sits at (r // n2, r % n2) of the (n_data, n2)
@@ -316,16 +317,20 @@ def _init(backend: Optional[str], device: Optional[torch.device],
     if rank is None:
         rank = int(env.get("RANK", 0))
     local_rank = int(env.get("LOCAL_RANK", rank))
+    if world_size is None and n_ranks not in (None, 1):
+        raise ValueError(f"a mesh of {n_ranks} ranks needs a process "
+                         "group: launch with torchrun")
     if device is None:
-        device = (torch.device("cuda", local_rank)
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device for this rank's cuda:"
+                f"{local_rank}; pass device=torch.device(\"cpu\") for a "
+                "mesh on the CPU")
+        device = torch.device("cuda", local_rank)
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if world_size is None:
-        if n_ranks not in (None, 1):
-            raise ValueError(f"a mesh of {n_ranks} ranks needs a process "
-                             "group: launch with torchrun")
         return Mesh(0, 1, device, None)
     if n_ranks is not None and n_ranks != world_size:
         raise ValueError(f"a mesh of {n_ranks} ranks does not cover "
@@ -359,8 +364,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     ``rank`` and ``world_size`` default to torchrun's ``RANK`` and
     ``WORLD_SIZE`` (``init_method`` to ``env://``, its store); without
     them the mesh has one rank and no process group. The device defaults
-    to ``cuda:LOCAL_RANK`` where CUDA is available, else the CPU; the
-    backend to NCCL on CUDA and gloo on the CPU."""
+    to ``cuda:LOCAL_RANK`` and raises a RuntimeError where CUDA is not
+    available (a mesh on the CPU is asked for with
+    ``device=torch.device("cpu")``); the backend defaults to NCCL on CUDA
+    and gloo on the CPU."""
     return _grid(MODEL_AXIS, n_data, n_model, backend, device, init_method,
                  rank, world_size, timeout)
 
@@ -370,6 +377,10 @@ def _grid(axis: str, n_data: Optional[int], n: int, backend, device,
     if n < 1:
         raise ValueError(f"{axis} axis of {n} ranks")
     n_ranks = None if n_data is None else n_data * n
+    no_group = world_size is None and "WORLD_SIZE" not in os.environ
+    if n > 1 and no_group:  # before the device: the arguments' fault first
+        raise ValueError(f"a mesh of {n} ranks along {axis!r} needs a "
+                         "process group: launch with torchrun")
     base = _init(backend, device, init_method, rank, world_size, n_ranks,
                  timeout)
     if n == 1:

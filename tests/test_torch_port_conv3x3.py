@@ -1,8 +1,9 @@
 """K1 and K2 of the PyTorch port against the JAX package's Pallas kernel
 bodies themselves, K1's and K2's dispatch rules (K1 with an fp32 output
-from bf16 too, its shared memory against csrc's plan, and its plain
-version against the fp64 conv; K2 in blocks of 64 or 32 output
-channels), the tensor-core K2's plan of splits, the SIMT K1's and K2's
+from bf16 too, its shared memory against csrc's plan, its column blocks
+of 64, 32 or 16 output channels and every call the rule sent to the
+tensor cores before NT 32 still sent there, and its plain version against
+the fp64 conv; K2 in blocks of 64 or 32 output channels), the tensor-core K2's plan of splits, the SIMT K1's and K2's
 plans, and the SIMT kernels' order of summation emulated in plain torch
 against the Pallas kernel bodies.
 
@@ -31,7 +32,7 @@ from ode_rl_torch.ops.common import bf16_ulps
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _tc_smem_bytes,
                                       conv3x3_fwd, conv3x3_fwd_plain,
                                       conv3x3_wgrad, flip_transpose,
-                                      simt_plan, simt_split,
+                                      simt_plan, simt_split, tc_nt,
                                       uses_tensor_cores, wgrad_simt_plan,
                                       wgrad_tc_nt, wgrad_tc_plan,
                                       wgrad_uses_tensor_cores)
@@ -149,18 +150,30 @@ FP32_OUT_RULE_CASES = [
 ]
 
 
-def _tc_plan_bytes(cin, cout, w, out_size):
-    """csrc/conv3x3.cu::tc_plan's smem_bytes, transcribed: weights in
-    column blocks of nt, two halo stages of Cin / cw chunks, two 8 x 8 x nt
-    staging buffers of out_size-byte elements, each 1 KB aligned, + 1 KB."""
+def _tc_plan_bytes(cin, cout, w, out_size, halo=False):
+    """csrc/conv3x3.cu::tc_plan's smem_bytes, transcribed: the NT rule
+    (64 where Cout % 64 == 0, else 32 where Cout % 32 == 0 and that plan
+    fits 232,384 bytes, else 16), then weights in column blocks of nt, two
+    halo stages of Cin / cw chunks (rows padded to 128 bytes with a halo),
+    two 8 x 8 x nt staging buffers of out_size-byte elements, each 1 KB
+    aligned, + 1 KB."""
     def r1k(n):
         return (n + 1023) // 1024 * 1024
-    tw = 8 if w <= 8 else 16 if w <= 16 else 32
-    cw = 64 if cin % 64 == 0 else (32 if cin % 32 == 0 else 16)
+
+    def at(nt):
+        tw = 8 if w <= 8 else 16 if w <= 16 else 32
+        cw = 64 if cin % 64 == 0 else (32 if cin % 32 == 0 else 16)
+        pitch = (tw + 2) * cw * 2
+        if halo:
+            pitch = (pitch + 127) // 128 * 128
+        stage = (cin // cw) * r1k(10 * pitch)
+        w_bytes = (cout // nt) * r1k(9 * cin * nt * 2)
+        return w_bytes + 2 * stage + 2 * r1k(64 * nt * out_size) + 1024
+
     nt = 64 if cout % 64 == 0 else 16
-    stage = (cin // cw) * r1k(10 * (tw + 2) * cw * 2)
-    w_bytes = (cout // nt) * r1k(9 * cin * nt * 2)
-    return w_bytes + 2 * stage + 2 * r1k(64 * nt * out_size) + 1024
+    if cout % 64 and cout % 32 == 0 and at(32) <= 232_448 - 64:
+        nt = 32
+    return at(nt)
 
 
 @pytest.mark.parametrize("cin,cout,w,expected", FP32_OUT_RULE_CASES)
@@ -177,6 +190,72 @@ def test_k1_fp32_output_rule_and_shared_memory(cin, cout, w, expected):
     assert uses_tensor_cores(torch.bfloat16, cin, cout, w)
     assert not uses_tensor_cores(torch.float32, cin, cout, w, torch.float32)
     assert not uses_tensor_cores(torch.bfloat16, cin, cout, w, torch.float16)
+
+
+@pytest.mark.parametrize("cout,nt", [(64, 64), (128, 64), (32, 32), (96, 32),
+                                     (160, 32), (16, 16), (48, 16), (80, 16)])
+def test_k1_output_block_width(cout, nt):
+    """K1's column blocks: 64 channels where Cout % 64 == 0, 32 where Cout %
+    32 == 0 (a 'model' rank's Cout 32 in one block), else 16; in bf16 and
+    fp32 out, with and without a halo, at a width where all fit."""
+    for out in (torch.bfloat16, torch.float32):
+        for halo in (False, True):
+            assert tc_nt(cout, 32, 16, out, halo) == nt
+            assert uses_tensor_cores(torch.bfloat16, 32, cout, 16, out)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_k1_keeps_nt16_where_nt32_does_not_fit(halo):
+    """The one plan over Cin 16-256, Cout 32-224 and W 8-33 where NT 32's
+    shared memory would not fit a block and NT 16's does (Cin 160 -> 32,
+    W 16, fp32 out: the doubled staging buffers): the rule keeps NT 16, so
+    the call stays on the tensor cores."""
+    out = torch.float32
+    assert _tc_smem_bytes(160, 32, 16, out, 32, halo) > 232_448 - 64
+    assert _tc_smem_bytes(160, 32, 16, out, 16, halo) <= 232_448 - 64
+    assert tc_nt(32, 160, 16, out, halo) == 16
+    assert tc_nt(32, 160, 16, torch.bfloat16, halo) == 32
+    assert uses_tensor_cores(torch.bfloat16, 160, 32, 16, out)
+
+
+def _pr22_rule(cin, cout, w, out_size):
+    """The tensor-core K1's rule before NT 32, frozen: bf16 in, Cin % 16 ==
+    0, Cout % 16 == 0, Cout <= 256, and the plan of column blocks of 64
+    (Cout % 64 == 0) or 16 channels within 232,384 bytes."""
+    def r1k(n):
+        return (n + 1023) // 1024 * 1024
+    if cin % 16 or cout % 16 or cout > 256:
+        return False
+    tw = 8 if w <= 8 else 16 if w <= 16 else 32
+    cw = 64 if cin % 64 == 0 else (32 if cin % 32 == 0 else 16)
+    nt = 64 if cout % 64 == 0 else 16
+    stage = (cin // cw) * r1k(10 * (tw + 2) * cw * 2)
+    w_bytes = (cout // nt) * r1k(9 * cin * nt * 2)
+    return (w_bytes + 2 * stage + 2 * r1k(64 * nt * out_size) + 1024
+            <= 232_448 - 64)
+
+
+@pytest.mark.parametrize("out,size", [(torch.bfloat16, 2),
+                                      (torch.float32, 4)])
+@pytest.mark.parametrize("w", [8, 16, 24, 33])
+def test_k1_tensor_cores_hold_wherever_they_held_before_nt32(w, out, size):
+    """Over Cin 16-128 and Cout 16-256: every call the earlier rule sent to
+    the tensor cores still goes there, the plan mirror equals csrc's plan
+    with and without a halo, and NT 32 is taken wherever Cout % 64 != 0,
+    Cout % 32 == 0 and its plan fits."""
+    for cin in (16, 32, 48, 64, 128):
+        for cout in range(16, 257, 16):
+            now = uses_tensor_cores(torch.bfloat16, cin, cout, w, out)
+            if _pr22_rule(cin, cout, w, size):
+                assert now, (cin, cout, w, out)
+            for halo in (False, True):
+                assert _tc_smem_bytes(cin, cout, w, out, halo=halo) == (
+                    _tc_plan_bytes(cin, cout, w, size, halo))
+            fits32 = (_tc_smem_bytes(cin, cout, w, out, 32)
+                      <= 232_448 - 64)
+            want = (64 if cout % 64 == 0 else 32 if cout % 32 == 0
+                    and fits32 else 16)
+            assert tc_nt(cout, cin, w, out) == want
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(2, 16, 16, 32, 64)])

@@ -2,7 +2,12 @@
 tiles, K1 and K2 with a halo operand on both routes (H 8, 4 and 12, W 8,
 16 and 20, Cout 64 and 32, a 'space' rank at the top, the bottom or
 inside), the tensor-core K1 and K2 against their SIMT twins and cuDNN
-(K2 also at 32 and 96 output channels, K1 also with an fp32 output),
+(K2 also at 32 and 96 output channels, K1 also with an fp32 output), K1's
+32-channel column blocks (Cin 16, 32, 64 and 128, Cout 32, 96 and 160, W
+8, 16, 24 and 33, with and without a halo, bf16 and fp32 out) and Cout 16
+and 48 still in 16-channel blocks, the moments-in K3's vector kernel
+against its plain version, bit-equal to its scalar kernel, and the shapes
+its rule leaves to the scalar kernel,
 channel counts that are not multiples of 64, the one-sample K3/K4 against
 the two-pass ones and the plain versions (GroupNorm groups that straddle
 the z/r split, a cluster of blocks a sample, the flagship) and the shapes
@@ -71,7 +76,8 @@ from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _conv3x3_fwd_simt,
                                       _conv3x3_fwd_tc, _conv3x3_wgrad_simt,
                                       _conv3x3_wgrad_tc, conv3x3_fwd,
                                       conv3x3_fwd_plain, conv3x3_wgrad,
-                                      conv3x3_wgrad_plain, flip_transpose)
+                                      conv3x3_wgrad_plain, flip_transpose,
+                                      tc_nt, uses_tensor_cores)
 from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           _correlation_bwd_f1_simt,
                                           _correlation_bwd_f1_tc,
@@ -88,11 +94,13 @@ from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           n_displacements, simt_plan,
                                           tc_plan)
 from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
-                                        _gates_plain, _gru_blend_2pass,
-                                        _gru_blend_sample, _gru_gates_2pass,
-                                        _gru_gates_sample, blend_f64,
-                                        fused_gru_blend, fused_gru_gates,
-                                        gates_f64, sample_plan)
+                                        _gates_mom_plain, _gates_plain,
+                                        _gru_blend_2pass, _gru_blend_sample,
+                                        _gru_gates_2pass, _gru_gates_sample,
+                                        blend_f64, fused_gru_blend,
+                                        fused_gru_gates, gates_f64,
+                                        gates_from_moments, gru_moments,
+                                        mom_vec_plan, sample_plan)
 from ode_rl_torch.train.step import create_train_state, loss_and_grads
 
 pytestmark = pytest.mark.cuda
@@ -302,6 +310,81 @@ def test_k1_fp32_output_off_the_tensor_cores_takes_fp32_simt(cuda):
     out = conv3x3_fwd(x, w2d, out_dtype=torch.float32)
     assert common.launches["conv3x3_fwd_simt"] == 1
     assert torch.equal(out, _conv3x3_fwd_simt(x.float(), w2d.float()))
+
+
+# K1's column blocks of 32 channels: Cin 16, 32 and 64 (the unrolled
+# loop, KS 1, 2, 4) and 128 (the runtime loop), Cout 32, 96 and 160, W 8,
+# 16, 24 and 33 (tiles 8, 16, 32 and 32 wide, ragged), each with and
+# without a halo and with bf16 and fp32 outputs; the shapes whose plan
+# fits no block take SIMT, as the rule says.
+NT32_CASES = [(cin, cout, w) for cin in (16, 32, 64, 128)
+              for cout in (32, 96, 160) for w in (8, 16, 24, 33)]
+
+
+@pytest.mark.parametrize("case", NT32_CASES,
+                         ids=lambda c: "cin{}-cout{}-w{}".format(*c))
+def test_k1_in_32_channel_blocks_matches_plain(cuda, case):
+    """bf16 out within one bf16 ulp of the fp64 conv (at most 2e-3 of the
+    outputs one off), fp32 out within 1e-4 max abs of its plain version
+    and 1e-5 relative L2 of fp64; the launch counted under NT 32 wherever
+    the rule takes the tensor cores; a second call bit-equal; whether NT
+    16 on the same inputs is bit-equal is printed."""
+    cin, cout, w = case
+    for halo_on in (False, True):
+        x, halo, w2d, _ = _halo_case(cuda, 2, 12, w, cin, cout, "interior",
+                                     torch.bfloat16)
+        halo = halo if halo_on else None
+        h64 = None if halo is None else halo.double()
+        ref = conv3x3_fwd_plain(x.double(), w2d.double(), halo=h64)
+        for out in (torch.bfloat16, torch.float32):
+            tc = uses_tensor_cores(torch.bfloat16, cin, cout, w, out)
+            common.reset_launches()
+            y = conv3x3_fwd(x, w2d, out_dtype=out, halo=halo)
+            assert common.launches["conv3x3_fwd_tc"] == int(tc)
+            if tc:
+                assert tc_nt(cout, cin, w, out, halo_on) == 32
+                assert common.launches["conv3x3_fwd_nt32"] == 1
+                assert torch.equal(y, _conv3x3_fwd_tc(x, w2d, out, halo))
+                nt16 = _conv3x3_fwd_tc(x, w2d, out, halo, nt=16)
+                print(f"cin {cin} cout {cout} w {w} halo {halo_on} {out}: "
+                      f"NT 32 bit-equal to NT 16 {torch.equal(y, nt16)}")
+            if out == torch.bfloat16:
+                ulps, share = common.bf16_ulps(y, ref)
+                assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
+            else:
+                with common.force_plain():
+                    plain = conv3x3_fwd(x, w2d, out_dtype=out, halo=halo)
+                assert _max_abs(y, plain) <= 1e-4
+                assert _rel_l2(y, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("halo_on", [False, True])
+def test_k1_in_32_channel_blocks_is_bit_reproducible(cuda, halo_on, out):
+    """A 'model' rank's forward, (128, 16, 16, 64) -> 32 (a 'space'-shaped
+    halo where asked): 20 calls bit-equal."""
+    x, halo, w2d, _ = _halo_case(cuda, 128, 16, 16, 64, 32, "interior",
+                                 torch.bfloat16)
+    halo = halo if halo_on else None
+    common.reset_launches()
+    first = conv3x3_fwd(x, w2d, out_dtype=out, halo=halo)
+    assert common.launches["conv3x3_fwd_nt32"] == 1
+    for _ in range(20):
+        assert torch.equal(first, conv3x3_fwd(x, w2d, out_dtype=out,
+                                              halo=halo))
+
+
+@pytest.mark.parametrize("cout", [16, 48])
+def test_k1_at_cout_16_and_48_keeps_16_channel_blocks(cuda, cout):
+    x, w2d = _tc_case(cuda, (2, 9, 11, 32, cout), False)
+    common.reset_launches()
+    y = conv3x3_fwd(x, w2d)
+    assert (common.launches["conv3x3_fwd_tc"],
+            common.launches["conv3x3_fwd_nt16"],
+            common.launches["conv3x3_fwd_nt32"]) == (1, 1, 0)
+    ulps, share = common.bf16_ulps(y, conv3x3_fwd_plain(x.double(),
+                                                        w2d.double()))
+    assert ulps <= K1_BF16_ULPS and share <= K1_BF16_SHARE
 
 
 @pytest.mark.parametrize("arg", ["x", "g"])
@@ -637,6 +720,80 @@ def test_refused_gru_shapes_take_the_two_pass_kernel(cuda, refused):
         for a, r in zip(k, (*gates_f64(*gates), blend_f64(*blend))):
             ulps, share = common.bf16_ulps(a, r)
             assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+
+
+# The moments-in K3 (a 'space' rank's epilogue): (B, H, W, C, groups,
+# dtype). G 4 over 2C = 128 (a 'space' rank's slice of the flagship), G 3
+# over 2C = 96 (a group straddling the z/r split), a ragged 8 x 13 map,
+# narrow channels; fp32 and bf16.
+MOM_VEC_CASES = [(b, h, w, c, g, dtype)
+                 for b, h, w, c, g in ((4, 8, 16, 64, 4), (3, 8, 13, 48, 3),
+                                       (2, 8, 13, 64, 4), (3, 5, 7, 16, 1))
+                 for dtype in DTYPES]
+
+
+def _mom_case(gen, b, h, w, c, groups, dtype):
+    """gates, h, their moments, scale, bias, groups, count."""
+    gates = _rnd(gen, b, h, w, 2 * c, dtype=dtype)
+    hs = torch.tanh(_rnd(gen, b, h, w, c, dtype=dtype))
+    return (gates, hs, gru_moments(gates, groups), 1 + 0.1 * _rnd(gen, 2 * c),
+            0.1 * _rnd(gen, 2 * c), groups,
+            float(h * w * (2 * c // groups)))
+
+
+@pytest.mark.parametrize("case", MOM_VEC_CASES,
+                         ids=lambda c: "{}x{}x{}x{}-g{}-{}".format(
+                             *c[:5], str(c[5])[6:]))
+def test_mom_vec_k3_matches_plain_and_scalar(cuda, case):
+    """The rule takes the vector kernel; it is bit-equal to the scalar
+    kernel on the same moments, within 1e-5 max abs of the plain version
+    in fp32 and one bf16 ulp of the fp64 formula in bf16 (at most 2e-3 of
+    the outputs one off); 20 calls bit-equal."""
+    b, h, w, c, groups, dtype = case
+    args = _mom_case(cuda, *case)
+    assert mom_vec_plan(b, h * w, c, groups, dtype, _alignment(
+        args[0].data_ptr(), args[1].data_ptr())) is not None
+    common.reset_launches()
+    out = gates_from_moments(*args)
+    assert (common.launches["gru_gates_mom_vec"],
+            common.launches["gru_gates_mom_scalar"],
+            common.launches["gru_gates_mom"]) == (1, 0, 1)
+    scalar = gates_from_moments(*args, kernel="scalar")
+    assert common.launches["gru_gates_mom_scalar"] == 1
+    assert all(torch.equal(a, r) for a, r in zip(out, scalar))
+    if dtype == torch.float32:
+        for a, r in zip(out, _gates_mom_plain(*args)):
+            assert _max_abs(a, r) <= 1e-5
+    else:
+        for a, r in zip(out, gates_f64(*args[:2], *args[3:6])):
+            ulps, share = common.bf16_ulps(a, r)
+            assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+    for _ in range(20):
+        assert all(torch.equal(a, r)
+                   for a, r in zip(out, gates_from_moments(*args)))
+
+
+@pytest.mark.parametrize("refused", ["group_vectors", "misaligned",
+                                     "narrow"])
+def test_refused_mom_shapes_take_the_scalar_kernel(cuda, refused):
+    """bf16 groups of 20 channels (40 bytes), a view one element into its
+    storage, bf16 h of 4 channels (8 bytes): the rule names the scalar
+    kernel, which matches the fp64 formula; asking for the vector kernel
+    raises."""
+    shape = {"group_vectors": (2, 5, 7, 40, 4), "misaligned": (2, 8, 16, 64, 4),
+             "narrow": (2, 5, 7, 4, 1)}[refused]
+    args = _mom_case(cuda, *shape, torch.bfloat16)
+    if refused == "misaligned":
+        args = (_shifted(args[0]), *args[1:])
+    common.reset_launches()
+    out = gates_from_moments(*args)
+    assert (common.launches["gru_gates_mom_vec"],
+            common.launches["gru_gates_mom_scalar"]) == (0, 1)
+    with pytest.raises(ValueError, match="vector kernel"):
+        gates_from_moments(*args, kernel="vec")
+    for a, r in zip(out, gates_f64(*args[:2], *args[3:6])):
+        ulps, share = common.bf16_ulps(a, r)
+        assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
 
 
 # (B, H, W, C, max_displacement, stride): ragged C, H != W, stride 1,
@@ -1019,19 +1176,27 @@ def test_each_wrapper_counts_its_launches(cuda):
     correlation_bwd_f2(g, x, 1, 1)
     channelnorm_fwd(x)
     assert common.launches == {"conv3x3_fwd": 1, "conv3x3_fwd_tc": 0,
-                               "conv3x3_fwd_simt": 1, "conv3x3_wgrad": 1,
+                               "conv3x3_fwd_simt": 1, "conv3x3_fwd_halo": 0,
+                               "conv3x3_fwd_nt32": 0, "conv3x3_fwd_nt16": 0,
+                               "conv3x3_wgrad": 1,
                                "conv3x3_wgrad_tc": 0,
                                "conv3x3_wgrad_simt": 1,
+                               "conv3x3_wgrad_halo": 0,
                                "gru_gates": 1, "gru_gates_sample": 1,
                                "gru_gates_2pass": 0, "gru_blend": 1,
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
-                               "gru_gates_mom": 0, "gru_blend_mom": 0,
+                               "gru_gates_mom": 0, "gru_gates_mom_vec": 0,
+                               "gru_gates_mom_scalar": 0, "gru_blend_mom": 0,
                                "gru_moments": 0,
                                "correlation_fwd": 1, "correlation_fwd_tc": 0,
+                               "correlation_fwd_pairs": 1,
                                "correlation_bwd_f1": 1,
                                "correlation_bwd_f1_tc": 0,
+                               "correlation_bwd_f1_pairs": 1,
                                "correlation_bwd_f2": 1,
-                               "correlation_bwd_f2_tc": 0, "channelnorm": 1}
+                               "correlation_bwd_f2_tc": 0,
+                               "correlation_bwd_f2_pairs": 1,
+                               "channelnorm": 1}
     with common.force_plain():
         conv3x3_fwd(x, _rnd(cuda, 72, 8))
     assert common.launches["conv3x3_fwd"] == 1

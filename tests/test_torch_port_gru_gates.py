@@ -1,6 +1,7 @@
 """K3 and K4 of the PyTorch port: the rule that sends a call on the card to
-the one-sample kernels, their cluster plan, and the fp64 reference of the
-Pallas kernels' formula that the card checks hold the bf16 kernels to.
+the one-sample kernels, their cluster plan, the rule and grid of the
+moments-in K3's vector kernel (a 'space' axis), and the fp64 reference of
+the Pallas kernels' formula that the card checks hold the bf16 kernels to.
 
 The fp64 reference (``gates_f64``/``blend_f64``) is compared with the JAX
 package's ``_gates_kernel``/``_blend_kernel`` run in interpret mode through
@@ -16,7 +17,7 @@ import torch
 
 from torch_port_util import max_abs
 from ode_rl_torch.ops.gru_gates import (_alignment, blend_f64, gates_f64,
-                                        sample_plan)
+                                        mom_vec_plan, sample_plan)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -99,6 +100,67 @@ def test_sample_plan_covers_every_pixel_once(hw, c, groups, dtype, blend):
     vectors = (c if blend else 2 * c) * elem // 16
     assert plan.threads % 32 == 0 and plan.threads % vectors == 0
     assert plan.threads <= 512
+
+
+# (B, HW, C, G, dtype, align, threads or None) of the moments-in K3's
+# vector kernel. Accepted: a 'space' rank's slice of the flagship (HW 128)
+# in bf16 and fp32 (16 and 32 vectors a pixel, 256 threads); a group
+# straddling the z/r split (2C = 96, G = 3: 12 or 24 vectors, 252 and 240
+# threads); narrow channels (4 vectors); pixels of 512, 768 and 1024
+# vectors (one pixel a pass). Refused: bf16 groups of 20 channels (40
+# bytes), h's channels not whole 16-byte vectors, a base not 16-byte
+# aligned, fp16, B past grid.y, C past 3072 (a_c and b_c past 48 KB), a
+# pixel of more than 1024 vectors, a sample past 32-bit offsets.
+MOM_VEC_CASES = [
+    (128, 128, 64, 4, BF16, 256, 256),
+    (128, 128, 64, 4, F32, 256, 256),
+    (2, 104, 48, 3, BF16, 16, 252),
+    (2, 104, 48, 3, F32, 16, 240),
+    (3, 35, 16, 1, BF16, 16, 256),
+    (2, 64, 1024, 8, F32, 16, 512),
+    (2, 4, 3072, 4, BF16, 16, 768),
+    (2, 4, 2048, 4, F32, 16, 1024),
+    (3, 35, 40, 4, BF16, 16, None),
+    (3, 35, 4, 1, BF16, 16, None),
+    (128, 128, 64, 4, BF16, 8, None),
+    (128, 128, 64, 4, torch.float16, 256, None),
+    (65536, 4, 64, 4, BF16, 16, None),
+    (2, 4, 3200, 4, BF16, 16, None),
+    (2, 4, 3072, 4, F32, 16, None),
+    (1, 2**24, 64, 4, BF16, 16, None),
+]
+
+
+@pytest.mark.parametrize("b,hw,c,groups,dtype,align,expected",
+                         MOM_VEC_CASES)
+def test_mom_vec_rule(b, hw, c, groups, dtype, align, expected):
+    assert mom_vec_plan(b, hw, c, groups, dtype, align) == expected
+
+
+@pytest.mark.parametrize("hw", [1, 7, 32, 104, 128, 129, 1000])
+@pytest.mark.parametrize("c,groups,dtype", [(64, 4, BF16), (64, 4, F32),
+                                            (48, 3, BF16), (16, 1, BF16)])
+def test_mom_vec_grid_covers_every_vector_once(hw, c, groups, dtype):
+    """csrc/gru_gates.cu::gru_gates_mom_vec_kernel's grid, emulated: block
+    k's thread t takes slot t % V of pixels k * R * 2 + t // V + j * R (j =
+    0, 1; R = threads / V) below HW; together every (pixel, vector) of a
+    sample once. Each vector's channels lie in z or in r and in one
+    group."""
+    threads = mom_vec_plan(2, hw, c, groups, dtype, 16)
+    elem = 4 if dtype == F32 else 2
+    vec = 16 // elem
+    v = 2 * c // vec
+    rows = threads // v
+    blocks = -(-hw // (rows * 2))
+    seen = [(k * rows * 2 + t // v + j * rows, t % v)
+            for k in range(blocks) for t in range(threads) for j in range(2)
+            if k * rows * 2 + t // v + j * rows < hw]
+    assert sorted(seen) == [(p, s) for p in range(hw) for s in range(v)]
+    cs = 2 * c // groups
+    for s in range(v):
+        chans = range(s * vec, (s + 1) * vec)
+        assert len({ch // c for ch in chans}) == 1
+        assert len({ch // cs for ch in chans}) == 1
 
 
 def test_alignment_of_views():

@@ -128,7 +128,7 @@ def test_mesh_at_one_rank(monkeypatch):
     from ode_rl_tpu.parallel import mesh as jax_mesh
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
-    mesh = make_mesh()
+    mesh = make_mesh(device=torch.device("cpu"))
     assert (mesh.rank, mesh.world, mesh.distributed) == (0, 1, False)
     assert mesh.shape == {"data": 1, "model": 1}
     assert (parallel.DATA_AXIS, parallel.MODEL_AXIS) == (
@@ -140,6 +140,21 @@ def test_mesh_at_one_rank(monkeypatch):
         Mesh(rank=0, world=4).rows(6)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(n_data=2)
+
+
+def test_mesh_without_cuda_raises_unless_the_cpu_is_named(monkeypatch):
+    """``make_mesh()`` takes cuda:LOCAL_RANK and raises where there is no
+    CUDA, rather than build a mesh on the CPU nobody asked for; the CPU
+    is named with ``device``. (Here there is no CUDA; the check is made
+    not to depend on that.)"""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"device=torch.device\("):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_sp_mesh(n_space=1)
+    assert make_mesh(device=torch.device("cpu")).device.type == "cpu"
 
 
 def test_shard_batch_takes_rows_of_every_batch_key():
