@@ -294,9 +294,10 @@ without printing its last line:
     Cout 32 K2 and fp32-output dx partials included; under 'space' every
     K1/K2 launch on the rank's own 8 rows with a halo operand, none under
     'model', and every K3/K4 launch a moments-in one, each with its
-    moments pass, every moments-in K3 its vector kernel; every 'model'
-    K1 launch at Cout 32 in one 32-channel column block, and no K1 launch
-    of either axis in 16-channel blocks), the bytes
+    moments pass, and every moments pass and moments-in K3 and K4 on its
+    vector kernel; every 'model' K1 launch at Cout 32 in one 32-channel
+    column block, and no K1 launch of either axis in 16-channel blocks),
+    the bytes
     each axis moved in a step, and one more step profiled on each rank:
     rank 0's device ms by kernel group and its K1-K8 kernels' µs a launch
     (``phase18_rank0_profiled`` for K1 and K2). Then the dry run's
@@ -328,11 +329,16 @@ and 20 calls bit-equal, each timed in one run beside the SIMT route it
 replaced and cuDNN's call (the fp32 F.conv2d for the dx partial), with
 host µs a call and the 'model' forward read three more times; and the
 moments-in K3 and K4 with their moments pass at a
-'space' rank's rows (128, 8, 16, 128 / 64) against their plain versions
-(fp32, 1e-5; bf16, one ulp of the fp64 formula), bit-equal over 20
-calls, timed beside their plain versions with host µs a call; K3 on its
-vector kernel, bit-equal to the scalar kernel it replaced and timed in
-one run beside it.
+'space' rank's rows (128, 8, 16, 128 / 64), each on its vector kernel:
+the moments pass on the gates and on the candidate within 1e-5 of the
+largest sum of the plain version and of fp64 sums, the epilogues against
+their plain versions on the same moments (fp32, 1e-5; bf16, one ulp of
+the fp64 formula) and bit-equal to the scalar kernels they replaced,
+each bit-equal over 20 calls and timed in one run beside its scalar
+kernel and its plain version, with host µs a call; the moments pass also
+beside torch.var_mean over the same (B, HW, G, C/G) view (mean and
+variance, not sums) and at other plans (512 and 1024 threads, clusters
+of 2 and 4 blocks a sample).
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
 7-18) run their convs in strict fp32. Then one JSON line
@@ -416,7 +422,8 @@ from ode_rl_torch.ops.gru_gates import (_blend_plain, _gates_plain,
                                         blend_f64, blend_from_moments,
                                         fused_gru_blend, fused_gru_gates,
                                         gates_f64, gates_from_moments,
-                                        gru_moments, sample_plan)
+                                        gru_moments, sample_plan,
+                                        SamplePlan)
 from ode_rl_torch.profile_step import _KERNEL_IDS, _KERNEL_NAME
 from ode_rl_torch.train import loop as train_loop
 from ode_rl_torch.core.noise import Noise
@@ -452,15 +459,19 @@ KERNELS = {
     "gru_moments": ("ode_rl_torch/csrc/gru_gates.cu",
                     "ode_rl_tpu/ops/gru_gates.py:103"),
     # Routes of the mesh axes redesigned since: K1 in 32-channel column
-    # blocks (a 'model' rank's Cout 32 slice) and the moments-in K3's
-    # vector kernel (a 'space' rank's epilogue).
+    # blocks (a 'model' rank's Cout 32 slice), and the vector kernels of a
+    # 'space' rank's moments-in K3 and K4 epilogues and moments pass.
     "conv3x3_fwd_nt32": ("ode_rl_torch/csrc/conv3x3.cu",
                          "ode_rl_tpu/ops/conv3x3.py:84"),
     "gru_gates_mom_vec": ("ode_rl_torch/csrc/gru_gates.cu",
                           "ode_rl_tpu/ops/gru_gates.py:103"),
+    "gru_blend_mom_vec": ("ode_rl_torch/csrc/gru_gates.cu",
+                          "ode_rl_tpu/ops/gru_gates.py:184"),
+    "gru_moments_vec": ("ode_rl_torch/csrc/gru_gates.cu",
+                        "ode_rl_tpu/ops/gru_gates.py:103"),
 }
 AXIS_KERNELS = ("gru_gates_mom", "gru_gates_mom_vec", "gru_blend_mom",
-                "gru_moments")
+                "gru_blend_mom_vec", "gru_moments", "gru_moments_vec")
 FLAGSHIP_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "gru_gates", "gru_blend")
 # The shards of ``python -m ode_rl_torch.make_frozen_mmnist --videos 256
 # --frames 200 --train_split 0.75`` (seed 0, 3 digits), as the native
@@ -1317,15 +1328,53 @@ def _check_dx_partial(k1: dict, w2d: torch.Tensor, g: torch.Tensor,
     host[("dx", "simt_host_us", "the dx partial, fp32 SIMT")] = fns["simt"]
 
 
+def _moments_f64(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The moments pass's sums in fp64."""
+    b, h, w, ct = x.shape
+    xd = x.double().reshape(b, h * w, groups, ct // groups)
+    return torch.stack([xd.sum(dim=(1, 3)), (xd * xd).sum(dim=(1, 3))], -1)
+
+
+def _of_largest_sum(mom: torch.Tensor, ref: torch.Tensor) -> float:
+    return max_abs(mom, ref) / ref.double().abs().max().item()
+
+
+def _moments_vec_at(x: torch.Tensor, groups: int,
+                    plan: SamplePlan) -> torch.Tensor:
+    """The vector moments pass at ``plan`` rather than the rule's, not
+    counted: the cluster sizes the rule was chosen among."""
+    b, h, w, ct = x.shape
+    mom = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
+    err = _build.library().odek_gru_moments_vec(
+        x.data_ptr(), mom.data_ptr(), b, h * w, ct, groups, *plan,
+        common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    if err:
+        raise RuntimeError(f"gru_moments_vec at {plan}: CUDA error {err}")
+    return mom
+
+
+def _var_mean(x: torch.Tensor, groups: int):
+    """torch.var_mean over the moments pass's (B, HW, G, C/G) view: the
+    same statistics as mean and variance, the moments pass's yardstick."""
+    b, h, w, ct = x.shape
+    return torch.var_mean(x.view(b, h * w, groups, ct // groups),
+                          dim=(1, 3))
+
+
 def _check_axis_gru(gen) -> dict:
     """The moments-in K3 and K4 and their moments pass at a 'space'
-    rank's rows, against their plain versions on the same moments (fp32
+    rank's rows, each on the vector kernel its rule names: the moments
+    pass on the gates (G 4) and the candidate (G 2) within 1e-5 of the
+    largest sum of the plain version and of fp64 sums; the epilogues on
+    those moments against their plain versions on the same moments (fp32
     1e-5; bf16 one ulp of the fp64 formula, whose moments are the same
-    rows'), bit-equal over 20 calls, timed in bf16 beside the plain
-    versions, with each wrapper's host µs a call. K3 by the rule's route,
-    its vector kernel, which must also be bit-equal to the scalar kernel
-    it replaced on the same moments, and is timed in one run beside it.
-    One rank: the moments are its own, as a line of one's."""
+    rows') and bit-equal to the scalar kernels they replaced; each
+    bit-equal over 20 calls. Then each alone in bf16, timed in one run
+    beside its scalar kernel (and the moments pass beside torch.var_mean),
+    with its plain version's time and each wrapper's host µs a call; and
+    the moments pass on the gates at other plans (512 and 1024 threads a
+    block, clusters of 2 and 4 blocks a sample). One rank: the moments
+    are its own, as a line of one's."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).cuda()
     base = {"gates": rnd(B, SP_ROWS, HW, 2 * C),
@@ -1336,47 +1385,66 @@ def _check_axis_gru(gen) -> dict:
     cs, cb = 1.0 + 0.1 * rnd(C), 0.1 * rnd(C)
     n_g, n_c = float(SP_ROWS * HW * (2 * C // 4)), float(
         SP_ROWS * HW * (C // 2))
+
+    def bit_equal_calls(label, out, fn):
+        if not all(all(torch.equal(a, b) for a, b in
+                       zip(out, _as_tuple(fn()))) for _ in range(20)):
+            raise AssertionError(f"{label}: 20 calls are not bit-equal")
+
+    def epilogues(t, mom_g, mom_c):
+        return {
+            "gru_gates_mom": (
+                lambda kernel="rule": gates_from_moments(
+                    t["gates"], t["h"], mom_g, gs, gb, 4, n_g,
+                    kernel=kernel),
+                lambda: gates_f64(t["gates"], t["h"], gs, gb, 4)),
+            "gru_blend_mom": (
+                lambda kernel="rule": blend_from_moments(
+                    t["cand"], t["z"], t["h"], mom_c, cs, cb, 2, n_c,
+                    kernel=kernel),
+                lambda: blend_f64(t["cand"], t["z"], t["h"], cs, cb, 2))}
+
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: v.to(dtype) for k, v in base.items()}
-        ops = {
-            "gru_moments": (lambda: gru_moments(t["gates"], 4), None),
-            "gru_gates_mom": (
-                lambda: gates_from_moments(
-                    t["gates"], t["h"], gru_moments(t["gates"], 4), gs, gb,
-                    4, n_g),
-                lambda: gates_f64(t["gates"], t["h"], gs, gb, 4)),
-            "gru_blend_mom": (
-                lambda: blend_from_moments(
-                    t["cand"], t["z"], t["h"], gru_moments(t["cand"], 2),
-                    cs, cb, 2, n_c),
-                lambda: blend_f64(t["cand"], t["z"], t["h"], cs, cb, 2)),
-        }
+        kind = str(dtype)[6:]
+        moments = {"gates": (t["gates"], 4), "candidate": (t["cand"], 2)}
+        for what, (x, groups) in moments.items():
+            label = f"gru_moments {kind} on the {what}"
+            common.reset_launches()
+            mom = gru_moments(x, groups)
+            if (common.launches["gru_moments_vec"],
+                    common.launches["gru_moments_scalar"]) != (1, 0):
+                raise AssertionError(f"{label}: not the vector kernel")
+            with common.force_plain():
+                plain = gru_moments(x, groups)
+            err = check(f"{label} (of the largest sum)",
+                        _of_largest_sum(mom, plain), 1e-5, "max_abs")
+            check(f"{label}, fp64 (of the largest sum)",
+                  _of_largest_sum(mom, _moments_f64(x, groups)), 1e-5,
+                  "max_abs")
+            bit_equal_calls(label, (mom,),
+                            lambda x=x, g=groups: gru_moments(x, g))
+            if dtype == torch.bfloat16 and what == "gates":
+                results["gru_moments"] = {"max_abs_err": err}
+        ops = epilogues(t, gru_moments(t["gates"], 4),
+                        gru_moments(t["cand"], 2))
         for name, (fn, f64) in ops.items():
+            label = f"{name} {kind}"
             common.reset_launches()
             out = _as_tuple(fn())
-            if name == "gru_gates_mom":
-                if (common.launches["gru_gates_mom_vec"],
-                        common.launches["gru_gates_mom_scalar"]) != (1, 0):
-                    raise AssertionError(f"{name} {dtype}: not the vector "
-                                         "kernel")
-                scalar = gates_from_moments(
-                    t["gates"], t["h"], gru_moments(t["gates"], 4), gs, gb,
-                    4, n_g, kernel="scalar")
-                if not all(torch.equal(a, b) for a, b in zip(out, scalar)):
-                    raise AssertionError(f"{name} {dtype}: the vector kernel "
-                                         "is not bit-equal to the scalar one")
-                print(f"  {name} {str(dtype)[6:]}: the vector kernel "
-                      f"bit-equal to the scalar kernel")
+            if (common.launches[f"{name}_vec"],
+                    common.launches[f"{name}_scalar"]) != (1, 0):
+                raise AssertionError(f"{label}: not the vector kernel")
+            if not all(torch.equal(a, b)
+                       for a, b in zip(out, _as_tuple(fn("scalar")))):
+                raise AssertionError(f"{label}: the vector kernel is not "
+                                     "bit-equal to the scalar one")
+            print(f"  {label}: the vector kernel bit-equal to the scalar "
+                  "kernel")
             with common.force_plain():
                 ref = _as_tuple(fn())
-            label = f"{name} {str(dtype)[6:]}"
-            if name == "gru_moments":
-                err = max(max_abs(o, r) / r.abs().max().item()
-                          for o, r in zip(out, ref))
-                check(f"{label} (of the largest sum)", err, 1e-5,
-                      "max_abs")
-            elif dtype == torch.float32:
+            if dtype == torch.float32:
                 err = check(label, max(max_abs(o, r) for o, r in
                                        zip(out, ref)), 1e-5, "max_abs")
             else:
@@ -1387,59 +1455,83 @@ def _check_axis_gru(gen) -> dict:
                 check(f"{label}: share 1 ulp off",
                       max(v for _, v in readings), K34_BF16_SHARE, "share")
                 err = max(max_abs(o, r) for o, r in zip(out, ref))
-            if not all(all(torch.equal(a, b) for a, b in
-                           zip(out, _as_tuple(fn()))) for _ in range(20)):
-                raise AssertionError(f"{label}: 20 calls are not "
-                                     "bit-equal")
+            bit_equal_calls(label, out, fn)
             if dtype == torch.bfloat16:
                 results[name] = {"max_abs_err": err}
-    # Each kernel alone, on its inputs' moments taken once.
+    # Each kernel alone, on its inputs' moments taken once: the moments
+    # pass on the gates (its row) and on the candidate.
     t = {k: v.to(torch.bfloat16) for k, v in base.items()}
-    mom_g, mom_c = gru_moments(t["gates"], 4), gru_moments(t["cand"], 2)
-    alone = {
-        "gru_moments": lambda: gru_moments(t["gates"], 4),
-        "gru_gates_mom": lambda: gates_from_moments(
-            t["gates"], t["h"], mom_g, gs, gb, 4, n_g),
-        "gru_blend_mom": lambda: blend_from_moments(
-            t["cand"], t["z"], t["h"], mom_c, cs, cb, 2, n_c)}
-    scalar = lambda: gates_from_moments(  # noqa: E731
-        t["gates"], t["h"], mom_g, gs, gb, 4, n_g, kernel="scalar")
-    for name, fn in alone.items():
-        if name == "gru_gates_mom":
-            _timed_row(results[name], {"kernel": fn, "scalar": scalar})
-            continue
-        results[name]["ms"] = median_ms(fn)
-        with common.force_plain():
-            results[name]["plain_ms"] = median_ms(fn)
-        results[name]["device_us"] = device_us({name: fn})[name]
+    results["gru_moments"]["candidate"] = {}
+    for row, x, groups in ((results["gru_moments"], t["gates"], 4),
+                           (results["gru_moments"]["candidate"], t["cand"],
+                            2)):
+        _timed_row(row, {
+            "kernel": lambda x=x, g=groups: gru_moments(x, g),
+            "scalar": lambda x=x, g=groups: gru_moments(x, g, "scalar"),
+            "library": lambda x=x, g=groups: _var_mean(x, g)})
+    ops = epilogues(t, gru_moments(t["gates"], 4), gru_moments(t["cand"], 2))
+    for name, (fn, _) in ops.items():
+        _timed_row(results[name], {"kernel": fn,
+                                   "scalar": lambda fn=fn: fn("scalar")})
+    # The plan's alternatives on the gates' 128 pixels: one block of 256
+    # (the rule's), 512 or 1024 threads a sample, or clusters of 2 and 4
+    # blocks of 256.
+    sweep = _time_turns({
+        f"{threads}x{ranks}": lambda n=threads, r=ranks: _moments_vec_at(
+            t["gates"], 4, SamplePlan(n, r, SP_ROWS * HW // r))
+        for threads, ranks in ((256, 1), (512, 1), (1024, 1), (256, 2),
+                               (256, 4))})
+    results["gru_moments"]["plan_device_us"] = {
+        plan: us for plan, (_, us) in sweep.items()}
+    print("  gru_moments bf16 on the gates, threads x blocks a sample: "
+          + ", ".join(f"{plan} {ms:.4f} ms {us:.2f} device us"
+                      for plan, (ms, us) in sweep.items()))
+    (fg, _), (fc, _) = ops["gru_gates_mom"], ops["gru_blend_mom"]
     host = _host_turns({
-        ("gru_moments", "host_us", "the moments pass"): alone["gru_moments"],
-        ("gru_gates_mom", "host_us", "K3 moments in, vector"):
-            alone["gru_gates_mom"],
-        ("gru_gates_mom", "scalar_host_us", "K3 moments in, scalar"): scalar,
-        ("gru_blend_mom", "host_us", "K4 moments in"):
-            alone["gru_blend_mom"]}, "at a 'space' rank's rows")
+        ("gru_moments", "host_us", "the moments pass, vector"):
+            lambda: gru_moments(t["gates"], 4),
+        ("gru_moments", "scalar_host_us", "the moments pass, scalar"):
+            lambda: gru_moments(t["gates"], 4, "scalar"),
+        ("gru_gates_mom", "host_us", "K3 moments in, vector"): fg,
+        ("gru_gates_mom", "scalar_host_us", "K3 moments in, scalar"):
+            lambda: fg("scalar"),
+        ("gru_blend_mom", "host_us", "K4 moments in, vector"): fc,
+        ("gru_blend_mom", "scalar_host_us", "K4 moments in, scalar"):
+            lambda: fc("scalar")}, "at a 'space' rank's rows")
     for name, row in host.items():
         results[name].update(row)
     px = B * SP_ROWS * HW
     results["gru_moments"].update(_bound(
         2 * px * 2 * C, px * 2 * C * 2 + B * 4 * 2 * 4, PEAK_FP32))
+    results["gru_moments"]["candidate"].update(_bound(
+        2 * px * C, px * C * 2 + B * 2 * 2 * 4, PEAK_FP32))
     results["gru_gates_mom"].update(_bound(
         10 * px * 2 * C, px * 5 * C * 2 + 4 * C * 4 + B * 4 * 2 * 4,
         PEAK_FP32))
     results["gru_blend_mom"].update(_bound(
         10 * px * C, px * 4 * C * 2 + 2 * C * 4 + B * 2 * 2 * 4, PEAK_FP32))
-    for name, r in results.items():
-        scalar = ("" if "scalar_ms" not in r else
-                  f"; the scalar kernel it replaced {r['scalar_ms']:.4f} ms, "
-                  f"{r['scalar_device_us']:.2f} device us, host "
-                  f"{r['scalar_host_us']:.2f} us")
-        print(f"  {name} bf16 at a 'space' rank's rows: {r['ms']:.4f} ms "
-              f"({r['device_us']:.2f} device us; host {r['host_us']:.2f} "
-              f"us; plain {r['plain_ms']:.4f} ms), bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}{scalar}")
-    # The vector kernel's own row of the kernels line: the rule's K3 route.
-    results["gru_gates_mom_vec"] = dict(results["gru_gates_mom"])
+    rows = {"gru_moments on the gates": results["gru_moments"],
+            "gru_moments on the candidate":
+                results["gru_moments"]["candidate"],
+            "gru_gates_mom": results["gru_gates_mom"],
+            "gru_blend_mom": results["gru_blend_mom"]}
+    for name, r in rows.items():
+        host = ("" if "host_us" not in r else
+                f"; host {r['host_us']:.2f} us, scalar "
+                f"{r['scalar_host_us']:.2f} us")
+        library = ("" if "library_ms" not in r else
+                   f"; torch.var_mean (mean and variance) "
+                   f"{r['library_ms']:.4f} ms, "
+                   f"{r['library_device_us']:.2f} device us")
+        print(f"  {name} bf16 at a 'space' rank's rows, vector kernel: "
+              f"{r['ms']:.4f} ms ({r['device_us']:.2f} device us; plain "
+              f"{r['plain_ms']:.4f} ms), bound {r['bound_ms'] * 1e3:.2f} "
+              f"us by {r['bound_by']}; the scalar kernel it replaced "
+              f"{r['scalar_ms']:.4f} ms, {r['scalar_device_us']:.2f} "
+              f"device us{host}{library}")
+    # The vector kernels' own rows of the kernels line: the rule's routes.
+    for name in ("gru_gates_mom", "gru_blend_mom", "gru_moments"):
+        results[f"{name}_vec"] = dict(results[name])
     return results
 
 
@@ -4930,21 +5022,28 @@ def _axis_bench(baseline: float) -> dict:
                     or counts["gru_moments"] != counts["gru_gates_mom"]
                     + counts["gru_blend_mom"]):
                 missing.append("a K3/K4 launch off the moments-in kernels")
-            # A 'space' rank's K3 epilogue takes the vector kernel; a
-            # 'model' rank's K1 at Cout 32 one 32-channel column block (its
-            # other K1 launches, the dx partials to 64, take blocks of 64).
-            if sp and counts["gru_gates_mom_vec"] != counts["gru_gates_mom"]:
-                missing.append("a moments-in K3 launch off the vector "
-                               "kernel")
+            # A 'space' rank's moments passes and K3 and K4 epilogues take
+            # their vector kernels; a 'model' rank's K1 at Cout 32 one
+            # 32-channel column block (its other K1 launches, the dx
+            # partials to 64, take blocks of 64).
+            missing += [f"a {k} launch off its vector kernel"
+                        for k in ("gru_moments", "gru_gates_mom",
+                                  "gru_blend_mom")
+                        if sp and counts[f"{k}_vec"] != counts[k]]
             if counts["conv3x3_fwd_nt16"] or (
                     counts["conv3x3_fwd_nt32"] == 0) != sp:
                 missing.append("a K1 launch in 16-channel blocks, or NT-32 "
                                "launches where Cout is not 32")
             print(f"    rank {rank}: K1 launches in 32 / 16-channel blocks "
                   f"{counts['conv3x3_fwd_nt32']} / "
-                  f"{counts['conv3x3_fwd_nt16']}; moments-in K3 vector / "
-                  f"scalar {counts['gru_gates_mom_vec']} / "
-                  f"{counts['gru_gates_mom_scalar']}")
+                  f"{counts['conv3x3_fwd_nt16']}; vector / scalar "
+                  "kernels: moments pass "
+                  f"{counts['gru_moments_vec']} / "
+                  f"{counts['gru_moments_scalar']}, K3 moments in "
+                  f"{counts['gru_gates_mom_vec']} / "
+                  f"{counts['gru_gates_mom_scalar']}, K4 moments in "
+                  f"{counts['gru_blend_mom_vec']} / "
+                  f"{counts['gru_blend_mom_scalar']}")
             if missing:
                 raise AssertionError(f"{name} rank {rank}: missing "
                                      f"{missing}")

@@ -71,6 +71,21 @@
 //   sum x and s2 = sum x^2 over this rank's rows, in the fixed order of
 //   the two-pass kernel's group_moments (a strided sum a thread, then
 //   block_sum2), so two calls are bit-equal; it writes (B, G, 2) floats.
+// * gru_moments_vec_kernel: the same sums where channels and groups are
+//   whole 16-byte vectors and the input 16-byte aligned
+//   (ops/gru_gates.py::moments_plan; every other call takes
+//   gru_moments_kernel). The scalar pass read a group's 8 KB strip with
+//   2-byte loads, a 32-bit division an element and a dependent chain of
+//   adds a thread: 6.7 us on the 4.2 MB of gates at the flagship's 'space'
+//   slice, a fifth of the memory rate. Here a block owns a sample (split
+//   over a cluster of up to 8 blocks where it has more than 8 passes of
+//   the block's pixels), and a thread one 16-byte vector slot of its
+//   pixels, so its group is fixed and its s1 and s2 sit in registers: it
+//   issues 8 read-only vector loads before its first add, then the groups'
+//   sums are added in the one-sample kernel's fixed order
+//   (sample_group_sums: slots, then groups by one warp, then the cluster's
+//   blocks in rank order), and G float2 are stored a sample, no atomics.
+//   The order differs from the scalar pass's, so do the bits.
 // * the wrapper all-reduces those B*G*2 floats over 'space' (a
 //   collective off the card: what the one-sample kernel adds across a
 //   cluster's blocks through distributed shared memory now crosses
@@ -82,31 +97,30 @@
 //   one FMA, the activation (the one-sample kernel's: __fdividef(1, 1 +
 //   __expf(-y)) for the sigmoid, tanhf), and r*h or the blend in fp32,
 //   rounded once, as the one-sample kernel forms them.
-// * gru_gates_mom_vec_kernel: K3's epilogue where channels and groups are
-//   whole 16-byte vectors and the inputs 16-byte aligned
-//   (ops/gru_gates.py::mom_vec_plan; every other call takes
-//   gru_gates_mom_kernel). The scalar kernel spent its time on
-//   instructions, not bytes: two 64-bit divisions, the group's statistics
-//   from the moments (two loads, a division, a rsqrtf, scale and bias) and
-//   a 2-byte load and store at every element, 5x its 3.13 us of bytes at
-//   the flagship's 'space' slice (15.57-16.60 us, H100 80GB HBM3, 700 W).
-//   Here a block owns a run of pixels of one sample: it first takes a_c and
-//   b_c of all 2C channels once into shared memory (the arithmetic of
-//   affine_from_moments, which the scalar kernel shares, so the bits are
-//   the same), while each thread's first 16-byte vectors of gates (8 bf16
-//   or 4 fp32 channels, all in z or all in r) and of h are in flight. A
+// * gru_{gates,blend}_mom_vec_kernel: the epilogues where channels and
+//   groups are whole 16-byte vectors and the inputs 16-byte aligned
+//   (ops/gru_gates.py::mom_vec_plan; every other call takes the scalar
+//   kernel). The scalar kernels spent their time on instructions, not
+//   bytes: two 64-bit divisions, the group's statistics from the moments
+//   (two loads, a division, a rsqrtf, scale and bias) and 2-byte loads and
+//   a store at every element, 3.7-5x their bytes at the flagship's 'space'
+//   slice (K3 15.57-16.60 us against 3.13, K4 9.3-9.7 against 2.50; H100
+//   80GB HBM3, 700 W). Here a block owns a run of pixels of one sample: it
+//   first takes a_c and b_c of the normalised input's channels once into
+//   shared memory (affine_to_shared, through affine_from_moments, which
+//   the scalar kernels share, so the bits are the same), while each
+//   thread's first 16-byte vectors (K3: gates, 8 bf16 or 4 fp32 channels
+//   all in z or all in r, and h; K4: cand, z and h) are in flight. A
 //   thread keeps one vector slot of a pixel, so its channels' a_c and b_c
-//   sit in registers; then an element costs one FMA, the sigmoid and, for
-//   r, the product with h in fp32, rounded once, stored as 16-byte
-//   vectors. Index arithmetic is 32-bit within a sample.
+//   sit in registers; then an element costs one FMA, the activation and,
+//   for r, the product with h, or for K4 the blend (blend_value, which the
+//   scalar K4 shares), in fp32, rounded once, stored as 16-byte vectors.
+//   Index arithmetic is 32-bit within a sample.
 //
 // Bound by bytes as K3 and K4 are: the moments pass reads the normalised
 // input once more than the one-sample kernel (at the flagship's 'space'
-// slice, gates (128, 8, 16, 128) bf16: 4.2 MB), the epilogue what K3 or
-// K4 reads and writes. The moments pass and gru_blend_mom_kernel are the
-// simple first versions: K4's epilogue recomputes its group's statistics
-// from the moments at every element, and neither pass keeps the sample on
-// chip.
+// slice, gates (128, 8, 16, 128) bf16: 4.2 MB, cand 2.1 MB), the epilogue
+// what K3 or K4 reads and writes.
 
 #include <cooperative_groups.h>
 
@@ -232,12 +246,21 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float (&v)[N]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
+  static __device__ __forceinline__ void unpack(const float4& q,
+                                                float (&v)[N]) {
     v[0] = q.x;
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
+  }
+  static __device__ __forceinline__ void load(const float* p, float (&v)[N]) {
+    unpack(*reinterpret_cast<const float4*>(p), v);
+  }
+  // The 16 bytes as loaded through the read-only data path, unpacked where
+  // they are used: four registers a vector in flight, not N.
+  using Raw = float4;
+  static __device__ __forceinline__ Raw ldg(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   }
   static __device__ __forceinline__ void store(float* p, const float (&v)[N]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -246,9 +269,8 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[N]) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
+  static __device__ __forceinline__ void unpack(const uint4& q,
+                                                float (&v)[N]) {
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -256,6 +278,14 @@ struct Vec16<__nv_bfloat16> {
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[N]) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+  }
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw ldg(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p,
                                                const float (&v)[N]) {
@@ -279,6 +309,60 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       " [%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// A barrier over the cluster where a sample spans `ranks` > 1 blocks,
+// else over the block.
+__device__ __forceinline__ void sample_sync(int ranks) {
+  if (ranks > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Each group's moments over a sample, from every thread's partial (s1, s2):
+// thread t keeps vector slot t % V of its pixels (kVec channels, all in
+// one group of nj vectors), blockDim.x a multiple of 32 and of V. One warp
+// a group adds its slots of every row in a fixed order into sums[g], then
+// thread g < G adds the `ranks` blocks' sums[g] in rank order (through
+// distributed shared memory in a cluster), so two calls are bit-equal.
+// `part` holds blockDim.x float2, `sums` G. Returns group threadIdx.x's
+// (s1, s2) on the threads below G. The caller ends with sample_sync(ranks)
+// before a block exits or reuses sums, so the others' reads are done.
+__device__ __forceinline__ float2 sample_group_sums(float s1, float s2,
+                                                   float2* part, float2* sums,
+                                                   int V, int nj, int G,
+                                                   int ranks) {
+  part[threadIdx.x] = make_float2(s1, s2);
+  __syncthreads();
+  const int P = blockDim.x / V;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int gg = warp; gg < G; gg += blockDim.x / 32) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = lane; i < nj * P; i += 32) {
+      const float2 q = part[gg * nj + i % nj + V * (i / nj)];
+      t1 += q.x;
+      t2 += q.y;
+    }
+    t1 = warp_sum(t1);
+    t2 = warp_sum(t2);
+    if (lane == 0) sums[gg] = make_float2(t1, t2);
+  }
+  sample_sync(ranks);
+  float t1 = 0.f, t2 = 0.f;
+  if (threadIdx.x < G) {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int r = 0; r < ranks; ++r) {
+      const float2 q = ranks > 1
+                           ? *cluster.map_shared_rank(&sums[threadIdx.x], r)
+                           : sums[threadIdx.x];
+      t1 += q.x;
+      t2 += q.y;
+    }
+  }
+  return make_float2(t1, t2);
 }
 
 struct SampleArgs {
@@ -381,54 +465,17 @@ __device__ __forceinline__ void gru_tail_sample(const SampleArgs& a) {
       }
     }
   }
-  part[threadIdx.x] = make_float2(s1, s2);
-  __syncthreads();
-
-  // Group gg's threads are slots [gg*nj, (gg+1)*nj) of every row: one warp
-  // adds them in a fixed order.
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nj = cs / kVec;
-  for (int gg = warp; gg < a.G; gg += blockDim.x / 32) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int i = lane; i < nj * P; i += 32) {
-      const float2 q = part[gg * nj + i % nj + V * (i / nj)];
-      t1 += q.x;
-      t2 += q.y;
-    }
-    t1 = warp_sum(t1);
-    t2 = warp_sum(t2);
-    if (lane == 0) sums[gg] = make_float2(t1, t2);
-  }
-
-  // The sample's sums: this block's, or every rank's in rank order (read
-  // through distributed shared memory); then mean and rstd.
-  cg::cluster_group cluster = cg::this_cluster();
-  if (a.ranks > 1) {
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
+  // The sample's sums of each group, then its mean and rstd.
+  const float2 tot =
+      sample_group_sums(s1, s2, part, sums, V, cs / kVec, a.G, a.ranks);
   if (threadIdx.x < a.G) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int r = 0; r < a.ranks; ++r) {
-      const float2 q = a.ranks > 1
-                           ? *cluster.map_shared_rank(&sums[threadIdx.x], r)
-                           : sums[threadIdx.x];
-      t1 += q.x;
-      t2 += q.y;
-    }
     const float n = (float)a.HW * cs;
-    const float mean = t1 / n;
-    const float var = fmaxf(t2 / n - mean * mean, 0.f);
+    const float mean = tot.x / n;
+    const float var = fmaxf(tot.y / n - mean * mean, 0.f);
     stats[threadIdx.x] = make_float2(mean, rsqrtf(var + a.eps));
   }
   // Also keeps every block alive until the others have read its sums.
-  if (a.ranks > 1) {
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
+  sample_sync(a.ranks);
 
   const float2 st = stats[g];
   float ca[kVec], cb[kVec];
@@ -557,6 +604,66 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The vector moments pass: vectors a thread loads before its first add,
+// and its largest block.
+constexpr int kMomentsPer = 8;
+constexpr int kMomentsMaxThreads = 1024;
+
+// x (B, HW, Ct) -> mom (B, G, 2) as gru_moments_kernel, where channels and
+// groups are whole 16-byte vectors; grid B * ranks blocks (a cluster where
+// ranks > 1), block b * ranks + r owning pixels [r * px_per_rank, ...) of
+// sample b. Thread t keeps vector slot t % V (V = Ct / kVec) of pixels
+// t / V + k * P (P = blockDim.x / V), so its group is fixed and its s1 and
+// s2 sit in registers; it loads kMomentsPer vectors, read-only, before it
+// adds them in pixel order, then each element's x and x^2. The groups'
+// sums follow sample_group_sums' fixed order, so two calls are bit-equal;
+// that order is not gru_moments_kernel's, so the two kernels' bits differ.
+// Offsets within a sample fit 32 bits (checked). Dynamic shared memory:
+// blockDim.x + G float2.
+template <typename T>
+__global__ void __launch_bounds__(kMomentsMaxThreads)
+    gru_moments_vec_kernel(const T* __restrict__ x, float* __restrict__ mom,
+                           int HW, int Ct, int G, int ranks,
+                           int px_per_rank) {
+  using V16 = Vec16<T>;
+  constexpr int kVec = V16::N;
+  extern __shared__ float2 msum[];
+  const int V = Ct / kVec;
+  const int P = blockDim.x / V;
+  const int rank = blockIdx.x % ranks;
+  const int b = blockIdx.x / ranks;
+  const int end = min(HW, (rank + 1) * px_per_rank);
+  const T* xs = x + (long long)b * HW * Ct + (threadIdx.x % V) * kVec;
+  float s1 = 0.f, s2 = 0.f;
+  for (int p = rank * px_per_rank + threadIdx.x / V; p < end;
+       p += kMomentsPer * P) {
+    typename V16::Raw raw[kMomentsPer];
+#pragma unroll
+    for (int j = 0; j < kMomentsPer; ++j) {
+      if (p + j * P < end) raw[j] = V16::ldg(xs + (p + j * P) * Ct);
+    }
+#pragma unroll
+    for (int j = 0; j < kMomentsPer; ++j) {
+      if (p + j * P < end) {
+        float v[kVec];
+        V16::unpack(raw[j], v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          s1 += v[e];
+          s2 = fmaf(v[e], v[e], s2);
+        }
+      }
+    }
+  }
+  const float2 tot = sample_group_sums(s1, s2, msum, msum + blockDim.x, V,
+                                       Ct / G / kVec, G, ranks);
+  if (rank == 0 && threadIdx.x < G) {
+    reinterpret_cast<float2*>(mom)[(long long)b * G + threadIdx.x] = tot;
+  }
+  // Keeps every block of a cluster alive until rank 0 has read its sums.
+  if (ranks > 1) cg::this_cluster().sync();
+}
+
 // a = scale * rstd and b = bias - mean * a of a channel whose group's
 // moments (s1, s2) sum `count` elements: the normalised value is fmaf(v,
 // a, b). One function for both epilogues of K3, so their bits agree.
@@ -582,6 +689,27 @@ __device__ __forceinline__ float norm_from_moments(
                       mom[((long long)b * G + g) * 2 + 1], scale[c], bias[c],
                       count, eps, a, sh);
   return fmaf(v, a, sh);
+}
+
+// a_c then b_c of one sample's ct channels into affine[0, 2 * ct), from
+// its groups' moments ms (G, 2) over `count` elements a group of cs
+// channels; the block's threads stride over the channels. The vector
+// epilogues take them once a block.
+__device__ __forceinline__ void affine_to_shared(
+    const float* __restrict__ ms, const float* __restrict__ scale,
+    const float* __restrict__ bias, int ct, int cs, float count, float eps,
+    float* affine) {
+  for (int c = threadIdx.x; c < ct; c += blockDim.x) {
+    const int g = c / cs;
+    affine_from_moments(ms[2 * g], ms[2 * g + 1], scale[c], bias[c], count,
+                        eps, affine[c], affine[ct + c]);
+  }
+}
+
+// K4's blend (1 - z) * h + z * c in fp32, one rounding order for both
+// moments-in K4 kernels, so that their bits agree.
+__device__ __forceinline__ float blend_value(float z, float h, float c) {
+  return fmaf(z, c, (1.f - z) * h);
 }
 
 // gates (B, HW, 2C), h (B, HW, C), mom (B, G, 2) -> z, rh (B, HW, C).
@@ -661,13 +789,8 @@ __global__ void __launch_bounds__(kMomVecMaxThreads)
       if (is_r) V16::load(hs + p * C + oc, hv[j]);
     }
   }
-  const int cs = C2 / G;
-  const float* ms = mom + (long long)b * G * 2;
-  for (int c = threadIdx.x; c < C2; c += blockDim.x) {
-    const int g = c / cs;
-    affine_from_moments(ms[2 * g], ms[2 * g + 1], scale[c], bias[c], count,
-                        eps, affine[c], affine[C2 + c]);
-  }
+  affine_to_shared(mom + (long long)b * G * 2, scale, bias, C2, C2 / G,
+                   count, eps, affine);
   __syncthreads();
   float ca[kVec], cb[kVec];
 #pragma unroll
@@ -709,7 +832,78 @@ __global__ void __launch_bounds__(kThreads)
                                       c, cs, G, count, eps);
     const float zv = to_f32(z[i]);
     const float hv = to_f32(h[i]);
-    out[i] = from_f32<T>((1.f - zv) * hv + zv * tanhf(y));
+    out[i] = from_f32<T>(blend_value(zv, hv, tanhf(y)));
+  }
+}
+
+// At most 512 threads a block of the vector K4 epilogue: its three inputs'
+// vectors in flight and each channel's a_c and b_c take more than the 64
+// registers a thread that 1024 would leave (bf16 spilled there).
+constexpr int kBlendMomVecMaxThreads = 512;
+
+// cand, z, h (B, HW, C), mom (B, G, 2) -> out (B, HW, C), as
+// gru_blend_mom_kernel; the grid and block of gru_gates_mom_vec_kernel with
+// V = C / kVec vectors a pixel. Dynamic shared memory: a_c then b_c, C
+// floats each.
+template <typename T>
+__global__ void __launch_bounds__(kBlendMomVecMaxThreads)
+    gru_blend_mom_vec_kernel(const T* __restrict__ cand,
+                             const T* __restrict__ z,
+                             const T* __restrict__ h,
+                             const float* __restrict__ mom,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ bias,
+                             T* __restrict__ out, int HW, int C, int G,
+                             float count, float eps) {
+  using V16 = Vec16<T>;
+  constexpr int kVec = V16::N;
+  constexpr int kPer = kMomVecPerThread;
+  extern __shared__ float affine[];
+  const int V = C / kVec;
+  const int rows = blockDim.x / V;
+  const int c0 = (threadIdx.x % V) * kVec;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * rows * kPer + threadIdx.x / V;
+  // This sample's tensors; offsets within a sample fit 32 bits (checked).
+  const long long base = (long long)b * HW * C + c0;
+  const T* xs = cand + base;
+  const T* zs = z + base;
+  const T* hs = h + base;
+  T* os = out + base;
+
+  // This thread's vectors, in flight while the block takes a_c and b_c.
+  typename V16::Raw qc[kPer], qz[kPer], qh[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = p0 + j * rows;
+    if (p < HW) {
+      qc[j] = V16::ldg(xs + p * C);
+      qz[j] = V16::ldg(zs + p * C);
+      qh[j] = V16::ldg(hs + p * C);
+    }
+  }
+  affine_to_shared(mom + (long long)b * G * 2, scale, bias, C, C / G, count,
+                   eps, affine);
+  __syncthreads();
+  float ca[kVec], cb[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    ca[e] = affine[c0 + e];
+    cb[e] = affine[C + c0 + e];
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = p0 + j * rows;
+    if (p >= HW) break;
+    float v[kVec], zv[kVec], hv[kVec];
+    V16::unpack(qc[j], v);
+    V16::unpack(qz[j], zv);
+    V16::unpack(qh[j], hv);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      v[e] = blend_value(zv[e], hv[e], tanhf(fmaf(v[e], ca[e], cb[e])));
+    }
+    V16::store(os + p * C, v);
   }
 }
 
@@ -734,6 +928,53 @@ extern "C" int odek_gru_moments(const void* x, void* mom, int B, int HW,
     using T = decltype(tag);
     gru_moments_kernel<T><<<dim3(B, G), kThreads, 0, st>>>(
         static_cast<const T*>(x), static_cast<float*>(mom), HW, Ct, G);
+  });
+}
+
+// The vector moments pass: as odek_gru_moments with `threads` a block (a
+// multiple of 32 and of the 16-byte vectors a pixel, at most 1024), each
+// sample split over `ranks` blocks (a cluster where more than 1, at most
+// 8) of `px_per_rank` pixels each, the last one non-empty; for channels and
+// groups in whole 16-byte vectors, x 16-byte aligned and a sample's HW * Ct
+// elements within 32 bits (ops/gru_gates.py::moments_plan). Returns
+// cudaErrorInvalidValue for arguments outside that, else the launch's
+// error.
+extern "C" int odek_gru_moments_vec(const void* x, void* mom, int B, int HW,
+                                    int Ct, int G, int threads, int ranks,
+                                    int px_per_rank, int dtype,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    constexpr int kVec = Vec16<T>::N;
+    const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                         (reinterpret_cast<uintptr_t>(mom) & 7) == 0;
+    if (!aligned || B < 1 || HW < 1 || Ct < 1 || Ct % kVec || G < 1 ||
+        Ct % G || (Ct / G) % kVec || threads < 32 || threads % 32 ||
+        threads > kMomentsMaxThreads || threads % (Ct / kVec) ||
+        ranks < 1 || ranks > kMaxRanks || px_per_rank < 1 ||
+        (long long)ranks * px_per_rank < HW ||
+        (long long)(ranks - 1) * px_per_rank >= HW ||
+        (long long)HW * Ct > 0x7fffffffLL ||
+        (long long)B * ranks > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * ranks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = (threads + G) * sizeof(float2);
+    cfg.stream = st;
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = ranks;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = ranks > 1 ? 1 : 0;
+    return (int)cudaLaunchKernelEx(&cfg, gru_moments_vec_kernel<T>,
+                                   static_cast<const T*>(x),
+                                   static_cast<float*>(mom), HW, Ct, G,
+                                   ranks, px_per_rank);
   });
 }
 
@@ -819,6 +1060,47 @@ extern "C" int odek_gru_blend_mom(const void* cand, const void* z,
         static_cast<const T*>(h), static_cast<const float*>(mom),
         static_cast<const float*>(scale), static_cast<const float*>(bias),
         static_cast<T*>(out), total, HW, C, G, count, eps);
+  });
+}
+
+// Moments-in K4, the vector epilogue: as odek_gru_blend_mom with
+// `threads` a block (a multiple of the 16-byte vectors a pixel, at most
+// 512), for channels and groups in whole 16-byte vectors, 16-byte aligned
+// tensors, B <= 65535, C <= 6144 and a sample's C * HW elements within 32
+// bits (ops/gru_gates.py::mom_vec_plan with blend). Returns
+// cudaErrorInvalidValue for arguments outside that, else the launch's
+// error.
+extern "C" int odek_gru_blend_mom_vec(const void* cand, const void* z,
+                                      const void* h, const void* mom,
+                                      const void* scale, const void* bias,
+                                      void* out, int B, int HW, int C, int G,
+                                      float count, float eps, int threads,
+                                      int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
+    using T = decltype(tag);
+    constexpr int kVec = Vec16<T>::N;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(cand) |
+                           reinterpret_cast<uintptr_t>(z) |
+                           reinterpret_cast<uintptr_t>(h) |
+                           reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    const int V = C / kVec;
+    if (!aligned || B < 1 || B > 65535 || HW < 1 || C < 1 || C % kVec ||
+        G < 1 || C % G || (C / G) % kVec || count < 1.f || threads < V ||
+        threads % V || threads > kBlendMomVecMaxThreads ||
+        2 * C * (int)sizeof(float) > kMomVecMaxSmem ||
+        (long long)HW * C > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int px = threads / V * kMomVecPerThread;  // pixels a block
+    const dim3 grid((HW + px - 1) / px, B);
+    gru_blend_mom_vec_kernel<T><<<grid, threads, 2 * C * sizeof(float),
+                                  st>>>(
+        static_cast<const T*>(cand), static_cast<const T*>(z),
+        static_cast<const T*>(h), static_cast<const float*>(mom),
+        static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<T*>(out), HW, C, G, count, eps);
+    return 0;
   });
 }
 

@@ -57,6 +57,8 @@ SIGNATURES = {
                               _I, _I, _I, _P],
     # x, mom, B, HW, Ct, G, dtype, stream
     "odek_gru_moments": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, mom, B, HW, Ct, G, threads, ranks, px_per_rank, dtype, stream
+    "odek_gru_moments_vec": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # gates, h, mom, scale, bias, z, rh, B, HW, C, G, count, eps, dtype,
     # stream
     "odek_gru_gates_mom": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -69,6 +71,10 @@ SIGNATURES = {
     # stream
     "odek_gru_blend_mom": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _F, _I, _P],
+    # cand, z, h, mom, scale, bias, out, B, HW, C, G, count, eps, threads,
+    # dtype, stream
+    "odek_gru_blend_mom_vec": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _I, _I, _P],
     # f1, f2, out, B, H, W, C, max_displacement, stride, tx, ny, threads,
     # dtype, stream
     "odek_correlation_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

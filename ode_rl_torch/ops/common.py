@@ -36,7 +36,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # likewise K4; "gru_gates_mom" and "gru_blend_mom" count the moments-in
 # K3 and K4 (a 'space' mesh axis), "gru_gates_mom_vec" and
 # "gru_gates_mom_scalar" the moments-in K3's vector and scalar kernels,
-# and "gru_moments" their moments pass.
+# likewise K4's ("gru_blend_mom_vec", "gru_blend_mom_scalar"), and
+# "gru_moments" their moments pass, "gru_moments_vec" and
+# "gru_moments_scalar" its vector and scalar kernels.
 # "correlation_fwd" counts every K5 launch,
 # "correlation_fwd_tc" those of its tensor-core kernel and
 # "correlation_fwd_pairs" those of its SIMT pair-view kernel (small maps);
@@ -50,7 +52,10 @@ launches = {"conv3x3_fwd": 0, "conv3x3_fwd_tc": 0, "conv3x3_fwd_simt": 0,
             "gru_gates_2pass": 0, "gru_blend": 0, "gru_blend_sample": 0,
             "gru_blend_2pass": 0, "gru_gates_mom": 0,
             "gru_gates_mom_vec": 0, "gru_gates_mom_scalar": 0,
-            "gru_blend_mom": 0, "gru_moments": 0, "correlation_fwd": 0,
+            "gru_blend_mom": 0, "gru_blend_mom_vec": 0,
+            "gru_blend_mom_scalar": 0, "gru_moments": 0,
+            "gru_moments_vec": 0, "gru_moments_scalar": 0,
+            "correlation_fwd": 0,
             "correlation_fwd_tc": 0, "correlation_fwd_pairs": 0,
             "correlation_bwd_f1": 0, "correlation_bwd_f1_tc": 0,
             "correlation_bwd_f1_pairs": 0, "correlation_bwd_f2": 0,

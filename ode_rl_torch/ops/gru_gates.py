@@ -25,14 +25,16 @@ formula rounds r, z and cand to h's dtype first.
 
 Under a ``'space'`` mesh axis (parallel/sp.py) a sample's rows lie on
 several ranks, and each call takes the moments-in variants: the moments
-pass ``gru_moments`` (kernel ``odek_gru_moments``: fp32 sums of x and
-x^2 a (sample, group) over this rank's rows), an all-reduce of those
-B*G*2 floats over ``'space'``, then ``gates_from_moments`` /
-``blend_from_moments`` (kernels ``odek_gru_{gates,blend}_mom``): the
-epilogue on the global moments. K3's takes its vector kernel
-(``odek_gru_gates_mom_vec``: a block a run of one sample's pixels, each
-channel's affine taken once a block, 16-byte vectors) where
-``mom_vec_plan`` allows, else its scalar kernel. Their plain versions
+pass ``gru_moments`` (fp32 sums of x and x^2 a (sample, group) over this
+rank's rows), an all-reduce of those B*G*2 floats over ``'space'``, then
+``gates_from_moments`` / ``blend_from_moments``: the epilogue on the
+global moments. Each takes its vector kernel where its rule allows, else
+its scalar kernel (``odek_gru_moments``, ``odek_gru_{gates,blend}_mom``):
+the moments pass ``odek_gru_moments_vec`` by ``moments_plan`` (a block,
+or a cluster of blocks, a sample; 16-byte vectors a thread, summed in a
+fixed order), the epilogues ``odek_gru_{gates,blend}_mom_vec`` by
+``mom_vec_plan`` (a block a run of one sample's pixels, each channel's
+affine taken once a block, 16-byte vectors). Their plain versions
 (``gru_moments_plain``, ``_gates_mom_plain``, ``_blend_mom_plain``)
 compute the same from the same moments; the backward is autograd of
 them with the moments' all-reduce in the graph, so it is global too.
@@ -287,50 +289,129 @@ def _blend_cuda(cand_raw, z, h, scale, bias, groups, kernel="rule"):
     return out
 
 
-def gru_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
+# The vector moments pass (csrc/gru_gates.cu::gru_moments_vec_kernel): about
+# this many threads a block, each loading this many 16-byte vectors before
+# its first add (kMomentsPer); a sample of more passes of a block's pixels
+# than that is split over a cluster of up to 8 blocks. At the flagship's
+# 'space' gates one block of 256 threads a sample read faster than 512 or
+# 1024 threads, or a cluster of 2 or 4 blocks (H100; PERF.md).
+_MOMENTS_THREADS = 256
+_MOMENTS_PER = 8
+_MOMENTS_MAX_THREADS = 1024
+
+
+@functools.lru_cache(maxsize=256)
+def moments_plan(b: int, hw: int, ct: int, groups: int, dtype: torch.dtype,
+                 align: int) -> Optional[SamplePlan]:
+    """The rule that sends a moments pass on the card to the vector kernel,
+    and its plan; None sends it to the scalar kernel. ``ct`` is the
+    normalised input's channels (K3's 2C, K4's C), ``align`` the
+    alignment of its base address in bytes. The kernel takes fp32 or bf16
+    with the channels, and each group's, whole 16-byte vectors, a 16-byte
+    aligned input and a sample's HW * Ct elements within 32 bits; a block
+    is a multiple of 32 and of the V vectors a pixel, about 256 threads
+    and at most 1024. A sample goes to one block where its pixels take at
+    most 8 passes of the block (threads / V pixels a pass), else to as few
+    blocks of a cluster (at most 8) as take 8 passes each, in equal runs
+    of whole passes with the last one non-empty. A function of the shape
+    alone, so the summation order, and the bits, do not move between
+    calls. Mirrors csrc/gru_gates.cu::odek_gru_moments_vec."""
+    elem = _ELEM_BYTES.get(dtype)
+    if (elem is None or align % 16 or ct * elem % 16 or groups < 1
+            or ct % groups or ct // groups * elem % 16
+            or hw * ct > 2**31 - 1):
+        return None
+    v = ct * elem // 16
+    step = math.lcm(v, 32)
+    if step > _MOMENTS_MAX_THREADS:
+        return None
+    threads = max(1, _MOMENTS_THREADS // step) * step
+    passes = -(-hw // (threads // v))
+    ranks = min(_MAX_RANKS, -(-passes // _MOMENTS_PER))
+    per = -(-passes // ranks) * (threads // v)
+    ranks = -(-hw // per)
+    if b * ranks > 2**31 - 1:
+        return None
+    return SamplePlan(threads, ranks, per)
+
+
+def _vector_route(name, kernel, plan, shape, dtype, groups):
+    """The vector kernel's plan (``plan()``) for ``kernel`` "rule" or
+    "vec", None for "scalar" or where the rule names the scalar kernel;
+    "vec" outside the rule raises."""
+    if kernel == "scalar":
+        return None
+    found = plan()
+    if found is None and kernel == "vec":
+        raise ValueError(f"{name}: {tuple(shape)} {dtype}, {groups} groups "
+                         f"is outside the vector kernel's rule")
+    return found
+
+
+def gru_moments(x: torch.Tensor, groups: int,
+                kernel: str = "rule") -> torch.Tensor:
     """The moments pass of the moments-in K3/K4: (B, H, W, Ct) -> (B, G,
-    2) fp32 sums of x and x^2 a (sample, group) over this rank's rows."""
+    2) fp32 sums of x and x^2 a (sample, group) over this rank's rows. On
+    the card ``kernel`` "rule" takes the kernel ``moments_plan`` names,
+    "vec" the vector kernel (raises outside its rule), "scalar" the
+    scalar kernel."""
     b, hh, ww, c = x.shape
     _check_groups("gru_moments", c, groups)
     if not common.use_kernel(x):
         return gru_moments_plain(x, groups)
     common.check_inputs("gru_moments", {"x": x}, x.dtype)
+    plan = _vector_route("gru_moments", kernel, lambda: moments_plan(
+        b, hh * ww, c, groups, x.dtype, _alignment(x.data_ptr())),
+        x.shape, x.dtype, groups)
     mom = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
-    common.launch("gru_moments", library().odek_gru_moments, x.data_ptr(),
-                  mom.data_ptr(), b, hh * ww, c, groups,
-                  common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    args = (x.data_ptr(), mom.data_ptr(), b, hh * ww, c, groups)
+    tail = (common.DTYPE_CODES[x.dtype], common.stream_handle(x))
+    if plan is None:
+        common.launch("gru_moments_scalar", library().odek_gru_moments,
+                      *args, *tail)
+    else:
+        common.launch("gru_moments_vec", library().odek_gru_moments_vec,
+                      *args, *plan, *tail)
+    common.launches["gru_moments"] += 1
     return mom
 
 
-# The vector moments-in K3 (csrc/gru_gates.cu::gru_gates_mom_vec_kernel):
-# about this many threads a block, each with two 16-byte vectors of gates;
-# at most 1024 threads, B in grid.y, C <= 3072 (its 16 bytes a channel of
-# a_c and b_c within 48 KB of shared memory).
+# The vector moments-in K3 and K4 (csrc/gru_gates.cu::
+# gru_{gates,blend}_mom_vec_kernel): about this many threads a block, each
+# with two 16-byte vectors of the normalised input; at most 1024 threads
+# for K3 and 512 for K4 (whose three inputs take more registers), B in
+# grid.y, at most 6144 channels of the normalised input (16 bytes a
+# channel of K3's h or 8 of K4's cand for a_c and b_c, within 48 KB of
+# shared memory).
 _MOM_VEC_THREADS = 256
-_MOM_VEC_MAX_THREADS = 1024
-_MOM_VEC_MAX_C = 3072
+_MOM_VEC_MAX_THREADS = {False: 1024, True: 512}
+_MOM_VEC_MAX_CT = 6144
 
 
 @functools.lru_cache(maxsize=256)
 def mom_vec_plan(b: int, hw: int, c: int, groups: int, dtype: torch.dtype,
-                 align: int) -> Optional[int]:
-    """The rule that sends a moments-in K3 call on the card to the vector
-    kernel, and its threads a block; None sends it to the scalar kernel.
-    As ``sample_plan``: fp32 or bf16 with h's channels, and each group's,
-    whole 16-byte vectors (a vector lies in z or in r), inputs 16-byte
-    aligned (``align`` the alignment common to their base addresses); and
-    B <= 65535, C <= 3072, a sample's 2C * HW elements within 32 bits.
-    The block is a multiple of the V vectors a pixel, about 256 threads.
-    Mirrors csrc/gru_gates.cu::odek_gru_gates_mom_vec."""
+                 align: int, blend: bool = False) -> Optional[int]:
+    """The rule that sends a moments-in K3 (or, with ``blend``, K4) call on
+    the card to the vector kernel, and its threads a block; None sends it
+    to the scalar kernel. As ``sample_plan``: fp32 or bf16 with h's
+    channels, and each group's, whole 16-byte vectors (a vector of K3's
+    gates lies in z or in r), inputs 16-byte aligned (``align`` the
+    alignment common to their base addresses); and B <= 65535, the
+    normalised input's channels (2C for K3, C for K4) at most 6144, a
+    sample's elements of it within 32 bits. The block is a multiple of the
+    V vectors a pixel, about 256 threads, at most 1024 (K3) or 512 (K4).
+    Mirrors csrc/gru_gates.cu::odek_gru_gates_mom_vec and
+    odek_gru_blend_mom_vec."""
     elem = _ELEM_BYTES.get(dtype)
+    ct = c if blend else 2 * c  # channels of the normalised input
     if (elem is None or align % 16 or c * elem % 16 or groups < 1
-            or 2 * c % groups or 2 * c // groups * elem % 16
-            or b > 65535 or c > _MOM_VEC_MAX_C
-            or hw * 2 * c > 2**31 - 1):
+            or ct % groups or ct // groups * elem % 16
+            or b > 65535 or ct > _MOM_VEC_MAX_CT
+            or hw * ct > 2**31 - 1):
         return None
-    v = 2 * c * elem // 16
+    v = ct * elem // 16
     threads = max(1, _MOM_VEC_THREADS // v) * v
-    return threads if threads <= _MOM_VEC_MAX_THREADS else None
+    return threads if threads <= _MOM_VEC_MAX_THREADS[blend] else None
 
 
 def _check_moments(name, mom, b, groups):
@@ -356,14 +437,10 @@ def gates_from_moments(gates_raw, h, mom, scale, bias, groups: int,
         "gates_raw": gates_raw, "h": h}, h.dtype, scale, bias)
     common.check_inputs("gates_from_moments", {"mom": mom}, torch.float32)
     ptrs = (gates_raw.data_ptr(), h.data_ptr())
-    threads = None
-    if kernel != "scalar":
-        threads = mom_vec_plan(b, hh * ww, c, groups, h.dtype,
-                               _alignment(*ptrs))
-        if threads is None and kernel == "vec":
-            raise ValueError(f"gates_from_moments: {tuple(h.shape)} "
-                             f"{h.dtype}, {groups} groups is outside the "
-                             f"vector kernel's rule")
+    threads = _vector_route(
+        "gates_from_moments", kernel, lambda: mom_vec_plan(
+            b, hh * ww, c, groups, h.dtype, _alignment(*ptrs)),
+        h.shape, h.dtype, groups)
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
     args = (*ptrs, mom.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -382,9 +459,10 @@ def gates_from_moments(gates_raw, h, mom, scale, bias, groups: int,
 
 
 def blend_from_moments(cand_raw, z, h, mom, scale, bias, groups: int,
-                       count: float):
+                       count: float, kernel: str = "rule"):
     """The moments-in K4: the blend with the candidate's group statistics
-    from ``mom`` (B, G, 2). No autograd."""
+    from ``mom`` (B, G, 2). No autograd. On the card ``kernel`` as for
+    ``gates_from_moments``, by ``mom_vec_plan(..., blend=True)``."""
     _check_blend(cand_raw, z, h, groups)
     _check_moments("blend_from_moments", mom, h.shape[0], groups)
     if not common.use_kernel(cand_raw):
@@ -394,12 +472,22 @@ def blend_from_moments(cand_raw, z, h, mom, scale, bias, groups: int,
     scale, bias = _checked_affine("blend_from_moments", {
         "cand_raw": cand_raw, "z": z, "h": h}, h.dtype, scale, bias)
     common.check_inputs("blend_from_moments", {"mom": mom}, torch.float32)
+    ptrs = (cand_raw.data_ptr(), z.data_ptr(), h.data_ptr())
+    threads = _vector_route(
+        "blend_from_moments", kernel, lambda: mom_vec_plan(
+            b, hh * ww, c, groups, h.dtype, _alignment(*ptrs), blend=True),
+        h.shape, h.dtype, groups)
     out = torch.empty_like(h)
-    common.launch("gru_blend_mom", library().odek_gru_blend_mom,
-                  cand_raw.data_ptr(), z.data_ptr(), h.data_ptr(),
-                  mom.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), b, hh * ww, c, groups, float(count), _EPS,
-                  common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    args = (*ptrs, mom.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, hh * ww, c, groups, float(count), _EPS)
+    tail = (common.DTYPE_CODES[h.dtype], common.stream_handle(h))
+    if threads is None:
+        common.launch("gru_blend_mom_scalar", library().odek_gru_blend_mom,
+                      *args, *tail)
+    else:
+        common.launch("gru_blend_mom_vec", library().odek_gru_blend_mom_vec,
+                      *args, threads, *tail)
+    common.launches["gru_blend_mom"] += 1
     common.launches["gru_blend"] += 1
     return out
 

@@ -56,7 +56,8 @@ _KERNEL_IDS = {
     "gru_gates_sample": "K3", "gru_gates": "K3",
     "gru_blend_sample": "K4", "gru_blend": "K4",
     "gru_gates_mom": "K3", "gru_gates_mom_vec": "K3", "gru_blend_mom": "K4",
-    "gru_moments": "K3/K4",
+    "gru_blend_mom_vec": "K4", "gru_moments": "K3/K4",
+    "gru_moments_vec": "K3/K4",
     "corr_fwd_tc": "K5", "corr_fwd": "K5",
     "corr_bwd_f1_tc": "K6", "corr_bwd_f1": "K6",
     "corr_bwd_f2_tc": "K7", "corr_bwd_f2": "K7",

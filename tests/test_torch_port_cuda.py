@@ -5,9 +5,11 @@ inside), the tensor-core K1 and K2 against their SIMT twins and cuDNN
 (K2 also at 32 and 96 output channels, K1 also with an fp32 output), K1's
 32-channel column blocks (Cin 16, 32, 64 and 128, Cout 32, 96 and 160, W
 8, 16, 24 and 33, with and without a halo, bf16 and fp32 out) and Cout 16
-and 48 still in 16-channel blocks, the moments-in K3's vector kernel
-against its plain version, bit-equal to its scalar kernel, and the shapes
-its rule leaves to the scalar kernel,
+and 48 still in 16-channel blocks, the moments-in K3's and K4's vector
+kernels against their plain versions, bit-equal to their scalar kernels,
+the vector moments pass against its plain version and fp64 sums (a
+sample over a cluster of blocks too), and the shapes their rules leave to
+the scalar kernels,
 channel counts that are not multiples of 64, the one-sample K3/K4 against
 the two-pass ones and the plain versions (GroupNorm groups that straddle
 the z/r split, a cluster of blocks a sample, the flagship) and the shapes
@@ -93,14 +95,16 @@ from ode_rl_torch.ops.correlation import (CorrelationFn,
                                           correlation_fwd_plain,
                                           n_displacements, simt_plan,
                                           tc_plan)
-from ode_rl_torch.ops.gru_gates import (_alignment, _blend_plain,
-                                        _gates_mom_plain, _gates_plain,
-                                        _gru_blend_2pass, _gru_blend_sample,
-                                        _gru_gates_2pass, _gru_gates_sample,
-                                        blend_f64, fused_gru_blend,
+from ode_rl_torch.ops.gru_gates import (_alignment, _blend_mom_plain,
+                                        _blend_plain, _gates_mom_plain,
+                                        _gates_plain, _gru_blend_2pass,
+                                        _gru_blend_sample, _gru_gates_2pass,
+                                        _gru_gates_sample, blend_f64,
+                                        blend_from_moments, fused_gru_blend,
                                         fused_gru_gates, gates_f64,
                                         gates_from_moments, gru_moments,
-                                        mom_vec_plan, sample_plan)
+                                        gru_moments_plain, mom_vec_plan,
+                                        moments_plan, sample_plan)
 from ode_rl_torch.train.step import create_train_state, loss_and_grads
 
 pytestmark = pytest.mark.cuda
@@ -796,6 +800,141 @@ def test_refused_mom_shapes_take_the_scalar_kernel(cuda, refused):
         assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
 
 
+# The moments-in K4 (a 'space' rank's blend): (B, H, W, C, groups, dtype).
+# G 2 over C 64 (a 'space' rank's slice of the flagship), groups of 16
+# channels (C 48, G 3), a ragged 8 x 13 map, narrow channels (C 16, G 1),
+# a 16 x 32 map (the whole frame's pixels); fp32 and bf16.
+BLEND_MOM_VEC_CASES = [(b, h, w, c, g, dtype)
+                       for b, h, w, c, g in ((4, 8, 16, 64, 2),
+                                             (3, 8, 13, 48, 3),
+                                             (2, 8, 13, 64, 2),
+                                             (3, 5, 7, 16, 1),
+                                             (2, 16, 32, 64, 2))
+                       for dtype in DTYPES]
+
+
+def _blend_mom_case(gen, b, h, w, c, groups, dtype):
+    """cand, z, h, cand's moments, scale, bias, groups, count."""
+    cand = _rnd(gen, b, h, w, c, dtype=dtype)
+    z = torch.sigmoid(_rnd(gen, b, h, w, c, dtype=dtype))
+    hs = torch.tanh(_rnd(gen, b, h, w, c, dtype=dtype))
+    return (cand, z, hs, gru_moments(cand, groups), 1 + 0.1 * _rnd(gen, c),
+            0.1 * _rnd(gen, c), groups, float(h * w * (c // groups)))
+
+
+@pytest.mark.parametrize("case", BLEND_MOM_VEC_CASES,
+                         ids=lambda c: "{}x{}x{}x{}-g{}-{}".format(
+                             *c[:5], str(c[5])[6:]))
+def test_mom_vec_k4_matches_plain_and_scalar(cuda, case):
+    """The rule takes the vector K4; it is bit-equal to the scalar kernel
+    on the same moments (both blend through one function), within 1e-5
+    max abs of the plain version in fp32 and one bf16 ulp of the fp64
+    formula in bf16 (at most 2e-3 of the outputs one off); 20 calls
+    bit-equal."""
+    b, h, w, c, groups, dtype = case
+    args = _blend_mom_case(cuda, *case)
+    assert mom_vec_plan(b, h * w, c, groups, dtype, _alignment(
+        *(t.data_ptr() for t in args[:3])), True) is not None
+    common.reset_launches()
+    out = blend_from_moments(*args)
+    assert (common.launches["gru_blend_mom_vec"],
+            common.launches["gru_blend_mom_scalar"],
+            common.launches["gru_blend_mom"]) == (1, 0, 1)
+    scalar = blend_from_moments(*args, kernel="scalar")
+    assert common.launches["gru_blend_mom_scalar"] == 1
+    assert torch.equal(out, scalar)
+    if dtype == torch.float32:
+        assert _max_abs(out, _blend_mom_plain(*args)) <= 1e-5
+    else:
+        ulps, share = common.bf16_ulps(out, blend_f64(*args[:3],
+                                                      *args[4:7]))
+        assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+    for _ in range(20):
+        assert torch.equal(out, blend_from_moments(*args))
+
+
+# The moments pass: (B, H, W, Ct, groups, dtype). A 'space' rank's gates
+# (2C 128, G 4) and candidate (C 64, G 2) of the flagship, a ragged 8 x
+# 13 map, groups of 32 channels over 96, narrow channels (Ct 16, G 1),
+# and a 16 x 32 map whose samples the plan splits over a cluster (4
+# blocks in bf16, 8 in fp32); fp32 and bf16.
+MOMENTS_CASES = [(b, h, w, ct, g, dtype)
+                 for b, h, w, ct, g in ((4, 8, 16, 128, 4),
+                                        (4, 8, 16, 64, 2),
+                                        (2, 8, 13, 128, 4),
+                                        (3, 8, 13, 96, 3), (3, 5, 7, 16, 1),
+                                        (2, 16, 32, 128, 4))
+                 for dtype in DTYPES]
+
+
+def _moments_f64(x, groups):
+    b, h, w, ct = x.shape
+    xd = x.double().reshape(b, h * w, groups, ct // groups)
+    return torch.stack([xd.sum(dim=(1, 3)), (xd * xd).sum(dim=(1, 3))], -1)
+
+
+def _of_largest_sum(mom, ref):
+    return _max_abs(mom, ref) / ref.double().abs().max().item()
+
+
+@pytest.mark.parametrize("case", MOMENTS_CASES,
+                         ids=lambda c: "{}x{}x{}x{}-g{}-{}".format(
+                             *c[:5], str(c[5])[6:]))
+def test_moments_vec_matches_plain_and_fp64(cuda, case):
+    """The rule takes the vector moments pass (a cluster of blocks where
+    the plan says); within 1e-5 of the largest sum of the plain version
+    and of the fp64 sums, as the scalar kernel is; 20 calls bit-equal."""
+    b, h, w, ct, groups, dtype = case
+    x = _rnd(cuda, b, h, w, ct, dtype=dtype)
+    plan = moments_plan(b, h * w, ct, groups, dtype,
+                        _alignment(x.data_ptr()))
+    assert plan is not None
+    if (h, w) == (16, 32):
+        assert plan.ranks > 1
+    common.reset_launches()
+    mom = gru_moments(x, groups)
+    assert (common.launches["gru_moments_vec"],
+            common.launches["gru_moments_scalar"],
+            common.launches["gru_moments"]) == (1, 0, 1)
+    scalar = gru_moments(x, groups, kernel="scalar")
+    assert common.launches["gru_moments_scalar"] == 1
+    for ref in (gru_moments_plain(x, groups), _moments_f64(x, groups)):
+        assert _of_largest_sum(mom, ref) <= 1e-5
+        assert _of_largest_sum(scalar, ref) <= 1e-5
+    for _ in range(20):
+        assert torch.equal(mom, gru_moments(x, groups))
+
+
+@pytest.mark.parametrize("refused", ["group_vectors", "misaligned",
+                                     "narrow"])
+def test_refused_moments_and_k4_shapes_take_the_scalar_kernels(cuda,
+                                                               refused):
+    """bf16 groups of 20 channels (40 bytes), a view one element into its
+    storage, bf16 channels of 4 (8 bytes): the rules name the scalar
+    moments pass and K4, which match the plain version and the fp64
+    formula; asking for a vector kernel raises."""
+    shape = {"group_vectors": (2, 5, 7, 40, 2), "misaligned": (2, 8, 16, 64, 2),
+             "narrow": (2, 5, 7, 4, 1)}[refused]
+    args = _blend_mom_case(cuda, *shape, torch.bfloat16)
+    if refused == "misaligned":
+        args = (_shifted(args[0]), *args[1:])
+    cand, groups = args[0], args[6]
+    common.reset_launches()
+    mom = gru_moments(cand, groups)
+    out = blend_from_moments(*args[:3], mom, *args[4:])
+    assert (common.launches["gru_moments_vec"],
+            common.launches["gru_moments_scalar"],
+            common.launches["gru_blend_mom_vec"],
+            common.launches["gru_blend_mom_scalar"]) == (0, 1, 0, 1)
+    with pytest.raises(ValueError, match="vector kernel"):
+        gru_moments(cand, groups, kernel="vec")
+    with pytest.raises(ValueError, match="vector kernel"):
+        blend_from_moments(*args, kernel="vec")
+    assert _of_largest_sum(mom, _moments_f64(cand, groups)) <= 1e-5
+    ulps, share = common.bf16_ulps(out, blend_f64(*args[:3], *args[4:7]))
+    assert ulps <= K34_BF16_ULPS and share <= K34_BF16_SHARE
+
+
 # (B, H, W, C, max_displacement, stride): ragged C, H != W, stride 1,
 # d > H, every window overlapping (d <= H/2, stride 1), the FlowNetC bench
 # geometry, the FlyingChairs feature shape, then the SIMT K5 and K7's
@@ -1187,7 +1326,9 @@ def test_each_wrapper_counts_its_launches(cuda):
                                "gru_blend_sample": 1, "gru_blend_2pass": 0,
                                "gru_gates_mom": 0, "gru_gates_mom_vec": 0,
                                "gru_gates_mom_scalar": 0, "gru_blend_mom": 0,
-                               "gru_moments": 0,
+                               "gru_blend_mom_vec": 0,
+                               "gru_blend_mom_scalar": 0, "gru_moments": 0,
+                               "gru_moments_vec": 0, "gru_moments_scalar": 0,
                                "correlation_fwd": 1, "correlation_fwd_tc": 0,
                                "correlation_fwd_pairs": 1,
                                "correlation_bwd_f1": 1,
