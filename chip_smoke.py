@@ -146,23 +146,33 @@ without printing its last line:
    field 128 -> 64 -> 64 -> 64 -> 128, the z0 ConvGRU at 128 channels),
    ``_irregular`` (window sampling with observation masks), ``_gan``
    (the GAN loop) and ``_slots`` (B * S = 16 programs of 32 channels) on
-   the frozen corpus, and ``train_kth_vidode`` on a synthetic kth corpus
-   written with numpy into the temporary directory, fp32, B=4, 5 steps
-   each: every logged loss finite (and grad_norm, or for the GAN D's and
-   G's losses), a checkpoint whose BatchNorm buffers all moved, K1-K4
+   the frozen corpus, and the six corpus blocks ``train_{kth, mgif, penn,
+   hurricane, phyre, minerl}_vidode`` (mgif and penn at 128x128: the
+   latent (4, 32, 32, 128)) on corpora of 4 train and 4 test videos that
+   the port's commands write as a user runs them, all six at once
+   (``python -m ode_rl_torch.make_synthetic_corpus --dataset <d>``, and
+   ``python -m ode_rl_torch.generate_phyre_dataset --synthetic`` for
+   phyre), each file's sha256 equal to that of the JAX repo's scripts
+   run on the CPU host with the same flags (``VIDODE_CORPUS_BYTES``;
+   else the first file that differs is named, with the byte where one
+   differs), fp32, B=4, 5 steps each: every logged loss finite (and
+   grad_norm, or for the GAN D's and G's losses), no step skipped by
+   ``nan_guard``, a checkpoint whose BatchNorm buffers all moved, K1-K4
    launched with every K1/K2 launch a SIMT one and every K3/K4 launch a
    one-sample one, TF32 off after each ``main``; median step_ms over
-   steps 2-5 and the NFE. Then the test phase of ``len20`` (20 -> 180)
-   and of ``kth`` (10 -> 30) from their checkpoints, one batch: finite
-   MSE, PSNR, SSIM and ``lpips_uncalibrated`` at every horizon; one step
-   of ``len20`` and of ``slots`` from the seed's weights through the
-   kernels (profiled: device ms and busy share) against the same step
-   under ``force_plain()`` (loss 1e-5 relative, prediction 1e-4 max abs,
-   every gradient leaf within 1e-3 of its norm plus 1e-5 of the whole
-   norm, BatchNorm buffers 1e-5, equal NFE); and K1/K2 at (4, 16, 16,
-   128->64), (4, 16, 16, 64->64), (4, 16, 16, 64->128) and (16, 16, 16,
-   32->32), K3 at (4, 16, 16, 256) and (16, 16, 16, 64), K4 at (4, 16,
-   16, 128) and (16, 16, 16, 32) alone against their plain versions,
+   steps 2-5, the NFE and K1-K4's launches a step. Then the test phase of
+   ``len20`` (20 -> 180), of ``kth`` (10 -> 30) and of ``penn`` (10 -> 20
+   at 128x128) from their checkpoints, one batch: finite MSE, PSNR, SSIM
+   and ``lpips_uncalibrated`` at every horizon; one step of ``len20`` and
+   of ``slots`` from the seed's weights through the kernels (profiled:
+   device ms and busy share) against the same step under
+   ``force_plain()`` (loss 1e-5 relative, prediction 1e-4 max abs, every
+   gradient leaf within 1e-3 of its norm plus 1e-5 of the whole norm,
+   BatchNorm buffers 1e-5, equal NFE); and K1/K2 at (4, 16, 16,
+   128->64), (4, 16, 16, 64->64), (4, 16, 16, 64->128), (16, 16, 16,
+   32->32) and the same three at (4, 32, 32), K3 at (4, 16, 16, 256),
+   (16, 16, 16, 64) and (4, 32, 32, 256), K4 at (4, 16, 16, 128), (16,
+   16, 16, 32) and (4, 32, 32, 128) alone against their plain versions,
    each with its plan, route, device µs and bound.
 13. ConvLSTM, the S2VAE family and the Sprites DS-VAE: ``ode_rl_torch.main``
    on ``defaults`` + ``train_mmnist_convlstm``, ``train_mmnist_s2vae``,
@@ -377,7 +387,7 @@ from ode_rl_torch.data.frozen import FrozenMovingMNIST
 from ode_rl_torch.data.mmnist import generate_moving_mnist
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
-from ode_rl_torch.data.video_corpus import write_synthetic_corpus
+from ode_rl_torch.data.video_corpus import corpus_sha256
 from ode_rl_torch.data.flow_labels import (flow_grid_labels,
                                           make_flownet_label_fn)
 from ode_rl_torch.flow.data import FlyingChairsCorpus, write_synthetic_chairs
@@ -3145,15 +3155,174 @@ def phase_s3vae(bank: torch.Tensor) -> dict:
     return {"train": trains, "reference": refs, "shapes": shapes}
 
 
-# The Vid-ODE family (configs.yaml): the four Moving MNIST blocks at
-# their own widths (fp32, B=4, base_ch 32, n_downs 2: the latent (4, 16,
-# 16, 128)) and train_kth_vidode on a synthetic corpus.
+# The Vid-ODE family (configs.yaml): the four Moving MNIST blocks and the
+# six corpus blocks at their own widths (fp32, B=4, base_ch 32, n_downs 2:
+# the latent (4, 16, 16, 128), and (4, 32, 32, 128) at mgif's and penn's
+# 128x128), each corpus written by the port's commands.
+VIDODE_CORPORA = ("kth", "mgif", "penn", "hurricane", "phyre", "minerl")
 VIDODE_TRAIN = ("train_mmnist_vidode_len20", "train_mmnist_vidode_irregular",
                 "train_mmnist_vidode_gan", "train_mmnist_vidode_slots",
-                "train_kth_vidode")
+                *(f"train_{d}_vidode" for d in VIDODE_CORPORA))
 VIDODE_REFERENCE = ("train_mmnist_vidode_len20", "train_mmnist_vidode_slots")
 VIDODE_STEPS = 5
 VIDODE_METRICS = ("loss", "recon_l1", "diff_l1", "nfe")
+# Each corpus: B=4 train videos and one test batch, at the commands'
+# seed. phyre's rollouts are 40 frames, its block's test window.
+VIDODE_CORPUS_FLAGS = ("--train_videos", "4", "--test_videos", "4",
+                       "--seed", "0")
+VIDODE_PHYRE_FLAGS = ("--synthetic", "--frames", "40")
+# The files of each corpus as the JAX repo's scripts wrote them on the CPU
+# host the port is tested on, with the same flags
+# (``scripts/make_synthetic_corpus.py --dataset <d>``,
+# ``scripts/generate_phyre_dataset.py``): the file's sha256, and the sum
+# of the array's bytes and of each byte times its flat index (int64),
+# which name the byte where a single one differs.
+VIDODE_CORPUS_BYTES = {
+    "kth/train/video_00000.npy": (
+        "90c56e9719ec9ff59135e1c75f5b5dc445b17ea69f5b6d7b3198b877141155f1",
+        20979352, 16634069014082),
+    "kth/train/video_00001.npy": (
+        "0591920e31934df5e868f1ef46232e8581e9d4d22365c1b6aec85803e9ab623f",
+        16609806, 12252990313378),
+    "kth/train/video_00002.npy": (
+        "efacfb010e09156c6680885cc951c50d9107ed26aad446c2b03863006cfa4f19",
+        13169545, 9063920381017),
+    "kth/train/video_00003.npy": (
+        "8224bc6ef7a8a1f1ba5fb78d695623282799a78c90b9852aa6a14e46028b9d75",
+        4506415, 2472360308883),
+    "kth/test/video_00000.npy": (
+        "565e866993f69de3421b2ad2c1552f577a9aa30ffbee59e45d3935a989f85ab3",
+        11579678, 5600908395493),
+    "kth/test/video_00001.npy": (
+        "7617734f9a4a434cc6982a283f0bc46c82168fe1d1a31b0d3cfc761305176f4e",
+        18963235, 16177876188761),
+    "kth/test/video_00002.npy": (
+        "25be870f5ae0b46185e34f19fede75e76d78571b5c1e4635faa1f269e3b1f8d4",
+        8065040, 3054203526338),
+    "kth/test/video_00003.npy": (
+        "8befce7c634e6a0147d924a62402daaf5e5af8fde7f8085fbded6b4f8a722625",
+        19772911, 22775671997297),
+    "mgif/train/video_00000.npy": (
+        "22703752f83560ee6f4725964808c613dd49862057c88d1ae5c2f5d663490d13",
+        44261205, 59258382471097),
+    "mgif/train/video_00001.npy": (
+        "9e245acda1d3791ac047410587fc3bd977a68b2332f34d1634a02626e57f28ea",
+        9629319, 6717098191838),
+    "mgif/train/video_00002.npy": (
+        "a7f1c79cbba4041c5ab33f9cf257aeeaafd7acc81bf251554c85cedf62596e9b",
+        17108388, 19327631536611),
+    "mgif/train/video_00003.npy": (
+        "7e0641b24c470500ede0f0653283e09c9a25d877eac58b3fff85b1bb8db5e98d",
+        10026612, 3215404341325),
+    "mgif/test/video_00000.npy": (
+        "814ee2a82ca4347b20d15934db6f4b8f540c0ad1323d0774facd45d76bf96278",
+        25558357, 20251520873788),
+    "mgif/test/video_00001.npy": (
+        "7971c6576ab3fd8ddd84422ccbb42f772c10f38d677ec74a44a82e391c4fda60",
+        18643963, 13457749919741),
+    "mgif/test/video_00002.npy": (
+        "aec5535bf7e4a3fe553e4ba1d58e4396887f57fee9dc227f29424ea81cf42f7b",
+        25715698, 23621862793482),
+    "mgif/test/video_00003.npy": (
+        "d727289ea149286eb6e749e1f773e2e806e56d8747f0ed782ca170d8b3d0461b",
+        16754755, 11087995074698),
+    "penn/train/video_00000.npy": (
+        "22bf55beebc9bf8357b108511421a045e01de8d1345b4fff2de7b6808a274827",
+        59001562, 164143102769353),
+    "penn/train/video_00001.npy": (
+        "ab35d735f3958017ca99b8452481bd0350965ca25f2320ce693043691dd2cd98",
+        16066568, 28625908043861),
+    "penn/train/video_00002.npy": (
+        "115b5d6acce73677dd95fefa4a16a400f4705f60b4cbc8e01831b2df32df1436",
+        23967031, 58826141701131),
+    "penn/train/video_00003.npy": (
+        "5fca26e32f0747e8debd11ee0e7e0086a481d9e2a593edf63186e353b7f0b4cc",
+        23727130, 27949521075273),
+    "penn/test/video_00000.npy": (
+        "9e5866d092553bd3042c24a8805eab6abf16220db83bb6bc7e2c268153dfd10d",
+        40046564, 77155659041085),
+    "penn/test/video_00001.npy": (
+        "8d8b33c519bb50faaa3d71bf9402f429c4cbf037175a1ee5cd7c218fbacbbc4c",
+        29912806, 54339074965324),
+    "penn/test/video_00002.npy": (
+        "e90c00ef29f80b77a03e512084d22cec5b76e59ab465965bfc9a14094212b3fc",
+        38324857, 81561565043842),
+    "penn/test/video_00003.npy": (
+        "4f71c87ad599e51ab53f908f12065f1eda3f0f97cdfef0c8cb45816fe20edba9",
+        27923662, 48221354162369),
+    "hurricane/train/video_00000.npy": (
+        "0f346ebf6d34eb7dc3ab23103d0c4cad2ea2344dc06645c0538111b22aa633f5",
+        63675382, 32616794495232),
+    "hurricane/train/video_00001.npy": (
+        "b8ec58692e31b6932aea1f2b3e6c75d6df510902df461f95dd97f8eb3418f895",
+        67568222, 48332477822294),
+    "hurricane/train/video_00002.npy": (
+        "9f919ac1b365fff8c491894f5bf9dc55482bdce8a88cc021f2a4b0f8107cfb95",
+        30536971, 12887194685057),
+    "hurricane/train/video_00003.npy": (
+        "df2547465c155ae062b25e19554daa0ac8787e5ce2ead68b3f280f7db3c842dd",
+        98425690, 57237231112449),
+    "hurricane/test/video_00000.npy": (
+        "f0f7ff15044b67c6752e4d660bd2cfe1b7ecbaa2f892a941f7b17c223c1a40ba",
+        145285379, 104505531226847),
+    "hurricane/test/video_00001.npy": (
+        "426cd0f233651d02ce2895908e1d34aeb82637302fd574d935e27766c3f1a4cf",
+        41229136, 23075707935766),
+    "hurricane/test/video_00002.npy": (
+        "e40b091c799fd831c199b8b753b89730306ac21ab4f983031f1f54dc455f3a9e",
+        82049836, 56215763797932),
+    "hurricane/test/video_00003.npy": (
+        "0755f3d34b0454e21c8975a5ad8101de076bb37d23f76c6ba47cdbc5c3ca3b4d",
+        88324158, 61957132418230),
+    "phyre/train/rollout_00000.npy": (
+        "69dfdaf3ba84bc97ae67885f8e5552ccf21c47efd986ea7999ab043b7f6e367b",
+        123055000, 30235368306035),
+    "phyre/train/rollout_00001.npy": (
+        "94b6c0a67dc778f04650f5ad582203c4308c52869cd2150a8ad446c48faf5db6",
+        120433630, 29578901463770),
+    "phyre/train/rollout_00002.npy": (
+        "59551f85d7b088e187287fa1fa440101b224512405d7bc46f2b843a42aa156e5",
+        124328610, 30552270502605),
+    "phyre/train/rollout_00003.npy": (
+        "9976b2e79ee1afe3a35108a715228d550172a79d7e0a842509805465cfd73ee5",
+        123602550, 30371562800790),
+    "phyre/test/rollout_00000.npy": (
+        "cbad0ae238db3b98c7ebf541859208bddb59b084613bd07f8f3e51bc5b6eba2c",
+        124322045, 30550675172515),
+    "phyre/test/rollout_00001.npy": (
+        "37c475b0365cea2d37abc1e4b0ad93b2661d214b86d2ee32174f7297b06e6d97",
+        122967295, 30218036815460),
+    "phyre/test/rollout_00002.npy": (
+        "fcde5eb47e57d75fb4687fba9026088c090a519b5b6f4e8220d35d4722631b18",
+        123458480, 30338848081930),
+    "phyre/test/rollout_00003.npy": (
+        "be79c018ef1284cfc5fc0c91313c7970aaaeafa28ccac827ba91a48ece00771f",
+        124060135, 30485119494920),
+    "minerl/train/video_00000.npy": (
+        "5bad42487d5ebc11704faf3083e61640b4e6546417733029015c670583e25920",
+        32270462, 19940121254409),
+    "minerl/train/video_00001.npy": (
+        "f2798e40fb311a307315be15c785368ff27fbb9efcc15b911974c3208330a438",
+        14090752, 8648637319613),
+    "minerl/train/video_00002.npy": (
+        "380229c09341d66824ea4fa0b650189f39740c09642531ea511dac2a605a6741",
+        13475694, 8292244180099),
+    "minerl/train/video_00003.npy": (
+        "3ea6f777a5b0ef0587cb840c6c6d5676c6e13fc3f42de2cfdcfc401d31cbd4a4",
+        24911856, 15324557574619),
+    "minerl/test/video_00000.npy": (
+        "6b250c278214023c99f27d2335cbedb5467ac7c466c3bc41f8b397ac4e80fd15",
+        34569938, 21156130753202),
+    "minerl/test/video_00001.npy": (
+        "9d1b70eefc9ed3f407c7ff1d9f545b80ffb113a8123e8499163cd7bfdd1a62c0",
+        68562648, 42211820638665),
+    "minerl/test/video_00002.npy": (
+        "61e3299e04b90c2e49e832f98c1ef32f8fbb12c67b58b7999dfa44041505b843",
+        80656813, 49562966746299),
+    "minerl/test/video_00003.npy": (
+        "79439f2cc2e60770ee73ad0ee3c226cea0ae1fc2e5b59314c68dfaf2e4a73f26",
+        68007553, 41968432831460),
+}
 
 
 def _bn_moved(state: dict, block: str) -> int:
@@ -3172,8 +3341,9 @@ def _vidode_train(block: str, data: pathlib.Path,
                   logs: pathlib.Path) -> dict:
     """``block`` through ``ode_rl_torch.main`` for VIDODE_STEPS steps: every
     logged loss finite (and grad_norm, which the GAN loop does not log:
-    there D's and G's losses), a checkpoint whose BatchNorm buffers moved,
-    K1-K4 launched (K1/K2 on SIMT, K3/K4 one-sample)."""
+    there D's and G's losses), no step skipped where ``nan_guard`` is on,
+    a checkpoint whose BatchNorm buffers moved, K1-K4 launched (K1/K2 on
+    SIMT, K3/K4 one-sample)."""
     argv = ["--configs", "defaults", block, "--data_dir", str(data),
             "--logdir", str(logs / block), "--steps_per_epoch",
             str(VIDODE_STEPS), "--epochs", "1", "--loss_log_freq", "1",
@@ -3203,11 +3373,15 @@ def _vidode_train(block: str, data: pathlib.Path,
                              f"{[m['step'] for m in logged]}")
     keys = (*VIDODE_METRICS, *(("d_loss", "g_loss", "g_adv_loss") if gan
                                else ("grad_norm",)))
+    guard = bool(cfg.get("nan_guard", False))
     for m in logged:
         bad = [k for k in keys if not np.isfinite(m.get(k, np.nan))]
         if bad:
             raise AssertionError(f"{block} step {m['step']}: {bad} missing "
                                  "or not finite")
+        if guard and m.get("nan_skipped") != 0:
+            raise AssertionError(f"{block} step {m['step']}: nan_skipped "
+                                 f"{m.get('nan_skipped')}")
     ckpt = CheckpointManager(run / "checkpoints", tag=cfg.ckpt_id)
     if ckpt.all_steps() != [VIDODE_STEPS]:
         raise AssertionError(f"{block}: checkpoints at {ckpt.all_steps()}")
@@ -3253,36 +3427,114 @@ def _vidode_test(block: str, data: pathlib.Path, logs: pathlib.Path,
           f"lpips_uncalibrated {out['final_lpips_uncalibrated']:.4f}")
 
 
+def _byte_sums(video: np.ndarray) -> tuple:
+    """(sum of the bytes, sum of each byte times its flat index)."""
+    flat = video.reshape(-1).astype(np.int64)
+    return int(flat.sum()), int(np.dot(np.arange(flat.size), flat))
+
+
+def _check_corpus_bytes(dataset: str, root: pathlib.Path) -> None:
+    """The corpus's files are VIDODE_CORPUS_BYTES's; else the first file
+    that differs is named, with the byte that differs where one does."""
+    want = {name.split("/", 1)[1]: v for name, v in
+            VIDODE_CORPUS_BYTES.items() if name.startswith(f"{dataset}/")}
+    got = corpus_sha256(root)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{dataset}: files {sorted(got)}, expected "
+                             f"{sorted(want)}")
+    for name, (digest, s0, s1) in want.items():
+        if got[name] == digest:
+            continue
+        video = np.load(root / name)
+        d0, d1 = (a - b for a, b in zip(_byte_sums(video), (s0, s1)))
+        where = "the array's bytes sum alike: the file's header differs"
+        if d0 and d1 % d0 == 0 and 0 <= d1 // d0 < video.size:
+            at = np.unravel_index(d1 // d0, video.shape)
+            where = (f"if one byte differs, it is byte {d1 // d0} (frame, "
+                     f"row, column, channel {tuple(int(i) for i in at)}): "
+                     f"{int(video[at])} here, {int(video[at]) - d0} on the "
+                     "CPU host")
+        elif d0 or d1:
+            where = (f"several bytes differ (byte sum {d0:+d}, index-"
+                     f"weighted sum {d1:+d} off)")
+        raise AssertionError(f"{dataset}/{name} {video.shape} is the first "
+                             f"file that differs: sha256 {got[name]}, "
+                             f"expected {digest}; {where}")
+
+
+def _vidode_corpora(tmp: pathlib.Path) -> dict:
+    """Each corpus block's corpus, written by the port's commands as a user
+    runs them (``python -m``, the six at once) and held to the bytes of the
+    JAX repo's scripts (VIDODE_CORPUS_BYTES)."""
+    env = {**os.environ,
+           "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent)}
+    roots, procs = {}, {}
+    t0 = time.perf_counter()
+    for d in VIDODE_CORPORA:
+        roots[d] = tmp / d
+        command = (("ode_rl_torch.generate_phyre_dataset",
+                    *VIDODE_PHYRE_FLAGS) if d == "phyre" else
+                   ("ode_rl_torch.make_synthetic_corpus", "--dataset", d))
+        argv = ["-m", *command, "--out", str(roots[d]), *VIDODE_CORPUS_FLAGS]
+        print(f"  python {' '.join(argv)}")
+        procs[d] = subprocess.Popen([sys.executable, *argv], env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    try:
+        for d, proc in procs.items():
+            out, _ = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"the {d} corpus command exited "
+                                     f"{proc.returncode}: {out[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    for d, root in roots.items():
+        _check_corpus_bytes(d, root)
+    print(f"  the six corpora: {seconds:.2f} s, {len(VIDODE_CORPUS_BYTES)} "
+          "files, every sha256 equal to the JAX repo's scripts' on the CPU "
+          "host")
+    return roots
+
+
 def phase_vidode(bank: torch.Tensor) -> dict:
     print(f"[12] Vid-ODE family: {', '.join(VIDODE_TRAIN)} through "
           f"ode_rl_torch.main (fp32, B={RECIPE_B}), {VIDODE_STEPS} steps "
-          "each (frozen Moving MNIST, the irregular block's own windows, a "
-          "synthetic kth corpus), two test phases, reference steps against "
-          "the plain versions, the kernels at Vid-ODE's shapes")
+          "each (frozen Moving MNIST, the irregular block's own windows, the "
+          "six corpora written by the port's commands), three test phases, "
+          "reference steps against the plain versions, the kernels at "
+          "Vid-ODE's shapes")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root, logs = pathlib.Path(tmp) / "frozen", pathlib.Path(tmp) / "logs"
         _write_frozen_corpus(root, bank, test_frames=200)
-        kth = write_synthetic_corpus(pathlib.Path(tmp) / "kth", "kth",
-                                     train_videos=8, test_videos=4)
+        corpora = _vidode_corpora(pathlib.Path(tmp) / "corpora")
         trains = {block: _vidode_train(
-            block, kth if "kth" in block else root, logs)
+            block, corpora.get(block.split("_")[1], root), logs)
             for block in VIDODE_TRAIN}
-        # defaults test 20 -> 180; kth's block 10 -> 30.
-        _vidode_test("train_mmnist_vidode_len20", root,
-                     trains["train_mmnist_vidode_len20"]["logs"], 180)
-        _vidode_test("train_kth_vidode", kth,
-                     trains["train_kth_vidode"]["logs"], 30)
+        # defaults test 20 -> 180; kth's block 10 -> 30; penn's 10 -> 20
+        # at 128x128.
+        for block, data, frames in (
+                ("train_mmnist_vidode_len20", root, 180),
+                ("train_kth_vidode", corpora["kth"], 30),
+                ("train_penn_vidode", corpora["penn"], 20)):
+            _vidode_test(block, data, trains[block]["logs"], frames)
         refs = {block: _bn_reference(
             block, root, lambda cfg, counts, where: _check_recipe_routes(
                 counts, where), "data_to_predict")
             for block in VIDODE_REFERENCE}
-    # K1/K2: the field's in, mid and out convs at (4, 16, 16), the slots'
-    # at (16, 16, 16). K3/K4: the z0 cell, B x 256 gates at 16x16, and the
-    # slots' (B*S = 16, slot_dim 32).
+    # K1/K2: the field's in, mid and out convs at (4, 16, 16) and at
+    # mgif's and penn's (4, 32, 32), the slots' at (16, 16, 16). K3/K4:
+    # the z0 cell, B x 256 gates at 16x16 and 32x32, and the slots' (B*S =
+    # 16, slot_dim 32).
     shapes = _shapes_alone(((4, 16, 128, 64), (4, 16, 64, 64),
-                            (4, 16, 64, 128), (16, 16, 32, 32)),
-                           ((4, 16, 256), (16, 16, 64)))
+                            (4, 16, 64, 128), (16, 16, 32, 32),
+                            (4, 32, 128, 64), (4, 32, 64, 64),
+                            (4, 32, 64, 128)),
+                           ((4, 16, 256), (16, 16, 64), (4, 32, 256)))
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     return {"train": trains, "reference": refs, "shapes": shapes}
 

@@ -20,11 +20,16 @@ where JAX uses its PRNG.
 
 ``write_synthetic_corpus`` writes a stand-in corpus in that layout (the
 datasets are not in the repo): moving Gaussian blobs at each dataset's
-raw geometry, with numpy alone.
+raw geometry, with numpy alone; ``write_phyre_corpus`` writes synthetic
+PHYRE rollouts. Both write the bytes of the JAX repo's scripts
+(``scripts/make_synthetic_corpus.py``, ``scripts/generate_phyre_dataset.py
+--synthetic``) at the same seed; the port's commands
+``make_synthetic_corpus`` and ``generate_phyre_dataset`` run them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import pathlib
 from typing import Dict, Iterator, List, Optional
@@ -106,10 +111,10 @@ class VideoCorpus:
         files = sorted(self.root.glob("*.npy"))
         if not files:
             raise FileNotFoundError(
-                f"no .npy videos under {self.root}; write a corpus with "
-                "scripts/convert_mp4_to_npy.py, "
-                "scripts/generate_phyre_dataset.py or "
-                "scripts/make_synthetic_corpus.py")
+                f"no .npy videos under {self.root}; write a stand-in "
+                "corpus with python -m ode_rl_torch.make_synthetic_corpus "
+                "or python -m ode_rl_torch.generate_phyre_dataset, or "
+                "convert real videos with scripts/convert_mp4_to_npy.py")
         # Videos shorter than the window are dropped.
         self.files = [f for f in files
                       if np.load(f, mmap_mode="r").shape[0] >= clip_len]
@@ -197,7 +202,10 @@ RAW_SPECS = {
 def _blob_video(rng: np.random.RandomState, h: int, w: int, c: int,
                 t: int) -> np.ndarray:
     """1-3 Gaussian blobs bouncing at constant velocity; each channel
-    mixes them with its own gains."""
+    mixes them with its own gains. The draws and the arithmetic are
+    ``scripts/make_synthetic_corpus.py::render_video``'s: the blob canvas
+    is float32 (a float64 one moves the uint8 truncation of a pixel now
+    and then), so the bytes are the script's."""
     n = rng.randint(1, 4)
     pos = rng.rand(n, 2) * [h - 16, w - 16] + 8
     vel = (rng.rand(n, 2) - 0.5) * 6
@@ -207,15 +215,55 @@ def _blob_video(rng: np.random.RandomState, h: int, w: int, c: int,
     frames = np.zeros((t, h, w, c), np.uint8)
     lim = np.array([h - 8, w - 8])
     for ti in range(t):
-        d2 = ((yy[..., None] - pos[:, 0]) ** 2
-              + (xx[..., None] - pos[:, 1]) ** 2)
-        canvas = np.exp(-d2 / (2.0 * radius ** 2))
+        canvas = np.zeros((h, w, n), np.float32)
+        for i in range(n):
+            d2 = (yy - pos[i, 0]) ** 2 + (xx - pos[i, 1]) ** 2
+            canvas[..., i] = np.exp(-d2 / (2 * radius[i] ** 2))
         img = np.einsum("hwn,cn->hwc", canvas, gains)
         frames[ti] = np.clip(img * 255, 0, 255).astype(np.uint8)
         pos += vel
         out = (pos < 8) | (pos > lim)
         vel[out] *= -1
         pos = np.clip(pos, 8, lim)
+    return frames
+
+
+# PHYRE's palette: red, green, blue and gray balls on white.
+PHYRE_COLORS = np.array([[220, 40, 40], [40, 160, 60], [50, 80, 220],
+                         [120, 120, 120]], np.float32)
+PHYRE_GRAVITY = 0.6
+
+
+def phyre_rollout(rng: np.random.RandomState, t: int = 40,
+                  size: int = 64) -> np.ndarray:
+    """A synthetic PHYRE rollout, uint8 (t, size, size, 3): 1-3 balls
+    under gravity, bouncing off the floor (restitution 0.8) and the side
+    walls, drawn in PHYRE's palette on white. The draws and the
+    arithmetic are ``scripts/generate_phyre_dataset.py::synthetic_rollout``'s,
+    so the bytes are the script's."""
+    n = rng.randint(1, 4)
+    pos = rng.rand(n, 2) * [size * 0.4, size - 12] + [4, 6]
+    vel = (rng.rand(n, 2) - 0.5) * [2, 6]
+    radius = rng.randint(3, 7, n)
+    colors = PHYRE_COLORS[rng.randint(0, 4, n)]
+    yy, xx = np.mgrid[0:size, 0:size]
+    frames = np.empty((t, size, size, 3), np.uint8)
+    for ti in range(t):
+        img = np.full((size, size, 3), 255, np.float32)
+        for i in range(n):
+            d2 = (yy - pos[i, 0]) ** 2 + (xx - pos[i, 1]) ** 2
+            img = np.where((d2 <= radius[i] ** 2)[..., None], colors[i], img)
+        frames[ti] = img.astype(np.uint8)
+        vel[:, 0] += PHYRE_GRAVITY
+        pos += vel
+        for i in range(n):
+            lim = size - radius[i] - 1
+            if pos[i, 0] > lim:
+                pos[i, 0] = lim
+                vel[i, 0] *= -0.8
+            if pos[i, 1] < radius[i] or pos[i, 1] > lim:
+                vel[i, 1] *= -1
+                pos[i, 1] = np.clip(pos[i, 1], radius[i], lim)
     return frames
 
 
@@ -235,3 +283,25 @@ def write_synthetic_corpus(root, dataset: str, train_videos: int = 8,
             t = frames or int(rng.randint(tmin, tmax + 1))
             np.save(d / f"video_{i:05d}.npy", _blob_video(rng, h, w, c, t))
     return root
+
+
+def write_phyre_corpus(root, train_videos: int = 40, test_videos: int = 8,
+                       frames: int = 40, seed: int = 0) -> pathlib.Path:
+    """Write ``<root>/{train,test}/rollout_*.npy``: ``phyre_rollout``s of
+    ``frames`` frames. Returns root."""
+    root = pathlib.Path(root)
+    rng = np.random.RandomState(seed)
+    for split, count in (("train", train_videos), ("test", test_videos)):
+        d = root / split
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(count):
+            np.save(d / f"rollout_{i:05d}.npy", phyre_rollout(rng, t=frames))
+    return root
+
+
+def corpus_sha256(root) -> Dict[str, str]:
+    """{'<split>/<file>.npy': sha256} of every video of a corpus."""
+    root = pathlib.Path(root)
+    return {f"{split}/{f.name}": hashlib.sha256(f.read_bytes()).hexdigest()
+            for split in ("train", "test")
+            for f in sorted((root / split).glob("*.npy"))}

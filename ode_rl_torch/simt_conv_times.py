@@ -5,7 +5,9 @@
 Shapes (B, H, W, Cin) -> Cout: fp32 (4, 16, 16, 64) -> 64, the recipe's
 field conv; fp32 (8, 16, 16, 64), chip_smoke.py phase 5's; fp32
 (128, 16, 16, 64), the flagship batch; bf16 (128, 16, 16, 8) -> 64, which
-both tensor-core rules refuse. For each: K1's SIMT kernel forward and as dx
+both tensor-core rules refuse; fp32 (4, 32, 32, 128) -> 64, (4, 32, 32,
+64) -> 64 and -> 128, the Vid-ODE field's convs at mgif's and penn's
+128x128 frames. For each: K1's SIMT kernel forward and as dx
 (the cotangent with flip_transpose'd weights), K2's SIMT kernel, and
 cuDNN's conv and weight gradient on the same inputs, with TF32 off. Each
 gets the CUDA-event median ms of 30 calls and the device µs a call under
@@ -22,8 +24,9 @@ power limit, a line a row, and one JSON line.
 
 ``--sweep`` (this checkout only) times instead the SIMT kernels' launch
 plans around the ones ``simt_plan`` and ``wgrad_simt_plan`` pick: K1 at
-1, 2, 4, 8 and 16 row groups a block, K2 at several (splits, pixels a
-split), device µs a call, the plan's own marked with a star.
+1, 2, 4, 8 and 16 row groups a block (on 16x16 maps, and on the Vid-ODE
+field's 32x32 ones), K2 at several (splits, pixels a split), device µs
+a call, the plan's own marked with a star.
 """
 
 from __future__ import annotations
@@ -39,10 +42,13 @@ import torch.nn.functional as F
 from ode_rl_torch.ops.conv3x3 import (_conv3x3_fwd_simt, _conv3x3_wgrad_simt,
                                       flip_transpose)
 
-# (dtype, B, Cin, Cout) on 16 x 16 maps, and the plans --sweep tries.
-SWEEP_K1 = ((torch.float32, 4, 64, 64), (torch.float32, 8, 64, 64),
-            (torch.float32, 128, 64, 64), (torch.bfloat16, 128, 8, 64),
-            (torch.bfloat16, 128, 64, 8))
+# (dtype, B, H = W, Cin, Cout), and the plans --sweep tries.
+SWEEP_K1 = ((torch.float32, 4, 16, 64, 64), (torch.float32, 8, 16, 64, 64),
+            (torch.float32, 128, 16, 64, 64),
+            (torch.bfloat16, 128, 16, 8, 64),
+            (torch.bfloat16, 128, 16, 64, 8),
+            (torch.float32, 4, 32, 128, 64), (torch.float32, 4, 32, 64, 64),
+            (torch.float32, 4, 32, 64, 128))
 SWEEP_K1_ROWS = (1, 2, 4, 8, 16)
 SWEEP_K2 = ((4, ((32, 32), (16, 64), (8, 128), (4, 256))),
             (8, ((64, 32), (32, 64), (16, 128), (8, 256))),
@@ -51,7 +57,10 @@ SWEEP_K2 = ((4, ((32, 32), (16, 64), (8, 128), (4, 256))),
 SHAPES = ((torch.float32, 4, 16, 16, 64, 64),
           (torch.float32, 8, 16, 16, 64, 64),
           (torch.float32, 128, 16, 16, 64, 64),
-          (torch.bfloat16, 128, 16, 16, 8, 64))
+          (torch.bfloat16, 128, 16, 16, 8, 64),
+          (torch.float32, 4, 32, 32, 128, 64),
+          (torch.float32, 4, 32, 32, 64, 64),
+          (torch.float32, 4, 32, 32, 64, 128))
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
@@ -116,25 +125,25 @@ def sweep() -> None:
     lib = library()
     sms = _sm_count(torch.device("cuda"))
     gen = torch.Generator().manual_seed(0)
-    for dtype, b, cin, cout in SWEEP_K1:
-        x = torch.randn(b, 16, 16, cin, generator=gen).to("cuda", dtype)
+    for dtype, b, hw, cin, cout in SWEEP_K1:
+        x = torch.randn(b, hw, hw, cin, generator=gen).to("cuda", dtype)
         w2d = (torch.randn(9 * cin, cout, generator=gen) / 24).to("cuda",
                                                                   dtype)
-        out = torch.empty(b, 16, 16, cout, dtype=dtype, device="cuda")
-        mine = simt_plan(b, 16, 16, cin, cout, sms)[0]
+        out = torch.empty(b, hw, hw, cout, dtype=dtype, device="cuda")
+        mine = simt_plan(b, hw, hw, cin, cout, sms)[0]
         line = []
         for rows in SWEEP_K1_ROWS:
             def call(rows=rows):
                 common.launch("conv3x3_fwd_simt", lib.odek_conv3x3_fwd,
                               x.data_ptr(), None, w2d.data_ptr(),
                               out.data_ptr(),
-                              b, 16, 16, cin, cout, rows,
+                              b, hw, hw, cin, cout, rows,
                               common.DTYPE_CODES[dtype],
                               common.stream_handle(x))
             line.append(f"R {rows}{'*' if rows == mine else ''}: "
                         f"{device_us(call):.2f}")
-        print(f"sweep K1 {str(dtype)[6:]} ({b}, 16, 16, {cin}) -> {cout}: "
-              + ", ".join(line))
+        print(f"sweep K1 {str(dtype)[6:]} ({b}, {hw}, {hw}, {cin}) -> "
+              f"{cout}: " + ", ".join(line))
     for b, plans in SWEEP_K2:
         x = torch.randn(b, 16, 16, 64, generator=gen).cuda()
         g = torch.randn(b, 16, 16, 64, generator=gen).cuda()

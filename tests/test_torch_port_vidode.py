@@ -109,11 +109,13 @@ def assert_metrics_close(metrics, j_metrics) -> None:
         assert int(metrics[k]) == int(j_metrics[k]), k
 
 
-def model_parity(mask=None, slot_noise=None, **kw):
+def model_parity(mask=None, slot_noise=None, c: int = 1, **kw):
     """One training-mode loss and its gradients through both models from
-    JAX's init: prediction, loss terms, NFE, BatchNorm buffers, and the
-    gradients against JAX's in fp64. Returns the port's model."""
-    jb, pb = batches(video(), mask, slot_noise)
+    JAX's init on ``c``-channel videos: prediction, loss terms, NFE,
+    BatchNorm buffers, and the gradients against JAX's in fp64. Returns
+    the port's model."""
+    jb, pb = batches(video(c=c), mask, slot_noise)
+    kw = {**kw, "in_channels": c}
     model = jax_model(**kw)
     variables = jax_init(model, jb)
     _, j_metrics, j_pred, j_state, _ = jax_loss(model, variables, jb)
@@ -124,7 +126,7 @@ def model_parity(mask=None, slot_noise=None, **kw):
     loss.backward()
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
-    assert pred.shape == j_pred.shape == (B, T_IN, SIZE, SIZE, 1)
+    assert pred.shape == j_pred.shape == (B, T_IN, SIZE, SIZE, c)
     assert max_abs(pred, j_pred) <= OUT_TOL
     assert_metrics_close(metrics, j_metrics)
     assert_buffers_close(port, j_state["batch_stats"])
@@ -216,6 +218,16 @@ def test_len20_matches_jax():
     assert "ode_decoder_func.mid_1.kernel" in names
     assert port.conv_decoder.conv_out.weight.shape[0] == 1 + 3
     assert port.encoder_z0.step.cgru_cell.groups_g == 2 * 32 // 32
+
+
+@pytest.mark.parametrize("c", [3, 6])
+def test_corpus_channels_match_jax(c):
+    """The corpora's RGB (mgif, penn, phyre, minerl) and hurricane's six
+    fields: the encoder takes ``c`` channels, and the decoder emits the
+    frame's ``c``, the flow's 2 and the mask's 1."""
+    port = model_parity(c=c)
+    assert port.conv_encoder.conv_in.weight.shape[1] == c
+    assert port.conv_decoder.conv_out.weight.shape[0] == c + 3
 
 
 def test_irregular_mask_matches_jax():
