@@ -78,7 +78,9 @@ without printing its last line:
    every logged loss and grad_norm finite, K1-K4 launched, every K1/K2
    launch a SIMT one and every K3/K4 launch a one-sample one; then the
    test block, 10 -> 90 frames from the step-20 checkpoint over 2 batches,
-   90 finite MSE, PSNR and SSIM values in per_horizon.json; then one recipe
+   90 finite MSE, PSNR and SSIM values in per_horizon.json, and the
+   metric-vs-horizon plot beside it (metrics_vs_horizon.json equal to
+   per_horizon.json, the PNG 1320 x 330: three panels); then one recipe
    step on a frozen batch with the trained weights through the kernels
    (profiled: device time a launch of K1-K4, every K1 and K2 launch in the
    trace one of the SIMT kernels) against the same step on the plain
@@ -321,6 +323,17 @@ without printing its last line:
     run's rank 0, K1's 32-channel blocks (``conv3x3_fwd_nt32``) from the
     'model' run's. Two or four processes on one card: not a multi-card
     figure.
+19. the reference's mp4 corpus layout, where cv2 is installed (else one
+    line says that the layout is held on the CPU only): ``python -m
+    ode_rl_torch.make_mp4_mmnist`` writes 16 train and 8 test videos of
+    100 frames; the recipe's first batch from ``parse_datasets`` equal
+    to one sampled by hand from ``read_video_file``'s decodes with the
+    same RandomState draws; the recipe through ``ode_rl_torch.main`` for
+    5 steps on the corpus (losses and grad_norms finite, K1-K4 launched
+    with every K1/K2 launch a SIMT one and every K3/K4 launch a
+    one-sample one) and its test block (one batch, 10 -> 90; 90 finite
+    values of each metric and the plot checked as in phase 9). Its
+    launches (``phase19_launches``) go into the kernels line.
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
@@ -351,7 +364,7 @@ variance, not sums) and at other plans (512 and 1024 threads, clusters
 of 2 and 4 blocks a sample).
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-18) run their convs in strict fp32. Then one JSON line
+7-19) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -365,6 +378,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
 import pathlib
@@ -383,8 +397,8 @@ from ode_rl_torch.config import (FlagshipConfig, FlowNet2Config,
                                  FlowNetCBenchConfig)
 from ode_rl_torch.core.checkpoint import CheckpointManager, find_checkpoint
 from ode_rl_torch.core.config import load_config, resolve_run_id
-from ode_rl_torch.data.frozen import FrozenMovingMNIST
-from ode_rl_torch.data.mmnist import generate_moving_mnist
+from ode_rl_torch.data.frozen import FrozenMovingMNIST, read_video_file
+from ode_rl_torch.data.mmnist import generate_moving_mnist, parse_datasets
 from ode_rl_torch.data.protocol import make_batch_dict
 from ode_rl_torch.data.sprites import get_sprite_bank
 from ode_rl_torch.data.video_corpus import corpus_sha256
@@ -534,39 +548,79 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_us(fns: dict, reps: int = 20, windows: int = 3) -> dict:
+def events_a_call(counts) -> int:
+    """The device events one call launches, from traces of it: ``counts``
+    holds (calls, events) of each trace. A trace can lose events but
+    never gains any, and one that lost some may divide by its calls no
+    more, so the count is the most whole number of events a call that any
+    trace shows (0 where every trace lost all)."""
+    return max((events // calls for calls, events in counts
+                if events % calls == 0), default=0)
+
+
+def window_complete(events: int, traces, reps: int) -> bool:
+    """A profiler window of ``reps`` calls that held ``events`` device
+    events is whole when that is ``reps`` times the events of one call
+    (events_a_call over ``traces``, the (calls, events) of the other
+    traces of the same function, and this window), at least one, and
+    another trace shows the same count a call. The tracer drops events
+    at times: a window of phase 12's fp32 K1 at (4, 32, 32, 64->64) once
+    read 8.85 µs a call, below the kernel's shared-memory floor of about
+    9 (whole windows read 22); after phase 3, traces of 1, 2 and 5 calls
+    of a one-kernel function read 0 while its windows of 20 read 20."""
+    a_call = events_a_call([*traces, (reps, events)])
+    return (a_call > 0 and events == reps * a_call
+            and any(events_t == calls * a_call for calls, events_t in traces))
+
+
+def _traced(fn, calls: int) -> tuple:
+    """(device events, device µs) of ``calls`` calls of fn, in the active
+    step of a torch.profiler window after a warm-up step of as many calls
+    that is traced and thrown away."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows))
+
+
+# The calls of the short traces that count one call's device events.
+SHORT_TRACES = (1, 2, 5)
+
+
+def device_us(fns: dict, reps: int = 20, windows: int = 5) -> dict:
     """Device time of one call of each fn, in µs: every device kernel and
-    copy in the active step of a torch.profiler window of `reps` calls,
-    over `reps`; a warm-up step of `reps` calls before it is traced and
-    thrown away. A window that records no device time at all (the tracer
-    has dropped whole windows, once three in a row) is taken again, up
-    to `windows` times; after that the CUDA-event median of one call
-    stands in, and the line says so, rather than a 0."""
+    copy in a torch.profiler window of `reps` calls (_traced), over
+    `reps`. Traces of SHORT_TRACES calls count one call's events first.
+    A window that is not whole (window_complete: not `reps` times the
+    most events a call that any trace of the function shows, or shown by
+    no other trace) is taken again, up to `windows` times; after that
+    the CUDA-event median of one call stands in, and the line says so."""
     out = {}
     for label, fn in fns.items():
         fn()
         torch.cuda.synchronize()
+        traces = [(n, _traced(fn, n)[0]) for n in SHORT_TRACES]
         for _ in range(windows):
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA],
-                    schedule=torch.profiler.schedule(
-                        wait=0, warmup=1, active=1, repeat=1)) as prof:
-                for _ in range(2):
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                    prof.step()
-            total = sum(e.self_device_time_total
-                        for e in prof.key_averages()
-                        if e.device_type.name == "CUDA")
-            if total > 0:
+            events, total = _traced(fn, reps)
+            if window_complete(events, traces, reps):
                 out[label] = total / reps
                 break
+            print(f"  {label}: a window of {reps} calls held {events} "
+                  f"device events, not whole beside the traces (calls, "
+                  f"events) {traces}; taken again")
+            traces.append((reps, events))
         else:
             out[label] = median_ms(fn, reps=reps) * 1e3
-            print(f"  {label}: the profiler recorded no device time in "
-                  f"{windows} windows; CUDA-event µs a call instead: "
-                  f"{out[label]:.2f}")
+            print(f"  {label}: no whole profiler window in {windows}; "
+                  f"CUDA-event µs a call instead: {out[label]:.2f}")
     return out
 
 
@@ -2250,6 +2304,23 @@ def _recipe_train(root: pathlib.Path, logs: pathlib.Path) -> dict:
             "mean_nfe": statistics.mean(timer.nfe), "run": run}
 
 
+def _check_plot(run: pathlib.Path, per_horizon: dict) -> None:
+    """The test phase's metric-vs-horizon plot: its JSON the curves of
+    per_horizon.json, its PNG a 440 x 330 panel a metric (MSE, PSNR,
+    SSIM), as JAX's figure."""
+    plotted = json.loads((run / "metrics_vs_horizon.json").read_text())
+    if plotted != per_horizon:
+        raise AssertionError("metrics_vs_horizon.json is not "
+                             "per_horizon.json's curves")
+    png = (run / "metrics_vs_horizon.png").read_bytes()
+    size = tuple(int.from_bytes(png[i:i + 4], "big") for i in (16, 20))
+    if png[12:16] != b"IHDR" or size != (1320, 330):
+        raise AssertionError(f"metrics_vs_horizon.png is {size}, not the "
+                             "1320 x 330 of three panels")
+    print(f"  metrics_vs_horizon.png {size[0]}x{size[1]} and its .json "
+          "(equal to per_horizon.json) written")
+
+
 def _recipe_test(root: pathlib.Path, logs: pathlib.Path) -> None:
     argv = ["--configs", *RECIPE_TEST, "--data_dir", str(root), "--logdir",
             str(logs), "--eval_batches", "2"]
@@ -2262,6 +2333,8 @@ def _recipe_test(root: pathlib.Path, logs: pathlib.Path) -> None:
         if len(v) != 90 or not np.all(np.isfinite(v)):
             raise AssertionError(f"per_horizon {k}: {len(v)} values, "
                                  "not 90 finite ones")
+    _check_plot(logs / "ODEConv" / "ODEConv_mmnist_test_10_90",
+                per_horizon)
     print("  per-horizon at frames 1, 10, 45, 90: " + "; ".join(
         f"{k} " + " ".join(f"{per_horizon[k][i]:.4f}" for i in (0, 9, 44, 89))
         for k in ("mse", "psnr", "ssim")))
@@ -3053,7 +3126,8 @@ def _shapes_alone(convs, grus) -> dict:
     (B, H=W, the gates' 2C) of ``grus``, fp32, alone: each against its
     plain version (K1 1e-4 max abs, K2 1e-5 relative L2, K3 and K4 1e-5
     max abs), its route and plan printed, and its device µs beside its
-    plain version's and its bound."""
+    plain version's and its bound, its CUDA-event median ms and its host
+    µs a call."""
     gen = torch.Generator().manual_seed(9)
     rnd = lambda *shape: torch.randn(*shape, generator=gen).cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3081,16 +3155,14 @@ def _shapes_alone(convs, grus) -> dict:
                         "K2 plain": lambda: conv3x3_wgrad_plain(x, g)})
         px = b * hw * hw
         flops = 2 * px * 9 * cin * cout
-        out[f"K1 {label}"] = {
-            "route": "simt", "err": k1, "dev_us": us["K1"],
-            "plain_dev_us": us["K1 plain"],
-            **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
-                     PEAK_FP32)}
-        out[f"K2 {label}"] = {
-            "route": "simt", "err": k2, "dev_us": us["K2"],
-            "plain_dev_us": us["K2 plain"],
-            **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
-                     PEAK_FP32)}
+        for name, err, fn in (("K1", k1, lambda: conv3x3_fwd(x, w)),
+                              ("K2", k2, lambda: conv3x3_wgrad(x, g))):
+            out[f"{name} {label}"] = {
+                "route": "simt", "err": err, "dev_us": us[name],
+                "plain_dev_us": us[f"{name} plain"], "ms": median_ms(fn),
+                "host_us": host_us(fn),
+                **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
+                         PEAK_FP32)}
     for b, hw, c2 in grus:
         c = c2 // 2
         gg, gc = max(2 * c // 32, 1), max(c // 32, 1)
@@ -3126,12 +3198,14 @@ def _shapes_alone(convs, grus) -> dict:
             us = device_us({"kernel": kernel, "plain": plain})
             out[f"{name} {label}"] = {
                 "route": route, "err": err, "dev_us": us["kernel"],
-                "plain_dev_us": us["plain"],
+                "plain_dev_us": us["plain"], "ms": median_ms(kernel),
+                "host_us": host_us(kernel),
                 **_bound(flops, nbytes, PEAK_FP32)}
     for label, row in out.items():
         print(f"    {label}: {row['route']}, dev µs {row['dev_us']:.2f} "
-              f"(plain {row['plain_dev_us']:.2f}), bound "
-              f"{row['bound_ms'] * 1e3:.3f} µs by {row['bound_by']}")
+              f"(plain {row['plain_dev_us']:.2f}), ms {row['ms']:.4f}, host "
+              f"µs {row['host_us']:.2f}, bound {row['bound_ms'] * 1e3:.3f} "
+              f"µs by {row['bound_by']}")
     return out
 
 
@@ -5355,6 +5429,122 @@ def phase_axes(data_parallel: dict) -> dict:
     return {"bench": bench, "dry": dry, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# [19] the reference's mp4 corpus layout.
+# 16 train and 8 test videos of 100 frames: the test block takes 10 + 90.
+MP4_ARGS = ("--videos", "16", "--test_videos", "8", "--frames", "100",
+            "--seed", "3")
+MP4_STEPS = 5
+
+
+def _mp4_corpus(root: pathlib.Path) -> None:
+    """The corpus, written by the port's command as a user runs it."""
+    argv = ["-m", "ode_rl_torch.make_mp4_mmnist", "--out", str(root),
+            *MP4_ARGS]
+    print(f"  python {' '.join(argv)}")
+    env = {**os.environ,
+           "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], env=env,
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"make_mp4_mmnist exited {proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    n = {split: len(list((root / split).glob("video_*.mp4")))
+         for split in ("train", "test")}
+    if n != {"train": 16, "test": 8}:
+        raise AssertionError(f"make_mp4_mmnist wrote {n} videos")
+    print(f"  {n['train']} + {n['test']} videos in {seconds:.2f} s")
+
+
+def _check_mp4_batch(root: pathlib.Path) -> None:
+    """The recipe's first training batch, as parse_datasets gives it,
+    against one built from read_video_file's decodes of the train split
+    in sorted order, cut to the shortest, with the same RandomState
+    draws (videos, then window starts)."""
+    cfg = load_config(RECIPE, overrides={"data_dir": str(root)})
+    loaders = parse_datasets(cfg, torch.device("cuda"))
+    if not loaders.get("frozen"):
+        raise AssertionError("parse_datasets did not take the mp4 corpus "
+                             "as a frozen one")
+    batch = next(loaders["train_dataloader"])
+    decoded = [read_video_file(p)
+               for p in sorted((root / "train").glob("video_*.mp4"))]
+    t_min = min(v.shape[0] for v in decoded)
+    n_total = cfg.train_in_seq + cfg.train_out_seq
+    rng = np.random.RandomState(cfg.get("seed", 0))
+    vids = rng.randint(0, len(decoded), cfg.batch_size)
+    starts = rng.randint(0, t_min - n_total + 1, cfg.batch_size)
+    want = np.stack([decoded[v][s:s + n_total] for v, s in zip(vids, starts)])
+    want = torch.from_numpy(want.astype(np.float32)[..., None] / 255.0 - 0.5)
+    if batch.device.type != "cuda" or not torch.equal(batch.cpu(), want):
+        raise AssertionError("the mp4 loader's first batch differs from "
+                             "the decodes sampled by hand")
+    print(f"  first batch {tuple(batch.shape)} equal to read_video_file's "
+          f"decodes ({len(decoded)} videos of {t_min} frames) sampled with "
+          f"the same draws; mean {batch.mean().item():.4f}")
+
+
+def phase_mp4() -> dict:
+    """The recipe through ``ode_rl_torch.main`` on an mp4 corpus that
+    ``python -m ode_rl_torch.make_mp4_mmnist`` writes; needs cv2."""
+    print(f"[19] the mp4 corpus: make_mp4_mmnist, then {MP4_STEPS} recipe "
+          "steps and the test block through ode_rl_torch.main")
+    spec = importlib.util.find_spec("cv2")
+    if spec is None:
+        print("  cv2 is not installed on this host: the mp4 layout is held "
+              "on the CPU only (tests/test_torch_port_frozen_mp4.py)")
+        return {"counts": None}
+    print(f"  cv2 from {spec.origin}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logs = pathlib.Path(tmp) / "mp4", pathlib.Path(tmp) / "logs"
+        _mp4_corpus(root)
+        _check_mp4_batch(root)
+        argv = ["--configs", *RECIPE, "--data_dir", str(root), "--logdir",
+                str(logs), "--steps_per_epoch", str(MP4_STEPS), "--epochs",
+                "1", "--loss_log_freq", "1", "--ckpt_save_freq",
+                str(MP4_STEPS)]
+        print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+        torch.cuda.synchronize()
+        common.reset_launches()
+        out = port_main.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(common.launches)
+        print(f"  launches over the {MP4_STEPS} steps: {counts}")
+        _check_recipe_routes(counts, "mp4 corpus's training run")
+        logged = [json.loads(line) for line in
+                  (logs / "ODEConv" / "ODEConv_mmnist_train_10_10"
+                   / "metrics.jsonl").read_text().splitlines()]
+        if (out["final_step"] != MP4_STEPS
+                or [m["step"] for m in logged] != list(range(1, MP4_STEPS + 1))
+                or not all(np.isfinite(m["loss"])
+                           and np.isfinite(m["grad_norm"]) for m in logged)):
+            raise AssertionError(f"the mp4 run took {out['final_step']} "
+                                 f"steps, logged {logged}")
+        print("  losses " + " ".join(f"{m['loss']:.5f}" for m in logged)
+              + "; grad_norms " + " ".join(f"{m['grad_norm']:.4f}"
+                                           for m in logged))
+        argv = ["--configs", *RECIPE_TEST, "--data_dir", str(root),
+                "--logdir", str(logs), "--eval_batches", "1"]
+        print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+        out = port_main.main(argv)
+        run = logs / "ODEConv" / "ODEConv_mmnist_test_10_90"
+        per_horizon = json.loads((run / "per_horizon.json").read_text())
+        for k in ("mse", "psnr", "ssim"):
+            v = per_horizon[k]
+            if len(v) != 90 or not np.all(np.isfinite(v)):
+                raise AssertionError(f"mp4 per_horizon {k}: {len(v)} values, "
+                                     "not 90 finite ones")
+        _check_plot(run, per_horizon)
+        print(f"  final: mse {out['final_mse']:.6f} psnr "
+              f"{out['final_psnr']:.4f} ssim {out['final_ssim']:.4f}")
+    _check_tf32_off("phase 19")
+    print(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5384,6 +5574,7 @@ def main() -> int:
     eval_tools = phase_eval_tools(bank)
     data_parallel = phase_data_parallel(bank)
     axes = phase_axes(data_parallel)
+    mp4 = phase_mp4()
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -5483,6 +5674,10 @@ def main() -> int:
             path: {k: v for k, v in run["profile"]["kernels"].items()
                    if k.startswith(name)}
             for path, run in axes["bench"].items()}
+    # Phase 19 read the counts around its training run (None without cv2).
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["phase19_launches"] = (
+            None if mp4["counts"] is None else mp4["counts"][name])
     for name in AXIS_KERNELS:
         counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][
             0][name]

@@ -1,25 +1,65 @@
 """Frozen Moving MNIST loader.
 
-Counterpart of the ``.npy`` path of ``ode_rl_tpu/data/frozen.py``:
-pre-rendered uint8 videos in ``<root>/<split>/shard_*.npy`` (written by
-``scripts/make_frozen_mmnist.py``), sampled on the host from
-``np.random.RandomState(seed)`` in the JAX loader's order (a random
-shard, then a random video and a random window for each batch element),
+Counterpart of ``ode_rl_tpu/data/frozen.py``, with its two on-disk
+layouts:
+
+  * pre-rendered uint8 videos in ``<root>/<split>/shard_*.npy`` (written
+    by ``python -m ode_rl_torch.make_frozen_mmnist``);
+  * the reference's own layout, a directory of ``video_<n>.mp4`` files
+    (written by ``python -m ode_rl_torch.make_mp4_mmnist``) under
+    ``<root>/<split>/``, or flat under ``<root>`` for both splits. They
+    are decoded once with cv2, with the reference's bounded read-retry
+    loop, to gray frames in ``sorted(glob)`` order (so ``video_10`` comes
+    before ``video_2``), each cut to the shortest video's length, and
+    held in memory as one shard. cv2 is imported only to decode.
+
+Batches are sampled on the host from ``np.random.RandomState(seed)`` in
+the JAX loader's order (a random shard, which the mp4 layout does not
+draw, then a random video and a random window for each batch element),
 so that the same corpus and seed give the same batches bit for bit. The
 batch ships to the device as float32 in [-0.5, 0.5].
-
-The reference's mp4 layout needs cv2 to decode, which the port does not
-use; a corpus of only ``video_*.mp4`` files raises.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
+
+
+def read_video_file(path, retries: int = 10, gray: bool = True) -> np.ndarray:
+    """Decode a video file to (T, H, W) uint8 (gray) or (T, H, W, 3) RGB,
+    opening it again while a read yields no frame, up to ``retries``
+    times, then raising ``IOError``."""
+    import cv2
+
+    last = 0
+    for _ in range(retries):
+        cap = cv2.VideoCapture(str(path))
+        frames = []
+        while True:
+            ok, img = cap.read()
+            if not ok:
+                break
+            code = cv2.COLOR_BGR2GRAY if gray else cv2.COLOR_BGR2RGB
+            frames.append(cv2.cvtColor(img, code).astype(np.uint8))
+        cap.release()
+        if frames and len(frames) >= last:
+            return np.stack(frames)
+        last = len(frames)
+    raise IOError(f"failed to decode {path} after {retries} attempts")
+
+
+def _load_mp4_corpus(split_dir: pathlib.Path) -> np.ndarray:
+    """Every ``video_*.mp4`` under ``split_dir`` decoded into one
+    (n_videos, n_frames, H, W) uint8 shard, cut to the shortest video."""
+    decoded = [read_video_file(p)
+               for p in sorted(split_dir.glob("video_*.mp4"))]
+    t_min = min(v.shape[0] for v in decoded)
+    return np.stack([v[:t_min] for v in decoded])
 
 
 class FrozenMovingMNIST:
@@ -30,16 +70,18 @@ class FrozenMovingMNIST:
         split = "train" if is_train else "test"
         self.shards: List[pathlib.Path] = sorted(
             (self.root / split).glob("shard_*.npy"))
+        self._mp4_shard: Optional[np.ndarray] = None
         if not self.shards:
-            if any(sorted(d.glob("video_*.mp4"))
-                   for d in (self.root / split, self.root) if d.is_dir()):
-                raise NotImplementedError(
-                    f"{self.root} holds an mp4 corpus: decoding it needs "
-                    "cv2, which the port does not use; write .npy shards "
-                    "with scripts/make_frozen_mmnist.py")
-            raise FileNotFoundError(
-                f"no frozen shards under {self.root / split}; run "
-                "scripts/make_frozen_mmnist.py first")
+            for cand in (self.root / split, self.root):
+                if sorted(cand.glob("video_*.mp4")):
+                    self._mp4_shard = _load_mp4_corpus(cand)
+                    break
+            else:
+                raise FileNotFoundError(
+                    f"no frozen shards under {self.root / split} and no "
+                    f"video_*.mp4 corpus under {self.root}; run python -m "
+                    "ode_rl_torch.make_frozen_mmnist or python -m "
+                    "ode_rl_torch.make_mp4_mmnist first")
         meta_path = self.root / "meta.json"
         self.meta = (json.loads(meta_path.read_text())
                      if meta_path.exists() else {})
@@ -61,7 +103,8 @@ class FrozenMovingMNIST:
 
     def __next__(self) -> torch.Tensor:
         """The next batch, (B, T, H, W, 1) float32 in [-0.5, 0.5]."""
-        shard = self._shard(self.shards[self._rng.randint(len(self.shards))])
+        shard = (self._mp4_shard if self._mp4_shard is not None else
+                 self._shard(self.shards[self._rng.randint(len(self.shards))]))
         n_videos, n_frames = shard.shape[:2]
         if n_frames < self.n_total:
             raise ValueError(f"{self.root}: videos of {n_frames} frames, "

@@ -10,7 +10,7 @@ index-put of each 28x28 sprite at its integer offset.
 ``parse_datasets`` builds a run's train and test loaders: for ``dataset:
 sprites`` the Sprites clips (sprite/data.py); for ``dataset:
 mmnist`` the frozen corpus (data/frozen.py) where ``frozen`` is on and
-``data_dir`` holds ``meta.json`` (or an mp4 corpus, which raises), else
+``data_dir`` holds ``meta.json`` or an mp4 corpus (``video_*.mp4``), else
 the generator; for the Vid-ODE corpora (kth, mgif, penn, hurricane,
 phyre, minerl, mmnist_video) the per-video corpus of
 data/video_corpus.py. Any other dataset raises, as in JAX: the CATER
@@ -206,8 +206,8 @@ def parse_datasets(cfg, device: torch.device) -> dict:
               "n_test_batches": max((total - n_train) // cfg.batch_size, 1)}
     seed = cfg.get("seed", 0)
 
-    # An mp4 corpus is chosen as JAX chooses it; FrozenMovingMNIST then
-    # raises, as the port reads only .npy shards.
+    # A frozen corpus: .npy shards with meta.json, or the reference's
+    # video_*.mp4 files, flat or under train/.
     frozen_root = pathlib.Path(str(cfg.get("data_dir", "")))
     has_mp4 = any(list(d.glob("video_*.mp4"))
                   for d in (frozen_root, frozen_root / "train") if d.is_dir())

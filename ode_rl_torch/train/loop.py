@@ -7,8 +7,9 @@ builds (models/registry.py): the epoch x batch loop with loss logging at
 auto-resume from the newest checkpoint, the per-epoch line, and the test
 protocol (restore by ``ckpt_id``, ``eval_batches`` batches, per-horizon
 MSE/PSNR/SSIM, and LPIPS for Vid-ODE, into ``per_horizon.json``, the
-last horizon as ``final_*``, and a prediction/ground-truth sheet
-``pred_gt.png``).
+last horizon as ``final_*``, the metric-vs-horizon plot
+``metrics_vs_horizon.png`` with its ``.json``, and a
+prediction/ground-truth sheet ``pred_gt.png``).
 
 Without a frozen corpus the train step makes its own batch on the device
 (the fused step); with one, batches come from the loader. S3VAE's batches
@@ -57,7 +58,7 @@ run's dtype, with the weights in ``flownet_params_path`` (JAX's or the
 port's file, flow/train.py); without that file it raises, unless
 ``allow_random_flownet`` opts into a randomly initialised net with a
 warning. The test phase keeps the frame-difference labels, as JAX's
-does. The metric-vs-horizon plot (matplotlib) is not written.
+does.
 
 ``use_mesh`` trains data-parallel (parallel/mesh.py) over the ranks
 torchrun starts, one a card (``python -m torch.distributed.run
@@ -101,7 +102,8 @@ from ode_rl_torch.train.schedulers import (EarlyStopping, ReduceLROnPlateau,
 from ode_rl_torch.train.step import (TrainState, create_train_state,
                                      make_eval_step, make_fused_train_step,
                                      make_train_step, needs_flow_labels)
-from ode_rl_torch.train.visualize import save_filmstrip
+from ode_rl_torch.train.visualize import (plot_metrics_vs_horizon,
+                                          save_filmstrip)
 from ode_rl_torch.wm.cater import eval_cater_classifier, train_cater_classifier
 
 # The fused loop's generator seed is the run seed plus this (JAX folds
@@ -533,6 +535,8 @@ def test(cfg, device: torch.device,
     per_horizon = {k: v.tolist() for k, v in stacked.items()}
     logger.log(0, final)
     (logdir / "per_horizon.json").write_text(json.dumps(per_horizon))
+    plot_metrics_vs_horizon(logdir / "metrics_vs_horizon.png", per_horizon,
+                            n_in=cfg.test_in_seq)
     # The last batch's first video: ground truth over prediction (the
     # observed frames lead both where the model predicts them too).
     gt, pr = _host(batch["data_to_predict"][0]) + 0.5, _host(pred[0])

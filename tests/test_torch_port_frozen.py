@@ -48,7 +48,9 @@ def test_frozen_refuses_short_videos_missing_shards_and_mp4(tmp_path):
         FrozenMovingMNIST(tmp_path / "empty", 2, 4, 6)
     (tmp_path / "mp4" / "train").mkdir(parents=True)
     (tmp_path / "mp4" / "train" / "video_0.mp4").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="cv2"):
+    # An mp4 corpus is decoded (tests/test_torch_port_frozen_mp4.py); an
+    # empty file fails JAX's read-retry loop as JAX's does.
+    with pytest.raises(IOError, match="failed to decode"):
         FrozenMovingMNIST(tmp_path / "mp4", 2, 4, 6)
 
 

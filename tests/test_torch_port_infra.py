@@ -34,6 +34,9 @@ against the JAX package.
 * ``StepTimer`` and ``Tracker`` against JAX's on the same fed clock (the
   summaries equal); ``trace`` writes a Chrome trace holding the
   ``annotate`` span.
+* ``chip_smoke.py``'s rule for a profiler window (``window_complete``):
+  whole only with ``reps`` times the most device events a call that any
+  trace shows (``events_a_call``), a count another trace confirms.
 """
 
 import ast
@@ -132,6 +135,57 @@ def _chip_smoke_constant(name: str):
         if isinstance(node, ast.Assign) and node.targets[0].id == name:
             return ast.literal_eval(node.value)
     raise KeyError(name)
+
+
+def _chip_smoke_function(name: str, *needs: str):
+    """A top-level function of chip_smoke.py, compiled with the functions
+    it calls (``needs``) and nothing else: the script needs a card to
+    import its phases' state."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    nodes = [node for node in tree.body if isinstance(node, ast.FunctionDef)
+             and node.name in (name, *needs)]
+    assert len(nodes) == 1 + len(needs), (name, needs)
+    scope = {}
+    exec(compile(ast.Module(nodes, []), "chip_smoke.py", "exec"), scope)
+    return scope[name]
+
+
+SHORT = ((1, 3), (2, 6), (5, 15))
+DEAD = ((1, 0), (2, 0), (5, 0))
+
+
+@pytest.mark.parametrize("events,traces,whole", [
+    (60, SHORT, True), (20, ((1, 1), (2, 2), (5, 5)), True),
+    # Events dropped from the window, or a window dropped whole.
+    (59, SHORT, False), (57, SHORT, False), (0, SHORT, False),
+    (17, ((1, 1), (2, 2), (5, 5)), False),
+    # More than the calls launch.
+    (61, SHORT, False),
+    # Short traces that lost every event: a window counts once another
+    # window agrees with it, and not beside a fuller one.
+    (20, DEAD, False), (20, (*DEAD, (20, 20)), True),
+    (20, (*DEAD, (20, 17)), False), (20, (*DEAD, (20, 40)), False),
+    (0, (*DEAD, (20, 0)), False)])
+def test_device_us_takes_only_whole_windows(events, traces, whole):
+    """chip_smoke.device_us keeps a profiler window of 20 calls only when
+    it holds 20 times the most device events a call that any trace of the
+    function shows, and another trace shows that count too."""
+    window_complete = _chip_smoke_function("window_complete",
+                                           "events_a_call")
+    assert window_complete(events, traces, 20) is whole
+
+
+@pytest.mark.parametrize("counts,a_call", [
+    (((1, 1), (2, 2), (5, 5)), 1), (((1, 5), (2, 10), (5, 25)), 5),
+    # The one-call trace lost its event, or 3 of its 5.
+    (((1, 0), (2, 2), (5, 5)), 1), (((1, 2), (2, 10), (5, 25)), 5),
+    # Traces that no longer divide by their calls lost events: not read.
+    (((1, 5), (2, 9), (5, 23)), 5), (((1, 0), (2, 1), (5, 4)), 0),
+    ((), 0)])
+def test_device_us_counts_one_call_from_short_traces(counts, a_call):
+    """The events of one call: the most whole per-call count of the
+    traces of 1, 2 and 5 calls, since a trace only loses events."""
+    assert _chip_smoke_function("events_a_call")(counts) == a_call
 
 
 @pytest.fixture(scope="module")

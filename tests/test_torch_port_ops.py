@@ -185,7 +185,8 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR
 
 
-_FORBIDDEN = {"jax", "flax", "optax", "yaml", "imageio", "msgpack"}
+_FORBIDDEN = {"jax", "flax", "optax", "yaml", "imageio", "msgpack",
+              "matplotlib"}
 
 
 @pytest.mark.parametrize("path", sorted(

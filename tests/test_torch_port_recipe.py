@@ -13,7 +13,9 @@ step's per-horizon MSE, PSNR and SSIM to 1e-5 (absolute plus relative,
 as numpy's allclose: the MSE of a prediction 1e-7 off moves by about
 1e-7), its aux stats equal. Then the entry point, ``ode_rl_torch.main.main``, trains and
 tests on the CPU: checkpoints written and found, ``per_horizon.json`` of
-the test horizon's length, and a second run resumes from the saved step.
+the test horizon's length with the metric-vs-horizon plot beside it (its
+JSON the same curves, its PNG three panels of JAX's 440 x 330), and a
+second run resumes from the saved step.
 """
 
 import functools
@@ -186,6 +188,13 @@ def test_main_trains_tests_and_resumes(corpus, tmp_path):
     for k, v in per_horizon.items():
         assert len(v) == 7 and np.all(np.isfinite(v)), k
         assert out[f"final_{k}"] == v[-1]
+    # The metric-vs-horizon plot beside it, as JAX's test phase writes it.
+    run = tmp_path / "ODEConv" / "ODEConv_mmnist_test_3_7"
+    assert json.loads((run / "metrics_vs_horizon.json").read_text()) == (
+        per_horizon)
+    png = (run / "metrics_vs_horizon.png").read_bytes()
+    assert png[12:16] == b"IHDR" and png[16:24] == (
+        (1320).to_bytes(4, "big") + (330).to_bytes(4, "big"))
 
 
 def test_main_defaults_to_cuda_and_refuses_the_cpu_fallback():
