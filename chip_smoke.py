@@ -333,7 +333,19 @@ without printing its last line:
     with every K1/K2 launch a SIMT one and every K3/K4 launch a
     one-sample one) and its test block (one batch, 10 -> 90; 90 finite
     values of each metric and the plot checked as in phase 9). Its
-    launches (``phase19_launches``) go into the kernels line.
+    launches (``phase19_launches``) go into the kernels line;
+20. parity init: the committed JAX init of the ConvGRU twin
+    (``results/port_parity/convgru_init.npz``) through ``python -m
+    ode_rl_torch.parity_init``, then 20 steps of ``defaults`` +
+    ``train_mmnist_cgru_len20`` through ``ode_rl_torch.main`` on the
+    corpus phase 16 wrote (the bytes of ``datasets/parity``), resumed
+    at step 0: each step's loss printed beside JAX's recorded loss from
+    the same init and batches (``results/port_parity/jax_first20``) and
+    their relative gap, step 1's gap within PARITY_STEP1_RTOL, step 1's
+    grad_norm within PARITY_GRAD_RTOL of JAX's, the largest gap over steps
+    2-20 within PARITY_LATER_RTOL, every loss finite, and K3/K4 launched 20 times a step each, every launch a
+    one-sample one, no K1/K2. Its launches (``phase20_launches``) go
+    into the kernels line.
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
@@ -364,7 +376,7 @@ variance, not sums) and at other plans (512 and 1024 threads, clusters
 of 2 and 4 blocks a sample).
 
 TF32 is off for matmul and cuDNN throughout, so the fp32 steps (phases 5,
-7-19) run their convs in strict fp32. Then one JSON line
+7-20) run their convs in strict fp32. Then one JSON line
 with each kernel's launches, error, times, bound (the larger of its
 operations over the peak rate of their type and its bytes over the memory
 rate, at the shape timed) and the time of the one PyTorch call that
@@ -5093,7 +5105,7 @@ def _wm_helpers(bank: torch.Tensor) -> dict:
     return {"cem": (first, planned), "grad": (first_obj, final_obj)}
 
 
-def phase_eval_tools(bank: torch.Tensor) -> dict:
+def phase_eval_tools(bank: torch.Tensor, corpus_dir: pathlib.Path) -> dict:
     print("[16] the evaluation tools and the last helpers: the native corpus "
           "writer, parity_eval, checked_odeint, the profiler, the two "
           "judges' scripts, the planners, ImpalaCNN, EpisodeLoader")
@@ -5101,7 +5113,7 @@ def phase_eval_tools(bank: torch.Tensor) -> dict:
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        corpus, corpus_s = _corpus_writer(tmp)
+        corpus, corpus_s = _corpus_writer(corpus_dir)
         parity, counts["parity_eval"] = _counted(
             lambda: _parity_eval(corpus, tmp))
         counts["checked_odeint"] = _checked_odeint()
@@ -5118,7 +5130,8 @@ def phase_eval_tools(bank: torch.Tensor) -> dict:
         path: {k: run[k] for k in KERNELS if run[k]}
         for path, run in counts.items()}))
     print(f"  phase 16: {seconds:.1f} s")
-    return {"counts": counts, "corpus": corpus_s, "parity": parity,
+    return {"counts": counts, "corpus": corpus_s, "corpus_root": corpus,
+            "parity": parity,
             "profiler": profiler["summary"], "judge": judge,
             "disagreement": disagreement, "planners": planners,
             "seconds": seconds}
@@ -5545,6 +5558,88 @@ def phase_mp4() -> dict:
     return {"counts": counts}
 
 
+# [20] parity init: the ConvGRU twin from the committed JAX init.
+PARITY_BLOCKS = ("defaults", "train_mmnist_cgru_len20")
+PARITY_DIR = pathlib.Path(__file__).resolve().parent / "results" / "port_parity"
+PARITY_STEPS = 20
+# K3 and K4 launches a ConvGRU 10 -> 10 step: one each a frame, 10
+# encoded and 10 decoded.
+PARITY_GRU_A_STEP = 20
+# Step 1's loss against JAX's from the same init and batch: the CPU host
+# reads 7.5e-7 relative, the H100 8.8e-7 (tests/test_torch_port_parity_init.py
+# holds it to 1e-5, as the port's one-step tests against JAX are held).
+PARITY_STEP1_RTOL = 1e-5
+# Step 1's grad_norm against JAX's, and the largest loss gap over steps
+# 2-20 (the gradient, the Adam update and the loop): the H100 read
+# grad_norm gaps of 4.9e-7 to 5.6e-7 and largest loss gaps of 2.8e-6 to
+# 4.5e-6 relative, the CPU host loss gaps up to 4.2e-6.
+PARITY_GRAD_RTOL = 1e-4
+PARITY_LATER_RTOL = 1e-4
+
+
+def phase_parity_init(corpus: pathlib.Path) -> dict:
+    """The committed JAX init through parity_init, then the first steps
+    of the ConvGRU twin through main, each loss beside JAX's."""
+    from ode_rl_torch import parity_init
+
+    print(f"[20] parity init: {PARITY_DIR.name}/convgru_init.npz through "
+          f"parity_init, then {PARITY_STEPS} steps of the ConvGRU twin "
+          "through ode_rl_torch.main, each loss beside JAX's")
+    t0 = time.perf_counter()
+    jax_logged = [json.loads(line) for line in
+                  (PARITY_DIR / "jax_first20" / "train_metrics.jsonl")
+                  .read_text().splitlines()]
+    jax_losses = [m["loss"] for m in jax_logged]
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = pathlib.Path(tmp) / "logs"
+        run = ["--configs", *PARITY_BLOCKS, "--frozen", "True", "--data_dir",
+               str(corpus), "--logdir", str(logs), "--ckpt_id",
+               "parity_cgru_port"]
+        init = ["--params", str(PARITY_DIR / "convgru_init.npz"), *run]
+        print(f"  python -m ode_rl_torch.parity_init {' '.join(init)}")
+        parity_init.main(init)
+        argv = [*run, "--steps_per_epoch", str(PARITY_STEPS), "--epochs",
+                "1", "--loss_log_freq", "1"]
+        print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
+        torch.cuda.synchronize()
+        common.reset_launches()
+        out = port_main.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(common.launches)
+        logged = [json.loads(line) for line in
+                  (logs / "ConvGRU" / "ConvGRU_mmnist_train_10_10"
+                   / "metrics.jsonl").read_text().splitlines()]
+    print(f"  launches over the {PARITY_STEPS} steps: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    _check_recurrent_routes("ConvGRU", counts, "parity run")
+    for name in ("gru_gates", "gru_blend"):
+        if counts[name] != PARITY_GRU_A_STEP * PARITY_STEPS:
+            raise AssertionError(
+                f"{name}: {counts[name]} launches in {PARITY_STEPS} steps, "
+                f"not {PARITY_GRU_A_STEP} a step")
+    losses = [m["loss"] for m in logged]
+    if (out["final_step"] != PARITY_STEPS
+            or [m["step"] for m in logged] != list(range(1, PARITY_STEPS + 1))
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"the parity run took {out['final_step']} "
+                             f"steps, logged {logged}")
+    gaps = [(a - b) / b for a, b in zip(losses, jax_losses)]
+    for step, (a, b, gap) in enumerate(zip(losses, jax_losses, gaps), 1):
+        print(f"  step {step:2d}: loss {a:.8f} JAX {b:.8f} gap {gap:+.3e}")
+    grad_gap = logged[0]["grad_norm"] / jax_logged[0]["grad_norm"] - 1
+    check("parity step 1 loss against JAX's", abs(gaps[0]),
+          PARITY_STEP1_RTOL, "relative")
+    check("parity step 1 grad_norm, JAX's", abs(grad_gap), PARITY_GRAD_RTOL,
+          "relative")
+    check(f"parity steps 2-{PARITY_STEPS} loss, JAX's",
+          max(abs(g) for g in gaps[1:]), PARITY_LATER_RTOL, "relative")
+    _check_tf32_off("phase 20")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 20: {seconds:.1f} s")
+    return {"counts": counts, "gaps": gaps, "grad_norm_gap": grad_gap,
+            "seconds": seconds}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5571,10 +5666,14 @@ def main() -> int:
     families13 = phase_families13(bank)
     world_models = phase_world_models(bank)
     flow_users = phase_flow_users(bank)
-    eval_tools = phase_eval_tools(bank)
+    # Phase 16 writes the parity corpus; phase 20 trains on it.
+    parity_tmp = tempfile.TemporaryDirectory()
+    eval_tools = phase_eval_tools(bank, pathlib.Path(parity_tmp.name))
     data_parallel = phase_data_parallel(bank)
     axes = phase_axes(data_parallel)
     mp4 = phase_mp4()
+    parity = phase_parity_init(eval_tools["corpus_root"])
+    parity_tmp.cleanup()
     print(f"build_s {build_s:.2f}")
     for name in ("conv3x3_fwd", "conv3x3_wgrad"):
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
@@ -5678,6 +5777,9 @@ def main() -> int:
     for name in FLAGSHIP_KERNELS:
         timings[name]["phase19_launches"] = (
             None if mp4["counts"] is None else mp4["counts"][name])
+    # Phase 20 read the counts around its training run.
+    for name in FLAGSHIP_KERNELS:
+        timings[name]["phase20_launches"] = parity["counts"][name]
     for name in AXIS_KERNELS:
         counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][
             0][name]

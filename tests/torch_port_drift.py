@@ -42,15 +42,9 @@ from ode_rl_torch.core.config import load_config  # noqa: E402
 from ode_rl_torch.data.mmnist import generate_moving_mnist  # noqa: E402
 from ode_rl_torch.data.protocol import make_batch_dict  # noqa: E402
 from ode_rl_torch.data.sprites import get_sprite_bank  # noqa: E402
+from ode_rl_torch.parity_init import perturb  # noqa: E402
 from ode_rl_torch.train.step import (create_train_state,  # noqa: E402
                                      loss_and_grads, make_train_step)
-
-
-def _perturb(model, seed, scale=1e-7):
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for p in model.parameters():
-            p.mul_(1 + scale * torch.randn(p.shape, generator=gen))
 
 
 def _worst(a, b):
@@ -73,7 +67,7 @@ def drift():
         def port_run(seed=None):
             state = T._port_state(blocks, overrides, j0.params)
             if seed is not None:
-                _perturb(state.model, seed)
+                perturb(state.model, 1e-7, seed)
             start = T._as_flax(state.model, j0.params)
             out = []
             for video in videos:
