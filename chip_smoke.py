@@ -334,18 +334,26 @@ without printing its last line:
     one-sample one) and its test block (one batch, 10 -> 90; 90 finite
     values of each metric and the plot checked as in phase 9). Its
     launches (``phase19_launches``) go into the kernels line;
-20. parity init: the committed JAX init of the ConvGRU twin
-    (``results/port_parity/convgru_init.npz``) through ``python -m
+20. parity init: the committed JAX inits of the ConvGRU twin
+    (``results/port_parity/convgru_init.npz``) and of the recipe
+    (``odecgru_init.npz``), each through ``python -m
     ode_rl_torch.parity_init``, then 20 steps of ``defaults`` +
-    ``train_mmnist_cgru_len20`` through ``ode_rl_torch.main`` on the
-    corpus phase 16 wrote (the bytes of ``datasets/parity``), resumed
-    at step 0: each step's loss printed beside JAX's recorded loss from
-    the same init and batches (``results/port_parity/jax_first20``) and
-    their relative gap, step 1's gap within PARITY_STEP1_RTOL, step 1's
-    grad_norm within PARITY_GRAD_RTOL of JAX's, the largest gap over steps
-    2-20 within PARITY_LATER_RTOL, every loss finite, and K3/K4 launched 20 times a step each, every launch a
-    one-sample one, no K1/K2. Its launches (``phase20_launches``) go
-    into the kernels line.
+    ``train_mmnist_cgru_len20`` and of the recipe through
+    ``ode_rl_torch.main`` on the corpus phase 16 wrote (the bytes of
+    ``datasets/parity``), resumed at step 0: each step's loss (and the
+    recipe's NFE) printed beside JAX's recorded from the same init and
+    batches (``results/port_parity/jax_first20``,
+    ``results/port_parity/recipe/jax_first20``) and their relative gap.
+    The twin: step 1's gap within PARITY_STEP1_RTOL, step 1's grad_norm
+    within PARITY_GRAD_RTOL of JAX's, the largest gap over steps 2-20
+    within PARITY_LATER_RTOL, every loss finite, and K3/K4 launched 20
+    times a step each, every launch a one-sample one, no K1/K2. The
+    recipe: step 1's gap within PARITY_STEP1_RTOL, step 1's grad_norm and
+    steps 2-20 within PARITY_GRAD_RTOL and PARITY_LATER_RTOL, the NFE
+    equal to JAX's at every step, K1-K4 on the recipe's routes (fp32
+    SIMT K1/K2, one-sample K3/K4) and K3/K4 launched 10 times a step
+    each. Their launches (``phase20_launches``,
+    ``phase20_recipe_launches``) go into the kernels line.
 
 Phase 3 also holds the kernels at the shapes of phase 18: K1 and K2 on a
 'model' rank's Cout slice (128, 16, 16, 64) -> 32 and on a 'space'
@@ -5558,46 +5566,53 @@ def phase_mp4() -> dict:
     return {"counts": counts}
 
 
-# [20] parity init: the ConvGRU twin from the committed JAX init.
+# [20] parity init: the ConvGRU twin and the recipe, each from its
+# committed JAX init.
 PARITY_BLOCKS = ("defaults", "train_mmnist_cgru_len20")
 PARITY_DIR = pathlib.Path(__file__).resolve().parent / "results" / "port_parity"
 PARITY_STEPS = 20
 # K3 and K4 launches a ConvGRU 10 -> 10 step: one each a frame, 10
 # encoded and 10 decoded.
 PARITY_GRU_A_STEP = 20
+# K3 and K4 launches a recipe step: one each an observed frame, in the
+# z0 encoder's ConvGRU steps (the decode is the ODE field's K1/K2).
+PARITY_RECIPE_GRU_A_STEP = 10
 # Step 1's loss against JAX's from the same init and batch: the CPU host
 # reads 7.5e-7 relative, the H100 8.8e-7 (tests/test_torch_port_parity_init.py
 # holds it to 1e-5, as the port's one-step tests against JAX are held).
 PARITY_STEP1_RTOL = 1e-5
 # Step 1's grad_norm against JAX's, and the largest loss gap over steps
-# 2-20 (the gradient, the Adam update and the loop): the H100 read
-# grad_norm gaps of 4.9e-7 to 5.6e-7 and largest loss gaps of 2.8e-6 to
-# 4.5e-6 relative, the CPU host loss gaps up to 4.2e-6.
+# 2-20 (the gradient, the Adam update and the loop). The twin: the H100
+# read grad_norm gaps of 4.9e-7 to 5.6e-7 and largest loss gaps of
+# 2.8e-6 to 7.2e-6 relative, the CPU host loss gaps up to 4.2e-6. The
+# recipe, through dopri5 with K1/K2 in the field: the CPU host reads
+# 3.3e-7 and 2.1e-5 (a 1e-7 noise run parts from the port by 1.2e-5 over
+# the same steps), the H100 6.6e-8 and 1.0e-5.
 PARITY_GRAD_RTOL = 1e-4
 PARITY_LATER_RTOL = 1e-4
 
 
-def phase_parity_init(corpus: pathlib.Path) -> dict:
-    """The committed JAX init through parity_init, then the first steps
-    of the ConvGRU twin through main, each loss beside JAX's."""
+def _parity_steps(name: str, blocks, init: str, first20: str, model: str,
+                  corpus: pathlib.Path) -> dict:
+    """``init`` through parity_init, then PARITY_STEPS steps of ``blocks``
+    through main, each step's loss and NFE beside JAX's in ``first20``;
+    the launches over the steps, the loss gaps and step 1's grad_norm
+    gap, relative."""
     from ode_rl_torch import parity_init
 
-    print(f"[20] parity init: {PARITY_DIR.name}/convgru_init.npz through "
-          f"parity_init, then {PARITY_STEPS} steps of the ConvGRU twin "
-          "through ode_rl_torch.main, each loss beside JAX's")
-    t0 = time.perf_counter()
+    print(f"  {name}: {init} through parity_init, then {PARITY_STEPS} "
+          "steps through ode_rl_torch.main, each loss beside JAX's")
     jax_logged = [json.loads(line) for line in
-                  (PARITY_DIR / "jax_first20" / "train_metrics.jsonl")
+                  (PARITY_DIR / first20 / "train_metrics.jsonl")
                   .read_text().splitlines()]
-    jax_losses = [m["loss"] for m in jax_logged]
     with tempfile.TemporaryDirectory() as tmp:
         logs = pathlib.Path(tmp) / "logs"
-        run = ["--configs", *PARITY_BLOCKS, "--frozen", "True", "--data_dir",
+        run = ["--configs", *blocks, "--frozen", "True", "--data_dir",
                str(corpus), "--logdir", str(logs), "--ckpt_id",
-               "parity_cgru_port"]
-        init = ["--params", str(PARITY_DIR / "convgru_init.npz"), *run]
-        print(f"  python -m ode_rl_torch.parity_init {' '.join(init)}")
-        parity_init.main(init)
+               f"parity_{name}_port"]
+        argv = ["--params", str(PARITY_DIR / init), *run]
+        print(f"  python -m ode_rl_torch.parity_init {' '.join(argv)}")
+        parity_init.main(argv)
         argv = [*run, "--steps_per_epoch", str(PARITY_STEPS), "--epochs",
                 "1", "--loss_log_freq", "1"]
         print(f"  python -m ode_rl_torch.main {' '.join(argv)}")
@@ -5607,37 +5622,81 @@ def phase_parity_init(corpus: pathlib.Path) -> dict:
         torch.cuda.synchronize()
         counts = dict(common.launches)
         logged = [json.loads(line) for line in
-                  (logs / "ConvGRU" / "ConvGRU_mmnist_train_10_10"
+                  (logs / model / f"{model}_mmnist_train_10_10"
                    / "metrics.jsonl").read_text().splitlines()]
     print(f"  launches over the {PARITY_STEPS} steps: "
           f"{ {k: v for k, v in counts.items() if v} }")
-    _check_recurrent_routes("ConvGRU", counts, "parity run")
-    for name in ("gru_gates", "gru_blend"):
-        if counts[name] != PARITY_GRU_A_STEP * PARITY_STEPS:
-            raise AssertionError(
-                f"{name}: {counts[name]} launches in {PARITY_STEPS} steps, "
-                f"not {PARITY_GRU_A_STEP} a step")
     losses = [m["loss"] for m in logged]
     if (out["final_step"] != PARITY_STEPS
             or [m["step"] for m in logged] != list(range(1, PARITY_STEPS + 1))
             or not np.all(np.isfinite(losses))):
-        raise AssertionError(f"the parity run took {out['final_step']} "
+        raise AssertionError(f"the {name} run took {out['final_step']} "
                              f"steps, logged {logged}")
-    gaps = [(a - b) / b for a, b in zip(losses, jax_losses)]
-    for step, (a, b, gap) in enumerate(zip(losses, jax_losses, gaps), 1):
-        print(f"  step {step:2d}: loss {a:.8f} JAX {b:.8f} gap {gap:+.3e}")
-    grad_gap = logged[0]["grad_norm"] / jax_logged[0]["grad_norm"] - 1
-    check("parity step 1 loss against JAX's", abs(gaps[0]),
+    gaps = [a / b["loss"] - 1 for a, b in zip(losses, jax_logged)]
+    for step, (m, j, gap) in enumerate(zip(logged, jax_logged, gaps), 1):
+        nfe = (f" nfe {m['nfe']:g} JAX {j['nfe']:g}" if "nfe" in j else "")
+        print(f"  step {step:2d}: loss {m['loss']:.8f} JAX {j['loss']:.8f} "
+              f"gap {gap:+.3e}{nfe}")
+    return {"counts": counts, "gaps": gaps, "logged": logged,
+            "jax_logged": jax_logged,
+            "grad_norm_gap": logged[0]["grad_norm"]
+            / jax_logged[0]["grad_norm"] - 1}
+
+
+def _check_gru_a_step(counts: dict, a_step: int, where: str) -> None:
+    for name in ("gru_gates", "gru_blend"):
+        if counts[name] != a_step * PARITY_STEPS:
+            raise AssertionError(
+                f"{name}: {counts[name]} launches in {PARITY_STEPS} steps "
+                f"of the {where}, not {a_step} a step")
+
+
+def phase_parity_init(corpus: pathlib.Path) -> dict:
+    """The committed JAX inits of the ConvGRU twin and of the recipe
+    through parity_init, then the first steps of each through main, each
+    loss beside JAX's."""
+    print(f"[20] parity init: the ConvGRU twin, then the recipe, from "
+          f"{PARITY_DIR.name}/'s JAX inits")
+    t0 = time.perf_counter()
+    twin = _parity_steps("cgru", PARITY_BLOCKS, "convgru_init.npz",
+                         "jax_first20", "ConvGRU", corpus)
+    _check_recurrent_routes("ConvGRU", twin["counts"], "parity run")
+    _check_gru_a_step(twin["counts"], PARITY_GRU_A_STEP, "twin")
+    check("parity step 1 loss against JAX's", abs(twin["gaps"][0]),
           PARITY_STEP1_RTOL, "relative")
-    check("parity step 1 grad_norm, JAX's", abs(grad_gap), PARITY_GRAD_RTOL,
-          "relative")
+    check("parity step 1 grad_norm, JAX's", abs(twin["grad_norm_gap"]),
+          PARITY_GRAD_RTOL, "relative")
     check(f"parity steps 2-{PARITY_STEPS} loss, JAX's",
-          max(abs(g) for g in gaps[1:]), PARITY_LATER_RTOL, "relative")
+          max(abs(g) for g in twin["gaps"][1:]), PARITY_LATER_RTOL,
+          "relative")
+    twin_s = time.perf_counter() - t0
+
+    recipe = _parity_steps("odecgru", RECIPE, "odecgru_init.npz",
+                           "recipe/jax_first20", "ODEConv", corpus)
+    _check_recipe_routes(recipe["counts"], "recipe's parity run")
+    _check_gru_a_step(recipe["counts"], PARITY_RECIPE_GRU_A_STEP, "recipe")
+    nfe = [m["nfe"] for m in recipe["logged"]]
+    jax_nfe = [m["nfe"] for m in recipe["jax_logged"]]
+    if nfe != jax_nfe:
+        first = next(i for i, (a, b) in enumerate(zip(nfe, jax_nfe), 1)
+                     if a != b)
+        raise AssertionError(f"the recipe's NFE parts from JAX's at step "
+                             f"{first}: {nfe} against {jax_nfe}")
+    print(f"  recipe NFE equal to JAX's at all {PARITY_STEPS} steps: {nfe}")
+    print(f"  recipe K1 / K2 launches a step: "
+          f"{recipe['counts']['conv3x3_fwd'] / PARITY_STEPS:g} / "
+          f"{recipe['counts']['conv3x3_wgrad'] / PARITY_STEPS:g}")
+    check("recipe step 1 loss against JAX's", abs(recipe["gaps"][0]),
+          PARITY_STEP1_RTOL, "relative")
+    check("recipe step 1 grad_norm, JAX's", abs(recipe["grad_norm_gap"]),
+          PARITY_GRAD_RTOL, "relative")
+    check(f"recipe steps 2-{PARITY_STEPS} loss, JAX's",
+          max(abs(g) for g in recipe["gaps"][1:]), PARITY_LATER_RTOL,
+          "relative")
     _check_tf32_off("phase 20")
     seconds = time.perf_counter() - t0
-    print(f"  phase 20: {seconds:.1f} s")
-    return {"counts": counts, "gaps": gaps, "grad_norm_gap": grad_gap,
-            "seconds": seconds}
+    print(f"  phase 20: {seconds:.1f} s (the twin {twin_s:.1f} s)")
+    return {"twin": twin, "recipe": recipe, "seconds": seconds}
 
 
 def main() -> int:
@@ -5777,9 +5836,11 @@ def main() -> int:
     for name in FLAGSHIP_KERNELS:
         timings[name]["phase19_launches"] = (
             None if mp4["counts"] is None else mp4["counts"][name])
-    # Phase 20 read the counts around its training run.
+    # Phase 20 read the counts around each of its training runs.
     for name in FLAGSHIP_KERNELS:
-        timings[name]["phase20_launches"] = parity["counts"][name]
+        timings[name]["phase20_launches"] = parity["twin"]["counts"][name]
+        timings[name]["phase20_recipe_launches"] = parity["recipe"][
+            "counts"][name]
     for name in AXIS_KERNELS:
         counts[name] = axes["bench"]["flagship_bench_sp"]["rank_launches"][
             0][name]

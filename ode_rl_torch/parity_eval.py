@@ -15,9 +15,11 @@ draws from a generator seeded 0 at every batch, as JAX passes key 0) and
 the per-horizon MSE, PSNR and SSIM of train/metrics.py, averaged over
 the batches, into ``<out>/metrics.json`` with JAX's keys: ``ckpt_id``,
 ``step`` and ``"<n_in>to<n_out>"`` -> {"mse", "psnr", "ssim"}, each a
-list over the horizon. The model is built from the config saved beside
-the checkpoint (``python -m ode_rl_torch.main`` writes both). The test
-phase of ``main`` samples random windows, so it cannot stand in for this.
+list over the horizon; for a model with an ODE decode also
+``<out>/ode.json``, {"<n_in>to<n_out>": ``solve_summary``}. The model is
+built from the config saved beside the checkpoint (``python -m
+ode_rl_torch.main`` writes both). The test phase of ``main`` samples
+random windows, so it cannot stand in for this.
 """
 
 from __future__ import annotations
@@ -63,6 +65,18 @@ def held_out_videos(data: pathlib.Path, n: int) -> np.ndarray:
     return videos
 
 
+def solve_summary(solves: Sequence[Dict[str, int]]) -> Dict[str, int]:
+    """The ODE decode's counts over an evaluation's batches (one solve a
+    batch): the most function evaluations, accepted steps and attempts
+    (accepted and rejected, the count ``ode_max_steps`` caps) of a solve,
+    and the number of solves that stopped short of the last time."""
+    return {"max_nfe": max(s["nfe"] for s in solves),
+            "max_accepted": max(s["ode_accepted"] for s in solves),
+            "max_attempts": max(s["ode_accepted"] + s["ode_rejected"]
+                                for s in solves),
+            "unconverged": sum(1 - s["ode_converged"] for s in solves)}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -73,9 +87,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     videos = held_out_videos(pathlib.Path(args.data), args.eval_videos)
 
     results = {"ckpt_id": args.ckpt_id, "step": step}
+    ode = {}
     for n_out in [int(x) for x in args.eval_outs.split(",")]:
         n_tot = args.n_in + n_out
-        per = []
+        per, solves = [], []
         for b0 in range(0, args.eval_videos, args.batch):
             clip = videos[b0:b0 + args.batch, :n_tot]
             video = clip.astype(np.float32)[..., None] / 255.0 - 0.5
@@ -85,10 +100,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 device=device).manual_seed(0))
             per.append({k: v.cpu().numpy() for k, v in metrics.items()
                         if not k.startswith("aux_")})
+            solves.append({k[4:]: int(v) for k, v in metrics.items()
+                           if k.startswith("aux_")})
         stacked = {k: np.mean(np.stack([m[k] for m in per]), axis=0)
                    for k in per[0]}
         results[f"{args.n_in}to{n_out}"] = {k: v.tolist()
                                             for k, v in stacked.items()}
+        if solves[0]:
+            ode[f"{args.n_in}to{n_out}"] = solve_summary(solves)
         print(f"{args.n_in}to{n_out}: final-horizon "
               f"mse={stacked['mse'][-1]:.5f} psnr={stacked['psnr'][-1]:.2f} "
               f"ssim={stacked['ssim'][-1]:.4f}")
@@ -97,6 +116,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     out.mkdir(parents=True, exist_ok=True)
     (out / "metrics.json").write_text(json.dumps(results, indent=2))
     print("wrote", out / "metrics.json")
+    if ode:
+        (out / "ode.json").write_text(json.dumps(ode, indent=2))
+        print("ODE solves:", ode)
     return results
 
 

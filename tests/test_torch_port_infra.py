@@ -359,6 +359,12 @@ def test_parity_eval_matches_jax_script(tmp_path, monkeypatch):
                              str(tmp_path / "port"), "--device", "cpu"])
     assert json.loads((tmp_path / "port" / "metrics.json").read_text()) == \
         ours
+    ode = json.loads((tmp_path / "port" / "ode.json").read_text())
+    assert set(ode) == {"4to4", "4to6"}
+    for solves in ode.values():
+        assert 0 < solves["max_accepted"] <= solves["max_attempts"] <= 128
+        assert solves["max_nfe"] >= 6 * solves["max_accepted"]
+        assert solves["unconverged"] == 0
     assert set(ours) == set(ref) == {"ckpt_id", "step", "4to4", "4to6"}
     assert ours["step"] == ref["step"] == 1
     for horizon in ("4to4", "4to6"):
