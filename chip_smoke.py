@@ -140,9 +140,10 @@ without printing its last line:
    ``force_plain()`` with the same weights, buffers, batch and noise (loss
    1e-5 relative, prediction 1e-4 max abs, every gradient leaf within 1e-3
    of its norm plus 1e-5 of the whole norm, BatchNorm buffers 1e-5, equal
-   NFE); and K1/K2 at (4, 4, 4, 32->64) and (4, 4, 4, 128->64), K3/K4 at
-   (12, 4, 4, 128), (12, 8, 8, 512) and (4, 4, 4, 256) alone against their
-   plain versions, each with its route, device µs and bound.
+   NFE); and K1/K2 at (4, 4, 4, 32->64) and (4, 4, 4, 128->64) (K1
+   forward and as dx, each also beside one cuDNN call), K3/K4 at (12, 4,
+   4, 128), (12, 8, 8, 512) and (4, 4, 4, 256) alone against their plain
+   versions, each with its route, device µs and bound.
 12. Vid-ODE family: ``ode_rl_torch.main`` on ``defaults`` +
    ``train_mmnist_vidode_len20`` (the latent (4, 16, 16, 128), the ODE
    field 128 -> 64 -> 64 -> 64 -> 128, the z0 ConvGRU at 128 channels),
@@ -174,8 +175,9 @@ without printing its last line:
    128->64), (4, 16, 16, 64->64), (4, 16, 16, 64->128), (16, 16, 16,
    32->32) and the same three at (4, 32, 32), K3 at (4, 16, 16, 256),
    (16, 16, 16, 64) and (4, 32, 32, 256), K4 at (4, 16, 16, 128), (16,
-   16, 16, 32) and (4, 32, 32, 128) alone against their plain versions,
-   each with its plan, route, device µs and bound.
+   16, 16, 32) and (4, 32, 32, 128) alone against their plain versions
+   (K1 forward and as dx, each K1 and K2 also beside one cuDNN call and
+   its ratio to it), each with its plan, route, device µs and bound.
 13. ConvLSTM, the S2VAE family and the Sprites DS-VAE: ``ode_rl_torch.main``
    on ``defaults`` + ``train_mmnist_convlstm``, ``train_mmnist_s2vae``,
    ``_cs2vae`` (3 slots of 128: K3 at (4, 4, 4, 256) in 8 groups and K4
@@ -2433,7 +2435,7 @@ def _recipe_reference(root: pathlib.Path, run: pathlib.Path) -> dict:
     per_launch = _launch_us(prof)
     print(f"  launches in this step: {counts}")
     # The trace agrees with the wrappers' counts: every K1 and K2 launch
-    # ran the SIMT kernels (the sum only where a call has splits).
+    # ran the SIMT kernels.
     for name, kernel in (("conv3x3_fwd", "conv3x3_fwd_simt"),
                          ("conv3x3_wgrad", "conv3x3_wgrad_simt")):
         traced = per_launch.get(kernel, (0, 0.0))[0]
@@ -3144,10 +3146,13 @@ def _s3vae_shapes() -> dict:
 def _shapes_alone(convs, grus) -> dict:
     """K1/K2 at each (B, H=W, Cin, Cout) of ``convs`` and K3/K4 at each
     (B, H=W, the gates' 2C) of ``grus``, fp32, alone: each against its
-    plain version (K1 1e-4 max abs, K2 1e-5 relative L2, K3 and K4 1e-5
-    max abs), its route and plan printed, and its device µs beside its
-    plain version's and its bound, its CUDA-event median ms and its host
-    µs a call."""
+    plain version (K1 1e-4 max abs, forward and as dx; K2 1e-5 relative
+    L2; K3 and K4 1e-5 max abs), its route and plan printed, and its
+    device µs beside its plain version's and its bound, its CUDA-event
+    median ms and its host µs a call; K1 (forward and as dx) and K2 also
+    beside one cuDNN call of the same function (TF32 off: F.conv2d and
+    the weight gradient of aten.convolution_backward), with the ratio of
+    each kernel's device µs to it."""
     gen = torch.Generator().manual_seed(9)
     rnd = lambda *shape: torch.randn(*shape, generator=gen).cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3159,28 +3164,40 @@ def _shapes_alone(convs, grus) -> dict:
         print(f"  K1/K2 at {label} fp32: simt_plan "
               f"{simt_plan(b, hw, hw, cin, cout, sms)}, wgrad_simt_plan "
               f"{wgrad_simt_plan(b, hw, hw, cin, cout, sms)}")
+        w_t, w_oihw = flip_transpose(w, cin, cout), oihw(w, cin, cout)
         common.reset_launches()
-        y, dw = conv3x3_fwd(x, w), conv3x3_wgrad(x, g)
+        y, dx = conv3x3_fwd(x, w), conv3x3_fwd(g, w_t)
+        dw = conv3x3_wgrad(x, g)
         counts = dict(common.launches)
-        if (counts["conv3x3_fwd_simt"] != 1
+        if (counts["conv3x3_fwd_simt"] != 2
                 or counts["conv3x3_wgrad_simt"] != 1):
             raise AssertionError(f"K1/K2 at {label} missed SIMT: {counts}")
         k1 = check(f"K1 at {label}", max_abs(y, conv3x3_fwd_plain(x, w)),
                    1e-4, "max_abs")
+        k1_dx = check(f"K1 as dx at {label}",
+                      max_abs(dx, conv3x3_fwd_plain(g, w_t)), 1e-4,
+                      "max_abs")
         k2 = check(f"K2 at {label}", rel_l2(dw, conv3x3_wgrad_plain(x, g)),
                    1e-5, "rel_l2")
-        us = device_us({"K1": lambda: conv3x3_fwd(x, w),
+        fns = {"K1": lambda: conv3x3_fwd(x, w),
+               "K1 as dx": lambda: conv3x3_fwd(g, w_t),
+               "K2": lambda: conv3x3_wgrad(x, g)}
+        us = device_us({**fns,
                         "K1 plain": lambda: conv3x3_fwd_plain(x, w),
-                        "K2": lambda: conv3x3_wgrad(x, g),
-                        "K2 plain": lambda: conv3x3_wgrad_plain(x, g)})
+                        "K1 as dx plain": lambda: conv3x3_fwd_plain(g, w_t),
+                        "K2 plain": lambda: conv3x3_wgrad_plain(x, g),
+                        "K1 library": lambda: conv_library(x, w_oihw),
+                        "K1 as dx library": lambda: conv_library(
+                            g, oihw(w_t, cout, cin)),
+                        "K2 library": lambda: wgrad_library(x, g, w_oihw)})
         px = b * hw * hw
         flops = 2 * px * 9 * cin * cout
-        for name, err, fn in (("K1", k1, lambda: conv3x3_fwd(x, w)),
-                              ("K2", k2, lambda: conv3x3_wgrad(x, g))):
+        for name, err in (("K1", k1), ("K1 as dx", k1_dx), ("K2", k2)):
             out[f"{name} {label}"] = {
                 "route": "simt", "err": err, "dev_us": us[name],
-                "plain_dev_us": us[f"{name} plain"], "ms": median_ms(fn),
-                "host_us": host_us(fn),
+                "plain_dev_us": us[f"{name} plain"],
+                "library_dev_us": us[f"{name} library"],
+                "ms": median_ms(fns[name]), "host_us": host_us(fns[name]),
                 **_bound(flops, (px * (cin + cout) + 9 * cin * cout) * 4,
                          PEAK_FP32)}
     for b, hw, c2 in grus:
@@ -3222,10 +3239,13 @@ def _shapes_alone(convs, grus) -> dict:
                 "host_us": host_us(kernel),
                 **_bound(flops, nbytes, PEAK_FP32)}
     for label, row in out.items():
+        lib = ("" if "library_dev_us" not in row else
+               f", cuDNN {row['library_dev_us']:.2f} (kernel / cuDNN "
+               f"{row['dev_us'] / row['library_dev_us']:.3f})")
         print(f"    {label}: {row['route']}, dev µs {row['dev_us']:.2f} "
-              f"(plain {row['plain_dev_us']:.2f}), ms {row['ms']:.4f}, host "
-              f"µs {row['host_us']:.2f}, bound {row['bound_ms'] * 1e3:.3f} "
-              f"µs by {row['bound_by']}")
+              f"(plain {row['plain_dev_us']:.2f}{lib}), ms {row['ms']:.4f}, "
+              f"host µs {row['host_us']:.2f}, bound "
+              f"{row['bound_ms'] * 1e3:.3f} µs by {row['bound_by']}")
     return out
 
 
@@ -5742,8 +5762,7 @@ def main() -> int:
         timings[name]["tc_launches"] = counts[f"{name}_tc"]
     # Phase 9 read the counts around its own run.
     kernel_names = {"conv3x3_fwd": ("conv3x3_fwd_simt",),
-                    "conv3x3_wgrad": ("conv3x3_wgrad_simt",
-                                      "conv3x3_wgrad_sum"),
+                    "conv3x3_wgrad": ("conv3x3_wgrad_simt",),
                     "gru_gates": ("gru_gates_sample",),
                     "gru_blend": ("gru_blend_sample",)}
     for name, kernels in kernel_names.items():

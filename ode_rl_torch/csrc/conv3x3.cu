@@ -33,13 +33,16 @@
 //   against cuDNN's 11.
 // * conv3x3_fwd_simt_kernel (everything else, fp32 included, so fp32 stays
 //   strict fp32): fp32 FMA from shared memory (section "SIMT K1" below). A
-//   block owns a run of 16-pixel row segments for 16 output channels, with
-//   its weights and the segment's 3-row halo staged in shared memory, zeros
-//   for SAME (or the halo operand's rows) written at staging;
-//   ops/conv3x3.py::simt_plan sizes the runs
-//   so that every SM gets about two blocks. On an H100 80GB HBM3 (700 W)
-//   about 8 us a call at the recipe's fp32 (4, 16, 16, 64) -> 64 against
-//   cuDNN's fp32 24 (ode_rl_torch/simt_conv_times.py).
+//   block owns a 16-column strip of an image, a run of its rows and 16 or
+//   32 output channels; its weights stay resident in shared memory for
+//   the whole run and the input comes a halo row at a time into a ring,
+//   the next step's rows loading by cp.async under this step's products;
+//   each thread 4 pixels x 8 channels (x 4 at 16). ops/conv3x3.py::
+//   simt_plan sizes the run so that the grid is one wave. On an H100 80GB
+//   HBM3 (700 W) about 7.5 us a call at the recipe's fp32 (4, 16, 16, 64)
+//   -> 64 against cuDNN's fp32 24, and 31 / 31 / 18 at the Vid-ODE
+//   field's (4, 32, 32) 128 -> 64 / 64 -> 128 / 64 -> 64 against cuDNN's
+//   40 / 36 / 26 (ode_rl_torch/simt_conv_times.py, PERF.md §6).
 //
 // K2 (dW = patches^T . g) is the same 2.4 GFLOP at the flagship shape,
 // against 8.5 MB (x and g in bf16, dW in fp32): 2.45 us at 989 TFLOP/s,
@@ -57,18 +60,21 @@
 //   same cooperative launch. About 12 us a launch at the flagship shape
 //   against cuDNN's weight gradient's 19.5; the partials' round trip
 //   through L2 and the grid sync are most of the gap to the bound.
-// * conv3x3_wgrad_simt_kernel + conv3x3_wgrad_sum_kernel (everything else,
-//   fp32 included): fp32 FMA (section "SIMT K2" below). A block owns a
-//   64 x 64 tile of dW (one tap at Cin = 64) and a run of pixels,
-//   ops/conv3x3.py::wgrad_simt_plan sizes the runs so that every SM gets
-//   about two blocks, and the second launch sums the partials in split
-//   order. On an H100 80GB HBM3 (700 W) about 9.4 us a call (both
-//   launches) at the recipe's fp32 shape against cuDNN's 16.3.
+// * conv3x3_wgrad_simt_kernel (everything else, fp32 included): fp32 FMA
+//   (section "SIMT K2" below). A block owns a 64 x 64, 128 x 64 or 64 x
+//   128 tile of dW and a run of pixels, each thread an 8 x 8 register
+//   tile, pixels staged by cp.async three stages ahead;
+//   ops/conv3x3.py::wgrad_simt_plan sizes the runs so that every block is
+//   resident, and the same cooperative launch sums the partials in split
+//   order after a grid sync. On an H100 80GB HBM3 (700 W) about 8 us a
+//   call at the recipe's fp32 shape against cuDNN's 16.3, and 23 / 23 /
+//   16.5 at the Vid-ODE field's 32x32 shapes against 24.8 / 24.8 / 20.9.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -95,19 +101,6 @@ using odek::wgmma_m64n64k16;
 using odek::wgmma_wait_all;
 using odek::wgmma_wait_one;
 
-// Four consecutive elements as floats; p is aligned to four elements.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 template <typename T>
 bool aligned4(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
@@ -123,8 +116,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most n of this thread's cp.async groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
 }
 
 // store(i, value(i)) for i = first, first + step, ... < n, with kBatch
@@ -156,507 +155,763 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// How a block copies its inputs to shared memory: fp32 with channels in
+// fours and aligned pointers by 16-byte cp.async, in flight under the
+// products; bf16 so by 8-byte loads through registers, widened to fp32;
+// anything else element by element.
+enum SimtMode : int { kElem = 0, kQuad = 1, kAsync = 2 };
+
 // ---------------------------------------------------------------------------
 // SIMT K1: out (M, Cout) = patches (M, 9*Cin) . w (9*Cin, Cout), fp32 FMA.
 //
-// 256 threads in 16 groups of 16; a thread holds 4 pixels x 4 channels.
-// The groups split a block's work two ways: SK groups share the products
-// of one row segment (16 output pixels of one image row), SR = 16 / SK
-// row segments go at once, where SK is the largest power of two at most
-// min(16, quads), quads = ceil(min(Cin, 64) / 4) (SK 16 at Cin = 64: one
-// segment; SK 2 at Cin = 8: eight). A block owns a run of such row groups
-// for one tile of 16 output channels; ops/conv3x3.py::simt_plan sizes the
-// run so that the grid holds about two blocks an SM (at the recipe's
-// (4, 16, 16, 64) -> 64: 64 row groups x 4 channel tiles = 256 blocks of
-// one row group).
-// * It stages, per chunk of at most 64 input channels, the weights of its
-//   channel tile, [tap][cc4][16], and the 3 x 18 halo of each segment,
-//   [segment][dy][col][ci] with a pixel stride of round8(cc) + 4 floats,
-//   the SAME zeros and the channels from cc up to cc4 = round4(cc) written
-//   as zeros at staging (rows -1 and H from the halo operand where there
-//   is one): the products test no bounds. With one chunk (Cin
-//   <= 64) the weights are staged once for the whole run. Each halo pixel's
-//   place in the input is worked out once a row group into a table in
-//   shared memory, and a thread copies a fixed channel (or quad) of
-//   successive pixels: no division a copied element. Three ways to copy
-//   (kMode): fp32 with Cin and Cout multiples of 4 and aligned pointers by
-//   16-byte cp.async, every copy in flight at once; bf16 so by 8-byte
-//   loads through registers, widened to fp32; anything else element by
-//   element. Register copies keep 12 loads in flight a thread.
-// * What bounds it is shared memory's 128 bytes a clock to the registers:
-//   with 4 x 4 outputs a thread, a step of 4 input channels is 4 + 4
-//   16-byte loads for 64 FMAs. The chunk's (tap, channel quad) items are
-//   dealt to a segment's SK groups in turn (item j = tap * quads + quad
-//   goes to group j % SK: at Cin = 64 group g owns quad g of every tap),
-//   so an SM holds 24 warps and a thread's FMA chain is 36 long at the
-//   recipe. The inner loop is pointer steps.
-// * Fixed order, so two calls are bit-equal: group k's sum runs over the
-//   chunks, then its items in order, then the 4 channels of an item, one
-//   fmaf chain; an output is (...(s0 + s1) + ...) + s(SK-1), added by one
-//   thread from shared memory.
+// A block owns one strip of an image (16 output columns), a run of its
+// rows and a tile of BN = 16 or 32 output channels (kNV = BN / 16);
+// ops/conv3x3.py::simt_plan picks BN and the run. 256 threads in 16
+// groups of 16; a thread holds 4 pixels (columns pq, pq + 4, pq + 8,
+// pq + 12 of the strip) x 4 * kNV channels (4nq + 16v + e).
+// * The block's weights, [9 * cc4][BN], are staged once and stay resident
+//   for the whole run: all of Cin, so a run's rows re-read no weights
+//   (staged again for every 16-pixel row segment and 64-channel chunk,
+//   they would be 75.5 MB from L2 at (4, 32, 32, 128) -> 64, a 604 MFLOP
+//   conv). Channels beyond what fits in shared memory go in slabs, one
+//   launch each (simt_slab: only past Cin 144 at BN 32, 256 at BN 16),
+//   each adding to the last one's output in order.
+// * The input comes in halo rows of 18 pixels (the strip and one column
+//   each side) x the slab's channels, SAME zeros (or the halo operand's
+//   rows -1 and H) written at staging, into a ring of 2 * SR + 2 rows: a
+//   step computes SR output rows from SR + 2 resident halo rows while the
+//   next step's SR rows load by cp.async (one commit group a step, waited
+//   one step later), so each input row is read once a strip and tile,
+//   under the products of the step before.
+// * The 16 groups: SK of them share one output row's products and SR =
+//   16 / SK rows go at once, SK = simt_split(slab): 16 from Cin 61 up.
+//   Item j = tap * quads + q (channels 4q .. 4q + 3) goes to group j % SK.
+// * What bounds it: fp32 FMA and shared memory's 128 bytes a clock to the
+//   registers. A step of 4 input channels is 4 + 4 * kNV 16-byte loads for
+//   64 * kNV FMAs: at BN 32 the two 16-thread groups of a warp read 8
+//   distinct pixels of the halo (pixel stride = 8 mod 32 floats, so in 8
+//   bank groups) and 2 x 4 float4 of weights (rows of odd quads stored
+//   with their 16-float halves swapped, so the warp's two quads fall in
+//   different banks): one wavefront a load, 12 for 128 FMAs a thread.
+// * Fixed order, so two calls are bit-equal: group k's sum runs over its
+//   items in order, then the 4 channels of an item, one fmaf chain; the
+//   two groups of a warp are added by a shuffle (s_2m + s_2m+1), and an
+//   output is (...(p_0 + p_1) + ...) + p_(SK/2-1) over those pair sums,
+//   added by one thread from shared memory (SK = 1: s_0 itself); a slab
+//   after the first adds its sum to the output, slab by slab.
 // ---------------------------------------------------------------------------
 
-constexpr int kSimtGroups = 16;   // groups of 16 threads, 4 x 4 pixel x
-constexpr int kSimtThreads = 256; // channel tiles of 4 x 4 outputs
-constexpr int kSimtTileW = 16;    // output pixels of a row segment
-constexpr int kSimtTileN = 16;    // output channels of a block
+constexpr int kSimtGroups = 16;    // groups of 16 threads
+constexpr int kSimtThreads = 256;
+constexpr int kSimtTileW = 16;     // output columns of a strip
 constexpr int kSimtHaloW = kSimtTileW + 2;
-constexpr int kSimtHaloPx = 3 * kSimtHaloW;
-constexpr int kSimtChunk = 64;    // input channels staged at once
-constexpr int kSimtBatch = 12;    // loads in flight a thread (register path)
+constexpr int kSimtBatch = 8;      // loads in flight a thread (register path)
+constexpr int kSimtMaxSmem = 232448;  // a block's dynamic shared memory
 
-// How a block copies its inputs to shared memory.
-enum SimtMode : int { kElem = 0, kQuad = 1, kAsync = 2 };
-
-// Floats between two halo pixels: 4 mod 8, so the pixels of a 16-byte
-// load spread over the banks.
-__host__ __device__ constexpr int simt_halo_stride(int cc) {
-  return (cc + 7) / 8 * 8 + 4;
+// Floats between two halo pixels: at least the slab's channels rounded to
+// 4, and 8 mod 32, so 4 consecutive pixels lie in 4 even bank groups and
+// the next quad's in the odd ones.
+__host__ __device__ constexpr int simt_halo_stride(int cs) {
+  const int cc4 = (cs + 3) / 4 * 4;
+  return cc4 + ((8 - cc4) % 32 + 32) % 32;
 }
 
-// Groups that split one segment's products: the largest power of two at
-// most min(16, quads of the first chunk). Mirrors ops/conv3x3.py.
-__host__ __device__ constexpr int simt_split(int Cin) {
-  const int quads = ((Cin < kSimtChunk ? Cin : kSimtChunk) + 3) / 4;
+// Groups that split one output row's products: the largest power of two
+// at most min(16, quads of min(cs, 64)). Mirrors ops/conv3x3.py.
+__host__ __device__ constexpr int simt_split(int cs) {
+  const int quads = ((cs < 64 ? cs : 64) + 3) / 4;
   int sk = 1;
   while (sk * 2 <= quads && sk < kSimtGroups) sk *= 2;
   return sk;
 }
 
-// Weights [9][cc4][16], halos [SR][3][18][stride] of a chunk of cc
-// channels, the 16 groups' sums [16][16 pixels][16 channels], and the halo
-// pixels' places in the input [SR][54].
-constexpr int simt_smem_bytes(int cc, int sr) {
-  return (9 * ((cc + 3) / 4 * 4) * kSimtTileN +
-          sr * kSimtHaloPx * simt_halo_stride(cc) +
-          kSimtGroups * kSimtTileW * kSimtTileN + sr * kSimtHaloPx) * 4;
+// Weights [9 * cc4][bn], the ring of 2 * SR + 2 halo rows [18][stride]
+// and the 8 group pairs' sums [8][16][bn] (none at SK = 1), for a slab of
+// cs channels. Mirrors ops/conv3x3.py::simt_smem_bytes.
+__host__ __device__ constexpr int simt_smem_bytes(int cs, int bn) {
+  const int sk = simt_split(cs);
+  const int sr = kSimtGroups / sk;
+  return (9 * ((cs + 3) / 4 * 4) * bn +
+          (2 * sr + 2) * kSimtHaloW * simt_halo_stride(cs) +
+          (sk > 1 ? kSimtGroups / 2 * kSimtTileW * bn : 0)) * 4;
 }
 
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kSimtThreads)
+// Channels of one launch: all of Cin where that plan fits, else the
+// fewest equal slabs, in multiples of 4, that fit. Mirrors
+// ops/conv3x3.py::simt_slab.
+int simt_slab(int Cin, int bn) {
+  for (int n = 1;; ++n) {
+    const int cs = std::min((Cin + 4 * n - 1) / (4 * n) * 4, Cin);
+    if (cs <= 4 || simt_smem_bytes(cs, bn) <= kSimtMaxSmem) return cs;
+  }
+}
+
+template <typename T, int kMode, int kNV>
+__global__ void __launch_bounds__(kSimtThreads, 2)
     conv3x3_fwd_simt_kernel(const T* __restrict__ x,
                             const T* __restrict__ halo,
                             const T* __restrict__ w, T* __restrict__ out,
-                            int B, int H, int W, int Cin, int Cout,
-                            int rows_per_block) {
+                            int B, int H, int W, int Cin, int Cout, int c0,
+                            int cs, int steps_per_block, int accumulate) {
+  constexpr int BN = 16 * kNV;
   extern __shared__ __align__(16) float simt_smem[];
-  const int sk = simt_split(Cin);
+  const int sk = simt_split(cs);
   const int sr = kSimtGroups / sk;
-  const int segs_w = (W + kSimtTileW - 1) / kSimtTileW;
-  const int segments = B * H * segs_w;
-  const int row_groups = (segments + sr - 1) / sr;
-  const int n_tiles = (Cout + kSimtTileN - 1) / kSimtTileN;
-  const int n0 = (blockIdx.x % n_tiles) * kSimtTileN;
-  const int g_begin = (blockIdx.x / n_tiles) * rows_per_block;
-  const int g_end = min(g_begin + rows_per_block, row_groups);
-  const int n_chunks = (Cin + kSimtChunk - 1) / kSimtChunk;
-  const int cc_max = min(Cin, kSimtChunk);
-  const int halo_px = sr * kSimtHaloPx;  // halo pixels of a row group
+  const int quads = (cs + 3) / 4;
+  const int cc4 = 4 * quads;
+  const int hs = simt_halo_stride(cs);
+  const int ring = 2 * sr + 2;
+  const int row_floats = kSimtHaloW * hs;
+  // Block = ((b * strips + strip) * runs + run) * tiles + tile.
+  const int strips = (W + kSimtTileW - 1) / kSimtTileW;
+  const int steps = (H + sr - 1) / sr;
+  const int runs = (steps + steps_per_block - 1) / steps_per_block;
+  const int n_tiles = (Cout + BN - 1) / BN;
+  int blk = blockIdx.x;
+  const int n0 = (blk % n_tiles) * BN;
+  blk /= n_tiles;
+  const int y_begin = (blk % runs) * steps_per_block * sr;
+  blk /= runs;
+  const int x0 = (blk % strips) * kSimtTileW;
+  const int b = blk / strips;
+  const int y_end = min(y_begin + steps_per_block * sr, H);
+  const int n_steps = (y_end - y_begin + sr - 1) / sr;
   float* w_s = simt_smem;
-  float* h_s = w_s + 9 * ((cc_max + 3) / 4 * 4) * kSimtTileN;
-  float* red = h_s + halo_px * simt_halo_stride(cc_max);
-  int* px_tab = reinterpret_cast<int*>(
-      red + kSimtGroups * kSimtTileW * kSimtTileN);
+  float* h_s = w_s + 9 * cc4 * BN;
+  float* red = h_s + ring * row_floats;
   const int tid = threadIdx.x;
   const int grp = tid / 16;
   const int kp = grp % sk;        // this group's share of the products
-  const int sg = grp / sk;        // and its segment of the row group
-  const int pq = (tid % 16) / 4;  // pixels 4pq .. 4pq + 3 of the segment
-  const int nq = tid % 4;         // channels n0 + 4nq .. n0 + 4nq + 3
+  const int sg = grp / sk;        // and its row of the step
+  const int pq = (tid % 16) / 4;  // columns pq + 4i of the strip
+  const int nq = tid % 4;         // channels n0 + 4nq + 16v + e
 
-  // (b * H + y, x0) of segment s.
-  auto seg_origin = [&](int s, int& row, int& x0) {
-    row = s / segs_w;
-    x0 = (s - row * segs_w) * kSimtTileW;
+  // The weights: rows tap * Cin + c0 + ci, columns n0 .. n0 + BN - 1, in
+  // units of 4 columns (1 for kElem); the rows from cs to cc4 and the
+  // columns from Cout zeros. Row r lands at r * BN, its 16-float halves
+  // swapped where r / 4 is odd (see above).
+  {
+    constexpr int upr = kMode == kElem ? BN : BN / 4;
+    const int n_units = 9 * cc4 * upr;
+    auto w_off = [&](int i) {
+      const int r = i / upr;
+      return (r * BN + (i % upr) * (BN / upr)) ^ (((r / 4) & 1) * 16);
+    };
+    auto w_at = [&](int i, bool& ok) {
+      const int r = i / upr;
+      const int tap = r / cc4;
+      const int ci = r - tap * cc4;
+      const int n = n0 + (i % upr) * (BN / upr);
+      ok = ci < cs && n < Cout;
+      return w + (long long)(tap * Cin + c0 + ci) * Cout + n;
+    };
+    if constexpr (kMode == kAsync) {
+      for (int i = tid; i < n_units; i += kSimtThreads) {
+        bool ok;
+        const T* src = w_at(i, ok);
+        cp_async16(w_s + w_off(i), ok ? src : w, ok);
+      }
+    } else if constexpr (kMode == kQuad) {
+      batched_copy<uint2, kSimtBatch>(
+          tid, n_units, kSimtThreads,
+          [&](int i) {
+            bool ok;
+            const T* src = w_at(i, ok);
+            return ok ? __ldg(reinterpret_cast<const uint2*>(src))
+                      : make_uint2(0u, 0u);
+          },
+          [&](int i, uint2 v) {
+            *reinterpret_cast<float4*>(w_s + w_off(i)) = widen4(v);
+          });
+    } else {
+      batched_copy<float, kSimtBatch>(
+          tid, n_units, kSimtThreads,
+          [&](int i) {
+            bool ok;
+            const T* src = w_at(i, ok);
+            return ok ? to_f32(*src) : 0.f;
+          },
+          [&](int i, float v) { w_s[w_off(i)] = v; });
+    }
+  }
+
+  // Halo rows lo .. min(hi, y_end) in units (row, column, channel quad or
+  // channel): row y in ring slot (y - y_begin + 1) % ring, columns x0 - 1
+  // .. x0 + 16, channels c0 .. c0 + cc4; a null source where the unit is
+  // zeros (outside the map, channels from cs; rows -1 and H from the halo
+  // operand where there is one).
+  const int upp = kMode == kElem ? cc4 : quads;  // units a pixel
+  const int row_units = kSimtHaloW * upp;
+  auto units = [&](int lo, int hi) {
+    return max(0, min(hi, y_end) - lo + 1) * row_units;
+  };
+  auto unit = [&](int lo, int u, int& off) -> const T* {
+    const int y = lo + u / row_units;
+    const int v = u % row_units;
+    const int col = v / upp;
+    const int ci = (v - col * upp) * (kMode == kElem ? 1 : 4);
+    off = ((y - y_begin + 1) % ring) * row_floats + col * hs + ci;
+    const int xx = x0 + col - 1;
+    const bool in_x = y >= 0 && y < H;
+    if (xx < 0 || xx >= W || ci >= cs || !(in_x || halo != nullptr)) {
+      return nullptr;
+    }
+    return (in_x ? x + ((long long)(b * H + y) * W + xx) * Cin
+                 : halo + ((long long)(b * 2 + (y == H)) * W + xx) * Cin) +
+           c0 + ci;
+  };
+  // Register path: raw bf16 quads or widened elements.
+  using V = std::conditional_t<kMode == kQuad, uint2, float>;
+  auto load = [&](const T* src) -> V {
+    if constexpr (kMode == kQuad) {
+      return src != nullptr ? __ldg(reinterpret_cast<const uint2*>(src))
+                            : make_uint2(0u, 0u);
+    } else {
+      return src != nullptr ? to_f32(*src) : 0.f;
+    }
+  };
+  auto put = [&](int off, V v) {
+    if constexpr (kMode == kQuad) {
+      *reinterpret_cast<float4*>(h_s + off) = widen4(v);
+    } else {
+      h_s[off] = v;
+    }
+  };
+  // Rows lo .. hi at once: cp.async, or loads batched through registers.
+  auto stage_rows = [&](int lo, int hi) {
+    const int n = units(lo, hi);
+    if constexpr (kMode == kAsync) {
+      for (int u = tid; u < n; u += kSimtThreads) {
+        int off;
+        const T* src = unit(lo, u, off);
+        cp_async16(h_s + off, src != nullptr ? src : x, src != nullptr);
+      }
+    } else {
+      batched_copy<V, kSimtBatch>(
+          tid, n, kSimtThreads,
+          [&](int u) {
+            int off;
+            return load(unit(lo, u, off));
+          },
+          [&](int u, V v) {
+            int off;
+            unit(lo, u, off);
+            put(off, v);
+          });
+    }
+  };
+  // Register path: the next step's first kAhead units a thread load under
+  // this step's products and are stored after them, the rest then. Two
+  // cover a row of 64 bf16 channels (288 quads); at BN 32 the sums leave
+  // registers for one.
+  constexpr int kAhead = kNV == 1 ? 2 : 1;
+  V ahead[kAhead];
+  auto fetch_ahead = [&](int lo, int hi) {
+    const int n = units(lo, hi);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = tid + k * kSimtThreads;
+      int off;
+      if (u < n) ahead[k] = load(unit(lo, u, off));
+    }
+  };
+  auto put_ahead = [&](int lo, int hi) {
+    const int n = units(lo, hi);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = tid + k * kSimtThreads;
+      int off;
+      if (u < n) {
+        unit(lo, u, off);
+        put(off, ahead[k]);
+      }
+    }
+    batched_copy<V, kSimtBatch>(
+        tid + kAhead * kSimtThreads, n, kSimtThreads,
+        [&](int u) {
+          int off;
+          return load(unit(lo, u, off));
+        },
+        [&](int u, V v) {
+          int off;
+          unit(lo, u, off);
+          put(off, v);
+        });
   };
 
-  for (int rg = g_begin; rg < g_end; ++rg) {
-    // Halo pixel p = r * 54 + dy * 18 + col of segment r of the row group:
-    // its pixel index (b * H + yy) * W + xx in the input; rows -1 and H,
-    // with a halo operand, -2 - its pixel index (b * 2 + i) * W + xx in
-    // the halo (i = 0 above, 1 below); -1 where it is zero padding. The
-    // first barrier of the chunk loop publishes the table.
-    for (int p = tid; p < halo_px; p += kSimtThreads) {
-      const int r = p / kSimtHaloPx;
-      const int dy = (p - r * kSimtHaloPx) / kSimtHaloW;
-      const int col = p - r * kSimtHaloPx - dy * kSimtHaloW;
-      int row, x0;
-      seg_origin(rg * sr + r, row, x0);
-      const int yy = row % H + dy - 1;
-      const int xx = x0 + col - 1;
-      int pix = -1;
-      if (rg * sr + r < segments && xx >= 0 && xx < W) {
-        if (yy >= 0 && yy < H) {
-          pix = (row + dy - 1) * W + xx;
-        } else if (halo != nullptr) {
-          pix = -2 - ((row / H * 2 + (yy == H)) * W + xx);
-        }
-      }
-      px_tab[p] = pix;
-    }
-    float acc[4][4];
+  stage_rows(y_begin - 1, y_begin + sr);
+  cp_async_commit();
+  for (int t = 0; t < n_steps; ++t) {
+    const int yt = y_begin + t * sr;
+    // The next step's rows go into slots no row of this step uses: by
+    // cp.async here, waited for a step later (the last barrier of the
+    // step before follows its products); through registers under this
+    // step's products, stored after them.
+    if constexpr (kMode == kAsync) stage_rows(yt + sr + 1, yt + 2 * sr);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kMode != kAsync) fetch_ahead(yt + sr + 1, yt + 2 * sr);
+
+    float acc[4][4 * kNV];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int c0 = 0; c0 < Cin; c0 += kSimtChunk) {
-      const int cc = min(kSimtChunk, Cin - c0);
-      const int quads = (cc + 3) / 4;
-      const int cc4 = 4 * quads;
-      const int hs = simt_halo_stride(cc);
-      __syncthreads();  // the last products have read the shared tiles
-      // Weights rows tap * Cin + c0 + ci, columns n0 .. n0 + 15, in units
-      // of 4 columns (1 for kElem); the rows from cc to cc4 zeros.
-      if (n_chunks > 1 || rg == g_begin) {
-        constexpr int upr = kMode == kElem ? kSimtTileN : kSimtTileN / 4;
-        auto w_at = [&](int i, int& n, bool& ok) {
-          const int r = i / upr;
-          const int tap = r / cc4;
-          const int ci = r - tap * cc4;
-          n = n0 + (i % upr) * (kSimtTileN / upr);
-          ok = ci < cc && n < Cout;
-          return w + (long long)(tap * Cin + c0 + ci) * Cout + n;
-        };
-        if constexpr (kMode == kAsync) {
-          for (int i = tid; i < 9 * cc4 * upr; i += kSimtThreads) {
-            int n;
-            bool ok;
-            const T* src = w_at(i, n, ok);
-            cp_async16(w_s + 4 * i, ok ? src : w, ok);
-          }
-        } else if constexpr (kMode == kQuad) {
-          batched_copy<uint2, kSimtBatch>(
-              tid, 9 * cc4 * upr, kSimtThreads,
-              [&](int i) {
-                int n;
-                bool ok;
-                const T* src = w_at(i, n, ok);
-                return ok ? __ldg(reinterpret_cast<const uint2*>(src))
-                          : make_uint2(0u, 0u);
-              },
-              [&](int i, uint2 v) {
-                *reinterpret_cast<float4*>(w_s + 4 * i) = widen4(v);
-              });
-        } else {
-          batched_copy<float, kSimtBatch>(
-              tid, 9 * cc4 * upr, kSimtThreads,
-              [&](int i) {
-                int n;
-                bool ok;
-                const T* src = w_at(i, n, ok);
-                return ok ? to_f32(*src) : 0.f;
-              },
-              [&](int i, float v) { w_s[i] = v; });
-        }
+      for (int c = 0; c < 4 * kNV; ++c) acc[i][c] = 0.f;
+    // Halo rows yt + sg - 1, yt + sg, yt + sg + 1 (taps dy = 0, 1, 2).
+    const float* r0 = h_s + ((t * sr + sg) % ring) * row_floats;
+    const float* r1 = h_s + ((t * sr + sg + 1) % ring) * row_floats;
+    const float* r2 = h_s + ((t * sr + sg + 2) % ring) * row_floats;
+    int tap = 0;
+    int q = kp;  // kp < SK <= quads
+    for (int j = kp; j < 9 * quads; j += sk) {
+      const int dy = tap / 3;
+      const float* hp = (dy == 0 ? r0 : dy == 1 ? r1 : r2) +
+                        (pq + tap - 3 * dy) * hs + 4 * q;
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = *reinterpret_cast<const float4*>(hp + 4 * i * hs);
       }
-      // The halo: a thread copies unit u (a channel, or a quad) of every
-      // ppass-th pixel; the channels from cc to cc4 zeros.
-      {
-        const int upp = kMode == kElem ? cc4 : quads;
-        const int ppass = kSimtThreads / upp;
-        const int u = tid % upp;
-        const int ci = kMode == kElem ? u : 4 * u;
-        const int first = tid < ppass * upp ? tid / upp : halo_px;
-        auto h_at = [&](int p, bool& ok) {
-          const int pix = px_tab[p];
-          ok = pix != -1 && ci < cc;
-          return (pix >= 0 ? x + (long long)pix * Cin
-                           : halo + (long long)(-2 - pix) * Cin) +
-                 c0 + ci;
-        };
-        if constexpr (kMode == kAsync) {
-          for (int p = first; p < halo_px; p += ppass) {
-            bool ok;
-            const T* src = h_at(p, ok);
-            cp_async16(h_s + p * hs + ci, ok ? src : x, ok);
-          }
-          cp_async_wait_all();
-        } else if constexpr (kMode == kQuad) {
-          batched_copy<uint2, kSimtBatch>(
-              first, halo_px, ppass,
-              [&](int p) {
-                bool ok;
-                const T* src = h_at(p, ok);
-                return ok ? __ldg(reinterpret_cast<const uint2*>(src))
-                          : make_uint2(0u, 0u);
-              },
-              [&](int p, uint2 v) {
-                *reinterpret_cast<float4*>(h_s + p * hs + ci) = widen4(v);
-              });
-        } else {
-          batched_copy<float, kSimtBatch>(
-              first, halo_px, ppass,
-              [&](int p) {
-                bool ok;
-                const T* src = h_at(p, ok);
-                return ok ? to_f32(*src) : 0.f;
-              },
-              [&](int p, float v) { h_s[p * hs + ci] = v; });
+      const float* wp = w_s + (tap * cc4 + 4 * q) * BN;
+      const int swz = (j & 1) * 16;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 v[kNV];
+#pragma unroll
+        for (int h = 0; h < kNV; ++h) {
+          v[h] = *reinterpret_cast<const float4*>(
+              wp + ((e * BN + 4 * nq + 16 * h) ^ swz));
         }
-      }
-      __syncthreads();
-      // This group's items j = kp, kp + SK, ... of the 9 * quads.
-      const float* h_seg = h_s + sg * kSimtHaloPx * hs;
-      int tap = kp / quads;
-      int q = kp - tap * quads;
-      for (int j = kp; j < 9 * quads; j += sk) {
-        const float* hp =
-            h_seg + ((tap / 3) * kSimtHaloW + 4 * pq + tap % 3) * hs + 4 * q;
-        const float* wp = w_s + (tap * cc4 + 4 * q) * kSimtTileN + 4 * nq;
-        float4 a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          a[i] = *reinterpret_cast<const float4*>(hp + i * hs);
-        }
+          const float av = lane4(a[i], e);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(wp + e * kSimtTileN);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = e == 0 ? a[i].x : e == 1 ? a[i].y
-                           : e == 2 ? a[i].z : a[i].w;
-            acc[i][0] = fmaf(av, v.x, acc[i][0]);
-            acc[i][1] = fmaf(av, v.y, acc[i][1]);
-            acc[i][2] = fmaf(av, v.z, acc[i][2]);
-            acc[i][3] = fmaf(av, v.w, acc[i][3]);
+          for (int h = 0; h < kNV; ++h) {
+            acc[i][4 * h + 0] = fmaf(av, v[h].x, acc[i][4 * h + 0]);
+            acc[i][4 * h + 1] = fmaf(av, v[h].y, acc[i][4 * h + 1]);
+            acc[i][4 * h + 2] = fmaf(av, v[h].z, acc[i][4 * h + 2]);
+            acc[i][4 * h + 3] = fmaf(av, v[h].w, acc[i][4 * h + 3]);
           }
         }
-        q += sk;
-        while (q >= quads) {
-          q -= quads;
-          ++tap;
-        }
+      }
+      q += sk;
+      while (q >= quads) {
+        q -= quads;
+        ++tap;
       }
     }
-    // Group sums to shared memory, [group][pixel][channel]; then output o
-    // of segment r (pixel o / 16, channel o % 16) is summed by one thread
-    // over the segment's SK groups in order.
+    if constexpr (kMode != kAsync) put_ahead(yt + sr + 1, yt + 2 * sr);
+
+    if (sk > 1) {
+      // The warp's two groups (kp even in lanes 0-15, kp + 1 above) add
+      // their sums; the lower group writes the pair sum, [pair][px][BN].
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(
-          red + (grp * kSimtTileW + 4 * pq + i) * kSimtTileN + 4 * nq) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-    __syncthreads();
-    constexpr int kOuts = kSimtTileW * kSimtTileN;
-    for (int o = tid; o < sr * kOuts; o += kSimtThreads) {
-      const int r = o / kOuts;
-      const int opx = (o % kOuts) / kSimtTileN;
-      const int on = n0 + o % kSimtTileN;
-      int row, x0;
-      seg_origin(rg * sr + r, row, x0);
-      if (rg * sr + r >= segments || x0 + opx >= W || on >= Cout) continue;
-      const float* part = red + r * sk * kOuts + o % kOuts;
-      float sum = part[0];
-      for (int k = 1; k < sk; ++k) sum += part[k * kOuts];
-      out[((long long)row * W + x0 + opx) * Cout + on] = from_f32<T>(sum);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * kNV; ++c) {
+          acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 16);
+        }
+      if ((tid & 16) == 0) {
+        float* dst = red + (grp / 2) * kSimtTileW * BN;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < kNV; ++h) {
+            *reinterpret_cast<float4*>(dst + (pq + 4 * i) * BN + 4 * nq +
+                                       16 * h) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          }
+      }
+      __syncthreads();
+      // Output o of the step (row o / (16 BN), pixel, channel) summed by
+      // one thread over its row's SK / 2 pairs in order.
+      const int half = sk / 2;
+      for (int o = tid; o < sr * kSimtTileW * BN; o += kSimtThreads) {
+        const int r = o / (kSimtTileW * BN);
+        const int px = (o / BN) % kSimtTileW;
+        const int ch = o % BN;
+        const int y = yt + r;
+        if (y >= y_end || x0 + px >= W || n0 + ch >= Cout) continue;
+        const float* p = red + (r * half * kSimtTileW + px) * BN + ch;
+        float sum = p[0];
+        for (int m = 1; m < half; ++m) sum += p[m * kSimtTileW * BN];
+        T* dst = out + ((long long)(b * H + y) * W + x0 + px) * Cout + n0 + ch;
+        if (accumulate) sum = to_f32(*dst) + sum;
+        *dst = from_f32<T>(sum);
+      }
+    } else {
+      // One group a row: its sums are the outputs.
+      const int y = yt + sg;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xx = x0 + pq + 4 * i;
+        if (y >= y_end || xx >= W) continue;
+        T* row = out + ((long long)(b * H + y) * W + xx) * Cout;
+#pragma unroll
+        for (int h = 0; h < kNV; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = n0 + 4 * nq + 16 * h + e;
+            if (n >= Cout) continue;
+            float sum = acc[i][4 * h + e];
+            if (accumulate) sum = to_f32(row[n]) + sum;
+            row[n] = from_f32<T>(sum);
+          }
+      }
+      __syncthreads();  // every group is done with this step's rows
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// SIMT K2: dW (9*Cin, Cout) = patches^T . g, fp32 FMA, split over pixels.
+// SIMT K2: dW (9*Cin, Cout) = patches^T . g, fp32 FMA, split over pixels,
+// the splits summed in the same launch.
 //
-// A block owns one 64 x 64 tile of dW (64 rows k = tap * Cin + ci, so one
-// tap at Cin = 64, and 64 output channels) and a run of pixels, split s
-// of ops/conv3x3.py::wgrad_simt_plan, which sizes the splits so that the
-// grid holds about two blocks an SM (at the recipe's (4, 16, 16, 64): 9
-// tiles x 32 runs of 32 pixels = 288 blocks).
-// * Pixels go in stages of 32: each block loads its 32 shifted input rows
-//   x 64 k and 32 cotangent rows x 64 channels once into registers (16-byte
-//   loads where Cin and Cout are multiples of 4 and the pointers aligned),
-//   with SAME zeros (rows -1 and H from the halo operand where there is
-//   one), and stores them to shared memory while the next stage
-//   loads; one barrier a stage. A thread's staging column is fixed, so its
-//   tap and channel are worked out once; a pixel's (b, y, x) once a stage.
-// * 256 threads, each a 4 x 4 register tile of the partial, over the
-//   block's pixels in order.
-// * The partial goes to scratch[s] (S, 9*Cin, Cout) fp32, and
-//   conv3x3_wgrad_sum_kernel adds the S partials in the order s = 0, 1,
-//   ...: no atomics, so two calls are bit-equal. With S = 1 the block
-//   writes dW itself and the sum is not launched.
+// A block owns one KT x NT tile of dW (rows k = tap * Cin + ci; 64 x 64,
+// 128 x 64, one tap at Cin 128, or 64 x 128 at Cout 128) and a run of
+// pixels, split s of ops/conv3x3.py::wgrad_simt_plan, which picks the
+// splits by a cost model fitted on the H100, every block of the grid
+// resident (at most two an SM): at (4, 32, 32, 128) -> 64, 9 tiles of
+// 128 x 64 x 29 runs of 144 pixels = 261 blocks.
+// * 256 threads: KT * NT / 64 threads cover the tile, each an 8 x 8
+//   register tile (rows 4ty .. 4ty + 3 and KT/2 + 4ty .. + 3, columns
+//   4tx .. 4tx + 3 and NT/2 + 4tx .. + 3), and PG = 256 / (KT * NT / 64)
+//   such copies take the pixels of a stage in PG equal parts. A pixel is
+//   4 16-byte loads for 64 FMAs: a warp reads 4 distinct float4 of x and
+//   8 of g at NT 64 (2 and 16 at NT 128).
+// * Pixels come in stages of 16 through a ring of 4 in shared memory,
+//   [pixel][k] and [pixel][n]: by 16-byte cp.async where Cin and Cout are
+//   multiples of 4 and the pointers aligned (fp32), three stages in flight
+//   under the products, one barrier a stage; else loaded and stored a
+//   stage ahead, before the products (bf16 widened to fp32). A thread's
+//   staging column (tap, channel) is fixed and its pixels are stepped
+//   without division; SAME zeros (rows -1 and H from the halo operand
+//   where there is one).
+// * The block's PG partials are added in shared memory in order (p_0 +
+//   p_1) + ...; with one split that is dW. With S splits every block
+//   writes its partial to part[s] (S, 9*Cin, Cout) fp32 and, after a
+//   grid sync (a cooperative launch: every block resident), sums a slice
+//   of dW over s = 0, 1, ... in order: no atomics, no second launch, and
+//   two calls are bit-equal.
 // ---------------------------------------------------------------------------
 
-constexpr int kWsThreads = 256;  // 16 x 16 threads, each a 4 x 4 tile
-constexpr int kWsTile = 64;      // rows k and output channels of a tile
-constexpr int kWsPx = 32;        // pixels a stage
-constexpr int kWsLd = kWsTile + 4;
+constexpr int kWsThreads = 256;
+constexpr int kWsPx = 16;   // pixels a stage
+constexpr int kWsRing = 4;  // stages in shared memory
+constexpr int kWsSumBatch = 8;  // partials' loads in flight a thread
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kWsThreads)
+// The ring of stages, or the PG - 1 partials added into the first, of a
+// kt x nt tile (PG = 256 / (kt * nt / 64) copies of it).
+__host__ __device__ constexpr int wgrad_simt_smem_bytes(int kt, int nt) {
+  const int ring = kWsRing * kWsPx * (kt + nt);
+  const int parts = (kWsThreads * 64 / (kt * nt) - 1) * kt * nt;
+  return (ring > parts ? ring : parts) * 4;
+}
+
+template <typename T, int kMode, int KT, int NT>
+__global__ void __launch_bounds__(kWsThreads, 2)
     conv3x3_wgrad_simt_kernel(const T* __restrict__ x,
                               const T* __restrict__ halo,
                               const T* __restrict__ g,
-                              float* __restrict__ part, int B, int H, int W,
-                              int Cin, int Cout, long long px_per_split) {
-  __shared__ __align__(16) float a_s[2][kWsPx][kWsLd];  // [pixel][k]
-  __shared__ __align__(16) float g_s[2][kWsPx][kWsLd];  // [pixel][n]
-  constexpr int kV = kVec ? 4 : 1;              // elements a load
-  constexpr int kCols = kWsTile / kV;           // loads a row
-  constexpr int kRowStep = kWsThreads / kCols;  // rows a pass: 16 or 4
-  constexpr int kItems = kWsPx / kRowStep;      // loads a stage: 2 or 8
+                              float* __restrict__ part,
+                              float* __restrict__ dw, int B, int H, int W,
+                              int Cin, int Cout, int px_per_split) {
+  constexpr int kCopy = KT * NT / 64;      // threads of one copy
+  constexpr int PG = kWsThreads / kCopy;  // copies of the tile: 2 or 4
+  constexpr int kGrpPx = kWsPx / PG;   // pixels of a stage a copy takes
+  constexpr int kV = kMode == kElem ? 1 : 4;  // elements a staging unit
+  constexpr int kXCols = KT / kV;
+  constexpr int kXStep = kWsThreads / kXCols;
+  constexpr int kXItems = kWsPx / kXStep;
+  constexpr int kGCols = NT / kV;
+  constexpr int kGStep = kWsThreads / kGCols;
+  constexpr int kGItems = kWsPx / kGStep;
+  extern __shared__ __align__(16) float ws_smem[];
+  float* a_s = ws_smem;                         // [ring][16][KT]
+  float* g_s = a_s + kWsRing * kWsPx * KT;      // [ring][16][NT]
   const int K = 9 * Cin;
-  const int k_tiles = (K + kWsTile - 1) / kWsTile;
-  const int k0 = (blockIdx.x % k_tiles) * kWsTile;
-  const int n0 = (blockIdx.x / k_tiles) * kWsTile;
+  const int k_tiles = (K + KT - 1) / KT;
+  const int k0 = (blockIdx.x % k_tiles) * KT;
+  const int n0 = (blockIdx.x / k_tiles) * NT;
   // B * H * W fits an int (odek_conv3x3_wgrad checks).
   const int M = B * H * W;
-  const int m_begin = blockIdx.y * (int)px_per_split;
+  const int m_begin = blockIdx.y * px_per_split;
   const int m_end = (int)min((long long)m_begin + px_per_split,
                              (long long)M);
+  const int stages = (m_end - m_begin + kWsPx - 1) / kWsPx;
   const int tid = threadIdx.x;
   const int HW = H * W;
 
-  // This thread's staging column: row k of dW (its tap and channel), and
+  // This thread's staging columns: row k of dW (its tap and channel), and
   // output channel n.
-  const int col = (tid % kCols) * kV;
-  const int row0 = tid / kCols;
-  const int k = k0 + col;
+  const int xcol = (tid % kXCols) * kV;
+  const int xrow0 = tid / kXCols;
+  const int k = k0 + xcol;
   const bool k_ok = k < K;
   const int tap = k_ok ? k / Cin : 0;
   const int ci = k - tap * Cin;
   const int dy = tap / 3 - 1;
   const int dx = tap % 3 - 1;
-  const int n = n0 + col;
+  const int gcol = (tid % kGCols) * kV;
+  const int grow0 = tid / kGCols;
+  const int n = n0 + gcol;
   const bool n_ok = n < Cout;
 
-  float ra[kItems][kV], rg[kItems][kV];
-  auto load = [&](int mc) {
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-#pragma unroll
-      for (int e = 0; e < kV; ++e) ra[j][e] = rg[j][e] = 0.f;
-      const int m = mc + row0 + j * kRowStep;
-      if (m >= m_end) continue;
-      const int bb = m / HW;
-      const int r = m - bb * HW;
-      const int ys = r / W + dy;
-      const int xs = r % W + dx;
-      // Rows -1 and H from the halo operand (rows 0 and 1 of its image),
-      // where there is one; else zeros.
-      const bool in_x = ys >= 0 && ys < H;
-      if (k_ok && xs >= 0 && xs < W && (in_x || halo != nullptr)) {
-        const T* src =
-            in_x ? x + (((long long)bb * H + ys) * W + xs) * Cin + ci
-                 : halo + (((long long)bb * 2 + (ys == H)) * W + xs) * Cin +
-                       ci;
-        if constexpr (kVec) {
-          const float4 v = load4(src);
-          ra[j][0] = v.x;
-          ra[j][1] = v.y;
-          ra[j][2] = v.z;
-          ra[j][3] = v.w;
-        } else {
-          ra[j][0] = to_f32(*src);
-        }
-      }
-      if (n_ok) {
-        const T* src = g + (long long)m * Cout + n;
-        if constexpr (kVec) {
-          const float4 v = load4(src);
-          rg[j][0] = v.x;
-          rg[j][1] = v.y;
-          rg[j][2] = v.z;
-          rg[j][3] = v.w;
-        } else {
-          rg[j][0] = to_f32(*src);
-        }
-      }
+  // A staging row's pixel, stepped without division: its index m, row
+  // and column.
+  struct Px {
+    int m, y, xw;
+  };
+  auto step = [&](Px& c, int n) {
+    c.m += n;
+    c.xw += n;
+    while (c.xw >= W) {
+      c.xw -= W;
+      if (++c.y == H) c.y = 0;
     }
   };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int p = row0 + j * kRowStep;
-#pragma unroll
-      for (int e = 0; e < kV; ++e) {
-        a_s[buf][p][col + e] = ra[j][e];
-        g_s[buf][p][col + e] = rg[j][e];
-      }
-    }
+  // Pixel c's shifted input for this thread's column, or null for zeros.
+  auto x_src = [&](const Px& c) -> const T* {
+    if (c.m >= m_end || !k_ok) return nullptr;
+    const int ys = c.y + dy;
+    const int xs = c.xw + dx;
+    const bool in_x = ys >= 0 && ys < H;
+    if (xs < 0 || xs >= W || !(in_x || halo != nullptr)) return nullptr;
+    return in_x ? x + (long long)(c.m + dy * W + dx) * Cin + ci
+                : halo + (((long long)(c.m / HW) * 2 + (ys == H)) * W + xs) *
+                             Cin +
+                      ci;
   };
+  // The first pixel of the next stage to be issued for this thread's x
+  // and g rows (stages are issued in order).
+  Px xnext;
+  xnext.m = m_begin + xrow0;
+  xnext.y = xnext.m % HW / W;
+  xnext.xw = xnext.m % W;
 
-  // A warp holds 4 x 8 of the 16 x 16 thread tiles, so a pixel's step
-  // reads 4 distinct 16-byte rows of a_s and 8 of g_s: one shared-memory
-  // wavefront each.
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ty = 4 * (warp / 2) + lane / 8;  // rows k0 + 4ty .. + 3
-  const int tx = 8 * (warp % 2) + lane % 8;  // channels n0 + 4tx .. + 3
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int stages = (m_end - m_begin + kWsPx - 1) / kWsPx;
-  load(m_begin);
-  store(0);
-  __syncthreads();
-  for (int st = 0; st < stages; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < stages) load(m_begin + (st + 1) * kWsPx);
-#pragma unroll 8
-    for (int p = 0; p < kWsPx; ++p) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[buf][p][4 * ty]);
-      const float4 v = *reinterpret_cast<const float4*>(&g_s[buf][p][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-    }
-    // The other buffer was last read before the previous barrier.
-    if (st + 1 < stages) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  float* dst = part + (long long)blockIdx.y * K * Cout;
-  const int n_out = n0 + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = k0 + 4 * ty + i;
-    if (kk >= K || n_out >= Cout) continue;
-    float* row = dst + (long long)kk * Cout + n_out;
-    if (Cout % 4 == 0) {  // 16-byte aligned: the tile is 4 whole columns
-      *reinterpret_cast<float4*>(row) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  // The register path's loads: raw bf16 quads, widened when stored, or
+  // elements.
+  using V = std::conditional_t<kMode == kQuad, uint2, float>;
+  auto load = [&](const T* src) -> V {
+    if constexpr (kMode == kQuad) {
+      return src != nullptr ? __ldg(reinterpret_cast<const uint2*>(src))
+                            : make_uint2(0u, 0u);
     } else {
+      return src != nullptr ? to_f32(*src) : 0.f;
+    }
+  };
+  auto put = [&](float* dst, V v) {
+    if constexpr (kMode == kQuad) {
+      *reinterpret_cast<float4*>(dst) = widen4(v);
+    } else {
+      *dst = v;
+    }
+  };
+  // Stage st into slot st % kWsRing: by cp.async, or loaded and stored
+  // (stages are issued in order).
+  auto issue = [&](int st) {
+    float* as = a_s + (st % kWsRing) * kWsPx * KT;
+    float* gs = g_s + (st % kWsRing) * kWsPx * NT;
+    Px c = xnext;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (n_out + j < Cout) row[j] = acc[i][j];
+    for (int j = 0; j < kXItems; ++j) {
+      if (j > 0) step(c, kXStep);
+      const T* src = x_src(c);
+      float* dst = as + (xrow0 + j * kXStep) * KT + xcol;
+      if constexpr (kMode == kAsync) {
+        cp_async16(dst, src != nullptr ? src : x, src != nullptr);
+      } else {
+        put(dst, load(src));
+        // At most 4 loads in flight: the 64 sums hold the registers.
+        if (j % 4 == 3) asm volatile("" ::: "memory");
+      }
+    }
+    // g's rows: the stage's pixels grow0 + j * kGStep.
+    const int gm = xnext.m - xrow0 + grow0;
+    step(xnext, kWsPx);
+#pragma unroll
+    for (int j = 0; j < kGItems; ++j) {
+      const int m = gm + j * kGStep;
+      const T* src =
+          m < m_end && n_ok ? g + (long long)m * Cout + n : nullptr;
+      float* dst = gs + (grow0 + j * kGStep) * NT + gcol;
+      if constexpr (kMode == kAsync) {
+        cp_async16(dst, src != nullptr ? src : g, src != nullptr);
+      } else {
+        put(dst, load(src));
+        if (j % 4 == 3) asm volatile("" ::: "memory");
+      }
+    }
+  };
+
+  const int pg = tid / kCopy;
+  const int lt = tid % kCopy;
+  const int tx = lt % (NT / 8);  // columns 4tx .. and NT/2 + 4tx ..
+  const int ty = lt / (NT / 8);  // rows 4ty .. and KT/2 + 4ty ..
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // cp.async keeps three stages in flight; the register path loads the
+  // next one before the products (into a slot no thread reads now).
+  constexpr int kAhead = kMode == kAsync ? kWsRing - 1 : 1;
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < stages) issue(s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kAhead - 1>();
+    // Stage st is visible; every thread is done with stage st - 1, whose
+    // slot the next copy refills.
+    __syncthreads();
+    if (st + kAhead < stages) issue(st + kAhead);
+    cp_async_commit();
+    const float* as = a_s + (st % kWsRing) * kWsPx * KT + pg * kGrpPx * KT;
+    const float* gs =
+        g_s + (st % kWsRing) * kWsPx * NT + pg * kGrpPx * NT;
+    // The register path unrolls less: its staging holds more registers.
+#pragma unroll(kMode == kAsync ? kGrpPx : 2)
+    for (int p = 0; p < kGrpPx; ++p) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + p * KT + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + p * KT + KT / 2 + 4 * ty);
+      const float4 g0 =
+          *reinterpret_cast<const float4*>(gs + p * NT + 4 * tx);
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gs + p * NT + NT / 2 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();  // the ring is free
+
+  // The copies' partials: copies 1 .. PG - 1 to shared memory, copy 0 adds
+  // them in order.
+  auto tile_at = [&](float* base, int i, int h) {
+    const int row = (i < 4 ? 4 * ty + i : KT / 2 + 4 * ty + i - 4);
+    return base + row * NT + NT / 2 * h + 4 * tx;
+  };
+  if (pg > 0) {
+    float* mine = ws_smem + (pg - 1) * KT * NT;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float4*>(tile_at(mine, i, h)) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      }
+  }
+  __syncthreads();
+  const bool direct = gridDim.y == 1;
+  if (pg == 0) {
+#pragma unroll 1
+    for (int c = 1; c < PG; ++c) {
+      float* theirs = ws_smem + (c - 1) * KT * NT;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              tile_at(theirs, i, h));
+          acc[i][4 * h] += v.x;
+          acc[i][4 * h + 1] += v.y;
+          acc[i][4 * h + 2] += v.z;
+          acc[i][4 * h + 3] += v.w;
+        }
+        // Two loads in flight at a time: the 64 sums hold the registers.
+        asm volatile("" ::: "memory");
+      }
+    }
+    float* dst = direct ? dw : part + (long long)blockIdx.y * K * Cout;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int kk = k0 + (i < 4 ? 4 * ty + i : KT / 2 + 4 * ty + i - 4);
+      if (kk >= K) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nn = n0 + NT / 2 * h + 4 * tx;
+        if (nn >= Cout) continue;
+        float* row = dst + (long long)kk * Cout + nn;
+        if (Cout % 4 == 0) {  // 16-byte aligned: 4 whole columns
+          *reinterpret_cast<float4*>(row) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (nn + e < Cout) row[e] = acc[i][4 * h + e];
+          }
+        }
       }
     }
   }
-}
+  if (direct) return;
 
-// dw = sum over s of part[s], in the order s = 0, 1, ...; four elements a
-// thread, 16-byte loads where the size is a multiple of 4.
-__global__ void conv3x3_wgrad_sum_kernel(const float* __restrict__ part,
-                                         float* __restrict__ dw, int splits,
-                                         long long size) {
-  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i0 >= size) return;
+  // Every partial is written before any block sums. Block i sums its
+  // slice of dW over the splits in order s = 0, 1, ...
+  cg::this_grid().sync();
+  const long long size = (long long)K * Cout;
+  const int splits = gridDim.y;
+  const long long blocks = (long long)gridDim.x * gridDim.y;
+  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
   if (size % 4 == 0) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < splits; ++s) {
-      const float4 v =
-          __ldcg(reinterpret_cast<const float4*>(part + s * size + i0));
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
+    const long long units = size / 4;
+    const long long per = (units + blocks - 1) / blocks;
+    const long long end = min(blk * per + per, units);
+    const float4* src = reinterpret_cast<const float4*>(part);
+    for (long long u = blk * per + tid; u < end; u += kWsThreads) {
+      // kWsSumBatch loads in flight, added in order of s.
+      float4 s = __ldcg(src + u);
+      for (int s0 = 1; s0 < splits; s0 += kWsSumBatch) {
+        float4 v[kWsSumBatch];
+#pragma unroll
+        for (int k = 0; k < kWsSumBatch; ++k) {
+          if (s0 + k < splits) v[k] = __ldcg(src + (s0 + k) * units + u);
+        }
+#pragma unroll
+        for (int k = 0; k < kWsSumBatch; ++k) {
+          if (s0 + k < splits) {
+            s.x += v[k].x;
+            s.y += v[k].y;
+            s.z += v[k].z;
+            s.w += v[k].w;
+          }
+        }
+      }
+      reinterpret_cast<float4*>(dw)[u] = s;
     }
-    *reinterpret_cast<float4*>(dw + i0) = acc;
-    return;
-  }
-  for (long long i = i0; i < i0 + 4 && i < size; ++i) {
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += __ldcg(part + s * size + i);
-    dw[i] = sum;
+  } else {
+    const long long per = (size + blocks - 1) / blocks;
+    const long long end = min(blk * per + per, size);
+    for (long long u = blk * per + tid; u < end; u += kWsThreads) {
+      float s = __ldcg(part + u);
+      for (int s0 = 1; s0 < splits; s0 += kWsSumBatch) {
+        float v[kWsSumBatch];
+#pragma unroll
+        for (int k = 0; k < kWsSumBatch; ++k) {
+          if (s0 + k < splits) v[k] = __ldcg(part + (s0 + k) * size + u);
+        }
+#pragma unroll
+        for (int k = 0; k < kWsSumBatch; ++k) {
+          if (s0 + k < splits) s += v[k];
+        }
+      }
+      dw[u] = s;
+    }
   }
 }
 
@@ -1663,55 +1918,102 @@ int launch_wgrad_tc(const void* x, const void* halo, const void* g,
       args, p.smem_bytes, stream);
 }
 
+// Blocks of `kernel` an SM holds with `smem` bytes each, asked once a
+// kernel and process (each SIMT K2 kernel has one size): the query costs
+// host time on every launch of a host-bound step. -1 if it fails.
+int resident_per_sm(const void* kernel, int threads, int smem) {
+  static std::atomic<const void*> keys[32] = {};
+  static std::atomic<int> counts[32] = {};
+  for (int i = 0; i < 32; ++i) {
+    const void* key = keys[i].load();
+    if (key == kernel) return counts[i].load();
+    if (key != nullptr) continue;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                      smem) != cudaSuccess) {
+      return -1;
+    }
+    counts[i].store(n);
+    keys[i].store(kernel);
+    return n;
+  }
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, kernel, threads, smem) == cudaSuccess ? n : -1;
+}
+
 unsigned int ceil_div(long long a, long long b) {
   return (unsigned int)((a + b - 1) / b);
+}
+
+// The SIMT kernels by copy mode and tile: K1 by output channels a block
+// (16 or 32), K2 by the rows x columns of a dW tile (64 x 64, 128 x 64
+// or 64 x 128).
+template <typename T, int kMode>
+auto simt_fwd_kernel(int bn) {
+  return bn == 32 ? conv3x3_fwd_simt_kernel<T, kMode, 2>
+                  : conv3x3_fwd_simt_kernel<T, kMode, 1>;
+}
+
+template <typename T, int kMode>
+auto simt_wgrad_kernel(int kt, int nt) {
+  return kt == 128   ? conv3x3_wgrad_simt_kernel<T, kMode, 128, 64>
+         : nt == 128 ? conv3x3_wgrad_simt_kernel<T, kMode, 64, 128>
+                     : conv3x3_wgrad_simt_kernel<T, kMode, 64, 64>;
 }
 
 }  // namespace
 
 // K1, SIMT: x (B,H,W,Cin), halo (B,2,W,Cin) or null, w (9*Cin, Cout), out
-// (B,H,W,Cout); one dtype; the halo 16-byte aligned.
-// A block takes rows_per_block row segments (16 pixels) of one tile of 16
-// output channels (ops/conv3x3.py::simt_plan). Returns
-// cudaErrorInvalidValue for rows_per_block < 1 or a misaligned halo, else
-// the launch's error.
+// (B,H,W,Cout); one dtype; the halo 16-byte aligned. A block takes a tile
+// of bn (16 or 32) output channels and steps_per_block row steps of one
+// 16-column strip (ops/conv3x3.py::simt_plan); one launch a slab of input
+// channels (simt_slab), each after the first adding to the output, which
+// needs fp32. Returns cudaErrorInvalidValue for a plan outside that or a
+// misaligned halo, else the launches' error.
 extern "C" int odek_conv3x3_fwd(const void* x, const void* halo,
                                 const void* w, void* out, int B, int H,
-                                int W, int Cin, int Cout, int rows_per_block,
-                                int dtype, void* stream) {
-  if (rows_per_block < 1 || reinterpret_cast<uintptr_t>(halo) % 16) {
+                                int W, int Cin, int Cout, int bn,
+                                int steps_per_block, int dtype,
+                                void* stream) {
+  if ((bn != 16 && bn != 32) || steps_per_block < 1 ||
+      reinterpret_cast<uintptr_t>(halo) % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long segments =
-      (long long)B * H * ((W + kSimtTileW - 1) / kSimtTileW);
-  const long long row_groups =
-      ceil_div(segments, kSimtGroups / simt_split(Cin));
-  const long long blocks = (long long)ceil_div(Cout, kSimtTileN) *
-                           ceil_div(row_groups, rows_per_block);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int smem = simt_smem_bytes(std::min(Cin, kSimtChunk),
-                                  kSimtGroups / simt_split(Cin));
+  const int slab = simt_slab(Cin, bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
+    if (slab < Cin && !std::is_same_v<T, float>) {
+      return (int)cudaErrorInvalidValue;
+    }
     // 16-byte cp.async (fp32) or 8-byte loads (bf16) of channel quads
     // where channels come in fours and the pointers are aligned.
     const bool quads = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
                        aligned4<T>(w);  // the halo is 16-byte aligned
-    auto kernel = conv3x3_fwd_simt_kernel<T, kElem>;
+    auto kernel = simt_fwd_kernel<T, kElem>(bn);
     if constexpr (std::is_same_v<T, float>) {
-      if (quads) kernel = conv3x3_fwd_simt_kernel<T, kAsync>;
+      if (quads) kernel = simt_fwd_kernel<T, kAsync>(bn);
     } else {
-      if (quads) kernel = conv3x3_fwd_simt_kernel<T, kQuad>;
+      if (quads) kernel = simt_fwd_kernel<T, kQuad>(bn);
     }
-    // Any shape's request fits (at most 81 KB, at Cin 57-60).
     const cudaError_t attr =
-        allow_max_smem(reinterpret_cast<const void*>(kernel), kTcMaxSmem);
+        allow_max_smem(reinterpret_cast<const void*>(kernel), kSimtMaxSmem);
     if (attr != cudaSuccess) return (int)attr;
-    kernel<<<(unsigned int)blocks, kSimtThreads, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(halo),
-        static_cast<const T*>(w), static_cast<T*>(out), B, H, W, Cin, Cout,
-        rows_per_block);
+    for (int c0 = 0; c0 < Cin; c0 += slab) {
+      const int cs = std::min(slab, Cin - c0);
+      const int sr = kSimtGroups / simt_split(cs);
+      const long long blocks =
+          (long long)B * ceil_div(W, kSimtTileW) *
+          ceil_div(ceil_div(H, sr), steps_per_block) * ceil_div(Cout, bn);
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      kernel<<<(unsigned int)blocks, kSimtThreads, simt_smem_bytes(cs, bn),
+               st>>>(static_cast<const T*>(x), static_cast<const T*>(halo),
+                     static_cast<const T*>(w), static_cast<T*>(out), B, H, W,
+                     Cin, Cout, c0, cs, steps_per_block, c0 > 0);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     return 0;
   });
 }
@@ -1743,20 +2045,26 @@ extern "C" int odek_conv3x3_fwd_tc(const void* x, const void* halo,
 }
 
 // K2, SIMT: x (B,H,W,Cin), halo (B,2,W,Cin) or null (16-byte aligned), g
-// (B,H,W,Cout) of one dtype; dw (9*Cin, Cout)
-// fp32. Pixels [s*px_per_split, (s+1)*px_per_split) of the B*H*W go to
-// split s (ops/conv3x3.py::wgrad_simt_plan): px_per_split a multiple of
-// 32, every split non-empty, together covering every pixel. With splits >
-// 1 the partials go to scratch (splits, 9*Cin, Cout) fp32 and a second
-// launch sums them in order; with one split scratch is unused. Returns
-// cudaErrorInvalidValue for a plan outside that, else the launches' error.
+// (B,H,W,Cout) of one dtype; dw (9*Cin, Cout) fp32. Tiles of kt rows of
+// dW by nt channels (64 x 64, 128 x 64 or 64 x 128); pixels [s*px_per_split,
+// (s+1)*px_per_split) of the B*H*W go to split s
+// (ops/conv3x3.py::wgrad_simt_plan): px_per_split a multiple of 16, every
+// split non-empty, together covering every pixel. With splits > 1 the
+// partials go to scratch (splits, 9*Cin, Cout) fp32 and the same,
+// cooperative, launch sums them in order after a grid sync (every block
+// resident, or the launch is refused); with one split scratch is unused.
+// Returns cudaErrorInvalidValue for a plan outside that, else the
+// launch's error.
 extern "C" int odek_conv3x3_wgrad(const void* x, const void* halo,
                                   const void* g, void* scratch, void* dw,
                                   int B, int H, int W, int Cin, int Cout,
-                                  int splits, long long px_per_split,
-                                  int dtype, void* stream) {
+                                  int kt, int nt, int splits,
+                                  long long px_per_split, int dtype,
+                                  void* stream) {
   const long long M = (long long)B * H * W;
   if (M > 0x7fffffffLL || reinterpret_cast<uintptr_t>(halo) % 16 ||
+      !((kt == 64 && nt == 64) || (kt == 128 && nt == 64) ||
+        (kt == 64 && nt == 128)) ||
       splits < 1 || splits > 65535 ||
       px_per_split < 1 || px_per_split % kWsPx ||
       (long long)splits * px_per_split < M ||
@@ -1764,25 +2072,47 @@ extern "C" int odek_conv3x3_wgrad(const void* x, const void* halo,
       (splits > 1 && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int K = 9 * Cin;
-  const dim3 grid(ceil_div(K, kWsTile) * ceil_div(Cout, kWsTile), splits);
-  const long long size = (long long)K * Cout;
-  float* part = static_cast<float*>(splits > 1 ? scratch : dw);
+  const dim3 grid(ceil_div(9 * Cin, kt) * ceil_div(Cout, nt), splits);
+  const int smem = wgrad_simt_smem_bytes(kt, nt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return odek::launch_for_dtype(dtype, [&](auto tag) {
+  return odek::launch_for_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
-                     aligned4<T>(g);  // the halo is 16-byte aligned
-    const auto kernel = vec ? conv3x3_wgrad_simt_kernel<T, true>
-                            : conv3x3_wgrad_simt_kernel<T, false>;
-    kernel<<<grid, kWsThreads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(halo),
-        static_cast<const T*>(g), part, B, H, W, Cin, Cout, px_per_split);
-    if (splits > 1) {
-      conv3x3_wgrad_sum_kernel<<<ceil_div(ceil_div(size, 4), 256), 256, 0,
-                                 st>>>(part, static_cast<float*>(dw), splits,
-                                       size);
+    const bool quads = Cin % 4 == 0 && Cout % 4 == 0 && aligned4<T>(x) &&
+                       aligned4<T>(g);  // the halo is 16-byte aligned
+    auto kernel = simt_wgrad_kernel<T, kElem>(kt, nt);
+    if constexpr (std::is_same_v<T, float>) {
+      if (quads) kernel = simt_wgrad_kernel<T, kAsync>(kt, nt);
+    } else {
+      if (quads) kernel = simt_wgrad_kernel<T, kQuad>(kt, nt);
     }
+    const cudaError_t attr =
+        allow_max_smem(reinterpret_cast<const void*>(kernel), kSimtMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    const T* xp = static_cast<const T*>(x);
+    const T* hp = static_cast<const T*>(halo);
+    const T* gp = static_cast<const T*>(g);
+    float* part = static_cast<float*>(scratch);
+    float* out = static_cast<float*>(dw);
+    int b = B, h = H, w = W, cin = Cin, cout = Cout;
+    int px = (int)px_per_split;
+    if (splits == 1) {
+      kernel<<<grid, kWsThreads, smem, st>>>(xp, hp, gp, part, out, b, h, w,
+                                              cin, cout, px);
+      return 0;
+    }
+    // Cooperative: the launch fails rather than run blocks that could not
+    // all be resident, which the grid sync needs.
+    const int per_sm = resident_per_sm(reinterpret_cast<const void*>(kernel),
+                                       kWsThreads, smem);
+    if (per_sm < 0) return (int)cudaErrorInvalidValue;
+    if ((long long)per_sm * sm_count() < (long long)grid.x * grid.y) {
+      return (int)cudaErrorInvalidValue;
+    }
+    void* args[] = {&xp, &hp, &gp, &part, &out, &b, &h, &w, &cin, &cout,
+                    &px};
+    return (int)cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(kernel), grid, dim3(kWsThreads), args,
+        smem, st);
   });
 }
 

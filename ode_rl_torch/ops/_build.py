@@ -29,16 +29,17 @@ NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # x, halo, w, out, B, H, W, Cin, Cout, rows_per_block, dtype, stream
-    "odek_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, halo, w, out, B, H, W, Cin, Cout, bn, steps_per_block, dtype,
+    # stream
+    "odek_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, halo, w, out, B, H, W, Cin, Cout, tile_w, dtype, out_dtype, nt,
     # stream
     "odek_conv3x3_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],
-    # x, halo, g, scratch, dw, B, H, W, Cin, Cout, splits, px_per_split,
-    # dtype, stream
-    "odek_conv3x3_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
-                           _I, _P],
+    # x, halo, g, scratch, dw, B, H, W, Cin, Cout, kt, nt, splits,
+    # px_per_split, dtype, stream
+    "odek_conv3x3_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _L, _I, _P],
     # x, halo, g, scratch, dw, B, H, W, Cin, Cout, tile_w, splits,
     # tiles_per_split, stages, dtype, stream
     "odek_conv3x3_wgrad_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

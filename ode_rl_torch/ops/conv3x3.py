@@ -12,12 +12,13 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   kernel (bf16 in, bf16 or fp32 out; TMA halo tiles, weights resident in
   shared memory, wgmma over column blocks of ``tc_nt`` output channels:
   64, 32 or 16) or the SIMT kernel (fp32 FMA; everything else,
-  fp32 included, so fp32 stays strict fp32). The SIMT
-  kernel gives a block 16-pixel row segments of 16 output channels with
-  their weights and halos staged once in shared memory, each thread 4
-  pixels x 4 channels, the products of a segment split over up to 16
-  thread groups and added in a fixed order; ``simt_plan`` sizes the grid
-  to about two blocks an SM.
+  fp32 included, so fp32 stays strict fp32). The SIMT kernel gives a
+  block a 16-column strip of an image, a run of its rows and 16 or 32
+  output channels, keeps the block's weights resident for the run and
+  brings the input a halo row at a time into a ring, the next rows
+  loading under the products; each thread 4 pixels x 8 channels, a row's
+  products split over up to 16 thread groups and added in a fixed order;
+  ``simt_plan`` sizes the grid to one wave.
 * K2 ``conv3x3_wgrad``: dW (9*Cin, Cout) = patches^T . g in fp32, split
   over pixels with a fixed-order reduction. Its plain version builds the 9
   shifted patches, as the Pallas kernel does, and multiplies. On the card
@@ -25,18 +26,23 @@ the weights handed to the kernels as ``kernel.reshape(9 * Cin, Cout)``.
   tensor-core kernel (bf16, Cin in multiples of 64 and Cout of 32; TMA
   halo and cotangent tiles, wgmma over pixels in blocks of 64 or 32
   output channels, one cooperative launch that sums its partials after a
-  grid sync) or the SIMT kernel (everything else, fp32
-  included): a block a 64 x 64 tile of dW and a run of pixels staged in
-  32-pixel stages, ``wgrad_simt_plan`` sizing the runs to about two
-  blocks an SM, and a second launch adding the partials in split order.
+  grid sync) or the SIMT kernel (everything else, fp32 included): a
+  block a 64 x 64, 128 x 64 or 64 x 128 tile of dW (each thread 8 x 8)
+  and a run of pixels staged in 16-pixel stages, ``wgrad_simt_plan``
+  sizing the runs so that every block is resident, and the same
+  cooperative launch adding the partials in split order after a grid
+  sync.
 
 On an H100 80GB HBM3 at 700 W, TF32 off, ``python -m
 ode_rl_torch.simt_conv_times`` (PERF.md §6) reads, in device µs a call:
-at the recipe's fp32 (4, 16, 16, 64) -> 64 the SIMT K1 8.1 forward and as
-dx (cuDNN's fp32 conv 24.0) and the SIMT K2 9.4 (cuDNN's weight gradient
-16.3), against a 1.13 µs FMA bound; at fp32 B = 128 K1 132 and K2 99
-(cuDNN 83 and 112). Both SIMT kernels are on by the rules above for every
-fp32 call: the port keeps fp32 in strict fp32, off the tensor cores.
+at the recipe's fp32 (4, 16, 16, 64) -> 64 the SIMT K1 7.5 forward and as
+dx (cuDNN's fp32 conv 24.0) and the SIMT K2 8 (cuDNN's weight gradient
+16.3), against a 1.13 µs FMA bound; at the Vid-ODE field's (4, 32, 32)
+128 -> 64 / 64 -> 128 / 64 -> 64 K1 31 / 31 / 18 (cuDNN 40 / 36 / 26)
+and K2 23 / 23 / 16.5 (cuDNN 24.8 / 24.8 / 20.9); at fp32 B = 128 K1
+108 and K2 80-84 (cuDNN 84 and 112). Both SIMT kernels are on by the
+rules above for every fp32 call: the port keeps fp32 in strict fp32, off
+the tensor cores.
 
 ``Conv3x3Fn`` has the backward of ``_conv3x3_bwd``: dx is K1 on the
 cotangent with spatially flipped, channel-transposed weights, dw is K2
@@ -179,21 +185,24 @@ def _out_dtype(dtype: torch.dtype, out_dtype: Optional[torch.dtype]
                     "inputs (the input's dtype, or fp32 from bf16)")
 
 
-# The SIMT K1 (csrc/conv3x3.cu::conv3x3_fwd_simt_kernel): 16 groups of
-# threads; SK of them share one row segment's products and 16 / SK
-# segments (a row group) go at once; a segment is this many output pixels
-# of one image row, a block's channel tile this many output channels. A
-# block takes a run of at most _SIMT_MAX_ROWS row groups.
+# The SIMT K1 (csrc/conv3x3.cu::conv3x3_fwd_simt_kernel): 16 groups of 16
+# threads; SK of them share one output row's products and 16 / SK rows (a
+# step) go at once; a strip is this many output columns. The H100's
+# shared memory: a block's dynamic share, and an SM's, of which each
+# resident block takes 1 KB more.
 _SIMT_GROUPS = 16
 _SIMT_TILE_W = 16
-_SIMT_TILE_N = 16
-_SIMT_MAX_ROWS = 8
+_SIMT_MAX_SMEM = 232_448
+_SM_SMEM = 233_472
+# Blocks an SM holds at most: 256 threads of at most 128 registers
+# (__launch_bounds__(256, 2)), for K1 and K2 alike.
+_SIMT_BLOCKS_PER_SM = 2
 
 
 def simt_split(cin: int) -> int:
     """SK: the largest power of two at most min(16, quads), quads =
-    ceil(min(Cin, 64) / 4) channel quads of the first chunk. Mirrors
-    csrc/conv3x3.cu::simt_split."""
+    ceil(min(Cin, 64) / 4) channel quads (of a slab's channels).
+    Mirrors csrc/conv3x3.cu::simt_split."""
     quads = -(-min(cin, 64) // 4)
     sk = 1
     while sk * 2 <= min(quads, _SIMT_GROUPS):
@@ -201,27 +210,68 @@ def simt_split(cin: int) -> int:
     return sk
 
 
+def _simt_halo_stride(cs: int) -> int:
+    """Floats between two staged halo pixels: the slab's channels rounded
+    up to 4, then to 8 mod 32 (bank groups). Mirrors
+    csrc/conv3x3.cu::simt_halo_stride."""
+    cc4 = -(-cs // 4) * 4
+    return cc4 + (8 - cc4) % 32
+
+
+def simt_smem_bytes(cs: int, bn: int) -> int:
+    """Shared memory of one SIMT K1 block over a slab of ``cs`` input
+    channels and ``bn`` output channels: the resident weights [9 * cc4][bn],
+    the ring of 2 * SR + 2 halo rows of 18 pixels, and the 8 group pairs'
+    sums [8][16][bn] (none at SK = 1). Mirrors
+    csrc/conv3x3.cu::simt_smem_bytes."""
+    sk = simt_split(cs)
+    sr = _SIMT_GROUPS // sk
+    return 4 * (9 * -(-cs // 4) * 4 * bn
+                + (2 * sr + 2) * (_SIMT_TILE_W + 2) * _simt_halo_stride(cs)
+                + (_SIMT_GROUPS // 2 * _SIMT_TILE_W * bn if sk > 1 else 0))
+
+
+def simt_slab(cin: int, bn: int) -> int:
+    """Input channels a SIMT K1 launch takes: all of Cin where its block
+    fits the 227 KB a block may have, else the fewest equal slabs, in
+    multiples of 4, that fit (one launch each, adding in order). Mirrors
+    csrc/conv3x3.cu::simt_slab."""
+    n = 1
+    while True:
+        cs = min(-(-cin // (4 * n)) * 4, cin)
+        if cs <= 4 or simt_smem_bytes(cs, bn) <= _SIMT_MAX_SMEM:
+            return cs
+        n += 1
+
+
 @functools.lru_cache(maxsize=256)
 def simt_plan(b: int, h: int, w: int, cin: int, cout: int,
-              sms: int) -> tuple[int, int]:
-    """(row groups a block R, blocks) of a SIMT K1 call; every shape has
-    one (channels beyond 64 are staged in chunks of 64). The
-    B*H*ceil(W/16) row segments form row groups of 16 / simt_split(Cin)
-    consecutive segments, which go to each channel tile in runs of R;
-    block i takes channel tile i % tiles and run i // tiles. A run shares
-    one staging of the block's weights over its row groups but waits for
-    each group's halo, so R aims at two blocks an SM: the (row group,
-    channel tile) items over 2 * ``sms``, rounded, at least 1 and at most
-    _SIMT_MAX_ROWS. On an H100 80GB HBM3 (700 W) that was the fastest R
-    measured at (4, 16, 16, 64) -> 64, (8, ...) and (128, ...) in fp32
-    and at bf16 Cin 8 -> 64 and 64 -> 8, B = 128 (PERF.md §6). It leaves at
-    least ``sms`` blocks wherever there are that many items. Mirrors
+              sms: int) -> tuple[int, int, int]:
+    """(output channels a block BN, row steps a block R, blocks) of a SIMT
+    K1 call; every shape has one. Block = ((image * strips + strip) * runs
+    + run) * tiles + tile: a 16-column strip of an image, a run of R steps
+    of 16 / simt_split rows (the last run of a strip shorter), a tile of
+    BN output channels. BN is 32 where Cout > 16 and the map is at least
+    16 wide (each thread 4 pixels x 8 channels, the halo read once a
+    32-channel tile), else 16 (narrower maps fill a strip's row in part,
+    and a block's weights are then most of its work). A run
+    stages the block's weights once, so R is the fewest steps that put
+    every block in one wave: the (strip step, tile) items over the blocks
+    the card holds at once (two an SM where the shared memory allows, else
+    one). On an H100 80GB HBM3 (700 W) that R and BN were the fastest, or
+    within 3% of it, of R 1 to 32 at BN 16 and 32 at every shape of
+    ``simt_conv_times --sweep`` (PERF.md §6). With more than one slab
+    (simt_slab) the blocks are those of the first. Mirrors
     csrc/conv3x3.cu::odek_conv3x3_fwd."""
-    segments = b * h * -(-w // _SIMT_TILE_W)
-    groups = -(-segments // (_SIMT_GROUPS // simt_split(cin)))
-    tiles = -(-cout // _SIMT_TILE_N)
-    rows = min(_SIMT_MAX_ROWS, max(1, (groups * tiles + sms) // (2 * sms)))
-    return rows, tiles * -(-groups // rows)
+    bn = 32 if cout > 16 and w >= _SIMT_TILE_W else 16
+    cs = simt_slab(cin, bn)
+    per_sm = min(_SIMT_BLOCKS_PER_SM,
+                 _SM_SMEM // (simt_smem_bytes(cs, bn) + 1024))
+    steps = -(-h // (_SIMT_GROUPS // simt_split(cs)))
+    images = b * -(-w // _SIMT_TILE_W)
+    tiles = -(-cout // bn)
+    rows = min(steps, max(1, -(-(images * steps * tiles) // (per_sm * sms))))
+    return bn, rows, images * -(-steps // rows) * tiles
 
 
 def _check_k1(x: torch.Tensor, w2d: torch.Tensor,
@@ -329,11 +379,16 @@ def _launch_simt(x: torch.Tensor, w2d: torch.Tensor,
     _check_aligned("conv3x3_fwd", {"halo": halo})
     b, h, w, cin = x.shape
     cout = w2d.shape[1]
-    rows, _ = simt_plan(b, h, w, cin, cout, _sm_count(x.device))
+    bn, rows, _ = simt_plan(b, h, w, cin, cout, _sm_count(x.device))
+    if x.dtype != torch.float32 and simt_slab(cin, bn) < cin:
+        # Slabs add their sums in the output: take it in fp32, round once.
+        return _launch_simt(x.float(), w2d.float(),
+                            None if halo is None else halo.float()
+                            ).to(x.dtype)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     common.launch("conv3x3_fwd_simt", library().odek_conv3x3_fwd,
                   x.data_ptr(), _ptr(halo), w2d.data_ptr(), out.data_ptr(),
-                  b, h, w, cin, cout, rows, common.DTYPE_CODES[x.dtype],
+                  b, h, w, cin, cout, bn, rows, common.DTYPE_CODES[x.dtype],
                   common.stream_handle(x))
     common.launches["conv3x3_fwd"] += 1
     _count_halo("conv3x3_fwd", x, halo)
@@ -425,33 +480,73 @@ def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int,
 
 
 # The SIMT K2 (csrc/conv3x3.cu::conv3x3_wgrad_simt_kernel): a block owns
-# a 64 x 64 tile of dW (rows 9*Cin, columns Cout) and a run of pixels in
-# stages of 32; a run holds at most _WGRAD_SIMT_MAX_STAGES stages where
-# that leaves at most _WGRAD_SIMT_MAX_SPLITS splits.
-_WGRAD_SIMT_TILE = 64
-_WGRAD_SIMT_STAGE = 32
-_WGRAD_SIMT_MAX_STAGES = 8
-_WGRAD_SIMT_MAX_SPLITS = 256
+# a KT x NT tile of dW and a run of pixels in stages of 16 through a ring
+# of 4. Its plan's cost model: a block's fixed share (prologue, partials,
+# grid sync) in stages, and what two blocks an SM do in the time of one;
+# fitted to the splits timed on an H100 80GB HBM3 (700 W) by
+# ``simt_conv_times --sweep`` (PERF.md §6).
+_WGRAD_SIMT_STAGE = 16
+_WGRAD_SIMT_RING = 4
+_WGRAD_SIMT_BLOCK_STAGES = 3
+_WGRAD_SIMT_TWO_PER_SM = 1.14
+
+
+def wgrad_simt_smem_bytes(kt: int, nt: int) -> int:
+    """Shared memory of one SIMT K2 block: the ring of 4 stages of 16
+    pixels x (KT + NT) floats, or the PG - 1 partials (PG = 256 / (KT * NT
+    / 64) copies of the tile) that the first copy adds, whichever is
+    larger. Mirrors csrc/conv3x3.cu::wgrad_simt_smem_bytes."""
+    ring = _WGRAD_SIMT_RING * _WGRAD_SIMT_STAGE * (kt + nt)
+    return 4 * max(ring, (256 * 64 // (kt * nt) - 1) * kt * nt)
+
+
+def wgrad_simt_tile(b: int, h: int, w: int, cin: int,
+                    cout: int) -> tuple[int, int]:
+    """(KT, NT) of a SIMT K2 tile: on maps of at least 1,024 pixels, 128 x
+    64 where 128 rows divide 9 * Cin (one tap at Cin 128), else 64 x 128
+    where 128 columns divide Cout (no padded rows at Cin 64 -> 128); two
+    copies of the tile a block, each thread 8 x 8. Else 64 x 64, four
+    copies: a smaller map has too few pixels a split for the larger
+    tile's fewer blocks."""
+    if b * h * w >= 1024:
+        if (9 * cin) % 128 == 0:
+            return 128, 64
+        if cout % 128 == 0:
+            return 64, 128
+    return 64, 64
 
 
 @functools.lru_cache(maxsize=256)
 def wgrad_simt_plan(b: int, h: int, w: int, cin: int, cout: int,
-                    sms: int) -> tuple[int, int]:
-    """(splits S, pixels a split P) of a SIMT K2 call; every shape has one.
-    The B*H*W pixels, in stages of 32, go to S runs of P = 32 * T pixels,
-    run s = [s*P, (s+1)*P), none empty. T aims at two blocks an SM (tiles
-    of dW x S about 2 * ``sms``, where there are that many stages: on an
-    H100 80GB HBM3 (700 W) the fastest of the plans measured in fp32 at
-    (4, 16, 16, 64), (8, ...) and (128, ...), PERF.md §6), at least 1 and
-    at most _WGRAD_SIMT_MAX_STAGES, unless S would exceed
-    _WGRAD_SIMT_MAX_SPLITS (the scratch of partials). Mirrors the checks
-    of csrc/conv3x3.cu::odek_conv3x3_wgrad."""
+                    sms: int) -> tuple[int, int, int, int]:
+    """(KT, NT, splits S, pixels a split P) of a SIMT K2 call; every shape
+    has one. The B*H*W pixels, in stages of 16, go to S runs of P = 16 * T
+    pixels, run s = [s*P, (s+1)*P), none empty. With S > 1 every block of
+    the tiles x S grid must be resident at once (two an SM), since the
+    splits are summed in the same launch after a grid sync. T is the one
+    of least modelled time: the blocks on the busiest SM x (T + 3 stages
+    of a block's fixed share), two an SM doing 1.14x the work of one in
+    the same time; fewer splits on a tie. On an H100 80GB HBM3 (700 W)
+    the plan was the fastest, or within 2% of it, of the tiles and splits
+    ``simt_conv_times --sweep`` tries at each of its shapes (PERF.md §6).
+    Mirrors the checks of csrc/conv3x3.cu::odek_conv3x3_wgrad."""
+    kt, nt = wgrad_simt_tile(b, h, w, cin, cout)
     stages = -(-(b * h * w) // _WGRAD_SIMT_STAGE)
-    tiles = -(-(9 * cin) // _WGRAD_SIMT_TILE) * -(-cout // _WGRAD_SIMT_TILE)
-    cap = -(-(2 * sms) // tiles)
-    per = min(_WGRAD_SIMT_MAX_STAGES, max(1, stages // cap))
-    per = max(per, -(-stages // _WGRAD_SIMT_MAX_SPLITS))
-    return -(-stages // per), per * _WGRAD_SIMT_STAGE
+    tiles = -(-(9 * cin) // kt) * -(-cout // nt)
+    best, plan = None, None
+    for per in range(1, stages + 1):
+        splits = -(-stages // per)
+        if -(-stages // splits) != per:
+            continue  # the same splits as a shorter run
+        blocks = tiles * splits
+        if splits > 1 and blocks > 2 * sms:
+            continue
+        busiest = -(-blocks // sms)
+        cost = busiest * (per + _WGRAD_SIMT_BLOCK_STAGES) / (
+            _WGRAD_SIMT_TWO_PER_SM if busiest > 1 else 1.0)
+        if best is None or cost <= best:
+            best, plan = cost, (kt, nt, splits, per * _WGRAD_SIMT_STAGE)
+    return plan
 
 
 @functools.cache
@@ -532,13 +627,15 @@ def _launch_wgrad_simt(x: torch.Tensor, g: torch.Tensor,
     _check_aligned("conv3x3_wgrad", {"halo": halo})
     b, h, w, cin = x.shape
     cout = g.shape[3]
-    splits, per = wgrad_simt_plan(b, h, w, cin, cout, _sm_count(x.device))
+    kt, nt, splits, per = wgrad_simt_plan(b, h, w, cin, cout,
+                                          _sm_count(x.device))
     dw = torch.empty((9 * cin, cout), dtype=torch.float32, device=x.device)
+    # The splits' partials, summed in the same launch after a grid sync.
     scratch = (torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     common.launch("conv3x3_wgrad_simt", library().odek_conv3x3_wgrad,
                   x.data_ptr(), _ptr(halo), g.data_ptr(), _ptr(scratch),
-                  dw.data_ptr(), b, h, w, cin, cout, splits, per,
+                  dw.data_ptr(), b, h, w, cin, cout, kt, nt, splits, per,
                   common.DTYPE_CODES[x.dtype], common.stream_handle(x))
     common.launches["conv3x3_wgrad"] += 1
     _count_halo("conv3x3_wgrad", x, halo)

@@ -52,7 +52,6 @@ WARMUP, TIMED, PROFILED = 3, 10, 3
 _KERNEL_IDS = {
     "conv3x3_fwd_tc": "K1", "conv3x3_fwd_simt": "K1",
     "conv3x3_wgrad_tc": "K2", "conv3x3_wgrad_simt": "K2",
-    "conv3x3_wgrad_sum": "K2",
     "gru_gates_sample": "K3", "gru_gates": "K3",
     "gru_blend_sample": "K4", "gru_blend": "K4",
     "gru_gates_mom": "K3", "gru_gates_mom_vec": "K3", "gru_blend_mom": "K4",

@@ -7,14 +7,16 @@ field conv; fp32 (8, 16, 16, 64), chip_smoke.py phase 5's; fp32
 (128, 16, 16, 64), the flagship batch; bf16 (128, 16, 16, 8) -> 64, which
 both tensor-core rules refuse; fp32 (4, 32, 32, 128) -> 64, (4, 32, 32,
 64) -> 64 and -> 128, the Vid-ODE field's convs at mgif's and penn's
-128x128 frames. For each: K1's SIMT kernel forward and as dx
-(the cotangent with flip_transpose'd weights), K2's SIMT kernel, and
-cuDNN's conv and weight gradient on the same inputs, with TF32 off. Each
-gets the CUDA-event median ms of 30 calls and the device µs a call under
-torch.profiler (every kernel the call launches), in the turns a, b, ...,
-..., b, a; the least of the two medians is kept. The bound is the larger
-of the products over 67 TFLOP/s (fp32) or 989 TFLOP/s (bf16) and the
-bytes (inputs once, output once) over 3.35 TB/s.
+128x128 frames; the same three at (4, 16, 16), its 64x64 blocks; fp32
+(16, 16, 16, 32) -> 32, the slots'; fp32 (4, 4, 4, 32) -> 64 and (4, 4,
+4, 128) -> 64, S3VAE's 'odecgru' field. For each: K1's SIMT kernel
+forward and as dx (the cotangent with flip_transpose'd weights), K2's
+SIMT kernel, and cuDNN's conv and weight gradient on the same inputs,
+with TF32 off. Each gets the CUDA-event median ms of 30 calls and the
+device µs a call under torch.profiler (every kernel the call launches),
+in the turns a, b, ..., ..., b, a; the least of the two medians is kept.
+The bound is the larger of the products over 67 TFLOP/s (fp32) or 989
+TFLOP/s (bf16) and the bytes (inputs once, output once) over 3.35 TB/s.
 
 The port is reached only through ``_conv3x3_fwd_simt`` and
 ``_conv3x3_wgrad_simt``, so this file copied into an older checkout's
@@ -24,9 +26,10 @@ power limit, a line a row, and one JSON line.
 
 ``--sweep`` (this checkout only) times instead the SIMT kernels' launch
 plans around the ones ``simt_plan`` and ``wgrad_simt_plan`` pick: K1 at
-1, 2, 4, 8 and 16 row groups a block (on 16x16 maps, and on the Vid-ODE
-field's 32x32 ones), K2 at several (splits, pixels a split), device µs
-a call, the plan's own marked with a star.
+16 and 32 output channels a block and 1 to 32 row steps a block, K2 at
+tiles of 64 x 64, 128 x 64 and 64 x 128 and splits that put about a
+half, one, one and a half and two blocks on each SM, device µs a call,
+the plan's own marked with a star.
 """
 
 from __future__ import annotations
@@ -43,16 +46,15 @@ from ode_rl_torch.ops.conv3x3 import (_conv3x3_fwd_simt, _conv3x3_wgrad_simt,
                                       flip_transpose)
 
 # (dtype, B, H = W, Cin, Cout), and the plans --sweep tries.
-SWEEP_K1 = ((torch.float32, 4, 16, 64, 64), (torch.float32, 8, 16, 64, 64),
-            (torch.float32, 128, 16, 64, 64),
-            (torch.bfloat16, 128, 16, 8, 64),
-            (torch.bfloat16, 128, 16, 64, 8),
-            (torch.float32, 4, 32, 128, 64), (torch.float32, 4, 32, 64, 64),
-            (torch.float32, 4, 32, 64, 128))
-SWEEP_K1_ROWS = (1, 2, 4, 8, 16)
-SWEEP_K2 = ((4, ((32, 32), (16, 64), (8, 128), (4, 256))),
-            (8, ((64, 32), (32, 64), (16, 128), (8, 256))),
-            (128, ((1024, 32), (256, 128), (128, 256), (64, 512))))
+SWEEP = ((torch.float32, 4, 16, 64, 64), (torch.float32, 8, 16, 64, 64),
+         (torch.float32, 128, 16, 64, 64),
+         (torch.bfloat16, 128, 16, 8, 64),
+         (torch.float32, 4, 32, 128, 64), (torch.float32, 4, 32, 64, 64),
+         (torch.float32, 4, 32, 64, 128), (torch.float32, 4, 16, 128, 64),
+         (torch.float32, 4, 16, 64, 128), (torch.float32, 16, 16, 32, 32),
+         (torch.float32, 4, 4, 32, 64), (torch.float32, 4, 4, 128, 64))
+SWEEP_K1_ROWS = (1, 2, 4, 8, 16, 32)
+SWEEP_K2_BLOCKS_PER_SM = (0.5, 1, 1.5, 2)
 
 SHAPES = ((torch.float32, 4, 16, 16, 64, 64),
           (torch.float32, 8, 16, 16, 64, 64),
@@ -60,7 +62,13 @@ SHAPES = ((torch.float32, 4, 16, 16, 64, 64),
           (torch.bfloat16, 128, 16, 16, 8, 64),
           (torch.float32, 4, 32, 32, 128, 64),
           (torch.float32, 4, 32, 32, 64, 64),
-          (torch.float32, 4, 32, 32, 64, 128))
+          (torch.float32, 4, 32, 32, 64, 128),
+          (torch.float32, 4, 16, 16, 128, 64),
+          (torch.float32, 4, 16, 16, 64, 64),
+          (torch.float32, 4, 16, 16, 64, 128),
+          (torch.float32, 16, 16, 16, 32, 32),
+          (torch.float32, 4, 4, 4, 32, 64),
+          (torch.float32, 4, 4, 4, 128, 64))
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
@@ -80,16 +88,22 @@ def median_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, reps: int = 20) -> float:
+def device_us(fn, reps: int = 20, tries: int = 3) -> float:
+    """Device µs a call under torch.profiler; a trace that lost its events
+    (it reads 0 at times) is taken again."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / reps
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA") / reps
+        if us > 0:
+            return us
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def _calls(dtype, b, h, w, cin, cout) -> dict:
@@ -125,43 +139,54 @@ def sweep() -> None:
     lib = library()
     sms = _sm_count(torch.device("cuda"))
     gen = torch.Generator().manual_seed(0)
-    for dtype, b, hw, cin, cout in SWEEP_K1:
+    for dtype, b, hw, cin, cout in SWEEP:
         x = torch.randn(b, hw, hw, cin, generator=gen).to("cuda", dtype)
+        g = torch.randn(b, hw, hw, cout, generator=gen).to("cuda", dtype)
         w2d = (torch.randn(9 * cin, cout, generator=gen) / 24).to("cuda",
                                                                   dtype)
         out = torch.empty(b, hw, hw, cout, dtype=dtype, device="cuda")
-        mine = simt_plan(b, hw, hw, cin, cout, sms)[0]
+        mine = simt_plan(b, hw, hw, cin, cout, sms)[:2]
         line = []
-        for rows in SWEEP_K1_ROWS:
-            def call(rows=rows):
-                common.launch("conv3x3_fwd_simt", lib.odek_conv3x3_fwd,
-                              x.data_ptr(), None, w2d.data_ptr(),
-                              out.data_ptr(),
-                              b, hw, hw, cin, cout, rows,
-                              common.DTYPE_CODES[dtype],
-                              common.stream_handle(x))
-            line.append(f"R {rows}{'*' if rows == mine else ''}: "
-                        f"{device_us(call):.2f}")
+        for bn in (16, 32):
+            for rows in SWEEP_K1_ROWS:
+                def call(bn=bn, rows=rows):
+                    common.launch("conv3x3_fwd_simt", lib.odek_conv3x3_fwd,
+                                  x.data_ptr(), None, w2d.data_ptr(),
+                                  out.data_ptr(), b, hw, hw, cin, cout, bn,
+                                  rows, common.DTYPE_CODES[dtype],
+                                  common.stream_handle(x))
+                star = "*" if (bn, rows) == mine else ""
+                line.append(f"BN {bn} R {rows}{star}: {device_us(call):.2f}")
         print(f"sweep K1 {str(dtype)[6:]} ({b}, {hw}, {hw}, {cin}) -> "
               f"{cout}: " + ", ".join(line))
-    for b, plans in SWEEP_K2:
-        x = torch.randn(b, 16, 16, 64, generator=gen).cuda()
-        g = torch.randn(b, 16, 16, 64, generator=gen).cuda()
-        dw = torch.empty(9 * 64, 64, device="cuda")
-        mine = wgrad_simt_plan(b, 16, 16, 64, 64, sms)
+        dw = torch.empty(9 * cin, cout, device="cuda")
+        mine = wgrad_simt_plan(b, hw, hw, cin, cout, sms)
+        stages = -(-(b * hw * hw) // 16)
         line = []
-        for splits, per in plans:
-            scratch = torch.empty(splits, 9 * 64, 64, device="cuda")
-            def call(splits=splits, per=per, scratch=scratch):
-                common.launch("conv3x3_wgrad_simt", lib.odek_conv3x3_wgrad,
-                              x.data_ptr(), None, g.data_ptr(),
-                              scratch.data_ptr(),
-                              dw.data_ptr(), b, 16, 16, 64, 64, splits, per,
-                              common.DTYPE_CODES[torch.float32],
-                              common.stream_handle(x))
-            star = "*" if (splits, per) == mine else ""
-            line.append(f"S {splits} P {per}{star}: {device_us(call):.2f}")
-        print(f"sweep K2 float32 ({b}, 16, 16, 64) -> 64: " + ", ".join(line))
+        for kt, nt in ((64, 64), (128, 64), (64, 128)):
+            tiles = -(-(9 * cin) // kt) * -(-cout // nt)
+            seen = set()
+            for per_sm in SWEEP_K2_BLOCKS_PER_SM:
+                cap = max(1, min(stages, int(per_sm * sms) // tiles))
+                per = -(-stages // cap)
+                plan = (kt, nt, -(-stages // per), 16 * per)
+                if plan in seen:
+                    continue
+                seen.add(plan)
+                scratch = torch.empty(plan[2], 9 * cin, cout, device="cuda")
+
+                def call(plan=plan, scratch=scratch):
+                    common.launch("conv3x3_wgrad_simt",
+                                  lib.odek_conv3x3_wgrad, x.data_ptr(), None,
+                                  g.data_ptr(), scratch.data_ptr(),
+                                  dw.data_ptr(), b, hw, hw, cin, cout,
+                                  *plan, common.DTYPE_CODES[dtype],
+                                  common.stream_handle(x))
+                star = "*" if plan == mine else ""
+                line.append(f"{kt}x{nt} S {plan[2]} P {plan[3]}{star}: "
+                            f"{device_us(call):.2f}")
+        print(f"sweep K2 {str(dtype)[6:]} ({b}, {hw}, {hw}, {cin}) -> "
+              f"{cout}: " + ", ".join(line))
 
 
 def main() -> None:

@@ -32,8 +32,12 @@ from ode_rl_torch.ops.common import bf16_ulps
 from ode_rl_torch.ops.conv3x3 import (Conv3x3Fn, _tc_smem_bytes,
                                       conv3x3_fwd, conv3x3_fwd_plain,
                                       conv3x3_wgrad, flip_transpose,
-                                      simt_plan, simt_split, tc_nt,
-                                      uses_tensor_cores, wgrad_simt_plan,
+                                      simt_plan, simt_slab,
+                                      simt_smem_bytes, simt_split, tc_nt,
+                                      uses_tensor_cores,
+                                      wgrad_simt_plan,
+                                      wgrad_simt_smem_bytes,
+                                      wgrad_simt_tile,
                                       wgrad_tc_nt, wgrad_tc_plan,
                                       wgrad_uses_tensor_cores)
 from ode_rl_tpu.ops.conv3x3 import _fwd_kernel, _wgrad_kernel
@@ -406,127 +410,202 @@ def test_simt_route_and_plans(dtype, b, h, w, cin, cout, k1, k2):
     assert ("tc" if uses_tensor_cores(dtype, cin, cout, w) else "simt") == k1
     assert ("tc" if wgrad_uses_tensor_cores(dtype, cin, cout, w)
             else "simt") == k2
-    rows, blocks = simt_plan(b, h, w, cin, cout, 132)
-    splits, per = wgrad_simt_plan(b, h, w, cin, cout, 132)
-    assert rows >= 1 and blocks >= 1 and splits >= 1 and per >= 32
+    bn, rows, blocks = simt_plan(b, h, w, cin, cout, 132)
+    kt, nt, splits, per = wgrad_simt_plan(b, h, w, cin, cout, 132)
+    assert bn in (16, 32) and rows >= 1 and blocks >= 1
+    assert (kt, nt) in ((64, 64), (128, 64), (64, 128))
+    assert splits >= 1 and per >= 16
 
 
 # (B, H, W, Cin, Cout): the recipe, phase 5 and the flagship batch in
-# fp32, bf16 at Cin 8, one split, a ragged 33-wide map with Cout 1, two
-# channel chunks, a single pixel, and a shape whose splits hit their cap.
+# fp32, bf16 at Cin 8, one split, a ragged 33-wide map with Cout 1, a
+# ragged 96-channel slab, a single pixel, two slabs of 128 channels; the
+# Vid-ODE field at its 64x64 blocks' (4, 16, 16) and mgif's and penn's
+# (4, 32, 32) maps, 128 -> 64, 64 -> 128 and 64 -> 64; and S3VAE's 4x4.
 SIMT_PLAN_CASES = [(4, 16, 16, 64, 64), (8, 16, 16, 64, 64),
                    (128, 16, 16, 64, 64), (4, 16, 16, 8, 64),
                    (1, 3, 5, 3, 16), (2, 17, 33, 16, 1), (1, 6, 20, 96, 128),
-                   (1, 1, 1, 1, 1), (64, 40, 40, 256, 256)]
+                   (1, 1, 1, 1, 1), (64, 40, 40, 256, 256),
+                   (4, 16, 16, 128, 64), (4, 16, 16, 64, 128),
+                   (4, 32, 32, 128, 64), (4, 32, 32, 64, 128),
+                   (4, 32, 32, 64, 64), (4, 4, 4, 128, 64)]
+_SMEM_LIMIT, _SM_SMEM = 232_448, 233_472
+
+
+def _k1_blocks_per_sm(cin: int, bn: int) -> int:
+    """The SIMT K1 blocks an SM holds: two, unless the shared memory of
+    the first slab (and 1 KB a block) leaves room for one only."""
+    return min(2, _SM_SMEM // (simt_smem_bytes(simt_slab(cin, bn), bn)
+                               + 1024))
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("b,h,w,cin,cout", SIMT_PLAN_CASES)
 def test_simt_k1_plan_covers_every_output_once(b, h, w, cin, cout, sms):
-    """Block i takes channel tile i % tiles and run i // tiles of R row
-    groups, a row group 16 / SK consecutive row segments: the runs
-    partition the row groups, none is empty, the groups' 16-pixel segments
-    (clipped at W) cover every pixel once, and the grid has at least
-    ``sms`` blocks wherever there are enough (row group, tile) items."""
-    rows, blocks = simt_plan(b, h, w, cin, cout, sms)
-    sr = 16 // simt_split(cin)
-    segs_w, tiles = -(-w // 16), -(-cout // 16)
-    segments = b * h * segs_w
-    groups = -(-segments // sr)
-    assert 1 <= rows <= 8 and blocks % tiles == 0
-    runs = [range(r * rows, min((r + 1) * rows, groups))
-            for r in range(blocks // tiles)]
-    assert all(len(r) > 0 for r in runs)
-    assert [g for r in runs for g in r] == list(range(groups))
-    segs = [s for g in range(groups) for s in range(g * sr, (g + 1) * sr)
-            if s < segments]
-    pixels = [(s // segs_w, (s % segs_w) * 16 + i) for s in segs
-              for i in range(16) if (s % segs_w) * 16 + i < w]
+    """Block i = ((image * strips + strip) * runs + run) * tiles + tile
+    takes a 16-column strip, a run of R steps of 16 / SK rows and a tile
+    of BN output channels: the runs partition each strip's rows, none
+    empty, the strips every column, the tiles every channel; and the grid
+    is one wave of the blocks the card holds (unless a run is a whole
+    strip), more than half of it wherever there are that many (strip
+    step, tile) items."""
+    bn, rows, blocks = simt_plan(b, h, w, cin, cout, sms)
+    sr = 16 // simt_split(simt_slab(cin, bn))
+    strips, steps, tiles = -(-w // 16), -(-h // sr), -(-cout // bn)
+    runs = -(-steps // rows)
+    assert bn in (16, 32) and 1 <= rows <= steps
+    assert blocks == b * strips * runs * tiles
+    assert sorted({(i % tiles) * bn for i in range(blocks)}) == list(
+        range(0, cout, bn))
+    pixels = []
+    for i in range(0, blocks, tiles):
+        run = (i // tiles) % runs
+        strip = (i // tiles // runs) % strips
+        image = i // tiles // runs // strips
+        y0, y1 = run * rows * sr, min((run + 1) * rows * sr, h)
+        assert y1 > y0
+        pixels += [(image, y, x) for y in range(y0, y1)
+                   for x in range(strip * 16, min(strip * 16 + 16, w))]
     assert len(pixels) == len(set(pixels)) == b * h * w
-    if groups * tiles >= sms:
-        assert blocks >= sms
+    cap = _k1_blocks_per_sm(cin, bn) * sms
+    assert blocks <= cap or rows in (1, steps)
+    if b * strips * steps * tiles >= cap:
+        assert 2 * blocks > cap
 
 
 @pytest.mark.parametrize("cin,sk", [(1, 1), (4, 1), (5, 2), (8, 2), (12, 2),
                                     (16, 4), (28, 4), (32, 8), (60, 8), (63, 16),
                                     (64, 16), (96, 16), (1000, 16)])
 def test_simt_k1_split(cin, sk):
-    """SK, the groups sharing a segment's products: the largest power of
-    two at most the first chunk's channel quads, at most 16."""
+    """SK, the groups sharing a row's products: the largest power of two
+    at most the quads of the slab's first 64 channels, at most 16."""
     assert simt_split(cin) == sk
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("b,h,w,cin,cout", SIMT_PLAN_CASES)
 def test_simt_k2_plan_covers_every_pixel_once(b, h, w, cin, cout, sms):
-    """Split s takes pixels [s*P, (s+1)*P): whole stages of 32, none
-    empty, every pixel once, at most 256 splits, and at least ``sms``
-    blocks (tiles of dW x splits) wherever there are enough stages."""
-    splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
+    """Split s takes pixels [s*P, (s+1)*P): whole stages of 16, none
+    empty, every pixel once; with more than one split every block of the
+    tiles x splits grid resident at once (two an SM), for the grid sync
+    that sums them; and at least half the SMs busy wherever there are
+    enough stages."""
+    kt, nt, splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
     m = b * h * w
-    assert per % 32 == 0 and 1 <= splits <= 256
+    assert (kt, nt) == wgrad_simt_tile(b, h, w, cin, cout)
+    assert per % 16 == 0 and splits >= 1
     runs = [range(s * per, min((s + 1) * per, m)) for s in range(splits)]
     assert all(len(r) > 0 for r in runs)
     assert [p for r in runs for p in r] == list(range(m))
-    tiles = -(-(9 * cin) // 64) * -(-cout // 64)
-    if -(-m // 32) >= -(-sms // tiles):
-        assert tiles * splits >= sms
+    tiles = -(-(9 * cin) // kt) * -(-cout // nt)
+    if splits > 1:
+        assert tiles * splits <= 2 * sms
+    if -(-m // 16) * tiles >= sms:
+        assert 2 * tiles * splits >= sms
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", SIMT_PLAN_CASES)
+def test_simt_plans_fit_shared_memory(b, h, w, cin, cout):
+    """Every slab of a SIMT K1 plan and every SIMT K2 tile fits the 227 KB
+    a block may have (K2's two an SM, as its grid sync assumes); the
+    slabs cover Cin, all of it where it fits in one. Mirrors
+    csrc/conv3x3.cu::simt_smem_bytes, simt_slab and
+    wgrad_simt_smem_bytes."""
+    bn = simt_plan(b, h, w, cin, cout, 132)[0]
+    slab = simt_slab(cin, bn)
+    slabs = [min(slab, cin - c0) for c0 in range(0, cin, slab)]
+    assert sum(slabs) == cin and (slab % 4 == 0 or slab == cin)
+    assert all(simt_smem_bytes(cs, bn) <= _SMEM_LIMIT for cs in slabs)
+    if simt_smem_bytes(cin, bn) <= _SMEM_LIMIT:
+        assert slabs == [cin]
+    kt, nt = wgrad_simt_plan(b, h, w, cin, cout, 132)[:2]
+    assert 2 * (wgrad_simt_smem_bytes(kt, nt) + 1024) <= _SM_SMEM
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 def test_simt_plans_fill_the_card_at_the_recipe_shape(sms):
-    """At the recipe's (4, 16, 16, 64) -> 64 both kernels put at least one
-    block on every SM: K1 64 row groups (one segment each) x 4 channel
-    tiles = 256 blocks, K2 9 tiles x 32 runs of 32 pixels = 288."""
-    assert simt_plan(4, 16, 16, 64, 64, sms) == (1, 256)
-    assert wgrad_simt_plan(4, 16, 16, 64, 64, sms) == (32, 32)
+    """At the recipe's (4, 16, 16, 64) -> 64: K1 in 32-channel tiles, 4
+    strips x 16 rows x 2 tiles = 128 blocks of one row; K2 9 tiles of 64 x
+    64 in runs of whole stages, one block an SM at most (at 132 SMs 13
+    runs of 80 pixels, 117 blocks: on an H100 faster than 22 runs of 48
+    that put two on some SMs)."""
+    assert simt_plan(4, 16, 16, 64, 64, sms) == (32, 1, 128)
+    kt, nt, splits, per = wgrad_simt_plan(4, 16, 16, 64, 64, sms)
+    assert (kt, nt) == (64, 64) and sms // 2 < 9 * splits <= sms
+    assert (splits - 1) * per < 1024 <= splits * per
+    if sms == 132:
+        assert (splits, per) == (13, 80)
 
 
 def _k1_simt_order(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
-    """The SIMT K1's arithmetic in plain torch: per chunk of 64 input
-    channels, item j = tap * quads + q (quad q: channels 4q .. 4q + 3)
-    goes to group j % SK (simt_split); group k's running fp32 sum over the
-    chunks, then its items in order, then the item's channels; the output
-    (...(s0 + s1) + ...) + s(SK-1); the halo zero outside the image."""
+    """The SIMT K1's arithmetic in plain torch: per slab of input channels
+    (simt_slab), item j = tap * quads + q (quad q: channels 4q .. 4q + 3)
+    goes to group j % SK (simt_split); group k's running fp32 sum over
+    its items in order, then the item's channels; the two groups of a
+    warp added, s_2m + s_2m+1, and the output (...(p_0 + p_1) + ...) +
+    p_(SK/2-1) over those pairs (SK = 1: s_0); each slab's sum added to
+    the slabs' before it; the halo zero outside the image."""
     b, h, w, cin = x.shape
-    sk = simt_split(cin)
+    cout = w2d.shape[1]
+    slab = simt_slab(cin, simt_plan(b, h, w, cin, cout, 132)[0])
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    sums = [torch.zeros(b, h, w, w2d.shape[1]) for _ in range(sk)]
-    for c0 in range(0, cin, 64):
-        cc = min(64, cin - c0)
-        quads = -(-cc // 4)
+    out = None
+    for c0 in range(0, cin, slab):
+        cs = min(slab, cin - c0)
+        sk = simt_split(cs)
+        quads = -(-cs // 4)
+        sums = [torch.zeros(b, h, w, cout) for _ in range(sk)]
         for j in range(9 * quads):
             tap, q = divmod(j, quads)
             dy, dx = divmod(tap, 3)
             sl = xp[:, dy:dy + h, dx:dx + w, :]
-            for ci in range(c0 + 4 * q, c0 + min(4 * q + 4, cc)):
+            for ci in range(c0 + 4 * q, c0 + min(4 * q + 4, cs)):
                 sums[j % sk] = (sums[j % sk]
                                 + sl[..., ci:ci + 1] * w2d[tap * cin + ci])
-    out = sums[0]
-    for part in sums[1:]:
-        out = out + part
+        part = sums[0]
+        if sk > 1:
+            part = sums[0] + sums[1]
+            for m in range(1, sk // 2):
+                part = part + (sums[2 * m] + sums[2 * m + 1])
+        out = part if out is None else out + part
     return out
 
 
 def _k2_simt_order(x: torch.Tensor, g: torch.Tensor, sms: int):
-    """The SIMT K2's reduction in plain torch: one partial patches^T . g
-    over each split's run of pixels (wgrad_simt_plan), the partials added
-    in the order s = 0, 1, ...; returns dW and the number of splits."""
+    """The SIMT K2's reduction in plain torch: in each split's run of
+    pixels (wgrad_simt_plan) each of the PG = 256 / (KT * NT / 64) copies
+    of the tile
+    sums its share of every 16-pixel stage (copy c: stage pixels 16 / PG
+    * c onward), the copies added in order, then the splits' partials in
+    the order s = 0, 1, ...; returns dW and the number of splits."""
     b, h, w, cin = x.shape
     cout = g.shape[3]
-    splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
+    kt, nt, splits, per = wgrad_simt_plan(b, h, w, cin, cout, sms)
+    copies = 256 * 64 // (kt * nt)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     patches = torch.cat([xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin)
                          for dy in range(3) for dx in range(3)], dim=1)
     g2 = g.reshape(-1, cout)
-    dw = torch.zeros(9 * cin, cout)
+    m = b * h * w
+    dw = None
     for s in range(splits):
-        run = slice(s * per, (s + 1) * per)
-        dw = dw + patches[run].T @ g2[run]
+        part = None
+        for c in range(copies):
+            idx = [p for p in range(s * per, min((s + 1) * per, m))
+                   if (p - s * per) % 16 // (16 // copies) == c]
+            mine = (patches[idx].T @ g2[idx] if idx
+                    else torch.zeros(9 * cin, cout))
+            part = mine if part is None else part + mine
+        dw = part if dw is None else dw + part
     return dw, splits
 
 
-SIMT_ORDER_SHAPES = [(2, 5, 7, 3, 16), (2, 16, 16, 64, 64), (1, 6, 20, 96, 24)]
+# Ragged channels, the recipe's 64 -> 64, a 96-channel slab, and at one
+# 32x32 image (the 1,024 pixels that take K2's larger tiles) Cin 128
+# (K2's 128 x 64 tile, one tap) and Cout 128 (K2's 64 x 128 tile, four
+# K1 tiles of 32).
+SIMT_ORDER_SHAPES = [(2, 5, 7, 3, 16), (2, 16, 16, 64, 64), (1, 6, 20, 96, 24),
+                     (1, 32, 32, 128, 16), (1, 32, 32, 16, 128)]
 
 
 @pytest.mark.parametrize("shape", SIMT_ORDER_SHAPES)

@@ -511,14 +511,20 @@ def test_conv3x3fn_gradients_match_fp64(cuda, shape):
 
 
 # The SIMT K1 and K2 (simt_plan, wgrad_simt_plan): Cin 1, 3, 8, 16, 40,
-# 64 and 96 (K1 splitting a segment's products over 1, 2, 4, 8 and 16
-# groups; two channel chunks at 96, a ragged 64-row tile of dW in K2),
-# Cout 1, 16, 20, 24, 64 and 128, H and W that are not multiples of the
-# 16-pixel segment, one split (M <= 32), the recipe's (4, 16, 16, 64) and
-# fp32 at B=128 (128 splits).
+# 64, 96, 128 and 160 (K1 splitting a row's products over 1, 2, 4, 8 and
+# 16 groups; at 160 two slabs of 80 channels, the second adding to the
+# first's output; ragged tiles of dW in K2), Cout 1, 16, 20, 24, 64 and
+# 128 (K1's 16- and 32-channel tiles), H and W that are not multiples of
+# the 16-column strip, one split (M <= 16), the recipe's (4, 16, 16, 64),
+# the Vid-ODE field's (4, 16, 16, 128 -> 64) and its three 32x32 shapes,
+# and fp32 at B=128.
 SIMT_SHAPES = [(3, 5, 7, 1, 16), (1, 3, 5, 3, 16), (2, 9, 11, 3, 64),
                (3, 6, 17, 8, 20), (2, 17, 33, 16, 1), (2, 9, 11, 40, 24),
-               (4, 16, 16, 64, 64), (1, 6, 20, 96, 128), (2, 12, 7, 64, 128)]
+               (4, 16, 16, 64, 64), (1, 6, 20, 96, 128), (2, 12, 7, 64, 128),
+               (1, 5, 7, 160, 24), (4, 16, 16, 128, 64)]
+# The Vid-ODE field's convs at mgif's and penn's 128x128 frames.
+SIMT_WIDE_SHAPES = [(4, 32, 32, 128, 64), (4, 32, 32, 64, 128),
+                    (4, 32, 32, 64, 64)]
 
 
 def _simt_case(gen, shape, dtype):
@@ -529,7 +535,8 @@ def _simt_case(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", SIMT_SHAPES + [(128, 16, 16, 64, 64)])
+@pytest.mark.parametrize("shape", SIMT_SHAPES + SIMT_WIDE_SHAPES
+                         + [(128, 16, 16, 64, 64)])
 def test_simt_k1_k2_match_fp64(cuda, shape, dtype):
     """The SIMT K1 (forward and as dx) and K2 against fp64 of the same
     inputs, each bit-equal on a second call and on views one element into
@@ -564,13 +571,39 @@ def test_simt_k1_k2_match_fp64(cuda, shape, dtype):
                                    else K2_BF16_REL_L2)
 
 
-def test_simt_k1_k2_are_bit_reproducible(cuda):
-    """20 calls at the recipe's fp32 shape, as chip_smoke.py phase 9."""
-    x, w2d, g = _simt_case(cuda, (4, 16, 16, 64, 64), torch.float32)
+@pytest.mark.parametrize("shape", [(4, 16, 16, 64, 64), (4, 16, 16, 128, 64),
+                                   *SIMT_WIDE_SHAPES])
+def test_simt_k1_k2_are_bit_reproducible(cuda, shape):
+    """20 calls at the recipe's fp32 shape, as chip_smoke.py phase 9, and
+    at the Vid-ODE field's wide ones."""
+    x, w2d, g = _simt_case(cuda, shape, torch.float32)
     first = (_conv3x3_fwd_simt(x, w2d), _conv3x3_wgrad_simt(x, g))
     for _ in range(20):
         assert torch.equal(first[0], _conv3x3_fwd_simt(x, w2d))
         assert torch.equal(first[1], _conv3x3_wgrad_simt(x, g))
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 128)])
+def test_simt_halo_halves_match_the_whole_map(cuda, cin, cout):
+    """fp32 SIMT K1 and K2 on the two 8-row halves of a (2, 16, 32) map
+    at the Vid-ODE field's widths, each with its halo operand (the other
+    half's edge row, zeros at the frame), against fp64 of the whole map:
+    K1 1e-4 max abs on each half's rows, K2's sum over the halves 1e-5
+    relative L2."""
+    x, w2d, g = _simt_case(cuda, (2, 16, 32, cin, cout), torch.float32)
+    y_ref = conv3x3_fwd_plain(x.double(), w2d.double())
+    dw_ref = conv3x3_wgrad_plain(x.double(), g.double())
+    zero = torch.zeros_like(x[:, :1])
+    halves = ((x[:, :8], torch.cat([zero, x[:, 8:9]], dim=1)),
+              (x[:, 8:], torch.cat([x[:, 7:8], zero], dim=1)))
+    dw = torch.zeros_like(dw_ref, dtype=torch.float32)
+    for i, (rows, halo) in enumerate(halves):
+        rows, halo = rows.contiguous(), halo.contiguous()
+        y = _conv3x3_fwd_simt(rows, w2d, halo)
+        assert _max_abs(y, y_ref[:, 8 * i:8 * i + 8]) <= 1e-4
+        dw = dw + _conv3x3_wgrad_simt(rows, g[:, 8 * i:8 * i + 8].contiguous(),
+                                      halo)
+    assert _rel_l2(dw, dw_ref) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
